@@ -1,0 +1,185 @@
+"""Field: a typed container of views (counterpart of
+``pilosa_tpu/core/field.py``; reference field.go).
+
+This slice writes ``set``, ``mutex`` and ``bool`` fields through their
+standard view (a bool field is a two-row mutex). ``int`` (BSI) and
+``time`` fields can be declared, so schemas carry over whole, but their
+writes are not yet ported and raise.
+"""
+
+from __future__ import annotations
+
+import re
+import threading
+import torch
+
+from pilosa_tpu_torch import device as device_mod
+from pilosa_tpu_torch.core import timequantum
+from pilosa_tpu_torch.core.attrs import AttrStore
+from pilosa_tpu_torch.core.view import VIEW_STANDARD, View
+from pilosa_tpu_torch.shardwidth import SHARD_WORDS
+
+FIELD_TYPE_SET = "set"
+FIELD_TYPE_INT = "int"
+FIELD_TYPE_TIME = "time"
+FIELD_TYPE_MUTEX = "mutex"
+FIELD_TYPE_BOOL = "bool"
+
+# reference field.go:44-47 defaults.
+DEFAULT_CACHE_TYPE = "ranked"
+DEFAULT_CACHE_SIZE = 50000
+
+# bool fields store false/true in rows 0/1 (reference field.go:49-53).
+FALSE_ROW_ID = 0
+TRUE_ROW_ID = 1
+
+_NAME_RE = re.compile(r"^[a-z][a-z0-9_-]{0,63}$")
+
+
+def validate_name(name: str) -> None:
+    """reference field.go validateName / index.go (lowercase, 64 chars)."""
+    if not _NAME_RE.match(name):
+        raise ValueError(f"invalid name: {name!r}")
+
+
+class FieldOptions:
+    """reference field.go:1374-1385 FieldOptions."""
+
+    def __init__(
+        self,
+        field_type: str = FIELD_TYPE_SET,
+        keys: bool = False,
+        cache_type: str = DEFAULT_CACHE_TYPE,
+        cache_size: int = DEFAULT_CACHE_SIZE,
+        min_: int = 0,
+        max_: int = 0,
+        time_quantum: str = "",
+        no_standard_view: bool = False,
+    ):
+        self.field_type = field_type
+        self.keys = keys
+        self.cache_type = cache_type
+        self.cache_size = cache_size
+        self.min = min_
+        self.max = max_
+        self.time_quantum = time_quantum
+        self.no_standard_view = no_standard_view
+
+    def to_dict(self) -> dict:
+        return {
+            "type": self.field_type,
+            "keys": self.keys,
+            "cacheType": self.cache_type,
+            "cacheSize": self.cache_size,
+            "min": self.min,
+            "max": self.max,
+            "timeQuantum": self.time_quantum,
+            "noStandardView": self.no_standard_view,
+        }
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "FieldOptions":
+        return cls(
+            field_type=d.get("type", FIELD_TYPE_SET),
+            keys=d.get("keys", False),
+            cache_type=d.get("cacheType", DEFAULT_CACHE_TYPE),
+            cache_size=d.get("cacheSize", DEFAULT_CACHE_SIZE),
+            min_=d.get("min", 0),
+            max_=d.get("max", 0),
+            time_quantum=d.get("timeQuantum", ""),
+            no_standard_view=d.get("noStandardView", False),
+        )
+
+
+class Field:
+    """reference field.go:64 Field."""
+
+    def __init__(
+        self,
+        index: str,
+        name: str,
+        options: FieldOptions | None = None,
+        n_words: int = SHARD_WORDS,
+        device: str | torch.device | None = None,
+    ):
+        # internal fields (e.g. "_exists") bypass user-name validation
+        if not name.startswith("_"):
+            validate_name(name)
+        self.index = index
+        self.name = name
+        self.options = options or FieldOptions()
+        self.n_words = n_words
+        self.device = device_mod.resolve(device)
+        self._lock = threading.RLock()
+        self.views: dict[str, View] = {}
+        # row attributes (reference field.go rowAttrStore)
+        self.row_attrs = AttrStore()
+        o = self.options
+        if o.field_type == FIELD_TYPE_INT and o.min > o.max:
+            raise ValueError("invalid int field range")
+        if o.field_type == FIELD_TYPE_TIME and not timequantum.valid_quantum(
+            o.time_quantum
+        ):
+            raise ValueError("invalid time quantum")
+
+    # -- type predicates ----------------------------------------------------
+
+    @property
+    def field_type(self) -> str:
+        return self.options.field_type
+
+    @property
+    def keys(self) -> bool:
+        return self.options.keys
+
+    def is_bsi(self) -> bool:
+        return self.field_type == FIELD_TYPE_INT
+
+    # -- views --------------------------------------------------------------
+
+    def view(self, name: str) -> View | None:
+        return self.views.get(name)
+
+    def create_view_if_not_exists(self, name: str) -> View:
+        with self._lock:
+            v = self.views.get(name)
+            if v is None:
+                v = View(self.index, self.name, name, self.n_words, device=self.device)
+                self.views[name] = v
+            return v
+
+    def available_shards(self) -> set[int]:
+        shards: set[int] = set()
+        for v in self.views.values():
+            shards |= v.available_shards()
+        return shards
+
+    # -- set/mutex/bool writes (reference field.go:886-968) ----------------
+
+    def _check_writable(self) -> None:
+        if self.is_bsi():
+            raise ValueError(
+                f"field {self.name} is an int field; BSI writes are not yet ported"
+            )
+
+    def set_bit(self, row: int, col: int) -> bool:
+        self._check_writable()
+        if self.options.no_standard_view:
+            return False
+        std = self.create_view_if_not_exists(VIEW_STANDARD)
+        if self.field_type in (FIELD_TYPE_MUTEX, FIELD_TYPE_BOOL):
+            return std.set_mutex(row, col)
+        return std.set_bit(row, col)
+
+    def clear_bit(self, row: int, col: int) -> bool:
+        v = self.view(VIEW_STANDARD)
+        return v.clear_bit(row, col) if v is not None else False
+
+    def get_bit(self, row: int, col: int) -> bool:
+        v = self.view(VIEW_STANDARD)
+        return v.get_bit(row, col) if v is not None else False
+
+    # -- schema -------------------------------------------------------------
+
+    def to_dict(self) -> dict:
+        return {"name": self.name, "options": self.options.to_dict()}

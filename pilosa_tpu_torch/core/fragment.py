@@ -1,0 +1,461 @@
+"""Fragment: the (index, field, view, shard) storage unit (counterpart of
+``pilosa_tpu/core/fragment.py``).
+
+A fragment is a dense bitmap of ``capacity`` rows by ``n_words`` words:
+
+* **host mirror** ``uint32[capacity, W]`` (numpy) — the authoritative copy.
+  Mutations apply here first, with exact changed-bit accounting and no
+  device round trip.
+* **device copy** ``int32[capacity+1, W]`` (torch, on the fragment's
+  device) — the compute copy, a bit-identical view of the mirror, synced
+  lazily by :meth:`Fragment.device_bits`. Dirty rows go up with one
+  in-place ``index_copy_``; a capacity change uploads the whole mirror.
+  The final row is permanently zero, so a missing row id gathers it.
+
+Row ids are arbitrary uint64, so the row axis is sparse (row id -> slot
+through a dict, capacity grown in powers of two) and the column axis
+dense. Per-row counts are maintained across writes, so an unfiltered
+TopN needs no device work (reference cache.go, fragment.go:698-712).
+"""
+
+from __future__ import annotations
+
+import itertools
+import threading
+from typing import Iterable
+
+import numpy as np
+import torch
+
+from pilosa_tpu_torch import device as device_mod
+from pilosa_tpu_torch.ops import bitops
+from pilosa_tpu_torch.shardwidth import SHARD_WORDS
+
+_MIN_CAPACITY = 8
+
+
+class FragmentInvariantError(AssertionError):
+    """Internal coherence violation between slot map, host mirror and
+    device copy (reference Container.check, roaring.go:2967-3028)."""
+
+
+class Fragment:
+    """Dense bitmap tensor for one (index, field, view, shard)."""
+
+    _epoch_counter = itertools.count()
+
+    def __init__(
+        self,
+        index: str = "",
+        field: str = "",
+        view: str = "",
+        shard: int = 0,
+        n_words: int = SHARD_WORDS,
+        device: str | torch.device | None = None,
+    ):
+        self.index = index
+        self.field = field
+        self.view = view
+        self.shard = shard
+        self.n_words = n_words
+        self.shard_width = n_words * 32
+        self.device = device_mod.resolve(device)
+
+        self._lock = threading.RLock()
+        self._slot_of: dict[int, int] = {}  # row id -> slot
+        self._rowids: list[int] = []  # slot -> row id
+        self._host = np.zeros((0, n_words), dtype=np.uint32)
+        self._device: torch.Tensor | None = None
+        self._dirty: set[int] = set()
+        self._counts: np.ndarray | None = None  # per-slot cached popcounts
+        # Monotonic mutation counter; with the process-unique epoch it
+        # keys the executor's stack cache (a re-created fragment restarts
+        # at version 0, so the number alone could alias).
+        self.version = 0
+        self.epoch = next(self._epoch_counter)
+
+    # -- row bookkeeping ----------------------------------------------------
+
+    @property
+    def capacity(self) -> int:
+        return self._host.shape[0]
+
+    def row_ids(self) -> list[int]:
+        """Sorted ids of rows that physically exist (may include all-zero
+        rows that were written then cleared)."""
+        with self._lock:
+            return sorted(self._slot_of)
+
+    def _grow(self, need: int) -> None:
+        cap = max(_MIN_CAPACITY, self.capacity)
+        while cap < need:
+            cap *= 2
+        if cap != self.capacity:
+            grown = np.zeros((cap, self.n_words), dtype=np.uint32)
+            grown[: self.capacity] = self._host
+            self._host = grown
+            self._drop_device()  # full re-upload on next sync
+
+    def _slots_batch(self, row_ids: np.ndarray) -> np.ndarray:
+        """Slots for every row id (ascending unique array), creating
+        missing ones with one capacity grow (caller holds the lock)."""
+        out = np.empty(row_ids.size, dtype=np.int64)
+        missing = []
+        for i, r in enumerate(row_ids):
+            s = self._slot_of.get(int(r))
+            if s is None:
+                missing.append(i)
+            else:
+                out[i] = s
+        if missing:
+            self._grow(len(self._rowids) + len(missing))
+            for i in missing:
+                r = int(row_ids[i])
+                s = len(self._rowids)
+                self._slot_of[r] = s
+                self._rowids.append(r)
+                out[i] = s
+            self._counts = None
+        return out
+
+    def _slot(self, row: int, create: bool = False) -> int | None:
+        s = self._slot_of.get(row)
+        if s is None and create:
+            s = len(self._rowids)
+            self._grow(s + 1)
+            self._slot_of[row] = s
+            self._rowids.append(row)
+            self._counts = None
+        return s
+
+    def _drop_device(self) -> None:
+        self._device = None
+        self._dirty.clear()
+
+    # -- mutation -----------------------------------------------------------
+
+    def _touch(self, slot: int) -> None:
+        self._dirty.add(slot)
+        self._counts = None
+        self.version += 1
+
+    def _counts_delta(self, counts0, slots, deltas) -> None:
+        """Carry the cached per-slot popcounts across a write (caller
+        holds the lock and captured ``counts0 = self._counts`` BEFORE
+        mutating — _touch/_slot null it), zero-padding for rows created
+        by the write."""
+        if counts0 is None:
+            return
+        n = len(self._rowids)
+        if len(counts0) < n:
+            counts0 = np.concatenate(
+                [counts0, np.zeros(n - len(counts0), dtype=np.int64)]
+            )
+        counts0[slots] += deltas
+        self._counts = counts0
+
+    def set_bit(self, row: int, col: int) -> bool:
+        """Set bit (row, col-offset); True if it changed (reference
+        fragment.go:645-713)."""
+        with self._lock:
+            counts0 = self._counts
+            s = self._slot(row, create=True)
+            w, b = col >> 5, np.uint32(1 << (col & 31))
+            if self._host[s, w] & b:
+                return False
+            self._host[s, w] |= b
+            self._touch(s)
+            self._counts_delta(counts0, s, 1)
+            return True
+
+    def clear_bit(self, row: int, col: int) -> bool:
+        with self._lock:
+            s = self._slot(row)
+            if s is None:
+                return False
+            w, b = col >> 5, np.uint32(1 << (col & 31))
+            if not self._host[s, w] & b:
+                return False
+            counts0 = self._counts
+            self._host[s, w] &= ~b
+            self._touch(s)
+            self._counts_delta(counts0, s, -1)
+            return True
+
+    def get_bit(self, row: int, col: int) -> bool:
+        with self._lock:
+            s = self._slot_of.get(row)
+            if s is None:
+                return False
+            return bool((int(self._host[s, col >> 5]) >> (col & 31)) & 1)
+
+    def set_row_words(self, row: int, words: np.ndarray) -> bool:
+        """Replace a whole row (reference fragment.go:781-834 setRow);
+        True if the row changed."""
+        with self._lock:
+            s = self._slot(row, create=True)
+            words = np.asarray(words, dtype=np.uint32)
+            if np.array_equal(self._host[s], words):
+                return False
+            self._host[s] = words
+            self._touch(s)
+            return True
+
+    def clear_row(self, row: int) -> bool:
+        return self.set_row_words(row, np.zeros(self.n_words, dtype=np.uint32))
+
+    def import_bits(self, rows: np.ndarray, cols: np.ndarray, clear: bool = False) -> int:
+        """Bulk import of (row, col-offset) pairs (reference
+        fragment.go:1995-2106 bulkImport), applied as one vectorized
+        masked update of the host mirror. Returns the changed-bit count."""
+        rows = np.asarray(rows, dtype=np.uint64)
+        cols = np.asarray(cols, dtype=np.int64)
+        if rows.size == 0:
+            return 0
+        with self._lock:
+            counts0 = self._counts  # before slot creation nulls it
+            # group by row directly (row*width+col would wrap uint64 for
+            # hashed row ids)
+            row_ids = np.unique(rows)
+            if clear:
+                keep = np.array(
+                    [int(r) in self._slot_of for r in row_ids], dtype=bool
+                )
+                if not keep.any():
+                    return 0
+                if not keep.all():
+                    sel = keep[np.searchsorted(row_ids, rows)]
+                    rows = rows[sel]
+                    cols = cols[sel]
+                    row_ids = row_ids[keep]
+                slots = np.array(
+                    [self._slot_of[int(r)] for r in row_ids], dtype=np.int64
+                )
+            else:
+                slots = self._slots_batch(row_ids)
+            width = self.n_words * 32
+            inverse = np.searchsorted(row_ids, rows)
+            key = inverse.astype(np.int64) * width + cols
+            ukey = np.unique(key)
+            urow = ukey // width  # index into row_ids/slots
+            ucol = ukey % width
+            bitvals = np.uint32(1) << (ucol & 31).astype(np.uint32)
+            # group bits into their words: wkey = urow*n_words + word
+            wkey = ukey >> 5
+            starts = np.flatnonzero(np.r_[True, wkey[1:] != wkey[:-1]])
+            wordvals = np.bitwise_or.reduceat(bitvals, starts)
+            uw = wkey[starts]
+            flat = self._host.reshape(-1)
+            flat_idx = slots[uw // self.n_words] * self.n_words + uw % self.n_words
+            pre_words = flat[flat_idx]
+            if clear:
+                flat[flat_idx] = pre_words & ~wordvals
+            else:
+                flat[flat_idx] = pre_words | wordvals
+            # per-bit changed flags via the pre-update word of each key
+            pre_of_key = pre_words[np.searchsorted(uw, wkey)]
+            if clear:
+                newly = (pre_of_key & bitvals) != 0
+            else:
+                newly = (pre_of_key & bitvals) == 0
+            n_changed = int(np.count_nonzero(newly))
+            if n_changed:
+                per_row = np.bincount(urow[newly], minlength=len(row_ids))
+                for i in np.nonzero(per_row)[0]:
+                    self._dirty.add(int(slots[i]))
+                self._counts_delta(
+                    counts0, slots, -per_row if clear else per_row
+                )
+                self.version += 1
+            return n_changed
+
+    def set_mutex(self, row: int, col: int) -> bool:
+        """Mutex-field write: clear col in every other row, set (row, col)
+        (reference fragment.go:715-759)."""
+        with self._lock:
+            w, b = col >> 5, np.uint32(1 << (col & 31))
+            target = self._slot(row, create=True)
+            holders = np.flatnonzero(self._host[:, w] & b)
+            changed = False
+            for s in holders:
+                if s != target:
+                    changed |= self.clear_bit(self._rowids[int(s)], col)
+            changed |= self.set_bit(row, col)
+            return changed
+
+    # -- device sync & query views -----------------------------------------
+
+    def device_bits(self) -> torch.Tensor:
+        """The compute copy ``int32[capacity+1, W]``; the final row is
+        zeros. Syncs pending host mutations first: dirty rows are copied
+        into the existing tensor IN PLACE, so a caller holding the tensor
+        from an earlier call sees them too."""
+        with self._lock:
+            if self._device is None or self._device.shape[0] != self.capacity + 1:
+                padded = np.zeros((self.capacity + 1, self.n_words), dtype=np.uint32)
+                padded[: self.capacity] = self._host
+                self._device = bitops.to_device(padded, self.device)
+            elif self._dirty:
+                slots = np.fromiter(sorted(self._dirty), dtype=np.int64)
+                rows = bitops.to_device(self._host[slots], self.device)
+                self._device.index_copy_(
+                    0, torch.from_numpy(slots).to(self.device), rows
+                )
+            self._dirty.clear()
+            return self._device
+
+    def row_device(self, row: int) -> torch.Tensor:
+        """One row's words on the device (a copy); zeros when the row does
+        not exist (reference fragment.go:599 ``row``)."""
+        with self._lock:
+            bits = self.device_bits()
+            s = self._slot_of.get(row, self.capacity)
+            return bits[s].clone()
+
+    def rows_device(self, rows: Iterable[int]) -> torch.Tensor:
+        """Gather many rows -> ``int32[n, W]``; missing rows gather the
+        zero row."""
+        rows = list(rows)
+        with self._lock:
+            bits = self.device_bits()
+            slots = torch.tensor(
+                [self._slot_of.get(r, self.capacity) for r in rows],
+                dtype=torch.int64,
+            )
+            return bits.index_select(0, slots.to(self.device))
+
+    def row_words_host(self, row: int) -> np.ndarray:
+        with self._lock:
+            s = self._slot_of.get(row)
+            if s is None:
+                return np.zeros(self.n_words, dtype=np.uint32)
+            return self._host[s].copy()
+
+    def rows_matrix_host(self) -> tuple[list[int], np.ndarray]:
+        """(row_ids, words[len(row_ids), W]) — one copy of every present
+        row in slot order."""
+        with self._lock:
+            n = len(self._rowids)
+            return list(self._rowids), self._host[:n].copy()
+
+    def row_pair_count(self, ra: int, rb: int, op: str) -> int:
+        """``popcount(op(row_a, row_b))`` from the host mirror, the latency
+        tier for a lone ``Count(op(Row, Row))``; absent rows count as zero
+        rows."""
+        with self._lock:
+            sa = self._slot_of.get(ra)
+            sb = self._slot_of.get(rb)
+            if sa is None and sb is None:
+                return 0
+            if sa is None:
+                if op in ("difference", "intersect"):
+                    return 0
+                return bitops.popcount_host(self._host[sb])
+            if sb is None:
+                if op == "intersect":
+                    return 0
+                return bitops.popcount_host(self._host[sa])
+            return bitops.pair_count_host(self._host[sa], self._host[sb], op)
+
+    def row_counts(self) -> tuple[list[int], np.ndarray]:
+        """(row_ids, per-row popcounts) over existing rows, in slot order.
+        Counts are maintained across writes and recomputed from the host
+        mirror only when absent."""
+        with self._lock:
+            if self._counts is None or len(self._counts) != len(self._rowids):
+                n = len(self._rowids)
+                self._counts = np.bitwise_count(self._host[:n]).sum(
+                    axis=1, dtype=np.int64
+                )
+            return list(self._rowids), self._counts.copy()
+
+    # -- whole-fragment helpers --------------------------------------------
+
+    def to_host_rows(self) -> dict[int, np.ndarray]:
+        """row id -> packed words (dropping all-zero rows)."""
+        with self._lock:
+            return {
+                row: self._host[s].copy()
+                for row, s in self._slot_of.items()
+                if self._host[s].any()
+            }
+
+    def snapshot_rows(self) -> tuple[np.ndarray, np.ndarray]:
+        """(ascending row ids uint64, stacked words [n, n_words]); all-zero
+        rows are kept."""
+        with self._lock:
+            if not self._slot_of:
+                return (
+                    np.empty(0, dtype=np.uint64),
+                    np.empty((0, self.n_words), dtype=np.uint32),
+                )
+            rids = np.array(sorted(self._slot_of), dtype=np.uint64)
+            slots = np.array(
+                [self._slot_of[int(r)] for r in rids], dtype=np.int64
+            )
+            return rids, self._host[slots]
+
+    def load_host_rows(self, rows: dict[int, np.ndarray]) -> None:
+        """Replace the fragment's contents with ``rows`` (row id -> words),
+        slots in ascending row-id order."""
+        ids = sorted(rows)
+        words = np.zeros((len(ids), self.n_words), dtype=np.uint32)
+        for k, r in enumerate(ids):
+            words[k] = rows[r]
+        self.load_rows_matrix(ids, words)
+
+    def load_rows_matrix(self, row_ids: list[int], words: np.ndarray) -> None:
+        """Replace the fragment's contents with ``words[i]`` as row
+        ``row_ids[i]``, slots in the given order: the inverse of
+        :meth:`rows_matrix_host`."""
+        words = np.asarray(words, dtype=np.uint32)
+        if words.shape != (len(row_ids), self.n_words):
+            raise ValueError(
+                f"words shape {words.shape} != ({len(row_ids)}, {self.n_words})"
+            )
+        with self._lock:
+            self._slot_of = {int(r): s for s, r in enumerate(row_ids)}
+            if len(self._slot_of) != len(row_ids):
+                raise ValueError("duplicate row ids")
+            self._rowids = [int(r) for r in row_ids]
+            self._host = np.zeros((0, self.n_words), dtype=np.uint32)
+            if row_ids:
+                self._grow(len(row_ids))
+                self._host[: len(row_ids)] = words
+            self._drop_device()
+            self._counts = None
+            self.version += 1
+
+    def check_invariants(self, device: bool = False) -> None:
+        """Verify slot-map <-> host-mirror <-> device-copy coherence;
+        ``device=True`` also compares every clean row of the device copy
+        with the mirror (a device-to-host copy: test use)."""
+        with self._lock:
+            if len(self._rowids) != len(self._slot_of):
+                raise FragmentInvariantError("rowids/slot_of size mismatch")
+            for r, s in self._slot_of.items():
+                if not (0 <= s < len(self._rowids)) or self._rowids[s] != r:
+                    raise FragmentInvariantError(
+                        f"slot map incoherent at row {r} -> slot {s}"
+                    )
+            if self._host.shape != (self.capacity, self.n_words):
+                raise FragmentInvariantError("host mirror shape")
+            if self._counts is not None:
+                want = np.bitwise_count(self._host[: len(self._rowids)]).sum(
+                    axis=1, dtype=np.int64
+                )
+                if not np.array_equal(self._counts, want):
+                    raise FragmentInvariantError("stale row-count cache")
+            if device and self._device is not None:
+                dev = bitops.to_host(self._device)
+                if dev.shape != (self.capacity + 1, self.n_words):
+                    raise FragmentInvariantError(f"device copy shape {dev.shape}")
+                if dev[self.capacity].any():
+                    raise FragmentInvariantError("zero row is not zero")
+                clean = [
+                    s for s in range(len(self._rowids)) if s not in self._dirty
+                ]
+                if clean and not np.array_equal(dev[clean], self._host[clean]):
+                    raise FragmentInvariantError(
+                        "device copy diverged from host mirror on clean rows"
+                    )

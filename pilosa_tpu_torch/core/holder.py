@@ -1,0 +1,82 @@
+"""Holder: the root container of indexes (counterpart of
+``pilosa_tpu/core/holder.py``; reference holder.go:50).
+
+Memory-resident. The holder fixes the device of everything below it:
+``cuda`` by default, the CPU only when the caller passes ``device="cpu"``.
+"""
+
+from __future__ import annotations
+
+import threading
+
+import torch
+
+from pilosa_tpu_torch import device as device_mod
+from pilosa_tpu_torch.core.field import FieldOptions
+from pilosa_tpu_torch.core.index import Index
+from pilosa_tpu_torch.shardwidth import SHARD_WORDS
+
+
+class Holder:
+    def __init__(
+        self,
+        n_words: int = SHARD_WORDS,
+        device: str | torch.device | None = None,
+    ):
+        self.n_words = n_words
+        self.device = device_mod.resolve(device)
+        self._lock = threading.RLock()
+        self.indexes: dict[str, Index] = {}
+
+    def index(self, name: str) -> Index | None:
+        return self.indexes.get(name)
+
+    def create_index(
+        self, name: str, keys: bool = False, track_existence: bool = True
+    ) -> Index:
+        with self._lock:
+            if name in self.indexes:
+                raise ValueError(f"index already exists: {name}")
+            idx = Index(
+                name, keys=keys, track_existence=track_existence,
+                n_words=self.n_words, device=self.device,
+            )
+            self.indexes[name] = idx
+            return idx
+
+    def create_index_if_not_exists(
+        self, name: str, keys: bool = False, track_existence: bool = True
+    ) -> Index:
+        with self._lock:
+            idx = self.indexes.get(name)
+            if idx is None:
+                return self.create_index(name, keys, track_existence)
+            return idx
+
+    def index_names(self) -> list[str]:
+        return sorted(self.indexes)
+
+    def field(self, index: str, field: str):
+        idx = self.index(index)
+        return idx.field(field) if idx is not None else None
+
+    def schema(self) -> list[dict]:
+        """reference holder.go:279-299 Schema."""
+        return [self.indexes[n].to_dict() for n in self.index_names()]
+
+    def apply_schema(self, schema: list[dict]) -> None:
+        """Create all indexes/fields described (reference holder.go:318-345
+        applySchema)."""
+        for idx_d in schema:
+            opts = idx_d.get("options", {})
+            idx = self.create_index_if_not_exists(
+                idx_d["name"],
+                keys=opts.get("keys", False),
+                track_existence=opts.get("trackExistence", True),
+            )
+            for f_d in idx_d.get("fields", []):
+                if f_d["name"].startswith("_"):
+                    continue
+                idx.create_field_if_not_exists(
+                    f_d["name"], FieldOptions.from_dict(f_d.get("options", {}))
+                )

@@ -1,0 +1,89 @@
+"""Index: a container of fields (counterpart of ``pilosa_tpu/core/index.py``;
+reference index.go).
+
+With ``trackExistence`` an internal ``_exists`` field records every column
+ever set, which ``Not()`` reads (reference index.go:173-180, holder.go:46).
+"""
+
+from __future__ import annotations
+
+import threading
+
+import torch
+
+from pilosa_tpu_torch import device as device_mod
+from pilosa_tpu_torch.core.field import Field, FieldOptions, validate_name
+from pilosa_tpu_torch.shardwidth import SHARD_WORDS
+
+EXISTENCE_FIELD_NAME = "_exists"
+
+
+class Index:
+    def __init__(
+        self,
+        name: str,
+        keys: bool = False,
+        track_existence: bool = True,
+        n_words: int = SHARD_WORDS,
+        device: str | torch.device | None = None,
+    ):
+        validate_name(name)
+        self.name = name
+        self.keys = keys
+        self.track_existence = track_existence
+        self.n_words = n_words
+        self.device = device_mod.resolve(device)
+        self._lock = threading.RLock()
+        self.fields: dict[str, Field] = {}
+        if track_existence:
+            self.fields[EXISTENCE_FIELD_NAME] = Field(
+                self.name, EXISTENCE_FIELD_NAME, n_words=self.n_words,
+                device=self.device,
+            )
+
+    def existence_field(self) -> Field | None:
+        return self.fields.get(EXISTENCE_FIELD_NAME)
+
+    def field(self, name: str) -> Field | None:
+        return self.fields.get(name)
+
+    def create_field(self, name: str, options: FieldOptions | None = None) -> Field:
+        """reference index.go:303-367 CreateField."""
+        with self._lock:
+            if name in self.fields:
+                raise ValueError(f"field already exists: {name}")
+            f = Field(self.name, name, options, self.n_words, device=self.device)
+            self.fields[name] = f
+            return f
+
+    def create_field_if_not_exists(self, name: str, options: FieldOptions | None = None) -> Field:
+        with self._lock:
+            f = self.fields.get(name)
+            if f is None:
+                return self.create_field(name, options)
+            return f
+
+    def field_names(self, include_internal: bool = False) -> list[str]:
+        return sorted(
+            n for n in self.fields if include_internal or not n.startswith("_")
+        )
+
+    def available_shards(self) -> set[int]:
+        """Union over fields (reference index.go:244-259)."""
+        shards: set[int] = set()
+        for f in self.fields.values():
+            shards |= f.available_shards()
+        return shards
+
+    def add_column_existence(self, col: int) -> None:
+        """Mark a column as existing (reference executor.go:2098-2103)."""
+        ef = self.existence_field()
+        if ef is not None:
+            ef.set_bit(0, col)
+
+    def to_dict(self) -> dict:
+        return {
+            "name": self.name,
+            "options": {"keys": self.keys, "trackExistence": self.track_existence},
+            "fields": [self.fields[n].to_dict() for n in self.field_names()],
+        }

@@ -1,0 +1,118 @@
+"""The port on the card: each CUDA kernel against its plain version, and
+the executor on ``cuda`` against the same executor on the CPU.
+
+Every test here needs a CUDA device and skips where there is none. The
+file imports no JAX, so it runs on a machine with a card and no JAX:
+``python -m pytest --noconftest -m cuda tests/test_torch_cuda.py``.
+Counts are integers: every comparison is exact.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from pilosa_tpu_torch.ops import kernels as tk
+
+pytestmark = pytest.mark.cuda
+
+# (S, R, W): one and many tiles, W not a multiple of 4 (the scans' word
+# path), rows below 8 and above one 64-row gram tile
+SHAPES = [(1, 3, 128), (5, 13, 512), (12, 40, 1024), (9, 70, 132), (3, 7, 130)]
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device")
+    return torch.device("cuda")
+
+
+def _words(rng, *shape) -> torch.Tensor:
+    w = rng.integers(0, 2**32, size=shape, dtype=np.uint64).astype(np.uint32)
+    return torch.from_numpy(w.view(np.int32))
+
+
+@pytest.mark.parametrize("S,R,W", SHAPES)
+def test_scans_match_plain(cuda_device, S, R, W):
+    rng = np.random.default_rng(S * R * W)
+    bits = _words(rng, S, R, W).to(cuda_device)
+    filt = _words(rng, S, W).to(cuda_device)
+    before = dict(tk.LAUNCHES)
+    got = tk.row_counts_per_shard(bits)
+    got_m = tk.masked_row_counts_per_shard(bits, filt)
+    torch.cuda.synchronize()
+    assert tk.LAUNCHES["row_scan"] == before["row_scan"] + 1
+    assert tk.LAUNCHES["masked_row_scan"] == before["masked_row_scan"] + 1
+    assert torch.equal(got, tk.row_counts_per_shard_plain(bits))
+    assert torch.equal(got_m, tk.masked_row_counts_per_shard_plain(bits, filt))
+
+
+@pytest.mark.parametrize("S,R,W", SHAPES)
+def test_gram_matches_plain(cuda_device, S, R, W):
+    rng = np.random.default_rng(S + R + W)
+    bits = _words(rng, S, R, W).to(cuda_device)
+    idx = np.array(sorted(rng.choice(R, size=max(1, R // 2), replace=False)))
+    before = tk.LAUNCHES["gram"]
+    got_full = tk.gram_gather(bits, np.arange(R))
+    got_sub = tk.gram_gather(bits, idx)
+    torch.cuda.synchronize()
+    assert tk.LAUNCHES["gram"] == before + 2
+    assert torch.equal(got_full, tk.gram_gather_plain(bits, np.arange(R)))
+    assert torch.equal(got_sub, tk.gram_gather_plain(bits, idx))
+
+
+def test_chunked_pair_gram_matches_plain(cuda_device, monkeypatch):
+    rng = np.random.default_rng(5)
+    S, R, W = 11, 9, 256
+    bits = _words(rng, S, R, W).to(cuda_device)
+    want = tk.pair_gram(bits, list(range(R)))
+    monkeypatch.setattr(tk, "_GRAM_ACC_LIMIT", 3 * W * 32)
+    before = tk.LAUNCHES["gram"]
+    got = tk.pair_gram(bits, list(range(R)))
+    assert tk.LAUNCHES["gram"] == before + 4  # shard chunks of 3, 3, 3, 2
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(
+        got, tk.gram_gather_plain(bits, np.arange(R)).cpu().numpy()
+    )
+
+
+def test_executor_on_cuda_matches_cpu(cuda_device):
+    from pilosa_tpu_torch.core.holder import Holder
+    from pilosa_tpu_torch.exec.executor import Executor
+    from pilosa_tpu_torch.shardwidth import SHARD_WIDTH
+
+    rng = np.random.default_rng(9)
+    executors = []
+    for dev in ("cpu", cuda_device):
+        h = Holder(device=dev)
+        h.create_index("i").create_field("f")
+        executors.append(Executor(h))
+    n_cols = 3 * SHARD_WIDTH
+    sets = [
+        f"Set({int(c)}, f={int(r)})"
+        for r, c in zip(rng.integers(0, 9, 3000), rng.integers(0, n_cols, 3000))
+    ]
+    # TopN first on each snapshot: once the full gram is cached, its
+    # diagonal serves the tanimoto row totals instead of the row scan
+    topn = "TopN(f, Row(f=3), n=5, tanimotoThreshold=1) TopN(f, n=4)"
+    pairs = " ".join(
+        f"Count({op}(Row(f={int(a)}), Row(f={int(b)})))"
+        for op, a, b in zip(
+            rng.choice(["Intersect", "Union", "Difference", "Xor"], 64),
+            rng.integers(0, 9, 64),
+            rng.integers(0, 9, 64),
+        )
+    )
+    before = dict(tk.LAUNCHES)
+    out = []
+    for e in executors:
+        e.execute("i", " ".join(sets))
+        res = e.execute("i", topn) + e.execute("i", pairs)
+        e.execute("i", "Clear(5, f=1) Set(6, f=1) ClearRow(f=2)")
+        res += e.execute("i", topn) + e.execute("i", pairs)
+        out.append(
+            [r if isinstance(r, int) else [(p.id, p.count) for p in r] for r in res]
+        )
+    assert out[0] == out[1]
+    for k in tk.LAUNCHES:
+        assert tk.LAUNCHES[k] > before[k], k

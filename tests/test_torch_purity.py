@@ -1,0 +1,95 @@
+"""The port stands alone: ``pilosa_tpu_torch`` and ``chip_smoke.py`` load
+neither JAX nor any module of the JAX package, and the port's default
+device is ``cuda`` with no fallback to the CPU."""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+REPO = Path(__file__).resolve().parents[1]
+PACKAGE = REPO / "pilosa_tpu_torch"
+
+_PROBE = r"""
+import sys
+import pilosa_tpu_torch
+from pilosa_tpu_torch import convert, device, pql
+from pilosa_tpu_torch.core.holder import Holder
+from pilosa_tpu_torch.exec.executor import Executor
+from pilosa_tpu_torch.ops import bitops, cuda_build, kernels
+
+h = Holder(device="cpu")
+idx = h.create_index("i")
+idx.create_field("f")
+e = Executor(h)
+e.execute("i", "Set(1, f=1) Set(2, f=1) Set(2, f=2) Set(70000, f=2)")
+res = e.execute(
+    "i",
+    "Count(Intersect(Row(f=1), Row(f=2))) Count(Union(Row(f=1), Row(f=2))) "
+    "TopN(f, Row(f=2), tanimotoThreshold=1)",
+)
+assert res[0] == 1 and res[1] == 3, res
+assert [(p.id, p.count) for p in res[2]] == [(2, 2), (1, 1)], res[2]
+bad = sorted(
+    m for m in sys.modules
+    if m == "jax" or m.startswith("jax.") or m.startswith("jaxlib")
+    or m == "pilosa_tpu" or m.startswith("pilosa_tpu.")
+)
+print("BAD", bad)
+"""
+
+
+def test_port_runs_without_jax_or_the_jax_package():
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    r = subprocess.run(
+        [sys.executable, "-c", _PROBE], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert r.returncode == 0, r.stdout + r.stderr
+    assert "BAD []" in r.stdout, r.stdout
+
+
+def _imported_modules(path: Path) -> list[str]:
+    tree = ast.parse(path.read_text(), filename=str(path))
+    out = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            out.extend(a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module and node.level == 0:
+            out.append(node.module)
+    return out
+
+
+def _is_forbidden(mod: str) -> bool:
+    top = mod.split(".")[0]
+    return top in ("jax", "jaxlib", "pilosa_tpu")
+
+
+@pytest.mark.parametrize(
+    "path",
+    sorted(PACKAGE.rglob("*.py")) + [REPO / "chip_smoke.py"],
+    ids=lambda p: str(p.relative_to(REPO)),
+)
+def test_no_jax_imports_in_source(path):
+    bad = [m for m in _imported_modules(path) if _is_forbidden(m)]
+    assert bad == [], f"{path}: {bad}"
+
+
+def test_default_device_is_cuda_without_fallback():
+    import torch
+
+    from pilosa_tpu_torch import device
+    from pilosa_tpu_torch.core.holder import Holder
+
+    assert device.DEFAULT_DEVICE == "cuda"
+    assert device.resolve("cpu").type == "cpu"
+    if torch.cuda.is_available():
+        assert Holder().device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            Holder()
+        with pytest.raises(RuntimeError):
+            device.resolve("cuda")
