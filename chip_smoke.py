@@ -7,19 +7,31 @@ Run from the root of a checkout, with no arguments:
 Phases (any failure raises, and the script exits non-zero):
 
 1. Device: requires CUDA, prints the card's name and power limit, and
-   builds the CUDA kernels from ``pilosa_tpu_torch/ops/csrc`` with nvcc.
+   builds the four CUDA kernels from ``pilosa_tpu_torch/ops/csrc`` with
+   nvcc, one process per source.
 2. Kernels: each kernel against its plain PyTorch version on the card,
    with exact equality, at the serving shape (160 shards x 64 rows x
-   32768 words), at ragged shapes and on the chunked-gram branch; then
-   the kernel, the plain version and (for the gram) ``torch._int_mm`` on
-   pre-unpacked int8 operands are timed with CUDA events.
+   32768 words; the cross gram against a second such stack, and with
+   operand A in the k-level prefix layout at 256 masks), at ragged
+   shapes and on the chunked branches of the gram and the cross gram;
+   then the kernel, the plain version and (for the grams)
+   ``torch._int_mm`` on pre-unpacked int8 operands are timed with CUDA
+   events.
 3. End to end: a seeded index at the repo's serving size (bench.py's
-   160 shards x 64 rows at shard width 2^20, about 25 % dense, plus a
-   second 64-row field for TopN filters) on ``Holder(device="cuda")``,
-   served through ``Executor.execute`` and ``execute_batch``: tanimoto
-   TopN, a 1024-call batch of mixed pair Counts, Set/Clear writes, and
-   the same reads again. Every answer equals a numpy ground truth taken
-   from the host mirrors, and every kernel's launch counter must rise.
+   160 shards x 64 rows at shard width 2^20, about 25 % dense; a second
+   64-row field g and a 4-row field h) on ``Holder(device="cuda")``,
+   served through ``Executor.execute`` and ``execute_batch`` in two
+   paths, each with every launch count set to 0 just before it and read
+   just after. The pair/TopN path: tanimoto TopN, a 1024-call batch of
+   mixed pair Counts, writes, the same reads again; every answer equals
+   numpy over the host mirrors. The GroupBy path: two-level GroupBy cold
+   and warm, the reversed order, one field, a filter, three levels, one
+   filtered level, a limit and ``previous`` pages (two and three levels,
+   with and without a limit), before and after writes to all three
+   fields; every answer equals one computed on the card with torch AND
+   and popcount per combination, and a seeded sample of each equals
+   numpy. Each query's launches and cache hits are asserted, and every
+   kernel of a path must have been launched in it.
 4. Summary: one ``{"end_to_end": {...}}`` line, one ``{"kernels": [...]}``
    line, the card line, and last ``{"ok": true, "device": {...}}``.
 """
@@ -41,6 +53,9 @@ HERE = Path(__file__).resolve().parent
 os.environ["PILOSA_TPU_SHARD_WIDTH"] = "20"
 
 S_FULL, R_FULL, W_FULL = 160, 64, 1 << 15
+# rows of the third field h: the served index of bench.py:1553-1555 holds a
+# 4-row field beside its 8-row one
+H_ROWS = 4
 BATCH = 1024
 SEED = 20261017
 # H100 SXM peaks (NVIDIA data sheet, dense): memory and int8 tensor cores
@@ -103,13 +118,14 @@ def random_words(rng, shape, dense: bool):
 # ---------------------------------------------------------------------------
 
 
-def check_kernels(stack_np, filt_np, dev):
+def check_kernels(stack_np, stack2_np, filt_np, dev):
     import numpy as np
     import torch
 
     from pilosa_tpu_torch.ops import bitops, kernels as tk
 
     bits = bitops.to_device(stack_np, dev)
+    bits2 = bitops.to_device(stack2_np, dev)
     filt = bitops.to_device(filt_np, dev)
     S, R, W = bits.shape
     rng = np.random.default_rng(SEED + 1)
@@ -132,7 +148,15 @@ def check_kernels(stack_np, filt_np, dev):
     sub_idx = np.sort(rng.choice(R, size=(R * 4) // 7, replace=False))
     exact(f"gram subset U={len(sub_idx)}<R", tk.gram_gather(bits, sub_idx),
           tk.gram_gather_plain(bits, sub_idx))
-    log(f"kernels exact at the serving shape {tuple(bits.shape)}")
+    # the cross gram of a two-field GroupBy: every row of one stack
+    # against every row of another
+    cross_plain = tk.cross_gram_gather_plain(bits, bits2, full_idx, full_idx)
+    e_cross = exact("cross_gram", tk.cross_gram_gather(bits, bits2, full_idx, full_idx),
+                    cross_plain)
+    exact("cross_gram subsets", tk.cross_gram_gather(bits2, bits, sub_idx[::-1], full_idx[5:]),
+          tk.cross_gram_gather_plain(bits2, bits, sub_idx[::-1], full_idx[5:]))
+    log(f"kernels exact at the serving shape {tuple(bits.shape)} "
+        f"(cross gram against a second stack {tuple(bits2.shape)})")
 
     # -- ragged shapes: S not a multiple of 8, R below 8 and not a power
     #    of two, W not a multiple of 4, U past one 64-row gram tile
@@ -146,6 +170,21 @@ def check_kernels(stack_np, filt_np, dev):
         idx = np.sort(rng.choice(r, size=max(1, (2 * r) // 3), replace=False))
         exact(f"gram {s,r,w} U={len(idx)}", tk.gram_gather(b, idx),
               tk.gram_gather_plain(b, idx))
+    # the cross gram: Ua = 5 rows against Ub = 100 (two B tiles) at S = 13,
+    # W = 130, with operand A once as a stack and once as the transpose(0, 1)
+    # view of a [C, S, W] prefix, read in place
+    s, w = 13, 130
+    a = bitops.to_device(random_words(rng, (s, 9, w), dense=True), dev)
+    b = bitops.to_device(random_words(rng, (s, 150, w), dense=True), dev)
+    ia = np.array([8, 0, 3, 3, 6])
+    ib = rng.integers(0, 150, size=100)
+    exact(f"cross_gram {s, w} Ua=5 Ub=100", tk.cross_gram_gather(a, b, ia, ib),
+          tk.cross_gram_gather_plain(a, b, ia, ib))
+    pre = bitops.to_device(random_words(rng, (5, s, w), dense=True), dev)
+    exact("cross_gram prefix layout C=5",
+          tk.cross_gram_gather(pre.transpose(0, 1), b, np.arange(5), ib),
+          tk.cross_gram_gather_plain(pre.transpose(0, 1).contiguous(), b,
+                                     np.arange(5), ib))
     log("kernels exact at ragged shapes")
 
     # -- the chunked-gram branch: a shrunken accumulator limit splits the
@@ -168,6 +207,34 @@ def check_kernels(stack_np, filt_np, dev):
     if not np.array_equal(one, plain_full):
         raise AssertionError("pair_gram differs from the plain gram")
     log(f"chunked gram exact ({n_chunks} shard chunks)")
+    # the same for cross_pair_gram
+    tk._GRAM_ACC_LIMIT = chunk * W * 32
+    try:
+        before = tk.LAUNCHES["cross_gram"]
+        chunked = tk.cross_pair_gram(bits, bits2, list(range(R)), list(range(R)))
+        n_chunks = tk.LAUNCHES["cross_gram"] - before
+    finally:
+        tk._GRAM_ACC_LIMIT = saved
+    if dev.type == "cuda" and n_chunks != -(-S // chunk):
+        raise AssertionError(f"chunked cross gram: {n_chunks} launches")
+    if not np.array_equal(chunked, cross_plain.cpu().numpy()):
+        raise AssertionError("chunked cross_pair_gram differs from the plain cross gram")
+    log(f"chunked cross gram exact ({n_chunks} shard chunks)")
+
+    # the 3-level GroupBy's second level at the serving size: A = 256
+    # prefix masks [C, S, W] read in place, B = a 64-row stack
+    C2 = 4 * R
+    prefix = tk.refine_prefix(tk.gather_prefix(bits, full_idx), bits2,
+                              np.arange(C2) % R, (np.arange(C2) * 7) % R)
+    level2 = lambda: tk.cross_gram_gather(prefix.transpose(0, 1), bits, np.arange(C2), full_idx)
+    e_level2 = exact(f"cross_gram prefix layout C={C2}", level2(),
+                     tk.cross_gram_gather_plain(prefix.transpose(0, 1), bits,
+                                                np.arange(C2), full_idx))
+    t_level2 = cuda_ms(level2, reps=5)
+    del prefix
+    torch.cuda.empty_cache()
+    log(f"cross gram exact in the prefix layout at C = {C2} (the 3-level GroupBy's "
+        "second level)")
 
     # -- timings at the serving shape
     t_scan = cuda_ms(lambda: tk.row_counts_per_shard(bits), reps=20)
@@ -176,15 +243,23 @@ def check_kernels(stack_np, filt_np, dev):
     t_mask_p = cuda_ms(lambda: tk.masked_row_counts_per_shard_plain(bits, filt), reps=5)
     t_gram = cuda_ms(lambda: tk.gram_gather(bits, full_idx), reps=10)
     t_gram_p = cuda_ms(lambda: tk.gram_gather_plain(bits, full_idx), reps=3)
+    t_cross = cuda_ms(lambda: tk.cross_gram_gather(bits, bits2, full_idx, full_idx), reps=10)
+    t_cross_p = cuda_ms(
+        lambda: tk.cross_gram_gather_plain(bits, bits2, full_idx, full_idx), reps=3)
     # the library yardstick: one int8 x int8 -> int32 product over the
-    # pre-unpacked operand [R, S*W*32] (unpacked per shard; unpack untimed)
-    a8 = torch.empty((R, S * W * 32), dtype=torch.int8, device=dev)
-    for s in range(S):
-        a8[:, s * W * 32:(s + 1) * W * 32] = tk.unpack_bits(bits[s], torch.int8)
-    lib_out = torch._int_mm(a8, a8.T)
-    exact("torch._int_mm yardstick", lib_out, tk.gram_gather(bits, full_idx))
+    # pre-unpacked operands [R, S*W*32] (unpacked per shard; unpack untimed)
+    def unpacked(t):
+        out = torch.empty((R, S * W * 32), dtype=torch.int8, device=dev)
+        for s in range(S):
+            out[:, s * W * 32:(s + 1) * W * 32] = tk.unpack_bits(t[s], torch.int8)
+        return out
+
+    a8, b8 = unpacked(bits), unpacked(bits2)
+    exact("torch._int_mm yardstick", torch._int_mm(a8, a8.T), tk.gram_gather(bits, full_idx))
+    exact("torch._int_mm cross yardstick", torch._int_mm(a8, b8.T), cross_plain)
     t_lib = cuda_ms(lambda: torch._int_mm(a8, a8.T), reps=10)
-    del a8, lib_out
+    t_lib_cross = cuda_ms(lambda: torch._int_mm(a8, b8.T), reps=5)
+    del a8, b8
     torch.cuda.empty_cache()
 
     def bound(nbytes, nops):
@@ -200,6 +275,11 @@ def check_kernels(stack_np, filt_np, dev):
     # gram: G is symmetric, so the function needs only the R(R+1)/2
     # distinct dot products of length S*W*32 (2 ops per bit each)
     b_gram = bound(words * 4 + R * 4 + R * R * 4, R * (R + 1) * S * W * 32)
+    # cross gram: no symmetry, so all Ua * Ub dot products; both stacks
+    # read once, both index arrays read and the output written once
+    b_cross = bound(2 * words * 4 + 2 * R * 4 + R * R * 4, 2 * R * R * S * W * 32)
+    b_level2 = bound((C2 + R) * S * W * 4 + (C2 + R) * 4 + C2 * R * 4,
+                     2 * C2 * R * S * W * 32)
     report = {
         "row_scan": dict(max_abs_err=e_scan, ms=t_scan, plain_ms=t_scan_p,
                          bound=b_scan, library_ms=None),
@@ -207,6 +287,9 @@ def check_kernels(stack_np, filt_np, dev):
                                 bound=b_mask, library_ms=None),
         "gram": dict(max_abs_err=e_gram, ms=t_gram, plain_ms=t_gram_p,
                      bound=b_gram, library_ms=t_lib),
+        "cross_gram": dict(max_abs_err=max(e_cross, e_level2), ms=t_cross,
+                           plain_ms=t_cross_p, bound=b_cross, library_ms=t_lib_cross,
+                           prefix_c256_ms=t_level2, prefix_c256_bound=b_level2),
     }
     for k, v in report.items():
         log(f"{k}: kernel {v['ms']:.3f} ms, plain {v['plain_ms']:.3f} ms, "
@@ -214,7 +297,9 @@ def check_kernels(stack_np, filt_np, dev):
             f"library {v['library_ms'] if v['library_ms'] is None else round(v['library_ms'], 3)}")
     log("scans: no single PyTorch call computes a per-row popcount, "
         "so their library_ms is null")
-    del bits, filt
+    log(f"cross_gram in the prefix layout, C = {C2}: kernel {t_level2:.3f} ms, "
+        f"bound {b_level2[0]:.3f} ms ({b_level2[1]})")
+    del bits, bits2, filt
     torch.cuda.empty_cache()
     return report
 
@@ -273,39 +358,79 @@ def truth_tanimoto_topn(f_stack, g_stack, g_row, threshold, n, pool):
     return keep[:n]
 
 
-def main_path(pool, device):
+def build_index(device):
+    """The served index: fields f and g of R_FULL rows and h of H_ROWS
+    rows over S_FULL shards at shard width 2^20, each about 25 % dense,
+    on ``Holder(device=device)``."""
     import numpy as np
     import torch
 
     from pilosa_tpu_torch import convert
-    from pilosa_tpu_torch.exec.executor import Executor
-    from pilosa_tpu_torch.ops import kernels as tk
-    from pilosa_tpu_torch.shardwidth import SHARD_WIDTH, SHARD_WORDS
+    from pilosa_tpu_torch.shardwidth import SHARD_WORDS
 
     assert SHARD_WORDS == W_FULL, SHARD_WORDS
     rng = np.random.default_rng(SEED)
     t0 = time.perf_counter()
-    f_words = random_words(rng, (S_FULL, R_FULL, SHARD_WORDS), dense=True)
-    g_words = random_words(rng, (S_FULL, R_FULL, SHARD_WORDS), dense=True)
+    words = {
+        "f": random_words(rng, (S_FULL, R_FULL, SHARD_WORDS), dense=True),
+        "g": random_words(rng, (S_FULL, R_FULL, SHARD_WORDS), dense=True),
+        "h": random_words(rng, (S_FULL, H_ROWS, SHARD_WORDS), dense=True),
+    }
     schema = [{
         "name": "i",
         "options": {"keys": False, "trackExistence": True},
-        "fields": [{"name": "f", "options": {}}, {"name": "g", "options": {}}],
+        "fields": [{"name": n, "options": {}} for n in words],
     }]
-    rows = list(range(R_FULL))
     fragments = {}
-    for s in range(S_FULL):
-        fragments[("i", "f", "standard", s)] = (rows, f_words[s])
-        fragments[("i", "g", "standard", s)] = (rows, g_words[s])
+    for name, w in words.items():
+        rows = list(range(w.shape[1]))
+        for s in range(S_FULL):
+            fragments[("i", name, "standard", s)] = (rows, w[s])
     holder = convert.holder_from_arrays(schema, fragments, device=device)
-    del fragments
     setup_s = time.perf_counter() - t0
-    log(f"index built: {S_FULL} shards x {R_FULL} rows x 2^20 columns x 2 fields, "
-        f"{f_words.size * 32 / 1e9:.2f}e9 bits per field, "
-        f"density {np.bitwise_count(f_words[0]).mean() / 32:.3f}, {setup_s:.1f} s")
+    log(f"index built: {S_FULL} shards x 2^20 columns; fields f, g of {R_FULL} "
+        f"rows and h of {H_ROWS} rows, {words['f'].size * 32 / 1e9:.2f}e9 bits "
+        f"in f, density {np.bitwise_count(words['f'][0]).mean() / 32:.3f}, "
+        f"{setup_s:.1f} s")
     if holder.device.type != torch.device(device).type:
         raise AssertionError(f"holder on {holder.device}")
-    ex = Executor(holder)
+    return holder, setup_s
+
+
+def apply_writes(ex, holder, qrng, fields, n):
+    """``n`` seeded Set/Clear writes over ``fields`` in one execute, each
+    field written at least once; checks that every write is visible."""
+    from pilosa_tpu_torch.shardwidth import SHARD_WIDTH
+
+    writes = []
+    for k in range(n):
+        # the first writes cover every field once
+        fld = fields[k] if k < len(fields) else fields[int(qrng.integers(0, len(fields)))]
+        writes.append((
+            "Set" if qrng.random() < 0.6 else "Clear", fld,
+            int(qrng.integers(0, H_ROWS if fld == "h" else R_FULL)),
+            int(qrng.integers(0, S_FULL * SHARD_WIDTH)),
+        ))
+    t = time.perf_counter()
+    changed = ex.execute(
+        "i", " ".join(f"{op}({col}, {fld}={r})" for op, fld, r, col in writes)
+    )
+    write_ms = (time.perf_counter() - t) * 1e3
+    last = {(fld, r, col): op for op, fld, r, col in writes}
+    for (fld, r, col), op in last.items():
+        if holder.field("i", fld).get_bit(r, col) != (op == "Set"):
+            raise AssertionError(f"write not visible: {op}({col}, {fld}={r})")
+    log(f"{len(writes)} Set/Clear writes to {'/'.join(dict.fromkeys(fields))} in one execute: "
+        f"{write_ms:.1f} ms, {sum(bool(c) for c in changed)} changed a bit")
+    return write_ms
+
+
+def pair_topn_path(pool, ex, holder):
+    """The pair-count and TopN path: tanimoto TopN, a 1024-call batch of
+    mixed pair Counts and unfiltered TopN, before and after writes to f
+    and g."""
+    import numpy as np
+
     qrng = np.random.default_rng(SEED + 2)
     results = {}
 
@@ -371,36 +496,206 @@ def main_path(pool, device):
             f"({BATCH / batch_s:.0f} queries/s), via execute from the cached "
             f"gram {exec_s * 1e3:.1f} ms; all answers equal the numpy truth")
 
-    tk.reset_launches()
     run_round("before_writes")
-    writes = [
-        ("Set" if qrng.random() < 0.6 else "Clear",
-         "f" if qrng.random() < 0.75 else "g",
-         int(qrng.integers(0, R_FULL)),
-         int(qrng.integers(0, S_FULL * SHARD_WIDTH)))
-        for _ in range(64)
-    ]
-    t = time.perf_counter()
-    changed = ex.execute(
-        "i", " ".join(f"{op}({col}, {fld}={r})" for op, fld, r, col in writes)
-    )
-    write_ms = (time.perf_counter() - t) * 1e3
-    last = {(fld, r, col): op for op, fld, r, col in writes}
-    for (fld, r, col), op in last.items():
-        if holder.field("i", fld).get_bit(r, col) != (op == "Set"):
-            raise AssertionError(f"write not visible: {op}({col}, {fld}={r})")
-    log(f"{len(writes)} Set/Clear writes in one execute: {write_ms:.1f} ms, "
-        f"{sum(bool(c) for c in changed)} changed a bit")
+    results["writes_ms"] = apply_writes(ex, holder, qrng, ("f", "f", "f", "g"), 64)
     run_round("after_writes")
+    return results
+
+
+def truth_groupby(levels, filt=None):
+    """Every non-empty combination of a GroupBy over the device stacks
+    ``levels`` (``int32[S, R_l, W]``, row id = row index), in the
+    reference's depth-first order, as ``[(row ids, count)]``: torch AND and
+    ``bitops.popcount`` per combination of all levels but the last, which
+    is counted for all its rows at once. No kernel of the port runs."""
+    import itertools
+
+    import torch
+
+    from pilosa_tpu_torch.ops import bitops
+
+    *heads, last = levels
+    out = []
+    for combo in itertools.product(*(range(h.shape[1]) for h in heads)):
+        m = filt
+        for h, r in zip(heads, combo):
+            m = h[:, r] if m is None else m & h[:, r]
+        counts = bitops.count_rows(last & m[:, None]).sum(dim=0, dtype=torch.int64)
+        out.extend((combo + (r,), c) for r, c in enumerate(counts.tolist()) if c)
+    return out
+
+
+def check_numpy_sample(what, answer, np_levels, np_filt, pool, rng, k=256):
+    """A seeded sample of ``k`` combinations of ``answer`` (all of them when
+    there are fewer) recounted with numpy over the host mirrors."""
+    import numpy as np
+
+    pick = (range(len(answer)) if len(answer) <= k
+            else rng.choice(len(answer), size=k, replace=False))
+    items = [answer[int(i)] for i in pick]
+
+    def one(item):
+        combo, count = item
+        m = np_levels[0][:, combo[0]]
+        for lv, r in zip(np_levels[1:], combo[1:]):
+            m = m & lv[:, r]
+        if np_filt is not None:
+            m = m & np_filt
+        return int(np.bitwise_count(m).sum(dtype=np.int64)) == count
+
+    bad = sum(not ok for ok in pool.map(one, items))
+    if bad:
+        raise AssertionError(f"{what}: {bad} of {len(items)} sampled counts differ from numpy")
+    return len(items)
+
+
+def groupby_path(pool, ex, holder, device):
+    """Rows and GroupBy at the serving size, before and after writes to f,
+    g and h: two fields cold and warm (the cross gram, then its cache),
+    the reversed order (the same cache, transposed), one field (the gram),
+    a filter and three levels (the k-level engine: one cross gram per level
+    over prefix masks), one filtered level (the masked row scan), a limit
+    and `previous` pages (cut from the same answers)."""
+    import numpy as np
+    import torch
+
+    from pilosa_tpu_torch.ops import bitops, kernels as tk
+
+    qrng = np.random.default_rng(SEED + 4)
+    on_card = torch.device(device).type == "cuda"
+    prev = (int(qrng.integers(R_FULL - 8, R_FULL - 1)), int(qrng.integers(0, R_FULL)))
+    prev3 = (1, int(qrng.integers(0, R_FULL)), int(qrng.integers(0, R_FULL)))
+
+    def paged(bound):
+        return f"previous=[{', '.join(map(str, bound))}]"
+
+    # name: (query, fields, filter row of h, `previous` bound, limit)
+    queries = {
+        "two_level": ("GroupBy(Rows(f), Rows(g))", ("f", "g"), None, None, None),
+        "transposed": ("GroupBy(Rows(g), Rows(f))", ("g", "f"), None, None, None),
+        "same_field": ("GroupBy(Rows(f), Rows(f))", ("f", "f"), None, None, None),
+        "filtered": ("GroupBy(Rows(f), Rows(g), filter=Row(h=0))", ("f", "g"), 0, None,
+                     None),
+        "three_level": ("GroupBy(Rows(h), Rows(g), Rows(f))", ("h", "g", "f"), None, None,
+                        None),
+        "one_level_filtered": ("GroupBy(Rows(g), filter=Row(h=1))", ("g",), 1, None, None),
+        "limit": ("GroupBy(Rows(f), Rows(g), limit=10)", ("f", "g"), None, None, 10),
+        "previous_page": (f"GroupBy(Rows(f), Rows(g), {paged(prev)}, limit=10)",
+                          ("f", "g"), None, prev, 10),
+        "previous_rest": (f"GroupBy(Rows(f), Rows(g), {paged(prev)})", ("f", "g"), None,
+                          prev, None),
+        "three_level_previous": (f"GroupBy(Rows(h), Rows(g), Rows(f), {paged(prev3)})",
+                                 ("h", "g", "f"), None, prev3, None),
+    }
+    results = {}
+
+    def run_round(tag):
+        np_stacks = {
+            n: mirror_stack(holder, n, H_ROWS if n == "h" else R_FULL, S_FULL)
+            for n in ("f", "g", "h")
+        }
+        dev_stacks = {n: bitops.to_device(w, torch.device(device))
+                      for n, w in np_stacks.items()}
+        lat, checked = {}, 0
+
+        def serve(name, launches=None, *, label=None, want_hits=None):
+            """Serve one query; ``launches`` maps a kernel to the launches
+            the query must make (None: any number); kernels it does not
+            name must make none."""
+            q, fields, filt_row, bound, limit = queries[name]
+            launches0, hits0 = dict(tk.LAUNCHES), ex.crossgram_cache_hits
+            t = time.perf_counter()
+            (res,) = ex.execute("i", q)
+            lat[f"{label or name}_ms"] = (time.perf_counter() - t) * 1e3
+            launched = {k: tk.LAUNCHES[k] - launches0[k] for k in tk.LAUNCHES}
+            hits = ex.crossgram_cache_hits - hits0
+            want = {k: (launches or {}).get(k, 0) for k in tk.LAUNCHES}
+            want = {k: launched[k] if n is None else n for k, n in want.items()}
+            if on_card and launched != want:
+                raise AssertionError(f"{tag}: {q} launched {launched}, not {want}")
+            if want_hits is not None and hits != want_hits:
+                raise AssertionError(f"{tag}: {q} hit the cross-gram cache {hits} "
+                                     f"times, not {want_hits}")
+            for gc in res:
+                if tuple(fr.field for fr in gc.group) != fields:
+                    raise AssertionError(f"{tag}: {q} grouped {gc.group}")
+            return q, fields, filt_row, bound, limit, [
+                (tuple(fr.row_id for fr in gc.group), gc.count) for gc in res
+            ]
+
+        truths = {}
+
+        def check(served_q):
+            nonlocal checked
+            q, fields, filt_row, bound, limit, got = served_q
+            key = (fields, filt_row)
+            if key not in truths:
+                filt = None if filt_row is None else dev_stacks["h"][:, filt_row]
+                truths[key] = truth_groupby([dev_stacks[n] for n in fields], filt)
+            want = truths[key]
+            if bound is not None:
+                want = [it for it in want if it[0] > bound]
+            if limit is not None:
+                want = want[:limit]
+            if not want:
+                raise AssertionError(f"{tag}: {q}: empty answer checks nothing")
+            if got != want:
+                bad = sum(a != b for a, b in zip(got, want)) + abs(len(got) - len(want))
+                raise AssertionError(f"{tag}: {q}: {bad} of {len(want)} groups differ "
+                                     "from the truth on the card")
+            np_filt = None if filt_row is None else np_stacks["h"][:, filt_row]
+            checked += check_numpy_sample(f"{tag}: {q}", got,
+                                          [np_stacks[n] for n in fields], np_filt, pool,
+                                          np.random.default_rng(SEED + len(got)))
+            return len(got)
+
+        # two fields: the cold query computes the full cross gram (its rows
+        # cover both fields); the warm one and the reversed order are cache
+        # hits with no launch
+        cross = {"cross_gram": 1}
+        n_two = check(serve("two_level", cross, label="two_level_cold", want_hits=0))
+        check(serve("two_level", label="two_level_warm", want_hits=1))
+        check(serve("transposed", want_hits=1))
+        # the gram: f's full gram is launched once per snapshot of f (the
+        # pair path may have made it already)
+        check(serve("same_field", {"gram": None}, want_hits=0))
+        # the k-level engine on the card: one cross gram per level
+        n_filt = check(serve("filtered", cross))
+        n_three = check(serve("three_level", {"cross_gram": 2}))
+        check(serve("one_level_filtered", {"masked_row_scan": 1}))
+        # pages are cut from the answer: the cross-gram slot, or the
+        # k-level engine again
+        check(serve("limit", want_hits=1))
+        check(serve("previous_page", want_hits=1))
+        check(serve("previous_rest", want_hits=1))
+        check(serve("three_level_previous", {"cross_gram": 2}))
+        del dev_stacks
+        if on_card:
+            torch.cuda.empty_cache()
+        results[tag] = lat
+        log(f"{tag}: GroupBy answers equal the truth on the card ({n_two} two-level, "
+            f"{n_filt} filtered, {n_three} three-level groups) and {checked} sampled "
+            "combinations equal numpy; " + ", ".join(f"{k} {v:.1f}" for k, v in lat.items()))
+
+    run_round("before_writes")
+    results["writes_ms"] = apply_writes(ex, holder, qrng, ("f", "g", "h"), 64)
+    run_round("after_writes")
+    return results
+
+
+def drive(path, required, fn):
+    """Run one path of the main path with every launch count set to 0 just
+    before it; fail if a kernel of the path was not launched in it."""
+    from pilosa_tpu_torch.ops import kernels as tk
+
+    tk.reset_launches()
+    out = fn()
     launches = dict(tk.LAUNCHES)
-    log(f"main-path launches: {launches}")
-    for k, n in launches.items():
-        if n <= 0:
-            raise AssertionError(f"kernel {k} was not launched on the main path")
-    results["writes_ms"] = write_ms
-    results["setup_s"] = setup_s
-    results["stack_rebuilds"] = ex.stack_rebuilds
-    return launches, results
+    log(f"{path}: launches {launches}")
+    for k in required:
+        if launches[k] <= 0:
+            raise AssertionError(f"kernel {k} was not launched on the {path} path")
+    return launches, out
 
 
 def main() -> int:
@@ -434,12 +729,24 @@ def main() -> int:
 
     rng = np.random.default_rng(SEED + 3)
     stack = random_words(rng, (S_FULL, R_FULL, W_FULL), dense=True)
+    stack2 = random_words(rng, (S_FULL, R_FULL, W_FULL), dense=True)
     filt = random_words(rng, (S_FULL, W_FULL), dense=False)
-    kern = check_kernels(stack, filt, torch.device("cuda"))
-    del stack, filt
+    kern = check_kernels(stack, stack2, filt, torch.device("cuda"))
+    del stack, stack2, filt
 
+    from pilosa_tpu_torch.exec.executor import Executor
+
+    holder, setup_s = build_index("cuda")
+    ex = Executor(holder)
     with ThreadPoolExecutor(max_workers=min(8, os.cpu_count() or 1)) as pool:
-        launches, e2e = main_path(pool, "cuda")
+        l_pair, e2e = drive("pair_topn", ("row_scan", "masked_row_scan", "gram"),
+                            lambda: pair_topn_path(pool, ex, holder))
+        l_group, e2e["groupby"] = drive("groupby", ("gram", "cross_gram", "masked_row_scan"),
+                                        lambda: groupby_path(pool, ex, holder, "cuda"))
+    e2e["setup_s"] = setup_s
+    e2e["stack_rebuilds"] = ex.stack_rebuilds
+    e2e["crossgram_cache_hits"] = ex.crossgram_cache_hits
+    by_path = {k: {"pair_topn": l_pair[k], "groupby": l_group[k]} for k in l_pair}
 
     sources = {
         "row_scan": ("pilosa_tpu_torch/ops/csrc/row_scan.cu",
@@ -448,6 +755,8 @@ def main() -> int:
                             "pilosa_tpu/ops/kernels.py:1730 _masked_row_scan_kernel"),
         "gram": ("pilosa_tpu_torch/ops/csrc/gram.cu",
                  "pilosa_tpu/ops/kernels.py:651 _gram_pallas_kernel"),
+        "cross_gram": ("pilosa_tpu_torch/ops/csrc/cross_gram.cu",
+                       "pilosa_tpu/ops/kernels.py:1265 _cross_gram_pallas_kernel"),
     }
     name, limit = [x.strip() for x in card.split(",", 1)]
     entries = []
@@ -458,7 +767,8 @@ def main() -> int:
             "route": "cuda",
             "source": src,
             "replaces": replaces,
-            "launches": launches[k],
+            "launches": sum(by_path[k].values()),
+            "launches_by_path": by_path[k],
             "max_abs_err": v["max_abs_err"],
             "match": v["max_abs_err"] == 0,
             "ms": v["ms"],
@@ -470,6 +780,12 @@ def main() -> int:
             "card": name,
             "power_limit": limit,
         })
+        if "prefix_c256_ms" in v:
+            entries[-1].update(
+                prefix_c256_ms=v["prefix_c256_ms"],
+                prefix_c256_bound_ms=v["prefix_c256_bound"][0],
+                prefix_c256_bound_by=v["prefix_c256_bound"][1],
+            )
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"end_to_end": e2e}))
     print(json.dumps({"kernels": entries}))

@@ -189,6 +189,18 @@ class Fragment:
                 return False
             return bool((int(self._host[s, col >> 5]) >> (col & 31)) & 1)
 
+    def rows_with_column(self, col: int) -> list[int]:
+        """Row ids containing this column — one vectorized pass over the
+        host mirror's column word (the Rows(column=...) filter; reference
+        fragment.go:2612-2657 filterColumn, without per-row get_bit)."""
+        with self._lock:
+            n = len(self._rowids)
+            if n == 0:
+                return []
+            w, b = col >> 5, np.uint32(col & 31)
+            mask = (self._host[:n, w] >> b) & np.uint32(1)
+            return [self._rowids[s] for s in np.flatnonzero(mask)]
+
     def set_row_words(self, row: int, words: np.ndarray) -> bool:
         """Replace a whole row (reference fragment.go:781-834 setRow);
         True if the row changed."""

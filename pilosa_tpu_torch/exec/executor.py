@@ -4,24 +4,31 @@ executor.go).
 Single-node PQL read serving over dense field stacks. A field's standard
 view is gathered from the fragments' host mirrors into one
 ``int32[S, R, W]`` stack on the holder's device (:meth:`_field_stack`),
-cached until a fragment's (epoch, version) moves. The stack serves three
-kinds of query, each through one kernel of ``ops/kernels.py``:
+cached until a fragment's (epoch, version) moves. The stacks serve these
+queries, each through the kernels of ``ops/kernels.py``:
 
 * a batch of ``Count(op(Row, Row))`` calls — one gram launch per field
   (:meth:`_batch_pair_counts`, :meth:`_field_gram`);
 * filtered TopN — the masked row scan;
-* tanimoto TopN — the row scan for row totals (:meth:`_stack_row_counts`).
+* tanimoto TopN — the row scan for row totals (:meth:`_stack_row_counts`);
+* GroupBy — one level through the row scans, two levels from one gram
+  (one field) or one cross gram (two fields, :meth:`_cross_gram`), and k
+  levels or a filter through one cross gram per level over running
+  prefix masks (:meth:`_groupby_k_level_batch`); a `previous` page is
+  cut from the answer.
 
 Everything else is the latency tier on the host mirrors: lone counts,
 Row/Intersect/Union/Difference/Xor/Not/Shift trees, unfiltered TopN from
-the maintained per-fragment counts, and Set/Clear/ClearRow writes. Other
-calls (BSI, GroupBy, Rows, Store, attrs, keys, time views) raise
+the maintained per-fragment counts, Rows, and Set/Clear/ClearRow writes.
+Other calls (BSI, Store, attrs, keys, time views) raise
 ``ExecuteError("... not yet ported")``.
 """
 
 from __future__ import annotations
 
+import bisect
 import itertools
+import os
 import threading
 import weakref
 from typing import Any
@@ -40,7 +47,13 @@ from pilosa_tpu_torch.core.field import (
 from pilosa_tpu_torch.core.holder import Holder
 from pilosa_tpu_torch.core.index import Index
 from pilosa_tpu_torch.core.view import VIEW_STANDARD
-from pilosa_tpu_torch.exec.result import Pair, Row
+from pilosa_tpu_torch.exec.result import (
+    FieldRow,
+    GroupCount,
+    Pair,
+    Row,
+    RowIdentifiers,
+)
 from pilosa_tpu_torch.ops import bitops, kernels
 from pilosa_tpu_torch.pql.ast import Call, Condition
 
@@ -78,8 +91,6 @@ _NOT_PORTED_CALLS = {
     "Store",
     "SetRowAttrs",
     "SetColumnAttrs",
-    "Rows",
-    "GroupBy",
     "Options",
 }
 
@@ -127,6 +138,9 @@ class Executor:
     # lone Count(op(Row,Row)) queries against one field before a single
     # query takes the stack + gram path
     _PAIR_SINGLE_WARM = 4
+    # live cross-gram slots kept per stack entry (one per partner field);
+    # each full gram is <= 8 MiB host memory at _GRAM_CACHE_MAX_ROWS
+    _CROSS_GRAM_SLOTS = 4
 
     def __init__(self, holder: Holder, max_writes_per_request: int | None = None):
         self.holder = holder
@@ -146,6 +160,8 @@ class Executor:
         # observable counters (tests and chip_smoke.py read them)
         self.stack_rebuilds = 0
         self.gram_cache_hits = 0
+        # GroupBy combination matrices served from a cached cross gram
+        self.crossgram_cache_hits = 0
 
     # ------------------------------------------------------------------ API
 
@@ -243,10 +259,17 @@ class Executor:
         if idx.keys:
             raise _not_ported("an index with string keys")
         name = call.name
+        if name == "GroupBy":
+            self._translate_groupby(idx, call)
+            return
         if name in ("Set", "Clear", "Row", "Range", "ClearRow"):
             col_key = "_col"
             field_name = call.field_arg()
             row_key = field_name
+        elif name == "Rows":
+            col_key = "column"
+            field_name = call.args.get("_field")
+            row_key = "previous"
         else:
             col_key = "col"
             field_name = call.args.get("field")
@@ -274,6 +297,35 @@ class Executor:
         if isinstance(filt, Call):
             self._translate_call(idx, filt)
 
+    def _translate_groupby(self, idx: Index, call: Call) -> None:
+        """The `previous` paging list holds one row id per child field
+        (reference executor.go:2718-2748 translateGroupByCall)."""
+        for child in call.children:
+            self._translate_call(idx, child)
+        filt = call.args.get("filter")
+        if isinstance(filt, Call):
+            self._translate_call(idx, filt)
+        previous = call.args.get("previous")
+        if previous is None:
+            return
+        if not isinstance(previous, list):
+            raise ExecuteError("'previous' argument must be a list")
+        if len(previous) != len(call.children):
+            raise ExecuteError(
+                "'previous' argument must have a value for each GroupBy field"
+            )
+        for i, (child, prev) in enumerate(zip(call.children, previous)):
+            fname = child.args.get("_field")
+            field = idx.field(fname) if fname else None
+            if field is None:
+                continue
+            if field.field_type == FIELD_TYPE_BOOL and isinstance(prev, bool):
+                previous[i] = TRUE_ROW_ID if prev else FALSE_ROW_ID
+            elif isinstance(prev, str):
+                raise ExecuteError(
+                    f"prev value must be a uint64 for field {fname!r}"
+                )
+
     # ------------------------------------------------------------- dispatch
 
     def _shards_for(self, idx: Index, shards: list[int] | None) -> list[int]:
@@ -295,6 +347,10 @@ class Executor:
             return self._execute_clear(idx, call)
         if name == "ClearRow":
             return self._execute_clear_row(idx, call, shards)
+        if name == "Rows":
+            return self._execute_rows(idx, call, shards)
+        if name == "GroupBy":
+            return self._execute_groupby(idx, call, shards)
         return self._execute_bitmap_call(idx, call, shards)
 
     # ----------------------------------------------- batched Count fast path
@@ -458,6 +514,72 @@ class Executor:
                 entry["rowcounts"] = rc
             return rc
         return kernels.row_counts(bits).cpu().numpy().astype(np.int64)
+
+    def _cross_slot(self, field: Field, bits: torch.Tensor, partner: str):
+        """(entry, slot): the stack entry whose snapshot is ``bits`` and
+        its cached ``(partner_snapshot_weakref, gram)`` for ``partner``,
+        or None for the slot. A slot whose partner snapshot is gone is
+        dropped; a hit moves to the end of the LRU order."""
+        entry = self._stack_entry_for(field, bits)
+        if entry is None:
+            return None, None
+        with self._stack_lock:
+            slots = entry.get("crossgram")
+            t = slots.get(partner) if slots else None
+            if t is None:
+                return entry, None
+            slots.pop(partner)
+            if t[0]() is None:
+                return entry, None
+            slots[partner] = t
+        return entry, t
+
+    def _cross_gram(
+        self, f1: Field, bits1: torch.Tensor, f2: Field, bits2: torch.Tensor,
+        sub1: list[int], sub2: list[int],
+    ) -> np.ndarray | None:
+        """Cross-field intersection counts ``int64 [len(sub1), len(sub2)]``
+        between slot subsets of two stack snapshots, with _field_gram's
+        invest-on-reuse rule: the FULL cross gram is computed when the
+        subsets nearly cover both fields, or once _GRAM_CACHE_MIN_REUSE
+        subset grams have been computed against the first snapshot; every
+        later combination matrix is then sliced from host memory. Slots
+        live on the first field's stack entry, one per partner field, and
+        hold the partner's snapshot only weakly; a write to either field
+        gives it a new snapshot, which no slot matches. The reversed field
+        order is served from the same slot, transposed. None when the
+        gram path declines."""
+        R1, R2 = bits1.shape[1], bits2.shape[1]
+        if R1 <= self._GRAM_CACHE_MAX_ROWS and R2 <= self._GRAM_CACHE_MAX_ROWS:
+            entry, t = self._cross_slot(f1, bits1, f2.name)
+            if t is not None and t[0]() is bits2:
+                self.crossgram_cache_hits += 1
+                return t[1][np.ix_(sub1, sub2)]
+            _, t2 = self._cross_slot(f2, bits2, f1.name)
+            if t2 is not None and t2[0]() is bits1:
+                self.crossgram_cache_hits += 1
+                return t2[1].T[np.ix_(sub1, sub2)]
+            if entry is not None:
+                with self._stack_lock:
+                    misses = entry.setdefault("crossgram_misses", {})
+                    n_miss = misses.get(f2.name, 0)
+                nearly_full = 2 * len(sub1) >= R1 and 2 * len(sub2) >= R2
+                if nearly_full or n_miss >= self._GRAM_CACHE_MIN_REUSE:
+                    g = kernels.cross_pair_gram(
+                        bits1, bits2, list(range(R1)), list(range(R2))
+                    )
+                    if g is not None:
+                        with self._stack_lock:
+                            slots = entry.setdefault("crossgram", {})
+                            slots.pop(f2.name, None)
+                            slots[f2.name] = (weakref.ref(bits2), g)
+                            while len(slots) > self._CROSS_GRAM_SLOTS:
+                                del slots[next(iter(slots))]
+                        return g[np.ix_(sub1, sub2)]
+                else:
+                    with self._stack_lock:
+                        misses[f2.name] = n_miss + 1
+        return kernels.cross_pair_gram(bits1, bits2, sub1, sub2)
 
     def _batch_pair_counts(
         self, idx: Index, calls: list[Call], shards: list[int] | None,
@@ -836,6 +958,244 @@ class Executor:
         if n and not has_ids:
             pairs = pairs[:n]
         return pairs
+
+    # ------------------------------------------------------------------ Rows
+
+    @staticmethod
+    def _rows_of_field(field: Field, shards: list[int]) -> list[int]:
+        """Sorted distinct row ids with at least one bit in the standard
+        view (reference fragment.go:2601-2712 rows())."""
+        v = field.view(VIEW_STANDARD)
+        if v is None:
+            return []
+        ids: set[int] = set()
+        for shard in shards:
+            frag = v.fragment(shard)
+            if frag is None:
+                continue
+            rids, counts = frag.row_counts()
+            ids.update(r for r, c in zip(rids, counts.tolist()) if c > 0)
+        return sorted(ids)
+
+    def _execute_rows(
+        self, idx: Index, call: Call, shards: list[int] | None
+    ) -> RowIdentifiers:
+        """reference executor.go:1277-1442 executeRows, over the standard
+        view (time views are not ported)."""
+        shards = self._shards_for(idx, shards)
+        fname, ok = call.string_arg("_field")
+        if not ok:
+            raise ExecuteError("Rows() field required")
+        field = idx.field(fname)
+        if field is None:
+            raise FieldNotFoundError(f"field not found: {fname}")
+        if call.args.get("from") is not None or call.args.get("to") is not None:
+            raise _not_ported("Rows() with from/to")
+        ids = self._rows_of_field(field, shards)
+
+        col = call.args.get("column")
+        if col is not None:
+            col = int(col)
+            shard, off = divmod(col, field.n_words * 32)
+            v = field.view(VIEW_STANDARD)
+            frag = v.fragment(shard) if v is not None else None
+            present = set(frag.rows_with_column(off)) if frag is not None else set()
+            ids = [r for r in ids if r in present]
+
+        prev, has_prev = call.uint_arg("previous")
+        if has_prev:
+            ids = [r for r in ids if r > prev]
+        limit, has_limit = call.uint_arg("limit")
+        if has_limit:
+            ids = ids[:limit]
+        return RowIdentifiers(rows=ids)
+
+    # --------------------------------------------------------------- GroupBy
+
+    def _execute_groupby(
+        self, idx: Index, call: Call, shards: list[int] | None
+    ) -> list[GroupCount]:
+        """reference executor.go:1071-1275: the cross product of the Rows()
+        children in row order, each combination counted over the
+        intersection of its rows (and the filter), zero counts dropped.
+        Every combination is counted on the stacks; a `previous` page is
+        the answer's combinations after the bound (row order is the
+        answer's order), and `limit` cuts what is left."""
+        shards = self._shards_for(idx, shards)
+        if not call.children:
+            raise ExecuteError("GroupBy requires at least one Rows() child")
+        for c in call.children:
+            if c.name != "Rows":
+                raise ExecuteError("GroupBy children must be Rows queries")
+        limit, has_limit = call.uint_arg("limit")
+        filt_call, has_filt = call.call_arg("filter")
+        previous, has_prev = call.uint_slice_arg("previous")
+        if has_prev and len(previous) != len(call.children):
+            raise ExecuteError(
+                "'previous' argument must have a value for each GroupBy field"
+            )
+        filt_row = self._bitmap_call(idx, filt_call, shards) if has_filt else None
+
+        levels = []
+        for c in call.children:
+            fname = c.args.get("_field")
+            field = idx.field(fname)
+            if field is None:
+                raise FieldNotFoundError(f"field not found: {fname}")
+            levels.append((fname, field, self._execute_rows(idx, c, shards).rows))
+
+        if any(not rows for _, _, rows in levels):
+            return []
+        if len(levels) == 1:
+            out = self._groupby_one_level(levels[0], shards, filt_row)
+        elif len(levels) == 2 and filt_row is None:
+            out = self._groupby_two_level_batch(levels, shards)
+        else:
+            out = self._groupby_k_level_batch(levels, shards, filt_row)
+        if has_prev:
+            bound = tuple(previous)
+            out = out[bisect.bisect_right(
+                out, bound, key=lambda gc: tuple(fr.row_id for fr in gc.group)
+            ):]
+        return out[:limit] if has_limit and limit > 0 else out
+
+    def _groupby_one_level(
+        self, level, shards: list[int], filt_row: Row | None
+    ) -> list[GroupCount]:
+        """Each row's count over ``shards``: the row scan (or a cached
+        gram's diagonal), the masked row scan under a filter."""
+        fname, field, rows = level
+        slot_of, bits = self._field_stack(field, shards)
+        if filt_row is None:
+            counts = self._stack_row_counts(field, bits)
+        else:
+            S, _, W = bits.shape
+            filt = self._row_to_shard_matrix(filt_row, shards, S, W)
+            counts = kernels.masked_row_counts(bits, bitops.to_device(filt, bits.device))
+        return [
+            GroupCount(group=[FieldRow(field=fname, row_id=r)], count=int(counts[slot_of[r]]))
+            for r in rows
+            if counts[slot_of[r]] > 0
+        ]
+
+    def _groupby_two_level_batch(self, levels, shards: list[int]) -> list[GroupCount]:
+        """Every (row1, row2) combination count of an unfiltered two-level
+        GroupBy from one gram (one field) or one cross gram (two fields),
+        or the batched pair scans when the gram declines."""
+        (f1name, f1, rows1), (f2name, f2, rows2) = levels
+        slot1, bits1 = self._field_stack(f1, shards)
+        slot2, bits2 = self._field_stack(f2, shards) if f2 is not f1 else (slot1, bits1)
+        sub1 = [slot1[r] for r in rows1]
+        sub2 = [slot2[r] for r in rows2]
+        counts2d = None
+        if f2 is f1:
+            g, pos = self._field_gram(f1, bits1, sorted(set(sub1) | set(sub2)))
+            if g is not None:
+                counts2d = g[np.ix_([pos[s] for s in sub1], [pos[s] for s in sub2])]
+        else:
+            counts2d = self._cross_gram(f1, bits1, f2, bits2, sub1, sub2)
+        if counts2d is not None:
+            counts = counts2d.reshape(-1)
+        else:
+            # more distinct rows than the gram takes: per-shard partials
+            # of every combination, summed in int64
+            ras = np.repeat(sub1, len(sub2))
+            rbs = np.tile(sub2, len(sub1))
+            if f2 is f1:
+                partials = kernels.pair_count_batched(bits1, ras, rbs)
+            else:
+                partials = kernels.pair_count_two_batched(bits1, bits2, ras, rbs)
+            counts = partials.to(torch.int64).sum(dim=1).cpu().numpy()
+        out = []
+        combos = ((r1, r2) for r1 in rows1 for r2 in rows2)
+        for (r1, r2), c in zip(combos, counts.tolist()):
+            if c > 0:
+                out.append(GroupCount(
+                    group=[FieldRow(field=f1name, row_id=r1),
+                           FieldRow(field=f2name, row_id=r2)],
+                    count=int(c),
+                ))
+        return out
+
+    def _groupby_prefix_budget(self, device: torch.device) -> int:
+        """Bytes of ``[C, S, W]`` prefix masks the k-level GroupBy may hold
+        at once: half of what the device can still hand out, read at call
+        time (on a card the free memory it reports plus PyTorch's cached,
+        unused blocks; on the host its available pages). A fixed figure
+        would either cut a filtered or 3-level GroupBy at the serving size
+        (21 MB per mask) into many small launches or overrun a smaller
+        device."""
+        if device.type != "cuda":
+            return os.sysconf("SC_AVPHYS_PAGES") * os.sysconf("SC_PAGE_SIZE") // 2
+        free, _ = torch.cuda.mem_get_info(device)
+        cached = torch.cuda.memory_reserved(device) - torch.cuda.memory_allocated(device)
+        return (free + cached) // 2
+
+    def _groupby_k_level_batch(
+        self, levels, shards: list[int], filt_row: Row | None
+    ) -> list[GroupCount]:
+        """All k-level combination counts, one cross-gram launch per level
+        and piece: keep ``[C, S, W]`` intersection masks of the surviving
+        combinations, count every (combination, next row) pair at once,
+        drop the empty ones, refine. The survivors of a level are taken
+        in pieces of at most ``cmax`` (and GRAM_MAX_ROWS) masks, depth
+        first, so the masks held at once (one piece per level plus one
+        temporary) stay within the prefix budget. Matches the reference's
+        semantics (executor.go:3057-3230): DFS row order, each count over
+        all levels and the filter."""
+        stacks = [self._field_stack(f, shards) for _, f, _ in levels]
+        slot0, bits0 = stacks[0]
+        S, _, W = bits0.shape
+        budget = self._groupby_prefix_budget(bits0.device)
+        cmax = max(1, min(kernels.GRAM_MAX_ROWS, budget // (S * W * 4 * len(levels))))
+        filt = None
+        if filt_row is not None:
+            filt = bitops.to_device(
+                self._row_to_shard_matrix(filt_row, shards, S, W), bits0.device
+            )
+        out: list[GroupCount] = []
+
+        def expand(li: int, prefix: torch.Tensor, combos: list[tuple[int, ...]]):
+            slotL, bitsL = stacks[li]
+            rows = levels[li][2]
+            idxL = [slotL[r] for r in rows]
+            counts = kernels.combo_counts_gram(prefix, bitsL, idxL)
+            if counts is None:
+                counts = (
+                    kernels.combo_counts(prefix, bitsL, idxL)
+                    .to(torch.int64).sum(dim=2).cpu().numpy()
+                )
+            live = np.argwhere(counts > 0)  # row-major: DFS order
+            if li == len(levels) - 1:
+                out.extend(
+                    GroupCount(
+                        group=[
+                            FieldRow(field=levels[k][0], row_id=rid)
+                            for k, rid in enumerate(combos[ci] + (rows[ri],))
+                        ],
+                        count=int(counts[ci, ri]),
+                    )
+                    for ci, ri in live
+                )
+                return
+            for p0 in range(0, len(live), cmax):
+                part = live[p0 : p0 + cmax]
+                child = kernels.refine_prefix(
+                    prefix, bitsL, part[:, 0], [idxL[ri] for ri in part[:, 1]]
+                )
+                expand(li + 1, child, [combos[ci] + (rows[ri],) for ci, ri in part])
+                del child
+
+        rows0 = levels[0][2]
+        for p0 in range(0, len(rows0), cmax):
+            part = rows0[p0 : p0 + cmax]
+            prefix = kernels.gather_prefix(bits0, [slot0[r] for r in part])
+            if filt is not None:
+                # in place: the prefix is this call's own copy
+                prefix &= filt[None]
+            expand(1, prefix, [(r,) for r in part])
+            del prefix
+        return out
 
     @staticmethod
     def _row_to_shard_matrix(row: Row, shards: list[int], S: int, W: int) -> np.ndarray:

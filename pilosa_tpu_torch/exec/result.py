@@ -1,5 +1,5 @@
 """Query result types (counterpart of ``pilosa_tpu/exec/result.py``;
-reference row.go Row, pilosa.go Pair/ValCount).
+reference row.go Row, pilosa.go Pair/ValCount/RowIdentifiers/GroupCount).
 
 ``Row`` is the cross-shard bitmap result: one host ``uint32[W]`` numpy
 word vector per shard (the reference's rowSegments, row.go:332-344). The
@@ -9,7 +9,7 @@ and counts stay on the host; the device serves the batched paths.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field as dc_field
 from typing import Any
 
 import numpy as np
@@ -99,3 +99,42 @@ class Pair:
     id: int = 0
     key: str | None = None
     count: int = 0
+
+
+@dataclass
+class RowIdentifiers:
+    """Rows() result (reference pilosa.go RowIdentifiers)."""
+
+    rows: list[int] = dc_field(default_factory=list)
+    keys: list[str] | None = None
+
+    def to_dict(self) -> dict:
+        if self.keys is not None:
+            return {"keys": self.keys}
+        return {"rows": self.rows}
+
+
+@dataclass
+class FieldRow:
+    field: str
+    row_id: int = 0
+    row_key: str | None = None
+
+    def to_dict(self) -> dict:
+        d: dict[str, Any] = {"field": self.field}
+        if self.row_key is not None:
+            d["rowKey"] = self.row_key
+        else:
+            d["rowID"] = self.row_id
+        return d
+
+
+@dataclass
+class GroupCount:
+    """GroupBy entry (reference pilosa.go GroupCount)."""
+
+    group: list[FieldRow]
+    count: int
+
+    def to_dict(self) -> dict:
+        return {"group": [g.to_dict() for g in self.group], "count": self.count}

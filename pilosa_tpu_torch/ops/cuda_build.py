@@ -23,8 +23,8 @@ import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("row_scan.cu", "masked_row_scan.cu", "gram.cu")
-HEADERS = ("scan_common.cuh",)
+SOURCES = ("row_scan.cu", "masked_row_scan.cu", "gram.cu", "cross_gram.cu")
+HEADERS = ("scan_common.cuh", "gram_tile.cuh")
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "kernels"
 LIB_NAME = "libpilosa_tpu_torch_kernels.so"
 
@@ -35,6 +35,7 @@ NVCC_FLAGS = (
 
 _VOIDP = ctypes.c_void_p
 _INT = ctypes.c_int
+_LL = ctypes.c_longlong
 # C entry point -> argument types (every one returns a cudaError_t as int)
 _SIGNATURES = {
     "pilosa_row_scan": (_VOIDP, _VOIDP, _INT, _INT, _INT, _INT, _VOIDP),
@@ -43,6 +44,10 @@ _SIGNATURES = {
     ),
     "pilosa_gram_gather": (
         _VOIDP, _VOIDP, _VOIDP, _INT, _INT, _INT, _INT, _INT, _VOIDP,
+    ),
+    "pilosa_cross_gram_gather": (
+        _VOIDP, _LL, _LL, _VOIDP, _INT, _VOIDP, _LL, _LL, _VOIDP, _INT,
+        _VOIDP, _INT, _INT, _INT, _VOIDP,
     ),
 }
 

@@ -1,8 +1,8 @@
 """Batched kernels of the serving path (counterpart of
 ``pilosa_tpu/ops/kernels.py``).
 
-Three hand-written CUDA kernels (``ops/csrc``) replace the three Pallas
-kernels that the JAX package runs on this path:
+Four hand-written CUDA kernels (``ops/csrc``) replace the four Pallas
+kernels of the JAX package:
 
 * the **row scan** ``out[s, r] = Σ_w popc(bits[s, r, w])`` — row totals
   for tanimoto TopN (:func:`row_counts_per_shard`, :func:`row_counts`);
@@ -12,7 +12,12 @@ kernels that the JAX package runs on this path:
 * the **self-gram with a fused gather**
   ``G[i, j] = Σ_s Σ_w popc(bits[s, idx[i], w] & bits[s, idx[j], w])`` — a
   whole batch of ``Count(op(Row, Row))`` queries in one launch
-  (:func:`gram_gather`, :func:`pair_gram`).
+  (:func:`gram_gather`, :func:`pair_gram`);
+* the **cross gram with two fused gathers**
+  ``C[i, j] = Σ_s Σ_w popc(a[s, ia[i], w] & b[s, ib[j], w])`` — every
+  combination count of a two-field GroupBy, and one level of the k-level
+  GroupBy over its prefix masks (:func:`cross_gram_gather`,
+  :func:`cross_pair_gram`, :func:`combo_counts_gram`).
 
 Each kernel wrapper checks device, dtype, shape and contiguity. Given a
 tensor on the CPU it computes the kernel's plain PyTorch version (the
@@ -39,7 +44,7 @@ _TORCH_OPS = {
 }
 
 # kernel name -> launches so far (one per kernel launch, nowhere else)
-LAUNCHES = {"row_scan": 0, "masked_row_scan": 0, "gram": 0}
+LAUNCHES = {"row_scan": 0, "masked_row_scan": 0, "gram": 0, "cross_gram": 0}
 
 
 def reset_launches() -> None:
@@ -203,30 +208,17 @@ def unpack_bits(words: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     return bits.reshape(*words.shape[:-1], words.shape[-1] * 32).to(dtype)
 
 
-def _idx_array(idx, R: int) -> np.ndarray:
+def _idx_array(idx, R: int, name: str = "gram_gather") -> np.ndarray:
     arr = np.asarray(idx, dtype=np.int64).reshape(-1)
     if arr.size and (arr.min() < 0 or arr.max() >= R):
-        raise ValueError(f"gram_gather: row index out of range [0, {R})")
+        raise ValueError(f"{name}: row index out of range [0, {R})")
     return arr.astype(np.int32)
 
 
 def gram_gather_plain(bits: torch.Tensor, idx) -> torch.Tensor:
-    """Plain version of the gram: ``int32[U, U]``. Unpacks word blocks of
-    the gathered rows to 0/1 float64 and multiplies; float64 sums are exact
-    below 2^53, far above the int32 totals the caller allows."""
-    S, R, W = bits.shape
-    sel = torch.from_numpy(_idx_array(idx, R).astype(np.int64)).to(bits.device)
-    U = sel.numel()
-    acc = torch.zeros((U, U), dtype=torch.float64, device=bits.device)
-    if U == 0 or S == 0 or W == 0:
-        return acc.to(torch.int32)
-    wb = max(1, min(W, _PLAIN_GRAM_UNPACK_BYTES // (U * 32 * 8)))
-    for s in range(S):
-        rows = bits[s].index_select(0, sel)
-        for w0 in range(0, W, wb):
-            x = unpack_bits(rows[:, w0 : w0 + wb], torch.float64)
-            acc += x @ x.T
-    return acc.to(torch.int32)
+    """Plain version of the gram: ``int32[U, U]``, the cross gram of the
+    stack with itself."""
+    return cross_gram_gather_plain(bits, bits, idx, idx)
 
 
 def gram_gather(bits: torch.Tensor, idx) -> torch.Tensor:
@@ -262,17 +254,24 @@ def pair_gram(bits: torch.Tensor, row_idx) -> np.ndarray | None:
     answer to a batch of pair-count queries. None when ``row_idx`` is too
     wide for the gram path (> GRAM_MAX_ROWS). Shard chunks keep each
     launch's totals int32-exact; chunks are summed in int64."""
-    S, R, W = bits.shape
     U = len(row_idx)
     if U == 0 or U > GRAM_MAX_ROWS:
         return None
     idx = np.asarray(row_idx, dtype=np.int32)
+    return _shard_chunked(bits.shape, lambda s: gram_gather(bits[s], idx))
+
+
+def _shard_chunked(shape, launch) -> np.ndarray:
+    """``int64 numpy`` sum of ``launch(shard_slice)`` over the shard axis
+    of a ``[S, R, W]`` stack, in chunks small enough that each launch's
+    int32 totals are exact (one launch when the whole axis is)."""
+    S, _, W = shape
     if _gram_int32_safe(S, W):
-        return gram_gather(bits, idx).cpu().numpy().astype(np.int64)
+        return launch(slice(None)).cpu().numpy().astype(np.int64)
     chunk = max(1, _GRAM_ACC_LIMIT // (W * 32))
-    total = np.zeros((U, U), np.int64)
-    for c0 in range(0, S, chunk):
-        total += gram_gather(bits[c0 : c0 + chunk], idx).cpu().numpy()
+    total = launch(slice(0, chunk)).cpu().numpy().astype(np.int64)
+    for c0 in range(chunk, S, chunk):
+        total += launch(slice(c0, c0 + chunk)).cpu().numpy()
     return total
 
 
@@ -309,18 +308,204 @@ def pair_count_batched(
     """``int32[B, S]`` per-shard partials of ``popc(op(row ras[i], row
     rbs[i]))`` — the answer when a batch names more than GRAM_MAX_ROWS
     distinct rows. Callers sum over shards in int64."""
-    _check_words("pair_count_batched", bits, 3)
+    return pair_count_two_batched(bits, bits, ras, rbs, op=op)
+
+
+def pair_count_two_batched(
+    bits_a: torch.Tensor, bits_b: torch.Tensor, ras, rbs, *,
+    op: str = "intersect",
+) -> torch.Tensor:
+    """``int32[B, S]`` per-shard partials of ``popc(op(bits_a row ras[i],
+    bits_b row rbs[i]))`` over two stacks of one shard axis — the
+    two-field GroupBy's answer when the cross gram declines."""
+    _check_words("pair_count_two_batched", bits_a, 3)
+    _check_words("pair_count_two_batched", bits_b, 3)
+    _is_cpu("pair_count_two_batched", bits_a, bits_b)  # raises on mixed devices
     fn = _TORCH_OPS.get(op)
     if fn is None:
         raise ValueError(f"unknown pair op: {op}")
-    S, R, W = bits.shape
-    ra = torch.as_tensor(np.asarray(ras, np.int64)).to(bits.device)
-    rb = torch.as_tensor(np.asarray(rbs, np.int64)).to(bits.device)
+    S, _, W = bits_a.shape
+    ra = torch.as_tensor(np.asarray(ras, np.int64)).to(bits_a.device)
+    rb = torch.as_tensor(np.asarray(rbs, np.int64)).to(bits_a.device)
     B = ra.numel()
-    out = torch.empty((B, S), dtype=torch.int32, device=bits.device)
+    out = torch.empty((B, S), dtype=torch.int32, device=bits_a.device)
     step = max(1, _PAIR_BATCH_BYTES // max(1, 2 * S * W * 4))
     for b0 in range(0, B, step):
         b1 = min(B, b0 + step)
-        words = fn(bits[:, ra[b0:b1]], bits[:, rb[b0:b1]])  # [S, b, W]
+        words = fn(bits_a[:, ra[b0:b1]], bits_b[:, rb[b0:b1]])  # [S, b, W]
         out[b0:b1] = bitops.count_rows(words).T
     return out
+
+
+# ---------------------------------------------------------------------------
+# Cross gram with two fused gathers
+# ---------------------------------------------------------------------------
+
+
+def _check_operand(name: str, t) -> None:
+    """A cross-gram operand: ``int32[S, R, W]`` whose W words per row are
+    contiguous. Its shard and row strides are free, so a contiguous stack
+    and the ``transpose(0, 1)`` view of a contiguous ``[C, S, W]`` prefix
+    are both read in place."""
+    if not isinstance(t, torch.Tensor):
+        raise TypeError(f"{name}: expected a torch.Tensor, got {type(t).__name__}")
+    if t.dtype != torch.int32:
+        raise TypeError(f"{name}: expected int32 words, got {t.dtype}")
+    if t.dim() != 3:
+        raise ValueError(f"{name}: expected 3 dims, got shape {tuple(t.shape)}")
+    if t.shape[2] > 1 and t.stride(2) != 1:
+        raise ValueError(f"{name}: the words of a row must be contiguous")
+
+
+def cross_gram_gather_plain(
+    bits_a: torch.Tensor, bits_b: torch.Tensor, ia, ib
+) -> torch.Tensor:
+    """Plain version of the cross gram: ``int32[Ua, Ub]``. Unpacks word
+    blocks of the gathered rows to 0/1 float64 and multiplies; float64
+    sums are exact below 2^53, far above the int32 totals the caller
+    allows."""
+    S, Ra, W = bits_a.shape
+    Rb = bits_b.shape[1]
+    dev = bits_a.device
+    sa = torch.from_numpy(_idx_array(ia, Ra, "cross_gram").astype(np.int64)).to(dev)
+    sb = torch.from_numpy(_idx_array(ib, Rb, "cross_gram").astype(np.int64)).to(dev)
+    Ua, Ub = sa.numel(), sb.numel()
+    acc = torch.zeros((Ua, Ub), dtype=torch.float64, device=dev)
+    if Ua == 0 or Ub == 0 or S == 0 or W == 0:
+        return acc.to(torch.int32)
+    # the gram (one operand, one subset) unpacks its rows once
+    same = bits_a is bits_b and torch.equal(sa, sb)
+    wb = max(1, min(W, _PLAIN_GRAM_UNPACK_BYTES // (max(Ua, Ub) * 32 * 8)))
+    for s in range(S):
+        rows_a = bits_a[s].index_select(0, sa)
+        rows_b = rows_a if same else bits_b[s].index_select(0, sb)
+        for w0 in range(0, W, wb):
+            xa = unpack_bits(rows_a[:, w0 : w0 + wb], torch.float64)
+            xb = xa if same else unpack_bits(rows_b[:, w0 : w0 + wb], torch.float64)
+            acc += xa @ xb.T
+    return acc.to(torch.int32)
+
+
+def cross_gram_gather(
+    bits_a: torch.Tensor, bits_b: torch.Tensor, ia, ib
+) -> torch.Tensor:
+    """``int32[Ua, Ub]`` cross gram between the rows ``ia`` of ``bits_a``
+    and the rows ``ib`` of ``bits_b`` (host ints), over one shard axis
+    and one word width. Both operands are read in place through their
+    strides (see :func:`_check_operand`): no gathered or transposed copy
+    is made. The caller keeps each total within int32."""
+    _check_operand("cross_gram_gather", bits_a)
+    _check_operand("cross_gram_gather", bits_b)
+    S, Ra, W = bits_a.shape
+    if (bits_b.shape[0], bits_b.shape[2]) != (S, W):
+        raise ValueError(
+            f"cross_gram_gather: operand shapes {tuple(bits_a.shape)} and "
+            f"{tuple(bits_b.shape)} differ in shards or words"
+        )
+    if not _gram_int32_safe(S, W):
+        raise ValueError(
+            f"cross_gram_gather: S*W*32 = {S * W * 32} exceeds the int32 "
+            "accumulator; chunk the shard axis (cross_pair_gram does)"
+        )
+    if _is_cpu("cross_gram_gather", bits_a, bits_b):
+        return cross_gram_gather_plain(bits_a, bits_b, ia, ib)
+    host_a = _idx_array(ia, Ra, "cross_gram")
+    host_b = _idx_array(ib, bits_b.shape[1], "cross_gram")
+    Ua, Ub = host_a.size, host_b.size
+    dev = bits_a.device
+    out = torch.zeros((Ua, Ub), dtype=torch.int32, device=dev)
+    if Ua == 0 or Ub == 0 or S == 0 or W == 0:
+        return out
+    dev_a = torch.from_numpy(host_a).to(dev)
+    dev_b = torch.from_numpy(host_b).to(dev)
+    _launch(
+        "pilosa_cross_gram_gather",
+        bits_a.data_ptr(), bits_a.stride(0), bits_a.stride(1),
+        dev_a.data_ptr(), Ua,
+        bits_b.data_ptr(), bits_b.stride(0), bits_b.stride(1),
+        dev_b.data_ptr(), Ub,
+        out.data_ptr(), S, W, dev.index, _stream(dev),
+    )
+    LAUNCHES["cross_gram"] += 1
+    return out
+
+
+def cross_pair_gram(
+    bits_a: torch.Tensor, bits_b: torch.Tensor, idx_a, idx_b
+) -> np.ndarray | None:
+    """``int64 numpy [Ua, Ub]`` cross-field intersection counts between
+    the named row subsets, summed over all shards; None when a subset is
+    too wide (> GRAM_MAX_ROWS; callers use the batched scans). Shard
+    chunks keep each launch's totals int32-exact; chunks are summed in
+    int64."""
+    Ua, Ub = len(idx_a), len(idx_b)
+    if Ua == 0 or Ub == 0 or max(Ua, Ub) > GRAM_MAX_ROWS:
+        return None
+    ia = np.asarray(idx_a, dtype=np.int32)
+    ib = np.asarray(idx_b, dtype=np.int32)
+    return _shard_chunked(
+        bits_a.shape, lambda s: cross_gram_gather(bits_a[s], bits_b[s], ia, ib)
+    )
+
+
+# ---------------------------------------------------------------------------
+# GroupBy combination counts over running prefix masks (reference
+# executor.go:3057-3230 runs one intersectionCount per combination; here
+# one launch per level)
+# ---------------------------------------------------------------------------
+
+
+def gather_prefix(bits: torch.Tensor, idx) -> torch.Tensor:
+    """Level-0 prefix masks: the stack rows ``idx`` as ``int32[C, S, W]``."""
+    sel = torch.as_tensor(np.asarray(idx, np.int64)).to(bits.device)
+    return bits.index_select(1, sel).transpose(0, 1).contiguous()
+
+
+def refine_prefix(prefix: torch.Tensor, bits: torch.Tensor, cis, ris) -> torch.Tensor:
+    """Next level's surviving prefix masks
+    ``prefix[cis[i]] & bits[:, ris[i]]`` as ``int32[C', S, W]``, built in
+    steps of _PAIR_BATCH_BYTES so the gathered operands never exceed one
+    step beside the output."""
+    ci = torch.as_tensor(np.asarray(cis, np.int64)).to(prefix.device)
+    ri = torch.as_tensor(np.asarray(ris, np.int64)).to(prefix.device)
+    _, S, W = prefix.shape
+    n = ci.numel()
+    out = torch.empty((n, S, W), dtype=prefix.dtype, device=prefix.device)
+    step = max(1, _PAIR_BATCH_BYTES // max(1, 2 * S * W * 4))
+    for c0 in range(0, n, step):
+        c1 = min(n, c0 + step)
+        torch.bitwise_and(
+            prefix.index_select(0, ci[c0:c1]),
+            bits.index_select(1, ri[c0:c1]).transpose(0, 1),
+            out=out[c0:c1],
+        )
+    return out
+
+
+def combo_counts(prefix: torch.Tensor, bits: torch.Tensor, idx) -> torch.Tensor:
+    """``int32[C, Rl, S]`` per-shard counts of every (prefix combo, row)
+    intersection ``popc(prefix[c] & bits[:, idx[r]])``, one row of the
+    level at a time, so peak memory is one ``[C, S, W]`` intermediate."""
+    sel = np.asarray(idx, np.int64).reshape(-1)
+    C, S, _ = prefix.shape
+    out = torch.empty((C, sel.size, S), dtype=torch.int32, device=prefix.device)
+    for k, r in enumerate(sel.tolist()):
+        out[:, k] = bitops.count_rows(prefix & bits[:, r][None])
+    return out
+
+
+def combo_counts_gram(prefix: torch.Tensor, bits: torch.Tensor, idx) -> np.ndarray | None:
+    """``int64 numpy [C, Rl]`` totals of every (prefix combo, row)
+    intersection as ONE cross-gram launch, the prefix read in place in its
+    ``[C, S, W]`` layout. None when a total could wrap int32, the level is
+    too small (C * Rl < 32) or either side is wider than GRAM_MAX_ROWS;
+    callers then use :func:`combo_counts`."""
+    C = prefix.shape[0]
+    S, _, W = bits.shape
+    n = len(idx)
+    if not _gram_int32_safe(S, W) or C * n < 32:
+        return None
+    if max(C, n) > GRAM_MAX_ROWS:
+        return None
+    out = cross_gram_gather(prefix.transpose(0, 1), bits, np.arange(C), idx)
+    return out.cpu().numpy().astype(np.int64)

@@ -76,6 +76,60 @@ def test_chunked_pair_gram_matches_plain(cuda_device, monkeypatch):
     )
 
 
+@pytest.mark.parametrize("S,R,W", SHAPES)
+def test_cross_gram_matches_plain(cuda_device, S, R, W):
+    rng = np.random.default_rng(S * 7 + R + W)
+    a = _words(rng, S, R, W).to(cuda_device)
+    b = _words(rng, S, R + 37, W).to(cuda_device)
+    ia = np.array(sorted(rng.choice(R, size=max(1, R // 2), replace=False)))
+    ib = rng.integers(0, R + 37, size=R + 40)  # past one 64-row tile
+    before = tk.LAUNCHES["cross_gram"]
+    got = tk.cross_gram_gather(a, b, ia, ib)
+    got_t = tk.cross_gram_gather(b, a, ib, ia)
+    torch.cuda.synchronize()
+    assert tk.LAUNCHES["cross_gram"] == before + 2
+    want = tk.cross_gram_gather_plain(a, b, ia, ib)
+    assert torch.equal(got, want)
+    assert torch.equal(got_t, want.T)
+
+
+@pytest.mark.parametrize("C,S,R,W", [(5, 13, 100, 130), (70, 3, 9, 256), (1, 4, 6, 128)])
+def test_cross_gram_reads_prefix_layout(cuda_device, C, S, R, W):
+    rng = np.random.default_rng(C * S * R)
+    prefix = _words(rng, C, S, W).to(cuda_device)
+    bits = _words(rng, S, R, W).to(cuda_device)
+    idx = rng.integers(0, R, size=R)
+    view = prefix.transpose(0, 1)
+    got = tk.cross_gram_gather(view, bits, np.arange(C), idx)
+    want = tk.cross_gram_gather_plain(
+        view.contiguous(), bits, np.arange(C), idx
+    )
+    assert torch.equal(got, want)
+    combo = tk.combo_counts_gram(prefix, bits, idx)
+    if combo is not None:
+        np.testing.assert_array_equal(
+            combo,
+            tk.combo_counts(prefix, bits, idx).to(torch.int64).sum(dim=2).cpu().numpy(),
+        )
+
+
+def test_chunked_cross_pair_gram_matches_plain(cuda_device, monkeypatch):
+    rng = np.random.default_rng(6)
+    S, Ra, Rb, W = 11, 5, 80, 256
+    a = _words(rng, S, Ra, W).to(cuda_device)
+    b = _words(rng, S, Rb, W).to(cuda_device)
+    want = tk.cross_pair_gram(a, b, list(range(Ra)), list(range(Rb)))
+    monkeypatch.setattr(tk, "_GRAM_ACC_LIMIT", 3 * W * 32)
+    before = tk.LAUNCHES["cross_gram"]
+    got = tk.cross_pair_gram(a, b, list(range(Ra)), list(range(Rb)))
+    assert tk.LAUNCHES["cross_gram"] == before + 4  # shard chunks of 3, 3, 3, 2
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(
+        got,
+        tk.cross_gram_gather_plain(a, b, np.arange(Ra), np.arange(Rb)).cpu().numpy(),
+    )
+
+
 def test_executor_on_cuda_matches_cpu(cuda_device):
     from pilosa_tpu_torch.core.holder import Holder
     from pilosa_tpu_torch.exec.executor import Executor
@@ -85,12 +139,17 @@ def test_executor_on_cuda_matches_cpu(cuda_device):
     executors = []
     for dev in ("cpu", cuda_device):
         h = Holder(device=dev)
-        h.create_index("i").create_field("f")
+        idx = h.create_index("i")
+        idx.create_field("f")
+        idx.create_field("g")
         executors.append(Executor(h))
     n_cols = 3 * SHARD_WIDTH
     sets = [
-        f"Set({int(c)}, f={int(r)})"
-        for r, c in zip(rng.integers(0, 9, 3000), rng.integers(0, n_cols, 3000))
+        " ".join(
+            f"Set({int(c)}, {fld}={int(r)})"
+            for r, c in zip(rng.integers(0, 9, 3000), rng.integers(0, n_cols, 3000))
+        )
+        for fld in ("f", "g")
     ]
     # TopN first on each snapshot: once the full gram is cached, its
     # diagonal serves the tanimoto row totals instead of the row scan
@@ -103,16 +162,33 @@ def test_executor_on_cuda_matches_cpu(cuda_device):
             rng.integers(0, 9, 64),
         )
     )
+    # two fields (the cross gram), a filter and three levels (the cross
+    # gram over prefix masks), one filtered level (the masked row scan)
+    # and a page
+    groupby = (
+        "GroupBy(Rows(f), Rows(g)) GroupBy(Rows(g), Rows(f), filter=Row(f=3)) "
+        "GroupBy(Rows(f), Rows(g), Rows(f), limit=50) GroupBy(Rows(g), filter=Row(f=3)) "
+        "GroupBy(Rows(f), Rows(g), Rows(f), previous=[4, 2, 6])"
+    )
+
+    def plain(r):
+        if isinstance(r, int):
+            return r
+        return [
+            (p.id, p.count) if hasattr(p, "id")
+            else ([(g.field, g.row_id) for g in p.group], p.count)
+            for p in r
+        ]
+
     before = dict(tk.LAUNCHES)
     out = []
     for e in executors:
-        e.execute("i", " ".join(sets))
-        res = e.execute("i", topn) + e.execute("i", pairs)
-        e.execute("i", "Clear(5, f=1) Set(6, f=1) ClearRow(f=2)")
-        res += e.execute("i", topn) + e.execute("i", pairs)
-        out.append(
-            [r if isinstance(r, int) else [(p.id, p.count) for p in r] for r in res]
-        )
+        for q in sets:
+            e.execute("i", q)
+        res = e.execute("i", topn) + e.execute("i", pairs) + e.execute("i", groupby)
+        e.execute("i", "Clear(5, f=1) Set(6, f=1) ClearRow(f=2) Set(7, g=4)")
+        res += e.execute("i", topn) + e.execute("i", pairs) + e.execute("i", groupby)
+        out.append([plain(r) for r in res])
     assert out[0] == out[1]
     for k in tk.LAUNCHES:
         assert tk.LAUNCHES[k] > before[k], k

@@ -263,8 +263,13 @@ def test_errors_match():
     "query",
     [
         "Sum(field=f)",
-        "Rows(f)",
-        "GroupBy(Rows(f))",
+        # Rows and GroupBy are served; their time-range form is not
+        pytest.param(
+            "Rows(f, from='2010-01-01T00:00', to='2011-01-01T00:00')", id="Rows(f)"
+        ),
+        pytest.param(
+            "GroupBy(Rows(f, from='2010-01-01T00:00'))", id="GroupBy(Rows(f))"
+        ),
         "Options(Row(f=1), excludeColumns=true)",
         "Store(Row(f=1), f=9)",
         "SetRowAttrs(f, 1, x=2)",

@@ -155,7 +155,10 @@ def test_cpu_wrappers_do_not_count_launches():
     tk.row_counts_per_shard(bits)
     tk.masked_row_counts_per_shard(bits, bits[:, 0].contiguous())
     tk.gram_gather(bits, [0, 1, 2])
-    assert tk.LAUNCHES == {"row_scan": 0, "masked_row_scan": 0, "gram": 0}
+    tk.cross_gram_gather(bits, bits, [0, 1], [2])
+    assert tk.LAUNCHES == {
+        "row_scan": 0, "masked_row_scan": 0, "gram": 0, "cross_gram": 0,
+    }
 
 
 @pytest.mark.parametrize(
@@ -174,8 +177,36 @@ def test_cpu_wrappers_do_not_count_launches():
         lambda: tk.row_counts_per_shard(
             torch.zeros((2, 3, W), dtype=torch.int32, device="meta")
         ),
+        lambda: tk.cross_gram_gather(
+            torch.zeros((2, 3, W), dtype=torch.int64),
+            torch.zeros((2, 3, W), dtype=torch.int32), [0], [0],
+        ),
+        lambda: tk.cross_gram_gather(
+            torch.zeros((2, 3, W), dtype=torch.int32),
+            torch.zeros((2, 3, W), dtype=torch.int32, device="meta"), [0], [0],
+        ),
+        lambda: tk.cross_gram_gather(
+            torch.zeros((2, 3, W), dtype=torch.int32),
+            torch.zeros((2, W, 3), dtype=torch.int32).transpose(1, 2), [0], [0],
+        ),
+        lambda: tk.cross_gram_gather(
+            torch.zeros((2, 3, W), dtype=torch.int32),
+            torch.zeros((3, 3, W), dtype=torch.int32), [0], [0],
+        ),
+        lambda: tk.cross_gram_gather(
+            torch.zeros((2, 3, W), dtype=torch.int32),
+            torch.zeros((2, 4, W), dtype=torch.int32), [0], [4],
+        ),
+        lambda: tk.pair_count_two_batched(
+            torch.zeros((2, 3, W), dtype=torch.int32),
+            torch.zeros((2, 3, W), dtype=torch.int32, device="meta"), [0], [0],
+        ),
     ],
-    ids=["dtype", "ndim", "contiguity", "filter-shape", "index-range", "device"],
+    ids=[
+        "dtype", "ndim", "contiguity", "filter-shape", "index-range", "device",
+        "cross-dtype", "cross-mixed-devices", "cross-contiguity",
+        "cross-shard-axis", "cross-index-range", "pair-two-mixed-devices",
+    ],
 )
 def test_wrappers_reject_bad_input(call):
     with pytest.raises((TypeError, ValueError)):
@@ -186,3 +217,208 @@ def test_gram_refuses_int32_unsafe_stack(monkeypatch):
     monkeypatch.setattr(tk, "_GRAM_ACC_LIMIT", W * 32)
     with pytest.raises(ValueError):
         tk.gram_gather(_t(np.zeros((2, 3, W), np.uint32)), [0, 1])
+
+
+# ---------------------------------------------------------------------------
+# The cross-gram family (GroupBy)
+# ---------------------------------------------------------------------------
+
+# (S, Ra, Rb): asymmetric rows, S not a multiple of the Pallas shard block
+CROSS_SHAPES = [(5, 12, 24), (7, 3, 40), (12, 9, 2)]
+
+
+@pytest.mark.parametrize("S,Ra,Rb", CROSS_SHAPES)
+def test_cross_gram_matches_xla_and_pallas(S, Ra, Rb):
+    rng = np.random.default_rng(500 + S * Ra + Rb)
+    a = _rand_words(rng, S, Ra, W)
+    b = _rand_words(rng, S, Rb, W)
+    want = np.asarray(jk.cross_gram_xla(jnp.asarray(a), jnp.asarray(b)))
+    pallas = np.asarray(
+        jk._cross_gram_pallas(
+            jnp.asarray(a), jnp.asarray(b), sb=jk._gram_pallas_sb(S), wb=128
+        )
+    )
+    np.testing.assert_array_equal(pallas, want)
+    got = tk.cross_gram_gather_plain(_t(a), _t(b), np.arange(Ra), np.arange(Rb))
+    assert got.dtype == torch.int32 and tuple(got.shape) == (Ra, Rb)
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(
+        tk.cross_gram_gather(_t(a), _t(b), np.arange(Ra), np.arange(Rb)).numpy(),
+        want,
+    )
+
+
+@pytest.mark.parametrize("S,Ra,Rb", CROSS_SHAPES)
+def test_cross_gram_gather_subsets_match_jax(S, Ra, Rb):
+    rng = np.random.default_rng(600 + S * Ra + Rb)
+    a = _rand_words(rng, S, Ra, W)
+    b = _rand_words(rng, S, Rb, W)
+    ia = rng.integers(0, Ra, size=max(1, Ra // 2)).astype(np.int32)
+    ib = rng.integers(0, Rb, size=Rb + 1).astype(np.int32)
+    want = np.asarray(
+        jk.cross_gram_gather_xla(
+            jnp.asarray(a), jnp.asarray(b), jnp.asarray(ia), jnp.asarray(ib)
+        )
+    )
+    got = tk.cross_gram_gather(_t(a), _t(b), ia, ib)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_cross_gram_reads_the_prefix_layout_in_place():
+    """Operand A as the transpose(0, 1) view of a contiguous [C, S, W]
+    prefix equals the gram of its contiguous [S, C, W] copy."""
+    rng = np.random.default_rng(17)
+    C, S, R = 6, 5, 11
+    prefix = _rand_words(rng, C, S, W)
+    bits = _rand_words(rng, S, R, W)
+    view = _t(prefix).transpose(0, 1)
+    assert not view.is_contiguous()
+    idx = [10, 0, 4]
+    want = np.asarray(
+        jk.cross_gram_gather_xla(
+            jnp.asarray(np.transpose(prefix, (1, 0, 2))), jnp.asarray(bits),
+            jnp.arange(C), jnp.asarray(idx),
+        )
+    )
+    np.testing.assert_array_equal(
+        tk.cross_gram_gather(view, _t(bits), np.arange(C), idx).numpy(), want
+    )
+
+
+@pytest.mark.parametrize("chunked", [False, True])
+@pytest.mark.parametrize("mode", ["full", "subset"])
+def test_cross_pair_gram_matches_jax(monkeypatch, mode, chunked):
+    rng = np.random.default_rng(19)
+    S, Ra, Rb = 12, 7, 10
+    a = _rand_words(rng, S, Ra, W)
+    b = _rand_words(rng, S, Rb, W)
+    if chunked:
+        limit = 5 * W * 32
+        monkeypatch.setattr(jk, "_GRAM_ACC_LIMIT", limit)
+        monkeypatch.setattr(tk, "_GRAM_ACC_LIMIT", limit)
+        assert not tk._gram_int32_safe(S, W)
+    if mode == "full":
+        ia, ib = list(range(Ra)), list(range(Rb))
+    else:
+        ia, ib = [6, 0, 3], [9, 2]
+    want = jk.cross_pair_gram(jnp.asarray(a), jnp.asarray(b), ia, ib)
+    got = tk.cross_pair_gram(_t(a), _t(b), ia, ib)
+    assert got.dtype == np.int64
+    np.testing.assert_array_equal(got, want)
+
+
+def test_cross_pair_gram_declines_like_jax():
+    a = np.zeros((1, 2, W), np.uint32)
+    wide = [0] * (tk.GRAM_MAX_ROWS + 1)
+    for ia, ib in ([[], [0]], [[0], []], [wide, [0]], [[0], wide]):
+        assert tk.cross_pair_gram(_t(a), _t(a), ia, ib) is None
+        assert jk.cross_pair_gram(jnp.asarray(a), jnp.asarray(a), ia, ib) is None
+
+
+def test_cross_gram_refuses_int32_unsafe_stack(monkeypatch):
+    monkeypatch.setattr(tk, "_GRAM_ACC_LIMIT", W * 32)
+    bits = _t(np.zeros((2, 3, W), np.uint32))
+    with pytest.raises(ValueError):
+        tk.cross_gram_gather(bits, bits, [0], [1])
+
+
+@pytest.mark.parametrize("op", OPS)
+def test_pair_count_two_batched_matches_jax(op):
+    rng = np.random.default_rng(23)
+    S, Ra, Rb, B = 5, 6, 9, 21
+    a = _rand_words(rng, S, Ra, W)
+    b = _rand_words(rng, S, Rb, W)
+    ras = rng.integers(0, Ra, size=B).astype(np.int32)
+    rbs = rng.integers(0, Rb, size=B).astype(np.int32)
+    want = np.asarray(
+        jk.pair_count_two_batched_xla(
+            jnp.asarray(a), jnp.asarray(b), jnp.asarray(ras), jnp.asarray(rbs),
+            op=op,
+        )
+    )
+    got = tk.pair_count_two_batched(_t(a), _t(b), ras, rbs, op=op)
+    assert got.dtype == torch.int32 and tuple(got.shape) == (B, S)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def _prefix_case(seed, C, S, R):
+    rng = np.random.default_rng(seed)
+    return _rand_words(rng, C, S, W), _rand_words(rng, S, R, W), rng
+
+
+@pytest.mark.parametrize("C,S,R", [(4, 5, 9), (1, 3, 6), (13, 2, 20)])
+def test_gather_and_refine_prefix_match_jax(C, S, R):
+    _, bits, rng = _prefix_case(700 + C, C, S, R)
+    idx = rng.choice(R, size=C, replace=False).astype(np.int32)
+    want = np.asarray(jk.gather_prefix(jnp.asarray(bits), jnp.asarray(idx)))
+    prefix = tk.gather_prefix(_t(bits), idx)
+    assert prefix.is_contiguous() and tuple(prefix.shape) == (C, S, W)
+    np.testing.assert_array_equal(prefix.numpy().view(np.uint32), want)
+    cis = rng.integers(0, C, size=2 * C + 1).astype(np.int32)
+    ris = rng.integers(0, R, size=2 * C + 1).astype(np.int32)
+    want_r = np.asarray(
+        jk.refine_prefix(jnp.asarray(want), jnp.asarray(bits),
+                         jnp.asarray(cis), jnp.asarray(ris))
+    )
+    got_r = tk.refine_prefix(prefix, _t(bits), cis, ris)
+    np.testing.assert_array_equal(got_r.numpy().view(np.uint32), want_r)
+
+
+def test_refine_prefix_steps_match_one_step(monkeypatch):
+    prefix, bits, rng = _prefix_case(31, 5, 3, 8)
+    cis = rng.integers(0, 5, size=11)
+    ris = rng.integers(0, 8, size=11)
+    one = tk.refine_prefix(_t(prefix), _t(bits), cis, ris)
+    monkeypatch.setattr(tk, "_PAIR_BATCH_BYTES", 2 * 3 * W * 4 * 2)
+    np.testing.assert_array_equal(
+        tk.refine_prefix(_t(prefix), _t(bits), cis, ris).numpy(), one.numpy()
+    )
+
+
+@pytest.mark.parametrize("C,S,R", [(4, 5, 9), (1, 3, 6), (13, 2, 20)])
+def test_combo_counts_match_jax(C, S, R):
+    prefix, bits, rng = _prefix_case(800 + C, C, S, R)
+    idx = rng.choice(R, size=min(R, 7), replace=False).astype(np.int32)
+    want = np.asarray(
+        jk.combo_counts(jnp.asarray(prefix), jnp.asarray(bits), jnp.asarray(idx))
+    )
+    got = tk.combo_counts(_t(prefix), _t(bits), idx)
+    assert got.dtype == torch.int32 and tuple(got.shape) == (C, len(idx), S)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize(
+    "C,S,R,n,unsafe",
+    [
+        (4, 5, 9, 8, False),    # C * n = 32: the gram
+        (13, 2, 20, 20, False),
+        (4, 5, 9, 7, False),    # C * n = 28 < 32: declines
+        (4, 5, 9, 8, True),     # S * W * 32 past the limit: declines
+    ],
+)
+def test_combo_counts_gram_matches_jax(monkeypatch, C, S, R, n, unsafe):
+    if unsafe:
+        monkeypatch.setattr(jk, "_GRAM_ACC_LIMIT", (S - 1) * W * 32)
+        monkeypatch.setattr(tk, "_GRAM_ACC_LIMIT", (S - 1) * W * 32)
+    prefix, bits, rng = _prefix_case(900 + C + n, C, S, R)
+    idx = rng.choice(R, size=n, replace=False).astype(np.int32)
+    want = jk.combo_counts_gram(jnp.asarray(prefix), jnp.asarray(bits), idx)
+    got = tk.combo_counts_gram(_t(prefix), _t(bits), idx)
+    assert (want is None) == (unsafe or C * n < 32)
+    if want is None:
+        assert got is None
+        return
+    assert got.dtype == np.int64 and got.shape == (C, n)
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(
+        got, tk.combo_counts(_t(prefix), _t(bits), idx).numpy().sum(axis=2)
+    )
+
+
+def test_combo_counts_gram_declines_above_max_rows(monkeypatch):
+    monkeypatch.setattr(jk, "GRAM_MAX_ROWS", 8)
+    monkeypatch.setattr(tk, "GRAM_MAX_ROWS", 8)
+    prefix, bits, _ = _prefix_case(41, 9, 2, 5)
+    idx = np.arange(4, dtype=np.int32)
+    assert jk.combo_counts_gram(jnp.asarray(prefix), jnp.asarray(bits), idx) is None
+    assert tk.combo_counts_gram(_t(prefix), _t(bits), idx) is None
