@@ -7,16 +7,23 @@ Run from the root of a checkout, with no arguments:
 Phases (any failure raises, and the script exits non-zero):
 
 1. Device: requires CUDA, prints the card's name and power limit, and
-   builds the four CUDA kernels from ``pilosa_tpu_torch/ops/csrc`` with
-   nvcc, one process per source.
+   builds the four CUDA kernels and the tensor-core rate probe from
+   ``pilosa_tpu_torch/ops/csrc`` with nvcc, one process per source; logs
+   each kernel's registers and the tensor-core MMA instructions in the
+   grams' SASS (``cuobjdump -sass``), which must not be 0.
 2. Kernels: each kernel against its plain PyTorch version on the card,
    with exact equality, at the serving shape (160 shards x 64 rows x
-   32768 words; the cross gram against a second such stack, and with
-   operand A in the k-level prefix layout at 256 masks), at ragged
-   shapes and on the chunked branches of the gram and the cross gram;
-   then the kernel, the plain version and (for the grams)
-   ``torch._int_mm`` on pre-unpacked int8 operands are timed with CUDA
-   events.
+   32768 words; the cross gram against a second such stack, with a
+   4-mask prefix against 64 rows (the narrow N tile, sides swapped), and
+   with 256 masks in the k-level prefix layout; a 300-row self-gram of
+   triangular tiles), at ragged shapes and on the chunked branches of the
+   gram and the cross gram; then the kernel, the plain version and (for
+   the grams) ``torch._int_mm`` on pre-unpacked int8 operands are timed
+   with CUDA events around the wrapper, and each kernel's own device
+   time is read from ``torch.profiler``. The probe times the card's
+   single-bit and int8 MMA forms; the grams' operations bound uses the
+   faster single-bit one, as no data sheet gives it. No kernel may time
+   below its bound.
 3. End to end: a seeded index at the repo's serving size (bench.py's
    160 shards x 64 rows at shard width 2^20, about 25 % dense; a second
    64-row field g and a 4-row field h) on ``Holder(device="cuda")``,
@@ -58,9 +65,12 @@ S_FULL, R_FULL, W_FULL = 160, 64, 1 << 15
 H_ROWS = 4
 BATCH = 1024
 SEED = 20261017
-# H100 SXM peaks (NVIDIA data sheet, dense): memory and int8 tensor cores
+# H100 SXM peaks (NVIDIA data sheet, dense): memory and int8 tensor cores;
+# the single-bit rate is measured in the run (mma_rates)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_INT8_OPS_PER_S = 1979e12
+# rows of the self-gram of triangular tiles checked at the serving S and W
+U_TRI = 300
 OPS = ["Intersect", "Union", "Difference", "Xor"]
 NP_OPS = {
     "Intersect": lambda a, b: a & b,
@@ -116,6 +126,88 @@ def random_words(rng, shape, dense: bool):
 # ---------------------------------------------------------------------------
 # Phase 2: kernels against their plain versions
 # ---------------------------------------------------------------------------
+
+
+def mma_rates(dev):
+    """Multiply-adds per second of the card's tensor-core forms for a
+    popcount dot product (``ops/csrc/mma_rate.cu``), timed here with CUDA
+    events: single-bit AND+popc and int8, each as ``mma.sync`` and as
+    ``wgmma``."""
+    import ctypes
+
+    import torch
+
+    from pilosa_tpu_torch.ops import cuda_build
+
+    lib = cuda_build.load()
+    sink = torch.zeros(1, dtype=torch.int32, device=dev)
+    rates = {}
+    for kind, name, iters in ((0, "mma.sync.m16n8k256.b1.and.popc", 20000),
+                              (1, "wgmma.m64n64k256.b1.and.popc", 4000),
+                              (2, "mma.sync.m16n8k32.s8", 20000),
+                              (3, "wgmma.m64n64k32.s8", 4000)):
+        macs = ctypes.c_longlong(0)
+
+        def probe():
+            cuda_build.check(lib, "pilosa_mma_rate_probe", lib.pilosa_mma_rate_probe(
+                kind, iters, sink.data_ptr(), torch.cuda.current_device(),
+                torch.cuda.current_stream().cuda_stream, ctypes.byref(macs)))
+
+        ms = cuda_ms(probe, reps=3)
+        rates[name] = macs.value / (ms * 1e-3)
+    return rates
+
+
+def device_ms(fn, reps: int = 5):
+    """Mean device milliseconds of the port's kernels in one call of ``fn``
+    (``torch.profiler``; the CUDA-event times around the wrapper also hold
+    its host work). None when the trace holds no kernel of the port.
+
+    The trace may keep fewer kernel events than the wrappers launched (on
+    the H100 it has dropped two of five), so the time is the mean over
+    the events it kept, times the launches the wrappers counted per call."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from pilosa_tpu_torch.ops import kernels as tk
+
+    fn()
+    torch.cuda.synchronize()
+    launched0 = sum(tk.LAUNCHES.values())
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    launched = sum(tk.LAUNCHES.values()) - launched0
+    ours = [e for e in prof.key_averages() if "pilosa_" in e.key]
+    total = sum(e.device_time_total for e in ours)  # microseconds
+    kept = sum(e.count for e in ours)
+    if not total or not kept:
+        return None
+    if kept != launched:
+        log(f"profiler kept {kept} of {launched} kernel events; device ms is "
+            f"their mean times the launches per call")
+    return total / kept * launched / reps / 1e3
+
+
+def gram_sass_counts():
+    """Tensor-core MMA instructions in the SASS of each gram kernel: the
+    instantiations of ``pilosa_gram_tiles`` (SELF true: the gram, false:
+    the cross gram), by tile."""
+    import re
+
+    from pilosa_tpu_torch.ops import cuda_build
+
+    out = {"gram": {}, "cross_gram": {}}
+    for fn, n in cuda_build.sass_mma_counts().items():
+        m = re.search(r"pilosa_gram_tilesILi(\d+)ELi(\d+)ELb([01])E", fn)
+        if m:
+            out["gram" if m.group(3) == "1" else "cross_gram"][
+                f"{m.group(1)}x{m.group(2)}"] = n
+    for k, tiles in out.items():
+        if not tiles or min(tiles.values()) == 0:
+            raise AssertionError(f"{k}: no tensor-core MMA in the SASS of {tiles}")
+    return out
 
 
 def check_kernels(stack_np, stack2_np, filt_np, dev):
@@ -231,10 +323,41 @@ def check_kernels(stack_np, stack2_np, filt_np, dev):
                      tk.cross_gram_gather_plain(prefix.transpose(0, 1), bits,
                                                 np.arange(C2), full_idx))
     t_level2 = cuda_ms(level2, reps=5)
+    d_level2 = device_ms(level2)
     del prefix
     torch.cuda.empty_cache()
     log(f"cross gram exact in the prefix layout at C = {C2} (the 3-level GroupBy's "
         "second level)")
+    # its first level: 4 masks (the 4-row field h) against 64 rows, the
+    # sides swapped so the masks fill one 8-wide N tile
+    C1 = H_ROWS
+    prefix1 = tk.gather_prefix(bits2, np.arange(C1))
+    level1 = lambda: tk.cross_gram_gather(prefix1.transpose(0, 1), bits, np.arange(C1), full_idx)
+    plan1 = tk.cross_gram_plan(C1, R, True)
+    if (plan1.swap, plan1.tile_n) != (True, 8):
+        raise AssertionError(f"Ua = {C1} plan {plan1}")
+    e_level1 = exact(f"cross_gram prefix layout C={C1}", level1(),
+                     tk.cross_gram_gather_plain(prefix1.transpose(0, 1), bits,
+                                                np.arange(C1), full_idx))
+    t_level1 = cuda_ms(level1, reps=10)
+    d_level1 = device_ms(level1)
+    del prefix1
+    # a self-gram past one tile: upper-triangle 64 x 64 tiles, mirrored, on
+    # unsorted rows of a U_TRI-row stack at the serving S and W
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    wide = torch.randint(-2**31, 2**31, (S, U_TRI, W), dtype=torch.int32, device=dev,
+                         generator=gen)
+    tri_idx = rng.permutation(U_TRI)
+    if not tk.gram_plan(U_TRI, W, True).tri:
+        raise AssertionError(f"U = {U_TRI} gram plan is not triangular")
+    e_tri = exact(f"gram U={U_TRI} (triangular tiles)", tk.gram_gather(wide, tri_idx),
+                  tk.gram_gather_plain(wide, tri_idx))
+    t_tri = cuda_ms(lambda: tk.gram_gather(wide, tri_idx), reps=5)
+    d_tri = device_ms(lambda: tk.gram_gather(wide, tri_idx), reps=3)
+    del wide
+    torch.cuda.empty_cache()
+    log(f"cross gram exact at Ua = {C1} against Ub = {R} ({plan1}); gram exact at "
+        f"U = {U_TRI} over triangular tiles")
 
     # -- timings at the serving shape
     t_scan = cuda_ms(lambda: tk.row_counts_per_shard(bits), reps=20)
@@ -246,6 +369,10 @@ def check_kernels(stack_np, stack2_np, filt_np, dev):
     t_cross = cuda_ms(lambda: tk.cross_gram_gather(bits, bits2, full_idx, full_idx), reps=10)
     t_cross_p = cuda_ms(
         lambda: tk.cross_gram_gather_plain(bits, bits2, full_idx, full_idx), reps=3)
+    d_scan = device_ms(lambda: tk.row_counts_per_shard(bits))
+    d_mask = device_ms(lambda: tk.masked_row_counts_per_shard(bits, filt))
+    d_gram = device_ms(lambda: tk.gram_gather(bits, full_idx))
+    d_cross = device_ms(lambda: tk.cross_gram_gather(bits, bits2, full_idx, full_idx))
     # the library yardstick: one int8 x int8 -> int32 product over the
     # pre-unpacked operands [R, S*W*32] (unpacked per shard; unpack untimed)
     def unpacked(t):
@@ -262,9 +389,16 @@ def check_kernels(stack_np, stack2_np, filt_np, dev):
     del a8, b8
     torch.cuda.empty_cache()
 
-    def bound(nbytes, nops):
+    # the grams run single-bit MMA: their operations go at the faster of
+    # the card's two single-bit forms, measured now (2 ops per bit-MAC)
+    rates = mma_rates(dev)
+    b1_ops_per_s = 2 * max(v for k, v in rates.items() if ".b1." in k)
+    for k, v in rates.items():
+        log(f"tensor cores, {k}: {v:.4e} multiply-adds/s (measured)")
+
+    def bound(nbytes, nops, ops_per_s=PEAK_INT8_OPS_PER_S):
         t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-        t_ops = nops / PEAK_INT8_OPS_PER_S * 1e3
+        t_ops = nops / ops_per_s * 1e3
         return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
     words = S * R * W
@@ -274,31 +408,45 @@ def check_kernels(stack_np, stack2_np, filt_np, dev):
     b_mask = bound(words * 4 + S * W * 4 + S * R * 4, 2 * words * 32)
     # gram: G is symmetric, so the function needs only the R(R+1)/2
     # distinct dot products of length S*W*32 (2 ops per bit each)
-    b_gram = bound(words * 4 + R * 4 + R * R * 4, R * (R + 1) * S * W * 32)
+    b_gram = bound(words * 4 + R * 4 + R * R * 4, R * (R + 1) * S * W * 32, b1_ops_per_s)
+    b_tri = bound(S * U_TRI * W * 4 + U_TRI * 4 + U_TRI ** 2 * 4,
+                  U_TRI * (U_TRI + 1) * S * W * 32, b1_ops_per_s)
     # cross gram: no symmetry, so all Ua * Ub dot products; both stacks
     # read once, both index arrays read and the output written once
-    b_cross = bound(2 * words * 4 + 2 * R * 4 + R * R * 4, 2 * R * R * S * W * 32)
-    b_level2 = bound((C2 + R) * S * W * 4 + (C2 + R) * 4 + C2 * R * 4,
-                     2 * C2 * R * S * W * 32)
+    def b_cross_of(ua, ub):
+        return bound((ua + ub) * S * W * 4 + (ua + ub) * 4 + ua * ub * 4,
+                     2 * ua * ub * S * W * 32, b1_ops_per_s)
+
+    b_cross, b_level1, b_level2 = b_cross_of(R, R), b_cross_of(C1, R), b_cross_of(C2, R)
     report = {
-        "row_scan": dict(max_abs_err=e_scan, ms=t_scan, plain_ms=t_scan_p,
-                         bound=b_scan, library_ms=None),
-        "masked_row_scan": dict(max_abs_err=e_mask, ms=t_mask, plain_ms=t_mask_p,
-                                bound=b_mask, library_ms=None),
-        "gram": dict(max_abs_err=e_gram, ms=t_gram, plain_ms=t_gram_p,
-                     bound=b_gram, library_ms=t_lib),
-        "cross_gram": dict(max_abs_err=max(e_cross, e_level2), ms=t_cross,
-                           plain_ms=t_cross_p, bound=b_cross, library_ms=t_lib_cross,
-                           prefix_c256_ms=t_level2, prefix_c256_bound=b_level2),
+        "row_scan": dict(max_abs_err=e_scan, ms=t_scan, device_ms=d_scan,
+                         plain_ms=t_scan_p, bound=b_scan, library_ms=None),
+        "masked_row_scan": dict(max_abs_err=e_mask, ms=t_mask, device_ms=d_mask,
+                                plain_ms=t_mask_p, bound=b_mask, library_ms=None),
+        "gram": dict(max_abs_err=max(e_gram, e_tri), ms=t_gram, device_ms=d_gram,
+                     plain_ms=t_gram_p, bound=b_gram, library_ms=t_lib,
+                     extra={f"u{U_TRI}": (t_tri, d_tri, b_tri)}),
+        "cross_gram": dict(max_abs_err=max(e_cross, e_level1, e_level2), ms=t_cross,
+                           device_ms=d_cross, plain_ms=t_cross_p, bound=b_cross,
+                           library_ms=t_lib_cross,
+                           extra={"prefix_c4": (t_level1, d_level1, b_level1),
+                                  "prefix_c256": (t_level2, d_level2, b_level2)}),
     }
     for k, v in report.items():
-        log(f"{k}: kernel {v['ms']:.3f} ms, plain {v['plain_ms']:.3f} ms, "
+        log(f"{k}: kernel {v['ms']:.3f} ms (device {v['device_ms']}), "
+            f"plain {v['plain_ms']:.3f} ms, "
             f"bound {v['bound'][0]:.3f} ms ({v['bound'][1]}), "
             f"library {v['library_ms'] if v['library_ms'] is None else round(v['library_ms'], 3)}")
     log("scans: no single PyTorch call computes a per-row popcount, "
         "so their library_ms is null")
-    log(f"cross_gram in the prefix layout, C = {C2}: kernel {t_level2:.3f} ms, "
-        f"bound {b_level2[0]:.3f} ms ({b_level2[1]})")
+    for k, v in report.items():
+        for shape, (t, d, b) in v.get("extra", {}).items():
+            log(f"{k} {shape}: kernel {t:.3f} ms (device {d}), bound {b[0]:.3f} ms ({b[1]})")
+        for t, d, b in [(v["ms"], v["device_ms"], v["bound"]), *v.get("extra", {}).values()]:
+            if min(t, d or t) < b[0]:
+                raise AssertionError(f"{k}: {t} ms (device {d}) is below its bound "
+                                     f"{b[0]} ms: the bound is wrong")
+    report["mma_macs_per_s"] = rates
     del bits, bits2, filt
     torch.cuda.empty_cache()
     return report
@@ -726,6 +874,9 @@ def main() -> int:
     for line in info["log"].splitlines():
         if "registers" in line or "spill" in line or line.startswith("=="):
             log("  nvcc: " + line.strip())
+    sass = gram_sass_counts()
+    for k, tiles in sass.items():
+        log(f"{k}: tensor-core MMA instructions in SASS by tile {tiles}")
 
     rng = np.random.default_rng(SEED + 3)
     stack = random_words(rng, (S_FULL, R_FULL, W_FULL), dense=True)
@@ -773,19 +924,24 @@ def main() -> int:
             "match": v["max_abs_err"] == 0,
             "ms": v["ms"],
             "kernel_ms": v["ms"],
+            "device_ms": v["device_ms"],
             "plain_ms": v["plain_ms"],
             "bound_ms": v["bound"][0],
             "bound_by": v["bound"][1],
             "library_ms": v["library_ms"],
+            "sass_mma": sum(sass.get(k, {}).values()),
             "card": name,
             "power_limit": limit,
         })
-        if "prefix_c256_ms" in v:
+        if k in sass:
             entries[-1].update(
-                prefix_c256_ms=v["prefix_c256_ms"],
-                prefix_c256_bound_ms=v["prefix_c256_bound"][0],
-                prefix_c256_bound_by=v["prefix_c256_bound"][1],
+                sass_mma_by_tile=sass[k],
+                bound_ops_rate="single-bit MMA, measured in this run",
+                mma_macs_per_s=kern["mma_macs_per_s"],
             )
+        for shape, (t, d, b) in v.get("extra", {}).items():
+            entries[-1].update({f"{shape}_ms": t, f"{shape}_device_ms": d,
+                                f"{shape}_bound_ms": b[0], f"{shape}_bound_by": b[1]})
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"end_to_end": e2e}))
     print(json.dumps({"kernels": entries}))

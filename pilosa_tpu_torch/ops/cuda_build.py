@@ -15,6 +15,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -23,7 +24,7 @@ import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("row_scan.cu", "masked_row_scan.cu", "gram.cu", "cross_gram.cu")
+SOURCES = ("row_scan.cu", "masked_row_scan.cu", "gram.cu", "cross_gram.cu", "mma_rate.cu")
 HEADERS = ("scan_common.cuh", "gram_tile.cuh")
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "kernels"
 LIB_NAME = "libpilosa_tpu_torch_kernels.so"
@@ -42,13 +43,16 @@ _SIGNATURES = {
     "pilosa_masked_row_scan": (
         _VOIDP, _VOIDP, _VOIDP, _INT, _INT, _INT, _INT, _VOIDP,
     ),
+    # the grams end with their launch plan (kernels.GramPlan)
     "pilosa_gram_gather": (
         _VOIDP, _VOIDP, _VOIDP, _INT, _INT, _INT, _INT, _INT, _VOIDP,
+        _INT, _INT, _INT,
     ),
     "pilosa_cross_gram_gather": (
         _VOIDP, _LL, _LL, _VOIDP, _INT, _VOIDP, _LL, _LL, _VOIDP, _INT,
-        _VOIDP, _INT, _INT, _INT, _VOIDP,
+        _VOIDP, _INT, _INT, _INT, _VOIDP, _INT, _INT, _INT, _INT,
     ),
+    "pilosa_mma_rate_probe": (_INT, _INT, _VOIDP, _INT, _VOIDP, ctypes.POINTER(_LL)),
 }
 
 _lock = threading.Lock()
@@ -160,3 +164,28 @@ def check(lib: ctypes.CDLL, fn: str, code: int) -> None:
     if code != 0:
         msg = lib.pilosa_cuda_error_string(code).decode(errors="replace")
         raise RuntimeError(f"{fn}: CUDA error {code}: {msg}")
+
+
+# tensor-core MMA opcodes in SASS: single-bit, integer, float, and the
+# warpgroup forms (BGMMA, IGMMA, HGMMA, ...)
+_MMA_OPCODE = re.compile(r"\b(?:BMMA|IMMA|HMMA|[A-Z]*GMMA)\b")
+
+
+def sass_mma_counts(path: Path | None = None) -> dict[str, int]:
+    """Tensor-core MMA instructions in the built library's SASS, by kernel
+    (mangled name), from ``cuobjdump -sass`` beside ``nvcc``."""
+    cuobjdump = Path(nvcc_path()).with_name("cuobjdump")
+    sass = subprocess.run(
+        [str(cuobjdump), "-sass", str(path or library_path())],
+        capture_output=True, text=True, check=True,
+    ).stdout
+    counts: dict[str, int] = {}
+    fn = None
+    for line in sass.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            fn = m.group(1)
+            counts[fn] = 0
+        elif fn is not None:
+            counts[fn] += len(_MMA_OPCODE.findall(line))
+    return counts

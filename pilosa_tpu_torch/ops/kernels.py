@@ -19,6 +19,11 @@ kernels of the JAX package:
   GroupBy over its prefix masks (:func:`cross_gram_gather`,
   :func:`cross_pair_gram`, :func:`combo_counts_gram`).
 
+The two grams share one tile loop (``ops/csrc/gram_tile.cuh``) that runs
+on the tensor cores as single-bit MMA (AND + popcount of the packed
+words); the wrapper picks each launch's plan (:class:`GramPlan`: tile
+shape, orientation, copy width, triangular tiles) from the shapes.
+
 Each kernel wrapper checks device, dtype, shape and contiguity. Given a
 tensor on the CPU it computes the kernel's plain PyTorch version (the
 ``*_plain`` function beside it); given a CUDA tensor it launches the
@@ -30,6 +35,8 @@ Stacks are ``int32[S, R, W]``: bit-identical views of the host's
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -215,6 +222,75 @@ def _idx_array(idx, R: int, name: str = "gram_gather") -> np.ndarray:
     return arr.astype(np.int32)
 
 
+# ---------------------------------------------------------------------------
+# Launch plans of the two grams (ops/csrc/gram_tile.cuh: single-bit MMA
+# tiles of TM x TN outputs, fed by cp.async copies of 16 or 4 bytes)
+# ---------------------------------------------------------------------------
+
+# N sides of a tile; the M side is 64 rows, or 128 or 256 beside N = 64
+_TILE_N = (8, 16, 32, 64)
+_CROSS_TILES = ((64, 8), (64, 16), (64, 32), (64, 64), (128, 64), (256, 64))
+
+
+class GramPlan(NamedTuple):
+    """How one gram launch runs: which operand is the MMA's M side (swap:
+    the second), the copy width (16-byte copies, else 4-byte), triangular
+    self-gram tiles mirrored in the epilogue, and the tile shape."""
+
+    swap: bool
+    vec16: bool
+    tri: bool
+    tile_m: int
+    tile_n: int
+
+
+def _tile_n(n: int) -> int:
+    """The narrowest N side that holds ``n`` rows (64 past that)."""
+    return next((t for t in _TILE_N if t >= n), _TILE_N[-1])
+
+
+def _copies16(w: int, *operands: torch.Tensor) -> bool:
+    """16-byte copies read whole aligned chunks of every row at every
+    shard: each operand's base 16-byte aligned, its shard and row strides
+    and W multiples of 4 words."""
+    return w % 4 == 0 and all(
+        t.data_ptr() % 16 == 0 and t.stride(0) % 4 == 0 and t.stride(1) % 4 == 0
+        for t in operands
+    )
+
+
+def gram_plan(u: int, w: int, vec16: bool) -> GramPlan:
+    """The self-gram's plan: up to 64 rows are one 64 x tile_n tile whose
+    N rows are its first M rows (staged once); more are the upper-triangle
+    64 x 64 tiles, each off-diagonal one mirrored."""
+    if u <= 64:
+        return GramPlan(False, vec16, False, 64, _tile_n(u))
+    return GramPlan(False, vec16, True, 64, 64)
+
+
+def cross_gram_plan(ua: int, ub: int, vec16: bool) -> GramPlan:
+    """The cross gram's plan: the larger side on the MMA's M, the smaller
+    on N in the narrowest tile that holds it; with N = 64, an M side of up
+    to 256 rows in one tile, so each operand's k-slab is read once."""
+    m, n = max(ua, ub), min(ua, ub)
+    tn = _tile_n(n)
+    tm = 64 if tn < 64 or m <= 64 else 128 if m <= 128 else 256
+    return GramPlan(ub > ua, vec16, False, tm, tn)
+
+
+def _check_plan(plan: GramPlan, ua: int, ub: int, w: int, *, self_gram=False) -> None:
+    """Raise ``ValueError`` for a plan the C entry refuses."""
+    ok = (plan.tile_m, plan.tile_n) in _CROSS_TILES and not (plan.vec16 and w % 4)
+    if self_gram:
+        ok = ok and plan.tile_m == 64 and not plan.swap and ua == ub and (
+            plan.tile_n == 64 if plan.tri else ua <= plan.tile_n
+        )
+    else:
+        ok = ok and not plan.tri
+    if not ok:
+        raise ValueError(f"gram plan {plan} cannot run at {ua} x {ub} rows, W = {w}")
+
+
 def gram_gather_plain(bits: torch.Tensor, idx) -> torch.Tensor:
     """Plain version of the gram: ``int32[U, U]``, the cross gram of the
     stack with itself."""
@@ -239,10 +315,13 @@ def gram_gather(bits: torch.Tensor, idx) -> torch.Tensor:
     out = torch.zeros((U, U), dtype=torch.int32, device=bits.device)
     if U == 0 or S == 0 or W == 0:
         return out
+    plan = gram_plan(U, W, _copies16(W, bits))
+    _check_plan(plan, U, U, W, self_gram=True)
     dev_idx = torch.from_numpy(host_idx).to(bits.device)
     _launch(
         "pilosa_gram_gather", bits.data_ptr(), dev_idx.data_ptr(),
         out.data_ptr(), S, R, W, U, bits.device.index, _stream(bits.device),
+        int(plan.vec16), int(plan.tri), plan.tile_n,
     )
     LAUNCHES["gram"] += 1
     return out
@@ -416,6 +495,8 @@ def cross_gram_gather(
     out = torch.zeros((Ua, Ub), dtype=torch.int32, device=dev)
     if Ua == 0 or Ub == 0 or S == 0 or W == 0:
         return out
+    plan = cross_gram_plan(Ua, Ub, _copies16(W, bits_a, bits_b))
+    _check_plan(plan, Ua, Ub, W)
     dev_a = torch.from_numpy(host_a).to(dev)
     dev_b = torch.from_numpy(host_b).to(dev)
     _launch(
@@ -425,6 +506,7 @@ def cross_gram_gather(
         bits_b.data_ptr(), bits_b.stride(0), bits_b.stride(1),
         dev_b.data_ptr(), Ub,
         out.data_ptr(), S, W, dev.index, _stream(dev),
+        int(plan.swap), int(plan.vec16), plan.tile_m, plan.tile_n,
     )
     LAUNCHES["cross_gram"] += 1
     return out

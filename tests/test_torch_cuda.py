@@ -192,3 +192,110 @@ def test_executor_on_cuda_matches_cpu(cuda_device):
     assert out[0] == out[1]
     for k in tk.LAUNCHES:
         assert tk.LAUNCHES[k] > before[k], k
+
+
+# -- the branches of the tensor-core tile loop (ops/csrc/gram_tile.cuh),
+#    each held exactly to the plain version; `plan` is what the wrapper hands
+#    the C entry
+
+
+@pytest.mark.parametrize(
+    "S,Ra,Rb,W,ua,ub,plan",
+    [
+        # orientation: a side below 8 rows against one past 64, both ways
+        (4, 6, 120, 256, 5, 100, (True, True, False, 64, 8)),
+        (4, 120, 6, 256, 100, 5, (False, True, False, 64, 8)),
+        # 4-byte copies with a zero-filled tail, and 16-byte ones at W % 8 != 0
+        (3, 7, 90, 130, 70, 90, (True, False, False, 128, 64)),
+        (3, 90, 7, 132, 90, 7, (False, True, False, 64, 8)),
+        # every N width, and M tiles of 128 and 256 rows beside N = 64
+        (2, 20, 40, 264, 12, 20, (True, True, False, 64, 16)),
+        (2, 40, 40, 264, 30, 40, (True, True, False, 64, 32)),
+        (2, 300, 70, 256, 260, 70, (False, True, False, 256, 64)),
+    ],
+)
+def test_cross_gram_plans_match_plain(cuda_device, S, Ra, Rb, W, ua, ub, plan):
+    rng = np.random.default_rng(S * 1000 + ua * 7 + ub)
+    a = _words(rng, S, Ra, W).to(cuda_device)
+    b = _words(rng, S, Rb, W).to(cuda_device)
+    # unsorted rows with repeats on both sides
+    ia = rng.integers(0, Ra, size=ua)
+    ib = rng.integers(0, Rb, size=ub)
+    assert tk.cross_gram_plan(ua, ub, tk._copies16(W, a, b)) == tk.GramPlan(*plan)
+    before = tk.LAUNCHES["cross_gram"]
+    got = tk.cross_gram_gather(a, b, ia, ib)
+    torch.cuda.synchronize()
+    assert tk.LAUNCHES["cross_gram"] == before + 1
+    assert torch.equal(got, tk.cross_gram_gather_plain(a, b, ia, ib))
+
+
+@pytest.mark.parametrize(
+    "S,R,W,U,tri",
+    [
+        # one tile, its N rows staged once with its M rows
+        (3, 9, 130, 5, False),
+        (2, 40, 132, 30, False),
+        # triangular 64 x 64 tiles mirrored, diagonal tiles staged once
+        (3, 80, 130, 65, True),
+        (2, 310, 256, 300, True),
+        (4, 100, 264, 150, True),
+    ],
+)
+def test_gram_plans_match_plain(cuda_device, S, R, W, U, tri):
+    rng = np.random.default_rng(S * 100 + U)
+    bits = _words(rng, S, R, W).to(cuda_device)
+    idx = rng.integers(0, R, size=U)  # unsorted, with repeats
+    plan = tk.gram_plan(U, W, tk._copies16(W, bits))
+    assert plan.tri is tri and plan.vec16 is (W % 4 == 0)
+    before = tk.LAUNCHES["gram"]
+    got = tk.gram_gather(bits, idx)
+    torch.cuda.synchronize()
+    assert tk.LAUNCHES["gram"] == before + 1
+    assert torch.equal(got, tk.gram_gather_plain(bits, idx))
+    assert torch.equal(got, got.T)
+
+
+@pytest.mark.parametrize("W", [132, 256])
+def test_cross_gram_c256_prefix_in_place(cuda_device, W):
+    """The 3-level GroupBy's second level at a small S and W: 256 prefix
+    masks read in place from [C, S, W] against a 64-row stack, one
+    256 x 64 tile."""
+    rng = np.random.default_rng(W)
+    S, C, R = 3, 256, 64
+    prefix = _words(rng, C, S, W).to(cuda_device)
+    bits = _words(rng, S, R, W).to(cuda_device)
+    view = prefix.transpose(0, 1)
+    assert tk.cross_gram_plan(C, R, tk._copies16(W, view, bits)) == tk.GramPlan(
+        False, True, False, 256, 64
+    )
+    got = tk.combo_counts_gram(prefix, bits, np.arange(R))
+    want = tk.cross_gram_gather_plain(view.contiguous(), bits, np.arange(C), np.arange(R))
+    np.testing.assert_array_equal(got, want.cpu().numpy())
+
+
+def test_gram_c_entry_refuses_a_bad_plan(cuda_device):
+    """The C entry returns cudaErrorInvalidValue, and launches nothing, on
+    a plan it cannot run."""
+    from pilosa_tpu_torch.ops import cuda_build
+
+    lib = cuda_build.load()
+    bits = torch.zeros((2, 3, 130), dtype=torch.int32, device=cuda_device)
+    idx = torch.arange(3, dtype=torch.int32, device=cuda_device)
+    out = torch.zeros((3, 3), dtype=torch.int32, device=cuda_device)
+    stream = torch.cuda.current_stream().cuda_stream
+    bad_gram = [(1, 0, 8), (0, 1, 32), (0, 0, 24), (0, 0, 2)]  # vec16 at W = 130, ...
+    for vec16, tri, tile_n in bad_gram:
+        code = lib.pilosa_gram_gather(
+            bits.data_ptr(), idx.data_ptr(), out.data_ptr(), 2, 3, 130, 3, 0,
+            stream, vec16, tri, tile_n,
+        )
+        assert code != 0, (vec16, tri, tile_n)
+    for swap, vec16, tm, tn in [(0, 1, 64, 8), (0, 0, 64, 24), (0, 0, 128, 32)]:
+        code = lib.pilosa_cross_gram_gather(
+            bits.data_ptr(), 3 * 130, 130, idx.data_ptr(), 3,
+            bits.data_ptr(), 3 * 130, 130, idx.data_ptr(), 3,
+            out.data_ptr(), 2, 130, 0, stream, swap, vec16, tm, tn,
+        )
+        assert code != 0, (swap, vec16, tm, tn)
+    torch.cuda.synchronize()
+    assert int(out.abs().sum()) == 0

@@ -220,6 +220,93 @@ def test_gram_refuses_int32_unsafe_stack(monkeypatch):
 
 
 # ---------------------------------------------------------------------------
+# Launch plans of the two grams (what the wrapper hands the C entry)
+# ---------------------------------------------------------------------------
+
+P = tk.GramPlan
+
+
+@pytest.mark.parametrize(
+    "kind,ua,ub,w,vec16,want",
+    [
+        # the main path at the serving width: a 64-row field's gram, a pair
+        # batch's row subset, the two-field cross gram, the 3-level GroupBy's
+        # first level (h's 4 rows against g) and second (256 masks against f)
+        ("gram", 64, 64, 32768, True, P(False, True, False, 64, 64)),
+        ("gram", 36, 36, 32768, True, P(False, True, False, 64, 64)),
+        ("cross", 64, 64, 32768, True, P(False, True, False, 64, 64)),
+        ("cross", 4, 64, 32768, True, P(True, True, False, 64, 8)),
+        ("cross", 256, 64, 32768, True, P(False, True, False, 256, 64)),
+        # narrow N tiles, triangular self-grams, the 128-row M tile, both
+        # orientations, ragged W (4-byte copies)
+        ("gram", 3, 3, 130, False, P(False, False, False, 64, 8)),
+        ("gram", 13, 13, 512, True, P(False, True, False, 64, 16)),
+        ("gram", 20, 20, 1024, True, P(False, True, False, 64, 32)),
+        ("gram", 65, 65, 132, True, P(False, True, True, 64, 64)),
+        ("gram", 300, 300, 256, True, P(False, True, True, 64, 64)),
+        ("cross", 5, 100, 130, False, P(True, False, False, 64, 8)),
+        ("cross", 100, 5, 130, False, P(False, False, False, 64, 8)),
+        ("cross", 35, 110, 132, True, P(True, True, False, 128, 64)),
+        ("cross", 150, 100, 256, True, P(False, True, False, 256, 64)),
+        ("cross", 4096, 4096, 32768, True, P(False, True, False, 256, 64)),
+    ],
+)
+def test_gram_launch_plan(kind, ua, ub, w, vec16, want):
+    if kind == "gram":
+        plan = tk.gram_plan(ua, w, vec16)
+    else:
+        plan = tk.cross_gram_plan(ua, ub, vec16)
+    assert plan == want
+    tk._check_plan(plan, ua, ub, w, self_gram=kind == "gram")
+
+
+@pytest.mark.parametrize(
+    "make,want",
+    [
+        (lambda: torch.zeros((2, 3, 32768), dtype=torch.int32), True),
+        (lambda: torch.zeros((2, 3, 132), dtype=torch.int32), True),
+        (lambda: torch.zeros((2, 3, 130), dtype=torch.int32), False),
+        # the k-level prefix [C, S, W] read as [S, C, W]; a shard chunk and
+        # a row slice of a stack keep whole 16-byte chunks
+        (lambda: torch.zeros((5, 2, 256), dtype=torch.int32).transpose(0, 1), True),
+        (lambda: torch.zeros((4, 3, 132), dtype=torch.int32)[1:3], True),
+        (lambda: torch.zeros((4, 3, 132), dtype=torch.int32)[:, 1:], True),
+        # a view that starts one word in
+        (lambda: torch.zeros(2 * 3 * 132 + 1, dtype=torch.int32)[1:].view(2, 3, 132), False),
+        (lambda: torch.zeros((5, 3, 130), dtype=torch.int32).transpose(0, 1), False),
+    ],
+    ids=["stack", "w132", "w130", "prefix", "shard-chunk", "row-slice", "offset-word",
+         "prefix-w130"],
+)
+def test_gram_copy_width(make, want):
+    t = make()
+    assert tk._copies16(t.shape[2], t) is want
+
+
+@pytest.mark.parametrize(
+    "plan,ua,ub,w,self_gram",
+    [
+        (P(False, True, False, 64, 24), 20, 20, 256, False),
+        (P(False, True, False, 128, 32), 100, 20, 256, False),
+        (P(False, True, False, 512, 64), 300, 64, 256, False),
+        (P(False, True, False, 64, 64), 64, 64, 130, False),
+        (P(False, False, True, 64, 64), 64, 64, 256, False),
+        (P(False, True, False, 64, 32), 40, 40, 256, True),
+        (P(False, True, True, 64, 32), 70, 70, 256, True),
+        (P(False, True, False, 128, 64), 100, 100, 256, True),
+        (P(True, True, False, 64, 64), 64, 64, 256, True),
+        (P(False, True, True, 64, 64), 300, 300, 130, True),
+    ],
+    ids=["tile-n-24", "tile-128x32", "tile-m-512", "vec16-w130", "cross-tri",
+         "gram-u-past-tile", "gram-tri-n32", "gram-tile-m-128", "gram-swap",
+         "gram-vec16-w130"],
+)
+def test_gram_plan_check_refuses_what_the_kernel_cannot_run(plan, ua, ub, w, self_gram):
+    with pytest.raises(ValueError):
+        tk._check_plan(plan, ua, ub, w, self_gram=self_gram)
+
+
+# ---------------------------------------------------------------------------
 # The cross-gram family (GroupBy)
 # ---------------------------------------------------------------------------
 
