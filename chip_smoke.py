@@ -7,8 +7,9 @@ Run from the root of a checkout, with no arguments:
 Phases (any failure raises, and the script exits non-zero):
 
 1. Device: requires CUDA, prints the card's name and power limit, and
-   builds the four CUDA kernels and the tensor-core rate probe from
-   ``pilosa_tpu_torch/ops/csrc`` with nvcc, one process per source; logs
+   builds the five CUDA kernel sources (six kernels: the tree source holds
+   two) and the tensor-core rate probe from ``pilosa_tpu_torch/ops/csrc``
+   with nvcc, one process per source; logs
    each kernel's registers and the tensor-core MMA instructions in the
    grams' SASS (``cuobjdump -sass``), which must not be 0.
 2. Kernels: each kernel against its plain PyTorch version on the card,
@@ -22,13 +23,20 @@ Phases (any failure raises, and the script exits non-zero):
    with CUDA events around the wrapper, and each kernel's own device
    time is read from ``torch.profiler``. The probe times the card's
    single-bit and int8 MMA forms; the grams' operations bound uses the
-   faster single-bit one, as no data sheet gives it. No kernel may time
-   below its bound.
+   faster single-bit one, as no data sheet gives it. The tree kernels
+   (``tree_count``, ``tree_words``) likewise, at the serving shape (stacks
+   of 64, 64, 4 and 1 rows; 64 items of three shapes) and at ragged ones
+   (W = 130, S = 3, a 0-row stack, absent rows, a program at the
+   operand-stack limit, one item, programs longer than the kernel stages
+   in shared memory and a tree nested 40 deep), timed at the trees path's
+   1024 items.
+   No kernel may time below its bound.
 3. End to end: a seeded index at the repo's serving size (bench.py's
    160 shards x 64 rows at shard width 2^20, about 25 % dense; a second
-   64-row field g and a 4-row field h) on ``Holder(device="cuda")``,
-   served through ``Executor.execute`` and ``execute_batch`` in two
-   paths, each with every launch count set to 0 just before it and read
+   64-row field g, a 4-row field h and the existence field) on
+   ``Holder(device="cuda")``, served through ``Executor.execute`` and
+   ``execute_batch`` in three paths, each with every launch count set to 0
+   just before it and read
    just after. The pair/TopN path: tanimoto TopN, a 1024-call batch of
    mixed pair Counts, writes, the same reads again; every answer equals
    numpy over the host mirrors. The GroupBy path: two-level GroupBy cold
@@ -37,7 +45,15 @@ Phases (any failure raises, and the script exits non-zero):
    with and without a limit), before and after writes to all three
    fields; every answer equals one computed on the card with torch AND
    and popcount per combination, and a seeded sample of each equals
-   numpy. Each query's launches and cache hits are asserted, and every
+   numpy. Each query's launches and cache hits are asserted. The trees
+   path: a 1024-call batch of four Count tree shapes (one tree_count
+   launch per shape) through ``execute_batch`` and ``execute``, every
+   answer against the plain tree count on the card and a seeded sample
+   against numpy, a Count of a Union of 300 rows (one launch; numpy),
+   and three bitmap trees (one tree_words launch each),
+   before and after writes to all three fields; then one Set to one shard
+   of f and a cold tanimoto TopN (the stack patched in place of a rebuild,
+   ``stack_incremental``), and a Set that creates a row (a rebuild). Every
    kernel of a path must have been launched in it.
 4. Summary: one ``{"end_to_end": {...}}`` line, one ``{"kernels": [...]}``
    line, the card line, and last ``{"ok": true, "device": {...}}``.
@@ -82,6 +98,19 @@ NP_OPS = {
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def sm_clock_hz():
+    """The card's highest SM clock in Hz, from nvidia-smi; None when it
+    does not say."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60,
+    )
+    try:
+        return float(out.stdout.strip().splitlines()[0]) * 1e6
+    except (IndexError, ValueError):
+        return None
 
 
 def card_line() -> str:
@@ -452,6 +481,203 @@ def check_kernels(stack_np, stack2_np, filt_np, dev):
     return report
 
 
+# the tree kernels' shapes on the trees path (exec/astbatch.py signatures over
+# the stacks named beside them; "e" is the existence field's one row)
+TREE_SIGS = {
+    "and3": (("intersect", ("row", 0), ("row", 1), ("row", 2)), ("f", "g", "h")),
+    "union_of_pairs": (("union", ("intersect", ("row", 0), ("row", 1)),
+                        ("difference", ("row", 0), ("row", 1))), ("f", "g")),
+    "not": (("difference", ("row", 0), ("row", 1)), ("e", "f")),
+    "xor3": (("xor", ("row", 0), ("row", 0), ("row", 0)), ("f",)),
+}
+
+
+def tree_slots(rng, prog, stacks, B, absent=0.0):
+    """int32 [B, L] seeded leaf rows of ``prog`` over ``stacks``; a share
+    ``absent`` of them, and every leaf of a 0-row stack, absent (-1)."""
+    import numpy as np
+
+    rows = np.array([stacks[k].shape[1] for k in prog.leaf_stack])
+    slots = (rng.random((B, prog.n_leaves)) * rows).astype(np.int32)
+    if absent:
+        slots[rng.random(slots.shape) < absent] = -1
+    slots[:, rows == 0] = -1
+    return slots
+
+
+# __popc per clock per SM of compute capability 9.0 (the CUDA C++
+# Programming Guide's table of arithmetic instruction throughput)
+POPC_PER_CLOCK_PER_SM = 16
+
+
+def tree_bound(prog, stacks, slots, words=False):
+    """((ms, by), bytes, nominal bytes) of a tree launch over ``slots``
+    (``[B, L]``; ``[L]`` for the words). The bound is the least time of any
+    route on the card: the distinct rows it names read once and its output
+    (counts, or words) written once, against its folds and popcounts priced
+    on the tensor cores as the scans price theirs (32 one-bit
+    int8-equivalent multiply-adds per word, 2 ops each). The nominal bytes
+    are every leaf of every item read from memory. The kernel's own SIMT
+    route has a higher floor, its popcounts: see tree_popc_floor_ms."""
+    S, _, W = stacks[0].shape
+    slots = slots.reshape(-1, prog.n_leaves)
+    B, L = slots.shape
+    rows = {(int(prog.leaf_stack[l]), int(r)) for l in range(L) for r in set(slots[:, l].tolist())
+            if r >= 0}
+    # several stacks may be one tensor: count a row of it once
+    rows = {(stacks[p].data_ptr(), r) for p, r in rows}
+    out_bytes = S * W * 4 if words else B * S * 4
+    nbytes = len(rows) * S * W * 4 + out_bytes
+    folds = max(1, int((prog.code < 0).sum()))
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = 2 * 32 * S * W * B * folds / PEAK_INT8_OPS_PER_S * 1e3
+    bound = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    return bound, nbytes, B * L * S * W * 4
+
+
+def tree_popc_floor_ms(stacks, slots):
+    """The floor of tree_eval.cu's SIMT route for ``tree_count`` over
+    ``slots``: one __popc per item, shard and word at the card's
+    POPC_PER_CLOCK_PER_SM and highest SM clock; None when nvidia-smi does
+    not give the clock."""
+    import torch
+
+    clock = sm_clock_hz()
+    if clock is None:
+        return None
+    S, _, W = stacks[0].shape
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return slots.shape[0] * S * W / (POPC_PER_CLOCK_PER_SM * sms * clock) * 1e3
+
+
+def check_tree_kernels(stack_np, stack2_np, dev):
+    """The tree kernels against their plain versions: at the serving shape
+    (stacks f and g of 64 rows, h of 4 and the existence row; B = 64, three
+    tree shapes) and at ragged ones (W = 130, S = 3, a 0-row stack, absent
+    rows, a program at the operand-stack limit, B = 1); then timed at the
+    trees path's batch (1024 three-leaf items, and one bitmap tree)."""
+    import numpy as np
+    import torch
+
+    from pilosa_tpu_torch.exec import astbatch
+    from pilosa_tpu_torch.ops import bitops, kernels as tk
+
+    rng = np.random.default_rng(SEED + 7)
+    S, _, W = stack_np.shape
+    named = {
+        "f": bitops.to_device(stack_np, dev),
+        "g": bitops.to_device(stack2_np, dev),
+        "h": bitops.to_device(random_words(rng, (S, H_ROWS, W), dense=True), dev),
+        "e": bitops.to_device(random_words(rng, (S, 1, W), dense=False), dev),
+    }
+
+    def exact(name, got, want):
+        err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+        if err != 0:
+            raise AssertionError(f"{name}: kernel differs from plain, max |err| {err}")
+        return err
+
+    errs = {"tree_count": 0, "tree_words": 0}
+    for name in ("and3", "union_of_pairs", "not"):
+        sig, names = TREE_SIGS[name]
+        stacks = tuple(named[n] for n in names)
+        prog = astbatch.program(sig)
+        slots = tree_slots(rng, prog, stacks, 64, absent=0.05)
+        errs["tree_count"] = max(errs["tree_count"], exact(
+            f"tree_count {name} B=64", tk.tree_count(stacks, prog.code, prog.leaf_stack, slots),
+            tk.tree_count_plain(stacks, prog.code, prog.leaf_stack, slots)))
+        errs["tree_words"] = max(errs["tree_words"], exact(
+            f"tree_words {name}", tk.tree_words(stacks, prog.code, prog.leaf_stack, slots[0]),
+            tk.tree_words_plain(stacks, prog.code, prog.leaf_stack, slots[0])))
+    log(f"tree kernels exact at the serving shape {tuple(named['f'].shape)}, 64 items "
+        "of three shapes")
+    # ragged: W = 130 (the word path), S = 3, a 0-row stack, absent rows, a
+    # program at the operand-stack limit (no tree compiles to it: its leaves
+    # pushed, then folded with every fold in turn), one item; programs
+    # longer than the opcodes and leaf rows the kernel stages in shared
+    # memory (300 leaves; 512 leaves at depth 10), and a tree nested 40 deep
+    D = tk.TREE_MAX_DEPTH
+    folds = (tk.TREE_AND, tk.TREE_OR, tk.TREE_XOR, tk.TREE_ANDNOT, tk.TREE_NOTAND)
+    at_limit = astbatch.Program(
+        np.array(list(range(D)) + [folds[k % 5] for k in range(D - 1)], np.int32),
+        np.arange(D, dtype=np.int32) % 3, D, D)
+    chain = ("row", 0)
+    for k in range(39):
+        chain = (("intersect", "union", "xor", "difference")[k % 4], ("row", k % 3), chain)
+
+    def balanced(levels, k=0):
+        if levels == 0:
+            return ("row", k % 3)
+        return (("difference", "union", "xor", "intersect")[levels % 4],
+                balanced(levels - 1, 2 * k), balanced(levels - 1, 2 * k + 1))
+
+    small = tuple(bitops.to_device(random_words(rng, (3, r, 130), dense=True), dev)
+                  for r in (5, 0, 1))
+    for name, sig, B in (("mixed", ("union", ("difference", ("row", 0), ("row", 1)),
+                                    ("intersect", ("row", 2), ("row", 0))), 9),
+                         (f"depth {D}", at_limit, 1),
+                         ("300 leaves", ("union",) + tuple(("row", k % 3) for k in range(300)), 3),
+                         ("512 leaves", balanced(9), 2),
+                         ("nested 40", chain, 5)):
+        prog = sig if isinstance(sig, astbatch.Program) else astbatch.program(sig)
+        slots = tree_slots(rng, prog, small, B, absent=0.2)
+        errs["tree_count"] = max(errs["tree_count"], exact(
+            f"tree_count {name} (3, 130)", tk.tree_count(small, prog.code, prog.leaf_stack, slots),
+            tk.tree_count_plain(small, prog.code, prog.leaf_stack, slots)))
+        errs["tree_words"] = max(errs["tree_words"], exact(
+            f"tree_words {name} (3, 130)",
+            tk.tree_words(small, prog.code, prog.leaf_stack, slots[-1]),
+            tk.tree_words_plain(small, prog.code, prog.leaf_stack, slots[-1])))
+    log("tree kernels exact at ragged shapes (W = 130, S = 3, a 0-row stack, absent "
+        f"rows, depth {D}, B = 1, 300 and 512 leaves, nested 40 deep)")
+
+    # timings at the trees path's shape: 1024 three-leaf items over f, g, h
+    sig, names = TREE_SIGS["and3"]
+    stacks = tuple(named[n] for n in names)
+    prog = astbatch.program(sig)
+    slots = tree_slots(rng, prog, stacks, BATCH)
+    count = lambda: tk.tree_count(stacks, prog.code, prog.leaf_stack, slots)
+    words = lambda: tk.tree_words(stacks, prog.code, prog.leaf_stack, slots[0])
+    errs["tree_count"] = max(errs["tree_count"], exact(
+        f"tree_count and3 B={BATCH}", count(),
+        tk.tree_count_plain(stacks, prog.code, prog.leaf_stack, slots)))
+    t_count = cuda_ms(count, reps=10)
+    d_count = device_ms(count, reps=3)
+    t_count_p = cuda_ms(lambda: tk.tree_count_plain(stacks, prog.code, prog.leaf_stack, slots),
+                        reps=2, warmup=1)
+    t_words = cuda_ms(words, reps=20)
+    d_words = device_ms(words)
+    t_words_p = cuda_ms(lambda: tk.tree_words_plain(stacks, prog.code, prog.leaf_stack, slots[0]),
+                        reps=5)
+    b_count, n_count, nominal_count = tree_bound(prog, stacks, slots)
+    b_words, n_words, nominal_words = tree_bound(prog, stacks, slots[0], words=True)
+    popc_count = tree_popc_floor_ms(stacks, slots)
+    popc_words = tree_popc_floor_ms(stacks, slots[:1])
+    report = {
+        "tree_count": dict(max_abs_err=errs["tree_count"], ms=t_count, device_ms=d_count,
+                           plain_ms=t_count_p, bound=b_count, library_ms=None,
+                           bytes={"bound_bytes": n_count, "nominal_bytes": nominal_count,
+                                  "items": BATCH, "simt_popc_floor_ms": popc_count}),
+        "tree_words": dict(max_abs_err=errs["tree_words"], ms=t_words, device_ms=d_words,
+                           plain_ms=t_words_p, bound=b_words, library_ms=None,
+                           bytes={"bound_bytes": n_words, "nominal_bytes": nominal_words,
+                                  "items": 1, "simt_popc_floor_ms": popc_words}),
+    }
+    for k, v in report.items():
+        log(f"{k}: kernel {v['ms']:.3f} ms (device {v['device_ms']}), plain "
+            f"{v['plain_ms']:.3f} ms, bound {v['bound'][0]:.3f} ms ({v['bound'][1]}; "
+            f"{v['bytes']['bound_bytes']:.4e} B read and written, nominal "
+            f"{v['bytes']['nominal_bytes']:.4e} B; the SIMT route's popcount floor "
+            f"{v['bytes']['simt_popc_floor_ms']} ms), library None")
+        if min(v["ms"], v["device_ms"] or v["ms"]) < v["bound"][0]:
+            raise AssertionError(f"{k}: {v['ms']} ms (device {v['device_ms']}) is below "
+                                 f"its bound {v['bound'][0]} ms: the bound is wrong")
+    log("tree kernels: no single PyTorch call evaluates a tree, so their library_ms is null")
+    del named, stacks, small
+    torch.cuda.empty_cache()
+    return report
+
+
 # ---------------------------------------------------------------------------
 # Phase 3: the main path, end to end
 # ---------------------------------------------------------------------------
@@ -509,7 +735,8 @@ def truth_tanimoto_topn(f_stack, g_stack, g_row, threshold, n, pool):
 def build_index(device):
     """The served index: fields f and g of R_FULL rows and h of H_ROWS
     rows over S_FULL shards at shard width 2^20, each about 25 % dense,
-    on ``Holder(device=device)``."""
+    and the existence field's row (the union of the three), on
+    ``Holder(device=device)``."""
     import numpy as np
     import torch
 
@@ -534,6 +761,13 @@ def build_index(device):
         rows = list(range(w.shape[1]))
         for s in range(S_FULL):
             fragments[("i", name, "standard", s)] = (rows, w[s])
+    # the existence field's row 0: every column any field holds, as an
+    # import of f, g and h would have recorded it
+    exists = np.zeros((S_FULL, 1, SHARD_WORDS), dtype=np.uint32)
+    for w in words.values():
+        exists[:, 0] |= np.bitwise_or.reduce(w, axis=1)
+    for s in range(S_FULL):
+        fragments[("i", "_exists", "standard", s)] = ([0], exists[s])
     holder = convert.holder_from_arrays(schema, fragments, device=device)
     setup_s = time.perf_counter() - t0
     log(f"index built: {S_FULL} shards x 2^20 columns; fields f, g of {R_FULL} "
@@ -831,6 +1065,240 @@ def groupby_path(pool, ex, holder, device):
     return results
 
 
+# the trees path's Count shapes (four launch groups) and bitmap trees;
+# {a}..{d} are row ids
+TREE_COUNTS = (
+    "Count(Intersect(Row(f={a}), Row(g={b}), Row(h={c})))",
+    "Count(Union(Intersect(Row(f={a}), Row(g={b})), Difference(Row(f={c}), Row(g={d}))))",
+    "Count(Not(Row(f={a})))",
+    # three leaves of one field: not a pair Count, so not the gram's
+    "Count(Xor(Row(f={a}), Row(f={b}), Row(f={c})))",
+)
+TREE_BITMAPS = (
+    "Union(Row(f={a}), Row(g={b}), Row(h={c}))",
+    "Difference(Row(f={a}), Row(g={b}))",
+    "Not(Row(h={c}))",
+)
+# a row id no field holds: an absent leaf
+ABSENT_ROW = 1000
+# a Count of a Union of this many rows of f, g and h (one absent): longer
+# than the program head the tree kernel stages in shared memory
+WIDE_LEAVES = 300
+
+
+def mirror_row(m, name, rid):
+    """``uint32[S, W]`` words of row ``rid`` of the mirror stack
+    ``m[name]``; zeros for a row it does not hold."""
+    import numpy as np
+
+    st = m[name]
+    return st[:, rid] if rid < st.shape[1] else np.zeros_like(st[:, 0])
+
+
+def tree_truth_words(shape, m, r):
+    """numpy words ``uint32[S, W]`` of Count shape ``shape`` of TREE_COUNTS
+    with rows ``r`` over the mirrors ``m`` (stacks by field name, "e" the
+    existence row)."""
+    a, b, c, d = r
+    f, g, h = (lambda rid, n=n: mirror_row(m, n, rid) for n in "fgh")
+    if shape == 0:
+        return f(a) & g(b) & h(c)
+    if shape == 1:
+        return (f(a) & g(b)) | (f(c) & ~g(d))
+    if shape == 2:
+        return mirror_row(m, "e", 0) & ~f(a)
+    return f(a) ^ f(b) ^ f(c)
+
+
+def bitmap_truth_words(shape, m, r):
+    """numpy words of bitmap shape ``shape`` of TREE_BITMAPS."""
+    a, b, c, _ = r
+    if shape == 0:
+        return mirror_row(m, "f", a) | mirror_row(m, "g", b) | mirror_row(m, "h", c)
+    if shape == 1:
+        return mirror_row(m, "f", a) & ~mirror_row(m, "g", b)
+    return mirror_row(m, "e", 0) & ~mirror_row(m, "h", c)
+
+
+def trees_path(pool, ex, holder, device):
+    """Compiled PQL trees at the serving size, before and after writes to
+    f, g and h: a 1024-call batch of four Count shapes through
+    ``execute_batch`` and ``execute`` (one tree_count launch per shape
+    group), every answer against the plain tree count on the card and a
+    seeded sample against numpy; three bitmap trees through ``execute``
+    (one tree_words launch each). Then write visibility through the
+    incremental stack update: one Set to one shard of f and a cold
+    tanimoto TopN (a patched stack, no rebuild), and a Set that creates a
+    row (a rebuild)."""
+    import numpy as np
+    import torch
+
+    from pilosa_tpu_torch.exec import astbatch
+    from pilosa_tpu_torch.ops import bitops, kernels as tk
+    from pilosa_tpu_torch.shardwidth import SHARD_WIDTH
+
+    qrng = np.random.default_rng(SEED + 6)
+    on_card = torch.device(device).type == "cuda"
+    n_rows = {"f": R_FULL, "g": R_FULL, "h": H_ROWS}
+    leaf_fields = (("f", "g", "h", None), ("f", "g", "f", "g"), ("f", None, None, None),
+                   ("f", "f", "f", None))
+
+    def draw(fld):
+        if fld is None:
+            return 0
+        return ABSENT_ROW if qrng.random() < 1 / 64 else int(qrng.integers(0, n_rows[fld]))
+
+    items = []
+    for k in range(BATCH):
+        shape = k % len(TREE_COUNTS)
+        items.append((shape, tuple(draw(f) for f in leaf_fields[shape])))
+    calls = [TREE_COUNTS[sh].format(a=r[0], b=r[1], c=r[2], d=r[3]) for sh, r in items]
+    bitmaps = [(sh, tuple(draw(f) for f in ("f", "g", "h", None)))
+               for sh in range(len(TREE_BITMAPS))]
+    bitmap_q = " ".join(TREE_BITMAPS[sh].format(a=r[0], b=r[1], c=r[2]) for sh, r in bitmaps)
+    # the plain version's signatures and leaf order for each Count shape
+    plain_sigs = [TREE_SIGS[n] for n in ("and3", "union_of_pairs", "not", "xor3")]
+    plain_rows = (lambda r: r[:3], lambda r: r, lambda r: (0, r[0]), lambda r: r[:3])
+    wide = [("fgh"[k % 3], (k // 3) % n_rows["fgh"[k % 3]]) for k in range(WIDE_LEAVES - 1)]
+    wide.append(("f", ABSENT_ROW))
+    wide_q = "Count(Union(" + ", ".join(f"Row({f}={r})" for f, r in wide) + "))"
+    results = {}
+
+    def run_round(tag):
+        m = {n: mirror_stack(holder, n, n_rows[n], S_FULL) for n in n_rows}
+        m["e"] = mirror_stack(holder, "_exists", 1, S_FULL)
+        launches0 = dict(tk.LAUNCHES)
+        t = time.perf_counter()
+        batch_out = ex.execute_batch("i", [(c, None) for c in calls])
+        batch_s = time.perf_counter() - t
+        launched = tk.LAUNCHES["tree_count"] - launches0["tree_count"]
+        t = time.perf_counter()
+        exec_out = ex.execute("i", " ".join(calls))
+        exec_s = time.perf_counter() - t
+        launched_exec = tk.LAUNCHES["tree_count"] - launches0["tree_count"] - launched
+        if on_card and (launched, launched_exec) != (len(TREE_COUNTS),) * 2:
+            raise AssertionError(f"{tag}: tree_count launched {launched} / {launched_exec} "
+                                 f"times, not once per shape ({len(TREE_COUNTS)})")
+        got = []
+        for o in batch_out:
+            if isinstance(o, Exception):
+                raise o
+            got.append(o[0])
+        if got != exec_out:
+            raise AssertionError(f"{tag}: execute_batch and execute differ on "
+                                 f"{sum(a != b for a, b in zip(got, exec_out))} trees")
+        # every answer against the plain tree count on the card
+        dev = {n: bitops.to_device(w, torch.device(device)) for n, w in m.items()}
+        for sh, (sig, names) in enumerate(plain_sigs):
+            prog = astbatch.program(sig)
+            stacks = tuple(dev[n] for n in names)
+            idx = [j for j, (s_, _) in enumerate(items) if s_ == sh]
+            slots = np.array([[r if r < stacks[prog.leaf_stack[l]].shape[1] else -1
+                               for l, r in enumerate(plain_rows[sh](items[j][1]))]
+                              for j in idx], dtype=np.int32)
+            want = tk.tree_count_plain(stacks, prog.code, prog.leaf_stack, slots)
+            want = want.to(torch.int64).sum(dim=1).tolist()
+            if [got[j] for j in idx] != want:
+                raise AssertionError(f"{tag}: Count shape {sh} differs from the plain tree "
+                                     "count on the card")
+        del dev
+        # a seeded sample against numpy over the mirrors
+        pick = np.random.default_rng(SEED + 8).choice(BATCH, size=64, replace=False)
+
+        def one(j):
+            sh, r = items[j]
+            return int(np.bitwise_count(tree_truth_words(sh, m, r)).sum(dtype=np.int64)) == got[j]
+
+        bad = sum(not ok for ok in pool.map(one, pick.tolist()))
+        if bad:
+            raise AssertionError(f"{tag}: {bad} of 64 sampled tree counts differ from numpy")
+        if not any(got):
+            raise AssertionError(f"{tag}: all tree counts are 0")
+        # a Count of a Union of WIDE_LEAVES rows: one launch, against numpy
+        count0 = tk.LAUNCHES["tree_count"]
+        t = time.perf_counter()
+        (wide_got,) = ex.execute("i", wide_q)
+        wide_ms = (time.perf_counter() - t) * 1e3
+        if on_card and tk.LAUNCHES["tree_count"] - count0 != 1:
+            raise AssertionError(f"{tag}: the {WIDE_LEAVES}-leaf Count launched tree_count "
+                                 f"{tk.LAUNCHES['tree_count'] - count0} times, not once")
+        wide_rows = {n: sorted({r for f, r in wide if f == n and r < n_rows[n]}) for n in "fgh"}
+
+        def wide_shard(s_):
+            acc = np.zeros(m["f"].shape[2], np.uint32)
+            for n, rs in wide_rows.items():
+                acc |= np.bitwise_or.reduce(m[n][s_, rs], axis=0)
+            return int(np.bitwise_count(acc).sum(dtype=np.int64))
+
+        wide_want = sum(pool.map(wide_shard, range(S_FULL)))
+        if wide_got != wide_want:
+            raise AssertionError(f"{tag}: the {WIDE_LEAVES}-leaf Count {wide_got} != "
+                                 f"numpy {wide_want}")
+        # bitmap trees: one tree_words launch each, the words against numpy
+        words0 = tk.LAUNCHES["tree_words"]
+        t = time.perf_counter()
+        rows = ex.execute("i", bitmap_q)
+        bitmap_ms = (time.perf_counter() - t) * 1e3
+        if on_card and tk.LAUNCHES["tree_words"] - words0 != len(TREE_BITMAPS):
+            raise AssertionError(f"{tag}: tree_words launched "
+                                 f"{tk.LAUNCHES['tree_words'] - words0} times")
+        check_shards = np.random.default_rng(SEED + 9).choice(S_FULL, size=4, replace=False)
+        for (sh, r), row in zip(bitmaps, rows):
+            want = bitmap_truth_words(sh, m, r)
+            if row.count() != int(np.bitwise_count(want).sum(dtype=np.int64)):
+                raise AssertionError(f"{tag}: bitmap tree {sh} count differs from numpy")
+            for s_ in check_shards.tolist():
+                if not np.array_equal(row.segments[s_], want[s_]):
+                    raise AssertionError(f"{tag}: bitmap tree {sh} shard {s_} words differ")
+        results[tag] = {
+            "trees_execute_batch_s": batch_s,
+            "trees_execute_batch_qps": BATCH / batch_s,
+            "trees_execute_s": exec_s,
+            "bitmap_trees_execute_ms": bitmap_ms,
+            "wide_count_execute_ms": wide_ms,
+        }
+        log(f"{tag}: {BATCH} tree Counts via execute_batch {batch_s * 1e3:.1f} ms "
+            f"({BATCH / batch_s:.0f} queries/s), via execute {exec_s * 1e3:.1f} ms, one "
+            f"tree_count per shape; all equal the plain count on the card, 64 sampled "
+            f"equal numpy; a {WIDE_LEAVES}-leaf Count {wide_ms:.1f} ms (one launch), equal "
+            f"numpy; 3 bitmap trees {bitmap_ms:.1f} ms, words equal numpy")
+
+    run_round("before_writes")
+    results["writes_ms"] = apply_writes(ex, holder, qrng, ("f", "g", "h"), 64)
+    run_round("after_writes")
+
+    # write visibility through the incremental update: one Set to one shard
+    # of f (a column whose bit is clear), then a cold tanimoto TopN
+    g_row = int(qrng.integers(0, R_FULL))
+    q = f"TopN(f, Row(g={g_row}), n=10, tanimotoThreshold=10)"
+    ex.execute("i", q)
+    f_field = holder.field("i", "f")
+    shard = int(qrng.integers(0, S_FULL))
+    col = next(c for c in range(shard * SHARD_WIDTH, (shard + 1) * SHARD_WIDTH)
+               if not f_field.get_bit(3, c))
+    vis = {}
+    for label, row_id, n_f_rows in (("one_write", 3, R_FULL), ("new_row", R_FULL, R_FULL + 1)):
+        inc0, reb0 = ex.stack_incremental, ex.stack_rebuilds
+        ex.execute("i", f"Set({col}, f={row_id})")
+        t = time.perf_counter()
+        (res,) = ex.execute("i", q)
+        vis[f"topn_tanimoto_after_{label}_ms"] = (time.perf_counter() - t) * 1e3
+        want_inc = (inc0 + 1, reb0) if label == "one_write" else (inc0, reb0 + 1)
+        if (ex.stack_incremental, ex.stack_rebuilds) != want_inc:
+            raise AssertionError(f"{label}: stack_incremental {ex.stack_incremental}, "
+                                 f"stack_rebuilds {ex.stack_rebuilds}, not {want_inc}")
+        want = truth_tanimoto_topn(mirror_stack(holder, "f", n_f_rows, S_FULL),
+                                   mirror_stack(holder, "g", R_FULL, S_FULL), g_row, 10, 10, pool)
+        if [(p.id, p.count) for p in res] != want:
+            raise AssertionError(f"{label}: {q} -> {res} != {want}")
+    results["write_visibility"] = vis
+    log("write visibility: one Set to one shard of f, then a cold tanimoto TopN "
+        f"{vis['topn_tanimoto_after_one_write_ms']:.1f} ms (the stack patched, no rebuild); "
+        f"a Set creating row {R_FULL}, then the same TopN "
+        f"{vis['topn_tanimoto_after_new_row_ms']:.1f} ms (a rebuild); answers equal numpy")
+    return results
+
+
 def drive(path, required, fn):
     """Run one path of the main path with every launch count set to 0 just
     before it; fail if a kernel of the path was not launched in it."""
@@ -883,6 +1351,7 @@ def main() -> int:
     stack2 = random_words(rng, (S_FULL, R_FULL, W_FULL), dense=True)
     filt = random_words(rng, (S_FULL, W_FULL), dense=False)
     kern = check_kernels(stack, stack2, filt, torch.device("cuda"))
+    kern.update(check_tree_kernels(stack, stack2, torch.device("cuda")))
     del stack, stack2, filt
 
     from pilosa_tpu_torch.exec.executor import Executor
@@ -894,10 +1363,14 @@ def main() -> int:
                             lambda: pair_topn_path(pool, ex, holder))
         l_group, e2e["groupby"] = drive("groupby", ("gram", "cross_gram", "masked_row_scan"),
                                         lambda: groupby_path(pool, ex, holder, "cuda"))
+        l_trees, e2e["trees"] = drive("trees", ("tree_count", "tree_words"),
+                                      lambda: trees_path(pool, ex, holder, "cuda"))
     e2e["setup_s"] = setup_s
     e2e["stack_rebuilds"] = ex.stack_rebuilds
+    e2e["stack_incremental"] = ex.stack_incremental
     e2e["crossgram_cache_hits"] = ex.crossgram_cache_hits
-    by_path = {k: {"pair_topn": l_pair[k], "groupby": l_group[k]} for k in l_pair}
+    by_path = {k: {"pair_topn": l_pair[k], "groupby": l_group[k], "trees": l_trees[k]}
+               for k in l_pair}
 
     sources = {
         "row_scan": ("pilosa_tpu_torch/ops/csrc/row_scan.cu",
@@ -908,6 +1381,10 @@ def main() -> int:
                  "pilosa_tpu/ops/kernels.py:651 _gram_pallas_kernel"),
         "cross_gram": ("pilosa_tpu_torch/ops/csrc/cross_gram.cu",
                        "pilosa_tpu/ops/kernels.py:1265 _cross_gram_pallas_kernel"),
+        "tree_count": ("pilosa_tpu_torch/ops/csrc/tree_eval.cu",
+                       "pilosa_tpu/exec/astbatch.py:243 _count_scan (XLA, no pallas_call)"),
+        "tree_words": ("pilosa_tpu_torch/ops/csrc/tree_eval.cu",
+                       "pilosa_tpu/exec/astbatch.py:259 compiled (XLA, no pallas_call)"),
     }
     name, limit = [x.strip() for x in card.split(",", 1)]
     entries = []

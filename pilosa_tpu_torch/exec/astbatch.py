@@ -1,0 +1,230 @@
+"""PQL trees compiled to one launch over the field stacks (counterpart of
+``pilosa_tpu/exec/astbatch.py``).
+
+A tree of Row/Intersect/Union/Difference/Xor/Not, alone or under Count,
+is matched into a signature (:func:`match_tree`, :func:`match_count`): the
+operator tree plus the stack each leaf reads, never the row ids. Row ids
+arrive as an ``int32`` slots input, so every Count of one shape over the
+same stacks is answered by one launch of the tree kernel
+(``ops/csrc/tree_eval.cu``, through :func:`kernels.tree_count`) over the
+whole batch, and a bitmap tree by one launch of :func:`kernels.tree_words`.
+
+* A signature compiles to a postfix program (:func:`program`), cached on
+  the signature alone, as the JAX package caches its traced programs.
+* An absent row rides through as slot ``-1``: a zero leaf, which is the
+  empty-row semantics of every operator (Not and Difference included).
+* ``Not`` is rewritten at match time into ``Difference(Row(_exists=0),
+  child)``, the reference's executeNot against the existence field.
+* A program evaluates the children of each node in the order that needs
+  the fewest operand-stack entries (the Sethi-Ullman order), so a tree of
+  L leaves needs at most floor(log2(L)) + 1 of them, within the kernel's
+  ``TREE_MAX_DEPTH`` for any tree: trees of every width and nesting run on
+  the card.
+
+Not ported here yet: time-range leaves (with time views), the BSI signing
+half of the module (with BSI) and the program over a process-spanning mesh
+(with the cluster).
+"""
+
+from __future__ import annotations
+
+from functools import lru_cache
+from typing import NamedTuple
+
+import numpy as np
+
+from pilosa_tpu_torch.core.field import FIELD_TYPE_INT
+from pilosa_tpu_torch.core.view import VIEW_STANDARD
+from pilosa_tpu_torch.ops import kernels
+from pilosa_tpu_torch.pql.ast import Call
+
+_OPS = {
+    "Intersect": "intersect",
+    "Union": "union",
+    "Difference": "difference",
+    "Xor": "xor",
+}
+
+# The flight planner's graft node (pilosa_tpu/exec/planner.py SHARED): a
+# subtree already materialized as a host row, which the compiled path
+# declines by contract.
+SHARED = "__shared__"
+
+# sig nodes: ("row", stack_ordinal) | (op, *child_sigs). Leaves refer to
+# stacks by first-appearance ORDINAL; the actual (field, view) pairs ride
+# alongside in ``pairs`` and join the executor's launch-group key.
+
+
+def _stackable_field(idx, fname: str):
+    """The field when it can serve stacked reads at all (an absent row is
+    an all-zero leaf)."""
+    if fname is None:
+        return None
+    field = idx.field(fname)
+    if field is None or field.field_type == FIELD_TYPE_INT:
+        return None
+    return field
+
+
+def _ordinal(pairs: list[tuple[str, str]], fname: str, vname: str) -> int:
+    pair = (fname, vname)
+    try:
+        return pairs.index(pair)
+    except ValueError:
+        pairs.append(pair)
+        return len(pairs) - 1
+
+
+def _match(idx, call: Call, leaves: list, pairs: list):
+    name = call.name
+    if name == SHARED:
+        return None
+    if name == "Row":
+        fname = call.field_arg()
+        field = _stackable_field(idx, fname)
+        if field is None or call.children:
+            return None
+        v = call.args.get(fname)
+        if not isinstance(v, int) or isinstance(v, bool):
+            return None
+        # a time range needs time views, which are not ported: the
+        # per-call path raises for it
+        if set(call.args) != {fname}:
+            return None
+        if field.view(VIEW_STANDARD) is None:
+            return None
+        leaves.append((fname, VIEW_STANDARD, v))
+        return ("row", _ordinal(pairs, fname, VIEW_STANDARD))
+    if name == "Not":
+        # executeNot: exists-row difference (requires track_existence)
+        if len(call.children) != 1 or call.args or not idx.track_existence:
+            return None
+        ef = idx.existence_field()
+        if ef is None or ef.view(VIEW_STANDARD) is None:
+            return None
+        leaves.append((ef.name, VIEW_STANDARD, 0))
+        esig = ("row", _ordinal(pairs, ef.name, VIEW_STANDARD))
+        child = _match(idx, call.children[0], leaves, pairs)
+        if child is None:
+            return None
+        return ("difference", esig, child)
+    op = _OPS.get(name)
+    if op is not None:
+        if not call.children or call.args:
+            return None
+        subs = []
+        for c in call.children:
+            s = _match(idx, c, leaves, pairs)
+            if s is None:
+                return None
+            subs.append(s)
+        return (op, *subs)
+    return None
+
+
+def match_tree(
+    idx,
+    call: Call,
+    leaves: list[tuple[str, str, int]],
+    pairs: list[tuple[str, str]],
+):
+    """``sig`` for a batchable bitmap tree, appending its (field, view,
+    row) leaves in traversal order and the distinct (field, view) stack
+    pairs to ``pairs`` (the program's stack order); None when any node
+    falls outside the compilable set."""
+    return _match(idx, call, leaves, pairs)
+
+
+def match_count(
+    idx,
+    call: Call,
+    leaves: list[tuple[str, str, int]],
+    pairs: list[tuple[str, str]],
+):
+    """sig for ``Count(tree)`` when the tree is compilable and not a bare
+    Row (plain row counts are one fused count on the host tier)."""
+    if call.name != "Count" or len(call.children) != 1 or call.args:
+        return None
+    child = call.children[0]
+    if child.name == "Row":
+        return None
+    return match_tree(idx, child, leaves, pairs)
+
+
+class Program(NamedTuple):
+    """A signature's postfix program (``kernels.TREE_*`` opcodes; a leaf
+    opcode is the leaf's index in traversal order), the stack ordinal of
+    each leaf, and the operand-stack depth it needs."""
+
+    code: np.ndarray
+    leaf_stack: np.ndarray
+    n_leaves: int
+    depth: int
+
+
+_FOLD = {
+    "intersect": kernels.TREE_AND,
+    "union": kernels.TREE_OR,
+    "xor": kernels.TREE_XOR,
+}
+
+
+def _emit(sig, leaf_stack: list[int]) -> tuple[int, list[int]]:
+    """``(need, code)`` of a subtree: its postfix code and the operand-stack
+    entries that code needs. Leaves are numbered in traversal order as they
+    are met; the children of a node are then evaluated in decreasing need
+    (ties in their order), so that a node needs max(n1, n2 + 1) entries for
+    the two largest needs of its children."""
+    if sig[0] == "row":
+        leaf_stack.append(sig[1])
+        return 1, [len(leaf_stack) - 1]
+    kids = [(*_emit(kid, leaf_stack), pos) for pos, kid in enumerate(sig[1:])]
+    kids.sort(key=lambda k: -k[0])
+    need, code, pos = kids[0]
+    # Difference(a, b, c) == a & ~(b | c) (reference row.go Difference):
+    # subtrahends met before the minuend are ORed, the minuend then takes
+    # ~acc & a, and later subtrahends fold as acc & ~b
+    minuend = pos == 0
+    for k_need, k_code, pos in kids[1:]:
+        need = max(need, k_need + 1)
+        code += k_code
+        if sig[0] != "difference":
+            code.append(_FOLD[sig[0]])
+        elif minuend:
+            code.append(kernels.TREE_ANDNOT)
+        elif pos == 0:
+            code.append(kernels.TREE_NOTAND)
+            minuend = True
+        else:
+            code.append(kernels.TREE_OR)
+    return need, code
+
+
+@lru_cache(maxsize=256)
+def program(sig) -> Program:
+    """The postfix :class:`Program` of a signature (a node of k children is
+    k - 1 binary folds), evaluated in the order that needs the fewest
+    operand-stack entries: at most floor(log2(leaves)) + 1."""
+    leaf_stack: list[int] = []
+    _, code = _emit(sig, leaf_stack)
+    depth = kernels.tree_depth(code, len(leaf_stack))
+    return Program(
+        np.array(code, dtype=np.int32), np.array(leaf_stack, dtype=np.int32),
+        len(leaf_stack), depth,
+    )
+
+
+def run_count_batch(sig, stacks: tuple, slots_np: np.ndarray) -> np.ndarray:
+    """One launch: int64 totals for a batch of same-shape Counts.
+    ``slots_np`` is int32 ``[B, L]``; per-shard int32 partials are summed
+    in int64 on the host."""
+    p = program(sig)
+    partials = kernels.tree_count(stacks, p.code, p.leaf_stack, slots_np)
+    return partials.cpu().numpy().astype(np.int64).sum(axis=1)
+
+
+def run_bitmap(sig, stacks: tuple, slots_np: np.ndarray):
+    """One launch: the ``int32[S, W]`` result words of a bitmap tree, on
+    the stacks' device."""
+    p = program(sig)
+    return kernels.tree_words(stacks, p.code, p.leaf_stack, slots_np)

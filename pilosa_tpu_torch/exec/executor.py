@@ -4,11 +4,17 @@ executor.go).
 Single-node PQL read serving over dense field stacks. A field's standard
 view is gathered from the fragments' host mirrors into one
 ``int32[S, R, W]`` stack on the holder's device (:meth:`_field_stack`),
-cached until a fragment's (epoch, version) moves. The stacks serve these
-queries, each through the kernels of ``ops/kernels.py``:
+cached; when a few fragments' (epoch, version) move, only their shards are
+patched into a new tensor (:meth:`_stack_incremental_update`), else the
+stack is rebuilt. The stacks serve these queries, each through the kernels
+of ``ops/kernels.py``:
 
 * a batch of ``Count(op(Row, Row))`` calls — one gram launch per field
   (:meth:`_batch_pair_counts`, :meth:`_field_gram`);
+* trees of Row/Intersect/Union/Difference/Xor/Not, under Count or as a
+  bitmap — one tree-kernel launch per AST shape and stack set
+  (:meth:`_batch_general`, ``exec/astbatch.py``) once their stacks are
+  live or demanded by two calls;
 * filtered TopN — the masked row scan;
 * tanimoto TopN — the row scan for row totals (:meth:`_stack_row_counts`);
 * GroupBy — one level through the row scans, two levels from one gram
@@ -18,8 +24,9 @@ queries, each through the kernels of ``ops/kernels.py``:
   cut from the answer.
 
 Everything else is the latency tier on the host mirrors: lone counts,
-Row/Intersect/Union/Difference/Xor/Not/Shift trees, unfiltered TopN from
-the maintained per-fragment counts, Rows, and Set/Clear/ClearRow writes.
+trees the batch paths decline (a cold lone tree, Shift), unfiltered TopN
+from the maintained per-fragment counts, Rows, and Set/Clear/ClearRow
+writes.
 Other calls (BSI, Store, attrs, keys, time views) raise
 ``ExecuteError("... not yet ported")``.
 """
@@ -47,6 +54,7 @@ from pilosa_tpu_torch.core.field import (
 from pilosa_tpu_torch.core.holder import Holder
 from pilosa_tpu_torch.core.index import Index
 from pilosa_tpu_torch.core.view import VIEW_STANDARD
+from pilosa_tpu_torch.exec import astbatch
 from pilosa_tpu_torch.exec.result import (
     FieldRow,
     GroupCount,
@@ -141,6 +149,9 @@ class Executor:
     # live cross-gram slots kept per stack entry (one per partner field);
     # each full gram is <= 8 MiB host memory at _GRAM_CACHE_MAX_ROWS
     _CROSS_GRAM_SLOTS = 4
+    # an incremental stack update pays only while few shards changed; past
+    # this fraction one full rebuild wins
+    _STACK_INCR_MAX_FRACTION = 0.5
 
     def __init__(self, holder: Holder, max_writes_per_request: int | None = None):
         self.holder = holder
@@ -159,6 +170,8 @@ class Executor:
         self._lru_clock = itertools.count()
         # observable counters (tests and chip_smoke.py read them)
         self.stack_rebuilds = 0
+        # stacks patched shard by shard after writes instead of rebuilt
+        self.stack_incremental = 0
         self.gram_cache_hits = 0
         # GroupBy combination matrices served from a cached cross gram
         self.crossgram_cache_hits = 0
@@ -192,6 +205,7 @@ class Executor:
             (i for i, c in enumerate(calls) if _is_write(c)), len(calls)
         )
         self._batch_pair_counts(idx, calls[:first_write], shards, results)
+        self._batch_general(idx, calls[:first_write], shards, results)
         for i, call in enumerate(calls):
             if results[i] is _UNSET:
                 results[i] = self._execute_call(idx, call, shards)
@@ -236,6 +250,7 @@ class Executor:
             flat_calls = [c for qi in qis for c in cloned[qi]]
             flat_results: list[Any] = [_UNSET] * len(flat_calls)
             self._batch_pair_counts(idx, flat_calls, shards, flat_results)
+            self._batch_general(idx, flat_calls, shards, flat_results)
             pos = 0
             for qi in qis:
                 calls = cloned[qi]
@@ -393,10 +408,11 @@ class Executor:
         ``int32[S, R, W]`` tensor on the holder's device, DENSE over
         ``shards`` (all-zero slices where a shard has no fragment), rows in
         ascending row-id order. Cached per shard set until a fragment's
-        (epoch, version) changes, then rebuilt from the host mirrors. None
-        when the view has no rows over ``shards``. A stack larger than the
-        device's free memory raises on allocation; it is never served from
-        the host instead."""
+        (epoch, version) changes; then the changed shards are patched in
+        (:meth:`_stack_incremental_update`) or, failing that, the stack is
+        rebuilt from the host mirrors. None when the view has no rows over
+        ``shards``. A stack larger than the device's free memory raises on
+        allocation; it is never served from the host instead."""
         v = field.view(VIEW_STANDARD)
         if v is None:
             return None
@@ -415,6 +431,11 @@ class Executor:
                 entry["lru"] = next(self._lru_clock)
                 if entry["versions"] == versions:
                     return entry["slot_of"], entry["dev"]
+                updated = self._stack_incremental_update(
+                    field, entry, frags, shards, versions
+                )
+                if updated is not None:
+                    return updated
                 del caches[key]
             row_ids = sorted({r for f in frags.values() for r in f.row_ids()})
             if not row_ids:
@@ -441,6 +462,55 @@ class Executor:
                 "lru": next(self._lru_clock),
             }
             return slot_of, dev
+
+    def _stack_incremental_update(
+        self, field: Field, entry: dict, frags, shards: list[int], versions
+    ):
+        """(slot_of, bits) with the changed shards of a cached stack patched
+        in, or None when the caller must rebuild: a shard gained a row id
+        the stack has no slot for, a fragment is gone, or more than
+        _STACK_INCR_MAX_FRACTION of the shards changed.
+
+        The patch makes a NEW tensor (out-of-place ``index_copy``, the
+        counterpart of JAX's ``.at[changed].set``): the full gram, the row
+        totals and the cross-gram slots cached on the entry, and
+        :meth:`_stack_entry_for`, key on the tensor's identity, so patching
+        in place would let them serve a stale snapshot. The cost is a
+        transient second copy of the stack on the device (1.34 GB at 160
+        shards x 64 rows x 2^20 columns, so 2.7 GB at the peak) and one
+        device-to-device copy of it, besides uploading the changed shards'
+        blocks once."""
+        slot_of = entry["slot_of"]
+        changed = [
+            si for si, (a, b) in enumerate(zip(entry["versions"], versions))
+            if a != b
+        ]
+        if not changed or len(changed) > max(
+            1, int(len(shards) * self._STACK_INCR_MAX_FRACTION)
+        ):
+            return None
+        blocks = np.zeros((len(changed), len(slot_of), field.n_words), dtype=np.uint32)
+        for k, si in enumerate(changed):
+            f = frags.get(shards[si])
+            if f is None:
+                return None
+            # one locked snapshot of the fragment: a separate membership
+            # check would race a write adding a row between it and the copy
+            ids, matrix = f.rows_matrix_host()
+            dst = [slot_of.get(r) for r in ids]
+            if any(d is None for d in dst):
+                return None  # a new row changes the stack's shape
+            if ids:
+                blocks[k, dst] = matrix
+        old = entry["dev"]
+        where = torch.tensor(changed, dtype=torch.int64, device=old.device)
+        dev = old.index_copy(0, where, bitops.to_device(blocks, old.device))
+        for k in ("gram", "gram_misses", "rowcounts", "crossgram", "crossgram_misses"):
+            entry.pop(k, None)  # they described the old snapshot
+        entry["dev"] = dev  # dev before versions: a reader keyed on versions
+        entry["versions"] = versions  # must never see the old dev
+        self.stack_incremental += 1
+        return slot_of, dev
 
     def _stack_entry_for(self, field: Field, bits: torch.Tensor):
         """The cache entry whose device snapshot IS ``bits``, or None."""
@@ -649,6 +719,99 @@ class Executor:
                 counts = partials.to(torch.int64).sum(dim=1).cpu().numpy()
                 for j, (i, _, _) in enumerate(olaunch):
                     results[i] = int(counts[j])
+
+    # ------------------------------------------------ compiled tree batches
+
+    def _batch_general(
+        self, idx: Index, calls: list[Call], shards: list[int] | None,
+        results: list[Any],
+    ) -> None:
+        """Answer the remaining batchable reads — trees of
+        Row/Intersect/Union/Difference/Xor/Not, under Count or as a bitmap
+        result — with one tree-kernel launch per AST shape and stack set
+        (``exec/astbatch.py``; reference semantics executor.go:653-680).
+
+        The caller cuts ``calls`` at the first write. A call engages only
+        when every leaf's stack is live already or demanded by at least
+        two batchable calls here (a stack build uploads a whole field, so
+        it must amortize); the others stay on the host tier."""
+        # launch groups key on (sig, stack pairs): calls of one shape over
+        # the same stacks share one launch
+        count_groups: dict[tuple, list[tuple[int, list]]] = {}
+        bitmap_items: list[tuple[int, tuple, tuple, list]] = []
+        demand: dict[tuple[str, str], int] = {}
+        for i, call in enumerate(calls):
+            if results[i] is not _UNSET:
+                continue
+            leaves: list[tuple[str, str, int]] = []
+            pairs: list[tuple[str, str]] = []
+            sig = astbatch.match_count(idx, call, leaves, pairs)
+            if sig is not None:
+                count_groups.setdefault((sig, tuple(pairs)), []).append((i, leaves))
+            elif call.name in ("Intersect", "Union", "Difference", "Xor", "Not"):
+                leaves, pairs = [], []
+                sig = astbatch.match_tree(idx, call, leaves, pairs)
+                if sig is None:
+                    continue
+                bitmap_items.append((i, sig, tuple(pairs), leaves))
+            else:
+                continue
+            for pair in pairs:
+                demand[pair] = demand.get(pair, 0) + 1
+        if not count_groups and not bitmap_items:
+            return
+        shard_list = self._shards_for(idx, shards)
+
+        # (field, view) -> (slot_of, stack), or None when declined; a
+        # matched leaf's field has its standard view (astbatch._match)
+        stacks_by_view: dict[tuple[str, str], Any] = {}
+
+        def _stacks_for(pairs):
+            """(stacks tuple, slot_of per pair), or None when a leaf's stack
+            is declined (cold and under-demanded, or no rows)."""
+            out: list[torch.Tensor] = []
+            slot_maps = {}
+            for pair in pairs:
+                if pair not in stacks_by_view:
+                    field = idx.field(pair[0])  # the existence field too
+                    live = field is not None and (
+                        self._stack_cached(field, shard_list) or demand.get(pair, 0) >= 2
+                    )
+                    stacks_by_view[pair] = self._field_stack(field, shard_list) if live else None
+                entry = stacks_by_view[pair]
+                if entry is None:
+                    return None
+                slot_maps[pair], stack = entry
+                out.append(stack)
+            return tuple(out), slot_maps
+
+        def _slots_of(leaves, slot_maps) -> np.ndarray:
+            # absent rows -> slot -1 (a zero leaf)
+            return np.array(
+                [slot_maps[(f, vn)].get(r, -1) for f, vn, r in leaves], np.int32
+            )
+
+        for (sig, pairs), items in count_groups.items():
+            st = _stacks_for(pairs)
+            if st is None:
+                continue
+            stacks, slot_maps = st
+            slots = np.stack([_slots_of(leaves, slot_maps) for _, leaves in items])
+            totals = astbatch.run_count_batch(sig, stacks, slots)
+            for j, (i, _) in enumerate(items):
+                results[i] = int(totals[j])
+
+        for i, sig, pairs, leaves in bitmap_items:
+            st = _stacks_for(pairs)
+            if st is None:
+                continue
+            stacks, slot_maps = st
+            words = bitops.to_host(
+                astbatch.run_bitmap(sig, stacks, _slots_of(leaves, slot_maps))
+            )
+            results[i] = Row(
+                {s: words[si] for si, s in enumerate(shard_list)}, n_words=idx.n_words
+            )
 
     # --------------------------------------------------------- bitmap calls
 

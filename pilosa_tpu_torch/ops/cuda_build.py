@@ -24,7 +24,10 @@ import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("row_scan.cu", "masked_row_scan.cu", "gram.cu", "cross_gram.cu", "mma_rate.cu")
+SOURCES = (
+    "row_scan.cu", "masked_row_scan.cu", "gram.cu", "cross_gram.cu", "mma_rate.cu",
+    "tree_eval.cu",
+)
 HEADERS = ("scan_common.cuh", "gram_tile.cuh")
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "kernels"
 LIB_NAME = "libpilosa_tpu_torch_kernels.so"
@@ -53,6 +56,13 @@ _SIGNATURES = {
         _VOIDP, _INT, _INT, _INT, _VOIDP, _INT, _INT, _INT, _INT,
     ),
     "pilosa_mma_rate_probe": (_INT, _INT, _VOIDP, _INT, _VOIDP, ctypes.POINTER(_LL)),
+    # (table, P, n_ops, L, depth, [B,] S, W, vec16, out, device, stream)
+    "pilosa_tree_count": (
+        _VOIDP, _INT, _INT, _INT, _INT, _INT, _INT, _INT, _INT, _VOIDP, _INT, _VOIDP,
+    ),
+    "pilosa_tree_words": (
+        _VOIDP, _INT, _INT, _INT, _INT, _INT, _INT, _INT, _VOIDP, _INT, _VOIDP,
+    ),
 }
 
 _lock = threading.Lock()

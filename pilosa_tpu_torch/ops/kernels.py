@@ -19,6 +19,12 @@ kernels of the JAX package:
   GroupBy over its prefix masks (:func:`cross_gram_gather`,
   :func:`cross_pair_gram`, :func:`combo_counts_gram`).
 
+A fifth, ``ops/csrc/tree_eval.cu``, has no Pallas kernel behind it: it
+replaces the XLA programs of ``pilosa_tpu/exec/astbatch.py`` that evaluate a
+compiled PQL tree over field stacks, as the per-shard counts of a batch of
+``Count(tree)`` calls (:func:`tree_count`) or one tree's words
+(:func:`tree_words`).
+
 The two grams share one tile loop (``ops/csrc/gram_tile.cuh``) that runs
 on the tensor cores as single-bit MMA (AND + popcount of the packed
 words); the wrapper picks each launch's plan (:class:`GramPlan`: tile
@@ -51,7 +57,10 @@ _TORCH_OPS = {
 }
 
 # kernel name -> launches so far (one per kernel launch, nowhere else)
-LAUNCHES = {"row_scan": 0, "masked_row_scan": 0, "gram": 0, "cross_gram": 0}
+LAUNCHES = {
+    "row_scan": 0, "masked_row_scan": 0, "gram": 0, "cross_gram": 0,
+    "tree_count": 0, "tree_words": 0,
+}
 
 
 def reset_launches() -> None:
@@ -591,3 +600,215 @@ def combo_counts_gram(prefix: torch.Tensor, bits: torch.Tensor, idx) -> np.ndarr
         return None
     out = cross_gram_gather(prefix.transpose(0, 1), bits, np.arange(C), idx)
     return out.cpu().numpy().astype(np.int64)
+
+
+# ---------------------------------------------------------------------------
+# Tree evaluation: the compiled PQL trees of exec/astbatch.py
+# (ops/csrc/tree_eval.cu)
+# ---------------------------------------------------------------------------
+
+# Operand-stack entries the tree kernel holds per word (tree_eval.cu holds
+# the same number). exec/astbatch.program orders a tree so that it needs at
+# most floor(log2(leaves)) + 1 entries, so every tree whose slots fit int32
+# fits; the wrappers raise on a deeper program.
+TREE_MAX_DEPTH = 32
+
+# Postfix opcodes: a value >= 0 pushes that leaf; these pop two operands
+# (a below b) and push the fold.
+TREE_AND, TREE_OR, TREE_XOR, TREE_ANDNOT, TREE_NOTAND = -1, -2, -3, -4, -5
+_TREE_FOLDS = {
+    TREE_AND: lambda a, b: a & b,
+    TREE_OR: lambda a, b: a | b,
+    TREE_XOR: lambda a, b: a ^ b,
+    TREE_ANDNOT: lambda a, b: a & ~b,
+    TREE_NOTAND: lambda a, b: ~a & b,
+}
+
+# bytes of [S, b, W] operands the plain tree evaluation holds per step
+_PLAIN_TREE_BYTES = 256 << 20
+
+
+def tree_depth(code, n_leaves: int) -> int:
+    """The operand-stack depth of a postfix program; ``ValueError`` when
+    the program is malformed (a leaf outside ``[0, n_leaves)``, an unknown
+    opcode, a fold with fewer than two operands, or not exactly one result)."""
+    top = depth = 0
+    for op in np.asarray(code).tolist():
+        if op >= 0:
+            if op >= n_leaves:
+                raise ValueError(f"tree program: leaf {op} of {n_leaves}")
+            top += 1
+            depth = max(depth, top)
+        elif op in _TREE_FOLDS:
+            if top < 2:
+                raise ValueError("tree program: a fold with fewer than two operands")
+            top -= 1
+        else:
+            raise ValueError(f"tree program: unknown opcode {op}")
+    if top != 1:
+        raise ValueError(f"tree program leaves {top} results, not one")
+    return depth
+
+
+def _check_tree(name: str, stacks, code, leaf_stack, slots, slot_dims: int):
+    """Checked ``(stacks, code, leaf_stack, slots, depth)``: ``stacks`` a
+    non-empty sequence of contiguous ``int32[S, R_p, W]`` tensors of one S
+    and W on one device; ``code`` a postfix program within the kernel's
+    operand-stack depth; ``leaf_stack`` int ``[L]`` in ``[0, P)``;
+    ``slots`` host int32 ``[B, L]`` (``[L]`` when ``slot_dims`` is 1) below
+    each leaf's row count (negative: an absent row)."""
+    stacks = tuple(stacks)
+    if not stacks:
+        raise ValueError(f"{name}: no stacks")
+    for t in stacks:
+        _check_words(name, t, 3)
+    S, _, W = stacks[0].shape
+    for t in stacks[1:]:
+        if (t.shape[0], t.shape[2]) != (S, W):
+            raise ValueError(
+                f"{name}: stack shapes {tuple(stacks[0].shape)} and "
+                f"{tuple(t.shape)} differ in shards or words"
+            )
+    if W * 32 >= 2**31:
+        raise ValueError(f"{name}: a shard of {W} words could overflow int32 counts")
+    code = np.asarray(code, dtype=np.int64).reshape(-1)
+    leaf_stack = np.asarray(leaf_stack, dtype=np.int64).reshape(-1)
+    L = leaf_stack.size
+    if L == 0:
+        raise ValueError(f"{name}: a program with no leaves")
+    depth = tree_depth(code, L)
+    if depth > TREE_MAX_DEPTH:
+        raise ValueError(
+            f"{name}: the program needs {depth} stack entries (limit {TREE_MAX_DEPTH})"
+        )
+    if leaf_stack.min() < 0 or leaf_stack.max() >= len(stacks):
+        raise ValueError(f"{name}: leaf stack index out of range [0, {len(stacks)})")
+    slots = np.asarray(slots)
+    if slots.dtype != np.int32:
+        raise TypeError(f"{name}: expected int32 slots, got {slots.dtype}")
+    if slots.ndim != slot_dims or slots.shape[-1] != L:
+        raise ValueError(f"{name}: slots of shape {slots.shape} for {L} leaves")
+    rows = np.array([stacks[p].shape[1] for p in leaf_stack.tolist()], dtype=np.int64)
+    if slots.size and (slots >= rows).any():
+        raise ValueError(f"{name}: a slot past its stack's rows")
+    return stacks, code, leaf_stack, np.ascontiguousarray(slots), depth
+
+
+def _tree_leaf_plain(bits: torch.Tensor, col: np.ndarray) -> torch.Tensor:
+    """``int32[S, b, W]``: rows ``col`` of ``bits``, zeros where a slot is
+    negative."""
+    S, R, W = bits.shape
+    absent = col < 0
+    if R == 0:
+        return torch.zeros((S, col.size, W), dtype=torch.int32, device=bits.device)
+    idx = torch.from_numpy(np.where(absent, 0, col).astype(np.int64)).to(bits.device)
+    rows = bits.index_select(1, idx)
+    if absent.any():
+        rows[:, torch.from_numpy(absent).to(bits.device)] = 0
+    return rows
+
+
+def _tree_eval_plain(stacks, code, leaf_stack, slots: np.ndarray) -> torch.Tensor:
+    """The program's words ``int32[S, b, W]`` for the slot rows ``slots``
+    (``[b, L]``), with torch ops."""
+    st: list[torch.Tensor] = []
+    for op in code.tolist():
+        if op >= 0:
+            st.append(_tree_leaf_plain(stacks[int(leaf_stack[op])], slots[:, op]))
+        else:
+            b = st.pop()
+            st.append(_TREE_FOLDS[op](st.pop(), b))
+    return st[0]
+
+
+def tree_count_plain(stacks, code, leaf_stack, slots) -> torch.Tensor:
+    """Plain version of the tree count: ``int32[B, S]``, items evaluated in
+    steps of _PLAIN_TREE_BYTES."""
+    stacks, code, leaf_stack, slots, depth = _check_tree(
+        "tree_count_plain", stacks, code, leaf_stack, slots, 2
+    )
+    S, _, W = stacks[0].shape
+    B = slots.shape[0]
+    out = torch.zeros((B, S), dtype=torch.int32, device=stacks[0].device)
+    step = max(1, _PLAIN_TREE_BYTES // max(1, (depth + 2) * S * W * 4))
+    for b0 in range(0, B, step):
+        words = _tree_eval_plain(stacks, code, leaf_stack, slots[b0 : b0 + step])
+        out[b0 : b0 + step] = bitops.count_rows(words).T
+    return out
+
+
+def tree_words_plain(stacks, code, leaf_stack, slots) -> torch.Tensor:
+    """Plain version of the tree words: ``int32[S, W]``."""
+    stacks, code, leaf_stack, slots, _ = _check_tree(
+        "tree_words_plain", stacks, code, leaf_stack, slots, 1
+    )
+    return _tree_eval_plain(stacks, code, leaf_stack, slots[None])[:, 0].contiguous()
+
+
+def _tree_table(stacks, code, leaf_stack, slots: np.ndarray, device) -> torch.Tensor:
+    """The kernel's table (tree_eval.cu) on ``device``, uploaded in one
+    copy: int64 base pointers, then int32 row counts, program, leaf stacks
+    and slots."""
+    P = len(stacks)
+    ints = np.concatenate([
+        np.array([t.shape[1] for t in stacks], dtype=np.int32),
+        code.astype(np.int32),
+        leaf_stack.astype(np.int32),
+        slots.reshape(-1),
+    ])
+    buf = np.empty(8 * P + 4 * ints.size, dtype=np.uint8)
+    buf[: 8 * P].view(np.int64)[:] = [t.data_ptr() for t in stacks]
+    buf[8 * P :].view(np.int32)[:] = ints
+    return torch.from_numpy(buf).to(device)
+
+
+def tree_count(stacks, code, leaf_stack, slots) -> torch.Tensor:
+    """``int32[B, S]`` per-shard popcounts of the postfix tree ``code`` for
+    each slot row of ``slots`` (host int32 ``[B, L]``; leaf ``l`` of item
+    ``b`` is row ``slots[b, l]`` of ``stacks[leaf_stack[l]]``, absent when
+    negative), in one launch. Callers sum over shards in int64."""
+    stacks, code, leaf_stack, slots, depth = _check_tree(
+        "tree_count", stacks, code, leaf_stack, slots, 2
+    )
+    if _is_cpu("tree_count", *stacks):
+        return tree_count_plain(stacks, code, leaf_stack, slots)
+    S, _, W = stacks[0].shape
+    B = slots.shape[0]
+    dev = stacks[0].device
+    out = torch.empty((B, S), dtype=torch.int32, device=dev)
+    if out.numel() == 0:
+        return out
+    if W == 0:
+        return out.zero_()
+    table = _tree_table(stacks, code, leaf_stack, slots, dev)
+    _launch(
+        "pilosa_tree_count", table.data_ptr(), len(stacks), code.size,
+        leaf_stack.size, depth, B, S, W, int(_copies16(W, *stacks)),
+        out.data_ptr(), dev.index, _stream(dev),
+    )
+    LAUNCHES["tree_count"] += 1
+    return out
+
+
+def tree_words(stacks, code, leaf_stack, slots) -> torch.Tensor:
+    """``int32[S, W]`` words of the postfix tree ``code`` for one slot row
+    (host int32 ``[L]``), in one launch."""
+    stacks, code, leaf_stack, slots, depth = _check_tree(
+        "tree_words", stacks, code, leaf_stack, slots, 1
+    )
+    if _is_cpu("tree_words", *stacks):
+        return tree_words_plain(stacks, code, leaf_stack, slots)
+    S, _, W = stacks[0].shape
+    dev = stacks[0].device
+    out = torch.empty((S, W), dtype=torch.int32, device=dev)
+    if out.numel() == 0:
+        return out
+    table = _tree_table(stacks, code, leaf_stack, slots, dev)
+    vec16 = _copies16(W, *stacks) and out.data_ptr() % 16 == 0
+    _launch(
+        "pilosa_tree_words", table.data_ptr(), len(stacks), code.size,
+        leaf_stack.size, depth, S, W, int(vec16), out.data_ptr(), dev.index,
+        _stream(dev),
+    )
+    LAUNCHES["tree_words"] += 1
+    return out

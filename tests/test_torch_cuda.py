@@ -170,10 +170,18 @@ def test_executor_on_cuda_matches_cpu(cuda_device):
         "GroupBy(Rows(f), Rows(g), Rows(f), limit=50) GroupBy(Rows(g), filter=Row(f=3)) "
         "GroupBy(Rows(f), Rows(g), Rows(f), previous=[4, 2, 6])"
     )
+    # compiled trees: two Counts of one shape (the tree count) and a bitmap
+    # tree (the tree words)
+    trees = (
+        "Count(Intersect(Row(f=1), Row(g=2), Row(f=3))) "
+        "Count(Intersect(Row(f=4), Row(g=5), Row(f=6))) Union(Row(f=0), Row(g=0), Row(g=7))"
+    )
 
     def plain(r):
         if isinstance(r, int):
             return r
+        if hasattr(r, "columns"):
+            return r.columns().tolist()
         return [
             (p.id, p.count) if hasattr(p, "id")
             else ([(g.field, g.row_id) for g in p.group], p.count)
@@ -186,8 +194,10 @@ def test_executor_on_cuda_matches_cpu(cuda_device):
         for q in sets:
             e.execute("i", q)
         res = e.execute("i", topn) + e.execute("i", pairs) + e.execute("i", groupby)
+        res += e.execute("i", trees)
         e.execute("i", "Clear(5, f=1) Set(6, f=1) ClearRow(f=2) Set(7, g=4)")
         res += e.execute("i", topn) + e.execute("i", pairs) + e.execute("i", groupby)
+        res += e.execute("i", trees)
         out.append([plain(r) for r in res])
     assert out[0] == out[1]
     for k in tk.LAUNCHES:
@@ -299,3 +309,179 @@ def test_gram_c_entry_refuses_a_bad_plan(cuda_device):
         assert code != 0, (swap, vec16, tm, tn)
     torch.cuda.synchronize()
     assert int(out.abs().sum()) == 0
+
+
+# -- the tree kernel (ops/csrc/tree_eval.cu): compiled PQL trees
+
+
+def _chain(n):
+    """A right-nested tree of ``n`` leaves, one node per level."""
+    sig = ("row", 0)
+    for k in range(n - 1):
+        op = ("intersect", "union", "xor", "difference")[k % 4]
+        sig = (op, ("row", k % 3), sig)
+    return sig
+
+
+def _balanced(levels, k=0):
+    """A full binary tree of 2**levels leaves, operators alternating by level."""
+    if levels == 0:
+        return ("row", k % 3)
+    op = ("difference", "union", "xor", "intersect")[levels % 4]
+    return (op, _balanced(levels - 1, 2 * k), _balanced(levels - 1, 2 * k + 1))
+
+
+def _deep_program(depth):
+    """A program no tree compiles to: ``depth`` leaves pushed, then folded
+    with every fold opcode in turn, so it needs ``depth`` stack entries."""
+    from pilosa_tpu_torch.exec import astbatch
+
+    folds = [tk.TREE_AND, tk.TREE_OR, tk.TREE_XOR, tk.TREE_ANDNOT, tk.TREE_NOTAND]
+    code = list(range(depth)) + [folds[k % 5] for k in range(depth - 1)]
+    return astbatch.Program(np.array(code, np.int32), np.arange(depth, dtype=np.int32) % 3,
+                            depth, depth)
+
+
+_TREE = ("union", ("difference", ("row", 0), ("row", 1)), ("intersect", ("row", 2), ("row", 0)))
+_FLAT3 = ("intersect", ("row", 0), ("row", 1), ("row", 2))
+# past the opcodes and leaf pointers the kernel stages in shared memory
+_WIDE = ("union",) + tuple(("row", k % 3) for k in range(300))
+
+
+@pytest.mark.parametrize(
+    "S,W,rows,sig,B,strided",
+    [
+        # ragged words, a 0-row stack (every slot -1), absent rows
+        (3, 130, (5, 0, 1), _TREE, 9, False),
+        # a program at the operand-stack limit (TREE_MAX_DEPTH), one item
+        (3, 130, (5, 7, 1), 32, 1, False),
+        (2, 132, (9, 4, 3), 32, 5, True),
+        # programs longer than the staged head: 300 leaves; 512 leaves at
+        # depth 10; and a tree nested 40 levels deep
+        (3, 132, (9, 4, 3), _WIDE, 4, False),
+        (2, 130, (5, 0, 1), _balanced(9), 3, True),
+        (3, 260, (5, 7, 2), _chain(40), 6, False),
+        # W below one 16-byte group, and the serving mix of stacks
+        (4, 3, (6, 2, 1), _TREE, 17, True),
+        (5, 512, (64, 64, 4, 1), _FLAT3, 64, True),
+        (7, 1024, (64, 4, 1), ("xor", ("row", 0), ("row", 0), ("row", 0)), 33, False),
+    ],
+)
+def test_tree_kernels_match_plain(cuda_device, S, W, rows, sig, B, strided):
+    from pilosa_tpu_torch.exec import astbatch
+
+    rng = np.random.default_rng(S * W + B)
+    stacks = tuple(_words(rng, S, r, W).to(cuda_device) for r in rows)
+    p = _deep_program(sig) if isinstance(sig, int) else astbatch.program(sig)
+    n_rows = np.array([rows[k] for k in p.leaf_stack])
+    if strided:  # neighbouring items on rows a fixed stride apart
+        slots = (np.arange(B)[:, None] * 5 + 3 * np.arange(p.n_leaves)) % np.maximum(n_rows, 1)
+    else:
+        slots = (rng.random((B, p.n_leaves)) * n_rows).astype(np.int64)
+        slots[rng.random((B, p.n_leaves)) < 0.2] = -1
+    slots[:, n_rows == 0] = -1
+    slots = slots.astype(np.int32)
+    before = dict(tk.LAUNCHES)
+    got = tk.tree_count(stacks, p.code, p.leaf_stack, slots)
+    words = tk.tree_words(stacks, p.code, p.leaf_stack, slots[-1])
+    torch.cuda.synchronize()
+    assert tk.LAUNCHES["tree_count"] == before["tree_count"] + 1
+    assert tk.LAUNCHES["tree_words"] == before["tree_words"] + 1
+    assert torch.equal(got, tk.tree_count_plain(stacks, p.code, p.leaf_stack, slots))
+    assert torch.equal(words, tk.tree_words_plain(stacks, p.code, p.leaf_stack, slots[-1]))
+
+
+def test_tree_kernel_refuses_programs_past_its_limits(cuda_device):
+    from pilosa_tpu_torch.exec import astbatch
+    from pilosa_tpu_torch.ops import cuda_build
+
+    stacks = (torch.zeros((2, 3, 8), dtype=torch.int32, device=cuda_device),)
+    deep = _deep_program(tk.TREE_MAX_DEPTH + 1)
+    before = dict(tk.LAUNCHES)
+    with pytest.raises(ValueError, match="stack entries"):
+        tk.tree_count(stacks, deep.code, deep.leaf_stack,
+                      np.zeros((1, deep.n_leaves), np.int32))
+    with pytest.raises(ValueError, match="stack entries"):
+        tk.tree_words(stacks, deep.code, deep.leaf_stack, np.zeros(deep.n_leaves, np.int32))
+    assert tk.LAUNCHES == before
+    # the C entries refuse a depth past the limit and launch nothing
+    lib = cuda_build.load()
+    out = torch.zeros((1, 2), dtype=torch.int32, device=cuda_device)
+    flat = astbatch.program(_FLAT3)
+    table = tk._tree_table(stacks * 3, flat.code, flat.leaf_stack,
+                           np.zeros((1, 3), np.int32), cuda_device)
+    stream = torch.cuda.current_stream().cuda_stream
+    for depth in (0, tk.TREE_MAX_DEPTH + 1):
+        assert lib.pilosa_tree_count(table.data_ptr(), 3, flat.code.size, 3, depth,
+                                     1, 2, 8, 1, out.data_ptr(), 0, stream) != 0
+    assert lib.pilosa_tree_count(table.data_ptr(), 3, flat.code.size, 3, 2,
+                                 1, 2, 130, 1, out.data_ptr(), 0, stream) != 0
+    torch.cuda.synchronize()
+    assert int(out.abs().sum()) == 0
+
+
+def _tree_executors(cuda_device):
+    from pilosa_tpu_torch.core.holder import Holder
+    from pilosa_tpu_torch.exec.executor import Executor
+    from pilosa_tpu_torch.shardwidth import SHARD_WIDTH
+
+    rng = np.random.default_rng(13)
+    n_cols = 3 * SHARD_WIDTH
+    writes = " ".join(
+        f"Set({int(c)}, {fld}={int(r)})"
+        for fld in ("f", "g")
+        for r, c in zip(rng.integers(0, 6, 2000), rng.integers(0, n_cols, 2000))
+    )
+    executors = []
+    for dev in ("cpu", cuda_device):
+        h = Holder(device=dev)
+        idx = h.create_index("i")
+        idx.create_field("f")
+        idx.create_field("g")
+        e = Executor(h)
+        e.execute("i", writes)
+        executors.append(e)
+    return executors
+
+
+def test_executor_tree_path_launches_the_tree_kernel(cuda_device):
+    trees = [
+        "Intersect(Row(f=0), Row(g=1), Row(f=2))",
+        "Union(Intersect(Row(f=1), Row(g=1)), Difference(Row(f=3), Row(g=0)))",
+        "Not(Row(f=4))",
+        "Xor(Row(f=0), Row(f=9), Row(g=5))",
+        "Union(" + ", ".join(f"Row({'fg'[k % 2]}={k % 7})" for k in range(300)) + ")",
+    ]
+    query = " ".join(f"Count({t}) Count({t}) {t}" for t in trees)
+    out = []
+    before = dict(tk.LAUNCHES)
+    for e in _tree_executors(cuda_device):
+        res = e.execute("i", query)
+        res += e.execute("i", "Set(3, f=0) Clear(5, g=1)")
+        res += e.execute("i", query)
+        out.append([r if isinstance(r, (bool, int)) else r.columns().tolist() for r in res])
+    assert out[0] == out[1]
+    # two rounds of five count groups and five bitmap trees, on the card
+    assert tk.LAUNCHES["tree_count"] == before["tree_count"] + 10
+    assert tk.LAUNCHES["tree_words"] == before["tree_words"] + 10
+
+
+def test_incremental_update_on_cuda_makes_a_new_tensor(cuda_device):
+    _, e = _tree_executors(cuda_device)
+    q = "Count(Intersect(Row(f=0), Row(f=1))) Count(Xor(Row(f=2), Row(f=3)))"
+    e.execute("i", q)
+    field = e.holder.field("i", "f")
+    (entry,) = e._stacks[field].values()
+    old = entry["dev"]
+    snapshot = old.clone()
+    rebuilds = e.stack_rebuilds
+    e.execute("i", "Set(11, f=0) Set(12, f=1)")  # shard 0, rows the stack holds
+    got = e.execute("i", q)
+    assert e.stack_incremental == 1 and e.stack_rebuilds == rebuilds
+    new = entry["dev"]
+    assert new is not old and new.device == old.device
+    assert torch.equal(old, snapshot)  # the old snapshot is untouched
+    assert not torch.equal(new[0], old[0]) and torch.equal(new[1:], old[1:])
+    cpu, _ = _tree_executors(cuda_device)
+    cpu.execute("i", "Set(11, f=0) Set(12, f=1)")
+    assert got == cpu.execute("i", q)

@@ -8,7 +8,9 @@ reads and interleaved writes run through both executors, through
 ``execute`` and ``execute_batch``, and every answer must be equal: pair
 count batches (gram path, subset grams, the declined-gram scans), lone
 counts, Intersect/Union/Difference/Xor/Not/Shift trees, and filtered,
-tanimoto and unfiltered TopN with ``n``, ``ids`` and ``threshold``.
+tanimoto and unfiltered TopN with ``n``, ``ids`` and ``threshold``. Writes
+to a few shards patch the cached stacks (the incremental update), and the
+caches computed from the old snapshot must not answer after them.
 """
 
 import numpy as np
@@ -38,6 +40,8 @@ def _norm(r):
         return ("row", [int(c) for c in r.columns()], dict(r.attrs))
     if hasattr(r, "id") and hasattr(r, "count"):
         return ("pair", int(r.id), int(r.count))
+    if hasattr(r, "group") and hasattr(r, "count"):
+        return ("group", [(g.field, int(g.row_id)) for g in r.group], int(r.count))
     if isinstance(r, (bool, int, np.integer)):
         return r if isinstance(r, bool) else int(r)
     raise TypeError(type(r))
@@ -292,3 +296,105 @@ def test_keyed_index_raises():
     h.create_index("k", keys=True)
     with pytest.raises(ExecuteError, match="not yet ported"):
         TorchExecutor(h).execute("k", "Row(f=1)")
+
+
+# -- the incremental stack update (counterparts of
+#    tests/test_executor_batch.py:155-200)
+
+_PAIRS_Q = "Count(Intersect(Row(f=0), Row(f=1))) Count(Union(Row(f=2), Row(f=3)))"
+
+
+def test_interleaved_writes_update_stack_incrementally():
+    """Writes to rows the stack holds, in one shard, patch that shard's
+    block into the cached stack instead of rebuilding it."""
+    je, te, _ = _build(70)
+    _same(je, te, _PAIRS_Q)
+    rebuilds0 = te.stack_rebuilds
+    for i in range(4):
+        _same(je, te, f"Set({100 + i}, f=0) Set({100 + i}, f=1) Clear({200 + i}, f=2)")
+        _same(je, te, _PAIRS_Q)
+    assert te.stack_incremental == 4
+    assert te.stack_rebuilds == rebuilds0
+
+
+def test_new_row_forces_full_rebuild():
+    je, te, _ = _build(71)
+    _same(je, te, _PAIRS_Q)
+    r0 = te.stack_rebuilds
+    _same(je, te, "Set(77, f=40)")  # row 40 did not exist
+    got = _same(je, te, _PAIRS_Q + " Count(Intersect(Row(f=40), Row(f=40)))")
+    assert got[2] == 1
+    assert te.stack_rebuilds == r0 + 1 and te.stack_incremental == 0
+
+
+def test_writes_to_most_shards_force_full_rebuild():
+    """Past half of the shards changed, one rebuild replaces the patch."""
+    je, te, _ = _build(72)
+    _same(je, te, _PAIRS_Q)
+    r0 = te.stack_rebuilds
+    _same(je, te, f"Set(5, f=0) Set({SHARD_WIDTH + 5}, f=1)")  # 2 of 3 shards
+    _same(je, te, _PAIRS_Q)
+    assert te.stack_rebuilds == r0 + 1 and te.stack_incremental == 0
+    _same(je, te, f"Set({2 * SHARD_WIDTH + 6}, f=1)")  # 1 of 3 shards
+    _same(je, te, _PAIRS_Q)
+    assert te.stack_rebuilds == r0 + 1 and te.stack_incremental == 1
+
+
+@pytest.mark.parametrize("cache", ["gram", "rowcounts", "crossgram"])
+def test_stale_caches_cannot_answer_after_a_write(cache):
+    """A full gram, the row totals and a cross gram cached on a stack
+    snapshot answer repeat queries; after a write patches the stack they
+    belong to the old snapshot and must not answer."""
+    je, te, rng = _build(73)
+    query = {
+        # every row of f: the full gram is computed and cached
+        "gram": " ".join(
+            f"Count({OPS[k % 4]}(Row(f={k % N_ROWS}), Row(f={(3 * k + 1) % N_ROWS})))"
+            for k in range(12)
+        ),
+        "rowcounts": "TopN(f, Row(g=1), tanimotoThreshold=5)",
+        "crossgram": "GroupBy(Rows(f), Rows(g))",
+    }[cache]
+    for _ in range(2):
+        _same(je, te, query)
+    entry = next(iter(te._stacks[te.holder.field("i", "f")].values()))
+    if cache == "crossgram":
+        assert te.crossgram_cache_hits >= 1
+    else:
+        assert entry.get(cache) is not None
+    # writes to shard 0 that move the answers: f gains columns of g's row
+    # 1 and loses some of its own
+    g1 = [int(c) for c in je.execute("i", "Row(g=1)")[0].columns() if c < SHARD_WIDTH]
+    f0 = [int(c) for c in je.execute("i", "Row(f=0)")[0].columns() if c < SHARD_WIDTH]
+    writes = [f"Set({c}, f={k % N_ROWS})" for k, c in enumerate(g1[:20])]
+    writes += [f"Clear({c}, f=0)" for c in f0[:20]]
+    rebuilds = te.stack_rebuilds
+    _same(je, te, " ".join(writes))
+    _same(je, te, query)
+    assert te.stack_incremental >= 1 and te.stack_rebuilds == rebuilds
+    _assert_caches_current(te)
+    if cache == "crossgram":
+        # and a write to the partner field, which patches g's stack
+        _same(je, te, " ".join(f"Set({c}, g={k % N_ROWS})" for k, c in enumerate(f0[20:40])))
+        _same(je, te, query)
+        _same(je, te, "GroupBy(Rows(g), Rows(f))")
+        assert te.stack_incremental >= 2 and te.stack_rebuilds == rebuilds
+        _assert_caches_current(te)
+
+
+def _assert_caches_current(te):
+    """Every gram, row-total vector and cross gram cached on a stack entry
+    describes the snapshot the entry serves now."""
+    for entries in te._stacks.values():
+        for e in entries.values():
+            bits = e["dev"]
+            R = bits.shape[1]
+            if e.get("gram") is not None:
+                np.testing.assert_array_equal(e["gram"], tk.pair_gram(bits, list(range(R))))
+            if e.get("rowcounts") is not None:
+                np.testing.assert_array_equal(e["rowcounts"], tk.row_counts(bits).numpy())
+            for ref, g in (e.get("crossgram") or {}).values():
+                partner = ref()
+                if partner is not None:
+                    np.testing.assert_array_equal(g, tk.cross_pair_gram(
+                        bits, partner, list(range(R)), list(range(partner.shape[1]))))

@@ -156,8 +156,11 @@ def test_cpu_wrappers_do_not_count_launches():
     tk.masked_row_counts_per_shard(bits, bits[:, 0].contiguous())
     tk.gram_gather(bits, [0, 1, 2])
     tk.cross_gram_gather(bits, bits, [0, 1], [2])
+    tk.tree_count((bits,), [0, 1, tk.TREE_AND], [0, 0], np.zeros((2, 2), np.int32))
+    tk.tree_words((bits,), [0, 1, tk.TREE_AND], [0, 0], np.zeros(2, np.int32))
     assert tk.LAUNCHES == {
         "row_scan": 0, "masked_row_scan": 0, "gram": 0, "cross_gram": 0,
+        "tree_count": 0, "tree_words": 0,
     }
 
 

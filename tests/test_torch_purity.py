@@ -18,6 +18,7 @@ import sys
 import pilosa_tpu_torch
 from pilosa_tpu_torch import convert, device, pql
 from pilosa_tpu_torch.core.holder import Holder
+from pilosa_tpu_torch.exec import astbatch
 from pilosa_tpu_torch.exec.executor import Executor
 from pilosa_tpu_torch.ops import bitops, cuda_build, kernels
 
@@ -33,6 +34,11 @@ res = e.execute(
 )
 assert res[0] == 1 and res[1] == 3, res
 assert [(p.id, p.count) for p in res[2]] == [(2, 2), (1, 1)], res[2]
+calls = []
+tree_count = kernels.tree_count
+kernels.tree_count = lambda *a: calls.append(a) or tree_count(*a)
+res = e.execute("i", "Count(Xor(Row(f=1), Row(f=2), Row(f=3))) Count(Not(Row(f=2)))" * 2)
+assert res == [2, 1, 2, 1] and len(calls) == 2, (res, len(calls))
 bad = sorted(
     m for m in sys.modules
     if m == "jax" or m.startswith("jax.") or m.startswith("jaxlib")
