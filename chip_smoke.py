@@ -25,11 +25,15 @@ Phases (any failure raises, and the script exits non-zero):
    single-bit and int8 MMA forms; the grams' operations bound uses the
    faster single-bit one, as no data sheet gives it. The tree kernels
    (``tree_count``, ``tree_words``) likewise, at the serving shape (stacks
-   of 64, 64, 4 and 1 rows; 64 items of three shapes) and at ragged ones
-   (W = 130, S = 3, a 0-row stack, absent rows, a program at the
-   operand-stack limit, one item, programs longer than the kernel stages
-   in shared memory and a tree nested 40 deep), timed at the trees path's
-   1024 items.
+   of 64, 64, 4 and 1 rows; 64 items of three shapes, the count on its
+   staged route) and at ragged ones (W = 130, S = 3, a 0-row stack, absent
+   rows, a program at the operand-stack limit, one item, programs longer
+   than the kernel stages in shared memory and a tree nested 40 deep; on
+   the staged route W = 260 and 132, one item, one tensor as two
+   stacks, tiles, items that share no rows, each flat fold and the general
+   step loop), timed at the trees path's 1024 items (staged) and at one
+   item of 300 leaves (direct), with each launch's route, plan and floors
+   logged and BMMA counted in the staged kernel's SASS.
    No kernel may time below its bound.
 3. End to end: a seeded index at the repo's serving size (bench.py's
    160 shards x 64 rows at shard width 2^20, about 25 % dense; a second
@@ -506,8 +510,12 @@ def tree_slots(rng, prog, stacks, B, absent=0.0):
 
 
 # __popc per clock per SM of compute capability 9.0 (the CUDA C++
-# Programming Guide's table of arithmetic instruction throughput)
+# Programming Guide's table of arithmetic instruction throughput), and the
+# bytes an SM's shared memory gives per clock
 POPC_PER_CLOCK_PER_SM = 16
+SMEM_BYTES_PER_CLOCK_PER_SM = 128
+# bit multiply-adds of one mma.sync.m16n8k256 (BMMA)
+BMMA_BIT_MACS = 16 * 8 * 256
 
 
 def tree_bound(prog, stacks, slots, words=False):
@@ -517,8 +525,8 @@ def tree_bound(prog, stacks, slots, words=False):
     (counts, or words) written once, against its folds and popcounts priced
     on the tensor cores as the scans price theirs (32 one-bit
     int8-equivalent multiply-adds per word, 2 ops each). The nominal bytes
-    are every leaf of every item read from memory. The kernel's own SIMT
-    route has a higher floor, its popcounts: see tree_popc_floor_ms."""
+    are every leaf of every item read from memory. Each route has higher
+    floors of its own: see tree_floors."""
     S, _, W = stacks[0].shape
     slots = slots.reshape(-1, prog.n_leaves)
     B, L = slots.shape
@@ -535,27 +543,97 @@ def tree_bound(prog, stacks, slots, words=False):
     return bound, nbytes, B * L * S * W * 4
 
 
-def tree_popc_floor_ms(stacks, slots):
-    """The floor of tree_eval.cu's SIMT route for ``tree_count`` over
-    ``slots``: one __popc per item, shard and word at the card's
-    POPC_PER_CLOCK_PER_SM and highest SM clock; None when nvidia-smi does
-    not give the clock."""
+def tree_floors(prog, stacks, slots, rates):
+    """The route ``tree_count`` takes over ``slots``, its plan, and the
+    floors of that route in ms (None where nvidia-smi gives no clock or no
+    rate was measured), for the log. Staged: the shared-memory reads, from
+    the staged table the wrapper uploads (a leaf step of a group loads one
+    512-byte warp row per item, or one for the group where the table marks
+    its slot TREE_UNIFORM), at SMEM_BYTES_PER_CLOCK_PER_SM; and its
+    popcounts (one BMMA per item, padding included, and chunk, at the
+    measured mma.sync rate). Direct: one __popc per item, shard and word at
+    POPC_PER_CLOCK_PER_SM."""
+    import numpy as np
     import torch
 
-    clock = sm_clock_hz()
-    if clock is None:
-        return None
+    from pilosa_tpu_torch.ops import kernels as tk
+
+    launch = tk.tree_count_launch(stacks, prog.code, prog.leaf_stack, slots)
+    plan = launch.plan
     S, _, W = stacks[0].shape
+    B, L = slots.shape
+    clock = sm_clock_hz()
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    return slots.shape[0] * S * W / (POPC_PER_CLOCK_PER_SM * sms * clock) * 1e3
+    chunks = -(-W // tk.TREE_CHUNK_WORDS)
+    out = {"route": plan.route, "plan": plan._asdict(), "smem_floor_ms": None,
+           "popc_floor_ms": None}
+    if plan.route == "staged":
+        lay = tk.tree_staged_layout(stacks, launch.rows, launch.remap, launch.program.steps,
+                                    plan)
+        leaves = [st >> 5 for st in lay.steps.tolist() if st & 3 != tk.TREE_POP_FOLD]
+        loads = 0
+        # the table's slot blocks, one a tile, follow its row pointers, row
+        # words, tile heads and steps
+        for block in lay.parts[4 : 4 + lay.tiles]:
+            # each group's first slot of each leaf step: one load if uniform
+            first = block.reshape(L, -1, tk.TREE_GROUP)[leaves, :, 0]
+            loads += int(np.where(first & tk.TREE_UNIFORM, 1, tk.TREE_GROUP).sum())
+        out.update(leaf_loads_per_item=loads / B, popc_by="BMMA at the measured mma.sync rate")
+        if clock:
+            out["smem_floor_ms"] = (loads * S * chunks * tk.TREE_CHUNK_WORDS * 4
+                                    / (SMEM_BYTES_PER_CLOCK_PER_SM * sms * clock) * 1e3)
+        rate = (rates or {}).get("mma.sync.m16n8k256.b1.and.popc")
+        if rate:
+            out["popc_floor_ms"] = (lay.n_items * S * chunks
+                                    / (rate / BMMA_BIT_MACS) * 1e3)
+    else:
+        out["popc_by"] = "__popc at 16 per clock per SM"
+        if clock:
+            out["popc_floor_ms"] = B * S * W / (POPC_PER_CLOCK_PER_SM * sms * clock) * 1e3
+    return out
 
 
-def check_tree_kernels(stack_np, stack2_np, dev):
+def tree_sass_counts():
+    """BMMA instructions in the SASS of each instance of the staged tree
+    count (``pilosa_tree_count_staged``); fails when one has none."""
+    from pilosa_tpu_torch.ops import cuda_build
+
+    out = {fn: n for fn, n in cuda_build.sass_mma_counts().items()
+           if "pilosa_tree_count_staged" in fn}
+    if not out or min(out.values()) == 0:
+        raise AssertionError(f"tree_count: no tensor-core MMA in the staged kernel's SASS {out}")
+    return out
+
+
+def forced_tree_plan(change):
+    """A context in which tree_count runs ``change(plan)`` of the plan it
+    would have taken."""
+    from contextlib import contextmanager
+
+    from pilosa_tpu_torch.ops import kernels as tk
+
+    @contextmanager
+    def ctx():
+        real = tk.tree_plan
+        tk.tree_plan = lambda *a, **k: change(real(*a, **k))
+        try:
+            yield
+        finally:
+            tk.tree_plan = real
+
+    return ctx()
+
+
+def check_tree_kernels(stack_np, stack2_np, dev, rates=None):
     """The tree kernels against their plain versions: at the serving shape
     (stacks f and g of 64 rows, h of 4 and the existence row; B = 64, three
-    tree shapes) and at ragged ones (W = 130, S = 3, a 0-row stack, absent
-    rows, a program at the operand-stack limit, B = 1); then timed at the
-    trees path's batch (1024 three-leaf items, and one bitmap tree)."""
+    tree shapes, the count's staged route) and at ragged ones (W = 130, S =
+    3, a 0-row stack, absent rows, a program at the operand-stack limit, B =
+    1; on the staged route W = 260 and 132, one item, one tensor as
+    two stacks, tiles of rows and of items, items that share no rows); then
+    timed at the trees path's batch (1024 three-leaf items, staged), at the
+    300-leaf single item (direct) and for one bitmap tree. ``rates``: the
+    tensor-core rates of check_kernels, for the BMMA floor."""
     import numpy as np
     import torch
 
@@ -577,12 +655,17 @@ def check_tree_kernels(stack_np, stack2_np, dev):
             raise AssertionError(f"{name}: kernel differs from plain, max |err| {err}")
         return err
 
+    def route(stacks, prog, slots):
+        return tk.tree_count_launch(stacks, prog.code, prog.leaf_stack, slots).plan.route
+
     errs = {"tree_count": 0, "tree_words": 0}
     for name in ("and3", "union_of_pairs", "not"):
         sig, names = TREE_SIGS[name]
         stacks = tuple(named[n] for n in names)
         prog = astbatch.program(sig)
         slots = tree_slots(rng, prog, stacks, 64, absent=0.05)
+        if route(stacks, prog, slots) != "staged":
+            raise AssertionError(f"tree_count {name} B=64: not on the staged route")
         errs["tree_count"] = max(errs["tree_count"], exact(
             f"tree_count {name} B=64", tk.tree_count(stacks, prog.code, prog.leaf_stack, slots),
             tk.tree_count_plain(stacks, prog.code, prog.leaf_stack, slots)))
@@ -590,7 +673,7 @@ def check_tree_kernels(stack_np, stack2_np, dev):
             f"tree_words {name}", tk.tree_words(stacks, prog.code, prog.leaf_stack, slots[0]),
             tk.tree_words_plain(stacks, prog.code, prog.leaf_stack, slots[0])))
     log(f"tree kernels exact at the serving shape {tuple(named['f'].shape)}, 64 items "
-        "of three shapes")
+        "of three shapes (the count staged)")
     # ragged: W = 130 (the word path), S = 3, a 0-row stack, absent rows, a
     # program at the operand-stack limit (no tree compiles to it: its leaves
     # pushed, then folded with every fold in turn), one item; programs
@@ -630,6 +713,58 @@ def check_tree_kernels(stack_np, stack2_np, dev):
             tk.tree_words_plain(small, prog.code, prog.leaf_stack, slots[-1])))
     log("tree kernels exact at ragged shapes (W = 130, S = 3, a 0-row stack, absent "
         f"rows, depth {D}, B = 1, 300 and 512 leaves, nested 40 deep)")
+    # the staged route at ragged shapes, each checked to take it: W = 260
+    # (past a whole chunk) and 132, a 0-row stack, absent rows, one and two
+    # register entries, one item, one tensor as two stacks, items
+    # that share no rows, tiles cut by rows and by items, a chain of 40
+    flat3, pairs = TREE_SIGS["and3"][0], TREE_SIGS["union_of_pairs"][0]
+    w260 = tuple(bitops.to_device(random_words(rng, (3, r, 260), dense=True), dev)
+                 for r in (5, 0, 3))
+    w132 = tuple(bitops.to_device(random_words(rng, (2, r, 132), dense=True), dev)
+                 for r in (40, 40, 4))
+    one_item = lambda p: p._replace(route="staged", vec16=True, stages=2, row_tile=8,
+                                    item_tile=8, wsplit=1)
+    # tiles of at most 20 rows and 64 items
+    small_tiles = {"_TREE_SMEM_LIMIT": tk._tree_staged_smem(20, 64, 3, 3, 2) + 16,
+                   "_TREE_ITEM_TILE": 64}
+    disjoint = (np.arange(8)[:, None] * 3 + np.arange(3)).astype(np.int32)
+    cases = (
+        ("flat W=260", flat3, w260, 40, 0.2, None, None, None),
+        ("two entries W=260", pairs, w260, 33, 0.1, None, None, None),
+        ("one item", flat3, w260, 1, 0.0, one_item, None, None),
+        ("two entries, a W split", pairs, w132, 50, 0.1, lambda p: p._replace(wsplit=2), None,
+         None),
+        ("one tensor as two stacks", flat3, (w132[0], w132[0], w132[2]), 77, 0.1, None, None,
+         None),
+        ("no shared rows", flat3, w132[:2] + w132[:1], 8, 0.0, one_item, None, disjoint),
+        ("tiles", flat3, w132, 300, 0.05, None, small_tiles, None),
+        ("chain of 40", chain, w260, 6, 0.2, None, None, None),
+        ("Not (ANDNOT) W=260", TREE_SIGS["not"][0], (w260[2], w260[0]), 40, 0.1, None, None,
+         None),
+        ("Union of four (OR)", ("union", ("row", 2), ("row", 1), ("row", 0), ("row", 1)),
+         w132, 45, 0.1, None, None, None),
+        ("flat on the step loop", flat3, w260, 40, 0.2, lambda p: p._replace(flat=-1), None,
+         None),
+    )
+    for name, sig, stacks, B, absent, change, shrink, fixed in cases:
+        prog = astbatch.program(sig)
+        slots = tree_slots(rng, prog, stacks, B, absent=absent) if fixed is None else fixed
+        saved = {k: getattr(tk, k) for k in (shrink or {})}
+        for k, v in (shrink or {}).items():
+            setattr(tk, k, v)
+        try:
+            with forced_tree_plan(change or (lambda p: p)):
+                if route(stacks, prog, slots) != "staged":
+                    raise AssertionError(f"tree_count {name}: not on the staged route")
+                got = tk.tree_count(stacks, prog.code, prog.leaf_stack, slots)
+        finally:
+            for k, v in saved.items():
+                setattr(tk, k, v)
+        errs["tree_count"] = max(errs["tree_count"], exact(
+            f"tree_count {name} {tuple(stacks[0].shape)}", got,
+            tk.tree_count_plain(stacks, prog.code, prog.leaf_stack, slots)))
+    log("tree_count exact on its staged route at ragged shapes (" +
+        ", ".join(c[0] for c in cases) + ")")
 
     # timings at the trees path's shape: 1024 three-leaf items over f, g, h
     sig, names = TREE_SIGS["and3"]
@@ -649,31 +784,68 @@ def check_tree_kernels(stack_np, stack2_np, dev):
     d_words = device_ms(words)
     t_words_p = cuda_ms(lambda: tk.tree_words_plain(stacks, prog.code, prog.leaf_stack, slots[0]),
                         reps=5)
+    # the W split: each shape of the trees path at 1024 items, with slices
+    # of 4 to 64 chunks (the plan takes TREE_SLICE_CHUNKS)
+    sweep_rng = np.random.default_rng(SEED + 10)
+    sweep = {}
+    for shape in ("and3", "union_of_pairs", "not", "xor3"):
+        s_sig, s_names = TREE_SIGS[shape]
+        s_stacks = tuple(named[n] for n in s_names)
+        s_prog = astbatch.program(s_sig)
+        s_slots = tree_slots(sweep_rng, s_prog, s_stacks, BATCH)
+        sweep[shape] = {}
+        for n in (4, 8, 16, 32, 64):
+            w = -(-W_FULL // (tk.TREE_CHUNK_WORDS * n))
+            with forced_tree_plan(lambda p, w=w: p._replace(wsplit=w)):
+                sweep[shape][n] = round(cuda_ms(
+                    lambda: tk.tree_count(s_stacks, s_prog.code, s_prog.leaf_stack, s_slots),
+                    reps=5), 4)
+    log(f"tree_count at {BATCH} items, ms around the wrapper by slice length in chunks "
+        f"(TREE_SLICE_CHUNKS = {tk.TREE_SLICE_CHUNKS}): {json.dumps(sweep)}")
     b_count, n_count, nominal_count = tree_bound(prog, stacks, slots)
     b_words, n_words, nominal_words = tree_bound(prog, stacks, slots[0], words=True)
-    popc_count = tree_popc_floor_ms(stacks, slots)
-    popc_words = tree_popc_floor_ms(stacks, slots[:1])
+    floors = tree_floors(prog, stacks, slots, rates)
+    # the second shape: one item of 300 leaves (the trees path's Count of a
+    # Union of 300 rows), on the direct route
+    wide = astbatch.program(("union",) + tuple(("row", k % 3) for k in range(300)))
+    wide_slots = tree_slots(rng, wide, stacks, 1)
+    wide_count = lambda: tk.tree_count(stacks, wide.code, wide.leaf_stack, wide_slots)
+    errs["tree_count"] = max(errs["tree_count"], exact(
+        "tree_count 300 leaves, one item", wide_count(),
+        tk.tree_count_plain(stacks, wide.code, wide.leaf_stack, wide_slots)))
+    t_wide = cuda_ms(wide_count, reps=10)
+    d_wide = device_ms(wide_count, reps=3)
+    b_wide, n_wide, _ = tree_bound(wide, stacks, wide_slots)
+    floors_wide = tree_floors(wide, stacks, wide_slots, rates)
     report = {
         "tree_count": dict(max_abs_err=errs["tree_count"], ms=t_count, device_ms=d_count,
                            plain_ms=t_count_p, bound=b_count, library_ms=None,
                            bytes={"bound_bytes": n_count, "nominal_bytes": nominal_count,
-                                  "items": BATCH, "simt_popc_floor_ms": popc_count}),
+                                  "items": BATCH},
+                           tree_route=floors["route"],
+                           extra={"wide300": (t_wide, d_wide, b_wide)},
+                           extra_routes={"wide300": floors_wide["route"]}),
         "tree_words": dict(max_abs_err=errs["tree_words"], ms=t_words, device_ms=d_words,
                            plain_ms=t_words_p, bound=b_words, library_ms=None,
                            bytes={"bound_bytes": n_words, "nominal_bytes": nominal_words,
-                                  "items": 1, "simt_popc_floor_ms": popc_words}),
+                                  "items": 1}),
     }
     for k, v in report.items():
         log(f"{k}: kernel {v['ms']:.3f} ms (device {v['device_ms']}), plain "
             f"{v['plain_ms']:.3f} ms, bound {v['bound'][0]:.3f} ms ({v['bound'][1]}; "
             f"{v['bytes']['bound_bytes']:.4e} B read and written, nominal "
-            f"{v['bytes']['nominal_bytes']:.4e} B; the SIMT route's popcount floor "
-            f"{v['bytes']['simt_popc_floor_ms']} ms), library None")
+            f"{v['bytes']['nominal_bytes']:.4e} B), library None")
         if min(v["ms"], v["device_ms"] or v["ms"]) < v["bound"][0]:
             raise AssertionError(f"{k}: {v['ms']} ms (device {v['device_ms']}) is below "
                                  f"its bound {v['bound'][0]} ms: the bound is wrong")
+    log(f"tree_count at {BATCH} items: route {json.dumps(floors)}")
+    log(f"tree_count one item of 300 leaves: kernel {t_wide:.3f} ms (device {d_wide}), bound "
+        f"{b_wide[0]:.3f} ms ({b_wide[1]}; {n_wide:.4e} B); route {json.dumps(floors_wide)}")
+    if min(t_wide, d_wide or t_wide) < b_wide[0]:
+        raise AssertionError(f"tree_count 300 leaves: {t_wide} ms (device {d_wide}) is below "
+                             f"its bound {b_wide[0]} ms: the bound is wrong")
     log("tree kernels: no single PyTorch call evaluates a tree, so their library_ms is null")
-    del named, stacks, small
+    del named, stacks, small, w260, w132
     torch.cuda.empty_cache()
     return report
 
@@ -1120,6 +1292,38 @@ def bitmap_truth_words(shape, m, r):
     return mirror_row(m, "e", 0) & ~mirror_row(m, "h", c)
 
 
+TREE_FIELD_ROWS = {"f": R_FULL, "g": R_FULL, "h": H_ROWS}
+
+
+def tree_queries(qrng):
+    """The trees path's queries, drawn from ``qrng``: ``(items, calls,
+    bitmaps, bitmap_q, wide, wide_q)``, the 1024 Count items (shape, rows)
+    and their PQL calls, the three bitmap trees (shape, rows) and their
+    query, and the WIDE_LEAVES leaves (field, row) of the wide Count and
+    its query. A row is ABSENT_ROW with odds 1/64."""
+    n_rows = TREE_FIELD_ROWS
+    leaf_fields = (("f", "g", "h", None), ("f", "g", "f", "g"), ("f", None, None, None),
+                   ("f", "f", "f", None))
+
+    def draw(fld):
+        if fld is None:
+            return 0
+        return ABSENT_ROW if qrng.random() < 1 / 64 else int(qrng.integers(0, n_rows[fld]))
+
+    items = []
+    for k in range(BATCH):
+        shape = k % len(TREE_COUNTS)
+        items.append((shape, tuple(draw(f) for f in leaf_fields[shape])))
+    calls = [TREE_COUNTS[sh].format(a=r[0], b=r[1], c=r[2], d=r[3]) for sh, r in items]
+    bitmaps = [(sh, tuple(draw(f) for f in ("f", "g", "h", None)))
+               for sh in range(len(TREE_BITMAPS))]
+    bitmap_q = " ".join(TREE_BITMAPS[sh].format(a=r[0], b=r[1], c=r[2]) for sh, r in bitmaps)
+    wide = [("fgh"[k % 3], (k // 3) % n_rows["fgh"[k % 3]]) for k in range(WIDE_LEAVES - 1)]
+    wide.append(("f", ABSENT_ROW))
+    wide_q = "Count(Union(" + ", ".join(f"Row({f}={r})" for f, r in wide) + "))"
+    return items, calls, bitmaps, bitmap_q, wide, wide_q
+
+
 def trees_path(pool, ex, holder, device):
     """Compiled PQL trees at the serving size, before and after writes to
     f, g and h: a 1024-call batch of four Count shapes through
@@ -1139,29 +1343,11 @@ def trees_path(pool, ex, holder, device):
 
     qrng = np.random.default_rng(SEED + 6)
     on_card = torch.device(device).type == "cuda"
-    n_rows = {"f": R_FULL, "g": R_FULL, "h": H_ROWS}
-    leaf_fields = (("f", "g", "h", None), ("f", "g", "f", "g"), ("f", None, None, None),
-                   ("f", "f", "f", None))
-
-    def draw(fld):
-        if fld is None:
-            return 0
-        return ABSENT_ROW if qrng.random() < 1 / 64 else int(qrng.integers(0, n_rows[fld]))
-
-    items = []
-    for k in range(BATCH):
-        shape = k % len(TREE_COUNTS)
-        items.append((shape, tuple(draw(f) for f in leaf_fields[shape])))
-    calls = [TREE_COUNTS[sh].format(a=r[0], b=r[1], c=r[2], d=r[3]) for sh, r in items]
-    bitmaps = [(sh, tuple(draw(f) for f in ("f", "g", "h", None)))
-               for sh in range(len(TREE_BITMAPS))]
-    bitmap_q = " ".join(TREE_BITMAPS[sh].format(a=r[0], b=r[1], c=r[2]) for sh, r in bitmaps)
+    n_rows = TREE_FIELD_ROWS
+    items, calls, bitmaps, bitmap_q, wide, wide_q = tree_queries(qrng)
     # the plain version's signatures and leaf order for each Count shape
     plain_sigs = [TREE_SIGS[n] for n in ("and3", "union_of_pairs", "not", "xor3")]
     plain_rows = (lambda r: r[:3], lambda r: r, lambda r: (0, r[0]), lambda r: r[:3])
-    wide = [("fgh"[k % 3], (k // 3) % n_rows["fgh"[k % 3]]) for k in range(WIDE_LEAVES - 1)]
-    wide.append(("f", ABSENT_ROW))
-    wide_q = "Count(Union(" + ", ".join(f"Row({f}={r})" for f, r in wide) + "))"
     results = {}
 
     def run_round(tag):
@@ -1345,13 +1531,16 @@ def main() -> int:
     sass = gram_sass_counts()
     for k, tiles in sass.items():
         log(f"{k}: tensor-core MMA instructions in SASS by tile {tiles}")
+    sass["tree_count"] = tree_sass_counts()
+    log(f"tree_count: tensor-core MMA instructions in the staged kernel's SASS "
+        f"{sass['tree_count']}")
 
     rng = np.random.default_rng(SEED + 3)
     stack = random_words(rng, (S_FULL, R_FULL, W_FULL), dense=True)
     stack2 = random_words(rng, (S_FULL, R_FULL, W_FULL), dense=True)
     filt = random_words(rng, (S_FULL, W_FULL), dense=False)
     kern = check_kernels(stack, stack2, filt, torch.device("cuda"))
-    kern.update(check_tree_kernels(stack, stack2, torch.device("cuda")))
+    kern.update(check_tree_kernels(stack, stack2, torch.device("cuda"), kern["mma_macs_per_s"]))
     del stack, stack2, filt
 
     from pilosa_tpu_torch.exec.executor import Executor
@@ -1410,12 +1599,15 @@ def main() -> int:
             "card": name,
             "power_limit": limit,
         })
-        if k in sass:
+        if k in ("gram", "cross_gram"):
             entries[-1].update(
                 sass_mma_by_tile=sass[k],
                 bound_ops_rate="single-bit MMA, measured in this run",
                 mma_macs_per_s=kern["mma_macs_per_s"],
             )
+        if "tree_route" in v:  # the tree count: the plan's route at each shape
+            entries[-1].update(sass_mma_by_instance=sass[k], tree_route=v["tree_route"],
+                               **{f"{sh}_tree_route": r for sh, r in v["extra_routes"].items()})
         for shape, (t, d, b) in v.get("extra", {}).items():
             entries[-1].update({f"{shape}_ms": t, f"{shape}_device_ms": d,
                                 f"{shape}_bound_ms": b[0], f"{shape}_bound_by": b[1]})

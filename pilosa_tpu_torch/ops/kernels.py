@@ -22,8 +22,9 @@ kernels of the JAX package:
 A fifth, ``ops/csrc/tree_eval.cu``, has no Pallas kernel behind it: it
 replaces the XLA programs of ``pilosa_tpu/exec/astbatch.py`` that evaluate a
 compiled PQL tree over field stacks, as the per-shard counts of a batch of
-``Count(tree)`` calls (:func:`tree_count`) or one tree's words
-(:func:`tree_words`).
+``Count(tree)`` calls (:func:`tree_count`, on the route and plan
+:func:`tree_plan` picks: the batch's distinct rows staged once per shard,
+or one block per item) or one tree's words (:func:`tree_words`).
 
 The two grams share one tile loop (``ops/csrc/gram_tile.cuh``) that runs
 on the tensor cores as single-bit MMA (AND + popcount of the packed
@@ -42,6 +43,8 @@ Stacks are ``int32[S, R, W]``: bit-identical views of the host's
 
 from __future__ import annotations
 
+import struct
+from functools import lru_cache
 from typing import NamedTuple
 
 import numpy as np
@@ -99,7 +102,10 @@ def _launch(fn: str, *args) -> None:
 
 
 def _stream(device: torch.device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
+    """The current CUDA stream of a tensor's device as a raw handle (the one
+    ``torch.cuda.current_stream(device).cuda_stream`` gives, without making
+    a Stream object)."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
 
 
 # ---------------------------------------------------------------------------
@@ -627,6 +633,37 @@ _TREE_FOLDS = {
 # bytes of [S, b, W] operands the plain tree evaluation holds per step
 _PLAIN_TREE_BYTES = 256 << 20
 
+# The staged route of the tree count (tree_eval.cu, pilosa_tree_count_staged;
+# these numbers match its defines): words of a row per shared-memory stage
+# (one warp step, 32 lanes x 16 bytes), items per single-bit MMA accumulator,
+# and the most leaves and operand-stack entries (with a leaf followed by a
+# fold applied to the top) it takes.
+TREE_CHUNK_WORDS = 128
+TREE_GROUP = 8
+TREE_STAGED_MAX_LEAVES = 64
+TREE_STAGED_MAX_DEPTH = 2
+TREE_STAGED_WARPS = 16
+# Steps of a flat chain the staged route runs on an instance of its own:
+# a push, then leaf folds of one fold (AND, OR, XOR or ANDNOT).
+TREE_FLAT_STEPS = 4
+# Step kinds of a program on the staged route: push a leaf, fold a leaf into
+# the top, fold the top into the entry below. A step is kind | fold << 2 |
+# leaf << 5, with fold = -opcode - 1.
+TREE_PUSH, TREE_LEAF_FOLD, TREE_POP_FOLD = 0, 1, 2
+# A staged slot's flag: every item of its group of TREE_GROUP names that row.
+TREE_UNIFORM = 1 << 30
+# Items of one tile, and the bytes of shared memory a tile's slots and
+# accumulators may take.
+_TREE_ITEM_TILE = 1024
+_TREE_SLOT_BYTES = 48 << 10
+# Dynamic shared memory one block may have on sm_90 (tests shrink it to cut
+# batches into several tiles).
+_TREE_SMEM_LIMIT = 232448
+# Chunks of a block's slice of a shard's words: the W split is the shard's
+# chunks over this. chip_smoke.py times the trees path's four shapes at
+# slices of 4-64 chunks; 32 was the fastest for three of them on an H100.
+TREE_SLICE_CHUNKS = 32
+
 
 def tree_depth(code, n_leaves: int) -> int:
     """The operand-stack depth of a postfix program; ``ValueError`` when
@@ -650,13 +687,76 @@ def tree_depth(code, n_leaves: int) -> int:
     return depth
 
 
+def tree_steps(code) -> tuple[np.ndarray, int]:
+    """``(steps, depth)``: a valid postfix program as the staged route runs
+    it, a leaf followed by a fold folded into the top of the operand stack
+    (as the direct route does), and the entries that evaluation needs."""
+    ops = np.asarray(code).tolist()
+    steps: list[int] = []
+    n = depth = k = 0
+    while k < len(ops):
+        op = ops[k]
+        nxt = ops[k + 1] if k + 1 < len(ops) else 0
+        if op >= 0 and n > 0 and nxt < 0:
+            steps.append(TREE_LEAF_FOLD | (-nxt - 1) << 2 | op << 5)
+            k += 2
+            continue
+        if op >= 0:
+            steps.append(TREE_PUSH | op << 5)
+            n += 1
+        else:
+            steps.append(TREE_POP_FOLD | (-op - 1) << 2)
+            n -= 1
+        depth = max(depth, n)
+        k += 1
+    return np.array(steps, dtype=np.int32), depth
+
+
+class TreeProgram(NamedTuple):
+    """A checked program: its operand-stack depth, its steps and their
+    depth on the staged route, the fold of a flat chain (-1: not one), and
+    the least and greatest stack its leaves name."""
+
+    depth: int
+    steps: np.ndarray
+    staged_depth: int
+    flat: int
+    stack_range: tuple
+
+
+def tree_flat(steps: np.ndarray) -> int:
+    """The fold (0-3: AND, OR, XOR, ANDNOT) of a flat chain of at most
+    TREE_FLAT_STEPS steps, a push then leaf folds of that one fold; -1 for
+    any other program."""
+    kinds, folds = steps & 3, (steps >> 2) & 7
+    if steps.size > TREE_FLAT_STEPS or kinds[0] != TREE_PUSH:
+        return -1
+    if steps.size == 1:
+        return 0
+    if (kinds[1:] != TREE_LEAF_FOLD).any() or (folds[1:] != folds[1]).any() or folds[1] > 3:
+        return -1
+    return int(folds[1])
+
+
+@lru_cache(maxsize=1024)
+def _tree_program(code: bytes, leaf_stack: bytes) -> TreeProgram:
+    ops = np.frombuffer(code, dtype=np.int64)
+    leaves = np.frombuffer(leaf_stack, dtype=np.int64)
+    depth = tree_depth(ops, leaves.size)
+    steps, staged_depth = tree_steps(ops)
+    steps.flags.writeable = False
+    return TreeProgram(depth, steps, staged_depth, tree_flat(steps),
+                       (int(leaves.min()), int(leaves.max())))
+
+
 def _check_tree(name: str, stacks, code, leaf_stack, slots, slot_dims: int):
-    """Checked ``(stacks, code, leaf_stack, slots, depth)``: ``stacks`` a
+    """Checked ``(stacks, code, leaf_stack, slots, program)``: ``stacks`` a
     non-empty sequence of contiguous ``int32[S, R_p, W]`` tensors of one S
     and W on one device; ``code`` a postfix program within the kernel's
     operand-stack depth; ``leaf_stack`` int ``[L]`` in ``[0, P)``;
     ``slots`` host int32 ``[B, L]`` (``[L]`` when ``slot_dims`` is 1) below
-    each leaf's row count (negative: an absent row)."""
+    each leaf's row count (negative: an absent row). The program's checks
+    are cached on its bytes."""
     stacks = tuple(stacks)
     if not stacks:
         raise ValueError(f"{name}: no stacks")
@@ -676,12 +776,12 @@ def _check_tree(name: str, stacks, code, leaf_stack, slots, slot_dims: int):
     L = leaf_stack.size
     if L == 0:
         raise ValueError(f"{name}: a program with no leaves")
-    depth = tree_depth(code, L)
-    if depth > TREE_MAX_DEPTH:
+    prog = _tree_program(code.tobytes(), leaf_stack.tobytes())
+    if prog.depth > TREE_MAX_DEPTH:
         raise ValueError(
-            f"{name}: the program needs {depth} stack entries (limit {TREE_MAX_DEPTH})"
+            f"{name}: the program needs {prog.depth} stack entries (limit {TREE_MAX_DEPTH})"
         )
-    if leaf_stack.min() < 0 or leaf_stack.max() >= len(stacks):
+    if prog.stack_range[0] < 0 or prog.stack_range[1] >= len(stacks):
         raise ValueError(f"{name}: leaf stack index out of range [0, {len(stacks)})")
     slots = np.asarray(slots)
     if slots.dtype != np.int32:
@@ -691,7 +791,7 @@ def _check_tree(name: str, stacks, code, leaf_stack, slots, slot_dims: int):
     rows = np.array([stacks[p].shape[1] for p in leaf_stack.tolist()], dtype=np.int64)
     if slots.size and (slots >= rows).any():
         raise ValueError(f"{name}: a slot past its stack's rows")
-    return stacks, code, leaf_stack, np.ascontiguousarray(slots), depth
+    return stacks, code, leaf_stack, np.ascontiguousarray(slots), prog
 
 
 def _tree_leaf_plain(bits: torch.Tensor, col: np.ndarray) -> torch.Tensor:
@@ -724,13 +824,13 @@ def _tree_eval_plain(stacks, code, leaf_stack, slots: np.ndarray) -> torch.Tenso
 def tree_count_plain(stacks, code, leaf_stack, slots) -> torch.Tensor:
     """Plain version of the tree count: ``int32[B, S]``, items evaluated in
     steps of _PLAIN_TREE_BYTES."""
-    stacks, code, leaf_stack, slots, depth = _check_tree(
+    stacks, code, leaf_stack, slots, prog = _check_tree(
         "tree_count_plain", stacks, code, leaf_stack, slots, 2
     )
     S, _, W = stacks[0].shape
     B = slots.shape[0]
     out = torch.zeros((B, S), dtype=torch.int32, device=stacks[0].device)
-    step = max(1, _PLAIN_TREE_BYTES // max(1, (depth + 2) * S * W * 4))
+    step = max(1, _PLAIN_TREE_BYTES // max(1, (prog.depth + 2) * S * W * 4))
     for b0 in range(0, B, step):
         words = _tree_eval_plain(stacks, code, leaf_stack, slots[b0 : b0 + step])
         out[b0 : b0 + step] = bitops.count_rows(words).T
@@ -745,47 +845,344 @@ def tree_words_plain(stacks, code, leaf_stack, slots) -> torch.Tensor:
     return _tree_eval_plain(stacks, code, leaf_stack, slots[None])[:, 0].contiguous()
 
 
-def _tree_table(stacks, code, leaf_stack, slots: np.ndarray, device) -> torch.Tensor:
-    """The kernel's table (tree_eval.cu) on ``device``, uploaded in one
-    copy: int64 base pointers, then int32 row counts, program, leaf stacks
-    and slots."""
+# Bytes of a table the direct route's C entries take from host memory as
+# the kernel's parameter (tree_eval.cu holds the same number); a longer
+# table is uploaded.
+TREE_PARAM_BYTES = 256
+
+
+def _pack(parts) -> np.ndarray:
+    """``uint8``: the host arrays ``parts`` one after another."""
+    return np.concatenate([np.ascontiguousarray(a).reshape(-1).view(np.uint8) for a in parts])
+
+
+def _upload(buf: np.ndarray, device) -> torch.Tensor:
+    """``buf`` on ``device``, copied from pinned memory on the current
+    stream without waiting for the host: the caching host allocator keeps
+    the pinned buffer until the copy that read it has run, and a kernel on
+    the same stream reads the table after the copy."""
+    host = torch.empty(buf.size, dtype=torch.uint8, pin_memory=True)
+    host.numpy()[:] = buf
+    return host.to(device, non_blocking=True)
+
+
+def _tree_table(stacks, code, leaf_stack, slots: np.ndarray, device):
+    """The direct route's table (tree_eval.cu: int64 base pointers, then
+    int32 row counts, program, leaf stacks and slots) as the C entries take
+    it: ``(pointer, host_bytes, owner)``, host bytes when the table fits
+    TREE_PARAM_BYTES (host_bytes > 0: it goes to the kernel as its
+    parameter), else an upload on ``device`` (host_bytes 0). ``owner``
+    holds the memory while the call runs."""
     P = len(stacks)
-    ints = np.concatenate([
+    n_ints = P + code.size + leaf_stack.size + slots.size
+    if 8 * P + 4 * n_ints <= TREE_PARAM_BYTES:
+        buf = struct.pack(
+            f"<{P}q{n_ints}i", *(t.data_ptr() for t in stacks), *(t.shape[1] for t in stacks),
+            *code.tolist(), *leaf_stack.tolist(), *slots.reshape(-1).tolist(),
+        )
+        return buf, len(buf), buf
+    table = _upload(_pack([
+        np.array([t.data_ptr() for t in stacks], dtype=np.int64),
         np.array([t.shape[1] for t in stacks], dtype=np.int32),
         code.astype(np.int32),
         leaf_stack.astype(np.int32),
-        slots.reshape(-1),
-    ])
-    buf = np.empty(8 * P + 4 * ints.size, dtype=np.uint8)
-    buf[: 8 * P].view(np.int64)[:] = [t.data_ptr() for t in stacks]
-    buf[8 * P :].view(np.int32)[:] = ints
-    return torch.from_numpy(buf).to(device)
+        slots,
+    ]), device)
+    return table.data_ptr(), 0, table
+
+
+def tree_distinct_rows(stacks, leaf_stack, slots: np.ndarray):
+    """``(rows, remap)``: the distinct rows a batch names, and its slots as
+    indices into them. ``rows`` is int64 ``[U, 2]`` of (stack ordinal, row),
+    sorted; stacks that are one tensor (one data pointer and row count)
+    share their rows, under the ordinal of the first. ``remap`` is int32
+    ``[B, L]``, -1 where a slot is absent."""
+    keys = [(t.data_ptr(), t.shape[1]) for t in stacks]
+    first = np.array([keys.index(k) for k in keys], dtype=np.int64)
+    offset = np.concatenate([[0], np.cumsum([k[1] for k in keys])]).astype(np.int64)
+    present = slots >= 0
+    gid = offset[first[np.asarray(leaf_stack, dtype=np.int64)]][None, :] + slots
+    named = np.zeros(int(offset[-1]), dtype=bool)
+    named[gid[present]] = True
+    uniq = np.flatnonzero(named)
+    remap = np.full(slots.shape, -1, dtype=np.int32)
+    remap[present] = (np.cumsum(named) - 1)[gid[present]]
+    p = np.searchsorted(offset, uniq, side="right") - 1
+    return np.stack([p, uniq - offset[p]], axis=1), remap
+
+
+def _leaf_distinct(remap: np.ndarray) -> np.ndarray:
+    """Distinct values (absent counting as one) of each leaf's column."""
+    L = remap.shape[1]
+    n = int(remap.max()) + 2 if remap.size else 1
+    seen = np.bincount((remap + 1 + n * np.arange(L)).reshape(-1), minlength=n * L)
+    return np.count_nonzero(seen.reshape(L, n), axis=1)
+
+
+def tree_item_order(remap: np.ndarray) -> np.ndarray:
+    """int64 ``[B]``: the items in staging order, sorted by their row
+    indices with the leaf of fewest distinct rows first (ties: the earlier
+    leaf), so that the items of one warp's group share leaves."""
+    B, L = remap.shape
+    distinct = _leaf_distinct(remap)
+    primary_last = sorted(range(L), key=lambda l: (distinct[l], l), reverse=True)
+    n = int(remap.max()) + 2 if remap.size else 1
+    if n ** L < 2**62:  # one packed key
+        key = np.zeros(B, dtype=np.int64)
+        for l in reversed(primary_last):
+            key = key * n + (remap[:, l] + 1)
+        return np.argsort(key, kind="stable")
+    return np.lexsort([remap[:, l] for l in primary_last])
+
+
+def tree_tiles(remap: np.ndarray, order: np.ndarray, row_tile: int, item_tile: int):
+    """The items, in staging order, cut into consecutive tiles of at most
+    ``item_tile`` items that name at most ``row_tile`` distinct rows (each
+    item names at most ``row_tile``)."""
+    n_rows = int(remap.max()) + 1 if remap.size else 0
+    if n_rows <= row_tile:
+        return [order[i : i + item_tile] for i in range(0, order.size, item_tile)]
+    tiles, start, rows = [], 0, set()
+    for i, b in enumerate(order.tolist()):
+        mine = {u for u in remap[b].tolist() if u >= 0}
+        grown = rows | mine
+        if i > start and (i - start == item_tile or len(grown) > row_tile):
+            tiles.append(order[start:i])
+            start, grown = i, mine
+        rows = grown
+    tiles.append(order[start:])
+    return tiles
+
+
+class TreePlan(NamedTuple):
+    """How one tree_count launch runs. ``route`` "direct": one block per
+    (item, shard), 16-byte or word loads (``vec16``). "staged": tiles of
+    at most ``item_tile`` items naming at most ``row_tile`` distinct rows,
+    each chunk of those rows staged once per shard in a ring of ``stages``
+    shared-memory stages; ``wsplit`` blocks per (tile, shard), each a
+    slice of the chunks; ``flat`` the fold of a flat chain run on its own
+    instance (-1: the general step loop)."""
+
+    route: str
+    vec16: bool
+    stages: int = 0
+    row_tile: int = 0
+    item_tile: int = 0
+    wsplit: int = 1
+    flat: int = -1
+
+
+def _pad(n: int, m: int) -> int:
+    return -(-n // m) * m
+
+
+def _tree_staged_smem(rows: int, items: int, L: int, n_steps: int, stages: int) -> int:
+    """Dynamic shared-memory bytes of a staged block (tree_eval.cu,
+    tree_smem): the stage ring (the rows and a zero row), row pointers,
+    steps, slots, and each group's accumulator (32 lanes x 8 bytes)."""
+    return (stages * (rows + 1) * TREE_CHUNK_WORDS * 4 + _pad(8 * rows, 16)
+            + _pad(4 * n_steps, 16) + 4 * L * items + 32 * items)
+
+
+def _tree_staged_fits(L: int, vec16: bool, staged_depth: int) -> bool:
+    """Whether the staged route can run a program of ``L`` leaves and
+    ``staged_depth`` register entries at all (its 16-byte copies, its
+    registers and its leaf limit)."""
+    return vec16 and staged_depth <= TREE_STAGED_MAX_DEPTH and L <= TREE_STAGED_MAX_LEAVES
+
+
+def tree_plan(B: int, L: int, U: int, S: int, W: int, vec16: bool, staged_depth: int,
+              n_steps: int, flat: int = -1) -> TreePlan:
+    """The tree count's launch plan for ``B`` items of ``L`` leaves naming
+    ``U`` distinct rows at ``S`` shards of ``W`` words. Staged where
+    :func:`_tree_staged_fits` and the rows are shared (every distinct row
+    serves at least two leaf reads); the item tile from the slot budget,
+    the row tile and stages from shared memory (2 stages at least, 4 at
+    most), slices of TREE_SLICE_CHUNKS chunks; a flat chain (``flat``,
+    :func:`tree_flat`) on its own instance. Direct otherwise."""
+    direct = TreePlan("direct", vec16)
+    if not _tree_staged_fits(L, vec16, staged_depth) or U == 0 or B * L < 2 * U:
+        return direct
+    item_tile = min(_pad(B, TREE_GROUP), _TREE_ITEM_TILE,
+                    _TREE_SLOT_BYTES // (4 * (L + 8)) // TREE_GROUP * TREE_GROUP)
+    fixed = _pad(4 * n_steps, 16) + 4 * (L + 8) * item_tile
+
+    def fit(stages):  # rows a block holds with this many stages
+        row = stages * TREE_CHUNK_WORDS * 4
+        return (_TREE_SMEM_LIMIT - fixed - 8 - row) // (row + 8)
+
+    row_tile = min(U, fit(2))
+    if row_tile < min(L, U) or item_tile < TREE_GROUP:  # one item's rows must fit
+        return direct
+    stages = max(st for st in (2, 3, 4) if fit(st) >= row_tile)
+    wsplit = -(-W // (TREE_CHUNK_WORDS * TREE_SLICE_CHUNKS))
+    return TreePlan("staged", True, stages, row_tile, item_tile, wsplit, flat)
+
+
+def _check_tree_plan(plan: TreePlan, L: int, W: int, n_steps: int, staged_depth: int) -> None:
+    """Raise ``ValueError`` for a plan the C entries refuse."""
+    if plan.route == "direct":
+        ok = not (plan.vec16 and W % 4)
+    else:
+        ok = (plan.route == "staged" and plan.vec16 and W % 4 == 0
+              and 2 <= plan.stages <= 4 and plan.row_tile >= 1
+              and plan.item_tile > 0 and plan.item_tile % TREE_GROUP == 0
+              and plan.wsplit >= 1
+              and L <= TREE_STAGED_MAX_LEAVES and staged_depth <= TREE_STAGED_MAX_DEPTH
+              and -1 <= plan.flat <= 3
+              and (plan.flat < 0 or (staged_depth == 1 and n_steps <= TREE_FLAT_STEPS))
+              and _tree_staged_smem(plan.row_tile, plan.item_tile, L, n_steps,
+                                    plan.stages) <= _TREE_SMEM_LIMIT)
+    if not ok:
+        raise ValueError(f"tree plan {plan} cannot run {L} leaves at W = {W}")
+
+
+def tree_flat_order(steps: np.ndarray, remap: np.ndarray, flat: int) -> np.ndarray:
+    """A flat chain's steps with its leaves in the order of fewest distinct
+    rows first, so that the leaves a whole group shares come first; ANDNOT
+    keeps its minuend first. The chain's fold makes the order free."""
+    leaves = (steps >> 5).tolist()
+    distinct = _leaf_distinct(remap)
+    fixed = 1 if flat == 3 else 0
+    leaves[fixed:] = sorted(leaves[fixed:], key=lambda l: (distinct[l], l))
+    return np.array([TREE_PUSH | leaves[0] << 5]
+                    + [TREE_LEAF_FOLD | flat << 2 | l << 5 for l in leaves[1:]], dtype=np.int32)
+
+
+class TreeStaged(NamedTuple):
+    """A staged launch's host arrays (tree_eval.cu's staged table), the
+    steps in it, and its sizes: the largest tile's rows and padded items."""
+
+    parts: list
+    steps: np.ndarray
+    tiles: int
+    n_rows: int
+    n_items: int
+    rows_max: int
+    items_max: int
+
+
+def tree_staged_layout(stacks, rows: np.ndarray, remap: np.ndarray, steps: np.ndarray,
+                       plan: TreePlan) -> TreeStaged:
+    """The staged table of a batch: items in staging order cut into tiles
+    (:func:`tree_item_order`, :func:`tree_tiles`), each tile's rows, its
+    slots as indices into them ([L][items], padded to whole groups with
+    absent slots; an absent slot names the tile's zero row, index = its row
+    count; TREE_UNIFORM marks a group of TREE_GROUP items that name one row)
+    and each item's row of the output (-1 for padding)."""
+    W = stacks[0].shape[2]
+    L = remap.shape[1]
+    order = tree_item_order(remap)
+    if plan.flat >= 0:
+        steps = tree_flat_order(steps, remap, plan.flat)
+    heads, row_ids, slot_blocks, ids = [], [], [], []
+    n_rows = n_items = 0
+    for items in tree_tiles(remap, order, plan.row_tile, plan.item_tile):
+        sub = remap[items]
+        if items.size == remap.shape[0]:  # one tile: its rows are all the rows
+            mine = np.arange(rows.shape[0])
+            local = sub
+        else:
+            mine = np.unique(sub[sub >= 0])
+            local = np.searchsorted(mine, sub)
+        m = _pad(items.size, TREE_GROUP)
+        block = np.full((L, m), mine.size, dtype=np.int32)
+        block[:, : items.size] = np.where(sub >= 0, local, mine.size).T
+        grouped = block.reshape(L, -1, TREE_GROUP)
+        block |= np.repeat((grouped == grouped[:, :, :1]).all(axis=2), TREE_GROUP, axis=1) \
+            * np.int32(TREE_UNIFORM)
+        item_ids = np.full(m, -1, dtype=np.int32)
+        item_ids[: items.size] = items
+        heads.append((n_rows, mine.size, n_items, m))
+        row_ids.append(mine)
+        slot_blocks.append(block.reshape(-1))
+        ids.append(item_ids)
+        n_rows += mine.size
+        n_items += m
+    tile_rows = rows[np.concatenate(row_ids)]
+    base = np.array([t.data_ptr() for t in stacks], dtype=np.int64)
+    per = np.array([t.shape[1] for t in stacks], dtype=np.int64)
+    parts = [
+        base[tile_rows[:, 0]] + tile_rows[:, 1] * W * 4,
+        per[tile_rows[:, 0]] * W,
+        np.array(heads, dtype=np.int32),
+        steps,
+        *slot_blocks,
+        *ids,
+    ]
+    return TreeStaged(parts, steps, len(heads), n_rows, n_items,
+                      max(h[1] for h in heads), max(h[3] for h in heads))
+
+
+class TreeLaunch(NamedTuple):
+    """What the tree count launches for a batch: the checked program, the
+    batch's distinct rows and remapped slots (:func:`tree_distinct_rows`;
+    None where the program cannot take the staged route) and the plan."""
+
+    program: TreeProgram
+    rows: np.ndarray | None
+    remap: np.ndarray | None
+    plan: TreePlan
+
+
+def _tree_launch(stacks, leaf_stack, slots, prog: TreeProgram) -> TreeLaunch:
+    S, _, W = stacks[0].shape
+    B, L = slots.shape
+    vec16 = _copies16(W, *stacks)
+    if _tree_staged_fits(L, vec16, prog.staged_depth):
+        rows, remap = tree_distinct_rows(stacks, leaf_stack, slots)
+        plan = tree_plan(B, L, len(rows), S, W, vec16, prog.staged_depth, prog.steps.size,
+                         prog.flat)
+    else:  # direct, whatever the rows: the batch's distinct rows are not needed
+        rows = remap = None
+        plan = TreePlan("direct", vec16)
+    _check_tree_plan(plan, L, W, prog.steps.size, prog.staged_depth)
+    return TreeLaunch(prog, rows, remap, plan)
+
+
+def tree_count_launch(stacks, code, leaf_stack, slots) -> TreeLaunch:
+    """The :class:`TreeLaunch` :func:`tree_count` makes of these arguments
+    on their device (for a report of its route and floors)."""
+    stacks, _, leaf_stack, slots, prog = _check_tree(
+        "tree_count", stacks, code, leaf_stack, slots, 2
+    )
+    return _tree_launch(stacks, leaf_stack, slots, prog)
 
 
 def tree_count(stacks, code, leaf_stack, slots) -> torch.Tensor:
     """``int32[B, S]`` per-shard popcounts of the postfix tree ``code`` for
     each slot row of ``slots`` (host int32 ``[B, L]``; leaf ``l`` of item
     ``b`` is row ``slots[b, l]`` of ``stacks[leaf_stack[l]]``, absent when
-    negative), in one launch. Callers sum over shards in int64."""
-    stacks, code, leaf_stack, slots, depth = _check_tree(
+    negative), in one launch on the route :func:`tree_plan` picks. Callers
+    sum over shards in int64."""
+    stacks, code, leaf_stack, slots, prog = _check_tree(
         "tree_count", stacks, code, leaf_stack, slots, 2
     )
     if _is_cpu("tree_count", *stacks):
         return tree_count_plain(stacks, code, leaf_stack, slots)
     S, _, W = stacks[0].shape
-    B = slots.shape[0]
+    B, L = slots.shape
     dev = stacks[0].device
-    out = torch.empty((B, S), dtype=torch.int32, device=dev)
-    if out.numel() == 0:
-        return out
-    if W == 0:
-        return out.zero_()
-    table = _tree_table(stacks, code, leaf_stack, slots, dev)
-    _launch(
-        "pilosa_tree_count", table.data_ptr(), len(stacks), code.size,
-        leaf_stack.size, depth, B, S, W, int(_copies16(W, *stacks)),
-        out.data_ptr(), dev.index, _stream(dev),
-    )
+    if B == 0 or S == 0 or W == 0:
+        return torch.zeros((B, S), dtype=torch.int32, device=dev)
+    _, rows, remap, plan = _tree_launch(stacks, leaf_stack, slots, prog)
+    if plan.route == "direct":
+        out = torch.empty((B, S), dtype=torch.int32, device=dev)
+        ptr, host_bytes, _owner = _tree_table(stacks, code, leaf_stack, slots, dev)
+        _launch(
+            "pilosa_tree_count", ptr, host_bytes, len(stacks), code.size, L,
+            prog.depth, B, S, W, int(plan.vec16), out.data_ptr(), dev.index, _stream(dev),
+        )
+    else:
+        out = torch.zeros((B, S), dtype=torch.int32, device=dev)
+        lay = tree_staged_layout(stacks, rows, remap, prog.steps, plan)
+        table = _upload(_pack(lay.parts), dev)
+        _launch(
+            "pilosa_tree_count_staged", table.data_ptr(), lay.tiles, lay.n_rows,
+            lay.n_items, prog.steps.size, L, prog.staged_depth, S, W, plan.stages,
+            lay.rows_max, lay.items_max, plan.wsplit, plan.flat, out.data_ptr(),
+            dev.index, _stream(dev),
+        )
     LAUNCHES["tree_count"] += 1
     return out
 
@@ -793,7 +1190,7 @@ def tree_count(stacks, code, leaf_stack, slots) -> torch.Tensor:
 def tree_words(stacks, code, leaf_stack, slots) -> torch.Tensor:
     """``int32[S, W]`` words of the postfix tree ``code`` for one slot row
     (host int32 ``[L]``), in one launch."""
-    stacks, code, leaf_stack, slots, depth = _check_tree(
+    stacks, code, leaf_stack, slots, prog = _check_tree(
         "tree_words", stacks, code, leaf_stack, slots, 1
     )
     if _is_cpu("tree_words", *stacks):
@@ -803,11 +1200,11 @@ def tree_words(stacks, code, leaf_stack, slots) -> torch.Tensor:
     out = torch.empty((S, W), dtype=torch.int32, device=dev)
     if out.numel() == 0:
         return out
-    table = _tree_table(stacks, code, leaf_stack, slots, dev)
+    ptr, host_bytes, _owner = _tree_table(stacks, code, leaf_stack, slots, dev)
     vec16 = _copies16(W, *stacks) and out.data_ptr() % 16 == 0
     _launch(
-        "pilosa_tree_words", table.data_ptr(), len(stacks), code.size,
-        leaf_stack.size, depth, S, W, int(vec16), out.data_ptr(), dev.index,
+        "pilosa_tree_words", ptr, host_bytes, len(stacks), code.size,
+        leaf_stack.size, prog.depth, S, W, int(vec16), out.data_ptr(), dev.index,
         _stream(dev),
     )
     LAUNCHES["tree_words"] += 1

@@ -408,16 +408,169 @@ def test_tree_kernel_refuses_programs_past_its_limits(cuda_device):
     lib = cuda_build.load()
     out = torch.zeros((1, 2), dtype=torch.int32, device=cuda_device)
     flat = astbatch.program(_FLAT3)
-    table = tk._tree_table(stacks * 3, flat.code, flat.leaf_stack,
-                           np.zeros((1, 3), np.int32), cuda_device)
+    ptr, host_bytes, _owner = tk._tree_table(stacks * 3, flat.code, flat.leaf_stack,
+                                             np.zeros((1, 3), np.int32), cuda_device)
+    assert 0 < host_bytes <= tk.TREE_PARAM_BYTES  # a parameter, not an upload
     stream = torch.cuda.current_stream().cuda_stream
     for depth in (0, tk.TREE_MAX_DEPTH + 1):
-        assert lib.pilosa_tree_count(table.data_ptr(), 3, flat.code.size, 3, depth,
+        assert lib.pilosa_tree_count(ptr, host_bytes, 3, flat.code.size, 3, depth,
                                      1, 2, 8, 1, out.data_ptr(), 0, stream) != 0
-    assert lib.pilosa_tree_count(table.data_ptr(), 3, flat.code.size, 3, 2,
+    assert lib.pilosa_tree_count(ptr, host_bytes, 3, flat.code.size, 3, 2,
                                  1, 2, 130, 1, out.data_ptr(), 0, stream) != 0
+    # a host table past the parameter's bytes
+    assert lib.pilosa_tree_words(ptr, tk.TREE_PARAM_BYTES + 16, 3, flat.code.size, 3, 2,
+                                 2, 8, 1, out.data_ptr(), 0, stream) != 0
     torch.cuda.synchronize()
     assert int(out.abs().sum()) == 0
+
+
+def _tree_case(cuda_device, S, W, rows, alias, sig, B, absent, seed):
+    from pilosa_tpu_torch.exec import astbatch
+
+    rng = np.random.default_rng(seed)
+    base = tuple(_words(rng, S, r, W).to(cuda_device) for r in rows)
+    stacks = base if alias is None else tuple(base[k] for k in alias)
+    p = astbatch.program(sig)
+    n_rows = np.array([stacks[k].shape[1] for k in p.leaf_stack])
+    slots = (rng.random((B, p.n_leaves)) * n_rows).astype(np.int32)
+    slots[rng.random(slots.shape) < absent] = -1
+    slots[:, n_rows == 0] = -1
+    return stacks, p, slots
+
+
+def _launched(monkeypatch):
+    """The C entries the tree wrappers call, in order."""
+    names = []
+    real = tk._launch
+
+    def spy(fn, *args):
+        names.append(fn)
+        return real(fn, *args)
+
+    monkeypatch.setattr(tk, "_launch", spy)
+    return names
+
+
+_PAIRS = ("union", ("intersect", ("row", 0), ("row", 1)), ("difference", ("row", 0), ("row", 1)))
+
+
+@pytest.mark.parametrize(
+    "S,W,rows,alias,sig,B,absent,force,route",
+    [
+        # the staged route as planned: W past a whole chunk, one register
+        # entry and two, stages 4, a W split, absent rows, a 0-row stack,
+        # one tensor as two stacks, B not a whole group
+        (3, 132, (5, 7, 1), None, _FLAT3, 40, 0.2, None, "staged"),
+        (3, 260, (9, 0, 3), None, _PAIRS, 33, 0.1, None, "staged"),
+        (5, 4096, (64, 64, 4), None, _FLAT3, 1001, 0.0, None, "staged"),
+        (2, 1028, (6, 4), (0, 0, 1), _FLAT3, 77, 0.1, None, "staged"),
+        (7, 512, (64, 4, 1), None, ("xor", ("row", 0), ("row", 0), ("row", 0)), 33, 0.0,
+         None, "staged"),
+        (3, 260, (5, 7, 2), None, _chain(40), 6, 0.2, None, "staged"),
+        # the flat instances: Not (ANDNOT) over a 1-row existence stack, a
+        # Union of four leaves (OR), reordered; a flat chain forced onto
+        # the general step loop
+        (3, 516, (1, 40), None, ("difference", ("row", 0), ("row", 1)), 70, 0.1, None,
+         "staged"),
+        (2, 132, (3, 9, 5), None, ("union", ("row", 2), ("row", 1), ("row", 0), ("row", 1)), 45,
+         0.1, None, "staged"),
+        (3, 132, (5, 7, 1), None, _FLAT3, 40, 0.2, "staged", "staged"),
+        # forced: one item, and the direct route on a staged shape
+        (3, 384, (5, 7, 1), None, _FLAT3, 1, 0.0, "staged", "staged"),
+        (4, 1024, (9, 9, 2), None, _PAIRS, 50, 0.1, "staged", "staged"),
+        (3, 132, (5, 7, 1), None, _FLAT3, 40, 0.2, "direct", "direct"),
+        # items that share no rows (absent -1: item b on rows 3b .. 3b + 2),
+        # planned direct, then forced staged
+        (2, 132, (24, 24, 24), None, _FLAT3, 8, -1, None, "direct"),
+        (2, 132, (24, 24, 24), None, _FLAT3, 8, -1, "staged", "staged"),
+        # the word route and a program past the staged route's registers
+        (3, 130, (5, 7, 1), None, _FLAT3, 40, 0.2, None, "direct"),
+        (2, 132, (5, 0, 1), None, _balanced(3), 30, 0.2, None, "direct"),
+    ],
+)
+def test_tree_count_routes_match_plain(cuda_device, monkeypatch, S, W, rows, alias, sig, B,
+                                       absent, force, route):
+    stacks, p, slots = _tree_case(cuda_device, S, W, rows, alias, sig, B, max(absent, 0),
+                                  S * W + B)
+    if absent < 0:
+        slots = (np.arange(B)[:, None] * 3 + np.arange(3)).astype(np.int32)
+    if force is not None:
+        # the staged force runs the general step loop (flat -1)
+        forced = (tk.TreePlan("direct", W % 4 == 0) if force == "direct" else
+                  tk.TreePlan("staged", True, 2, 3 * B, 8 * -(-B // 8), 2))
+        monkeypatch.setattr(tk, "tree_plan", lambda *a, **k: forced)
+    names = _launched(monkeypatch)
+    got = tk.tree_count(stacks, p.code, p.leaf_stack, slots)
+    torch.cuda.synchronize()
+    assert names == ["pilosa_tree_count" if route == "direct" else "pilosa_tree_count_staged"]
+    assert torch.equal(got, tk.tree_count_plain(stacks, p.code, p.leaf_stack, slots))
+
+
+@pytest.mark.parametrize("rows_per_tile,items_per_tile", [(20, 1024), (1000, 64), (12, 40)])
+def test_tree_count_staged_tiles_match_plain(cuda_device, monkeypatch, rows_per_tile,
+                                             items_per_tile):
+    """Distinct rows and items past one tile: the wrapper cuts the batch."""
+    stacks, p, slots = _tree_case(cuda_device, 3, 260, (40, 40, 4), None, _FLAT3, 300, 0.05, 1)
+    items = min(304, items_per_tile)
+    monkeypatch.setattr(tk, "_TREE_SMEM_LIMIT", min(
+        tk._TREE_SMEM_LIMIT, tk._tree_staged_smem(rows_per_tile, items, 3, 3, 2) + 16))
+    monkeypatch.setattr(tk, "_TREE_ITEM_TILE", items_per_tile)
+    got = tk.tree_count(stacks, p.code, p.leaf_stack, slots)
+    torch.cuda.synchronize()
+    assert torch.equal(got, tk.tree_count_plain(stacks, p.code, p.leaf_stack, slots))
+
+
+def test_tree_staged_c_entry_refuses_a_bad_plan(cuda_device):
+    from pilosa_tpu_torch.ops import cuda_build
+
+    lib = cuda_build.load()
+    table = torch.zeros(1024, dtype=torch.uint8, device=cuda_device)
+    out = torch.zeros((8, 2), dtype=torch.int32, device=cuda_device)
+    stream = torch.cuda.current_stream().cuda_stream
+    good = dict(tiles=1, n_rows=0, n_items=8, n_steps=3, L=3, depth=1, S=2, W=128,
+                stages=2, rows_max=0, items_max=8, wsplit=1, flat=-1)
+    for bad in (dict(stages=1), dict(stages=5), dict(depth=3), dict(wsplit=0),
+                dict(W=130), dict(items_max=12), dict(L=65), dict(rows_max=300, stages=4),
+                dict(flat=4), dict(flat=0, depth=2),
+                dict(flat=0, n_steps=5, L=5)):
+        args = {**good, **bad}
+        code = lib.pilosa_tree_count_staged(table.data_ptr(), *args.values(), out.data_ptr(),
+                                            0, stream)
+        assert code != 0, bad
+    torch.cuda.synchronize()
+    assert int(out.abs().sum()) == 0
+
+
+def test_tree_tables_upload_without_waiting_for_the_stream(cuda_device):
+    """The tables go to the card without waiting for the stream: a small
+    one as the kernel's parameter, a larger one copied from pinned memory
+    on the current stream. Calls queued behind a long launch return before
+    it ends, and the kernels read the tables after their copies (right
+    words and counts)."""
+    import time
+
+    stacks, p, slots = _tree_case(cuda_device, 4, 1024, (9, 9, 2), None, _PAIRS, 64, 0.1, 5)
+    _, chain, chain_slots = _tree_case(cuda_device, 4, 1024, (9, 9, 2), None, _chain(40), 8,
+                                       0.1, 6)
+    assert tk._tree_table(stacks, chain.code, chain.leaf_stack, chain_slots[0],
+                          cuda_device)[1] == 0  # uploaded, not a parameter
+    tk.tree_words(stacks, p.code, p.leaf_stack, slots[0])
+    torch.cuda.synchronize()
+    torch.cuda._sleep(2_000_000_000)  # about a second of queued work
+    t0 = time.perf_counter()
+    words = [tk.tree_words(stacks, p.code, p.leaf_stack, slots[k]) for k in range(8)]
+    long_words = [tk.tree_words(stacks, chain.code, chain.leaf_stack, chain_slots[k])
+                  for k in range(8)]
+    count = tk.tree_count(stacks, p.code, p.leaf_stack, slots)
+    queued = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    assert queued < 0.25
+    for k, got in enumerate(words):
+        assert torch.equal(got, tk.tree_words_plain(stacks, p.code, p.leaf_stack, slots[k]))
+    for k, got in enumerate(long_words):
+        assert torch.equal(got, tk.tree_words_plain(stacks, chain.code, chain.leaf_stack,
+                                                    chain_slots[k]))
+    assert torch.equal(count, tk.tree_count_plain(stacks, p.code, p.leaf_stack, slots))
 
 
 def _tree_executors(cuda_device):
