@@ -31,8 +31,10 @@ Phases (any failure raises, and the script exits non-zero):
    than the kernel stages in shared memory and a tree nested 40 deep; on
    the staged route W = 260 and 132, one item, one tensor as two
    stacks, tiles, items that share no rows, each flat fold and the general
-   step loop), timed at the trees path's 1024 items (staged) and at one
-   item of 300 leaves (direct), with each launch's route, plan and floors
+   step loop), timed at the trees path's 1024 items (staged) and on the
+   direct route at one item of 300 leaves, one lone three-leaf Intersect
+   and 64 items of a nested tree of three operand-stack entries, each shape
+   also at slices of 4-64 chunks, with each launch's route, plan and floors
    logged and BMMA counted in the staged kernel's SASS.
    No kernel may time below its bound.
 3. End to end: a seeded index at the repo's serving size (bench.py's
@@ -53,8 +55,9 @@ Phases (any failure raises, and the script exits non-zero):
    path: a 1024-call batch of four Count tree shapes (one tree_count
    launch per shape) through ``execute_batch`` and ``execute``, every
    answer against the plain tree count on the card and a seeded sample
-   against numpy, a Count of a Union of 300 rows (one launch; numpy),
-   and three bitmap trees (one tree_words launch each),
+   against numpy, a Count of a Union of 300 rows and a lone Count of a
+   three-leaf Intersect (one launch each; numpy), and three bitmap trees
+   (one tree_words launch each),
    before and after writes to all three fields; then one Set to one shard
    of f and a cold tanimoto TopN (the stack patched in place of a rebuild,
    ``stack_incremental``), and a Set that creates a row (a rebuild). Every
@@ -496,6 +499,35 @@ TREE_SIGS = {
 }
 
 
+def tree_balanced(levels, k=0):
+    """A full binary tree of 2**levels leaves over stacks 0-2 in turn,
+    operators alternating by level."""
+    if levels == 0:
+        return ("row", k % 3)
+    return (("difference", "union", "xor", "intersect")[levels % 4],
+            tree_balanced(levels - 1, 2 * k), tree_balanced(levels - 1, 2 * k + 1))
+
+
+def direct_tree_shapes(rng, stacks):
+    """The tree count's direct-route shapes over stacks f, g and h: ``[(name,
+    program, slots)]`` for one item of 300 leaves (seeded rows), the trees
+    path's Count of a Union of 300 rows (each stack's rows in turn), a lone
+    three-leaf Intersect (a lone Count) and 64 items of a nested tree of
+    three operand-stack entries."""
+    import numpy as np
+
+    from pilosa_tpu_torch.exec import astbatch
+
+    wide = astbatch.program(("union",) + tuple(("row", k % 3) for k in range(WIDE_LEAVES)))
+    rows = np.array([stacks[k].shape[1] for k in wide.leaf_stack])
+    and3 = astbatch.program(TREE_SIGS["and3"][0])
+    nested = astbatch.program(tree_balanced(3))
+    return [("wide300", wide, tree_slots(rng, wide, stacks, 1)),
+            ("wide300_path", wide, ((np.arange(WIDE_LEAVES) // 3) % rows).astype(np.int32)[None]),
+            ("lone3", and3, tree_slots(rng, and3, stacks, 1)),
+            ("nested64", nested, tree_slots(rng, nested, stacks, 64))]
+
+
 def tree_slots(rng, prog, stacks, B, absent=0.0):
     """int32 [B, L] seeded leaf rows of ``prog`` over ``stacks``; a share
     ``absent`` of them, and every leaf of a 0-row stack, absent (-1)."""
@@ -551,8 +583,12 @@ def tree_floors(prog, stacks, slots, rates):
     512-byte warp row per item, or one for the group where the table marks
     its slot TREE_UNIFORM), at SMEM_BYTES_PER_CLOCK_PER_SM; and its
     popcounts (one BMMA per item, padding included, and chunk, at the
-    measured mma.sync rate). Direct: one __popc per item, shard and word at
-    POPC_PER_CLOCK_PER_SM."""
+    measured mma.sync rate). Direct: the bytes it reads (the rows instance
+    each item's distinct rows once, through L2 every present leaf) and
+    writes at PEAK_BYTES_PER_S; the rows instance's shared-memory traffic
+    (the rows copied in, and one 16-byte read per lane and step, a general
+    program's steps padded to whole fours) at SMEM_BYTES_PER_CLOCK_PER_SM;
+    and one __popc per item, shard and word at POPC_PER_CLOCK_PER_SM."""
     import numpy as np
     import torch
 
@@ -587,9 +623,18 @@ def tree_floors(prog, stacks, slots, rates):
             out["popc_floor_ms"] = (lay.n_items * S * chunks
                                     / (rate / BMMA_BIT_MACS) * 1e3)
     else:
-        out["popc_by"] = "__popc at 16 per clock per SM"
+        rows = int(launch.items.offsets[-1]) if plan.stages else int((slots >= 0).sum())
+        row_bytes = rows * S * W * 4
+        out.update(instance="rows" if plan.stages else "through L2", rows_per_item=rows / B,
+                   bytes_floor_ms=(row_bytes + B * S * 4) / PEAK_BYTES_PER_S * 1e3,
+                   popc_by="__popc at 16 per clock per SM")
         if clock:
             out["popc_floor_ms"] = B * S * W / (POPC_PER_CLOCK_PER_SM * sms * clock) * 1e3
+        if clock and plan.stages:
+            n = launch.program.steps.size
+            loads = n if plan.flat >= 0 else -(-n // 4) * 4
+            out["smem_floor_ms"] = ((B * S * W * 4 * loads + row_bytes)
+                                    / (SMEM_BYTES_PER_CLOCK_PER_SM * sms * clock) * 1e3)
     return out
 
 
@@ -688,19 +733,13 @@ def check_tree_kernels(stack_np, stack2_np, dev, rates=None):
     for k in range(39):
         chain = (("intersect", "union", "xor", "difference")[k % 4], ("row", k % 3), chain)
 
-    def balanced(levels, k=0):
-        if levels == 0:
-            return ("row", k % 3)
-        return (("difference", "union", "xor", "intersect")[levels % 4],
-                balanced(levels - 1, 2 * k), balanced(levels - 1, 2 * k + 1))
-
     small = tuple(bitops.to_device(random_words(rng, (3, r, 130), dense=True), dev)
                   for r in (5, 0, 1))
     for name, sig, B in (("mixed", ("union", ("difference", ("row", 0), ("row", 1)),
                                     ("intersect", ("row", 2), ("row", 0))), 9),
                          (f"depth {D}", at_limit, 1),
                          ("300 leaves", ("union",) + tuple(("row", k % 3) for k in range(300)), 3),
-                         ("512 leaves", balanced(9), 2),
+                         ("512 leaves", tree_balanced(9), 2),
                          ("nested 40", chain, 5)):
         prog = sig if isinstance(sig, astbatch.Program) else astbatch.program(sig)
         slots = tree_slots(rng, prog, small, B, absent=0.2)
@@ -805,26 +844,58 @@ def check_tree_kernels(stack_np, stack2_np, dev, rates=None):
     b_count, n_count, nominal_count = tree_bound(prog, stacks, slots)
     b_words, n_words, nominal_words = tree_bound(prog, stacks, slots[0], words=True)
     floors = tree_floors(prog, stacks, slots, rates)
-    # the second shape: one item of 300 leaves (the trees path's Count of a
-    # Union of 300 rows), on the direct route
-    wide = astbatch.program(("union",) + tuple(("row", k % 3) for k in range(300)))
-    wide_slots = tree_slots(rng, wide, stacks, 1)
-    wide_count = lambda: tk.tree_count(stacks, wide.code, wide.leaf_stack, wide_slots)
-    errs["tree_count"] = max(errs["tree_count"], exact(
-        "tree_count 300 leaves, one item", wide_count(),
-        tk.tree_count_plain(stacks, wide.code, wide.leaf_stack, wide_slots)))
-    t_wide = cuda_ms(wide_count, reps=10)
-    d_wide = device_ms(wide_count, reps=3)
-    b_wide, n_wide, _ = tree_bound(wide, stacks, wide_slots)
-    floors_wide = tree_floors(wide, stacks, wide_slots, rates)
+    # the direct route's shapes (direct_tree_shapes); each exact, timed, and
+    # timed again (exact each time, ms around the wrapper: the profiler may
+    # drop events) at slices of 1024 to 16384 words (the plan takes
+    # TREE_DIRECT_SLICE_WORDS) and at each block shape of the rows instance
+    # that fits (the plan takes the one with the most warps an SM)
+    direct = {}
+    for shape, d_prog, d_slots in direct_tree_shapes(rng, stacks):
+        B = d_slots.shape[0]
+        fn = lambda d_prog=d_prog, d_slots=d_slots: tk.tree_count(
+            stacks, d_prog.code, d_prog.leaf_stack, d_slots)
+        want = tk.tree_count_plain(stacks, d_prog.code, d_prog.leaf_stack, d_slots)
+        errs["tree_count"] = max(errs["tree_count"], exact(f"tree_count {shape}", fn(), want))
+        floors_d = tree_floors(d_prog, stacks, d_slots, rates)
+        if floors_d["route"] != "direct":
+            raise AssertionError(f"tree_count {shape}: not on the direct route")
+        t_d, d_d = cuda_ms(fn, reps=10), device_ms(fn, reps=3)
+        p_d = cuda_ms(lambda d_prog=d_prog, d_slots=d_slots: tk.tree_count_plain(
+            stacks, d_prog.code, d_prog.leaf_stack, d_slots), reps=2, warmup=1)
+        b_d, n_d, _ = tree_bound(d_prog, stacks, d_slots)
+        plan_d = floors_d["plan"]
+        steps, depth = tk.tree_steps(d_prog.code)
+        configs = [(f"slice {n}", {"wsplit": -(-W_FULL // n)})
+                   for n in (1024, 2048, 4096, 8192, 16384)]
+        configs += [(f"{lanes} lanes x {st}", {"stages": st, "lanes": lanes})
+                    for lanes in (tk.TREE_ROWS_LANES, tk.TREE_ROWS_LANES // 2)
+                    for st in range(1, tk.TREE_ROWS_MAX_STAGES + 1)
+                    if plan_d["stages"] and tk._tree_rows_smem(
+                        plan_d["row_tile"], steps.size, depth, st, lanes) <= tk._TREE_SMEM_LIMIT]
+        sweep_d = {}
+        for label, change in configs:
+            with forced_tree_plan(lambda p, change=change: p._replace(**change)):
+                exact(f"tree_count {shape} at {label}", fn(), want)
+                sweep_d[label] = round(cuda_ms(fn, reps=5), 4)
+        direct[shape] = (t_d, d_d, b_d, p_d, floors_d, sweep_d)
+        log(f"tree_count {shape} (direct, B = {B}): kernel {t_d:.3f} ms (device {d_d}), plain "
+            f"{p_d:.3f} ms, bound "
+            f"{b_d[0]:.3f} ms ({b_d[1]}; {n_d:.4e} B); route {json.dumps(floors_d)}; ms around "
+            f"the wrapper by slice length in words (TREE_DIRECT_SLICE_WORDS = "
+            f"{tk.TREE_DIRECT_SLICE_WORDS}) and by block shape, each exact: "
+            f"{json.dumps(sweep_d)}")
+        if min(t_d, d_d or t_d, *sweep_d.values()) < b_d[0]:
+            raise AssertionError(f"tree_count {shape}: {t_d} ms (device {d_d}) is below its "
+                                 f"bound {b_d[0]} ms: the bound is wrong")
     report = {
         "tree_count": dict(max_abs_err=errs["tree_count"], ms=t_count, device_ms=d_count,
                            plain_ms=t_count_p, bound=b_count, library_ms=None,
                            bytes={"bound_bytes": n_count, "nominal_bytes": nominal_count,
                                   "items": BATCH},
                            tree_route=floors["route"],
-                           extra={"wide300": (t_wide, d_wide, b_wide)},
-                           extra_routes={"wide300": floors_wide["route"]}),
+                           extra={k: v[:4] for k, v in direct.items()},
+                           extra_routes={k: v[4]["route"] + " " + v[4]["instance"]
+                                         for k, v in direct.items()}),
         "tree_words": dict(max_abs_err=errs["tree_words"], ms=t_words, device_ms=d_words,
                            plain_ms=t_words_p, bound=b_words, library_ms=None,
                            bytes={"bound_bytes": n_words, "nominal_bytes": nominal_words,
@@ -839,11 +910,6 @@ def check_tree_kernels(stack_np, stack2_np, dev, rates=None):
             raise AssertionError(f"{k}: {v['ms']} ms (device {v['device_ms']}) is below "
                                  f"its bound {v['bound'][0]} ms: the bound is wrong")
     log(f"tree_count at {BATCH} items: route {json.dumps(floors)}")
-    log(f"tree_count one item of 300 leaves: kernel {t_wide:.3f} ms (device {d_wide}), bound "
-        f"{b_wide[0]:.3f} ms ({b_wide[1]}; {n_wide:.4e} B); route {json.dumps(floors_wide)}")
-    if min(t_wide, d_wide or t_wide) < b_wide[0]:
-        raise AssertionError(f"tree_count 300 leaves: {t_wide} ms (device {d_wide}) is below "
-                             f"its bound {b_wide[0]} ms: the bound is wrong")
     log("tree kernels: no single PyTorch call evaluates a tree, so their library_ms is null")
     del named, stacks, small, w260, w132
     torch.cuda.empty_cache()
@@ -1329,7 +1395,9 @@ def trees_path(pool, ex, holder, device):
     f, g and h: a 1024-call batch of four Count shapes through
     ``execute_batch`` and ``execute`` (one tree_count launch per shape
     group), every answer against the plain tree count on the card and a
-    seeded sample against numpy; three bitmap trees through ``execute``
+    seeded sample against numpy; a Count of a Union of 300 rows and a lone
+    Count of a three-leaf Intersect (one tree_count launch each, on the
+    direct route) against numpy; three bitmap trees through ``execute``
     (one tree_words launch each). Then write visibility through the
     incremental stack update: one Set to one shard of f and a cold
     tanimoto TopN (a patched stack, no rebuild), and a Set that creates a
@@ -1345,6 +1413,10 @@ def trees_path(pool, ex, holder, device):
     on_card = torch.device(device).type == "cuda"
     n_rows = TREE_FIELD_ROWS
     items, calls, bitmaps, bitmap_q, wide, wide_q = tree_queries(qrng)
+    # a lone Count of a three-leaf Intersect (one item on the direct route)
+    lone_r = tuple(int(x) for x in np.random.default_rng(SEED + 11).integers(
+        0, (n_rows["f"], n_rows["g"], n_rows["h"]))) + (0,)
+    lone_q = TREE_COUNTS[0].format(a=lone_r[0], b=lone_r[1], c=lone_r[2])
     # the plain version's signatures and leaf order for each Count shape
     plain_sigs = [TREE_SIGS[n] for n in ("and3", "union_of_pairs", "not", "xor3")]
     plain_rows = (lambda r: r[:3], lambda r: r, lambda r: (0, r[0]), lambda r: r[:3])
@@ -1420,6 +1492,17 @@ def trees_path(pool, ex, holder, device):
         if wide_got != wide_want:
             raise AssertionError(f"{tag}: the {WIDE_LEAVES}-leaf Count {wide_got} != "
                                  f"numpy {wide_want}")
+        # the lone Count: one launch, against numpy
+        count0 = tk.LAUNCHES["tree_count"]
+        t = time.perf_counter()
+        (lone_got,) = ex.execute("i", lone_q)
+        lone_ms = (time.perf_counter() - t) * 1e3
+        if on_card and tk.LAUNCHES["tree_count"] - count0 != 1:
+            raise AssertionError(f"{tag}: the lone Count launched tree_count "
+                                 f"{tk.LAUNCHES['tree_count'] - count0} times, not once")
+        lone_want = int(np.bitwise_count(tree_truth_words(0, m, lone_r)).sum(dtype=np.int64))
+        if lone_got != lone_want:
+            raise AssertionError(f"{tag}: the lone Count {lone_got} != numpy {lone_want}")
         # bitmap trees: one tree_words launch each, the words against numpy
         words0 = tk.LAUNCHES["tree_words"]
         t = time.perf_counter()
@@ -1442,12 +1525,14 @@ def trees_path(pool, ex, holder, device):
             "trees_execute_s": exec_s,
             "bitmap_trees_execute_ms": bitmap_ms,
             "wide_count_execute_ms": wide_ms,
+            "lone_count_execute_ms": lone_ms,
         }
         log(f"{tag}: {BATCH} tree Counts via execute_batch {batch_s * 1e3:.1f} ms "
             f"({BATCH / batch_s:.0f} queries/s), via execute {exec_s * 1e3:.1f} ms, one "
             f"tree_count per shape; all equal the plain count on the card, 64 sampled "
-            f"equal numpy; a {WIDE_LEAVES}-leaf Count {wide_ms:.1f} ms (one launch), equal "
-            f"numpy; 3 bitmap trees {bitmap_ms:.1f} ms, words equal numpy")
+            f"equal numpy; a {WIDE_LEAVES}-leaf Count {wide_ms:.1f} ms and a lone Count "
+            f"{lone_ms:.2f} ms (one launch each), equal numpy; 3 bitmap trees "
+            f"{bitmap_ms:.1f} ms, words equal numpy")
 
     run_round("before_writes")
     results["writes_ms"] = apply_writes(ex, holder, qrng, ("f", "g", "h"), 64)
@@ -1608,9 +1693,11 @@ def main() -> int:
         if "tree_route" in v:  # the tree count: the plan's route at each shape
             entries[-1].update(sass_mma_by_instance=sass[k], tree_route=v["tree_route"],
                                **{f"{sh}_tree_route": r for sh, r in v["extra_routes"].items()})
-        for shape, (t, d, b) in v.get("extra", {}).items():
+        for shape, (t, d, b, *plain) in v.get("extra", {}).items():
             entries[-1].update({f"{shape}_ms": t, f"{shape}_device_ms": d,
                                 f"{shape}_bound_ms": b[0], f"{shape}_bound_by": b[1]})
+            if plain:  # the tree count's direct shapes
+                entries[-1][f"{shape}_plain_ms"] = plain[0]
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"end_to_end": e2e}))
     print(json.dumps({"kernels": entries}))

@@ -5,7 +5,7 @@ trees through ``execute``) in alternating pairs, before and after the same
 64 writes, so that a change can be held to its parent query by query.
 
     python3 chip_tree_pairs.py --a PARENT_DIR --b CHANGE_DIR [--pairs 10]
-        [--out FILE] [--device cuda] [--shards 160]
+        [--kernels ROUNDS] [--out FILE] [--device cuda] [--shards 160]
 
 Each checkout's package is imported in turn and its modules kept apart;
 before a version runs, its modules are put back in ``sys.modules``. Both
@@ -21,6 +21,12 @@ same version's batch, whichever checkout holds that slot.) The
 first query of each kind after the writes (the stacks patched) is kept
 apart from the steady rounds. The answers of the two versions must be
 equal, and those of one version equal across rounds.
+
+With ``--kernels ROUNDS`` it first times the tree wrappers alone, version
+by version in turns (a, b, then b, a), on seeded stacks of the serving
+shape: the count at ``chip_smoke.direct_tree_shapes`` and one bitmap tree,
+each held to its plain version, with the ms around the wrapper (CUDA
+events) and the kernels' device ms (``torch.profiler``) of each round.
 
 Prints one line per version, phase, series and query (median, least and
 greatest ms over the rounds), and writes every time to ``--out`` as JSON.
@@ -138,11 +144,70 @@ def run_query(v: Version, kind: str, q, gct: GcTimer, device: str):
     return ms, (v.wrapper_s - w0) * 1e3, (gct.total - g0) * 1e3, answers(out)
 
 
+def kernel_rounds(versions, rounds: int, device: str) -> dict:
+    """``{version: {shape: [(ms, device ms), ...]}}``: each version's tree
+    wrappers at the direct shapes and one bitmap tree, ``rounds`` rounds in
+    turns; every answer equal to the plain version's."""
+    import numpy as np
+    import torch
+
+    dev = torch.device(device)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(cs.SEED + 12)
+
+    def stack(rows):
+        bits = [torch.randint(-2**31, 2**31 - 1, (cs.S_FULL, rows, cs.W_FULL), dtype=torch.int32,
+                              device=dev, generator=gen) for _ in range(2)]
+        return bits[0] & bits[1]  # about 25 % dense
+
+    stacks = (stack(cs.R_FULL), stack(cs.R_FULL), stack(cs.H_ROWS))
+    activate(versions[0].mods)
+    shapes = cs.direct_tree_shapes(np.random.default_rng(cs.SEED + 13), stacks)
+    and3 = shapes[2][1]
+    words_slots = shapes[2][2][0]
+    out = {v.label: {} for v in versions}
+    want = {}
+    for r in range(rounds):
+        for v in versions if r % 2 == 0 else versions[::-1]:
+            activate(v.mods)
+            tk = v.mods[PKG + ".ops.kernels"]
+            calls = [(name, lambda p=p, s=sl: tk.tree_count(stacks, p.code, p.leaf_stack, s),
+                      lambda p=p, s=sl: tk.tree_count_plain(stacks, p.code, p.leaf_stack, s))
+                     for name, p, sl in shapes]
+            calls.append(("words", lambda: tk.tree_words(stacks, and3.code, and3.leaf_stack,
+                                                         words_slots),
+                          lambda: tk.tree_words_plain(stacks, and3.code, and3.leaf_stack,
+                                                      words_slots)))
+            for name, fn, plain in calls:
+                if not torch.equal(fn(), want.setdefault(name, plain())):
+                    raise AssertionError(f"{v.label} {name}: differs from the plain version")
+                if device == "cuda":
+                    timing = (cs.cuda_ms(fn, reps=10), cs.device_ms(fn, reps=3))
+                else:
+                    t = time.perf_counter()
+                    fn()
+                    timing = ((time.perf_counter() - t) * 1e3, None)
+                out[v.label].setdefault(name, []).append(timing)
+    for v in versions:
+        for name, rows in out[v.label].items():
+            dev_ms = [d for _, d in rows if d is not None]
+            cs.log(f"{v.label} kernel {name}: median {statistics.median(m for m, _ in rows):.4f} "
+                   f"ms around the wrapper, device median "
+                   f"{statistics.median(dev_ms) if dev_ms else None} ms over {len(rows)} "
+                   f"rounds; all {[round(m, 4) for m, _ in rows]}, device {dev_ms}")
+    del stacks
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--a", type=Path, required=True, help="the first checkout (the parent)")
     ap.add_argument("--b", type=Path, required=True, help="the second checkout (the change)")
     ap.add_argument("--pairs", type=int, default=10)
+    ap.add_argument("--kernels", type=int, default=0,
+                    help="rounds of the tree wrappers alone at the direct shapes (0: none)")
     ap.add_argument("--out", type=Path)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--shards", type=int, default=cs.S_FULL)
@@ -157,6 +222,7 @@ def main() -> int:
     if args.device == "cuda":
         cs.log(f"card: {cs.card_line()}")
     versions = [Version("a", args.a, args.device), Version("b", args.b, args.device)]
+    kernels = kernel_rounds(versions, args.kernels, args.device) if args.kernels else {}
     _, calls, _, bitmap_q, _, wide_q = cs.tree_queries(np.random.default_rng(cs.SEED + 6))
     queries = {"batch": calls, "wide": wide_q, "bitmap": bitmap_q}
     gct = GcTimer()
@@ -216,7 +282,7 @@ def main() -> int:
     if args.out:
         args.out.parent.mkdir(parents=True, exist_ok=True)
         args.out.write_text(json.dumps({"a": str(args.a), "b": str(args.b),
-                                        "times": times}, indent=1))
+                                        "times": times, "kernels": kernels}, indent=1))
     return 0
 
 

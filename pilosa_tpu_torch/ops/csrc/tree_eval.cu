@@ -2,13 +2,13 @@
 //   pilosa_tree_count: out[b, s] = sum_w popc(tree(leaves of item b)[s, w])
 //   pilosa_tree_words: out[s, w] = tree(leaves of one item)[s, w]
 // A tree of Row/Intersect/Union/Difference/Xor/Not over field stacks runs
-// as a postfix program: a leaf opcode (>= 0) pushes leaf l, the row
-// slots[b, l] of stack leaf_stack[l] at shard s; a fold opcode pops two
-// operands and pushes AND, OR, XOR, ANDNOT or NOTAND of them. A slot below 0
-// is an absent row: a zero leaf, never read. exec/astbatch.py orders each
-// program so that it needs at most floor(log2(leaves)) + 1 operand-stack
-// entries, so TREE_MAX_DEPTH (32) holds every tree; programs of any length
-// and any number of leaves run.
+// as a program of steps (ops/kernels.py, tree_steps): push a leaf, fold a
+// leaf into the top of the operand stack, or fold the top into the entry
+// below it, with AND, OR, XOR, ANDNOT or NOTAND (~a & b). A leaf is a row
+// of a stack at the block's shard, or an absent row: a zero leaf, never
+// read. exec/astbatch.py orders each program so that it needs at most
+// floor(log2(leaves)) + 1 operand-stack entries, so TREE_MAX_DEPTH (32)
+// holds every tree; programs of any length and any number of leaves run.
 //
 // Replaces: pilosa_tpu/exec/astbatch.py, the XLA programs of compiled
 // (count mode: _count_scan, a lax.scan over the batch with the tree fused
@@ -16,7 +16,44 @@
 // behind them.
 //
 // The count has two routes; the wrapper (ops/kernels.py, tree_plan) picks
-// one from the batch's shape before the launch.
+// one, and its instance, from the batch's shape before the launch.
+//
+// Direct route (pilosa_tree_count), for batches whose items share no rows
+// (one item of 300 leaves, a lone Count), programs needing more than 2
+// operand-stack entries or naming more than 64 leaves, and word-by-word
+// rows. The wrapper lists each item's distinct rows once (an item's leaves
+// name each of them, any number of times) and writes the item's steps
+// against that list. The grid is (item, slice, shard): each shard's words
+// are cut into slices (TREE_DIRECT_SLICE_WORDS in ops/kernels.py), items
+// fastest so that the blocks in flight share one slice of one shard
+// through L2, and each warp adds its count into out[b, s] with atomicAdd
+// (exact in any order; the C entry zeroes out first). Two instances:
+// - rows (pilosa_tree_rows), where the item's rows fit shared memory (16-
+//   byte rows): a block of TREE_ROWS_LANES or half as many lanes walks its
+//   slice a chunk at a time (16 bytes of each row a lane); each lane copies
+//   its own 16 bytes of every distinct row of the chunk into a ring of 1-4
+//   stages by cp.async (no lane waits for another, so a one-stage ring
+//   leaves the overlap to the other blocks of the SM) and evaluates every
+//   leaf from there, so each distinct row is read from device memory once
+//   per (shard, slice) however often the program names it, and an absent
+//   leaf names the stage's zero row. The wrapper picks the lanes and stages
+//   that put the most warps on an SM. The steps sit in shared memory with
+//   each leaf's stage offset; a general program decodes four steps at a
+//   time (their four loads in flight), its operand stack below the top in
+//   this lane's column of shared memory (any depth, no local memory); a
+//   flat chain of one fold of any length (the 300-leaf Union) runs on an
+//   instance with the fold fixed at compile time that loads eight leaves
+//   before folding them.
+// - through L2 (pilosa_tree_l2), for an item of more rows than a block
+//   stages and for word-by-word rows: 256 lanes, each evaluating
+//   TREE_L2_GROUPS groups (16 bytes, or a word) per decoded step, so that
+//   many loads are in flight; the stack below the top in registers for
+//   programs of at most 2 entries, else in local memory. The first
+//   TREE_SMEM_OPS steps and TREE_SMEM_ROWS row pointers sit in shared
+//   memory, the rest of a longer program is read from the table.
+// A table of at most TREE_PARAM_BYTES goes to the kernel as its parameter
+// (no upload). tree_words runs the through-L2 instance with one item and
+// slices of TREE_WORDS_CHUNK words, and stores the words.
 //
 // Staged route (pilosa_tree_count_staged), for batches whose items share
 // rows. The wrapper lists the distinct rows the batch names (one tensor
@@ -45,90 +82,80 @@
 // popcount into column j of one accumulator shared by the group. Each
 // group's accumulator (two int32 a lane) stays in shared memory across
 // the slice's chunks; its rows are summed once, after the last chunk, and
-// added into out[b, s] with atomicAdd (exact in any order; the wrapper
-// zeroes out).
+// added into out[b, s] with atomicAdd (the wrapper zeroes out). A shard's
+// count is at most 32 * W < 2^31 (the wrapper checks W).
 //
-// Direct route (pilosa_tree_count), for everything else: a word-by-word
-// row (W not a multiple of 4 or an unaligned stack), a program needing more
-// than 2 entries, more than 64 leaves, or a batch that shares no rows (one
-// item of 300 distinct rows gains nothing from staging). One block of 256
-// threads per (item b, shard s), blockIdx.x = b fastest, so the blocks in
-// flight share one shard's rows through L2. The block stages the first
-// TREE_SMEM_OPS opcodes and the row pointers of the first TREE_SMEM_LEAVES
-// leaves in shared memory; the rest of a longer program is read from the
-// table, by a second instance of the kernel (LONG) that only such programs
-// launch. Threads stride over W in 16-byte groups when every row and the
-// output are 16-byte aligned (vec16), else word by word. Each group runs
-// the program with the top of the operand stack in registers and the
-// entries below it in a small array; a leaf followed by a fold is applied
-// to the top directly. The block sums its popcounts with warp shuffles and
-// one shared-memory pass and stores one int32 per (b, s). A shard's count
-// is at most 32 * W < 2^31 (the wrapper checks W). tree_words runs one
-// block per (chunk of TREE_WORDS_CHUNK words, shard) and stores the words.
-// A direct table of at most TREE_PARAM_BYTES is passed as the kernel's
-// parameter, so a bitmap tree's launch uploads nothing.
-//
-// Bounds on an H100, at the trees path of chip_smoke.py (1024 items of
-// Intersect(Row(f), Row(g), Row(h)) over two 64-row stacks and a 4-row
-// stack, S = 160, W = 32768):
-// - bytes: the 132 distinct rows read once and B x S counts written,
-//   2.77 GB, 0.83 ms at 3.35 TB/s. The staged route reads each chunk of a
-//   distinct row from device memory once; the direct route reads every leaf
-//   of every item (nominally B x L x S x W x 4 = 64.4 GB, from L2).
-// - shared memory: the staged route reads one 512-byte warp row per item
-//   and leaf, or one per group for a uniform leaf, 4 cycles each of the
-//   SM's 128 bytes per clock: with the items sorted, 2.1 loads per item of
-//   this batch, 1.36 ms (chip_smoke.py computes it from the run's layout).
-//   This is the staged route's largest floor.
-// - popcounts: one BMMA per item and chunk, B x S x W / 128 = 4.2e7, about
-//   0.27 ms at the mma.sync rate chip_smoke.py measures; the direct route's
-//   one __popc per item, shard and word is 1.28 ms at 16 per clock per SM.
-// - instructions and their latency: a group's steps are a dependent chain
-//   (slots, then rows, then the fold), and only the 16 warps of one block
-//   fit an SM (its stages fill shared memory) to hide it, so the SM issues
-//   well below its 4 warp instructions per clock.
+// Bounds on an H100 (3.35 TB/s, 132 SMs; chip_smoke.py computes each from
+// the run's shapes and logs it beside the kernel's time):
+// - the staged route at the trees path of chip_smoke.py (1024 items of
+//   Intersect(Row(f), Row(g), Row(h)) over two 64-row stacks and a 4-row
+//   stack, S = 160, W = 32768): the 132 distinct rows read once and B x S
+//   counts written, 2.77 GB, 0.83 ms. Its shared-memory reads (one 512-byte
+//   warp row per item and leaf, or one per group for a uniform leaf, 2.1
+//   loads per item with the items sorted) take 1.36 ms at 128 bytes per
+//   clock per SM, its largest floor; its BMMA popcounts, one per item and
+//   chunk, 0.27 ms; and a group's steps are a dependent chain (slots, then
+//   rows, then the fold) with only the 16 warps of one block an SM (its
+//   stages fill shared memory) to hide it.
+// - the direct route at one item of 300 leaves over the same stacks: the
+//   item's distinct rows read once, the rows instance's floor and the
+//   bound, 0.651 ms for 104 seeded rows and 0.826 ms for the 132 rows of the
+//   trees path's Count of a Union of 300 rows. Its shared-memory traffic
+//   (the copies in, and a 16-byte read per lane, leaf and chunk) is a 0.25-
+//   0.27 ms floor; its popcounts, one __popc per shard and word, 0.001 ms.
+//   An item of 104 rows fills 106 KB with one stage of 64 lanes, so two
+//   blocks of two warps run on an SM; 132 rows take blocks of 32 lanes,
+//   three an SM. Measured on an NVIDIA H100 80GB HBM3 at 700 W
+//   (chip_smoke.py, chip_tree_pairs.py): 0.69-0.82 ms and 0.97 ms of device
+//   time, against 4.6 and 5.2 ms for the one-block-per-(item, shard) kernel
+//   before it. What holds it above its floor is the instruction stream of
+//   each warp's copies and leaves, which overlap only across the few warps
+//   an SM holds
+//   (each row pointer is read before its copy: a copy's memory clobber
+//   would hold the next read behind it, which cost a third of the time). A
+//   lone three-leaf Count is 0.024 ms (bound 0.019).
 //
 // Left for later: reuse of rows that neighbouring items share within a
-// group without the whole group sharing them (the batch above loads g and
-// most f rows once per item), a persistent grid (the W split only cuts
-// fixed slices), and more warps per SM (registers and the stage ring bound
-// them at 16). TMA bulk copies in place of the cp.async ring were tried:
-// slower here, as the copies are not the wall.
+// staged group without the whole group sharing them (the batch above loads
+// g and most f rows once per item), a persistent grid (the W split only
+// cuts fixed slices), more warps per SM on the staged route (registers and
+// the stage ring bound them at 16); on the direct route, TMA bulk copies of
+// each row's chunk in place of one cp.async per lane and row (fewer copy
+// instructions per warp, the direct route's wall; TMA in place of the
+// staged route's ring was slower, as there the copies are not the wall),
+// and a split of a flat chain's leaves across the warps of a block (more
+// warps an SM on the same stage).
 
 #include <string.h>
 
+#include <cuda_runtime.h>
+#include <stdint.h>
+
 #include "gram_tile.cuh"
-#include "scan_common.cuh"
 
 // Operand-stack entries per word; pilosa_tpu_torch/ops/kernels.py holds the
 // same number.
 #define TREE_MAX_DEPTH 32
-// Opcodes and leaf row pointers staged in shared memory; the rest of a longer
-// program is read from device memory.
-#define TREE_SMEM_OPS 512
-#define TREE_SMEM_LEAVES 256
-// Fold opcodes (a leaf opcode is the leaf's index, >= 0).
-#define TREE_AND -1
-#define TREE_OR -2
-#define TREE_XOR -3
-#define TREE_ANDNOT -4
-#define TREE_NOTAND -5
-// Words per block of pilosa_tree_words.
-#define TREE_WORDS_CHUNK 8192
+// Step kinds of a program (the wrapper's tree_steps): push leaf l; fold leaf
+// l into the top; fold the top into the entry below. A step is kind | fold
+// << 2 | operand << 5, the fold 0-4 = AND, OR, XOR, ANDNOT, NOTAND.
+#define TREE_PUSH 0
+#define TREE_LEAF_FOLD 1
+#define TREE_POP_FOLD 2
+// A step that does nothing (pads a rows-instance program to whole int4s).
+#define TREE_NOP 3
+// Dynamic shared memory a block may have on sm_90.
+#define TREE_SMEM_LIMIT 232448
 
-__device__ __forceinline__ uint32_t tree_fold(int op, uint32_t a, uint32_t b) {
-    switch (op) {
-        case TREE_AND: return a & b;
-        case TREE_OR: return a | b;
-        case TREE_XOR: return a ^ b;
-        case TREE_ANDNOT: return a & ~b;
-        default: return ~a & b;
-    }
+template <int F>
+__device__ __forceinline__ uint32_t tree_fold(uint32_t a, uint32_t b) {
+    return F == 0 ? a & b : F == 1 ? a | b : F == 2 ? a ^ b : F == 3 ? a & ~b : ~a & b;
 }
 
-__device__ __forceinline__ uint4 tree_fold(int op, uint4 a, uint4 b) {
-    return make_uint4(tree_fold(op, a.x, b.x), tree_fold(op, a.y, b.y),
-                      tree_fold(op, a.z, b.z), tree_fold(op, a.w, b.w));
+template <int F>
+__device__ __forceinline__ uint4 tree_fold(uint4 a, uint4 b) {
+    return make_uint4(tree_fold<F>(a.x, b.x), tree_fold<F>(a.y, b.y), tree_fold<F>(a.z, b.z),
+                      tree_fold<F>(a.w, b.w));
 }
 
 __device__ __forceinline__ int tree_popc(uint32_t v) { return __popc(v); }
@@ -146,243 +173,525 @@ __device__ __forceinline__ uint32_t tree_zero<uint32_t>() { return 0u; }
 template <>
 __device__ __forceinline__ uint4 tree_zero<uint4>() { return make_uint4(0u, 0u, 0u, 0u); }
 
-// Group i (of V-sized groups) of a leaf row; zeros for an absent row.
-template <typename V>
-__device__ __forceinline__ V tree_load(const uint32_t* row, int i) {
-    if (row == nullptr) return tree_zero<V>();
-    return __ldg(reinterpret_cast<const V*>(row) + i);
+__host__ __device__ __forceinline__ long long tree_pad16(long long n) {
+    return (n + 15) & ~15LL;
 }
 
-// The table the wrapper uploads in one copy:
-//   int64 base[P]           each stack's base pointer, int32[S, rows[p], W]
-//   int32 rows[P]
-//   int32 code[n_ops]       the postfix program
-//   int32 leaf_stack[L]     leaf -> stack
-//   int32 slots[B, L]       leaf rows per item (< 0: absent)
-// and what one block of item b at shard s reads of it: the staged head of
-// the program and of the leaf row pointers, and the table for the rest.
-struct TreeProgram {
-    const int* s_code;
-    const uint32_t* const* s_leaf;
-    const long long* base;
-    const int* rows;
-    const int* code;
-    const int* leaf_stack;
-    const int* slots;  // item b's row
-    int n_ops, s, W;
+// Wait for all but the newest n cp.async groups (n < 4).
+__device__ __forceinline__ void tree_cp_wait(int n) {
+    if (n <= 0) pilosa_cp_wait<0>();
+    else if (n == 1) pilosa_cp_wait<1>();
+    else if (n == 2) pilosa_cp_wait<2>();
+    else pilosa_cp_wait<3>();
+}
+
+// Add this warp's sum of v into *dst.
+__device__ __forceinline__ void tree_add_count(int v, int32_t* dst) {
+    for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+    if ((threadIdx.x & 31) == 0 && v != 0) atomicAdd(dst, v);
+}
+
+// ---------------------------------------------------------------------------
+// The direct route, and the words
+// ---------------------------------------------------------------------------
+
+// Words of a row per chunk of the through-L2 instance: the unit of its W
+// split. The rows instance's chunk is one stage row, 16 bytes a lane of its
+// block of TREE_ROWS_LANES (or half as many, for items of more rows).
+#define TREE_ROW_CHUNK_WORDS 256
+#define TREE_ROWS_LANES 64
+// The through-L2 instance: threads, groups per lane per decoded step, and
+// the steps and row pointers a block stages in shared memory.
+#define TREE_L2_THREADS 256
+#define TREE_L2_GROUPS 4
+#define TREE_SMEM_OPS 512
+#define TREE_SMEM_ROWS 256
+// Words of a block's slice of pilosa_tree_words.
+#define TREE_WORDS_CHUNK 8192
+// A table of at most TREE_PARAM_BYTES goes to the kernel as its parameter
+// (the C entry copies it from the host at the launch: no upload); a longer
+// one is read from device memory. ops/kernels.py holds the same numbers.
+#define TREE_PARAM_BYTES 256
+
+// The direct table the wrapper sends (tree_direct_layout), for B items:
+//   int64 rowptr[n_rows]     each item's distinct rows, item by item: the
+//                            row's word 0 at shard 0
+//   int64 rowstride[n_rows]  words from one shard of the row to the next
+//   int32 item_rows[B + 1]   item b's rows are [item_rows[b], item_rows[b + 1])
+//   int32 steps[B][n_steps]  item b's program; a leaf step's operand is the
+//                            row's index among the item's rows, or the
+//                            launch's rows_max for an absent row
+// and what one block (item b, shard s) reads of it.
+struct TreeDirect {
+    const long long* rowptr;
+    const long long* rowstride;
+    const int* steps;  // item b's
+    int r0, nb, s;
 };
 
-__device__ __forceinline__ const uint32_t* tree_leaf_row(const TreeProgram& t, int l) {
-    const int slot = t.slots[l];
-    if (slot < 0) return nullptr;
-    const int p = t.leaf_stack[l];
-    return reinterpret_cast<const uint32_t*>(t.base[p]) +
-           ((size_t)t.s * t.rows[p] + slot) * (size_t)t.W;
-}
-
-// LONG: the program passes the staged head (the launch decides, so a
-// program that fits it pays no test per opcode).
-template <bool LONG>
-__device__ __forceinline__ int tree_op(const TreeProgram& t, int k) {
-    return !LONG || k < TREE_SMEM_OPS ? t.s_code[k] : t.code[k];
-}
-
-template <bool LONG>
-__device__ __forceinline__ const uint32_t* tree_leaf(const TreeProgram& t, int l) {
-    return !LONG || l < TREE_SMEM_LEAVES ? t.s_leaf[l] : tree_leaf_row(t, l);
-}
-
-// Run the postfix program on group i of the leaves. The top of the operand
-// stack lives in `top`, the n - 1 entries below it in `below`.
-template <typename V, bool LONG>
-__device__ __forceinline__ V tree_eval(const TreeProgram& t, int i) {
-    V below[TREE_MAX_DEPTH - 1];
-    V top = tree_zero<V>();
-    int n = 0;
-    for (int k = 0; k < t.n_ops; ++k) {
-        const int op = tree_op<LONG>(t, k);
-        if (op >= 0) {
-            const V v = tree_load<V>(tree_leaf<LONG>(t, op), i);
-            const int next = k + 1 < t.n_ops ? tree_op<LONG>(t, k + 1) : 0;
-            if (n > 0 && next < 0) {  // leaf, then a fold: fold into the top
-                top = tree_fold(next, top, v);
-                ++k;
-            } else {
-                if (n > 0) below[n - 1] = top;
-                top = v;
-                ++n;
-            }
-        } else {
-            --n;
-            top = tree_fold(op, below[n - 1], top);
-        }
-    }
-    return top;
-}
-
-// Item b's program at shard s, with its head staged in shared memory.
-__device__ __forceinline__ TreeProgram tree_stage(const unsigned char* table, int P,
-                                                  int n_ops, int L, int b, int s, int W,
-                                                  int* s_code, const uint32_t** s_leaf) {
-    TreeProgram t;
-    t.base = reinterpret_cast<const long long*>(table);
-    t.rows = reinterpret_cast<const int*>(table + 8 * (size_t)P);
-    t.code = t.rows + P;
-    t.leaf_stack = t.code + n_ops;
-    t.slots = t.leaf_stack + L + (size_t)b * L;
-    t.s_code = s_code;
-    t.s_leaf = s_leaf;
-    t.n_ops = n_ops;
+__device__ __forceinline__ TreeDirect tree_direct(const unsigned char* table, int B, int n_rows,
+                                                  int n_steps, int b, int s) {
+    TreeDirect t;
+    t.rowptr = reinterpret_cast<const long long*>(table);
+    t.rowstride = t.rowptr + n_rows;
+    const int* item_rows = reinterpret_cast<const int*>(t.rowstride + n_rows);
+    t.r0 = item_rows[b];
+    t.nb = item_rows[b + 1] - t.r0;
+    t.steps = item_rows + B + 1 + (size_t)b * n_steps;
     t.s = s;
-    t.W = W;
-    for (int k = threadIdx.x; k < min(n_ops, TREE_SMEM_OPS); k += blockDim.x)
-        s_code[k] = t.code[k];
-    for (int l = threadIdx.x; l < min(L, TREE_SMEM_LEAVES); l += blockDim.x)
-        s_leaf[l] = tree_leaf_row(t, l);
-    __syncthreads();
     return t;
 }
 
-template <typename V, bool LONG>
-__device__ __forceinline__ void tree_count_body(const unsigned char* table, int P, int n_ops,
-                                                int L, int S, int W, int32_t* __restrict__ out) {
-    __shared__ int s_code[TREE_SMEM_OPS];
-    __shared__ const uint32_t* s_leaf[TREE_SMEM_LEAVES];
-    const int b = blockIdx.x;
-    const int s = blockIdx.y;
-    const TreeProgram t = tree_stage(table, P, n_ops, L, b, s, W, s_code, s_leaf);
-    const int groups = W / (int)(sizeof(V) / 4);
-    int acc = 0;
-    for (int i = threadIdx.x; i < groups; i += blockDim.x)
-        acc += tree_popc(tree_eval<V, LONG>(t, i));
-    const int total = pilosa_block_sum(acc);
-    if (threadIdx.x == 0) out[(size_t)b * S + s] = total;
+// Row r of the item at the block's shard; nullptr past the item's rows (an
+// absent leaf).
+__device__ __forceinline__ const uint32_t* tree_row(const TreeDirect& t, int r) {
+    if (r >= t.nb) return nullptr;
+    return reinterpret_cast<const uint32_t*>(t.rowptr[t.r0 + r]) +
+           (size_t)t.s * t.rowstride[t.r0 + r];
 }
 
-template <typename V, bool LONG>
-__device__ __forceinline__ void tree_words_body(const unsigned char* table, int P, int n_ops,
-                                                int L, int W, uint32_t* __restrict__ out) {
-    __shared__ int s_code[TREE_SMEM_OPS];
-    __shared__ const uint32_t* s_leaf[TREE_SMEM_LEAVES];
+// dst[j] = fold f of (a[j], b[j]); f is warp-uniform.
+template <typename V, int K>
+__device__ __forceinline__ void tree_fold_k(int f, V (&dst)[K], const V (&a)[K], const V (&b)[K]) {
+    switch (f) {
+#define TREE_FOLD_CASE(F)                                               \
+        case F:                                                         \
+            _Pragma("unroll") for (int j = 0; j < K; ++j) dst[j] = tree_fold<F>(a[j], b[j]); \
+            break;
+        TREE_FOLD_CASE(0)
+        TREE_FOLD_CASE(1)
+        TREE_FOLD_CASE(2)
+        TREE_FOLD_CASE(3)
+        default:
+            _Pragma("unroll") for (int j = 0; j < K; ++j) dst[j] = tree_fold<4>(a[j], b[j]);
+#undef TREE_FOLD_CASE
+    }
+}
+
+// Group i (of V-sized groups) of a row; zeros for an absent row or a group
+// past the slice.
+template <typename V>
+__device__ __forceinline__ V tree_load(const uint32_t* row, int i, bool ok) {
+    if (row == nullptr || !ok) return tree_zero<V>();
+    return __ldg(reinterpret_cast<const V*>(row) + i);
+}
+
+// The through-L2 instance: the item's program on this lane's
+// TREE_L2_GROUPS groups i0, i0 + blockDim.x, ... (those below g1). DEEP:
+// the entries below the top in local memory (any depth), else one register.
+template <typename V, bool DEEP>
+__device__ __forceinline__ void tree_l2_eval(const TreeDirect& t, const int* s_steps,
+                                             const uint32_t* const* s_rowp, int n_steps, int i0,
+                                             int g1, V (&top)[TREE_L2_GROUPS]) {
+    constexpr int K = TREE_L2_GROUPS;
+    V below[DEEP ? TREE_MAX_DEPTH - 1 : 1][K];
+    int n = 0;
+    for (int k = 0; k < n_steps; ++k) {
+        const int st = k < TREE_SMEM_OPS ? s_steps[k] : t.steps[k];
+        const int kind = st & 3;
+        const int f = (st >> 2) & 7;
+        if (kind == TREE_POP_FOLD) {
+            tree_fold_k(f, top, below[DEEP ? n - 2 : 0], top);
+            --n;
+            continue;
+        }
+        const int r = st >> 5;
+        const uint32_t* row = r < TREE_SMEM_ROWS ? s_rowp[r] : tree_row(t, r);
+        V v[K];
+#pragma unroll
+        for (int j = 0; j < K; ++j) {
+            const int i = i0 + j * (int)blockDim.x;
+            v[j] = tree_load<V>(row, i, i < g1);
+        }
+        if (kind == TREE_LEAF_FOLD) {
+            tree_fold_k(f, top, top, v);
+        } else {
+            if (n > 0) {
+#pragma unroll
+                for (int j = 0; j < K; ++j) below[DEEP ? n - 1 : 0][j] = top[j];
+            }
+#pragma unroll
+            for (int j = 0; j < K; ++j) top[j] = v[j];
+            ++n;
+        }
+    }
+}
+
+// One block of the through-L2 instance: item b = blockIdx.x % B, slice
+// blockIdx.x / B of `slice` chunks, shard blockIdx.y. WORDS: store the
+// words into out[s, w] (int32[S, W]), else add the count into out[b, s].
+template <typename V, bool DEEP, bool WORDS>
+__device__ __forceinline__ void tree_l2_body(const unsigned char* table, int B, int n_rows,
+                                             int n_steps, int S, int W, int rows_max, int slice,
+                                             void* out) {
+    __shared__ int s_steps[TREE_SMEM_OPS];
+    __shared__ const uint32_t* s_rowp[TREE_SMEM_ROWS];
+    const int b = blockIdx.x % B;
     const int s = blockIdx.y;
-    const TreeProgram t = tree_stage(table, P, n_ops, L, 0, s, W, s_code, s_leaf);
-    const int per = (int)(sizeof(V) / 4);
+    constexpr int per = (int)(sizeof(V) / 4);
     const int groups = W / per;
-    const int g0 = blockIdx.x * (TREE_WORDS_CHUNK / per);
-    const int g1 = min(groups, g0 + TREE_WORDS_CHUNK / per);
-    V* dst = reinterpret_cast<V*>(out + (size_t)s * W);
-    for (int i = g0 + threadIdx.x; i < g1; i += blockDim.x)
-        dst[i] = tree_eval<V, LONG>(t, i);
+    const int g0 = (blockIdx.x / B) * slice * (TREE_ROW_CHUNK_WORDS / per);
+    const int g1 = min(groups, g0 + slice * (TREE_ROW_CHUNK_WORDS / per));
+    if (g0 >= g1) return;
+    const TreeDirect t = tree_direct(table, B, n_rows, n_steps, b, s);
+    for (int k = threadIdx.x; k < min(n_steps, TREE_SMEM_OPS); k += blockDim.x)
+        s_steps[k] = t.steps[k];
+    for (int r = threadIdx.x; r < min(rows_max + 1, TREE_SMEM_ROWS); r += blockDim.x)
+        s_rowp[r] = tree_row(t, r);
+    __syncthreads();
+    int acc = 0;
+    for (int i = g0 + threadIdx.x; i < g1; i += TREE_L2_GROUPS * blockDim.x) {
+        V top[TREE_L2_GROUPS];
+        tree_l2_eval<V, DEEP>(t, s_steps, s_rowp, n_steps, i, g1, top);
+#pragma unroll
+        for (int j = 0; j < TREE_L2_GROUPS; ++j) {
+            if constexpr (WORDS) {
+                const int g = i + j * (int)blockDim.x;
+                if (g < g1) reinterpret_cast<V*>(static_cast<uint32_t*>(out) + (size_t)s * W)[g] = top[j];
+            } else {
+                acc += tree_popc(top[j]);  // zero past g1: every fold maps zeros to zero
+            }
+        }
+    }
+    if constexpr (!WORDS) tree_add_count(acc, static_cast<int32_t*>(out) + (size_t)b * S + s);
 }
 
-// A table of at most TREE_PARAM_BYTES goes to the kernel as its parameter
-// (the C entry copies it from the host at the launch: no upload); a longer
-// one is read from device memory. ops/kernels.py holds the same number.
-#define TREE_PARAM_BYTES 256
+// Byte offsets of a rows-instance block's dynamic shared memory: the stage
+// ring (each stage the item's rows and a zero row, which absent leaves
+// name, 16 bytes a lane each), the rows' pointers at the block's shard, the
+// steps (whole int4s) and the operand stack below the top (depth - 1
+// entries of 16 bytes a lane). ops/kernels.py (_tree_rows_smem) computes
+// the same total.
+struct TreeRowsSmem {
+    long long stage_bytes, rowp, steps, stack, total;
+};
+
+__host__ __device__ __forceinline__ TreeRowsSmem tree_rows_smem(int stages, int rows, int n_steps,
+                                                                int depth, int lanes) {
+    TreeRowsSmem m;
+    m.stage_bytes = (rows + 1LL) * lanes * 16;
+    m.rowp = stages * m.stage_bytes;
+    m.steps = m.rowp + tree_pad16(8LL * rows);
+    m.stack = m.steps + 16LL * ((n_steps + 3) / 4);
+    m.total = m.stack + (depth - 1LL) * lanes * 16;
+    return m;
+}
+
+// One step of a general program on this lane's 16 bytes: v is the step's
+// leaf (the zero row for a fold of the top or a pad), below this lane's
+// column of the operand stack (entry e at e * blockDim.x).
+__device__ __forceinline__ void tree_rows_step(int st, uint4 v, uint4& top, int& n, uint4* below) {
+    switch (st & 31) {
+        case TREE_PUSH:
+            if (n > 0) below[(n - 1) * blockDim.x] = top;
+            top = v;
+            ++n;
+            break;
+#define TREE_STEP_CASES(F)                                                     \
+        case TREE_LEAF_FOLD | F << 2: top = tree_fold<F>(top, v); break;       \
+        case TREE_POP_FOLD | F << 2:                                           \
+            top = tree_fold<F>(below[(n - 2) * blockDim.x], top);              \
+            --n;                                                               \
+            break;
+        TREE_STEP_CASES(0)
+        TREE_STEP_CASES(1)
+        TREE_STEP_CASES(2)
+        TREE_STEP_CASES(3)
+        TREE_STEP_CASES(4)
+#undef TREE_STEP_CASES
+        default: break;  // TREE_NOP
+    }
+}
+
+// The item's program on this lane's 16 bytes of one stage (`stage`: this
+// lane's column of it). The shared steps hold each leaf's byte offset in a
+// stage (a multiple of 512) above their low 5 bits. FLAT >= 0: a chain of
+// that one fold, eight leaves loaded before they are folded.
+template <int FLAT>
+__device__ __forceinline__ uint4 tree_rows_eval(const int* s_steps, int n_steps,
+                                                const unsigned char* stage, uint4* below) {
+    constexpr int MASK = ~31;
+    auto leaf = [&](int st) { return *reinterpret_cast<const uint4*>(stage + (st & MASK)); };
+    if constexpr (FLAT >= 0) {
+        uint4 top = leaf(s_steps[0]);
+        int k = 1;
+        for (; k + 8 <= n_steps; k += 8) {
+            uint4 v[8];
+#pragma unroll
+            for (int j = 0; j < 8; ++j) v[j] = leaf(s_steps[k + j]);
+#pragma unroll
+            for (int j = 0; j < 8; ++j) top = tree_fold<FLAT>(top, v[j]);
+        }
+        for (; k < n_steps; ++k) top = tree_fold<FLAT>(top, leaf(s_steps[k]));
+        return top;
+    } else {
+        uint4 top = make_uint4(0u, 0u, 0u, 0u);
+        int n = 0;
+        for (int k = 0; k < n_steps; k += 4) {
+            const int4 st = *reinterpret_cast<const int4*>(s_steps + k);
+            const uint4 v0 = leaf(st.x), v1 = leaf(st.y), v2 = leaf(st.z), v3 = leaf(st.w);
+            tree_rows_step(st.x, v0, top, n, below);
+            tree_rows_step(st.y, v1, top, n, below);
+            tree_rows_step(st.z, v2, top, n, below);
+            tree_rows_step(st.w, v3, top, n, below);
+        }
+        return top;
+    }
+}
+
+// One block of the rows instance: item b = blockIdx.x % B, slice
+// blockIdx.x / B of `slice` chunks (blockDim.x lanes x 4 words each),
+// shard blockIdx.y; the item's rows (at most rows_max) staged a chunk at a
+// time in a ring of `stages`.
+template <int FLAT>
+__device__ __forceinline__ void tree_rows_body(const unsigned char* table, int B, int n_rows,
+                                               int n_steps, int depth, int S, int W, int stages,
+                                               int rows_max, int slice, int32_t* out) {
+    extern __shared__ __align__(128) unsigned char tree_smem_buf[];
+    const int lanes = blockDim.x;
+    const int row_bytes = lanes * 16;
+    const TreeRowsSmem m = tree_rows_smem(stages, rows_max, n_steps, depth, lanes);
+    const int b = blockIdx.x % B;
+    const int s = blockIdx.y;
+    const int chunks = (W + lanes * 4 - 1) / (lanes * 4);
+    const int c0 = (blockIdx.x / B) * slice;
+    const int c1 = min(chunks, c0 + slice);
+    if (c0 >= c1) return;
+    const TreeDirect t = tree_direct(table, B, n_rows, n_steps, b, s);
+    const int nb = t.nb;
+    const uint32_t** rowp = reinterpret_cast<const uint32_t**>(tree_smem_buf + m.rowp);
+    int* s_steps = reinterpret_cast<int*>(tree_smem_buf + m.steps);
+    for (int r = threadIdx.x; r < nb; r += blockDim.x) rowp[r] = tree_row(t, r);
+    for (int k = threadIdx.x; k < ((n_steps + 3) & ~3); k += blockDim.x) {
+        const int st = k < n_steps ? t.steps[k] : TREE_NOP | rows_max << 5;
+        s_steps[k] = (st & 31) | (st >> 5) * row_bytes;
+    }
+    const uint32_t stage_bytes = (uint32_t)m.stage_bytes;
+    unsigned char* col = tree_smem_buf + threadIdx.x * 16;
+    // this lane's 16 bytes of each stage's zero row: no copy writes them
+    for (int st = 0; st < stages; ++st)
+        *reinterpret_cast<uint4*>(col + st * stage_bytes + rows_max * row_bytes) =
+            make_uint4(0u, 0u, 0u, 0u);
+    __syncthreads();
+
+    const uint32_t col0 = pilosa_smem_addr(col);
+    const int words = W;  // (plain locals: the lambda then copies no parameter)
+    // chunk c of every row of the item into stage st: each lane copies the
+    // 16 bytes of each row that it evaluates (eight rows' pointers read
+    // before their copies: a copy's memory clobber would hold the next read
+    // behind it); words past W are zero-filled, and every fold maps zeros
+    // to zero
+    auto load = [&](int st, int c) {
+        const int w = (c * lanes + threadIdx.x) * 4;
+        const bool ok = w < words;
+        const uint32_t dst = col0 + st * stage_bytes;
+        for (int r0 = 0; r0 < nb; r0 += 8) {
+            const uint32_t* src[8];
+#pragma unroll
+            for (int j = 0; j < 8; ++j) src[j] = rowp[min(r0 + j, nb - 1)] + (ok ? w : 0);
+#pragma unroll
+            for (int j = 0; j < 8; ++j)
+                if (r0 + j < nb) pilosa_cp16(dst + (r0 + j) * row_bytes, src[j], ok ? 16 : 0);
+        }
+    };
+    const int nk = c1 - c0;
+    for (int st = 0; st < stages - 1; ++st) {
+        if (st < nk) load(st, c0 + st);
+        pilosa_cp_commit();
+    }
+    uint4* below = reinterpret_cast<uint4*>(tree_smem_buf + m.stack) + threadIdx.x;
+    int acc = 0;
+    for (int i = 0; i < nk; ++i) {
+        // fill the stage this lane evaluated in the last iteration (only this
+        // lane reads its column, so no barrier), then wait for chunk i
+        if (i + stages - 1 < nk) load((i + stages - 1) % stages, c0 + i + stages - 1);
+        pilosa_cp_commit();
+        tree_cp_wait(stages - 1);
+        acc += tree_popc(tree_rows_eval<FLAT>(s_steps, n_steps, col + (i % stages) * stage_bytes,
+                                              below));
+    }
+    pilosa_cp_wait<0>();
+    tree_add_count(acc, out + (size_t)b * S + s);
+}
+
 struct __align__(16) TreeTableParam {
     unsigned char bytes[TREE_PARAM_BYTES];
 };
 
-template <typename V, bool LONG>
-__global__ void __launch_bounds__(PILOSA_SCAN_THREADS)
-pilosa_tree_count_kernel(const unsigned char* __restrict__ table, int P, int n_ops, int L,
-                         int S, int W, int32_t* __restrict__ out) {
-    tree_count_body<V, LONG>(table, P, n_ops, L, S, W, out);
+template <typename V, bool DEEP, bool WORDS>
+__global__ void __launch_bounds__(TREE_L2_THREADS)
+pilosa_tree_l2(const unsigned char* __restrict__ table, int B, int n_rows, int n_steps, int S,
+               int W, int rows_max, int slice, void* __restrict__ out) {
+    tree_l2_body<V, DEEP, WORDS>(table, B, n_rows, n_steps, S, W, rows_max, slice, out);
 }
 
-template <typename V, bool LONG>
-__global__ void __launch_bounds__(PILOSA_SCAN_THREADS)
-pilosa_tree_count_param(const __grid_constant__ TreeTableParam table, int P, int n_ops, int L,
-                        int S, int W, int32_t* __restrict__ out) {
-    tree_count_body<V, LONG>(table.bytes, P, n_ops, L, S, W, out);
+template <typename V, bool DEEP, bool WORDS>
+__global__ void __launch_bounds__(TREE_L2_THREADS)
+pilosa_tree_l2_param(const __grid_constant__ TreeTableParam table, int B, int n_rows, int n_steps,
+                     int S, int W, int rows_max, int slice, void* __restrict__ out) {
+    tree_l2_body<V, DEEP, WORDS>(table.bytes, B, n_rows, n_steps, S, W, rows_max, slice, out);
 }
 
-template <typename V, bool LONG>
-__global__ void __launch_bounds__(PILOSA_SCAN_THREADS)
-pilosa_tree_words_kernel(const unsigned char* __restrict__ table, int P, int n_ops, int L,
-                         int W, uint32_t* __restrict__ out) {
-    tree_words_body<V, LONG>(table, P, n_ops, L, W, out);
+template <int FLAT>
+__global__ void __launch_bounds__(TREE_ROWS_LANES)
+pilosa_tree_rows(const unsigned char* __restrict__ table, int B, int n_rows, int n_steps,
+                 int depth, int S, int W, int stages, int rows_max, int slice,
+                 int32_t* __restrict__ out) {
+    tree_rows_body<FLAT>(table, B, n_rows, n_steps, depth, S, W, stages, rows_max, slice, out);
 }
 
-template <typename V, bool LONG>
-__global__ void __launch_bounds__(PILOSA_SCAN_THREADS)
-pilosa_tree_words_param(const __grid_constant__ TreeTableParam table, int P, int n_ops, int L,
-                        int W, uint32_t* __restrict__ out) {
-    tree_words_body<V, LONG>(table.bytes, P, n_ops, L, W, out);
+template <int FLAT>
+__global__ void __launch_bounds__(TREE_ROWS_LANES)
+pilosa_tree_rows_param(const __grid_constant__ TreeTableParam table, int B, int n_rows,
+                       int n_steps, int depth, int S, int W, int stages, int rows_max, int slice,
+                       int32_t* __restrict__ out) {
+    tree_rows_body<FLAT>(table.bytes, B, n_rows, n_steps, depth, S, W, stages, rows_max, slice,
+                         out);
 }
 
-// Launch K<V, LONG> for the route's word width and program length: `table`
-// a device pointer, or (host_bytes > 0) host_bytes of host memory passed as
-// the kernel's parameter.
-#define TREE_DIRECT_LAUNCH(KERNEL, GRID, ...)                                          \
-    do {                                                                               \
-        const bool lng = tree_long(n_ops, L);                                          \
-        if (host_bytes > 0) {                                                          \
-            TreeTableParam prm;                                                        \
-            memcpy(prm.bytes, table, (size_t)host_bytes);                              \
-            auto k = vec16 ? (lng ? KERNEL##_param<uint4, true> : KERNEL##_param<uint4, false>) \
-                           : (lng ? KERNEL##_param<uint32_t, true>                       \
-                                  : KERNEL##_param<uint32_t, false>);                    \
-            k<<<GRID, PILOSA_SCAN_THREADS, 0, st>>>(prm, __VA_ARGS__);                  \
-        } else {                                                                       \
-            const unsigned char* t = (const unsigned char*)table;                      \
-            auto k = vec16 ? (lng ? KERNEL##_kernel<uint4, true> : KERNEL##_kernel<uint4, false>) \
-                           : (lng ? KERNEL##_kernel<uint32_t, true>                      \
-                                  : KERNEL##_kernel<uint32_t, false>);                   \
-            k<<<GRID, PILOSA_SCAN_THREADS, 0, st>>>(t, __VA_ARGS__);                    \
-        }                                                                              \
-    } while (0)
+// The launch arguments of the direct route, as the C entries take them.
+struct TreeDirectArgs {
+    const void* table;
+    int host_bytes, B, n_rows, n_steps, depth, S, W, rows_max, slice;
+    void* out;
+};
 
-static bool tree_long(int n_ops, int L) {
-    return n_ops > TREE_SMEM_OPS || L > TREE_SMEM_LEAVES;
+template <typename V, bool DEEP, bool WORDS>
+static void tree_l2_launch(dim3 grid, cudaStream_t st, const TreeDirectArgs& a) {
+    if (a.host_bytes > 0) {
+        TreeTableParam prm;
+        memcpy(prm.bytes, a.table, (size_t)a.host_bytes);
+        pilosa_tree_l2_param<V, DEEP, WORDS><<<grid, TREE_L2_THREADS, 0, st>>>(
+            prm, a.B, a.n_rows, a.n_steps, a.S, a.W, a.rows_max, a.slice, a.out);
+    } else {
+        pilosa_tree_l2<V, DEEP, WORDS><<<grid, TREE_L2_THREADS, 0, st>>>(
+            (const unsigned char*)a.table, a.B, a.n_rows, a.n_steps, a.S, a.W, a.rows_max,
+            a.slice, a.out);
+    }
 }
 
-static bool tree_args_ok(int P, int n_ops, int L, int depth, int S, int W, int vec16) {
-    return P > 0 && n_ops > 0 && L > 0 && depth >= 1 && depth <= TREE_MAX_DEPTH &&
-           S <= 65535 && W < (1 << 26) && !(vec16 && (W & 3));
-}
-
-// out: int32[B, S]. table: as above, on the device, or (host_bytes > 0,
-// at most TREE_PARAM_BYTES) in host memory, passed as the kernel's
-// parameter. depth: the program's operand-stack depth (the wrapper
-// computes it). vec16: every row and the table's stacks 16-byte aligned
-// with W a multiple of 4. Arguments past the limits (a depth past
-// TREE_MAX_DEPTH, W past 2^26, a host table past TREE_PARAM_BYTES) return
-// cudaErrorInvalidValue and launch nothing.
-extern "C" int pilosa_tree_count(const void* table, int host_bytes, int P, int n_ops, int L,
-                                 int depth, int B, int S, int W, int vec16,
-                                 void* out, int device, void* stream) {
-    cudaError_t err = cudaSetDevice(device);
-    if (err != cudaSuccess) return (int)err;
-    if (!tree_args_ok(P, n_ops, L, depth, S, W, vec16) || host_bytes < 0 ||
-        host_bytes > TREE_PARAM_BYTES)
-        return (int)cudaErrorInvalidValue;
-    if (B <= 0 || S <= 0 || W <= 0) return (int)cudaSuccess;
-    cudaStream_t st = (cudaStream_t)stream;
-    TREE_DIRECT_LAUNCH(pilosa_tree_count, dim3((unsigned)B, (unsigned)S), P, n_ops, L, S, W,
-                       (int32_t*)out);
+template <bool WORDS>
+static int tree_l2(dim3 grid, cudaStream_t st, bool vec16, const TreeDirectArgs& a) {
+    const bool deep = a.depth > 2;
+    if (vec16) {
+        if (deep) tree_l2_launch<uint4, true, WORDS>(grid, st, a);
+        else tree_l2_launch<uint4, false, WORDS>(grid, st, a);
+    } else {
+        if (deep) tree_l2_launch<uint32_t, true, WORDS>(grid, st, a);
+        else tree_l2_launch<uint32_t, false, WORDS>(grid, st, a);
+    }
     return (int)cudaGetLastError();
 }
 
-// out: int32[S, W] (16-byte aligned when vec16); table with B = 1.
-extern "C" int pilosa_tree_words(const void* table, int host_bytes, int P, int n_ops, int L,
-                                 int depth, int S, int W, int vec16, void* out,
+// Set a kernel's dynamic shared-memory limit, once per device.
+template <typename K>
+static int tree_smem_ready(K kern, bool (&ready)[64], int device) {
+    if (device < 0 || device >= 64) return (int)cudaErrorInvalidDevice;
+    if (!ready[device]) {
+        cudaError_t err = cudaFuncSetAttribute(
+            kern, cudaFuncAttributeMaxDynamicSharedMemorySize, TREE_SMEM_LIMIT);
+        if (err != cudaSuccess) return (int)err;
+        ready[device] = true;
+    }
+    return 0;
+}
+
+template <int FLAT>
+static int tree_rows(dim3 grid, int lanes, long long smem, cudaStream_t st, int device,
+                     int stages, const TreeDirectArgs& a) {
+    static bool ready[64], ready_param[64];
+    int32_t* o = static_cast<int32_t*>(a.out);
+    if (a.host_bytes > 0) {
+        int err = tree_smem_ready(pilosa_tree_rows_param<FLAT>, ready_param, device);
+        if (err) return err;
+        TreeTableParam prm;
+        memcpy(prm.bytes, a.table, (size_t)a.host_bytes);
+        pilosa_tree_rows_param<FLAT><<<grid, lanes, (size_t)smem, st>>>(
+            prm, a.B, a.n_rows, a.n_steps, a.depth, a.S, a.W, stages, a.rows_max, a.slice, o);
+    } else {
+        int err = tree_smem_ready(pilosa_tree_rows<FLAT>, ready, device);
+        if (err) return err;
+        pilosa_tree_rows<FLAT><<<grid, lanes, (size_t)smem, st>>>(
+            (const unsigned char*)a.table, a.B, a.n_rows, a.n_steps, a.depth, a.S, a.W, stages,
+            a.rows_max, a.slice, o);
+    }
+    return (int)cudaGetLastError();
+}
+
+static bool tree_direct_args_ok(int host_bytes, int n_rows, int n_steps, int depth, int S, int W,
+                                int vec16, int rows_max) {
+    return host_bytes >= 0 && host_bytes <= TREE_PARAM_BYTES && n_rows >= 0 && n_steps > 0 &&
+           depth >= 1 && depth <= TREE_MAX_DEPTH && S <= 65535 && W < (1 << 26) &&
+           !(vec16 && (W & 3)) && rows_max >= 0;
+}
+
+// out: int32[B, S], zeroed here on the stream before the launch. table:
+// the direct table above, on the device, or (host_bytes > 0, at most
+// TREE_PARAM_BYTES) in host memory, passed as the kernel's parameter. depth: the operand-stack entries the steps need.
+// vec16: every row 16-byte aligned at every shard with W a multiple of 4.
+// rows_max: the index an absent leaf names (at least every item's row
+// count). The plan (kernels.tree_plan): stages 0 runs the through-L2
+// instance (flat -1, lanes 0); stages 1-4 the rows instance with a ring of
+// that many stages of rows_max rows and a zero row (vec16), blocks of
+// `lanes` (TREE_ROWS_LANES or half as many), flat the fold of a flat chain
+// of any length (0-3: AND, OR, XOR, ANDNOT; depth 1) or -1; wsplit slices
+// of each shard's chunks. Arguments past the limits (a depth past
+// TREE_MAX_DEPTH, W past 2^26, a host table past TREE_PARAM_BYTES, no
+// slice, a ring past shared memory) return cudaErrorInvalidValue and
+// launch nothing.
+extern "C" int pilosa_tree_count(const void* table, int host_bytes, int B, int n_rows,
+                                 int n_steps, int depth, int S, int W, int vec16, int rows_max,
+                                 int stages, int lanes, int wsplit, int flat, void* out,
                                  int device, void* stream) {
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return (int)err;
-    if (!tree_args_ok(P, n_ops, L, depth, S, W, vec16) || host_bytes < 0 ||
-        host_bytes > TREE_PARAM_BYTES)
-        return (int)cudaErrorInvalidValue;
-    if (S <= 0 || W <= 0) return (int)cudaSuccess;
+    const bool rows = stages > 0;
+    const long long smem =
+        rows ? tree_rows_smem(stages, rows_max, n_steps, depth, lanes).total : 0;
+    const bool ok =
+        tree_direct_args_ok(host_bytes, n_rows, n_steps, depth, S, W, vec16, rows_max) &&
+        B >= 0 && wsplit >= 1 && (long long)B * wsplit <= 0x7fffffffLL &&
+        (!rows ? flat == -1 && lanes == 0
+               : stages >= 1 && stages <= 4 && vec16 &&
+                     (lanes == TREE_ROWS_LANES || lanes == TREE_ROWS_LANES / 2) &&
+                     smem <= TREE_SMEM_LIMIT && flat >= -1 && flat <= 3 &&
+                     (flat < 0 || depth == 1));
+    if (!ok) return (int)cudaErrorInvalidValue;
+    if (B == 0 || S <= 0 || W <= 0) return (int)cudaSuccess;
+    const int chunk_words = rows ? lanes * 4 : TREE_ROW_CHUNK_WORDS;
+    const int chunks = (W + chunk_words - 1) / chunk_words;
+    const TreeDirectArgs a{table, host_bytes, B, n_rows, n_steps, depth, S, W, rows_max,
+                           (chunks + wsplit - 1) / wsplit, out};
+    const dim3 grid((unsigned)(B * wsplit), (unsigned)S);
     cudaStream_t st = (cudaStream_t)stream;
-    TREE_DIRECT_LAUNCH(pilosa_tree_words,
-                       dim3((unsigned)((W + TREE_WORDS_CHUNK - 1) / TREE_WORDS_CHUNK),
-                            (unsigned)S),
-                       P, n_ops, L, W, (uint32_t*)out);
-    return (int)cudaGetLastError();
+    err = cudaMemsetAsync(out, 0, (size_t)B * S * sizeof(int32_t), st);
+    if (err != cudaSuccess) return (int)err;
+    if (stages == 0) return tree_l2<false>(grid, st, vec16, a);
+    switch (flat) {
+        case 0: return tree_rows<0>(grid, lanes, smem, st, device, stages, a);
+        case 1: return tree_rows<1>(grid, lanes, smem, st, device, stages, a);
+        case 2: return tree_rows<2>(grid, lanes, smem, st, device, stages, a);
+        case 3: return tree_rows<3>(grid, lanes, smem, st, device, stages, a);
+        default: return tree_rows<-1>(grid, lanes, smem, st, device, stages, a);
+    }
 }
 
-#undef TREE_DIRECT_LAUNCH
+// out: int32[S, W] (16-byte aligned when vec16); table: the direct table of
+// one item (rows_max = n_rows), on the through-L2 instance.
+extern "C" int pilosa_tree_words(const void* table, int host_bytes, int n_rows, int n_steps,
+                                 int depth, int S, int W, int vec16, void* out, int device,
+                                 void* stream) {
+    cudaError_t err = cudaSetDevice(device);
+    if (err != cudaSuccess) return (int)err;
+    if (!tree_direct_args_ok(host_bytes, n_rows, n_steps, depth, S, W, vec16, n_rows))
+        return (int)cudaErrorInvalidValue;
+    if (S <= 0 || W <= 0) return (int)cudaSuccess;
+    const int slice = TREE_WORDS_CHUNK / TREE_ROW_CHUNK_WORDS;
+    const int chunks = (W + TREE_ROW_CHUNK_WORDS - 1) / TREE_ROW_CHUNK_WORDS;
+    const TreeDirectArgs a{table, host_bytes, 1, n_rows, n_steps, depth, S, W, n_rows, slice, out};
+    return tree_l2<true>(dim3((unsigned)((chunks + slice - 1) / slice), (unsigned)S),
+                         (cudaStream_t)stream, vec16, a);
+}
 
 // ---------------------------------------------------------------------------
 // The staged route
@@ -397,14 +706,6 @@ extern "C" int pilosa_tree_words(const void* table, int host_bytes, int P, int n
 // Warps per block: one block per SM (its stages fill shared memory), and
 // 128 registers a thread at most.
 #define TREE_STAGED_WARPS 16
-// Dynamic shared memory a block may have on sm_90.
-#define TREE_SMEM_LIMIT 232448
-// Step kinds of a program on the staged route (the wrapper's tree_steps):
-// push leaf l; fold leaf l into the top; fold the top into the entry below.
-// A step is kind | fold << 2 | leaf << 5, fold = -opcode - 1.
-#define TREE_PUSH 0
-#define TREE_LEAF_FOLD 1
-#define TREE_POP_FOLD 2
 // A slot of the staged table: the row's index in its tile's stages, with
 // this bit set when all 8 items of the group name that row.
 #define TREE_UNIFORM (1 << 30)
@@ -417,10 +718,6 @@ extern "C" int pilosa_tree_words(const void* table, int host_bytes, int P, int n
 struct TreeSmem {
     long long stage_bytes, rowp, steps, slots, acc, total;
 };
-
-__host__ __device__ __forceinline__ long long tree_pad16(long long n) {
-    return (n + 15) & ~15LL;
-}
 
 __host__ __device__ __forceinline__ TreeSmem tree_smem(int stages, int rows, int items,
                                                        int L, int n_steps) {
@@ -438,7 +735,7 @@ template <int F>
 __device__ __forceinline__ void tree_fold8(uint4 (&dst)[TREE_GROUP], const uint4 (&a)[TREE_GROUP],
                                            const uint4 (&b)[TREE_GROUP]) {
 #pragma unroll
-    for (int j = 0; j < TREE_GROUP; ++j) dst[j] = tree_fold(-(F + 1), a[j], b[j]);
+    for (int j = 0; j < TREE_GROUP; ++j) dst[j] = tree_fold<F>(a[j], b[j]);
 }
 
 // dst[j] = fold(a[j], b[j]) for the group's items; f is warp-uniform.
@@ -457,7 +754,7 @@ __device__ __forceinline__ void tree_fold8(int f, uint4 (&dst)[TREE_GROUP],
 template <int F>
 __device__ __forceinline__ void tree_fold1(uint4 (&top)[TREE_GROUP], uint4 v) {
 #pragma unroll
-    for (int j = 0; j < TREE_GROUP; ++j) top[j] = tree_fold(-(F + 1), top[j], v);
+    for (int j = 0; j < TREE_GROUP; ++j) top[j] = tree_fold<F>(top[j], v);
 }
 
 // top[j] = fold(top[j], v): a leaf every item of the group shares.
@@ -565,14 +862,6 @@ __device__ __forceinline__ void tree_group(const int* s_steps, int n_steps, cons
     tree_popc8(top, acc, sel);
 }
 
-// Wait for all but the newest stages - 2 copy groups: the chunk to
-// evaluate has landed.
-__device__ __forceinline__ void tree_cp_wait(int stages) {
-    if (stages <= 2) pilosa_cp_wait<0>();
-    else if (stages == 3) pilosa_cp_wait<1>();
-    else pilosa_cp_wait<2>();
-}
-
 // Steps of a flat chain (a push, then leaf folds of one fold F: AND, OR,
 // XOR or ANDNOT) that the flat instances take, unrolled.
 #define TREE_FLAT_STEPS 4
@@ -605,7 +894,7 @@ __device__ __forceinline__ void tree_group_flat(const int (&leaf_off)[TREE_FLAT_
             const uint4 v = *reinterpret_cast<const uint4*>(
                 stage + (lo[k].x & (TREE_UNIFORM - 1)) * TREE_CHUNK_BYTES);
             if (k == 0) one = v;
-            else if (!wide) one = tree_fold(-(F + 1), one, v);
+            else if (!wide) one = tree_fold<F>(one, v);
             else tree_fold1<F>(top, v);
         } else {
             const int u[TREE_GROUP] = {lo[k].x, lo[k].y, lo[k].z, lo[k].w,
@@ -619,7 +908,7 @@ __device__ __forceinline__ void tree_group_flat(const int (&leaf_off)[TREE_FLAT_
                 for (int j = 0; j < TREE_GROUP; ++j) top[j] = v[j];
             } else if (!wide) {
 #pragma unroll
-                for (int j = 0; j < TREE_GROUP; ++j) top[j] = tree_fold(-(F + 1), one, v[j]);
+                for (int j = 0; j < TREE_GROUP; ++j) top[j] = tree_fold<F>(one, v[j]);
             } else {
                 tree_fold8<F>(top, top, v);
             }
@@ -723,7 +1012,7 @@ pilosa_tree_count_staged(const unsigned char* __restrict__ table, int tiles, int
     for (int k = 0; k < TREE_FLAT_STEPS; ++k)
         leaf_off[k] = k < n_steps && FLAT >= 0 ? (s_steps[k] >> 5) * items : 0;
     for (int i = 0; i < nk; ++i) {
-        tree_cp_wait(stages);
+        tree_cp_wait(stages - 2);
         __syncthreads();
         // refill the stage every warp finished with in the last iteration
         if (i + stages - 1 < nk) load((i + stages - 1) % stages, c0 + i + stages - 1);
@@ -762,15 +1051,9 @@ static int tree_staged_launch(dim3 grid, long long smem, cudaStream_t st,
                               int n_steps, int L, int S, int W, int stages, int rows_max,
                               int items_max, int wsplit, int slice, int32_t* out, int device) {
     auto kern = pilosa_tree_count_staged<MAXN, FLAT>;
-    // set up on each device once
     static bool ready[64];
-    if (device < 0 || device >= 64) return (int)cudaErrorInvalidDevice;
-    if (!ready[device]) {
-        cudaError_t err = cudaFuncSetAttribute(
-            kern, cudaFuncAttributeMaxDynamicSharedMemorySize, TREE_SMEM_LIMIT);
-        if (err != cudaSuccess) return (int)err;
-        ready[device] = true;
-    }
+    int err = tree_smem_ready(kern, ready, device);
+    if (err) return err;
     kern<<<grid, TREE_STAGED_WARPS * 32, (size_t)smem, st>>>(table, tiles, n_rows, n_items, n_steps, L, S,
                                                 W, stages, rows_max, items_max, wsplit, slice,
                                                 out);

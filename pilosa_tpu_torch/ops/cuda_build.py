@@ -56,14 +56,12 @@ _SIGNATURES = {
         _VOIDP, _INT, _INT, _INT, _VOIDP, _INT, _INT, _INT, _INT,
     ),
     "pilosa_mma_rate_probe": (_INT, _INT, _VOIDP, _INT, _VOIDP, ctypes.POINTER(_LL)),
-    # (table, host_bytes, P, n_ops, L, depth, [B,] S, W, vec16, out, device,
+    # (table, host_bytes, B, n_rows, n_steps, depth, S, W, vec16, rows_max,
+    # then the plan: stages, lanes, wsplit, flat; out, device, stream)
+    "pilosa_tree_count": (_VOIDP, *(_INT,) * 13, _VOIDP, _INT, _VOIDP),
+    # (table, host_bytes, n_rows, n_steps, depth, S, W, vec16, out, device,
     # stream)
-    "pilosa_tree_count": (
-        _VOIDP, _INT, _INT, _INT, _INT, _INT, _INT, _INT, _INT, _INT, _VOIDP, _INT, _VOIDP,
-    ),
-    "pilosa_tree_words": (
-        _VOIDP, _INT, _INT, _INT, _INT, _INT, _INT, _INT, _INT, _VOIDP, _INT, _VOIDP,
-    ),
+    "pilosa_tree_words": (_VOIDP, *(_INT,) * 7, _VOIDP, _INT, _VOIDP),
     # (table, tiles, n_rows, n_items, n_steps, L, depth, S, W, then the plan:
     # stages, rows_max, items_max, wsplit, flat; out, device, stream)
     "pilosa_tree_count_staged": (_VOIDP, *(_INT,) * 13, _VOIDP, _INT, _VOIDP),

@@ -24,7 +24,8 @@ replaces the XLA programs of ``pilosa_tpu/exec/astbatch.py`` that evaluate a
 compiled PQL tree over field stacks, as the per-shard counts of a batch of
 ``Count(tree)`` calls (:func:`tree_count`, on the route and plan
 :func:`tree_plan` picks: the batch's distinct rows staged once per shard,
-or one block per item) or one tree's words (:func:`tree_words`).
+or, item by item, each item's distinct rows staged once per shard and
+slice or read through L2) or one tree's words (:func:`tree_words`).
 
 The two grams share one tile loop (``ops/csrc/gram_tile.cuh``) that runs
 on the tensor cores as single-bit MMA (AND + popcount of the packed
@@ -43,7 +44,7 @@ Stacks are ``int32[S, R, W]``: bit-identical views of the host's
 
 from __future__ import annotations
 
-import struct
+import ctypes
 from functools import lru_cache
 from typing import NamedTuple
 
@@ -663,6 +664,16 @@ _TREE_SMEM_LIMIT = 232448
 # chunks over this. chip_smoke.py times the trees path's four shapes at
 # slices of 4-64 chunks; 32 was the fastest for three of them on an H100.
 TREE_SLICE_CHUNKS = 32
+# The direct route (tree_eval.cu, pilosa_tree_count; these numbers match its
+# defines): the most lanes of a rows-instance block (16 bytes of each row a
+# lane per stage) and stages of its ring, and the words of a block's slice
+# of a shard (chip_smoke.py times the direct shapes at slices of 1024-16384
+# words, and at each block shape).
+TREE_ROWS_LANES = 64
+TREE_ROWS_MAX_STAGES = 4
+TREE_DIRECT_SLICE_WORDS = 4096
+# What one SM of an H100 holds: threads and blocks.
+_SM_THREADS, _SM_BLOCKS = 2048, 32
 
 
 def tree_depth(code, n_leaves: int) -> int:
@@ -713,23 +724,25 @@ def tree_steps(code) -> tuple[np.ndarray, int]:
 
 
 class TreeProgram(NamedTuple):
-    """A checked program: its operand-stack depth, its steps and their
-    depth on the staged route, the fold of a flat chain (-1: not one), and
-    the least and greatest stack its leaves name."""
+    """A checked program: its operand-stack depth, its steps and the
+    entries they need, the fold of a flat chain of at most TREE_FLAT_STEPS
+    steps and of one of any length (-1: not one), and the least and
+    greatest stack its leaves name."""
 
     depth: int
     steps: np.ndarray
     staged_depth: int
     flat: int
+    chain: int
     stack_range: tuple
 
 
-def tree_flat(steps: np.ndarray) -> int:
+def tree_flat(steps: np.ndarray, max_steps: int | None = TREE_FLAT_STEPS) -> int:
     """The fold (0-3: AND, OR, XOR, ANDNOT) of a flat chain of at most
-    TREE_FLAT_STEPS steps, a push then leaf folds of that one fold; -1 for
-    any other program."""
+    ``max_steps`` steps (None: any number), a push then leaf folds of that
+    one fold; -1 for any other program."""
     kinds, folds = steps & 3, (steps >> 2) & 7
-    if steps.size > TREE_FLAT_STEPS or kinds[0] != TREE_PUSH:
+    if (max_steps is not None and steps.size > max_steps) or kinds[0] != TREE_PUSH:
         return -1
     if steps.size == 1:
         return 0
@@ -745,7 +758,7 @@ def _tree_program(code: bytes, leaf_stack: bytes) -> TreeProgram:
     depth = tree_depth(ops, leaves.size)
     steps, staged_depth = tree_steps(ops)
     steps.flags.writeable = False
-    return TreeProgram(depth, steps, staged_depth, tree_flat(steps),
+    return TreeProgram(depth, steps, staged_depth, tree_flat(steps), tree_flat(steps, None),
                        (int(leaves.min()), int(leaves.max())))
 
 
@@ -788,7 +801,7 @@ def _check_tree(name: str, stacks, code, leaf_stack, slots, slot_dims: int):
         raise TypeError(f"{name}: expected int32 slots, got {slots.dtype}")
     if slots.ndim != slot_dims or slots.shape[-1] != L:
         raise ValueError(f"{name}: slots of shape {slots.shape} for {L} leaves")
-    rows = np.array([stacks[p].shape[1] for p in leaf_stack.tolist()], dtype=np.int64)
+    rows = np.array([t.shape[1] for t in stacks], dtype=np.int64)[leaf_stack]
     if slots.size and (slots >= rows).any():
         raise ValueError(f"{name}: a slot past its stack's rows")
     return stacks, code, leaf_stack, np.ascontiguousarray(slots), prog
@@ -851,44 +864,72 @@ def tree_words_plain(stacks, code, leaf_stack, slots) -> torch.Tensor:
 TREE_PARAM_BYTES = 256
 
 
-def _pack(parts) -> np.ndarray:
-    """``uint8``: the host arrays ``parts`` one after another."""
-    return np.concatenate([np.ascontiguousarray(a).reshape(-1).view(np.uint8) for a in parts])
+def _pack(parts) -> bytes:
+    """The host arrays ``parts`` one after another (each in C order)."""
+    return b"".join(a.tobytes() for a in parts)
 
 
-def _upload(buf: np.ndarray, device) -> torch.Tensor:
+def _upload(buf: bytes, device) -> torch.Tensor:
     """``buf`` on ``device``, copied from pinned memory on the current
     stream without waiting for the host: the caching host allocator keeps
     the pinned buffer until the copy that read it has run, and a kernel on
     the same stream reads the table after the copy."""
-    host = torch.empty(buf.size, dtype=torch.uint8, pin_memory=True)
-    host.numpy()[:] = buf
+    host = torch.empty(len(buf), dtype=torch.uint8, pin_memory=True)
+    ctypes.memmove(host.data_ptr(), buf, len(buf))
     return host.to(device, non_blocking=True)
 
 
-def _tree_table(stacks, code, leaf_stack, slots: np.ndarray, device):
-    """The direct route's table (tree_eval.cu: int64 base pointers, then
-    int32 row counts, program, leaf stacks and slots) as the C entries take
-    it: ``(pointer, host_bytes, owner)``, host bytes when the table fits
-    TREE_PARAM_BYTES (host_bytes > 0: it goes to the kernel as its
-    parameter), else an upload on ``device`` (host_bytes 0). ``owner``
+def _tree_table(parts, device):
+    """The host arrays ``parts`` packed as one table, as the direct route's
+    C entries take it: ``(pointer, host_bytes, owner)``, host bytes when the
+    table fits TREE_PARAM_BYTES (host_bytes > 0: it goes to the kernel as
+    its parameter), else an upload on ``device`` (host_bytes 0). ``owner``
     holds the memory while the call runs."""
-    P = len(stacks)
-    n_ints = P + code.size + leaf_stack.size + slots.size
-    if 8 * P + 4 * n_ints <= TREE_PARAM_BYTES:
-        buf = struct.pack(
-            f"<{P}q{n_ints}i", *(t.data_ptr() for t in stacks), *(t.shape[1] for t in stacks),
-            *code.tolist(), *leaf_stack.tolist(), *slots.reshape(-1).tolist(),
-        )
+    buf = _pack(parts)
+    if len(buf) <= TREE_PARAM_BYTES:
         return buf, len(buf), buf
-    table = _upload(_pack([
-        np.array([t.data_ptr() for t in stacks], dtype=np.int64),
-        np.array([t.shape[1] for t in stacks], dtype=np.int32),
-        code.astype(np.int32),
-        leaf_stack.astype(np.int32),
-        slots,
-    ]), device)
+    table = _upload(buf, device)
     return table.data_ptr(), 0, table
+
+
+def _tree_row_offsets(stacks) -> np.ndarray:
+    """int64 ``[P, 2]``: for each stack, the first of the stacks that are
+    one tensor (one data pointer and row count) with it, and where that
+    stack's rows start in one numbering of all the stacks' rows."""
+    keys = [(t.data_ptr(), t.shape[1]) for t in stacks]
+    out, start = [], 0
+    for k in keys:
+        out.append((keys.index(k), start))
+        start += k[1]
+    return np.array(out, dtype=np.int64).reshape(-1, 2)
+
+
+def tree_row_ids(stacks, leaf_stack, slots: np.ndarray) -> np.ndarray:
+    """int64 ``[B, L]``: each slot's row as one number over all the stacks'
+    rows (stacks that are one tensor share their rows, under the ordinal of
+    the first); -1 where a slot is absent."""
+    off = _tree_row_offsets(stacks)
+    ids = off[off[np.asarray(leaf_stack, dtype=np.int64), 0], 1][None, :] + slots
+    ids[slots < 0] = -1
+    return ids
+
+
+def _tree_id_rows(stacks, ids: np.ndarray) -> np.ndarray:
+    """int64 ``[n, 2]``: the (stack ordinal, row) of each row id."""
+    start = _tree_row_offsets(stacks)[:, 1]
+    p = np.searchsorted(start, ids, side="right") - 1
+    return np.stack([p, ids - start[p]], axis=1)
+
+
+def _tree_distinct(ids: np.ndarray):
+    """``(uniq, remap)``: the distinct row ids, ascending, and ``ids`` as
+    int32 indices into them (-1 where absent)."""
+    present = ids >= 0
+    named = np.zeros(int(ids.max()) + 1 if ids.size else 0, dtype=bool)
+    named[ids[present]] = True
+    remap = np.full(ids.shape, -1, dtype=np.int32)
+    remap[present] = (np.cumsum(named) - 1)[ids[present]]
+    return np.flatnonzero(named), remap
 
 
 def tree_distinct_rows(stacks, leaf_stack, slots: np.ndarray):
@@ -897,18 +938,103 @@ def tree_distinct_rows(stacks, leaf_stack, slots: np.ndarray):
     sorted; stacks that are one tensor (one data pointer and row count)
     share their rows, under the ordinal of the first. ``remap`` is int32
     ``[B, L]``, -1 where a slot is absent."""
-    keys = [(t.data_ptr(), t.shape[1]) for t in stacks]
-    first = np.array([keys.index(k) for k in keys], dtype=np.int64)
-    offset = np.concatenate([[0], np.cumsum([k[1] for k in keys])]).astype(np.int64)
-    present = slots >= 0
-    gid = offset[first[np.asarray(leaf_stack, dtype=np.int64)]][None, :] + slots
-    named = np.zeros(int(offset[-1]), dtype=bool)
-    named[gid[present]] = True
-    uniq = np.flatnonzero(named)
-    remap = np.full(slots.shape, -1, dtype=np.int32)
-    remap[present] = (np.cumsum(named) - 1)[gid[present]]
-    p = np.searchsorted(offset, uniq, side="right") - 1
-    return np.stack([p, uniq - offset[p]], axis=1), remap
+    uniq, remap = _tree_distinct(tree_row_ids(stacks, leaf_stack, slots))
+    return _tree_id_rows(stacks, uniq), remap
+
+
+class TreeItems(NamedTuple):
+    """Each item's distinct rows, each named by one of its leaves: item b's
+    are named by ``leaf[offsets[b] : offsets[b + 1]]`` (flat indices ``b *
+    L + l`` into the slots), in order of row id; ``local`` int32 ``[B, L]``
+    is each leaf's index among its item's rows (-1: absent), ``rows_max``
+    the most rows an item has."""
+
+    offsets: np.ndarray
+    leaf: np.ndarray
+    local: np.ndarray
+    rows_max: int
+
+
+def _tree_one_item(uniq: np.ndarray, remap: np.ndarray) -> TreeItems:
+    """The rows of a batch of one item, from its distinct rows
+    (:func:`_tree_distinct`)."""
+    present = np.flatnonzero(remap[0] >= 0)
+    leaf = np.empty(uniq.size, dtype=np.int64)
+    leaf[remap[0, present]] = present
+    return TreeItems(np.array([0, uniq.size], np.int32), leaf, remap, uniq.size)
+
+
+def tree_item_rows(ids: np.ndarray) -> TreeItems:
+    """The distinct rows of each item of a batch (row ids ``[B, L]``, -1
+    absent: :func:`tree_row_ids`), each listed once however often its
+    leaves name it."""
+    B, L = ids.shape
+    if B == 1:  # the batch's distinct rows are the item's
+        return _tree_one_item(*_tree_distinct(ids))
+    local = np.full(ids.shape, -1, dtype=np.int32)
+    order = np.argsort(ids, axis=1, kind="stable")
+    srt = np.take_along_axis(ids, order, axis=1)
+    new = srt >= 0
+    new[:, 1:] &= srt[:, 1:] != srt[:, :-1]
+    np.put_along_axis(local, order, np.where(srt >= 0, np.cumsum(new, axis=1) - 1, -1), axis=1)
+    counts = new.sum(axis=1)
+    offsets = np.zeros(B + 1, np.int32)
+    np.cumsum(counts, out=offsets[1:])
+    return TreeItems(offsets, (order + L * np.arange(B)[:, None])[new], local,
+                     int(counts.max()) if B else 0)
+
+
+class TreeDirect(NamedTuple):
+    """A direct launch's host arrays (tree_eval.cu's direct table), its
+    rows, and the index an absent leaf names."""
+
+    parts: list
+    n_rows: int
+    rows_max: int
+
+
+def tree_direct_layout(stacks, leaf_stack, slots: np.ndarray, steps: np.ndarray,
+                       items: TreeItems | None = None, rows_max: int | None = None) -> TreeDirect:
+    """The direct table of a batch: each item's rows (their words at shard 0
+    and per shard), where each item's rows start, and each item's steps with
+    every leaf's operand its row's index among the item's rows. With
+    ``items`` (:func:`tree_item_rows`) an item lists each distinct row once;
+    without, every leaf is a row of its item. An absent leaf (and a fold of
+    the top) names ``rows_max`` (default: the most rows an item has)."""
+    W = stacks[0].shape[2]
+    B, L = slots.shape
+    base = np.array([t.data_ptr() for t in stacks], dtype=np.int64)
+    per = np.array([t.shape[1] * W for t in stacks], dtype=np.int64)
+    p = np.asarray(leaf_stack, dtype=np.int64)
+    if items is None:  # every leaf a row (an absent one never read)
+        ptr = (base[p] + np.maximum(slots, 0) * (4 * W)).reshape(-1)
+        stride = np.tile(per[p], B)
+        offsets = np.arange(0, B * L + 1, L, dtype=np.int32)
+        local = np.where(slots >= 0, np.arange(L, dtype=np.int32), -1)
+        most = L
+    else:  # each row at the leaf that names it
+        p = p[items.leaf % L]
+        ptr = base[p] + slots.reshape(-1)[items.leaf] * (4 * W)
+        stride = per[p]
+        offsets, local, most = items.offsets, items.local, items.rows_max
+    absent = most if rows_max is None else rows_max
+    # each step's operand: its leaf's row, or (column L) the absent index
+    operand = np.full((B, L + 1), absent, dtype=np.int32)
+    np.copyto(operand[:, :L], local, where=local >= 0)
+    src, op = _tree_step_operands(steps.tobytes(), L)
+    item_steps = op | (operand[:, src] << 5)
+    return TreeDirect([ptr, stride, offsets, item_steps], ptr.size, absent)
+
+
+@lru_cache(maxsize=1024)
+def _tree_step_operands(steps: bytes, L: int) -> tuple:
+    """``(src, op)`` of a program's int32 steps: each step's leaf (column
+    L, the absent index, for a fold of the top) and its kind and fold."""
+    st = np.frombuffer(steps, dtype=np.int32)
+    src = np.where((st & 3) == TREE_POP_FOLD, L, st >> 5)
+    op = st & 31
+    src.flags.writeable = op.flags.writeable = False
+    return src, op
 
 
 def _leaf_distinct(remap: np.ndarray) -> np.ndarray:
@@ -955,13 +1081,17 @@ def tree_tiles(remap: np.ndarray, order: np.ndarray, row_tile: int, item_tile: i
 
 
 class TreePlan(NamedTuple):
-    """How one tree_count launch runs. ``route`` "direct": one block per
-    (item, shard), 16-byte or word loads (``vec16``). "staged": tiles of
-    at most ``item_tile`` items naming at most ``row_tile`` distinct rows,
-    each chunk of those rows staged once per shard in a ring of ``stages``
-    shared-memory stages; ``wsplit`` blocks per (tile, shard), each a
-    slice of the chunks; ``flat`` the fold of a flat chain run on its own
-    instance (-1: the general step loop)."""
+    """How one tree_count launch runs; ``wsplit`` blocks per (item or
+    tile, shard), each a slice of the shard's chunks. ``route`` "direct":
+    item by item, 16-byte or word loads (``vec16``); ``stages`` 0 reads the
+    leaves through L2, else each chunk of the item's (at most ``row_tile``)
+    distinct rows is staged in a ring of that many shared-memory stages by
+    blocks of ``lanes`` (16 bytes of a row each), with ``flat`` the fold of
+    a flat chain of any length run on its own instance (-1: the general
+    step loop). "staged": tiles of at most ``item_tile`` items naming at
+    most ``row_tile`` distinct rows, each chunk of those rows staged once
+    per shard in a ring of ``stages`` stages; ``flat`` the fold of a flat
+    chain of at most TREE_FLAT_STEPS steps run on its own instance."""
 
     route: str
     vec16: bool
@@ -970,6 +1100,7 @@ class TreePlan(NamedTuple):
     item_tile: int = 0
     wsplit: int = 1
     flat: int = -1
+    lanes: int = 0
 
 
 def _pad(n: int, m: int) -> int:
@@ -991,17 +1122,74 @@ def _tree_staged_fits(L: int, vec16: bool, staged_depth: int) -> bool:
     return vec16 and staged_depth <= TREE_STAGED_MAX_DEPTH and L <= TREE_STAGED_MAX_LEAVES
 
 
+def _tree_shares_rows(B: int, L: int, U: int, vec16: bool, staged_depth: int) -> bool:
+    """Whether a batch is one for the staged route: it can run the program
+    and every distinct row serves at least two leaf reads."""
+    return _tree_staged_fits(L, vec16, staged_depth) and U > 0 and B * L >= 2 * U
+
+
+def _tree_rows_smem(rows: int, n_steps: int, depth: int, stages: int,
+                    lanes: int = TREE_ROWS_LANES) -> int:
+    """Dynamic shared-memory bytes of a block of the direct route's rows
+    instance (tree_eval.cu, tree_rows_smem): the stage ring (the item's rows
+    and a zero row, 16 bytes a lane each), row pointers, steps in whole
+    int4s, and the operand stack below the top (16 bytes a lane per
+    entry)."""
+    return (stages * (rows + 1) * lanes * 16 + _pad(8 * rows, 16)
+            + 16 * -(-n_steps // 4) + (depth - 1) * lanes * 16)
+
+
+def _tree_rows_warps(smem: int, lanes: int) -> int:
+    """Warps of rows-instance blocks of ``lanes`` and ``smem`` bytes that one
+    SM holds (its shared memory, threads and blocks)."""
+    if smem > _TREE_SMEM_LIMIT:
+        return 0
+    return min(_SM_BLOCKS, _SM_THREADS // lanes, _TREE_SMEM_LIMIT // smem) * lanes // 32
+
+
+@lru_cache(maxsize=1024)
+def _tree_rows_shape(rows: int, n_steps: int, depth: int, smem_limit: int) -> tuple:
+    """``(warps, stages, lanes)`` of the rows-instance block shape that puts
+    the most warps on an SM, then the most stages, then the most lanes
+    (warps 0: none fits). ``smem_limit`` (_TREE_SMEM_LIMIT) keys the cache."""
+    return max((_tree_rows_warps(_tree_rows_smem(rows, n_steps, depth, st, n), n), st, n)
+               for st in range(1, TREE_ROWS_MAX_STAGES + 1)
+               for n in (TREE_ROWS_LANES, TREE_ROWS_LANES // 2))
+
+
+def tree_direct_plan(rows: int, W: int, vec16: bool, depth: int, n_steps: int,
+                     chain: int = -1) -> TreePlan:
+    """The direct route's plan for items of at most ``rows`` distinct rows
+    and a program of ``n_steps`` steps needing ``depth`` entries: the rows
+    instance where the rows are 16-byte and fit shared memory, with the
+    block shape (TREE_ROWS_LANES lanes or half as many, a ring of 1 to
+    TREE_ROWS_MAX_STAGES stages) that puts the most warps on an SM, then
+    the most stages, then the most lanes (a flat chain, ``chain``, on its
+    own instance); else through L2. Slices of TREE_DIRECT_SLICE_WORDS
+    words."""
+    wsplit = max(1, -(-W // TREE_DIRECT_SLICE_WORDS))
+    if vec16:
+        warps, stages, lanes = _tree_rows_shape(rows, n_steps, depth, _TREE_SMEM_LIMIT)
+        if warps:
+            return TreePlan("direct", True, stages, rows, 0, wsplit, chain, lanes)
+    return TreePlan("direct", vec16, 0, 0, 0, wsplit)
+
+
 def tree_plan(B: int, L: int, U: int, S: int, W: int, vec16: bool, staged_depth: int,
-              n_steps: int, flat: int = -1) -> TreePlan:
+              n_steps: int, flat: int = -1, item_rows: int | None = None,
+              chain: int = -1) -> TreePlan:
     """The tree count's launch plan for ``B`` items of ``L`` leaves naming
     ``U`` distinct rows at ``S`` shards of ``W`` words. Staged where
-    :func:`_tree_staged_fits` and the rows are shared (every distinct row
-    serves at least two leaf reads); the item tile from the slot budget,
-    the row tile and stages from shared memory (2 stages at least, 4 at
-    most), slices of TREE_SLICE_CHUNKS chunks; a flat chain (``flat``,
-    :func:`tree_flat`) on its own instance. Direct otherwise."""
-    direct = TreePlan("direct", vec16)
-    if not _tree_staged_fits(L, vec16, staged_depth) or U == 0 or B * L < 2 * U:
+    :func:`_tree_shares_rows`: the item tile from the slot budget, the row
+    tile and stages from shared memory (2 stages at least, 4 at most),
+    slices of TREE_SLICE_CHUNKS chunks; a flat chain (``flat``,
+    :func:`tree_flat`) on its own instance. Direct otherwise
+    (:func:`tree_direct_plan`, for items of at most ``item_rows`` distinct
+    rows, default ``min(L, U)``, and the fold ``chain`` of a flat chain of
+    any length)."""
+    rows = min(L, U) if item_rows is None else item_rows
+    direct = tree_direct_plan(rows, W, vec16, staged_depth, n_steps, chain)
+    if not _tree_shares_rows(B, L, U, vec16, staged_depth):
         return direct
     item_tile = min(_pad(B, TREE_GROUP), _TREE_ITEM_TILE,
                     _TREE_SLOT_BYTES // (4 * (L + 8)) // TREE_GROUP * TREE_GROUP)
@@ -1019,10 +1207,22 @@ def tree_plan(B: int, L: int, U: int, S: int, W: int, vec16: bool, staged_depth:
     return TreePlan("staged", True, stages, row_tile, item_tile, wsplit, flat)
 
 
-def _check_tree_plan(plan: TreePlan, L: int, W: int, n_steps: int, staged_depth: int) -> None:
-    """Raise ``ValueError`` for a plan the C entries refuse."""
-    if plan.route == "direct":
-        ok = not (plan.vec16 and W % 4)
+def _check_tree_plan(plan: TreePlan, L: int, W: int, n_steps: int, staged_depth: int,
+                     chain: int | None = None) -> None:
+    """Raise ``ValueError`` for a plan the C entries refuse, or (given the
+    program's ``chain``, :func:`tree_flat` of any length) a flat instance
+    the program is not a chain of."""
+    if plan.route == "direct" and plan.stages == 0:
+        ok = (not (plan.vec16 and W % 4) and plan.wsplit >= 1 and plan.flat == -1
+              and plan.lanes == 0)
+    elif plan.route == "direct":
+        ok = (plan.vec16 and W % 4 == 0 and 1 <= plan.stages <= 4 and plan.row_tile >= 0
+              and plan.lanes in (TREE_ROWS_LANES, TREE_ROWS_LANES // 2)
+              and plan.wsplit >= 1 and -1 <= plan.flat <= 3
+              and (plan.flat < 0 or staged_depth == 1)
+              and (chain is None or plan.flat in (-1, chain))
+              and _tree_rows_smem(plan.row_tile, n_steps, staged_depth, plan.stages,
+                                  plan.lanes) <= _TREE_SMEM_LIMIT)
     else:
         ok = (plan.route == "staged" and plan.vec16 and W % 4 == 0
               and 2 <= plan.stages <= 4 and plan.row_tile >= 1
@@ -1116,12 +1316,15 @@ def tree_staged_layout(stacks, rows: np.ndarray, remap: np.ndarray, steps: np.nd
 
 class TreeLaunch(NamedTuple):
     """What the tree count launches for a batch: the checked program, the
-    batch's distinct rows and remapped slots (:func:`tree_distinct_rows`;
-    None where the program cannot take the staged route) and the plan."""
+    batch's distinct rows and remapped slots (:func:`tree_distinct_rows`,
+    where the program could take the staged route), each item's distinct
+    rows (:func:`tree_item_rows`, 16-byte rows on the direct route; None for
+    word-by-word rows, which take it through L2) and the plan."""
 
     program: TreeProgram
     rows: np.ndarray | None
     remap: np.ndarray | None
+    items: TreeItems | None
     plan: TreePlan
 
 
@@ -1129,15 +1332,20 @@ def _tree_launch(stacks, leaf_stack, slots, prog: TreeProgram) -> TreeLaunch:
     S, _, W = stacks[0].shape
     B, L = slots.shape
     vec16 = _copies16(W, *stacks)
-    if _tree_staged_fits(L, vec16, prog.staged_depth):
-        rows, remap = tree_distinct_rows(stacks, leaf_stack, slots)
-        plan = tree_plan(B, L, len(rows), S, W, vec16, prog.staged_depth, prog.steps.size,
-                         prog.flat)
-    else:  # direct, whatever the rows: the batch's distinct rows are not needed
-        rows = remap = None
-        plan = TreePlan("direct", vec16)
-    _check_tree_plan(plan, L, W, prog.steps.size, prog.staged_depth)
-    return TreeLaunch(prog, rows, remap, plan)
+    rows = remap = items = None
+    U = L
+    ids = tree_row_ids(stacks, leaf_stack, slots) if vec16 else None
+    if vec16 and (B == 1 or _tree_staged_fits(L, vec16, prog.staged_depth)):
+        uniq, remap = _tree_distinct(ids)
+        U = uniq.size
+    if vec16 and not _tree_shares_rows(B, L, U, vec16, prog.staged_depth):
+        items = _tree_one_item(uniq, remap) if B == 1 else tree_item_rows(ids)
+    plan = tree_plan(B, L, U, S, W, vec16, prog.staged_depth, prog.steps.size, prog.flat,
+                     item_rows=None if items is None else items.rows_max, chain=prog.chain)
+    _check_tree_plan(plan, L, W, prog.steps.size, prog.staged_depth, prog.chain)
+    if plan.route == "staged":
+        rows = _tree_id_rows(stacks, uniq)
+    return TreeLaunch(prog, rows, remap, items, plan)
 
 
 def tree_count_launch(stacks, code, leaf_stack, slots) -> TreeLaunch:
@@ -1165,13 +1373,21 @@ def tree_count(stacks, code, leaf_stack, slots) -> torch.Tensor:
     dev = stacks[0].device
     if B == 0 or S == 0 or W == 0:
         return torch.zeros((B, S), dtype=torch.int32, device=dev)
-    _, rows, remap, plan = _tree_launch(stacks, leaf_stack, slots, prog)
-    if plan.route == "direct":
+    _, rows, remap, items, plan = _tree_launch(stacks, leaf_stack, slots, prog)
+    if plan.route == "direct":  # the C entry zeroes out
         out = torch.empty((B, S), dtype=torch.int32, device=dev)
-        ptr, host_bytes, _owner = _tree_table(stacks, code, leaf_stack, slots, dev)
+        if items is None and plan.vec16:
+            items = tree_item_rows(tree_row_ids(stacks, leaf_stack, slots))
+        if plan.stages and items.rows_max > plan.row_tile:
+            raise ValueError(f"tree plan {plan} stages fewer rows than an item's "
+                             f"{items.rows_max}")
+        lay = tree_direct_layout(stacks, leaf_stack, slots, prog.steps, items,
+                                 plan.row_tile if plan.stages else None)
+        ptr, host_bytes, _owner = _tree_table(lay.parts, dev)
         _launch(
-            "pilosa_tree_count", ptr, host_bytes, len(stacks), code.size, L,
-            prog.depth, B, S, W, int(plan.vec16), out.data_ptr(), dev.index, _stream(dev),
+            "pilosa_tree_count", ptr, host_bytes, B, lay.n_rows, prog.steps.size,
+            prog.staged_depth, S, W, int(plan.vec16), lay.rows_max, plan.stages, plan.lanes,
+            plan.wsplit, plan.flat, out.data_ptr(), dev.index, _stream(dev),
         )
     else:
         out = torch.zeros((B, S), dtype=torch.int32, device=dev)
@@ -1200,12 +1416,12 @@ def tree_words(stacks, code, leaf_stack, slots) -> torch.Tensor:
     out = torch.empty((S, W), dtype=torch.int32, device=dev)
     if out.numel() == 0:
         return out
-    ptr, host_bytes, _owner = _tree_table(stacks, code, leaf_stack, slots, dev)
+    lay = tree_direct_layout(stacks, leaf_stack, slots[None], prog.steps)
+    ptr, host_bytes, _owner = _tree_table(lay.parts, dev)
     vec16 = _copies16(W, *stacks) and out.data_ptr() % 16 == 0
     _launch(
-        "pilosa_tree_words", ptr, host_bytes, len(stacks), code.size,
-        leaf_stack.size, prog.depth, S, W, int(vec16), out.data_ptr(), dev.index,
-        _stream(dev),
+        "pilosa_tree_words", ptr, host_bytes, lay.n_rows, prog.steps.size,
+        prog.staged_depth, S, W, int(vec16), out.data_ptr(), dev.index, _stream(dev),
     )
     LAUNCHES["tree_words"] += 1
     return out

@@ -346,6 +346,11 @@ _TREE = ("union", ("difference", ("row", 0), ("row", 1)), ("intersect", ("row", 
 _FLAT3 = ("intersect", ("row", 0), ("row", 1), ("row", 2))
 # past the opcodes and leaf pointers the kernel stages in shared memory
 _WIDE = ("union",) + tuple(("row", k % 3) for k in range(300))
+# 600 leaves: past the steps and row pointers the through-L2 instance
+# stages in shared memory
+_WIDE2 = ("union",) + tuple(("row", k % 3) for k in range(600))
+_XOR4 = ("xor", ("row", 0), ("row", 0), ("row", 0), ("row", 0))
+_ANDNOT3 = ("difference", ("row", 0), ("row", 0), ("row", 0))
 
 
 @pytest.mark.parametrize(
@@ -404,22 +409,38 @@ def test_tree_kernel_refuses_programs_past_its_limits(cuda_device):
     with pytest.raises(ValueError, match="stack entries"):
         tk.tree_words(stacks, deep.code, deep.leaf_stack, np.zeros(deep.n_leaves, np.int32))
     assert tk.LAUNCHES == before
-    # the C entries refuse a depth past the limit and launch nothing
+    # the C entries refuse arguments past their limits and launch nothing
     lib = cuda_build.load()
     out = torch.zeros((1, 2), dtype=torch.int32, device=cuda_device)
     flat = astbatch.program(_FLAT3)
-    ptr, host_bytes, _owner = tk._tree_table(stacks * 3, flat.code, flat.leaf_stack,
-                                             np.zeros((1, 3), np.int32), cuda_device)
+    steps, _ = tk.tree_steps(flat.code)
+    lay = tk.tree_direct_layout(stacks * 3, flat.leaf_stack, np.zeros((1, 3), np.int32), steps)
+    ptr, host_bytes, _owner = tk._tree_table(lay.parts, cuda_device)
     assert 0 < host_bytes <= tk.TREE_PARAM_BYTES  # a parameter, not an upload
     stream = torch.cuda.current_stream().cuda_stream
-    for depth in (0, tk.TREE_MAX_DEPTH + 1):
-        assert lib.pilosa_tree_count(ptr, host_bytes, 3, flat.code.size, 3, depth,
-                                     1, 2, 8, 1, out.data_ptr(), 0, stream) != 0
-    assert lib.pilosa_tree_count(ptr, host_bytes, 3, flat.code.size, 3, 2,
-                                 1, 2, 130, 1, out.data_ptr(), 0, stream) != 0
+    # (B, n_rows, n_steps, depth, S, W, vec16, rows_max, stages, lanes, wsplit,
+    # flat)
+    good = dict(B=1, n_rows=lay.n_rows, n_steps=steps.size, depth=1, S=2, W=8, vec16=1,
+                rows_max=lay.rows_max, stages=2, lanes=64, wsplit=1, flat=0)
+    for bad in (dict(depth=0), dict(depth=tk.TREE_MAX_DEPTH + 1), dict(W=130),
+                dict(wsplit=0), dict(B=-1), dict(stages=5),
+                dict(vec16=0, W=9), dict(rows_max=300), dict(flat=4), dict(flat=0, depth=2),
+                dict(lanes=16), dict(lanes=0), dict(rows_max=240, lanes=32),
+                dict(stages=0, lanes=0), dict(stages=0, flat=-1),
+                dict(W=1 << 26, vec16=0, stages=0, lanes=0, flat=-1)):
+        args = {**good, **bad}
+        assert lib.pilosa_tree_count(ptr, host_bytes, *args.values(), out.data_ptr(), 0,
+                                     stream) != 0, bad
     # a host table past the parameter's bytes
-    assert lib.pilosa_tree_words(ptr, tk.TREE_PARAM_BYTES + 16, 3, flat.code.size, 3, 2,
+    assert lib.pilosa_tree_count(ptr, tk.TREE_PARAM_BYTES + 16, *good.values(),
+                                 out.data_ptr(), 0, stream) != 0
+    assert lib.pilosa_tree_words(ptr, tk.TREE_PARAM_BYTES + 16, lay.n_rows, steps.size, 1,
                                  2, 8, 1, out.data_ptr(), 0, stream) != 0
+    torch.cuda.synchronize()
+    assert int(out.abs().sum()) == 0
+    # the good arguments run (a count of zero rows)
+    assert lib.pilosa_tree_count(ptr, host_bytes, *good.values(), out.data_ptr(), 0,
+                                 stream) == 0
     torch.cuda.synchronize()
     assert int(out.abs().sum()) == 0
 
@@ -439,16 +460,17 @@ def _tree_case(cuda_device, S, W, rows, alias, sig, B, absent, seed):
 
 
 def _launched(monkeypatch):
-    """The C entries the tree wrappers call, in order."""
-    names = []
+    """The C entries the tree wrappers call, in order, with their
+    arguments."""
+    calls = []
     real = tk._launch
 
     def spy(fn, *args):
-        names.append(fn)
+        calls.append((fn, args))
         return real(fn, *args)
 
     monkeypatch.setattr(tk, "_launch", spy)
-    return names
+    return calls
 
 
 _PAIRS = ("union", ("intersect", ("row", 0), ("row", 1)), ("difference", ("row", 0), ("row", 1)))
@@ -486,23 +508,92 @@ _PAIRS = ("union", ("intersect", ("row", 0), ("row", 1)), ("difference", ("row",
         # the word route and a program past the staged route's registers
         (3, 130, (5, 7, 1), None, _FLAT3, 40, 0.2, None, "direct"),
         (2, 132, (5, 0, 1), None, _balanced(3), 30, 0.2, None, "direct"),
+        # the direct route's instances ("rows": each item's rows staged by
+        # 64 lanes, "rows32" by 32, "l2": through L2). W at and off the slice
+        # boundaries (slices of TREE_DIRECT_SLICE_WORDS): one whole slice, a last
+        # partial slice of 4 words, two slices and a partial chunk, and the
+        # word route; S = 1 and S = 3; B = 1 and items sharing no rows
+        (1, 4096, (5, 7, 1), None, _FLAT3, 1, 0.0, None, "rows"),
+        (3, 4100, (5, 7, 1), None, _FLAT3, 1, 0.0, None, "rows"),
+        (3, 8192 + 516, (5, 7, 1), None, _TREE, 1, 0.0, None, "rows"),
+        (1, 132, (5, 7, 1), None, _FLAT3, 1, 0.0, None, "rows"),
+        (3, 130, (5, 7, 1), None, _FLAT3, 1, 0.0, None, "l2"),
+        (3, 4098, (5, 7, 1), None, _TREE, 1, 0.2, None, "l2"),
+        (3, 4100, (24, 24, 24), None, _FLAT3, 8, -1, None, "rows"),
+        # an item of more distinct rows than a block stages: through L2, its
+        # steps and rows past the ones it stages in shared memory
+        (2, 132, (600, 600, 600), None, _WIDE2, 1, 0.0, None, "l2"),
+        # XOR and ANDNOT chains that repeat a row (it folds every time),
+        # forced onto the rows instance (the rows are shared), on the flat
+        # instance and on the general step loop
+        (3, 1028, (6,), None, _XOR4, 3, -2, "flat", "rows"),
+        (3, 1028, (6,), None, _XOR4, 3, -2, "rows", "rows"),
+        (3, 1028, (6,), None, _ANDNOT3, 3, -2, "flat", "rows"),
+        (3, 1028, (6,), None, _ANDNOT3, 3, -2, "rows", "rows"),
+        # a ring of one stage, 32 lanes
+        (3, 1028, (6,), None, _XOR4, 3, -2, "ring1", "rows32"),
+        (3, 1028, (5, 7, 1), None, _balanced(3), 2, 0.1, "ring1", "rows32"),
+        # absent and 0-row leaves; a program at TREE_MAX_DEPTH (its stack in
+        # shared memory); one past TREE_SMEM_OPS steps; a nested tree of
+        # three entries on the rows instance and, forced, through L2
+        (3, 516, (5, 0, 1), None, _balanced(3), 1, 0.3, None, "rows"),
+        # every leaf absent (a stage of the zero row alone); W below one
+        # chunk (lanes past W zero-filled)
+        (2, 260, (5, 0, 1), None, _FLAT3, 1, 1.0, None, "rows"),
+        (2, 8, (3, 2, 1), None, _balanced(3), 1, 0.0, None, "rows"),
+        (2, 260, (5, 7, 1), None, "deep32", 1, 0.0, None, "rows"),
+        (2, 132, (9, 4, 3), None, _balanced(10), 1, 0.1, None, "rows"),
+        (2, 132, (9, 4, 3), None, _balanced(10), 1, 0.1, "l2", "l2"),
+        (4, 1024, (64, 64, 4), None, _balanced(3), 64, 0.0, None, "rows"),
+        (4, 1024, (64, 64, 4), None, _balanced(3), 64, 0.0, "l2", "l2"),
+        # the 300-leaf Union (a flat OR chain of any length, on its own
+        # instance), and forced onto the general step loop; the trees path's
+        # one, whose 132 rows fit more warps on an SM in blocks of 32 lanes
+        (2, 4096, (64, 64, 4), None, _WIDE, 1, 0.0, None, "rows"),
+        (2, 4096, (64, 64, 4), None, _WIDE, 1, 0.0, "general", "rows"),
+        (2, 4100, (64, 64, 4), None, _WIDE, 1, -3, None, "rows32"),
+        (2, 4100, (64, 64, 4), None, _WIDE, 1, -3, "general", "rows32"),
     ],
 )
 def test_tree_count_routes_match_plain(cuda_device, monkeypatch, S, W, rows, alias, sig, B,
                                        absent, force, route):
-    stacks, p, slots = _tree_case(cuda_device, S, W, rows, alias, sig, B, max(absent, 0),
-                                  S * W + B)
-    if absent < 0:
+    if sig == "deep32":
+        stacks = _tree_case(cuda_device, S, W, rows, alias, _FLAT3, B, 0.0, S * W + B)[0]
+        p = _deep_program(tk.TREE_MAX_DEPTH)
+        n_rows = np.array([rows[k] for k in p.leaf_stack])
+        slots = (np.random.default_rng(7).random((B, p.n_leaves)) * n_rows).astype(np.int32)
+    else:
+        stacks, p, slots = _tree_case(cuda_device, S, W, rows, alias, sig, B, max(absent, 0),
+                                      S * W + B)
+    if absent == -1:  # item b on rows 3b .. 3b + 2
         slots = (np.arange(B)[:, None] * 3 + np.arange(3)).astype(np.int32)
-    if force is not None:
+    elif absent == -2:  # rows repeated within an item
+        slots = np.array([[2, 2, 2, 5], [1, 3, 1, 1], [4, 4, 4, 4]], np.int32)[:, : p.n_leaves]
+    elif absent == -3:  # each stack's rows in turn, as the trees path's Union
+        n_rows = np.array([stacks[k].shape[1] for k in p.leaf_stack])
+        slots = ((np.arange(p.n_leaves) // 3) % n_rows).astype(np.int32)[None]
+    if force in ("direct", "staged", "l2"):
         # the staged force runs the general step loop (flat -1)
-        forced = (tk.TreePlan("direct", W % 4 == 0) if force == "direct" else
+        forced = (tk.TreePlan("direct", W % 4 == 0) if force in ("direct", "l2") else
                   tk.TreePlan("staged", True, 2, 3 * B, 8 * -(-B // 8), 2))
         monkeypatch.setattr(tk, "tree_plan", lambda *a, **k: forced)
-    names = _launched(monkeypatch)
+    elif force == "general":
+        real = tk.tree_plan
+        monkeypatch.setattr(tk, "tree_plan", lambda *a, **k: real(*a, **k)._replace(flat=-1))
+    elif force in ("rows", "flat", "ring1"):  # each item's leaves as its rows, two slices
+        chain = tk.tree_flat(tk.tree_steps(p.code)[0], None) if force == "flat" else -1
+        forced = (tk.TreePlan("direct", True, 2, p.n_leaves, 0, 2, chain, 64) if force != "ring1"
+                  else tk.TreePlan("direct", True, 1, p.n_leaves, 0, 2, -1, 32))
+        monkeypatch.setattr(tk, "tree_plan", lambda *a, **k: forced)
+    calls = _launched(monkeypatch)
     got = tk.tree_count(stacks, p.code, p.leaf_stack, slots)
     torch.cuda.synchronize()
-    assert names == ["pilosa_tree_count" if route == "direct" else "pilosa_tree_count_staged"]
+    assert [fn for fn, _ in calls] == [
+        "pilosa_tree_count_staged" if route == "staged" else "pilosa_tree_count"]
+    if route in ("rows", "rows32", "l2"):
+        stages, lanes = calls[0][1][10:12]
+        assert (stages > 0) == (route != "l2")
+        assert lanes == {"rows": 64, "rows32": 32, "l2": 0}[route]
     assert torch.equal(got, tk.tree_count_plain(stacks, p.code, p.leaf_stack, slots))
 
 
@@ -552,8 +643,9 @@ def test_tree_tables_upload_without_waiting_for_the_stream(cuda_device):
     stacks, p, slots = _tree_case(cuda_device, 4, 1024, (9, 9, 2), None, _PAIRS, 64, 0.1, 5)
     _, chain, chain_slots = _tree_case(cuda_device, 4, 1024, (9, 9, 2), None, _chain(40), 8,
                                        0.1, 6)
-    assert tk._tree_table(stacks, chain.code, chain.leaf_stack, chain_slots[0],
-                          cuda_device)[1] == 0  # uploaded, not a parameter
+    lay = tk.tree_direct_layout(stacks, chain.leaf_stack, chain_slots[:1],
+                                tk.tree_steps(chain.code)[0])
+    assert tk._tree_table(lay.parts, cuda_device)[1] == 0  # uploaded, not a parameter
     tk.tree_words(stacks, p.code, p.leaf_stack, slots[0])
     torch.cuda.synchronize()
     torch.cuda._sleep(2_000_000_000)  # about a second of queued work

@@ -1,12 +1,12 @@
 """The host side of the tree count's launch (``pilosa_tpu_torch/ops/kernels.py``):
 the launch plan, the distinct-row list and slot remap, the item order and
-tiles, and the staged route's table, read back in numpy the way
-``ops/csrc/tree_eval.cu`` reads it and evaluated as its staged kernel
-evaluates it.
+tiles, each item's distinct rows, and the tables of both routes, read back
+in numpy the way ``ops/csrc/tree_eval.cu`` reads them and evaluated as its
+kernels evaluate them.
 
-Seeded data only, no card: the emulated staged count is held to the plain
-tree count and to ``pilosa_tpu``'s ``run_count_batch`` (JAX on the CPU)
-exactly. The kernel itself is held to the plain count on the card in
+Seeded data only, no card: the emulated counts are held to the plain tree
+count and to ``pilosa_tpu``'s ``run_count_batch`` (JAX on the CPU) exactly.
+The kernels themselves are held to the plain count on the card in
 ``tests/test_torch_cuda.py``.
 """
 
@@ -61,6 +61,9 @@ def _plan_ok(plan, B, L, U, S, W, n_steps):
     the batch."""
     tk._check_tree_plan(plan, L, W, n_steps, 1)
     if plan.route == "direct":
+        assert plan.wsplit == -(-W // tk.TREE_DIRECT_SLICE_WORDS)
+        assert plan.stages == 0 or tk._tree_rows_smem(plan.row_tile, n_steps, 1, plan.stages,
+                                                      plan.lanes) <= tk._TREE_SMEM_LIMIT
         return
     assert plan.row_tile <= U and plan.item_tile <= max(tk.TREE_GROUP, -(-B // 8) * 8)
     assert tk._tree_staged_smem(plan.row_tile, plan.item_tile, L, n_steps,
@@ -85,13 +88,17 @@ def _plan_ok(plan, B, L, U, S, W, n_steps):
         (4096, 4, 900, 160, 32768, True, 2, "staged", 2, 176, 1024),
         # 64 leaves: the slot budget cuts the item tile, and the rows a tile
         (4096, 64, 180, 16, 4096, True, 1, "staged", 2, 177, 168),
-        # the word route, a deep program, too many leaves, no shared rows,
-        # every slot absent: direct
+        # direct: the word route (through L2); a deep program, too many
+        # leaves, no shared rows and every slot absent (each item's rows
+        # staged: at most min(L, U) of them; with none, the longest ring);
+        # more rows than a block stages (through L2)
         (1024, 3, 132, 160, 32770, False, 1, "direct", 0, 0, 0),
-        (1024, 8, 132, 160, 32768, True, 3, "direct", 0, 0, 0),
-        (4, 300, 132, 160, 32768, True, 1, "direct", 0, 0, 0),
-        (1, 3, 3, 160, 32768, True, 1, "direct", 0, 0, 0),
-        (64, 3, 0, 160, 32768, True, 1, "direct", 0, 0, 0),
+        (1024, 8, 132, 160, 32768, True, 3, "direct", 1, 8, 0),
+        (4, 300, 132, 160, 32768, True, 1, "direct", 1, 132, 0),
+        (4, 300, 500, 160, 32768, True, 1, "direct", 1, 300, 0),
+        (4, 600, 500, 160, 32768, True, 1, "direct", 0, 0, 0),
+        (1, 3, 3, 160, 32768, True, 1, "direct", 1, 3, 0),
+        (64, 3, 0, 160, 32768, True, 1, "direct", 4, 0, 0),
     ],
 )
 def test_tree_plan(B, L, U, S, W, vec16, depth, route, stages, row_tile, item_tile):
@@ -100,6 +107,64 @@ def test_tree_plan(B, L, U, S, W, vec16, depth, route, stages, row_tile, item_ti
     assert (plan.route, plan.stages, plan.row_tile, plan.item_tile) == (
         route, stages, row_tile, item_tile)
     _plan_ok(plan, B, L, U, S, W, n_steps)
+
+
+@pytest.mark.parametrize(
+    "rows,W,vec16,depth,n_steps,chain,stages,lanes,wsplit,flat",
+    [
+        # one item of 300 leaves naming about 104 rows: the rows instance,
+        # its flat OR chain on its own instance; one stage of 64 lanes puts
+        # 4 warps on an SM
+        (104, 32768, True, 1, 300, 1, 1, 64, 8, 1),
+        # from 111 rows one stage of 32 lanes puts 3 on an SM, 64 lanes 2
+        # (the trees path's 300-leaf Count names 132 rows); at 223 two of
+        # each, and 64 lanes win the tie; the most rows 32 lanes hold, and
+        # one more, through L2
+        (110, 32768, True, 1, 300, 1, 1, 64, 8, 1),
+        (111, 32768, True, 1, 300, 1, 1, 32, 8, 1),
+        (132, 32768, True, 1, 300, 1, 1, 32, 8, 1),
+        (223, 32768, True, 1, 300, 1, 1, 64, 8, 1),
+        (443, 32768, True, 1, 300, 1, 1, 32, 8, 1),
+        (444, 32768, True, 1, 300, 1, 0, 0, 8, -1),
+        # a lone three-leaf Intersect, a nested tree, a program at the
+        # operand-stack limit (its stack in shared memory)
+        (3, 32768, True, 1, 3, 0, 1, 64, 8, 0),
+        (8, 32768, True, 3, 11, -1, 1, 64, 8, -1),
+        (20, 32768, True, 32, 600, -1, 1, 64, 8, -1),
+        # slices: one, a last partial one, the word route through L2
+        (3, 4096, True, 1, 3, 0, 1, 64, 1, 0),
+        (3, 4100, True, 1, 3, 0, 1, 64, 2, 0),
+        (3, 130, False, 1, 3, 0, 0, 0, 1, -1),
+        (3, 8193, False, 2, 3, -1, 0, 0, 3, -1),
+    ],
+)
+def test_tree_direct_plan(rows, W, vec16, depth, n_steps, chain, stages, lanes, wsplit, flat):
+    plan = tk.tree_direct_plan(rows, W, vec16, depth, n_steps, chain)
+    assert plan.route == "direct" and plan.vec16 == vec16
+    assert (plan.stages, plan.lanes, plan.wsplit, plan.flat) == (stages, lanes, wsplit, flat)
+    assert plan.row_tile == (rows if stages else 0)
+    tk._check_tree_plan(plan, 3, W, n_steps, depth, chain)
+    # the block shape that puts the most warps on an SM; through L2 where
+    # none fits
+    def warps(st, n):
+        return tk._tree_rows_warps(tk._tree_rows_smem(rows, n_steps, depth, st, n), n)
+
+    shapes = [(warps(st, n), st, n) for st in range(1, tk.TREE_ROWS_MAX_STAGES + 1)
+              for n in (64, 32)]
+    assert (plan.stages > 0) == (vec16 and max(shapes)[0] > 0)
+    if plan.stages:
+        assert warps(plan.stages, plan.lanes) == max(shapes)[0]
+
+
+def test_tree_plan_direct_rows_follow_the_items():
+    """tree_plan sizes the rows instance by the most rows one item names,
+    and sends an item of more rows than fit through L2."""
+    B, L, U, S, W = 1, 300, 104, 160, 32768
+    assert tk.tree_plan(B, L, U, S, W, True, 1, L, chain=1) == tk.TreePlan(
+        "direct", True, 1, 104, 0, 8, 1, 64)
+    assert tk.tree_plan(4, L, 500, S, W, True, 1, L, item_rows=104, chain=1).row_tile == 104
+    assert tk.tree_plan(4, L, 500, S, W, True, 1, L, item_rows=132, chain=1).lanes == 32
+    assert tk.tree_plan(4, 600, 500, S, W, True, 1, 600, item_rows=450, chain=1).stages == 0
 
 
 @pytest.mark.parametrize("S,W", [(160, 32768), (3, 32768), (1, 32768), (160, 4096), (7, 132)])
@@ -135,11 +200,38 @@ def test_tree_plan_w_split_fills_the_waves(S, W):
         (tk.TreePlan("staged", True, 2, 8, 64, 1, 0), 3, 128, 2),
         (tk.TreePlan("staged", True, 2, 8, 64, 1, 4), 3, 128, 1),
         (tk.TreePlan("staged", True, 2, 8, 64, 1, 1), 5, 128, 1),
+        # the direct route: no slice; through L2 with a flat instance; the
+        # rows instance on word-by-word rows, with a ring of 5 stages,
+        # past shared memory, with fold 4, or flat with two entries
+        (tk.TreePlan("direct", True, 0, 0, 0, 0), 3, 128, 1),
+        (tk.TreePlan("direct", True, 2, 8, 0, 0), 3, 128, 1),
+        (tk.TreePlan("direct", True, 0, 0, 0, 1, 1), 3, 128, 1),
+        (tk.TreePlan("direct", False, 2, 8, 0, 1), 3, 128, 1),
+        (tk.TreePlan("direct", True, 2, 8, 0, 1), 3, 132 + 2, 1),
+        (tk.TreePlan("direct", True, 5, 8, 0, 1, -1, 64), 3, 128, 1),
+        (tk.TreePlan("direct", True, 2, 200, 0, 1), 3, 128, 1),
+        (tk.TreePlan("direct", True, 2, 8, 0, 1, 4, 64), 3, 128, 1),
+        (tk.TreePlan("direct", True, 2, 8, 0, 1, 0, 64), 3, 128, 2),
+        # lanes: none or 16 on the rows instance, some through L2, a ring of
+        # 32 lanes past shared memory
+        (tk.TreePlan("direct", True, 2, 8, 0, 1), 3, 128, 1),
+        (tk.TreePlan("direct", True, 2, 8, 0, 1, -1, 16), 3, 128, 1),
+        (tk.TreePlan("direct", True, 0, 0, 0, 1, -1, 64), 3, 128, 1),
+        (tk.TreePlan("direct", True, 2, 240, 0, 1, -1, 32), 3, 128, 1),
     ],
 )
 def test_tree_plan_check_refuses_what_the_kernel_cannot_run(plan, L, W, depth):
     with pytest.raises(ValueError, match="tree plan"):
         tk._check_tree_plan(plan, L, W, L, depth)
+
+
+def test_tree_plan_check_refuses_a_flat_instance_of_another_chain():
+    plan = tk.TreePlan("direct", True, 2, 8, 0, 1, 1, 64)  # an OR chain
+    tk._check_tree_plan(plan, 3, 128, 3, 1, chain=1)
+    tk._check_tree_plan(plan._replace(flat=-1), 3, 128, 3, 1, chain=1)
+    for chain in (0, 2, -1):
+        with pytest.raises(ValueError, match="tree plan"):
+            tk._check_tree_plan(plan, 3, 128, 3, 1, chain=chain)
 
 
 # -- programs as steps ------------------------------------------------------
@@ -421,3 +513,153 @@ def test_staged_table_of_items_that_share_no_rows():
     lay = tk.tree_staged_layout(stacks, uniq, remap, steps, plan)
     got = _emulate_staged(stacks, steps, lay, 8, 3)
     np.testing.assert_array_equal(got, tk.tree_count_plain(stacks, p.code, p.leaf_stack, slots))
+
+
+# -- each item's distinct rows, and the direct table read back ----------------
+
+
+@pytest.mark.parametrize("B,L,n,seed", [(1, 300, 40, 0), (1, 4, 9, 1), (37, 6, 5, 2),
+                                        (64, 8, 300, 3), (5, 3, 1, 4)])
+def test_item_rows_list_each_row_of_an_item_once(B, L, n, seed):
+    rng = np.random.default_rng(seed)
+    remap = rng.integers(-1, n, size=(B, L)) * 7  # row ids; -7: absent
+    remap[remap < 0] = -1
+    items = tk.tree_item_rows(remap)
+    assert items.offsets[0] == 0 and items.offsets[-1] == items.leaf.size
+    np.testing.assert_array_equal(items.local < 0, remap < 0)
+    for b in range(B):
+        leaves = items.leaf[items.offsets[b] : items.offsets[b + 1]]
+        assert ((leaves // L) == b).all()  # the item's own leaves
+        mine = remap.reshape(-1)[leaves]
+        np.testing.assert_array_equal(mine, np.unique(remap[b][remap[b] >= 0]))
+        present = remap[b] >= 0
+        np.testing.assert_array_equal(mine[items.local[b][present]], remap[b][present])
+    assert items.rows_max == int(np.diff(items.offsets).max())
+
+
+def _emulate_direct(stacks, lay, B, n_steps):
+    """``int64[B, S]``: the direct kernels' count over the table bytes of
+    ``lay`` (each item's steps with their operand stack, a leaf read from
+    the item's rows; an operand of ``rows_max`` or past the item's rows is
+    a zero leaf)."""
+    S, _, W = stacks[0].shape
+    buf = b"".join(np.ascontiguousarray(a).tobytes() for a in lay.parts)
+    n = lay.n_rows
+    rowptr = np.frombuffer(buf, np.int64, n, 0)
+    rowstride = np.frombuffer(buf, np.int64, n, 8 * n)
+    ints = np.frombuffer(buf, np.int32, offset=16 * n)
+    assert ints.size == B + 1 + B * n_steps
+    item_rows = ints[: B + 1]
+    steps = ints[B + 1 :].reshape(B, n_steps)
+    words = [(t.data_ptr(), t.numpy().view(np.uint32).reshape(-1)) for t in stacks]
+
+    def row(k):
+        addr = int(rowptr[k])
+        base, flat = next((b, f) for b, f in words if b <= addr < b + 4 * f.size)
+        start = (addr - base) // 4
+        return flat[start + np.arange(S)[:, None] * int(rowstride[k]) + np.arange(W)]
+
+    zero = np.zeros((S, W), np.uint32)
+    out = np.zeros((B, S), np.int64)
+    for b in range(B):
+        r0, nb = int(item_rows[b]), int(item_rows[b + 1] - item_rows[b])
+        assert nb <= lay.rows_max
+        top, below = None, []
+        for st in steps[b].tolist():
+            kind, f, r = st & 3, (st >> 2) & 7, st >> 5
+            leaf = row(r0 + r) if r < nb else zero
+            if kind == tk.TREE_POP_FOLD:
+                assert r == lay.rows_max
+                top = _FOLDS[f](below.pop(), top)
+            elif kind == tk.TREE_LEAF_FOLD:
+                top = _FOLDS[f](top, leaf)
+            else:
+                if top is not None:
+                    below.append(top)
+                top = leaf
+        assert not below
+        out[b] = np.bitwise_count(top).sum(axis=1, dtype=np.int64)
+    return out
+
+
+_WIDE = ("union",) + tuple(("row", k % 3) for k in range(300))
+
+
+@pytest.mark.parametrize(
+    "S,W,rows,alias,sig,B,absent,fixed",
+    [
+        # the 300-leaf Union (each distinct row listed once), a lone Intersect
+        (2, 132, (9, 7, 4), None, _WIDE, 1, 0.05, None),
+        (3, 128, (5, 7, 1), None, _FLAT3, 1, 0.0, None),
+        # XOR and ANDNOT chains that repeat a row: it folds every time
+        (2, 128, (6,), None, ("xor", ("row", 0), ("row", 0), ("row", 0), ("row", 0)), 3, 0.0,
+         [[2, 2, 2, 5], [1, 3, 1, 1], [4, 4, 4, 4]]),
+        (2, 128, (6,), None, ("difference", ("row", 0), ("row", 0), ("row", 0)), 3, 0.0,
+         [[2, 3, 3], [1, 1, 4], [5, 0, 0]]),
+        # absent rows and a 0-row stack; one tensor as two stacks
+        (3, 132, (5, 0, 1), None, _MIXED, 9, 0.2, None),
+        (2, 132, (6, 4), (0, 0, 1), _FLAT3, 5, 0.1, None),
+        # items that share no rows; nested 40 deep; 512 leaves at depth 10
+        (2, 132, (24, 24, 24), None, _FLAT3, 8, 0.0,
+         (np.arange(8)[:, None] * 3 + np.arange(3)).tolist()),
+        (3, 136, (4, 6, 2), None, _chain(40), 6, 0.2, None),
+        (2, 128, (5, 3, 2), None, "balanced9", 2, 0.1, None),
+    ],
+)
+@pytest.mark.parametrize("dedupe", [True, False])
+def test_direct_table_counts_as_the_plain_tree(S, W, rows, alias, sig, B, absent, fixed, dedupe):
+    rng = np.random.default_rng(S * W + B)
+    base = _stacks(rng, S, W, rows)
+    stacks = base if alias is None else tuple(base[k] for k in alias)
+    if sig == "balanced9":
+        def balanced(levels, k=0):
+            if levels == 0:
+                return ("row", k % 3)
+            return (("difference", "union", "xor", "intersect")[levels % 4],
+                    balanced(levels - 1, 2 * k), balanced(levels - 1, 2 * k + 1))
+        sig = balanced(9)
+    p = tast.program(sig)
+    slots = _slots(rng, p, stacks, B, absent) if fixed is None else np.array(fixed, np.int32)
+    steps, depth = tk.tree_steps(p.code)
+    if dedupe:
+        items = tk.tree_item_rows(tk.tree_row_ids(stacks, p.leaf_stack, slots))
+        plan = tk.tree_direct_plan(items.rows_max, W, True, depth, steps.size,
+                                   tk.tree_flat(steps, None))
+        lay = tk.tree_direct_layout(stacks, p.leaf_stack, slots, steps, items,
+                                    plan.row_tile if plan.stages else None)
+        # each item lists each of its rows once, and names every row it lists
+        # (the rows instance copies them all)
+        for b in range(B):
+            r0, r1 = items.offsets[b], items.offsets[b + 1]
+            pairs = set(zip(lay.parts[0][r0:r1].tolist(), lay.parts[1][r0:r1].tolist()))
+            assert len(pairs) == r1 - r0 <= lay.rows_max
+            named = lay.parts[3][b] >> 5
+            assert set(named[named < r1 - r0].tolist()) == set(range(r1 - r0))
+    else:  # every leaf a row of its item, as tree_words and word rows take it
+        lay = tk.tree_direct_layout(stacks, p.leaf_stack, slots, steps)
+        assert lay.n_rows == B * p.n_leaves and lay.rows_max == p.n_leaves
+    got = _emulate_direct(stacks, lay, B, steps.size)
+    want = tk.tree_count_plain(stacks, p.code, p.leaf_stack, slots).numpy()
+    np.testing.assert_array_equal(got, want)
+    if min(rows) > 0:  # pilosa_tpu's run_count_batch indexes every stack
+        j_stacks = tuple(jnp.asarray(t.numpy().view(np.uint32)) for t in stacks)
+        np.testing.assert_array_equal(got.sum(axis=1),
+                                      jast.run_count_batch(sig, j_stacks, slots))
+
+
+def test_direct_launch_of_a_wide_item():
+    """The 300-leaf Union's launch: one item, its distinct rows listed
+    once, the flat OR instance with a stage of exactly that many rows."""
+    rng = np.random.default_rng(5)
+    stacks = _stacks(rng, 2, 4096, (64, 64, 4))
+    p = tast.program(_WIDE)
+    slots = _slots(rng, p, stacks, 1, 0.0)
+    launch = tk.tree_count_launch(stacks, p.code, p.leaf_stack, slots)
+    U = len({(int(p.leaf_stack[l]), int(slots[0, l])) for l in range(p.n_leaves)})
+    assert launch.items.rows_max == U and launch.rows is None  # no staged route to plan
+    assert launch.plan == tk.TreePlan("direct", True, 1, U, 0, 1, 1, 64)
+    # word rows: through L2, no distinct rows
+    w130 = _stacks(rng, 2, 130, (64, 64, 4))
+    launch = tk.tree_count_launch(w130, p.code, p.leaf_stack, slots)
+    assert launch.rows is None and launch.items is None
+    assert launch.plan == tk.TreePlan("direct", False, 0, 0, 0, 1)
