@@ -7,9 +7,9 @@ Run from the root of a checkout, with no arguments:
 Phases (any failure raises, and the script exits non-zero):
 
 1. Device: requires CUDA, prints the card's name and power limit, and
-   builds the five CUDA kernel sources (six kernels: the tree source holds
-   two) and the tensor-core rate probe from ``pilosa_tpu_torch/ops/csrc``
-   with nvcc, one process per source; logs
+   builds the six CUDA kernel sources (nine kernels: the tree source holds
+   two, the BSI source three) and the tensor-core rate probe from
+   ``pilosa_tpu_torch/ops/csrc`` with nvcc, one process per source; logs
    each kernel's registers and the tensor-core MMA instructions in the
    grams' SASS (``cuobjdump -sass``), which must not be 0.
 2. Kernels: each kernel against its plain PyTorch version on the card,
@@ -36,12 +36,22 @@ Phases (any failure raises, and the script exits non-zero):
    and 64 items of a nested tree of three operand-stack entries, each shape
    also at slices of 4-64 chunks, with each launch's route, plan and floors
    logged and BMMA counted in the staged kernel's SASS.
+   The BSI kernels (``bsi_range``, ``bsi_sum``, ``bsi_extreme``) likewise
+   at the serving shape of an int field (160 shards x 22 rows x 32768
+   words: depth 20, signed values in three quarters of the columns): the
+   range scan in both modes at the main path's flights (Q = 1, 3, 12
+   words, 128 counts), the sum under 0, 1, 12 and 64 filters, the extreme
+   both ways, filtered and not, and at ragged shapes (one shard, W off
+   each kernel's chunk, depths 0, 1 and 63, Q across the query tile, an
+   empty exists row); timed at the main path's shapes beside their bounds,
+   and at each kernel's head shape beside its plain version (the sum also
+   beside ``torch._int_mm`` on pre-unpacked int8 operands).
    No kernel may time below its bound.
 3. End to end: a seeded index at the repo's serving size (bench.py's
    160 shards x 64 rows at shard width 2^20, about 25 % dense; a second
    64-row field g, a 4-row field h and the existence field) on
    ``Holder(device="cuda")``, served through ``Executor.execute`` and
-   ``execute_batch`` in three paths, each with every launch count set to 0
+   ``execute_batch`` in four paths, each with every launch count set to 0
    just before it and read
    just after. The pair/TopN path: tanimoto TopN, a 1024-call batch of
    mixed pair Counts, writes, the same reads again; every answer equals
@@ -61,7 +71,15 @@ Phases (any failure raises, and the script exits non-zero):
    before and after writes to all three fields; then one Set to one shard
    of f and a cold tanimoto TopN (the stack patched in place of a rebuild,
    ``stack_incremental``), and a Set that creates a row (a rebuild). Every
-   kernel of a path must have been launched in it.
+   kernel of a path must have been launched in it. The bsi path, over int
+   fields v (0..1,000,000) and w (-1,000,000..1,000,000) of the same
+   index: a lone range Count cold on the host until the warm-up builds
+   the stack, then one launch, then the cache; a `><` bitmap; 128 range
+   Counts in one launch; Sum (cached on repeat), filtered, and a batch of
+   64 filtered Sums (one launch each); Min/Max unfiltered and filtered;
+   MinRow/MaxRow; a GroupBy filtered by a condition; then writes to v and
+   w, seen by the next Range, Sum and Min/Max. Every answer equals numpy
+   on the values decoded from the host mirrors.
 4. Summary: one ``{"end_to_end": {...}}`` line, one ``{"kernels": [...]}``
    line, the card line, and last ``{"ok": true, "device": {...}}``.
 """
@@ -103,8 +121,13 @@ NP_OPS = {
 }
 
 
+T_START = time.perf_counter()
+
+
 def log(msg: str) -> None:
-    print(msg, flush=True)
+    """One line of the run's log, after the seconds since the script
+    started."""
+    print(f"[{time.perf_counter() - T_START:6.1f} s] {msg}", flush=True)
 
 
 def sm_clock_hz():
@@ -226,16 +249,14 @@ def device_ms(fn, reps: int = 5):
     return total / kept * launched / reps / 1e3
 
 
-def gram_sass_counts():
+def gram_sass_counts(counts):
     """Tensor-core MMA instructions in the SASS of each gram kernel: the
     instantiations of ``pilosa_gram_tiles`` (SELF true: the gram, false:
-    the cross gram), by tile."""
+    the cross gram), by tile, from ``cuda_build.sass_mma_counts()``."""
     import re
 
-    from pilosa_tpu_torch.ops import cuda_build
-
     out = {"gram": {}, "cross_gram": {}}
-    for fn, n in cuda_build.sass_mma_counts().items():
+    for fn, n in counts.items():
         m = re.search(r"pilosa_gram_tilesILi(\d+)ELi(\d+)ELb([01])E", fn)
         if m:
             out["gram" if m.group(3) == "1" else "cross_gram"][
@@ -401,10 +422,10 @@ def check_kernels(stack_np, stack2_np, filt_np, dev):
     t_mask = cuda_ms(lambda: tk.masked_row_counts_per_shard(bits, filt), reps=20)
     t_mask_p = cuda_ms(lambda: tk.masked_row_counts_per_shard_plain(bits, filt), reps=5)
     t_gram = cuda_ms(lambda: tk.gram_gather(bits, full_idx), reps=10)
-    t_gram_p = cuda_ms(lambda: tk.gram_gather_plain(bits, full_idx), reps=3)
+    t_gram_p = cuda_ms(lambda: tk.gram_gather_plain(bits, full_idx), reps=2, warmup=1)
     t_cross = cuda_ms(lambda: tk.cross_gram_gather(bits, bits2, full_idx, full_idx), reps=10)
     t_cross_p = cuda_ms(
-        lambda: tk.cross_gram_gather_plain(bits, bits2, full_idx, full_idx), reps=3)
+        lambda: tk.cross_gram_gather_plain(bits, bits2, full_idx, full_idx), reps=2, warmup=1)
     d_scan = device_ms(lambda: tk.row_counts_per_shard(bits))
     d_mask = device_ms(lambda: tk.masked_row_counts_per_shard(bits, filt))
     d_gram = device_ms(lambda: tk.gram_gather(bits, full_idx))
@@ -418,10 +439,11 @@ def check_kernels(stack_np, stack2_np, filt_np, dev):
         return out
 
     a8, b8 = unpacked(bits), unpacked(bits2)
+    # each product's exact check is its warm-up, then one timed call
     exact("torch._int_mm yardstick", torch._int_mm(a8, a8.T), tk.gram_gather(bits, full_idx))
     exact("torch._int_mm cross yardstick", torch._int_mm(a8, b8.T), cross_plain)
-    t_lib = cuda_ms(lambda: torch._int_mm(a8, a8.T), reps=10)
-    t_lib_cross = cuda_ms(lambda: torch._int_mm(a8, b8.T), reps=5)
+    t_lib = cuda_ms(lambda: torch._int_mm(a8, a8.T), reps=1, warmup=0)
+    t_lib_cross = cuda_ms(lambda: torch._int_mm(a8, b8.T), reps=1, warmup=0)
     del a8, b8
     torch.cuda.empty_cache()
 
@@ -638,13 +660,11 @@ def tree_floors(prog, stacks, slots, rates):
     return out
 
 
-def tree_sass_counts():
+def tree_sass_counts(counts):
     """BMMA instructions in the SASS of each instance of the staged tree
-    count (``pilosa_tree_count_staged``); fails when one has none."""
-    from pilosa_tpu_torch.ops import cuda_build
-
-    out = {fn: n for fn, n in cuda_build.sass_mma_counts().items()
-           if "pilosa_tree_count_staged" in fn}
+    count (``pilosa_tree_count_staged``), from
+    ``cuda_build.sass_mma_counts()``; fails when one has none."""
+    out = {fn: n for fn, n in counts.items() if "pilosa_tree_count_staged" in fn}
     if not out or min(out.values()) == 0:
         raise AssertionError(f"tree_count: no tensor-core MMA in the staged kernel's SASS {out}")
     return out
@@ -917,6 +937,281 @@ def check_tree_kernels(stack_np, stack2_np, dev, rates=None):
 
 
 # ---------------------------------------------------------------------------
+# Phase 2b: the BSI kernels (ops/csrc/bsi.cu) against their plain versions
+# ---------------------------------------------------------------------------
+
+# the int fields of the served index (bench.py:935's v, 0..1,000,000, and a
+# signed twin): base 0, depth 20 each
+BSI_FIELDS = {"v": (0, 1_000_000), "w": (-1_000_000, 1_000_000)}
+BSI_DEPTH = 20
+# the bench's batched range count (bench.py:1466-1525): 128 Count(Row(v <= t))
+BSI_Q = 128
+# filtered Sums in the bsi path's batch
+BSI_SUMS = 64
+# 32-bit logic operations (LOP3) per second: the data sheet's float32 rate
+# (67 TFLOP/s: 128 lanes per SM, two flops per fused multiply-add) over 4,
+# for 64 integer-logic lanes per SM at one operation each
+PEAK_INT32_OPS_PER_S = 67e12 / 4
+
+
+def bsi_stack_np(rng, S, depth, W, empty_exists=False):
+    """uint32 ``[S, 2+depth, W]``: about three quarters of the columns hold a
+    value, signs and planes uniform."""
+    import numpy as np
+
+    out = random_words(rng, (S, 2 + depth, W), dense=False)
+    out[:, 0] = 0 if empty_exists else out[:, 0] | random_words(rng, (S, W), dense=False)
+    return np.ascontiguousarray(out)
+
+
+def bsi_flight(rng, n, depth, two=True):
+    """``n`` seeded range queries over stored values of ``depth`` bits:
+    every comparison, signed bounds, two-bound ranges, out of band."""
+    lim = 1 << depth
+    cmps = ["<", "<=", ">", ">=", "==", "!="]
+    out = []
+    for k in range(n):
+        def bound():
+            mag = lim if rng.random() < 0.1 else int(rng.integers(0, max(1, lim)))
+            return -mag if rng.random() < 0.4 else mag
+        if two and k % 3 == 1:
+            lo, hi = sorted((bound(), bound()))
+            out.append([(">=", lo), ("<=", hi)])
+        else:
+            out.append([(cmps[int(rng.integers(0, 6))], bound())])
+    return out
+
+
+def bsi_range_bound(S, depth, W, table, count):
+    """((ms, by), popc floor ms) of one bsi_range launch: the stack read once
+    and the output written once at PEAK_BYTES_PER_S; against one LOP3 per
+    query, bound, plane, side read and word at PEAK_INT32_OPS_PER_S (the
+    sides this run's bounds read: lo for </<=, hi for >/>=, both for
+    equality, none out of band) and, counting, the popcounts priced as
+    the scans price theirs; the POPC pipe's floor for the log."""
+    from pilosa_tpu_torch.ops import bsi as tb
+
+    Q = table.shape[0]
+    nbytes = S * (2 + depth) * W * 4 + table.nbytes + (Q * S * 4 if count else Q * S * W * 4)
+    lo, hi = tb.table_sides(table)
+    lops = S * W * depth * int(lo.sum() + hi.sum())
+    t = {"bytes": nbytes / PEAK_BYTES_PER_S * 1e3,
+         "operations": max(lops / PEAK_INT32_OPS_PER_S,
+                           (2 * 32 * Q * S * W if count else 0) / PEAK_INT8_OPS_PER_S) * 1e3}
+    by = max(t, key=t.get)
+    return (t[by], by), bsi_popc_floor(Q * S * W if count else 0)
+
+
+def bsi_popc_floor(n_popc):
+    """ms of ``n_popc`` 32-bit popcounts at 16 per clock per SM, or None
+    where nvidia-smi gives no clock."""
+    import torch
+
+    clock = sm_clock_hz()
+    if not clock:
+        return None
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return n_popc / (POPC_PER_CLOCK_PER_SM * sms * clock) * 1e3
+
+
+def bsi_sum_bound(S, depth, W, Q, filtered):
+    """((ms, by), popc floor ms) of one bsi_sum launch: the stack and the
+    filters read once, the counts written once; 2 (depth + 1) popcounts per
+    filter and word, priced as the scans price theirs (32 one-bit
+    multiply-adds, 2 ops each, on the int8 tensor cores); and their floor
+    on the POPC pipe, where this kernel runs them."""
+    nbytes = S * (2 + depth) * W * 4 + (Q * S * W * 4 if filtered else 0) + S * Q * (depth + 1) * 8
+    n_popc = 2 * (depth + 1) * Q * S * W
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = 2 * 32 * n_popc / PEAK_INT8_OPS_PER_S * 1e3
+    bound = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    return bound, bsi_popc_floor(n_popc)
+
+
+def bsi_extreme_bound(S, depth, W, filtered):
+    """(ms, by) of one bsi_extreme launch: the stack (and the filter) read
+    once, against two LOP3 per plane, branch and word."""
+    n_slices = -(-W // 2048)
+    nbytes = S * (2 + depth) * W * 4 + (S * W * 4 if filtered else 0) + S * n_slices * 48
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = 4 * S * W * depth / PEAK_INT32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def check_bsi_kernels(dev):
+    """The three BSI kernels against their plain versions, exactly: at the
+    serving shape (160 shards x 22 rows x 32768 words: depth 20, three
+    quarters of the columns holding a signed value), in both modes of the
+    range scan at Q = 1, 3, 12 (one words launch of the main path) and 128
+    (the bench's count flight), the sum unfiltered and under 1, 12 and 64
+    filters, the extreme both ways, filtered and not; and at ragged shapes
+    (one shard, W off each kernel's chunk, depths 1 and 63, Q across the
+    query tile, an empty exists row). Then each is timed at the main
+    path's shapes with CUDA events around the wrapper and torch.profiler's
+    device time beside its bound; at its head shape (128 counts, one
+    filter, an unfiltered Max) also its plain version and, for the sum,
+    torch._int_mm on pre-unpacked int8 operands."""
+    import numpy as np
+    import torch
+
+    from pilosa_tpu_torch.ops import bitops, bsi as tb, kernels as tk
+
+    rng = np.random.default_rng(SEED + 7)
+    S, depth, W = S_FULL, BSI_DEPTH, W_FULL
+
+    def exact(name, got, want):
+        err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max()) if got.numel() else 0
+        if err != 0 or got.shape != want.shape:
+            raise AssertionError(f"{name}: kernel differs from plain, max |err| {err}")
+        return err
+
+    def views(stack):
+        return stack[:, 2:], stack[:, 0], stack[:, 1]
+
+    def table_of(queries, d):
+        qmask, _, qmeta, _ = tb.encode_query_bounds(queries, d)
+        return tb.bounds_table(qmask, qmeta)
+
+    stack = bitops.to_device(bsi_stack_np(rng, S, depth, W), dev)
+    P, E, G = views(stack)
+    errs = {"bsi_range": 0, "bsi_sum": 0, "bsi_extreme": 0}
+    # the main path's flights: a lone condition, a mixed flight, one words
+    # launch at the executor's cap, and the bench's 128 spread thresholds
+    lone = table_of([[("<", 500_000)]], depth)
+    mixed = table_of(bsi_flight(rng, 3, depth), depth)
+    cap = min(tb.range_words_cap(S, W), BSI_SUMS)  # 12 at the serving shape
+    words_cap = table_of(bsi_flight(rng, cap, depth), depth)
+    spread = table_of([[("<=", int((i + 0.5) * (1 << depth) / BSI_Q))] for i in range(BSI_Q)],
+                      depth)
+    for name, table, count in (("lone words", lone, False), ("lone count", lone, True),
+                               ("Q=3 words", mixed, False), ("Q=3 count", mixed, True),
+                               (f"Q={cap} words", words_cap, False),
+                               (f"Q={BSI_Q} count", spread, True)):
+        errs["bsi_range"] = max(errs["bsi_range"], exact(
+            f"bsi_range {name}", tb.bsi_range(P, E, G, table, count=count),
+            tb.bsi_range_plain(P, E, G, table, count)))
+    filters = bitops.to_device(random_words(rng, (S, BSI_SUMS, W), dense=True), dev)
+    for name, f in (("unfiltered", None), ("one filter", filters[:, 0]),
+                    (f"{cap} filters", filters[:, :cap]), (f"{BSI_SUMS} filters", filters)):
+        errs["bsi_sum"] = max(errs["bsi_sum"], exact(
+            f"bsi_sum {name}", tb.bsi_sum(P, E, G, f),
+            tb.bsi_sum_plain(P, E, G, None if f is None else tb._filters("", f, S, W, False))))
+    for maximal in (True, False):
+        for f in (None, filters[:, 1]):
+            errs["bsi_extreme"] = max(errs["bsi_extreme"], exact(
+                f"bsi_extreme maximal={maximal} filtered={f is not None}",
+                tb.bsi_extreme(P, E, G, f, maximal=maximal),
+                tb.bsi_extreme_plain(P, E, G, f, maximal)))
+    log(f"bsi kernels exact at the serving shape {tuple(stack.shape)}: range "
+        f"scans Q = 1, 3, {cap} (words) and 1, 3, {BSI_Q} (counts), sums under 0, 1, "
+        f"{cap} and {BSI_SUMS} filters, extremes both ways")
+
+    # -- ragged shapes
+    for (s, d, w, q, empty) in [(1, 1, 130, 1, False), (3, 63, 130, 9, False),
+                                (2, 20, 1000, 17, False), (1, 63, 2100, 3, True),
+                                (5, 0, 257, 5, False), (4, 20, 3000, 128, False)]:
+        st = bitops.to_device(bsi_stack_np(rng, s, d, w, empty), dev)
+        p, e, g = views(st)
+        t = table_of(bsi_flight(rng, q, d), d)
+        for count in (False, True):
+            exact(f"bsi_range {s, d, w} Q={q} count={count}", tb.bsi_range(p, e, g, t, count=count),
+                  tb.bsi_range_plain(p, e, g, t, count))
+        fl = bitops.to_device(random_words(rng, (s, q, w), dense=False), dev)
+        exact(f"bsi_sum {s, d, w} Q={q}", tb.bsi_sum(p, e, g, fl), tb.bsi_sum_plain(p, e, g, fl))
+        exact(f"bsi_sum {s, d, w} unfiltered", tb.bsi_sum(p, e, g), tb.bsi_sum_plain(p, e, g, None))
+        for maximal in (True, False):
+            exact(f"bsi_extreme {s, d, w} maximal={maximal}",
+                  tb.bsi_extreme(p, e, g, fl[:, 0], maximal=maximal),
+                  tb.bsi_extreme_plain(p, e, g, fl[:, 0], maximal))
+    log("bsi kernels exact at ragged shapes (S = 1-5, W = 130-3000, depths 0, 1, 20 "
+        "and 63, Q = 1-128, an empty exists row)")
+
+    # -- timings at the main path's shapes; the plain version at the head
+    #    shape of each kernel only
+    def timed(fn, plain=None, reps=10):
+        return (cuda_ms(fn, reps=reps), device_ms(fn),
+                *(() if plain is None else (cuda_ms(plain, reps=2, warmup=1),)))
+
+    report = {}
+    shapes = {"words_q1": (lone, False), "count_q1": (lone, True),
+              f"words_q{cap}": (words_cap, False)}
+    t, d, pl = timed(lambda: tb.bsi_range(P, E, G, spread, count=True),
+                     lambda: tb.bsi_range_plain(P, E, G, spread, True))
+    b, floor = bsi_range_bound(S, depth, W, spread, True)
+    extra, floors = {}, {f"count_q{BSI_Q}": floor}
+    for shape, (table, count) in shapes.items():
+        extra[shape] = (*timed(lambda: tb.bsi_range(P, E, G, table, count=count)),
+                        bsi_range_bound(S, depth, W, table, count)[0])
+    report["bsi_range"] = dict(
+        max_abs_err=errs["bsi_range"], ms=t, device_ms=d, plain_ms=pl, bound=b,
+        library_ms=None, extra=extra, popc_floors=floors)
+
+    # the sum: the main path's filtered Sum (one filter) at the head, with
+    # torch._int_mm over the same work as the yardstick (its exact check
+    # is its warm-up)
+    f1 = filters[:, 0]
+    t, d, pl = timed(lambda: tb.bsi_sum(P, E, G, f1),
+                     lambda: tb.bsi_sum_plain(P, E, G, tb._filters("", f1, S, W, False)))
+    b, floor = bsi_sum_bound(S, depth, W, 1, True)
+
+    def unpacked(rows):  # [S, R, W] -> int8 [R, S*W*32] (unpack untimed)
+        out = torch.empty((rows.shape[1], S * W * 32), dtype=torch.int8, device=dev)
+        for s in range(S):
+            out[:, s * W * 32:(s + 1) * W * 32] = tk.unpack_bits(rows[s], torch.int8)
+        return out
+
+    # the filter's two sign columns, padded with zero rows to the 8 that
+    # torch._int_mm's N must be a multiple of
+    f_ex = f1[:, None, :] & E[:, None, :]
+    pad = torch.zeros((S, 6, W), dtype=f_ex.dtype, device=dev)
+    rows8 = unpacked(torch.cat([P, E[:, None, :]], dim=1))
+    filt8 = unpacked(torch.cat([f_ex & ~G[:, None, :], f_ex & G[:, None, :], pad], dim=1))
+    del f_ex, pad
+    mm = torch._int_mm(rows8, filt8.T)  # [depth + 1, 8]
+    want = tb.bsi_sum(P, E, G, f1).to(torch.int64).sum(dim=0)  # [1, depth + 1, 2]
+    exact("torch._int_mm sum yardstick", mm[:, :2].T.reshape(2, 1, depth + 1).permute(1, 2, 0),
+          want)
+    t_lib = cuda_ms(lambda: torch._int_mm(rows8, filt8.T), reps=1, warmup=0)
+    del rows8, filt8, mm
+    torch.cuda.empty_cache()
+    extra, floors = {}, {"one_filter": floor}
+    for shape, f, q in (("unfiltered", None, 1), (f"q{BSI_SUMS}", filters, BSI_SUMS)):
+        b_f = bsi_sum_bound(S, depth, W, q, f is not None)
+        extra[shape] = (*timed(lambda: tb.bsi_sum(P, E, G, f)), b_f[0])
+        floors[shape] = b_f[1]
+    report["bsi_sum"] = dict(
+        max_abs_err=errs["bsi_sum"], ms=t, device_ms=d, plain_ms=pl, bound=b,
+        library_ms=t_lib, extra=extra, popc_floors=floors)
+
+    t, d, pl = timed(lambda: tb.bsi_extreme(P, E, G, maximal=True),
+                     lambda: tb.bsi_extreme_plain(P, E, G, None, True))
+    tf, df = timed(lambda: tb.bsi_extreme(P, E, G, filters[:, 1], maximal=False))
+    report["bsi_extreme"] = dict(
+        max_abs_err=errs["bsi_extreme"], ms=t, device_ms=d, plain_ms=pl,
+        bound=bsi_extreme_bound(S, depth, W, False), library_ms=None,
+        extra={"filtered_min": (tf, df, bsi_extreme_bound(S, depth, W, True))})
+
+    for k, v in report.items():
+        log(f"{k}: kernel {v['ms']:.3f} ms (device {v['device_ms']}), plain "
+            f"{v['plain_ms']:.3f} ms, bound {v['bound'][0]:.3f} ms ({v['bound'][1]}), library "
+            f"{v['library_ms'] if v['library_ms'] is None else round(v['library_ms'], 3)}")
+        for shape, (tt, dd, bb) in v["extra"].items():
+            log(f"{k} {shape}: kernel {tt:.3f} ms (device {dd}), bound {bb[0]:.3f} ms ({bb[1]})")
+        if v.get("popc_floors"):
+            log(f"{k}: POPC pipe floors (16 a clock an SM at the clock nvidia-smi reads), "
+                f"ms by shape {v['popc_floors']}")
+        for tt, dd, bb in [(v["ms"], v["device_ms"], v["bound"]), *v["extra"].values()]:
+            if min(tt, dd or tt) < bb[0]:
+                raise AssertionError(f"{k}: {tt} ms (device {dd}) is below its bound "
+                                     f"{bb[0]} ms: the bound is wrong")
+    log("bsi_range and bsi_extreme: no single PyTorch call computes them, so their "
+        "library_ms is null")
+    del stack, P, E, G, filters
+    torch.cuda.empty_cache()
+    return report
+
+
+# ---------------------------------------------------------------------------
 # Phase 3: the main path, end to end
 # ---------------------------------------------------------------------------
 
@@ -973,7 +1268,9 @@ def truth_tanimoto_topn(f_stack, g_stack, g_row, threshold, n, pool):
 def build_index(device):
     """The served index: fields f and g of R_FULL rows and h of H_ROWS
     rows over S_FULL shards at shard width 2^20, each about 25 % dense,
-    and the existence field's row (the union of the three), on
+    the int fields of BSI_FIELDS (v: 0..1,000,000, w: -1,000,000..
+    1,000,000, depth 20, values in three quarters of the columns), and the
+    existence field's row (the union of them all), on
     ``Holder(device=device)``."""
     import numpy as np
     import torch
@@ -989,29 +1286,41 @@ def build_index(device):
         "g": random_words(rng, (S_FULL, R_FULL, SHARD_WORDS), dense=True),
         "h": random_words(rng, (S_FULL, H_ROWS, SHARD_WORDS), dense=True),
     }
+    with ThreadPoolExecutor(max_workers=min(8, os.cpu_count() or 1)) as pool:
+        bsi_words = {n: bsi_field_words(rng, lo, hi, pool) for n, (lo, hi) in BSI_FIELDS.items()}
     schema = [{
         "name": "i",
         "options": {"keys": False, "trackExistence": True},
-        "fields": [{"name": n, "options": {}} for n in words],
+        "fields": [{"name": n, "options": {}} for n in words] + [
+            {"name": n, "options": {"type": "int", "min": lo, "max": hi}}
+            for n, (lo, hi) in BSI_FIELDS.items()],
     }]
     fragments = {}
     for name, w in words.items():
         rows = list(range(w.shape[1]))
         for s in range(S_FULL):
             fragments[("i", name, "standard", s)] = (rows, w[s])
+    for name, w in bsi_words.items():
+        rows = list(range(2 + BSI_DEPTH))
+        for s in range(S_FULL):
+            fragments[("i", name, "bsig_" + name, s)] = (rows, w[s])
     # the existence field's row 0: every column any field holds, as an
-    # import of f, g and h would have recorded it
+    # import of f, g, h, v and w would have recorded it
     exists = np.zeros((S_FULL, 1, SHARD_WORDS), dtype=np.uint32)
     for w in words.values():
         exists[:, 0] |= np.bitwise_or.reduce(w, axis=1)
+    for w in bsi_words.values():
+        exists[:, 0] |= w[:, 0]
     for s in range(S_FULL):
         fragments[("i", "_exists", "standard", s)] = ([0], exists[s])
     holder = convert.holder_from_arrays(schema, fragments, device=device)
     setup_s = time.perf_counter() - t0
     log(f"index built: {S_FULL} shards x 2^20 columns; fields f, g of {R_FULL} "
         f"rows and h of {H_ROWS} rows, {words['f'].size * 32 / 1e9:.2f}e9 bits "
-        f"in f, density {np.bitwise_count(words['f'][0]).mean() / 32:.3f}, "
-        f"{setup_s:.1f} s")
+        f"in f, density {np.bitwise_count(words['f'][0]).mean() / 32:.3f}; int fields "
+        f"{', '.join(f'{n} [{lo}, {hi}]' for n, (lo, hi) in BSI_FIELDS.items())}, depth "
+        f"{BSI_DEPTH}, values in {np.bitwise_count(bsi_words['v'][:, 0]).mean() / 32:.3f} "
+        f"of the columns; {setup_s:.1f} s")
     if holder.device.type != torch.device(device).type:
         raise AssertionError(f"holder on {holder.device}")
     return holder, setup_s
@@ -1122,17 +1431,40 @@ def pair_topn_path(pool, ex, holder):
     return results
 
 
+# masks of the 64-bit SWAR popcount: 2-, 4- and 8-bit fields
+M1, M2, M4 = 0x5555555555555555, 0x3333333333333333, 0x0F0F0F0F0F0F0F0F
+
+
+def popcount_rows(words):
+    """int64 ``[...]`` set bits of each row of the int32 ``words``
+    ``[..., W]`` (W even), which it overwrites: SWAR on int64 views down to
+    a count per byte, then the bytes summed."""
+    import torch
+
+    y = words.view(torch.int64)
+    t = y >> 1
+    t &= M1
+    y -= t
+    t = y >> 2
+    t &= M2
+    y &= M2
+    y += t
+    t = y >> 4
+    y += t
+    y &= M4
+    return y.view(torch.uint8).sum(dim=-1, dtype=torch.int64)
+
+
 def truth_groupby(levels, filt=None):
     """Every non-empty combination of a GroupBy over the device stacks
     ``levels`` (``int32[S, R_l, W]``, row id = row index), in the
     reference's depth-first order, as ``[(row ids, count)]``: torch AND and
-    ``bitops.popcount`` per combination of all levels but the last, which
-    is counted for all its rows at once. No kernel of the port runs."""
+    popcount (:func:`popcount_rows`) per combination of all levels but the
+    last, which is counted for all its rows at once. No code of the port
+    runs."""
     import itertools
 
     import torch
-
-    from pilosa_tpu_torch.ops import bitops
 
     *heads, last = levels
     out = []
@@ -1140,7 +1472,7 @@ def truth_groupby(levels, filt=None):
         m = filt
         for h, r in zip(heads, combo):
             m = h[:, r] if m is None else m & h[:, r]
-        counts = bitops.count_rows(last & m[:, None]).sum(dim=0, dtype=torch.int64)
+        counts = popcount_rows(last & m[:, None]).sum(dim=0)
         out.extend((combo + (r,), c) for r, c in enumerate(counts.tolist()) if c)
     return out
 
@@ -1249,6 +1581,10 @@ def groupby_path(pool, ex, holder, device):
             nonlocal checked
             q, fields, filt_row, bound, limit, got = served_q
             key = (fields, filt_row)
+            flipped = (fields[::-1], filt_row)
+            if key not in truths and len(fields) == 2 and flipped in truths:
+                # the same counts with the levels swapped, in depth-first order
+                truths[key] = sorted((c[::-1], n) for c, n in truths[flipped])
             if key not in truths:
                 filt = None if filt_row is None else dev_stacks["h"][:, filt_row]
                 truths[key] = truth_groupby([dev_stacks[n] for n in fields], filt)
@@ -1570,15 +1906,410 @@ def trees_path(pool, ex, holder, device):
     return results
 
 
+# ---------------------------------------------------------------------------
+# The bsi path: int fields v and w at the serving size
+# ---------------------------------------------------------------------------
+
+
+def bsi_field_words(rng, lo, hi, pool):
+    """uint32 ``[S_FULL, 2 + BSI_DEPTH, W_FULL]`` rows of an int field's BSI
+    view (exists, sign, planes), about three quarters of the columns
+    holding a value drawn uniformly from [lo, hi] (base 0), packed with
+    numpy shard by shard from per-shard seeds."""
+    import numpy as np
+
+    width = W_FULL * 32
+    seeds = rng.integers(0, 2**63, size=S_FULL)
+    out = np.zeros((S_FULL, 2 + BSI_DEPTH, W_FULL), dtype=np.uint32)
+
+    def pack(bits):
+        return np.packbits(bits, axis=-1, bitorder="little").view(np.uint32)
+
+    def one(s):
+        r = np.random.default_rng(int(seeds[s]))
+        vals = r.integers(lo, hi + 1, size=width)
+        exists = r.random(width) < 0.75
+        mag = np.where(exists, np.abs(vals), 0).astype("<u4")
+        out[s, 0] = pack(exists)
+        out[s, 1] = pack(exists & (vals < 0))
+        # bit k of every magnitude: its little-endian bytes unpacked, one
+        # transpose to [32, width]
+        bits = np.unpackbits(mag.view(np.uint8).reshape(width, 4), axis=1, bitorder="little")
+        out[s, 2:] = pack(np.ascontiguousarray(bits.T[:BSI_DEPTH]))
+
+    list(pool.map(one, range(S_FULL)))
+    return out
+
+
+def decode_bsi(holder, name, pool, into=None, shards=range(S_FULL)):
+    """Every column's value of int field ``name``, decoded from the host
+    mirrors' rows with ``np.unpackbits`` one shard at a time: ``(values
+    int64 [S, 2^20], exists bool [S, 2^20])``; with ``into``, those arrays
+    again with only ``shards`` decoded anew. It reads the rows by id
+    (exists 0, sign 1, plane k at 2 + k) and nothing of the port's BSI
+    code."""
+    import numpy as np
+
+    f = holder.field("i", name)
+    view = f.view("bsig_" + name)
+    depth = f.bit_depth
+    width = f.n_words * 32
+    vals, ex = into if into is not None else (
+        np.zeros((S_FULL, width), dtype=np.int64), np.zeros((S_FULL, width), dtype=bool))
+
+    def unpack(words):
+        return np.unpackbits(words.view(np.uint8), bitorder="little").astype(bool)
+
+    def one(s):
+        frag = view.fragment(s)
+        if frag is None:
+            return
+        ids, mat = frag.rows_matrix_host()
+        rows = dict(zip(ids, mat))
+        zero = np.zeros(f.n_words, dtype=np.uint32)
+        mag = np.zeros(width, dtype=np.int64)
+        for k in range(depth):
+            mag |= unpack(rows.get(2 + k, zero)).astype(np.int64) << k
+        ex[s] = unpack(rows.get(0, zero))
+        vals[s] = np.where(unpack(rows.get(1, zero)), -mag, mag)
+
+    list(pool.map(one, shards))
+    return vals, ex
+
+
+def set_row_bits(holder, field, row, pool):
+    """bool ``[S, 2^20]`` columns of row ``row`` of a set field's mirrors."""
+    import numpy as np
+
+    view = holder.field("i", field).view("standard")
+    out = np.zeros((S_FULL, W_FULL * 32), dtype=bool)
+
+    def one(s):
+        frag = view.fragment(s)
+        if frag is not None:
+            out[s] = np.unpackbits(frag.row_words_host(row).view(np.uint8),
+                                   bitorder="little").astype(bool)
+
+    list(pool.map(one, range(S_FULL)))
+    return out
+
+
+def by_shard(pool, fn):
+    """``[fn(s) for s in range(S_FULL)]``, shards in parallel on ``pool``."""
+    return list(pool.map(fn, range(S_FULL)))
+
+
+def truth_count(pool, mask):
+    """Set columns of ``mask(s)`` (bool ``[2^20]``) over every shard."""
+    import numpy as np
+
+    return sum(by_shard(pool, lambda s: int(np.count_nonzero(mask(s)))))
+
+
+def truth_sum(pool, vals, mask):
+    """``(sum, count)`` of the values under ``mask(s)`` over every shard."""
+    parts = by_shard(pool, lambda s: (int(vals[s][mask(s)].sum()), int(mask(s).sum())))
+    return sum(p[0] for p in parts), sum(p[1] for p in parts)
+
+
+def truth_extreme(pool, vals, mask, maximal):
+    """``(extreme, count)`` of the values under ``mask(s)``: each shard's
+    extreme and its count, then the extreme of those and the counts of the
+    shards that reach it; ``(0, 0)`` when no column is set."""
+    def one(s):
+        live = vals[s][mask(s)]
+        if not live.size:
+            return None
+        best = live.max() if maximal else live.min()
+        return int(best), int((live == best).sum())
+
+    parts = [p for p in by_shard(pool, one) if p is not None]
+    if not parts:
+        return 0, 0
+    best = (max if maximal else min)(b for b, _ in parts)
+    return best, sum(c for b, c in parts if b == best)
+
+
+def truth_words(pool, mask):
+    """uint32 ``[S, W]`` words of ``mask(s)`` over every shard."""
+    import numpy as np
+
+    return np.stack(by_shard(pool, lambda s: np.packbits(
+        mask(s), bitorder="little").view(np.uint32)))
+
+
+def truth_filtered_sums(f_mirror, vals, ex, rows, dev, pool, rng, k=8):
+    """``[(sum, count)]`` of ``Sum(Row(f=r), field=...)`` for each r of
+    ``rows``: the unpacked rows of f (``f_mirror``, from the host mirrors)
+    times the decoded values and the exists column, in float64 on the card
+    (exact: every partial sum is an integer below 2^53); no code of the
+    port runs. A seeded sample of ``k`` rows is recounted with numpy on the
+    int64 values."""
+    import numpy as np
+    import torch
+
+    vals_d = torch.from_numpy(np.where(ex, vals, 0)).to(dev)
+    ex_d = torch.from_numpy(ex).to(dev)
+    words_d = torch.from_numpy(np.ascontiguousarray(f_mirror[:, rows]).view(np.int32)).to(dev)
+    shifts = torch.arange(32, dtype=torch.int32, device=dev)
+    acc = torch.zeros((len(rows), 2), dtype=torch.float64, device=dev)
+    for s in range(S_FULL):
+        bits = ((words_d[s, :, :, None] >> shifts) & 1).reshape(len(rows), -1)
+        acc += bits.to(torch.float64) @ torch.stack([vals_d[s], ex_d[s]], dim=1).to(torch.float64)
+    truth = [(int(a), int(b)) for a, b in torch.round(acc).to(torch.int64).tolist()]
+    del vals_d, ex_d, words_d
+
+    pick = sorted(int(i) for i in rng.choice(len(rows), size=min(k, len(rows)), replace=False))
+
+    def one(s):
+        ve = np.where(ex[s], vals[s], 0)
+        out = []
+        for i in pick:
+            m = np.unpackbits(f_mirror[s, rows[i]].view(np.uint8), bitorder="little").view(bool)
+            out.append((int(ve[m].sum()), int(ex[s][m].sum())))
+        return out
+
+    parts = by_shard(pool, one)
+    for j, i in enumerate(pick):
+        want = (sum(p[j][0] for p in parts), sum(p[j][1] for p in parts))
+        if truth[i] != want:
+            raise AssertionError(f"filtered-sum truth of row {rows[i]}: card {truth[i]}, "
+                                 f"numpy {want}")
+    return truth
+
+
+def bsi_path(pool, ex, holder, device):
+    """The BSI path at the serving size: a lone Count(Row(v < 500000)) cold
+    (the host tier, no launch) until the warm-up builds the stack, then on
+    the card and from the aggregate cache; a `><` bitmap; one execute_batch
+    of 128 range Counts (one count launch); Sum unfiltered (then cached),
+    filtered, and a batch of 64 filtered Sums (one launch each); Min/Max of
+    v and w, unfiltered and filtered;
+    MinRow/MaxRow of f; a GroupBy of f and g filtered by Row(v > 250000)
+    (one words launch, then the GroupBy kernels); then Set/Clear writes to
+    v and w, each seen by the next Range, Sum and Min/Max. Every answer
+    equals numpy on values decoded from the host mirrors."""
+    import numpy as np
+    import torch
+
+    from pilosa_tpu_torch.ops import bitops, kernels as tk
+    from pilosa_tpu_torch.shardwidth import SHARD_WIDTH
+
+    on_card = torch.device(device).type == "cuda"
+    qrng = np.random.default_rng(SEED + 9)
+    lat = {"served_s": 0.0}
+    t0 = time.perf_counter()
+    truth = {n: decode_bsi(holder, n, pool) for n in BSI_FIELDS}
+    lat["truth_decode_s"] = time.perf_counter() - t0
+    for n in BSI_FIELDS:
+        if holder.field("i", n).bit_depth != BSI_DEPTH:
+            raise AssertionError(f"{n}: depth {holder.field('i', n).bit_depth}")
+
+    def serve(q, launches, batch=None):
+        """``(results, ms)`` of ``q`` (or of ``execute_batch`` over
+        ``batch``); on the card, the BSI launches must be ``launches``
+        (kernels it does not name: none; None: any number)."""
+        before = dict(tk.LAUNCHES)
+        t = time.perf_counter()
+        if batch is None:
+            res = ex.execute("i", q)
+        else:
+            res = ex.execute_batch("i", [(x, None) for x in batch])
+            bad = [r for r in res if isinstance(r, Exception)]
+            if bad:
+                raise AssertionError(f"{batch[0]}...: {bad[0]!r}")
+            res = [r[0] for r in res]
+        ms = (time.perf_counter() - t) * 1e3
+        lat["served_s"] += ms / 1e3
+        made = {k: tk.LAUNCHES[k] - before[k] for k in ("bsi_range", "bsi_sum", "bsi_extreme")}
+        want = None if launches is None else {k: launches.get(k, 0) for k in made}
+        if on_card and want is not None and made != want:
+            raise AssertionError(f"{q or batch[0]}: BSI launches {made}, not {want}")
+        return res, ms
+
+    def check(what, got, want):
+        if got != want:
+            raise AssertionError(f"{what}: {got} != {want}")
+
+    def valcount(r):
+        return (r.value, r.count)
+
+    def reads_round(tag, fresh, vals, exv, valw, exw):
+        """Range, Sum and Min/Max of v and w against the truth: each one
+        launch when ``fresh`` (a new snapshot), else from the cache (the
+        count is the batch's last, which the cache keeps: it holds
+        Executor._BSI_AGG_SLOTS scalars, and the batch's 128 counts pushed
+        the lone count out)."""
+        for label, q, kernel, want in (
+            ("count", f"Count(Row(v <= {ts[-1]}))", "bsi_range",
+             truth_count(pool, lambda s: exv[s] & (vals[s] <= ts[-1]))),
+            ("sum_v", "Sum(field=v)", "bsi_sum", truth_sum(pool, vals, lambda s: exv[s])),
+            ("max_v", "Max(field=v)", "bsi_extreme",
+             truth_extreme(pool, vals, lambda s: exv[s], True)),
+            ("min_w", "Min(field=w)", "bsi_extreme",
+             truth_extreme(pool, valw, lambda s: exw[s], False)),
+        ):
+            (r,), ms = serve(q, {kernel: 1} if fresh else {})
+            check(f"{tag} {q}", r if isinstance(r, int) else valcount(r), want)
+            lat[f"{tag}_{label}_ms"] = ms
+
+    vals, exv = truth["v"]
+    valw, exw = truth["w"]
+
+    # -- a lone range count: cold on the host, the warm-up, the card, the cache
+    q = "Count(Row(v < 500000))"
+    want = truth_count(pool, lambda s: exv[s] & (vals[s] < 500_000))
+    cold = []
+    for _ in range(ex._BSI_SINGLE_WARM - 1):
+        rebuilds = ex.stack_rebuilds
+        (n,), ms = serve(q, {})
+        check("cold count", n, want)
+        cold.append(ms)
+        if ex.stack_rebuilds != rebuilds:
+            raise AssertionError("a cold lone count built the stack")
+    lat["count_cold_ms"] = cold
+    rebuilds = ex.stack_rebuilds
+    (n,), lat["count_warmup_ms"] = serve(q, {"bsi_range": 1})
+    check("warm-up count", n, want)
+    if ex.stack_rebuilds != rebuilds + 1:
+        raise AssertionError("the warm-up did not build the stack")
+    (n,), lat["count_warm_ms"] = serve(q, {"bsi_range": 1})
+    check("warm count", n, want)
+    hits = ex.bsi_agg_cache_hits
+    (n,), lat["count_cached_ms"] = serve(q, {})
+    check("cached count", n, want)
+    if ex.bsi_agg_cache_hits != hits + 1:
+        raise AssertionError("a repeat count missed the aggregate cache")
+
+    # -- a bitmap
+    (row,), lat["bitmap_between_ms"] = serve("Row(v >< [250000, 750000])", {"bsi_range": 1})
+    want_words = truth_words(pool, lambda s: exv[s] & (vals[s] >= 250_000)
+                             & (vals[s] <= 750_000))
+    for s in range(S_FULL):
+        if not np.array_equal(row.segments[s], want_words[s]):
+            raise AssertionError(f"Row(v >< [250000, 750000]) shard {s} words differ")
+
+    # -- the bench's flight: 128 range counts, one launch
+    ts = [int((i + 0.5) * 1_000_001 / BSI_Q) for i in range(BSI_Q)]
+    counts, lat["batch_counts_ms"] = serve(
+        None, {"bsi_range": 1}, batch=[f"Count(Row(v <= {t}))" for t in ts])
+    cum = np.cumsum(sum(by_shard(pool, lambda s: np.bincount(vals[s][exv[s]],
+                                                             minlength=1_000_001))))
+    check(f"{BSI_Q} range counts", counts, [int(cum[t]) for t in ts])
+
+    # -- Sum: unfiltered (then cached), filtered, a batch of filtered Sums
+    (s,), lat["sum_ms"] = serve("Sum(field=v)", {"bsi_sum": 1})
+    want = truth_sum(pool, vals, lambda s: exv[s])
+    check("sum", valcount(s), want)
+    (s,), lat["sum_cached_ms"] = serve("Sum(field=v)", {})
+    check("cached sum", valcount(s), want)
+    f3 = set_row_bits(holder, "f", 3, pool)
+    (s,), lat["sum_filtered_ms"] = serve("Sum(Row(f=3), field=v)", {"bsi_sum": 1})
+    check("filtered sum", valcount(s), truth_sum(pool, vals, lambda s: exv[s] & f3[s]))
+    # a flight of filtered Sums: one launch each
+    sums, lat["batch_sums_ms"] = serve(
+        None, {"bsi_sum": BSI_SUMS}, batch=[f"Sum(Row(f={r}), field=v)" for r in range(BSI_SUMS)])
+    f_mirror = mirror_stack(holder, "f", R_FULL + 1, S_FULL)
+    check(f"{BSI_SUMS} filtered sums", [valcount(x) for x in sums],
+          truth_filtered_sums(f_mirror, vals, exv, list(range(BSI_SUMS)), torch.device(device),
+                              pool, qrng))
+
+    # -- Min/Max, unfiltered and filtered; MinRow/MaxRow of f
+    g5 = set_row_bits(holder, "g", 5, pool)
+    for label, q, (vv, mask, maximal) in (
+        ("min_v", "Min(field=v)", (vals, lambda s: exv[s], False)),
+        ("max_v", "Max(field=v)", (vals, lambda s: exv[s], True)),
+        ("min_w", "Min(field=w)", (valw, lambda s: exw[s], False)),
+        ("max_w", "Max(field=w)", (valw, lambda s: exw[s], True)),
+        ("min_v_filtered", "Min(Row(f=3), field=v)", (vals, lambda s: exv[s] & f3[s], False)),
+        ("max_w_filtered", "Max(Row(g=5), field=w)", (valw, lambda s: exw[s] & g5[s], True)),
+    ):
+        (r,), lat[f"{label}_ms"] = serve(q, {"bsi_extreme": 1})
+        check(q, valcount(r), truth_extreme(pool, vv, mask, maximal))
+    f_counts = np.bitwise_count(f_mirror).sum(axis=(0, 2), dtype=np.int64)
+    live = np.flatnonzero(f_counts)
+    for label, q, rid in (("minrow", "MinRow(field=f)", live.min()),
+                          ("maxrow", "MaxRow(field=f)", live.max())):
+        (p,), lat[f"{label}_ms"] = serve(q, {})
+        check(q, (p.id, p.count), (int(rid), int(f_counts[rid])))
+
+    # -- a GroupBy filtered by a condition: one words launch, then the
+    #    GroupBy kernels; every combination against torch on the card, a
+    #    sample against numpy
+    filt_np = truth_words(pool, lambda s: exv[s] & (vals[s] > 250_000))
+    (groups,), lat["groupby_filtered_ms"] = serve(
+        "GroupBy(Rows(f), Rows(g), filter=Row(v > 250000))", {"bsi_range": 1})
+    answer = [(tuple(fr.row_id for fr in gc.group), gc.count) for gc in groups]
+    g_mirror = mirror_stack(holder, "g", R_FULL, S_FULL)
+    dev = torch.device(device)
+    want_groups = truth_groupby([bitops.to_device(f_mirror, dev), bitops.to_device(g_mirror, dev)],
+                                bitops.to_device(filt_np, dev))
+    if answer != want_groups:
+        raise AssertionError("filtered GroupBy differs from the torch truth")
+    checked = check_numpy_sample("GroupBy filtered by v", answer, [f_mirror, g_mirror], filt_np,
+                                 pool, qrng)
+    del f_mirror, g_mirror
+    if on_card:
+        torch.cuda.empty_cache()
+
+    reads_round("cached", False, vals, exv, valw, exw)
+
+    # -- writes to v and w in a few shards (the stacks are patched), each
+    #    seen by the next Range, Sum and Min/Max
+    held_v = np.flatnonzero(exv[7])
+    held_w = np.flatnonzero(exw[11])
+    cols = {
+        "set_v_max": 3 * SHARD_WIDTH + int(qrng.integers(0, SHARD_WIDTH)),
+        "set_v_zero": 5 * SHARD_WIDTH + int(qrng.integers(0, SHARD_WIDTH)),
+        "clear_v": 7 * SHARD_WIDTH + int(held_v[int(qrng.integers(0, len(held_v)))]),
+        "set_w_min": 11 * SHARD_WIDTH + int(qrng.integers(0, SHARD_WIDTH)),
+        "clear_w": 11 * SHARD_WIDTH + int(held_w[int(qrng.integers(0, len(held_w)))]),
+    }
+    writes = (f"Set({cols['set_v_max']}, v=1000000) Set({cols['set_v_zero']}, v=0) "
+              f"Clear({cols['clear_v']}, v=0) Set({cols['set_w_min']}, w=-1000000) "
+              f"Clear({cols['clear_w']}, w=5)")
+    patched, rebuilt = ex.stack_incremental, ex.stack_rebuilds
+    t = time.perf_counter()
+    ex.execute("i", writes)
+    lat["writes_ms"] = (time.perf_counter() - t) * 1e3
+    fv, fw = holder.field("i", "v"), holder.field("i", "w")
+    check("written values", (fv.value(cols["set_v_max"]), fv.value(cols["set_v_zero"]),
+                             fv.value(cols["clear_v"]), fw.value(cols["set_w_min"]),
+                             fw.value(cols["clear_w"])),
+          ((1_000_000, True), (0, True), (0, False), (-1_000_000, True), (0, False)))
+    # the written shards decoded anew from the mirrors
+    written = sorted({c // SHARD_WIDTH for c in cols.values()})
+    truth = {n: decode_bsi(holder, n, pool, into=truth[n], shards=written) for n in BSI_FIELDS}
+    reads_round("after_writes", True, *truth["v"], *truth["w"])
+    if (ex.stack_incremental - patched, ex.stack_rebuilds - rebuilt) != (2, 0):
+        raise AssertionError(f"after the writes: stack_incremental +"
+                             f"{ex.stack_incremental - patched}, stack_rebuilds +"
+                             f"{ex.stack_rebuilds - rebuilt}, not +2 and +0")
+    log(f"bsi: a lone Count(Row(v < 500000)) cold on the host "
+        f"{', '.join(f'{x:.0f}' for x in cold)} ms, the warm-up (stack build and launch) "
+        f"{lat['count_warmup_ms']:.0f} ms, warm {lat['count_warm_ms']:.1f} ms, cached "
+        f"{lat['count_cached_ms']:.2f} ms; {BSI_Q} range counts in one launch "
+        f"{lat['batch_counts_ms']:.1f} ms; Sum {lat['sum_ms']:.1f} ms (cached "
+        f"{lat['sum_cached_ms']:.2f}), filtered {lat['sum_filtered_ms']:.1f} ms, "
+        f"{BSI_SUMS} filtered Sums in a batch {lat['batch_sums_ms']:.1f} ms; Max(v) "
+        f"{lat['max_v_ms']:.1f} ms; GroupBy filtered by v {lat['groupby_filtered_ms']:.0f} ms "
+        f"({checked} combinations sampled against numpy); writes seen by the next Range, "
+        f"Sum and Min/Max (stacks patched); every answer equals numpy; queries "
+        f"{lat['served_s']:.1f} s of the path, the truth decoded in "
+        f"{lat['truth_decode_s']:.1f} s")
+    return lat
+
+
 def drive(path, required, fn):
     """Run one path of the main path with every launch count set to 0 just
     before it; fail if a kernel of the path was not launched in it."""
     from pilosa_tpu_torch.ops import kernels as tk
 
     tk.reset_launches()
+    t = time.perf_counter()
     out = fn()
     launches = dict(tk.LAUNCHES)
-    log(f"{path}: launches {launches}")
+    log(f"{path}: launches {launches}, {time.perf_counter() - t:.1f} s")
     for k in required:
         if launches[k] <= 0:
             raise AssertionError(f"kernel {k} was not launched on the {path} path")
@@ -1613,20 +2344,30 @@ def main() -> int:
     for line in info["log"].splitlines():
         if "registers" in line or "spill" in line or line.startswith("=="):
             log("  nvcc: " + line.strip())
-    sass = gram_sass_counts()
+    # cuobjdump reads the SASS while numpy draws the kernels' stacks
+    with ThreadPoolExecutor(max_workers=1) as one:
+        counts = one.submit(cuda_build.sass_mma_counts)
+        rng = np.random.default_rng(SEED + 3)
+        stack = random_words(rng, (S_FULL, R_FULL, W_FULL), dense=True)
+        stack2 = random_words(rng, (S_FULL, R_FULL, W_FULL), dense=True)
+        filt = random_words(rng, (S_FULL, W_FULL), dense=False)
+        counts = counts.result()
+    sass = gram_sass_counts(counts)
     for k, tiles in sass.items():
         log(f"{k}: tensor-core MMA instructions in SASS by tile {tiles}")
-    sass["tree_count"] = tree_sass_counts()
+    sass["tree_count"] = tree_sass_counts(counts)
     log(f"tree_count: tensor-core MMA instructions in the staged kernel's SASS "
         f"{sass['tree_count']}")
-
-    rng = np.random.default_rng(SEED + 3)
-    stack = random_words(rng, (S_FULL, R_FULL, W_FULL), dense=True)
-    stack2 = random_words(rng, (S_FULL, R_FULL, W_FULL), dense=True)
-    filt = random_words(rng, (S_FULL, W_FULL), dense=False)
+    t = time.perf_counter()
     kern = check_kernels(stack, stack2, filt, torch.device("cuda"))
+    log(f"scan and gram kernels checked and timed in {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
     kern.update(check_tree_kernels(stack, stack2, torch.device("cuda"), kern["mma_macs_per_s"]))
+    log(f"tree kernels checked and timed in {time.perf_counter() - t:.1f} s")
     del stack, stack2, filt
+    t = time.perf_counter()
+    kern.update(check_bsi_kernels(torch.device("cuda")))
+    log(f"bsi kernels checked and timed in {time.perf_counter() - t:.1f} s")
 
     from pilosa_tpu_torch.exec.executor import Executor
 
@@ -1639,11 +2380,15 @@ def main() -> int:
                                         lambda: groupby_path(pool, ex, holder, "cuda"))
         l_trees, e2e["trees"] = drive("trees", ("tree_count", "tree_words"),
                                       lambda: trees_path(pool, ex, holder, "cuda"))
+        l_bsi, e2e["bsi"] = drive("bsi", ("bsi_range", "bsi_sum", "bsi_extreme"),
+                                  lambda: bsi_path(pool, ex, holder, "cuda"))
     e2e["setup_s"] = setup_s
     e2e["stack_rebuilds"] = ex.stack_rebuilds
     e2e["stack_incremental"] = ex.stack_incremental
     e2e["crossgram_cache_hits"] = ex.crossgram_cache_hits
-    by_path = {k: {"pair_topn": l_pair[k], "groupby": l_group[k], "trees": l_trees[k]}
+    e2e["bsi_agg_cache_hits"] = ex.bsi_agg_cache_hits
+    by_path = {k: {"pair_topn": l_pair[k], "groupby": l_group[k], "trees": l_trees[k],
+                   "bsi": l_bsi[k]}
                for k in l_pair}
 
     sources = {
@@ -1659,6 +2404,14 @@ def main() -> int:
                        "pilosa_tpu/exec/astbatch.py:243 _count_scan (XLA, no pallas_call)"),
         "tree_words": ("pilosa_tpu_torch/ops/csrc/tree_eval.cu",
                        "pilosa_tpu/exec/astbatch.py:259 compiled (XLA, no pallas_call)"),
+        "bsi_range": ("pilosa_tpu_torch/ops/csrc/bsi.cu",
+                      "pilosa_tpu/ops/bsi.py:525 _range_count_batch_kernel and :475 "
+                      "_range_batch_kernel (XLA, no pallas_call)"),
+        "bsi_sum": ("pilosa_tpu_torch/ops/csrc/bsi.cu",
+                    "pilosa_tpu/ops/bsi.py:629 _sum_batch_kernel and :145 sum_count "
+                    "(XLA, no pallas_call)"),
+        "bsi_extreme": ("pilosa_tpu_torch/ops/csrc/bsi.cu",
+                        "pilosa_tpu/ops/bsi.py:211 _min_max_fused (XLA, no pallas_call)"),
     }
     name, limit = [x.strip() for x in card.split(",", 1)]
     entries = []
@@ -1680,10 +2433,11 @@ def main() -> int:
             "bound_ms": v["bound"][0],
             "bound_by": v["bound"][1],
             "library_ms": v["library_ms"],
-            "sass_mma": sum(sass.get(k, {}).values()),
             "card": name,
             "power_limit": limit,
         })
+        if k in sass:  # the kernels whose SASS this run reads
+            entries[-1]["sass_mma"] = sum(sass[k].values())
         if k in ("gram", "cross_gram"):
             entries[-1].update(
                 sass_mma_by_tile=sass[k],

@@ -4,6 +4,12 @@
 from a schema and per-fragment row matrices, the shapes the JAX package
 exports (``Holder.schema()`` and ``Fragment.rows_matrix_host()``), so two
 holders can hold the same data. It takes numpy arrays only.
+
+An int field carries its options (``min``/``max``, hence its base) and its
+``bsig_<field>`` fragments. The schema holds no bit depth, so the field
+derives it from its options as the JAX ``Field`` does, and grows it to
+cover the planes its fragments carry (rows 2.., reference
+fragment.go:90-96), as the JAX field grew it when they were written.
 """
 
 from __future__ import annotations
@@ -12,6 +18,7 @@ from typing import Mapping
 
 import torch
 
+from pilosa_tpu_torch.core.fragment import BSI_OFFSET_BIT
 from pilosa_tpu_torch.core.holder import Holder
 from pilosa_tpu_torch.shardwidth import SHARD_WORDS
 
@@ -35,4 +42,8 @@ def holder_from_arrays(
             int(shard)
         )
         frag.load_rows_matrix(list(row_ids), words)
+        if view == f.bsi_view_name() and len(row_ids):
+            if not f.is_bsi():
+                raise ValueError(f"BSI view {view!r} of non-int field {index}/{field}")
+            f.grow_bit_depth(int(max(row_ids)) - BSI_OFFSET_BIT + 1)
     return holder

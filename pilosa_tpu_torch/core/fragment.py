@@ -16,6 +16,12 @@ Row ids are arbitrary uint64, so the row axis is sparse (row id -> slot
 through a dict, capacity grown in powers of two) and the column axis
 dense. Per-row counts are maintained across writes, so an unfiltered
 TopN needs no device work (reference cache.go, fragment.go:698-712).
+
+A fragment of an int field's ``bsig_<field>`` view holds its values
+bit-sliced (reference fragment.go:90-96): row 0 the exists bit, row 1 the
+sign bit, rows 2.. the magnitude planes, LSB first. The stored value is
+``value - base``; the sign row marks stored < 0 and the planes hold
+``abs(stored)``.
 """
 
 from __future__ import annotations
@@ -30,6 +36,11 @@ import torch
 from pilosa_tpu_torch import device as device_mod
 from pilosa_tpu_torch.ops import bitops
 from pilosa_tpu_torch.shardwidth import SHARD_WORDS
+
+# BSI row layout within a bsig_* view (reference fragment.go:90-96).
+BSI_EXISTS_BIT = 0
+BSI_SIGN_BIT = 1
+BSI_OFFSET_BIT = 2
 
 _MIN_CAPACITY = 8
 
@@ -281,6 +292,18 @@ class Fragment:
                 self.version += 1
             return n_changed
 
+    def _merge_row_words(self, row: int, words: np.ndarray, clear: bool) -> None:
+        """OR ``words`` into a row, or clear them from it when ``clear``
+        (a missing row is created only to set bits)."""
+        s = self._slot(row, create=not clear)
+        if s is None:
+            return
+        old = self._host[s]
+        new = old & ~words if clear else old | words
+        if not np.array_equal(new, old):
+            self._host[s] = new
+            self._touch(s)
+
     def set_mutex(self, row: int, col: int) -> bool:
         """Mutex-field write: clear col in every other row, set (row, col)
         (reference fragment.go:715-759)."""
@@ -380,6 +403,113 @@ class Fragment:
                     axis=1, dtype=np.int64
                 )
             return list(self._rowids), self._counts.copy()
+
+    # -- BSI (bit-sliced integer) operations -------------------------------
+
+    def bsi_tensors(self, bit_depth: int):
+        """``(planes[bit_depth, W], exists[W], sign[W])`` device tensors;
+        missing planes gather zeros."""
+        planes = self.rows_device(range(BSI_OFFSET_BIT, BSI_OFFSET_BIT + bit_depth))
+        return planes, self.row_device(BSI_EXISTS_BIT), self.row_device(BSI_SIGN_BIT)
+
+    def fill_bsi_tensors_host(self, bit_depth: int, planes_out, exists_out, sign_out) -> None:
+        """Host-mirror twin of :meth:`bsi_tensors`: fill caller-owned,
+        zero-initialised arrays (``planes_out[bit_depth, W]``,
+        ``exists_out[W]``, ``sign_out[W]``), so one buffer can hold every
+        fragment of a field."""
+        with self._lock:
+            for k in range(bit_depth):
+                s = self._slot_of.get(BSI_OFFSET_BIT + k)
+                if s is not None:
+                    planes_out[k] = self._host[s]
+            se = self._slot_of.get(BSI_EXISTS_BIT)
+            if se is not None:
+                exists_out[:] = self._host[se]
+            ss = self._slot_of.get(BSI_SIGN_BIT)
+            if ss is not None:
+                sign_out[:] = self._host[ss]
+
+    def bsi_tensors_host(self, bit_depth: int):
+        """``(planes, exists, sign)`` numpy copies from the host mirror."""
+        planes = np.zeros((bit_depth, self.n_words), dtype=np.uint32)
+        exists = np.zeros(self.n_words, dtype=np.uint32)
+        sign = np.zeros(self.n_words, dtype=np.uint32)
+        self.fill_bsi_tensors_host(bit_depth, planes, exists, sign)
+        return planes, exists, sign
+
+    def set_value(self, col: int, bit_depth: int, value: int) -> bool:
+        """Write a stored (already base-offset) value for a column
+        (reference fragment.go:929-1003 setValueBase)."""
+        with self._lock:
+            changed = self.set_bit(BSI_EXISTS_BIT, col)
+            mag = abs(value)
+            if value < 0:
+                changed |= self.set_bit(BSI_SIGN_BIT, col)
+            else:
+                changed |= self.clear_bit(BSI_SIGN_BIT, col)
+            for k in range(bit_depth):
+                if (mag >> k) & 1:
+                    changed |= self.set_bit(BSI_OFFSET_BIT + k, col)
+                else:
+                    changed |= self.clear_bit(BSI_OFFSET_BIT + k, col)
+            return changed
+
+    def value(self, col: int, bit_depth: int) -> tuple[int, bool]:
+        """(stored value, exists) for a column (reference
+        fragment.go:894-927)."""
+        with self._lock:
+            if not self.get_bit(BSI_EXISTS_BIT, col):
+                return 0, False
+            mag = 0
+            for k in range(bit_depth):
+                if self.get_bit(BSI_OFFSET_BIT + k, col):
+                    mag |= 1 << k
+            if self.get_bit(BSI_SIGN_BIT, col):
+                mag = -mag
+            return mag, True
+
+    def clear_value(self, col: int) -> bool:
+        """Remove a column's value: one masked pass over the column's word
+        of every row."""
+        with self._lock:
+            s_exists = self._slot_of.get(BSI_EXISTS_BIT)
+            w, bmask = col >> 5, np.uint32(1 << (col & 31))
+            if s_exists is None or not self._host[s_exists, w] & bmask:
+                return False
+            n = len(self._rowids)
+            set_slots = np.flatnonzero(self._host[:n, w] & bmask)
+            self._host[set_slots, w] &= ~bmask
+            for s in set_slots.tolist():
+                self._touch(int(s))
+            return True
+
+    def import_values(
+        self, cols: np.ndarray, values: np.ndarray, bit_depth: int, clear: bool = False
+    ) -> None:
+        """Bulk BSI import of stored values (reference fragment.go:2107-2200
+        importValue) as one masked update per plane; the last write of a
+        column wins. ``clear`` removes the columns' values instead."""
+        cols = np.asarray(cols, dtype=np.int64)
+        values = np.asarray(values, dtype=np.int64)
+        if cols.size == 0:
+            return
+        last = len(cols) - 1 - np.unique(cols[::-1], return_index=True)[1]
+        cols, values = cols[last], values[last]
+        with self._lock:
+            col_words = bitops.pack_columns(cols, self.n_words)
+            if clear:
+                for row in list(self._slot_of):
+                    self._merge_row_words(row, col_words, clear=True)
+                return
+            mags = np.abs(values)
+            self._merge_row_words(BSI_EXISTS_BIT, col_words, clear=False)
+            neg_words = bitops.pack_columns(cols[values < 0], self.n_words)
+            self._merge_row_words(BSI_SIGN_BIT, neg_words, clear=False)
+            self._merge_row_words(BSI_SIGN_BIT, col_words & ~neg_words, clear=True)
+            for k in range(bit_depth):
+                on = bitops.pack_columns(cols[(mags >> k) & 1 == 1], self.n_words)
+                self._merge_row_words(BSI_OFFSET_BIT + k, on, clear=False)
+                self._merge_row_words(BSI_OFFSET_BIT + k, col_words & ~on, clear=True)
 
     # -- whole-fragment helpers --------------------------------------------
 

@@ -1,8 +1,10 @@
 """View: a named sub-bitmap of a field (counterpart of
 ``pilosa_tpu/core/view.py``; reference view.go).
 
-This slice serves the ``"standard"`` view. A view owns one fragment per
-shard (reference view.go:41 ``fragments`` map), all on the view's device.
+View names: ``"standard"`` for a field's bitmap, ``bsig_<field>`` for the
+bit-sliced values of an int field (reference view.go:33-38). A view owns
+one fragment per shard (reference view.go:41 ``fragments`` map), all on the
+view's device.
 """
 
 from __future__ import annotations
@@ -16,6 +18,11 @@ from pilosa_tpu_torch.core.fragment import Fragment
 from pilosa_tpu_torch.shardwidth import SHARD_WORDS
 
 VIEW_STANDARD = "standard"
+VIEW_BSI_PREFIX = "bsig_"
+
+
+def view_name_bsi(field_name: str) -> str:
+    return VIEW_BSI_PREFIX + field_name
 
 
 class View:
@@ -76,3 +83,17 @@ class View:
     def set_mutex(self, row: int, col: int) -> bool:
         shard, off = self._split(col)
         return self.create_fragment_if_not_exists(shard).set_mutex(row, off)
+
+    def set_value(self, col: int, bit_depth: int, value: int) -> bool:
+        shard, off = self._split(col)
+        return self.create_fragment_if_not_exists(shard).set_value(off, bit_depth, value)
+
+    def value(self, col: int, bit_depth: int) -> tuple[int, bool]:
+        shard, off = self._split(col)
+        frag = self.fragment(shard)
+        return frag.value(off, bit_depth) if frag is not None else (0, False)
+
+    def clear_value(self, col: int) -> bool:
+        shard, off = self._split(col)
+        frag = self.fragment(shard)
+        return frag.clear_value(off) if frag is not None else False

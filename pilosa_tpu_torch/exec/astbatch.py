@@ -21,9 +21,12 @@ whole batch, and a bitmap tree by one launch of :func:`kernels.tree_words`.
   ``TREE_MAX_DEPTH`` for any tree: trees of every width and nesting run on
   the card.
 
-Not ported here yet: time-range leaves (with time views), the BSI signing
-half of the module (with BSI) and the program over a process-spanning mesh
-(with the cluster).
+The BSI signing half (:func:`match_bsi`) signs the calls the executor's
+batched BSI lane answers: range conditions, their Counts, Sum, Min, Max
+and GroupBy filtered by a condition, each with its op class.
+
+Not ported here yet: time-range leaves (with time views) and the program
+over a process-spanning mesh (with the cluster).
 """
 
 from __future__ import annotations
@@ -36,7 +39,7 @@ import numpy as np
 from pilosa_tpu_torch.core.field import FIELD_TYPE_INT
 from pilosa_tpu_torch.core.view import VIEW_STANDARD
 from pilosa_tpu_torch.ops import kernels
-from pilosa_tpu_torch.pql.ast import Call
+from pilosa_tpu_torch.pql.ast import Call, Condition
 
 _OPS = {
     "Intersect": "intersect",
@@ -228,3 +231,73 @@ def run_bitmap(sig, stacks: tuple, slots_np: np.ndarray):
     the stacks' device."""
     p = program(sig)
     return kernels.tree_words(stacks, p.code, p.leaf_stack, slots_np)
+
+
+# ------------------------------------------------------------- BSI signing
+#
+# BSI op classes of the executor's batched lane (Executor._batch_bsi): a
+# signed call joins a (field, op class) group, answered by one shared
+# launch per group (ops/bsi.py).
+
+BSI_RANGE = "bsi.range"
+BSI_RANGE_COUNT = "bsi.range_count"
+BSI_SUM = "bsi.sum"
+BSI_MIN = "bsi.min"
+BSI_MAX = "bsi.max"
+BSI_GROUPBY = "bsi.groupby"
+
+BSI_OP_CLASSES = (
+    BSI_RANGE, BSI_RANGE_COUNT, BSI_SUM, BSI_MIN, BSI_MAX, BSI_GROUPBY,
+)
+
+
+def _bsi_condition(idx, call: Call):
+    """(field, Condition) when ``call`` is a pure BSI range predicate,
+    ``Row(v < 3)`` or ``Range(v < 3)`` over an int field; None otherwise.
+    ``== null`` stays unsigned, so the per-call path raises it within its
+    own query."""
+    if call.name not in ("Row", "Range") or call.children:
+        return None
+    fname = call.field_arg()
+    if fname is None or set(call.args) != {fname}:
+        return None
+    field = idx.field(fname)
+    if field is None or not field.is_bsi():
+        return None
+    cond = call.args.get(fname)
+    if not isinstance(cond, Condition):
+        return None
+    if cond.op == "==" and cond.value is None:
+        return None
+    return field, cond
+
+
+def match_bsi(idx, call: Call):
+    """``(op_class, field, condition)`` when the batched BSI lane may
+    answer ``call`` (condition None for the aggregates, which carry their
+    filter as a child); None otherwise."""
+    name = call.name
+    m = _bsi_condition(idx, call)
+    if m is not None:
+        return BSI_RANGE, m[0], m[1]
+    if name == "Count" and len(call.children) == 1 and not call.args:
+        m = _bsi_condition(idx, call.children[0])
+        if m is not None:
+            return BSI_RANGE_COUNT, m[0], m[1]
+        return None
+    if name in ("Sum", "Min", "Max"):
+        fname, ok = call.string_arg("field")
+        if not ok:
+            fname = call.args.get("_field")
+        field = idx.field(fname) if fname else None
+        if field is None or not field.is_bsi():
+            return None
+        cls = {"Sum": BSI_SUM, "Min": BSI_MIN, "Max": BSI_MAX}[name]
+        return cls, field, None
+    if name == "GroupBy":
+        filt, has = call.call_arg("filter")
+        if has and filt is not None:
+            m = _bsi_condition(idx, filt)
+            if m is not None:
+                return BSI_GROUPBY, m[0], m[1]
+    return None

@@ -21,13 +21,24 @@ of ``ops/kernels.py``:
   (one field) or one cross gram (two fields, :meth:`_cross_gram`), and k
   levels or a filter through one cross gram per level over running
   prefix masks (:meth:`_groupby_k_level_batch`); a `previous` page is
-  cut from the answer.
+  cut from the answer;
+* int fields (BSI) — an int field's ``bsig_<field>`` view is stacked with
+  its rows fixed (exists, sign, then the planes: ``int32[S, 2+depth,
+  W]``, :meth:`_bsi_stack`) and read by the kernels of ``ops/bsi.py``:
+  range conditions (``Row``/``Range``) by the range scan, ``Sum`` by the
+  sum popcounts, ``Min``/``Max`` by the extreme narrowing. Unfiltered
+  aggregates and repeat range counts are cached per stack snapshot
+  (:meth:`_bsi_agg_cache`). A batch shares one launch per field and op
+  class (:meth:`_batch_bsi`): Q conditions or range counts one range scan,
+  Q filtered Sums one sum launch while their filter words fit a budget.
 
 Everything else is the latency tier on the host mirrors: lone counts,
 trees the batch paths decline (a cold lone tree, Shift), unfiltered TopN
-from the maintained per-fragment counts, Rows, and Set/Clear/ClearRow
-writes.
-Other calls (BSI, Store, attrs, keys, time views) raise
+from the maintained per-fragment counts, Rows, MinRow/MaxRow, a lone cold
+BSI condition (the ``ops/bsi.py`` functions on CPU tensors built from the
+mirrors, until _BSI_SINGLE_WARM lone conditions have asked), and
+Set/Clear/ClearRow writes.
+Other calls (Store, attrs, keys, time views) raise
 ``ExecuteError("... not yet ported")``.
 """
 
@@ -61,8 +72,9 @@ from pilosa_tpu_torch.exec.result import (
     Pair,
     Row,
     RowIdentifiers,
+    ValCount,
 )
-from pilosa_tpu_torch.ops import bitops, kernels
+from pilosa_tpu_torch.ops import bitops, bsi, kernels
 from pilosa_tpu_torch.pql.ast import Call, Condition
 
 # reference executor.go:66 defaultMinThreshold.
@@ -91,11 +103,6 @@ _WRITE_CALLS = {
 
 # Calls of the JAX executor that this slice does not serve yet.
 _NOT_PORTED_CALLS = {
-    "Sum",
-    "Min",
-    "Max",
-    "MinRow",
-    "MaxRow",
     "Store",
     "SetRowAttrs",
     "SetColumnAttrs",
@@ -152,6 +159,12 @@ class Executor:
     # an incremental stack update pays only while few shards changed; past
     # this fraction one full rebuild wins
     _STACK_INCR_MAX_FRACTION = 0.5
+    # lone BSI conditions against one field before a lone one builds the
+    # field's BSI stack (the BSI twin of _PAIR_SINGLE_WARM; 0 = at once)
+    _BSI_SINGLE_WARM = 4
+    # scalar aggregates kept per BSI stack snapshot (Sum, Min/Max and
+    # repeat range counts, a few ints each)
+    _BSI_AGG_SLOTS = 128
 
     def __init__(self, holder: Holder, max_writes_per_request: int | None = None):
         self.holder = holder
@@ -175,6 +188,16 @@ class Executor:
         self.gram_cache_hits = 0
         # GroupBy combination matrices served from a cached cross gram
         self.crossgram_cache_hits = 0
+        # field -> lone BSI-condition demand (warm-up for the BSI stack)
+        self._bsi_single_demand: weakref.WeakKeyDictionary = (
+            weakref.WeakKeyDictionary()
+        )
+        # BSI computations on a stack (each one or more kernel launches),
+        # aggregates served from the per-snapshot cache, and batched items
+        # left to the per-call path by an error of their own
+        self.bsi_stack_launches = 0
+        self.bsi_agg_cache_hits = 0
+        self.bsi_batch_item_errors = 0
 
     # ------------------------------------------------------------------ API
 
@@ -206,6 +229,7 @@ class Executor:
         )
         self._batch_pair_counts(idx, calls[:first_write], shards, results)
         self._batch_general(idx, calls[:first_write], shards, results)
+        self._batch_bsi(idx, calls[:first_write], shards, results)
         for i, call in enumerate(calls):
             if results[i] is _UNSET:
                 results[i] = self._execute_call(idx, call, shards)
@@ -251,6 +275,7 @@ class Executor:
             flat_results: list[Any] = [_UNSET] * len(flat_calls)
             self._batch_pair_counts(idx, flat_calls, shards, flat_results)
             self._batch_general(idx, flat_calls, shards, flat_results)
+            self._batch_bsi(idx, flat_calls, shards, flat_results)
             pos = 0
             for qi in qis:
                 calls = cloned[qi]
@@ -354,6 +379,12 @@ class Executor:
             raise _not_ported(f"{name}()")
         if name == "Count":
             return self._execute_count(idx, call, shards)
+        if name == "Sum":
+            return self._execute_sum(idx, call, shards)
+        if name in ("Min", "Max"):
+            return self._execute_min_max(idx, call, shards, maximal=name == "Max")
+        if name in ("MinRow", "MaxRow"):
+            return self._execute_min_max_row(idx, call, shards, maximal=name == "MaxRow")
         if name == "TopN":
             return self._execute_topn(idx, call, shards)
         if name == "Set":
@@ -403,23 +434,35 @@ class Executor:
             return None
         return fname, op, rows[0], rows[1]
 
-    def _field_stack(self, field: Field, shards: list[int]):
-        """(slot_of, bits) for the field's standard view: ``bits`` is an
+    @staticmethod
+    def _stack_key(shards: list[int], view_name: str, n_fixed_rows: int | None):
+        return tuple(shards), view_name, n_fixed_rows
+
+    def _field_stack(
+        self, field: Field, shards: list[int], view_name: str = VIEW_STANDARD,
+        fixed_rows: range | None = None,
+    ):
+        """(slot_of, bits) for one of the field's views: ``bits`` is an
         ``int32[S, R, W]`` tensor on the holder's device, DENSE over
         ``shards`` (all-zero slices where a shard has no fragment), rows in
-        ascending row-id order. Cached per shard set until a fragment's
-        (epoch, version) changes; then the changed shards are patched in
+        ascending row-id order, or pinned to ``fixed_rows`` (the BSI layout:
+        exists, sign and the planes at rows 0..depth+1, reference
+        fragment.go:90-96; rows outside it are not stacked). Cached per
+        (shard set, view, fixed row count) until a fragment's (epoch,
+        version) changes; then the changed shards are patched in
         (:meth:`_stack_incremental_update`) or, failing that, the stack is
         rebuilt from the host mirrors. None when the view has no rows over
         ``shards``. A stack larger than the device's free memory raises on
         allocation; it is never served from the host instead."""
-        v = field.view(VIEW_STANDARD)
+        v = field.view(view_name)
         if v is None:
             return None
         frags = {s: v.fragments[s] for s in shards if s in v.fragments}
         if not frags:
             return None
-        key = tuple(shards)
+        key = self._stack_key(
+            shards, view_name, None if fixed_rows is None else len(fixed_rows)
+        )
         versions = tuple(
             (frags[s].epoch, frags[s].version) if s in frags else (-1, -1)
             for s in shards
@@ -437,7 +480,10 @@ class Executor:
                 if updated is not None:
                     return updated
                 del caches[key]
-            row_ids = sorted({r for f in frags.values() for r in f.row_ids()})
+            if fixed_rows is not None:
+                row_ids = list(fixed_rows)
+            else:
+                row_ids = sorted({r for f in frags.values() for r in f.row_ids()})
             if not row_ids:
                 return None
             S, R, W = len(shards), len(row_ids), field.n_words
@@ -448,8 +494,9 @@ class Executor:
                 if f is None:
                     continue
                 ids, matrix = f.rows_matrix_host()
-                if ids:
-                    bits[si, [slot_of[r] for r in ids]] = matrix
+                src = [k for k, r in enumerate(ids) if r in slot_of]
+                if src:
+                    bits[si, [slot_of[ids[k]] for k in src]] = matrix[src]
             dev = bitops.to_device(bits, self.holder.device)
             del bits
             self.stack_rebuilds += 1
@@ -505,7 +552,8 @@ class Executor:
         old = entry["dev"]
         where = torch.tensor(changed, dtype=torch.int64, device=old.device)
         dev = old.index_copy(0, where, bitops.to_device(blocks, old.device))
-        for k in ("gram", "gram_misses", "rowcounts", "crossgram", "crossgram_misses"):
+        for k in ("gram", "gram_misses", "rowcounts", "crossgram", "crossgram_misses",
+                  "bsi_agg"):
             entry.pop(k, None)  # they described the old snapshot
         entry["dev"] = dev  # dev before versions: a reader keyed on versions
         entry["versions"] = versions  # must never see the old dev
@@ -520,9 +568,15 @@ class Executor:
                     return e
         return None
 
-    def _stack_cached(self, field: Field, shard_list: list[int]) -> bool:
+    def _stack_cached(
+        self, field: Field, shard_list: list[int], view_name: str = VIEW_STANDARD,
+        n_fixed_rows: int | None = None,
+    ) -> bool:
+        """Whether a stack of the field's view over these shards is cached
+        (a peek that never builds)."""
+        key = self._stack_key(shard_list, view_name, n_fixed_rows)
         with self._stack_lock:
-            return tuple(shard_list) in self._stacks.get(field, {})
+            return key in self._stacks.get(field, {})
 
     def _field_gram(self, field: Field, bits: torch.Tensor, uniq: list[int]):
         """(gram, pos) answering pair counts for the slot subset ``uniq``:
@@ -890,7 +944,8 @@ class Executor:
         return out
 
     def _execute_row(self, idx: Index, call: Call, shards: list[int]) -> Row:
-        """reference executor.go:1444 executeRowShard (plain rows only)."""
+        """reference executor.go:1444 executeRowShard: a plain row or a BSI
+        condition."""
         fname = call.field_arg()
         if fname is None:
             raise ExecuteError(f"{call.name}() requires a field argument")
@@ -899,7 +954,7 @@ class Executor:
             raise FieldNotFoundError(f"field not found: {fname}")
         v = call.args.get(fname)
         if isinstance(v, Condition):
-            raise _not_ported("a BSI range condition")
+            return self._execute_bsi_condition(idx, field, v, shards)
         if "from" in call.args or "to" in call.args:
             raise _not_ported("a time-range row")
         if not isinstance(v, int) or isinstance(v, bool):
@@ -910,13 +965,167 @@ class Executor:
             )
         return self._field_row(field, v, shards)
 
+
+    # ------------------------------------------------------ BSI conditions
+
+    def _execute_bsi_condition(
+        self, idx: Index, field: Field, cond: Condition, shards: list[int]
+    ) -> Row:
+        """A BSI range predicate (reference executor.go:1536-1566
+        executeBSIGroupRangeShard + fragment.go:1271-1534)."""
+        if not field.is_bsi():
+            raise ExecuteError(f"range condition on non-int field {field.name!r}")
+        # one warm-up decision per condition (a != evaluates two predicates)
+        ready = self._bsi_single_ready(field, shards)
+        op = cond.op
+        if op == "!=" and cond.value is None:
+            # f != null: every column with a value (reference frag.notNull)
+            return self._bsi_rows(field, shards, lambda pl, ex, sg: ex.clone(), ready)
+        if op == "==" and cond.value is None:
+            raise ExecuteError("Range(): <field> == null is not supported")
+        depth = field.bit_depth
+        base = field.base
+        if op in ("<", "<=", ">", ">="):
+            bound = int(cond.value) - base
+            fn = bsi.range_lt if op in ("<", "<=") else bsi.range_gt
+            allow_eq = op in ("<=", ">=")
+            return self._bsi_rows(
+                field, shards,
+                lambda pl, ex, sg: fn(pl, ex, sg, value=bound, depth=depth, allow_eq=allow_eq),
+                ready,
+            )
+        if op in ("==", "!="):
+            stored = int(cond.value) - base
+            eq = self._bsi_rows(
+                field, shards,
+                lambda pl, ex, sg: bsi.range_eq(
+                    pl, ex, sg, value_abs=abs(stored), negative=stored < 0, depth=depth
+                ),
+                ready,
+            )
+            if op == "==":
+                return eq
+            notnull = self._bsi_rows(field, shards, lambda pl, ex, sg: ex.clone(), ready)
+            return notnull.difference(eq)
+        if op == "><" or op in ("<x<", "<=x<", "<x<=", "<=x<="):
+            lo, hi = cond.int_pair()
+            if op != "><":
+                lo_op, hi_op = op.split("x")
+                lo = lo if lo_op == "<=" else lo + 1
+                hi = hi if hi_op == "<=" else hi - 1
+            return self._bsi_rows(
+                field, shards,
+                lambda pl, ex, sg: bsi.range_between(
+                    pl, ex, sg, lo=lo - base, hi=hi - base, depth=depth
+                ),
+                ready,
+            )
+        raise ExecuteError(f"unsupported condition op: {op}")
+
+    def _bsi_stack(self, field: Field, shards: list[int]):
+        """The field's BSI stack ``int32[S, 2+depth, W]`` (rows: exists,
+        sign, then the planes), or None when the BSI view holds no fragment
+        over ``shards``. It is a stack of the view like any other, cached
+        and patched after writes; a write that grows the depth changes its
+        key."""
+        stack = self._field_stack(
+            field, shards, view_name=field.bsi_view_name(),
+            fixed_rows=range(2 + field.bit_depth),
+        )
+        return None if stack is None else stack[1]
+
+    @staticmethod
+    def _bsi_split(bits: torch.Tensor):
+        """(exists, sign, planes) views of a BSI stack, read in place."""
+        return bits[:, 0], bits[:, 1], bits[:, 2:]
+
+    def _bsi_stack_live(self, field: Field, shards: list[int]) -> bool:
+        """Whether the field's BSI stack is cached for these shards (a
+        peek that never builds)."""
+        return self._stack_cached(
+            field, shards, field.bsi_view_name(), 2 + field.bit_depth
+        )
+
+    def _bsi_single_ready(self, field: Field, shards: list[int]) -> bool:
+        """Whether a LONE BSI condition takes the stack: at once when the
+        stack is live, else once _BSI_SINGLE_WARM of them have asked (a
+        stack build uploads the whole field, so demand must pay for it)."""
+        if self._BSI_SINGLE_WARM <= 0 or self._bsi_stack_live(field, shards):
+            return True
+        with self._stack_lock:
+            n = self._bsi_single_demand.get(field, 0) + 1
+            self._bsi_single_demand[field] = n
+        return n >= self._BSI_SINGLE_WARM
+
+    def _bsi_rows(self, field: Field, shards: list[int], kernel, ready: bool) -> Row:
+        """``kernel(planes, exists, sign)`` (an ``ops/bsi.py`` predicate,
+        ``[S, W]`` words) over every shard, as a Row: on the stack in one
+        launch, or, for a lone cold condition (not ``ready``), on CPU
+        tensors filled from the host mirrors, with no device upload (the
+        BSI twin of the host pair-count tier)."""
+        out = Row(n_words=self.holder.n_words)
+        if not ready:
+            view = field.view(field.bsi_view_name())
+            if view is None:
+                return out
+            frags = [(s, view.fragment(s)) for s in shards if view.fragment(s) is not None]
+            if not frags:
+                return out
+            depth, W = field.bit_depth, field.n_words
+            # one buffer for the field: the cold query costs one host copy
+            planes = np.zeros((len(frags), depth, W), dtype=np.uint32)
+            exists = np.zeros((len(frags), W), dtype=np.uint32)
+            sign = np.zeros((len(frags), W), dtype=np.uint32)
+            for si, (_, f) in enumerate(frags):
+                f.fill_bsi_tensors_host(depth, planes[si], exists[si], sign[si])
+            mask = bitops.to_host(kernel(
+                *(torch.from_numpy(a.view(np.int32)) for a in (planes, exists, sign))
+            ))
+            for si, (s, _) in enumerate(frags):
+                out.segments[s] = mask[si]
+            return out
+        st = self._bsi_stack(field, shards)
+        if st is None:
+            return out
+        exists, sign, planes = self._bsi_split(st)
+        self.bsi_stack_launches += 1
+        mask = bitops.to_host(kernel(planes, exists, sign))
+        for si, s in enumerate(shards):
+            out.segments[s] = mask[si]
+        return out
+
     # ----------------------------------------------------------------- Count
+
+    def _range_count_key(self, idx: Index, child: Call):
+        """(field, cache key) when ``child`` is a pure BSI range predicate,
+        the repeat-dashboard ``Count(Row(v < N))`` whose answer is a scalar
+        per stack snapshot; None otherwise."""
+        m = astbatch._bsi_condition(idx, child)
+        if m is None:
+            return None
+        field, cond = m
+        v = tuple(cond.value) if isinstance(cond.value, list) else cond.value
+        return field, f"rangecount:{cond.op}:{v!r}"
 
     def _execute_count(self, idx: Index, call: Call, shards: list[int] | None) -> int:
         if len(call.children) != 1:
             raise ExecuteError("Count() takes one argument")
         child = call.children[0]
         shard_list = self._shards_for(idx, shards)
+        keyed = self._range_count_key(idx, child)
+        if keyed is not None:
+            field, key = keyed
+            # a peek, never a build: a lone cold range count is answered on
+            # the host below; repeat demand builds the stack
+            ready = self._BSI_SINGLE_WARM <= 0 or self._bsi_stack_live(field, shard_list)
+            bits = self._bsi_stack(field, shard_list) if ready else None
+            if bits is not None:
+                cached, put = self._bsi_agg_cache(field, bits, key)
+                if cached is not None:
+                    return cached
+                n = self._bitmap_call(idx, child, shard_list).count()
+                put(n)
+                return n
         # Latency tier: a lone Count over a pair or a single row, answered
         # from the host mirrors (the gram path declined it).
         m = self._match_pair_count(idx, call)
@@ -961,6 +1170,310 @@ class Executor:
                 total += frag.row_pair_count(ra, rb, op)
         return total
 
+
+    # ------------------------------------------------------- BSI aggregates
+
+    def _sum_filter(self, idx: Index, call: Call, shards: list[int]) -> Row | None:
+        if len(call.children) > 1:
+            raise ExecuteError(f"{call.name}() only accepts a single bitmap input")
+        if call.children:
+            return self._bitmap_call(idx, call.children[0], shards)
+        return None
+
+    @staticmethod
+    def _bsi_field(idx: Index, call: Call) -> Field:
+        fname, ok = call.string_arg("field")
+        if not ok:
+            fname = call.args.get("_field")
+        if not fname:
+            raise ExecuteError(f"{call.name}(): field required")
+        field = idx.field(fname)
+        if field is None:
+            raise FieldNotFoundError(f"field not found: {fname}")
+        return field
+
+    def _bsi_agg_shards(self, idx: Index, call: Call, shards: list[int] | None):
+        """Sum/Min/Max scaffold: ``(field, stacked)``, where ``stacked`` is
+        the deferred ``(bits, filter_row, shards)`` of the field's BSI
+        stack (views and filter words are made only on a cache miss, by
+        :meth:`_bsi_tensors`), or None when no fragment holds values."""
+        shards = self._shards_for(idx, shards)
+        field = self._bsi_field(idx, call)
+        filt = self._sum_filter(idx, call, shards)
+        bits = self._bsi_stack(field, shards)
+        return field, (None if bits is None else (bits, filt, shards))
+
+    def _bsi_agg_cache(self, field: Field, dev: torch.Tensor, key: str):
+        """``(cached value | None, put)``: scalar aggregates per BSI stack
+        snapshot, on its cache entry (keyed on the tensor's identity, so a
+        write, which makes a new snapshot, misses), at most _BSI_AGG_SLOTS
+        of them, least recently used first out."""
+        entry = self._stack_entry_for(field, dev)
+        if entry is None:
+            return None, lambda v: None
+        with self._stack_lock:
+            slots = entry.get("bsi_agg")
+            t = slots.get(key) if slots else None
+            if t is not None and t[0] is dev:
+                self.bsi_agg_cache_hits += 1
+                slots[key] = slots.pop(key)
+                return t[1], lambda v: None
+
+        def put(v):
+            with self._stack_lock:
+                if entry.get("dev") is dev:  # the snapshot is still current
+                    slots2 = entry.setdefault("bsi_agg", {})
+                    slots2.pop(key, None)
+                    slots2[key] = (dev, v)
+                    while len(slots2) > self._BSI_AGG_SLOTS:
+                        del slots2[next(iter(slots2))]
+
+        return None, put
+
+    def _bsi_tensors(self, field: Field, stacked):
+        """``(planes, exists, sign, filter words)`` of a deferred stacked
+        aggregate; the exists row is its own filter when unfiltered."""
+        bits, filt, shards = stacked
+        exists, sign, planes = self._bsi_split(bits)
+        if filt is None:
+            return planes, exists, sign, exists
+        S, W = exists.shape
+        fw = bitops.to_device(self._row_to_shard_matrix(filt, shards, S, W), bits.device)
+        return planes, exists, sign, fw
+
+    def _bsi_agg_serve(self, field: Field, stacked, key: str, compute):
+        """One stacked aggregate: a cache hit for an unfiltered one, else
+        ``compute(planes, exists, sign, filter_words)`` (installed when
+        unfiltered)."""
+        bits, filt, _ = stacked
+        cached, put = (
+            self._bsi_agg_cache(field, bits, key) if filt is None else (None, lambda v: None)
+        )
+        if cached is None:
+            self.bsi_stack_launches += 1
+            cached = compute(*self._bsi_tensors(field, stacked))
+            put(cached)
+        return cached
+
+    @staticmethod
+    def _sum_valcount(field: Field, tc) -> ValCount:
+        total, count = tc
+        if count == 0:
+            return ValCount()
+        return ValCount(value=total + count * field.base, count=count)
+
+    def _execute_sum(self, idx: Index, call: Call, shards: list[int] | None) -> ValCount:
+        """reference executor.go:409-442 + executeSumCountShard."""
+        field, stacked = self._bsi_agg_shards(idx, call, shards)
+        if stacked is None:
+            return ValCount()
+        depth = field.bit_depth
+        tc = self._bsi_agg_serve(
+            field, stacked, "sum",
+            lambda p, e, s, fw: bsi.sum_host(p, e, s, fw, depth=depth),
+        )
+        return self._sum_valcount(field, tc)
+
+    def _execute_min_max(
+        self, idx: Index, call: Call, shards: list[int] | None, maximal: bool
+    ) -> ValCount:
+        """Min/Max over the whole stack: per-shard (and slice) extremes,
+        combined on the host, which is the reference's per-shard merge
+        (equal extremes add their counts)."""
+        field, stacked = self._bsi_agg_shards(idx, call, shards)
+        if stacked is None:
+            return ValCount()
+        depth = field.bit_depth
+        value, count = self._bsi_agg_serve(
+            field, stacked, f"minmax:{maximal}",
+            lambda p, e, s, fw: bsi.min_max_host(p, e, s, fw, depth=depth, maximal=maximal),
+        )
+        if count == 0:
+            return ValCount()
+        return ValCount(value=value + field.base, count=count)
+
+    def _execute_min_max_row(
+        self, idx: Index, call: Call, shards: list[int] | None, maximal: bool
+    ) -> Pair:
+        """MinRow/MaxRow: the extreme row id holding a bit, with its count
+        (reference executor.go:560-651), from the maintained per-fragment
+        counts."""
+        shards = self._shards_for(idx, shards)
+        fname, ok = call.string_arg("field")
+        if not ok:
+            raise ExecuteError(f"{call.name}(): field required")
+        field = idx.field(fname)
+        if field is None:
+            raise FieldNotFoundError(f"field not found: {fname}")
+        view = field.view(VIEW_STANDARD)
+        best: Pair | None = None
+        if view is not None:
+            for shard in shards:
+                frag = view.fragment(shard)
+                if frag is None:
+                    continue
+                ids, counts = frag.row_counts()
+                ids = np.asarray(ids, np.uint64)  # row ids span 64 bits
+                counts = np.asarray(counts, np.int64)
+                nz = counts > 0
+                if not nz.any():
+                    continue
+                rid = int(ids[nz].max() if maximal else ids[nz].min())
+                cnt = int(counts[ids == rid][0])
+                if best is None or (rid > best.id if maximal else rid < best.id):
+                    best = Pair(id=rid, count=cnt)
+                elif rid == best.id:
+                    best.count += cnt
+        return best or Pair()
+
+    # ---------------------------------------------------- batched BSI lane
+
+    @staticmethod
+    def _bsi_stored_bounds(field: Field, cond: Condition):
+        """A condition's bounds in stored space (value - base), for the
+        batched range scan (ops/bsi.py condition_bounds)."""
+        op = cond.op
+        if op == "!=" and cond.value is None:
+            return bsi.condition_bounds(op, None)
+        if op == "><" or "x" in op:
+            lo, hi = cond.int_pair()
+            return bsi.condition_bounds(op, (lo - field.base, hi - field.base))
+        return bsi.condition_bounds(op, int(cond.value) - field.base)
+
+    def _batch_bsi(
+        self, idx: Index, calls: list[Call], shards: list[int] | None,
+        results: list[Any],
+    ) -> None:
+        """Answer every call ``astbatch.match_bsi`` signs with shared
+        launches: calls group by (field, op class), so Q conditions cost one
+        range scan and Q filtered Sums one sum launch (within a budget).
+        An item's own trouble leaves its slot _UNSET for the per-call path,
+        which raises it within its own query; one bad query never fails the
+        others. A field engages when two or more of its calls batch or its
+        BSI stack is live; a lone cold call keeps the per-call path."""
+        by_field: dict[str, list[tuple[int, str, Any]]] = {}
+        fields: dict[str, Field] = {}
+        for i, call in enumerate(calls):
+            if results[i] is not _UNSET:
+                continue
+            m = astbatch.match_bsi(idx, call)
+            if m is None:
+                continue
+            op_class, field, cond = m
+            by_field.setdefault(field.name, []).append((i, op_class, cond))
+            fields[field.name] = field
+        if not by_field:
+            return
+        shard_list = self._shards_for(idx, shards)
+        for fname, items in by_field.items():
+            field = fields[fname]
+            if len(items) < 2 and not self._bsi_stack_live(field, shard_list):
+                continue
+            bits = self._bsi_stack(field, shard_list)
+            if bits is None:
+                continue
+            groups: dict[str, list[tuple[int, Any]]] = {}
+            for i, op_class, cond in items:
+                groups.setdefault(op_class, []).append((i, cond))
+            self._batch_bsi_field(idx, field, bits, groups, shard_list, calls, results)
+
+    def _batch_bsi_field(
+        self, idx: Index, field: Field, bits: torch.Tensor, groups, shard_list,
+        calls: list[Call], results: list[Any],
+    ) -> None:
+        """One field's grouped launches against its BSI stack."""
+        depth = field.bit_depth
+        exists, sign, planes = self._bsi_split(bits)
+
+        def queries_of(items):
+            try:
+                return [self._bsi_stored_bounds(field, cond) for _, cond in items]
+            except (ValueError, TypeError):
+                return None  # the per-call path raises per query
+
+        # -- result words: Row/Range conditions and GroupBy filters, in
+        # launches of at most RANGE_WORDS_BYTES of [Q, S, W] words
+        mask_items = groups.get(astbatch.BSI_RANGE, []) + groups.get(astbatch.BSI_GROUPBY, [])
+        queries = queries_of(mask_items) if mask_items else None
+        if queries is not None:
+            cap = bsi.range_words_cap(*exists.shape)
+            for q0 in range(0, len(queries), cap):
+                self.bsi_stack_launches += 1
+                masks = bitops.to_host(bsi.range_batch(
+                    planes, exists, sign, queries[q0 : q0 + cap], depth=depth
+                ))
+                for qi, (i, _) in enumerate(mask_items[q0 : q0 + cap]):
+                    row = Row(n_words=self.holder.n_words)
+                    for si, s in enumerate(shard_list):
+                        row.segments[s] = masks[qi, si]
+                    if calls[i].name != "GroupBy":
+                        results[i] = row
+                        continue
+                    try:
+                        results[i] = self._execute_groupby(
+                            idx, calls[i], shard_list, filt_row=row
+                        )
+                    except Exception:  # the per-call path raises per query
+                        self.bsi_batch_item_errors += 1
+
+        # -- range counts: cache hits first, the rest in one count launch
+        count_items = groups.get(astbatch.BSI_RANGE_COUNT, [])
+        pending: list[tuple[int, Any]] = []
+        puts: list = []
+        for i, cond in count_items:
+            keyed = self._range_count_key(idx, calls[i].children[0])
+            cached, put = (
+                self._bsi_agg_cache(field, bits, keyed[1]) if keyed is not None
+                else (None, lambda v: None)
+            )
+            if cached is not None:
+                results[i] = cached
+            else:
+                pending.append((i, cond))
+                puts.append(put)
+        queries = queries_of(pending) if pending else None
+        if queries is not None:
+            self.bsi_stack_launches += 1
+            counts = bsi.range_count_batch(planes, exists, sign, queries, depth=depth)
+            for (i, _), put, n in zip(pending, puts, counts):
+                put(n)
+                results[i] = n
+
+        sum_items = groups.get(astbatch.BSI_SUM, [])
+        if sum_items:
+            self._batch_bsi_sums(idx, field, bits, sum_items, shard_list, calls, results)
+
+        # -- Min/Max: one cached scalar per (field, kind); each item fails
+        # alone
+        for op_class, maximal in ((astbatch.BSI_MIN, False), (astbatch.BSI_MAX, True)):
+            for i, _ in groups.get(op_class, []):
+                try:
+                    results[i] = self._execute_min_max(idx, calls[i], shard_list, maximal)
+                except Exception:  # the per-call path raises per query
+                    self.bsi_batch_item_errors += 1
+
+    def _batch_bsi_sums(
+        self, idx: Index, field: Field, bits: torch.Tensor, sum_items, shard_list,
+        calls: list[Call], results: list[Any],
+    ) -> None:
+        """Unfiltered Sums share the cached stacked aggregate; each filtered
+        one takes one bsi_sum launch over its own filter. (One launch for a
+        flight's ``[S, Q, W]`` filter words, made and uploaded from the
+        host, cost more per filter than these launches.)"""
+        depth = field.bit_depth
+
+        def compute(p, e, s, fw):
+            return bsi.sum_host(p, e, s, fw, depth=depth)
+
+        for i, _ in sum_items:
+            try:
+                filt = self._sum_filter(idx, calls[i], shard_list)
+            except Exception:  # the per-call path raises per query
+                self.bsi_batch_item_errors += 1
+                continue
+            tc = self._bsi_agg_serve(field, (bits, filt, shard_list), "sum", compute)
+            results[i] = self._sum_valcount(field, tc)
+
     # ---------------------------------------------------------------- writes
 
     def _execute_set(self, idx: Index, call: Call) -> bool:
@@ -975,7 +1488,11 @@ class Executor:
         if field is None:
             raise FieldNotFoundError(f"field not found: {fname}")
         if field.is_bsi():
-            raise _not_ported("Set() on an int field")
+            idx.add_column_existence(col)
+            value, ok = call.int_arg(fname)
+            if not ok:
+                raise ExecuteError("Set() row argument 'row' required")
+            return field.set_value(col, value)
         if call.args.get("_timestamp") is not None:
             raise _not_ported("Set() with a timestamp")
         idx.add_column_existence(col)
@@ -995,7 +1512,9 @@ class Executor:
         if field is None:
             raise FieldNotFoundError(f"field not found: {fname}")
         if field.is_bsi():
-            raise _not_ported("Clear() on an int field")
+            # the column's value goes, whatever value the call names (the
+            # JAX package's v1.3 behaviour)
+            return field.clear_value(col)
         row, ok = call.uint_arg(fname)
         if not ok:
             raise ExecuteError("row=<row> argument required to Clear() call")
@@ -1176,14 +1695,17 @@ class Executor:
     # --------------------------------------------------------------- GroupBy
 
     def _execute_groupby(
-        self, idx: Index, call: Call, shards: list[int] | None
+        self, idx: Index, call: Call, shards: list[int] | None,
+        filt_row: Row | None = None,
     ) -> list[GroupCount]:
         """reference executor.go:1071-1275: the cross product of the Rows()
         children in row order, each combination counted over the
         intersection of its rows (and the filter), zero counts dropped.
         Every combination is counted on the stacks; a `previous` page is
         the answer's combinations after the bound (row order is the
-        answer's order), and `limit` cuts what is left."""
+        answer's order), and `limit` cuts what is left. ``filt_row``, when
+        given, is the filter's row already evaluated (by the batched BSI
+        lane)."""
         shards = self._shards_for(idx, shards)
         if not call.children:
             raise ExecuteError("GroupBy requires at least one Rows() child")
@@ -1197,7 +1719,8 @@ class Executor:
             raise ExecuteError(
                 "'previous' argument must have a value for each GroupBy field"
             )
-        filt_row = self._bitmap_call(idx, filt_call, shards) if has_filt else None
+        if has_filt and filt_row is None:
+            filt_row = self._bitmap_call(idx, filt_call, shards)
 
         levels = []
         for c in call.children:

@@ -26,7 +26,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = (
     "row_scan.cu", "masked_row_scan.cu", "gram.cu", "cross_gram.cu", "mma_rate.cu",
-    "tree_eval.cu",
+    "tree_eval.cu", "bsi.cu",
 )
 HEADERS = ("scan_common.cuh", "gram_tile.cuh")
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -65,6 +65,22 @@ _SIGNATURES = {
     # (table, tiles, n_rows, n_items, n_steps, L, depth, S, W, then the plan:
     # stages, rows_max, items_max, wsplit, flat; out, device, stream)
     "pilosa_tree_count_staged": (_VOIDP, *(_INT,) * 13, _VOIDP, _INT, _VOIDP),
+    # each operand a pointer and its shard stride in words; then (table, Q,
+    # nb, need_lo, need_hi, count, depth, S, W, out, device, stream)
+    "pilosa_bsi_range": (
+        _VOIDP, _LL, _VOIDP, _LL, _VOIDP, _LL, _VOIDP, *(_INT,) * 8, _VOIDP, _INT, _VOIDP,
+    ),
+    # (planes, exists, sign, filters (shard and query strides), Q, depth, S,
+    # W, out, device, stream)
+    "pilosa_bsi_sum": (
+        _VOIDP, _LL, _VOIDP, _LL, _VOIDP, _LL, _VOIDP, _LL, _LL, *(_INT,) * 4, _VOIDP,
+        _INT, _VOIDP,
+    ),
+    # (planes, exists, sign, filter, depth, S, W, maximal, out, device, stream)
+    "pilosa_bsi_extreme": (
+        _VOIDP, _LL, _VOIDP, _LL, _VOIDP, _LL, _VOIDP, _LL, *(_INT,) * 4, _VOIDP, _INT,
+        _VOIDP,
+    ),
 }
 
 _lock = threading.Lock()

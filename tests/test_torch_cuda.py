@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+from pilosa_tpu_torch.ops import bsi as tb
 from pilosa_tpu_torch.ops import kernels as tk
 
 pytestmark = pytest.mark.cuda
@@ -131,6 +132,7 @@ def test_chunked_cross_pair_gram_matches_plain(cuda_device, monkeypatch):
 
 
 def test_executor_on_cuda_matches_cpu(cuda_device):
+    from pilosa_tpu_torch.core.field import FieldOptions
     from pilosa_tpu_torch.core.holder import Holder
     from pilosa_tpu_torch.exec.executor import Executor
     from pilosa_tpu_torch.shardwidth import SHARD_WIDTH
@@ -177,11 +179,25 @@ def test_executor_on_cuda_matches_cpu(cuda_device):
         "Count(Intersect(Row(f=4), Row(g=5), Row(f=6))) Union(Row(f=0), Row(g=0), Row(g=7))"
     )
 
+    # an int field: the aggregates build its stack (the sum and the
+    # extreme), then a range count and a bitmap condition read it (the
+    # range scan), and a GroupBy filtered by a condition
+    values = " ".join(
+        f"Set({int(c)}, v={int(x)})"
+        for c, x in zip(rng.integers(0, n_cols, 2000), rng.integers(-500, 1000, 2000))
+    )
+    bsi = (
+        "Sum(field=v) Sum(Row(f=3), field=v) Min(field=v) Max(Row(g=1), field=v) "
+        "Count(Row(v < 40)) Row(-20 <= v < 300) GroupBy(Rows(f), filter=Row(v > 100))"
+    )
+
     def plain(r):
         if isinstance(r, int):
             return r
         if hasattr(r, "columns"):
             return r.columns().tolist()
+        if hasattr(r, "value"):
+            return (r.value, r.count)
         return [
             (p.id, p.count) if hasattr(p, "id")
             else ([(g.field, g.row_id) for g in p.group], p.count)
@@ -191,13 +207,15 @@ def test_executor_on_cuda_matches_cpu(cuda_device):
     before = dict(tk.LAUNCHES)
     out = []
     for e in executors:
-        for q in sets:
+        e.holder.index("i").create_field(
+            "v", FieldOptions(field_type="int", min_=-500, max_=1000))
+        for q in sets + [values]:
             e.execute("i", q)
         res = e.execute("i", topn) + e.execute("i", pairs) + e.execute("i", groupby)
-        res += e.execute("i", trees)
-        e.execute("i", "Clear(5, f=1) Set(6, f=1) ClearRow(f=2) Set(7, g=4)")
+        res += e.execute("i", trees) + e.execute("i", bsi)
+        e.execute("i", "Clear(5, f=1) Set(6, f=1) ClearRow(f=2) Set(7, g=4) Set(8, v=999)")
         res += e.execute("i", topn) + e.execute("i", pairs) + e.execute("i", groupby)
-        res += e.execute("i", trees)
+        res += e.execute("i", trees) + e.execute("i", bsi)
         out.append([plain(r) for r in res])
     assert out[0] == out[1]
     for k in tk.LAUNCHES:
@@ -730,3 +748,125 @@ def test_incremental_update_on_cuda_makes_a_new_tensor(cuda_device):
     cpu, _ = _tree_executors(cuda_device)
     cpu.execute("i", "Set(11, f=0) Set(12, f=1)")
     assert got == cpu.execute("i", q)
+
+
+# -- the BSI kernels (ops/csrc/bsi.cu) against their plain versions: one
+#    shard and several, W off each kernel's chunk (128, 1024 and 2048
+#    words), depths 1, 20 and 63, Q across the range scan's query tile of
+#    8, negative values, and an empty exists row
+
+
+def _bsi_operands(rng, S, depth, W, device, empty_exists=False):
+    """A BSI stack ``[S, 2+depth, W]`` on ``device`` and its (planes,
+    exists, sign) views, read in place by the kernels."""
+    stack = _words(rng, S, 2 + depth, W)
+    if empty_exists:
+        stack[:, 0] = 0
+    stack = stack.to(device)
+    return stack, stack[:, 2:], stack[:, 0], stack[:, 1]
+
+
+def _bsi_queries(rng, n, depth, two):
+    """``n`` random queries of 1 (or 1-2) bounds, in and out of band."""
+    lim = 1 << depth
+    ops = ["<", "<=", ">", ">=", "==", "!="]
+    out = []
+    for _ in range(n):
+        k = 1 + int(two and rng.integers(0, 2))
+        q = []
+        for _ in range(k):
+            mag = int(rng.integers(0, 1 << min(depth + 1, 62))) if depth else int(rng.integers(0, 2))
+            if rng.random() < 0.1:
+                mag = lim
+            v = -mag if rng.random() < 0.4 else mag
+            op = ops[int(rng.integers(0, len(ops)))]
+            q.append((op, v))
+        if rng.random() < 0.05:
+            q = [("any", 0)]
+        out.append(q)
+    return out
+
+
+@pytest.mark.parametrize(
+    "S,W,depth,Q,two",
+    [(1, 130, 1, 1, False), (3, 130, 20, 3, True), (2, 300, 63, 9, True),
+     (5, 1000, 20, 17, False), (1, 128, 0, 4, True), (4, 257, 20, 128, False),
+     (2, 130, 63, 130, True)],
+)
+def test_bsi_range_matches_plain(cuda_device, S, W, depth, Q, two):
+    rng = np.random.default_rng(S * 1000 + W + depth + Q)
+    _, planes, exists, sign = _bsi_operands(rng, S, depth, W, cuda_device)
+    queries = _bsi_queries(rng, Q, depth, two)
+    qmask, _, qmeta, _ = tb.encode_query_bounds(queries, depth)
+    table = tb.bounds_table(qmask, qmeta)
+    before = tk.LAUNCHES["bsi_range"]
+    counts = tb.bsi_range(planes, exists, sign, table, count=True)
+    words = tb.bsi_range(planes, exists, sign, table, count=False)
+    torch.cuda.synchronize()
+    assert tk.LAUNCHES["bsi_range"] == before + 2
+    want_words = tb.bsi_range_plain(planes, exists, sign, table, False)
+    assert torch.equal(words, want_words)
+    assert torch.equal(counts, tb.bsi_range_plain(planes, exists, sign, table, True))
+    cpu = [t.cpu() for t in (planes, exists, sign)]
+    assert torch.equal(words.cpu(), tb.bsi_range(*cpu, table, count=False))
+
+
+def test_bsi_range_counts_past_one_launch(cuda_device, monkeypatch):
+    rng = np.random.default_rng(3)
+    _, planes, exists, sign = _bsi_operands(rng, 3, 20, 130, cuda_device)
+    queries = _bsi_queries(rng, 21, 20, True)
+    monkeypatch.setattr(tb, "BSI_RANGE_MAX_Q", 8)
+    before = tk.LAUNCHES["bsi_range"]
+    got = tb.range_count_batch(planes, exists, sign, queries, depth=20)
+    assert tk.LAUNCHES["bsi_range"] == before + 3
+    cpu = [t.cpu() for t in (planes, exists, sign)]
+    assert got == tb.range_count_batch(*cpu, queries, depth=20)
+
+
+@pytest.mark.parametrize(
+    "S,W,depth,Q,empty",
+    [(1, 130, 1, 1, False), (3, 1100, 20, 3, False), (2, 2049, 63, 9, False),
+     (5, 1024, 20, 2, True), (1, 100, 0, 5, False), (7, 3000, 20, 64, False)],
+)
+def test_bsi_sum_matches_plain(cuda_device, S, W, depth, Q, empty):
+    rng = np.random.default_rng(S + W + depth + Q)
+    _, planes, exists, sign = _bsi_operands(rng, S, depth, W, cuda_device, empty)
+    filters = _words(rng, S, Q, W).to(cuda_device)
+    before = tk.LAUNCHES["bsi_sum"]
+    got = tb.bsi_sum(planes, exists, sign, filters)
+    got_all = tb.bsi_sum(planes, exists, sign)
+    got_one = tb.bsi_sum(planes, exists, sign, filters[:, Q - 1])
+    torch.cuda.synchronize()
+    assert tk.LAUNCHES["bsi_sum"] == before + 3
+    assert torch.equal(got, tb.bsi_sum_plain(planes, exists, sign, filters))
+    assert torch.equal(got_all, tb.bsi_sum_plain(planes, exists, sign, None))
+    assert torch.equal(got_one, got[:, Q - 1 :])
+    cpu = [t.cpu() for t in (planes, exists, sign, filters)]
+    assert tb.sum_batch_host(planes, exists, sign, filters, depth=depth) == (
+        tb.sum_batch_host(*cpu, depth=depth))
+
+
+@pytest.mark.parametrize(
+    "S,W,depth,empty",
+    [(1, 130, 1, False), (3, 2100, 20, False), (2, 4096, 63, False), (4, 300, 0, False),
+     (2, 2048, 20, True), (6, 5000, 20, False)],
+)
+def test_bsi_extreme_matches_plain(cuda_device, S, W, depth, empty):
+    rng = np.random.default_rng(S * W + depth)
+    stack, planes, exists, sign = _bsi_operands(rng, S, depth, W, cuda_device, empty)
+    if depth >= 2:  # high planes sparse, so slices reach different extremes
+        stack[:, 2 + depth - 2 :] &= _words(rng, S, 2, W).to(cuda_device) & _words(
+            rng, S, 2, W).to(cuda_device)
+    filt = _words(rng, S, W).to(cuda_device)
+    before = tk.LAUNCHES["bsi_extreme"]
+    for maximal in (True, False):
+        for f in (None, filt):
+            got = tb.bsi_extreme(planes, exists, sign, f, maximal=maximal)
+            want = tb.bsi_extreme_plain(planes, exists, sign, f, maximal)
+            assert torch.equal(got, want), (maximal, f is None)
+            cpu = [t.cpu() for t in (planes, exists, sign)]
+            fw = exists if f is None else f
+            assert tb.min_max_host(planes, exists, sign, fw, depth=depth, maximal=maximal) == (
+                tb.min_max_host(*cpu, fw.cpu(), depth=depth, maximal=maximal))
+    torch.cuda.synchronize()
+    assert tk.LAUNCHES["bsi_extreme"] == before + 8

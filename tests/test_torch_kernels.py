@@ -158,9 +158,16 @@ def test_cpu_wrappers_do_not_count_launches():
     tk.cross_gram_gather(bits, bits, [0, 1], [2])
     tk.tree_count((bits,), [0, 1, tk.TREE_AND], [0, 0], np.zeros((2, 2), np.int32))
     tk.tree_words((bits,), [0, 1, tk.TREE_AND], [0, 0], np.zeros(2, np.int32))
+    from pilosa_tpu_torch.ops import bsi
+
+    planes, exists, sign = bits[:, 2:], bits[:, 0], bits[:, 1]
+    bsi.range_count_batch(planes, exists, sign, [[("<", 1)]], depth=1)
+    bsi.range_batch(planes, exists, sign, [[(">", 0)]], depth=1)
+    bsi.sum_host(planes, exists, sign, exists, depth=1)
+    bsi.min_max_host(planes, exists, sign, exists, depth=1, maximal=True)
     assert tk.LAUNCHES == {
         "row_scan": 0, "masked_row_scan": 0, "gram": 0, "cross_gram": 0,
-        "tree_count": 0, "tree_words": 0,
+        "tree_count": 0, "tree_words": 0, "bsi_range": 0, "bsi_sum": 0, "bsi_extreme": 0,
     }
 
 

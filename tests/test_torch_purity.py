@@ -20,7 +20,8 @@ from pilosa_tpu_torch import convert, device, pql
 from pilosa_tpu_torch.core.holder import Holder
 from pilosa_tpu_torch.exec import astbatch
 from pilosa_tpu_torch.exec.executor import Executor
-from pilosa_tpu_torch.ops import bitops, cuda_build, kernels
+from pilosa_tpu_torch.core.field import FieldOptions
+from pilosa_tpu_torch.ops import bitops, bsi, cuda_build, kernels
 
 h = Holder(device="cpu")
 idx = h.create_index("i")
@@ -39,6 +40,11 @@ tree_count = kernels.tree_count
 kernels.tree_count = lambda *a: calls.append(a) or tree_count(*a)
 res = e.execute("i", "Count(Xor(Row(f=1), Row(f=2), Row(f=3))) Count(Not(Row(f=2)))" * 2)
 assert res == [2, 1, 2, 1] and len(calls) == 2, (res, len(calls))
+idx.create_field("v", FieldOptions(field_type="int", min_=-10, max_=100))
+e.execute("i", "Set(1, v=7) Set(2, v=-3) Set(70000, v=90)")
+res = e.execute("i", "Sum(field=v) Row(v > 5)")
+assert (res[0].value, res[0].count) == (94, 3), res[0]
+assert res[1].columns().tolist() == [1, 70000], res[1]
 bad = sorted(
     m for m in sys.modules
     if m == "jax" or m.startswith("jax.") or m.startswith("jaxlib")
