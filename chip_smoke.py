@@ -252,7 +252,7 @@ def device_ms(fn, reps: int = 5):
 def gram_sass_counts(counts):
     """Tensor-core MMA instructions in the SASS of each gram kernel: the
     instantiations of ``pilosa_gram_tiles`` (SELF true: the gram, false:
-    the cross gram), by tile, from ``cuda_build.sass_mma_counts()``."""
+    the cross gram), by tile, from ``cuda_build.sass_mma_counts``."""
     import re
 
     out = {"gram": {}, "cross_gram": {}}
@@ -663,7 +663,7 @@ def tree_floors(prog, stacks, slots, rates):
 def tree_sass_counts(counts):
     """BMMA instructions in the SASS of each instance of the staged tree
     count (``pilosa_tree_count_staged``), from
-    ``cuda_build.sass_mma_counts()``; fails when one has none."""
+    ``cuda_build.sass_mma_counts``; fails when one has none."""
     out = {fn: n for fn, n in counts.items() if "pilosa_tree_count_staged" in fn}
     if not out or min(out.values()) == 0:
         raise AssertionError(f"tree_count: no tensor-core MMA in the staged kernel's SASS {out}")
@@ -687,6 +687,88 @@ def forced_tree_plan(change):
             tk.tree_plan = real
 
     return ctx()
+
+
+def forced_range_plan(**change):
+    """A context in which bsi_range takes its launch plan with ``change``
+    (``chunks``, ``config``, ``vec``) in place of the plan's defaults."""
+    from contextlib import contextmanager
+
+    from pilosa_tpu_torch.ops import bsi as tb
+
+    @contextmanager
+    def ctx():
+        real = tb.range_plan
+        tb.range_plan = lambda *a, **k: real(*a, **{**k, **change})
+        try:
+            yield
+        finally:
+            tb.range_plan = real
+
+    return ctx()
+
+
+# bsi_range's composition classes (ops/bsi.py _C_*), by number
+RANGE_CLASS_NAMES = ("zero", "exists", "fill_a", "sel_b", "eq", "ne", "bt_same", "bt_mix",
+                     "gen1", "gen2")
+
+
+def range_plan_log(plan):
+    """A launch plan of bsi_range for the log: the block shape, and each
+    launch's queries, segments ([class, queries]; "~" marks a swapped
+    sign selection), mask rows and planes read."""
+    import numpy as np
+
+    from pilosa_tpu_torch.ops import bsi as tb
+
+    launches = []
+    for launch in plan.launches:
+        P = np.frombuffer(launch.param, dtype=tb._RANGE_PARAM)[0]
+        segs, q0 = [], 0
+        for g in range(int(P["n_seg"])):
+            cls, end = int(P["seg_cls"][g]), int(P["seg_end"][g])
+            segs.append([RANGE_CLASS_NAMES[cls & 0xFF] + "~" * (cls >> 8), end - q0])
+            q0 = end
+        launches.append({"queries": int(P["n_q"]), "segments": segs,
+                         "mask_rows": int(P["n_rows"]), "depth": launch.depth})
+    return {"dmax": plan.dmax, "vec": plan.vec, "grid_x": plan.grid_x, "launches": launches}
+
+
+def range_query_sass(functions, dmax=20, vec=4):
+    """The loop over the queries of one single-side class in bsi_range's
+    count instance of ``dmax`` planes and ``vec`` words a thread, from its
+    SASS: the loop whose body loads the masks of one bound (``dmax / 4``
+    16-byte loads) and popcounts ``vec`` words, the least of them (the
+    one-side classes; equality reads both sides). Its instructions by
+    opcode at the full depth (every group guard passed), and per (query,
+    plane, word); None where no such loop is found."""
+    import re
+    from collections import Counter
+
+    name = next((fn for fn in functions
+                 if f"pilosa_bsi_range_kernelILb1ELi{dmax}ELi{vec}E" in fn), None)
+    ins = []
+    for line in functions.get(name, []):
+        m = re.match(r"\s*/\*([0-9a-f]+)\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)\s*([^\s;]*)",
+                     line)
+        if m:
+            ins.append((int(m.group(1), 16), m.group(2), m.group(3)))
+    best = None
+    for addr, op, arg in ins:
+        if op.startswith("BRA") and arg.startswith("0x") and int(arg, 16) < addr:
+            body = [o for a, o, _ in ins if int(arg, 16) <= a <= addr]
+            ops = Counter(o.split(".")[0] for o in body)
+            masks = sum(o.startswith("LDS") and ".128" in o for o in body)
+            if (masks == dmax // 4 and ops["POPC"] == vec and ops["LOP3"] >= dmax * vec
+                    and (best is None or len(body) < sum(best.values()))):
+                best = ops
+    if best is None:
+        return None
+    n = sum(best.values())
+    return {"instructions": n, "lop3": best["LOP3"],
+            "per_query_plane_word": round(n / (dmax * vec), 3),
+            "lop3_per_query_plane_word": round(best["LOP3"] / (dmax * vec), 3),
+            "by_opcode": dict(best.most_common(10))}
 
 
 def check_tree_kernels(stack_np, stack2_np, dev, rates=None):
@@ -982,6 +1064,28 @@ def bsi_flight(rng, n, depth, two=True):
     return out
 
 
+def bsi_range_tables(rng, S, W, depth=BSI_DEPTH):
+    """The range scan's timed shapes at an int field of ``depth`` planes:
+    ``{shape: (bounds table, count)}`` for the bench's 128 spread ``<=``
+    counts, one words launch of seeded conditions at the executor's cap
+    (12 at the serving shape), and a lone condition, words and counts."""
+    from pilosa_tpu_torch.ops import bsi as tb
+
+    def table_of(queries):
+        qmask, _, qmeta, _ = tb.encode_query_bounds(queries, depth)
+        return tb.bounds_table(qmask, qmeta)
+
+    cap = min(tb.range_words_cap(S, W), BSI_SUMS)
+    lone = table_of([[("<", 500_000)]])
+    return {
+        f"count_q{BSI_Q}": (table_of([[("<=", int((i + 0.5) * (1 << depth) / BSI_Q))]
+                                      for i in range(BSI_Q)]), True),
+        f"words_q{cap}": (table_of(bsi_flight(rng, cap, depth)), False),
+        "words_q1": (lone, False),
+        "count_q1": (lone, True),
+    }
+
+
 def bsi_range_bound(S, depth, W, table, count):
     """((ms, by), popc floor ms) of one bsi_range launch: the stack read once
     and the output written once at PEAK_BYTES_PER_S; against one LOP3 per
@@ -1045,12 +1149,14 @@ def check_bsi_kernels(dev):
     range scan at Q = 1, 3, 12 (one words launch of the main path) and 128
     (the bench's count flight), the sum unfiltered and under 1, 12 and 64
     filters, the extreme both ways, filtered and not; and at ragged shapes
-    (one shard, W off each kernel's chunk, depths 1 and 63, Q across the
-    query tile, an empty exists row). Then each is timed at the main
-    path's shapes with CUDA events around the wrapper and torch.profiler's
-    device time beside its bound; at its head shape (128 counts, one
-    filter, an unfiltered Max) also its plain version and, for the sum,
-    torch._int_mm on pre-unpacked int8 operands."""
+    (one shard, W off each kernel's chunk, depths 0, 1 and 63, Q = 1-128,
+    an empty exists row). Then each is timed at the main path's shapes
+    with CUDA events around the wrapper and torch.profiler's device time
+    beside its bound; at its head shape (128 counts, one filter, an
+    unfiltered Max) also its plain version and, for the sum, torch._int_mm
+    on pre-unpacked int8 operands. The range scan logs its launch plan at
+    each timed shape and its device time at each instance and block shape
+    the plan could take, each exact."""
     import numpy as np
     import torch
 
@@ -1077,19 +1183,23 @@ def check_bsi_kernels(dev):
     errs = {"bsi_range": 0, "bsi_sum": 0, "bsi_extreme": 0}
     # the main path's flights: a lone condition, a mixed flight, one words
     # launch at the executor's cap, and the bench's 128 spread thresholds
-    lone = table_of([[("<", 500_000)]], depth)
+    # (the timed shapes; their plain results kept for the sweep)
     mixed = table_of(bsi_flight(rng, 3, depth), depth)
     cap = min(tb.range_words_cap(S, W), BSI_SUMS)  # 12 at the serving shape
-    words_cap = table_of(bsi_flight(rng, cap, depth), depth)
-    spread = table_of([[("<=", int((i + 0.5) * (1 << depth) / BSI_Q))] for i in range(BSI_Q)],
-                      depth)
-    for name, table, count in (("lone words", lone, False), ("lone count", lone, True),
+    range_shapes = bsi_range_tables(rng, S, W)
+    lone = range_shapes["words_q1"][0]
+    words_cap = range_shapes[f"words_q{cap}"][0]
+    spread = range_shapes[f"count_q{BSI_Q}"][0]
+    range_want = {}
+    for name, table, count in (("words_q1", lone, False), ("count_q1", lone, True),
                                ("Q=3 words", mixed, False), ("Q=3 count", mixed, True),
-                               (f"Q={cap} words", words_cap, False),
-                               (f"Q={BSI_Q} count", spread, True)):
+                               (f"words_q{cap}", words_cap, False),
+                               (f"count_q{BSI_Q}", spread, True)):
+        want = tb.bsi_range_plain(P, E, G, table, count)
         errs["bsi_range"] = max(errs["bsi_range"], exact(
-            f"bsi_range {name}", tb.bsi_range(P, E, G, table, count=count),
-            tb.bsi_range_plain(P, E, G, table, count)))
+            f"bsi_range {name}", tb.bsi_range(P, E, G, table, count=count), want))
+        if name in range_shapes:
+            range_want[name] = want
     filters = bitops.to_device(random_words(rng, (S, BSI_SUMS, W), dense=True), dev)
     for name, f in (("unfiltered", None), ("one filter", filters[:, 0]),
                     (f"{cap} filters", filters[:, :cap]), (f"{BSI_SUMS} filters", filters)):
@@ -1145,6 +1255,24 @@ def check_bsi_kernels(dev):
     report["bsi_range"] = dict(
         max_abs_err=errs["bsi_range"], ms=t, device_ms=d, plain_ms=pl, bound=b,
         library_ms=None, extra=extra, popc_floors=floors)
+    # each timed shape's plan, and the instances and block shapes the plan
+    # could take (planes and words a thread, chunks a block), each exact,
+    # in device ms
+    for shape, (table, count) in range_shapes.items():
+        plan = tb.range_plan(table, depth, W, count, vec=tb._range_vec(P, E, G))
+        sweep = {}
+        for cfg in [c for c in tb.RANGE_CONFIGS if depth <= c[0]]:
+            for chunks in (1, 2, 4):
+                with forced_range_plan(chunks=chunks, config=cfg, vec=cfg[1]):
+                    fn = lambda: tb.bsi_range(P, E, G, table, count=count)
+                    label = f"{cfg[0]}x{cfg[1]} c{chunks}"
+                    exact(f"bsi_range {shape} at {label}", fn(), range_want[shape])
+                    sweep[label] = device_ms(fn, reps=3)
+        best = min(sweep, key=lambda k: sweep[k] or float("inf"))
+        log(f"bsi_range {shape}: plan {json.dumps(range_plan_log(plan))}; device ms by "
+            f"instance (planes x words a thread) and chunks a block, each exact: "
+            f"{json.dumps(sweep)}; fastest {best}")
+    del range_want
 
     # the sum: the main path's filtered Sum (one filter) at the head, with
     # torch._int_mm over the same work as the yardstick (its exact check
@@ -2346,12 +2474,15 @@ def main() -> int:
             log("  nvcc: " + line.strip())
     # cuobjdump reads the SASS while numpy draws the kernels' stacks
     with ThreadPoolExecutor(max_workers=1) as one:
-        counts = one.submit(cuda_build.sass_mma_counts)
+        functions = one.submit(cuda_build.sass)
         rng = np.random.default_rng(SEED + 3)
         stack = random_words(rng, (S_FULL, R_FULL, W_FULL), dense=True)
         stack2 = random_words(rng, (S_FULL, R_FULL, W_FULL), dense=True)
         filt = random_words(rng, (S_FULL, W_FULL), dense=False)
-        counts = counts.result()
+        functions = functions.result()
+    counts = cuda_build.sass_mma_counts(functions)
+    log(f"bsi_range: the count instance's loop of one query of one bound side (20 planes, "
+        f"4 words a thread) in SASS: {json.dumps(range_query_sass(functions))}")
     sass = gram_sass_counts(counts)
     for k, tiles in sass.items():
         log(f"{k}: tensor-core MMA instructions in SASS by tile {tiles}")

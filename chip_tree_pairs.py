@@ -22,11 +22,14 @@ first query of each kind after the writes (the stacks patched) is kept
 apart from the steady rounds. The answers of the two versions must be
 equal, and those of one version equal across rounds.
 
-With ``--kernels ROUNDS`` it first times the tree wrappers alone, version
-by version in turns (a, b, then b, a), on seeded stacks of the serving
-shape: the count at ``chip_smoke.direct_tree_shapes`` and one bitmap tree,
-each held to its plain version, with the ms around the wrapper (CUDA
-events) and the kernels' device ms (``torch.profiler``) of each round.
+With ``--kernels ROUNDS`` it first times the tree wrappers and the BSI
+range scan alone, version by version in turns (a, b, then b, a), on seeded
+stacks of the serving shape: the count at ``chip_smoke.direct_tree_shapes``,
+one bitmap tree, and ``bsi_range`` at ``chip_smoke.bsi_range_tables`` (the
+bench's 128 counts, a words launch at the executor's cap, a lone
+condition in both modes), each held to its plain version, with the ms
+around the wrapper (CUDA events) and the kernels' device ms
+(``torch.profiler``) of each round.
 
 Prints one line per version, phase, series and query (median, least and
 greatest ms over the rounds), and writes every time to ``--out`` as JSON.
@@ -146,8 +149,9 @@ def run_query(v: Version, kind: str, q, gct: GcTimer, device: str):
 
 def kernel_rounds(versions, rounds: int, device: str) -> dict:
     """``{version: {shape: [(ms, device ms), ...]}}``: each version's tree
-    wrappers at the direct shapes and one bitmap tree, ``rounds`` rounds in
-    turns; every answer equal to the plain version's."""
+    wrappers at the direct shapes and one bitmap tree, and its bsi_range at
+    the range shapes, ``rounds`` rounds in turns; every answer equal to the
+    plain version's."""
     import numpy as np
     import torch
 
@@ -161,16 +165,24 @@ def kernel_rounds(versions, rounds: int, device: str) -> dict:
         return bits[0] & bits[1]  # about 25 % dense
 
     stacks = (stack(cs.R_FULL), stack(cs.R_FULL), stack(cs.H_ROWS))
+    # an int field's stack: exists, sign and BSI_DEPTH planes (values in
+    # about three quarters of the columns)
+    bsi = torch.randint(-2**31, 2**31 - 1, (cs.S_FULL, 2 + cs.BSI_DEPTH, cs.W_FULL),
+                        dtype=torch.int32, device=dev, generator=gen)
+    bsi[:, 0] |= torch.randint(-2**31, 2**31 - 1, (cs.S_FULL, cs.W_FULL), dtype=torch.int32,
+                               device=dev, generator=gen)
     activate(versions[0].mods)
     shapes = cs.direct_tree_shapes(np.random.default_rng(cs.SEED + 13), stacks)
     and3 = shapes[2][1]
     words_slots = shapes[2][2][0]
+    range_tables = cs.bsi_range_tables(np.random.default_rng(cs.SEED + 14), cs.S_FULL, cs.W_FULL)
     out = {v.label: {} for v in versions}
     want = {}
     for r in range(rounds):
         for v in versions if r % 2 == 0 else versions[::-1]:
             activate(v.mods)
             tk = v.mods[PKG + ".ops.kernels"]
+            tb = v.mods[PKG + ".ops.bsi"]
             calls = [(name, lambda p=p, s=sl: tk.tree_count(stacks, p.code, p.leaf_stack, s),
                       lambda p=p, s=sl: tk.tree_count_plain(stacks, p.code, p.leaf_stack, s))
                      for name, p, sl in shapes]
@@ -178,6 +190,11 @@ def kernel_rounds(versions, rounds: int, device: str) -> dict:
                                                          words_slots),
                           lambda: tk.tree_words_plain(stacks, and3.code, and3.leaf_stack,
                                                       words_slots)))
+            views = (bsi[:, 2:], bsi[:, 0], bsi[:, 1])
+            calls += [(f"bsi_range {name}",
+                       lambda t=t, c=c: tb.bsi_range(*views, t, count=c),
+                       lambda t=t, c=c: tb.bsi_range_plain(*views, t, c))
+                      for name, (t, c) in range_tables.items()]
             for name, fn, plain in calls:
                 if not torch.equal(fn(), want.setdefault(name, plain())):
                     raise AssertionError(f"{v.label} {name}: differs from the plain version")
@@ -195,7 +212,7 @@ def kernel_rounds(versions, rounds: int, device: str) -> dict:
                    f"ms around the wrapper, device median "
                    f"{statistics.median(dev_ms) if dev_ms else None} ms over {len(rows)} "
                    f"rounds; all {[round(m, 4) for m, _ in rows]}, device {dev_ms}")
-    del stacks
+    del stacks, bsi
     if device == "cuda":
         torch.cuda.empty_cache()
     return out
@@ -207,7 +224,7 @@ def main() -> int:
     ap.add_argument("--b", type=Path, required=True, help="the second checkout (the change)")
     ap.add_argument("--pairs", type=int, default=10)
     ap.add_argument("--kernels", type=int, default=0,
-                    help="rounds of the tree wrappers alone at the direct shapes (0: none)")
+                    help="rounds of the tree wrappers and bsi_range alone (0: none)")
     ap.add_argument("--out", type=Path)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--shards", type=int, default=cs.S_FULL)

@@ -14,7 +14,10 @@ programs of the JAX package, none of which is a Pallas kernel:
   as per-shard counts ``int32[Q, S]`` or result words ``int32[Q, S, W]``.
   It answers :func:`range_batch` and :func:`range_count_batch`, and
   through them every single condition (:func:`range_eq`,
-  :func:`range_lt`, :func:`range_gt`, :func:`range_between`).
+  :func:`range_lt`, :func:`range_gt`, :func:`range_between`). The host
+  compiles each flight once (:func:`range_plan`): the queries sorted by
+  composition class (:func:`query_classes`) into the kernel's parameter
+  block, each with the output row it writes in the caller's order.
 * **bsi_sum** (:func:`bsi_sum`) writes per shard the popcounts
   ``int32[S, Q, depth+1, 2]`` of every plane ANDed with ``exists & filter_q``
   and split by sign, plus the exists counts; :func:`sum_count`,
@@ -41,6 +44,9 @@ int32 is the bitwise complement; counts go through ``bitops.popcount``.
 """
 
 from __future__ import annotations
+
+from functools import lru_cache
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -201,12 +207,6 @@ def table_sides(table: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
     return lo, hi
 
 
-def table_need(table: np.ndarray) -> tuple[bool, bool]:
-    """Which borrow accumulators any bound of a table reads."""
-    lo, hi = table_sides(table)
-    return bool(lo.any()), bool(hi.any())
-
-
 def _queries_table(queries, depth: int) -> np.ndarray:
     qmask, _, qmeta, _ = encode_query_bounds(queries, depth)
     return bounds_table(qmask, qmeta)
@@ -288,8 +288,10 @@ def _cpu(name: str, *ts) -> bool:
 # bsi_range: Q encoded predicates, counts or words
 # ---------------------------------------------------------------------------
 
-# queries per count-mode launch: the kernel keeps one shared counter each
-BSI_RANGE_MAX_Q = 1024
+# queries a launch's parameter block holds (bsi.cu BSI_RANGE_PQ), and the
+# queries a launch takes: a longer flight is cut
+_RANGE_PARAM_Q = 256
+BSI_RANGE_MAX_Q = _RANGE_PARAM_Q
 # bytes of [Q, S, W] result words a caller materialises per launch
 # (JAX's _COUNT_BATCH_VMAP_LIMIT): words-mode flights are cut to fit
 RANGE_WORDS_BYTES = 256 << 20
@@ -342,8 +344,231 @@ def bsi_range_plain(planes, exists, sign, table: np.ndarray, count: bool) -> tor
     return torch.stack(out)
 
 
-def _upload_table(table: np.ndarray, device) -> torch.Tensor:
-    return kernels._upload(np.ascontiguousarray(table, np.int32).tobytes(), device)
+# ---------------------------------------------------------------------------
+# bsi_range's launch plan: the flight compiled once on the host
+# ---------------------------------------------------------------------------
+
+# Composition classes (bsi.cu BSI_C_*): a query's result as a fixed
+# function of its borrow accumulators (A, B of its first bound, A1, B1 of
+# its second) and its sign classes, sel (the non-negative columns, or the
+# negative ones when swapped) and fil (the other).
+_C_ZERO = 0     # 0
+_C_EXISTS = 1   # sel | fil
+_C_FILL_A = 2   # fil | (sel & A)
+_C_SEL_B = 3    # sel & B
+_C_EQ = 4       # sel & A & B
+_C_NE = 5       # fil | (sel & ~(A & B))
+_C_BT_SAME = 6  # sel & B & A1
+_C_BT_MIX = 7   # (fil & A) | (sel & A1)
+_C_GEN1 = 8     # (neg & Tn(A, B)) | (non & To(A, B)), truth tables from the flags
+_C_GEN2 = 9     # the same, ANDed with the second bound's
+# bounds whose magnitudes a class compares with the planes
+_C_BOUNDS = np.array((0, 0, 1, 1, 1, 1, 2, 2, 1, 2))
+
+# truth tables over (A, B), bit A + 2B: A, B, A & B, ~(A & B)
+_TT_A, _TT_B, _TT_AB, _TT_NAB = 0xA, 0xC, 0x8, 0x7
+# a bound's (Tn, To), its result on negative and on non-negative columns,
+# -> (class, swap) of the query of that bound alone
+_ONE_BOUND = {
+    (0xF, _TT_A): (_C_FILL_A, 0), (_TT_A, 0xF): (_C_FILL_A, 1),
+    (0x0, _TT_B): (_C_SEL_B, 0), (_TT_B, 0x0): (_C_SEL_B, 1),
+    (0x0, _TT_AB): (_C_EQ, 0), (_TT_AB, 0x0): (_C_EQ, 1),
+    (0xF, _TT_NAB): (_C_NE, 0), (_TT_NAB, 0xF): (_C_NE, 1),
+}
+
+# segments a launch's parameter block holds (one per class and swap)
+RANGE_LAUNCH_SEGS = 16
+# threads a block (bsi.cu BSI_RANGE_THREADS), and the chunks (RANGE_THREADS
+# * vec words) a block walks
+RANGE_THREADS = 128
+RANGE_BLOCK_CHUNKS = 2
+# shared memory of a block: the warps' counters and the expanded masks
+_RANGE_SMEM = 48 * 1024
+# (planes a thread holds, words a thread) of the kernel's instances
+RANGE_CONFIGS = ((20, 4), (32, 2), (64, 1))
+
+# bsi.cu's BsiRangeParam
+_RANGE_PARAM = np.dtype([
+    ("n_seg", "<i4"), ("n_q", "<i4"), ("n_rows", "<i4"), ("pad", "<i4"),
+    ("seg_cls", "<i4", (RANGE_LAUNCH_SEGS,)), ("seg_end", "<i4", (RANGE_LAUNCH_SEGS,)),
+    ("row", "<i4", (_RANGE_PARAM_Q,)), ("dest", "<i4", (_RANGE_PARAM_Q,)),
+    ("gen", "<u4", (_RANGE_PARAM_Q,)), ("init", "<u4", (_RANGE_PARAM_Q, 4)),
+    ("mag", "<u8", (_RANGE_PARAM_Q, 2)),
+], align=True)
+assert _RANGE_PARAM.itemsize == 11408
+
+
+def _bound_truth(flags: int) -> tuple[int, int]:
+    """``(Tn, To)``: what an encoded bound selects among the negative and
+    among the non-negative columns, as truth tables over its borrow
+    accumulators (bit A + 2B); out of band, A and B are fixed (A = 1, B =
+    0), so both tables are constant."""
+    def ch(c):
+        return (flags >> c) & 1
+
+    tn = to = 0
+    for a in (0, 1):
+        for b in (0, 1):
+            A, B = (1, 0) if ch(_M_OOB) else (a, b)
+            term = ch(_M_XOR) ^ ((ch(_M_SELA) & A) | (ch(_M_SELB) & B) | (ch(_M_SELC) & A & B))
+            tn |= (ch(_M_FNEG) | (ch(_M_SNEG) & term)) << (a + 2 * b)
+            to |= (ch(_M_FNON) | (ch(_M_SNON) & term)) << (a + 2 * b)
+    return tn, to
+
+
+_ANY_FLAGS = (1 << _M_FNEG) | (1 << _M_FNON)  # a bound that selects every value
+
+
+@lru_cache(maxsize=None)
+def _pair_class(f0: int, f1: int) -> tuple[int, int, int, int, int]:
+    """``(class, swap, bound, bound, gen)`` of a query of two bounds with
+    flag words ``f0``, ``f1``: its composition class, its sign selection,
+    the bounds (0, 1; -1: none) it compares with the planes in the class's
+    order, and (GEN classes) their truth tables, Tn and To of each bound in
+    4 bits each. A bound that selects every column holding a value is
+    dropped; the query is ZERO where a bound selects no negative column and
+    a bound no non-negative one."""
+    live = [(b, *_bound_truth(f)) for b, f in enumerate((f0, f1))]
+    live = [(b, tn, to) for b, tn, to in live if not tn == to == 0xF]
+    if any(tn == 0 for _, tn, _ in live) and any(to == 0 for _, _, to in live):
+        return _C_ZERO, 0, -1, -1, 0
+    if not live:
+        return _C_EXISTS, 0, -1, -1, 0
+    gen = sum((tn | to << 4) << (8 * j) for j, (_, tn, to) in enumerate(live))
+    forms = [_ONE_BOUND.get((tn, to)) for _, tn, to in live]
+    if len(live) == 1:
+        if forms[0] is not None:
+            return (*forms[0], live[0][0], -1, 0)
+        return _C_GEN1, 0, live[0][0], -1, gen
+    by_form = dict(zip(forms, (b for b, _, _ in live)))
+    for sw in (0, 1):
+        if set(forms) == {(_C_SEL_B, sw), (_C_FILL_A, sw)}:
+            return _C_BT_SAME, sw, by_form[(_C_SEL_B, sw)], by_form[(_C_FILL_A, sw)], 0
+    if set(forms) == {(_C_FILL_A, 1), (_C_FILL_A, 0)}:
+        return _C_BT_MIX, 0, by_form[(_C_FILL_A, 1)], by_form[(_C_FILL_A, 0)], 0
+    return _C_GEN2, 0, 0, 1, gen
+
+
+def query_classes(table: np.ndarray):
+    """``(cls, swap, bounds, gen)`` of every query of a bounds table, int64
+    ``[Q]``, ``[Q]``, ``[Q, 2]``, ``[Q]`` (:func:`_pair_class` of its flag
+    words; a one-bound table's second bound selects every value)."""
+    flags = np.asarray(table)[..., 0].astype(np.int64) & ((1 << _M_CH) - 1)
+    second = flags[:, 1] if flags.shape[1] == 2 else _ANY_FLAGS
+    pairs, inverse = np.unique(flags[:, 0] << _M_CH | second, return_inverse=True)
+    out = np.array([_pair_class(p >> _M_CH, p & ((1 << _M_CH) - 1)) for p in pairs.tolist()],
+                   dtype=np.int64).reshape(-1, 5)[inverse.reshape(-1)]
+    return out[:, 0], out[:, 1], out[:, 2:4], out[:, 4]
+
+
+class RangeLaunch(NamedTuple):
+    """One bsi_range launch: the kernel's parameter block, the caller's
+    index of each of its queries in plan order, and the planes it reads
+    (0 when none of its queries compares with them)."""
+
+    param: bytes
+    queries: np.ndarray
+    depth: int
+
+
+class RangePlan(NamedTuple):
+    """A flight's launches and their block shape: ``dmax`` planes and
+    ``vec`` words a thread (one of RANGE_CONFIGS), ``grid_x`` blocks of
+    RANGE_THREADS threads a shard."""
+
+    launches: tuple
+    dmax: int
+    vec: int
+    grid_x: int
+
+
+# each field's offset in 32-bit words of the parameter block
+_PARAM_AT = {name: _RANGE_PARAM.fields[name][1] // 4 for name in _RANGE_PARAM.names}
+
+
+def _range_param(table: np.ndarray, idx: np.ndarray, cls, swap, bounds, gen) -> tuple:
+    """The parameter block (_RANGE_PARAM) of one launch of queries ``idx``
+    (in plan order), and its mask rows."""
+    P = np.zeros(_RANGE_PARAM.itemsize // 4, dtype=np.uint32)
+    n = idx.size
+    c = cls[idx]
+    nb = _C_BOUNDS[c]
+    key = c | swap[idx] << 8
+    ends = np.append(np.flatnonzero(key[1:] != key[:-1]) + 1, n)  # at most 15 segments
+    n_rows = int(nb.sum())
+    P[:3] = ends.size, n, n_rows
+
+    def put(name, values):
+        at = _PARAM_AT[name]
+        P[at : at + values.size] = values.ravel()
+
+    put("seg_cls", key[ends - 1])
+    put("seg_end", ends)
+    put("row", (np.cumsum(nb) - nb) | nb << 16)
+    put("dest", idx)
+    put("gen", gen[idx])
+    b = bounds[idx]  # [n, 2]
+    entry = np.asarray(table)[idx[:, None], np.maximum(b, 0)].view(np.uint32)  # [n, 2, 3]
+    has = b >= 0
+    init = np.zeros((n, 2, 2), dtype=np.uint32)
+    for j, channel in enumerate((_M_A0, _M_B0)):  # 0 or ~0: strict or not
+        init[..., j] = np.where(has & ((entry[..., 0] >> channel) & 1).astype(bool),
+                                0xFFFFFFFF, 0)
+    put("init", init)
+    put("mag", np.where(has[..., None], entry[..., 1:], 0))  # lo, hi words of each bound
+    return P.tobytes(), n_rows
+
+
+def range_plan(table: np.ndarray, depth: int, W: int, count: bool, *, vec: int = 4,
+               chunks: int | None = None, config: tuple[int, int] | None = None) -> RangePlan:
+    """The launches of bsi_range for bounds ``table`` over ``depth``
+    planes of ``W`` words a shard: the queries sorted by composition class
+    and sign selection (:func:`query_classes`), in launches of at most
+    BSI_RANGE_MAX_Q queries and of masks that fit a block's shared memory;
+    in count mode the ZERO queries are left out (their counts stay zero).
+    ``vec``: the words a thread may load at once (:func:`_range_vec`);
+    blocks of ``chunks`` (RANGE_BLOCK_CHUNKS) chunks each, ``config`` one
+    of RANGE_CONFIGS (by default the first that holds the depth and the
+    words a thread the layout allows)."""
+    chunks = RANGE_BLOCK_CHUNKS if chunks is None else chunks
+    if config is None:
+        config = next(c for c in RANGE_CONFIGS
+                      if depth <= c[0] and c[1] <= vec and W % c[1] == 0 or c[1] == 1)
+    dmax, v = config
+    if config not in RANGE_CONFIGS or depth > dmax or W % v or v > vec:
+        raise ValueError(f"bsi_range: configuration {config} at depth {depth}, W {W}")
+    cls, swap, bounds, gen = query_classes(table)
+    keep = np.flatnonzero(cls != _C_ZERO) if count else np.arange(cls.size)
+    order = keep[np.lexsort((keep, swap[keep], cls[keep]))]
+    rows = np.cumsum(_C_BOUNDS[cls[order]])
+    groups = -(-depth // 4)
+    counters = 4 * _RANGE_PARAM_Q * (RANGE_THREADS // 32) if count else 0  # a row a warp
+    row_cap = (_RANGE_SMEM - counters) // (16 * groups) if groups else 1 << 30
+    per_launch = min(BSI_RANGE_MAX_Q, _RANGE_PARAM_Q)
+    launches, start = [], 0
+    while start < order.size:
+        before = rows[start - 1] if start else 0
+        end = min(start + per_launch, order.size,
+                  max(start + 1, int(np.searchsorted(rows, before + row_cap, side="right"))))
+        idx = order[start:end]
+        param, n_rows = _range_param(table, idx, cls, swap, bounds, gen)
+        launches.append(RangeLaunch(param, idx, depth if n_rows else 0))
+        start = end
+    n_chunks = -(-W // (RANGE_THREADS * v)) if W else 0
+    grid_x = max(1, -(-n_chunks // chunks))
+    return RangePlan(tuple(launches), dmax, v, grid_x)
+
+
+def _range_vec(*ts) -> int:
+    """The most words (4, 2 or 1) a thread may load or store at once: every
+    row of the tensors ``ts`` starts aligned to that many words (W and the
+    shard strides multiples of it)."""
+    for v in (4, 2):
+        if ts[0].shape[-1] % v == 0 and all(
+                t.data_ptr() % (4 * v) == 0
+                and not (t.dim() > 1 and t.shape[0] > 1 and t.stride(0) % v) for t in ts):
+            return v
+    return 1
 
 
 def bsi_range(planes, exists, sign, table: np.ndarray, *, count: bool) -> torch.Tensor:
@@ -351,7 +576,8 @@ def bsi_range(planes, exists, sign, table: np.ndarray, *, count: bool) -> torch.
     :func:`bounds_table`) over every column: per-shard match counts
     ``int32[Q, S]`` when ``count`` (exact: a shard holds at most 2^31 - 1
     columns), else the result words ``int32[Q, S, W]`` (one shard's
-    operands: ``[Q]`` and ``[Q, W]``)."""
+    operands: ``[Q]`` and ``[Q, W]``). On the card, one launch per plan
+    launch (:func:`range_plan`), each query written to its own row."""
     planes, exists, sign, one = _operands("bsi_range", planes, exists, sign)
     table = np.ascontiguousarray(table, dtype=np.int32)
     if table.ndim != 3 or table.shape[1] not in (1, 2) or table.shape[2] != 3:
@@ -360,21 +586,19 @@ def bsi_range(planes, exists, sign, table: np.ndarray, *, count: bool) -> torch.
         out = bsi_range_plain(planes, exists, sign, table, count)
     else:
         S, depth, W = planes.shape
-        Q, NB, _ = table.shape
+        Q = table.shape[0]
         dev = planes.device
         shape = (Q, S) if count else (Q, S, W)
         out = (torch.zeros if count else torch.empty)(shape, dtype=torch.int32, device=dev)
         if Q and S and W:
-            need_lo, need_hi = table_need(table)
-            step = BSI_RANGE_MAX_Q if count else Q
-            for q0 in range(0, Q, step):
-                part = table[q0 : q0 + step]
-                tab = _upload_table(part, dev)
+            vec = _range_vec(planes, exists, sign, *(() if count else (out,)))
+            plan = range_plan(table, depth, W, count, vec=vec)
+            for launch in plan.launches:
                 kernels._launch(
-                    "pilosa_bsi_range", planes.data_ptr(), planes.stride(0),
-                    exists.data_ptr(), exists.stride(0), sign.data_ptr(), sign.stride(0),
-                    tab.data_ptr(), len(part), NB, int(need_lo), int(need_hi), int(count),
-                    depth, S, W, out[q0:].data_ptr(), dev.index, kernels._stream(dev),
+                    "pilosa_bsi_range", launch.param, len(launch.param), planes.data_ptr(),
+                    planes.stride(0), exists.data_ptr(), exists.stride(0), sign.data_ptr(),
+                    sign.stride(0), launch.depth, S, W, plan.dmax, plan.vec, plan.grid_x,
+                    int(count), out.data_ptr(), Q, dev.index, kernels._stream(dev),
                 )
                 kernels.LAUNCHES["bsi_range"] += 1
     return out[:, 0] if one else out

@@ -65,10 +65,12 @@ _SIGNATURES = {
     # (table, tiles, n_rows, n_items, n_steps, L, depth, S, W, then the plan:
     # stages, rows_max, items_max, wsplit, flat; out, device, stream)
     "pilosa_tree_count_staged": (_VOIDP, *(_INT,) * 13, _VOIDP, _INT, _VOIDP),
-    # each operand a pointer and its shard stride in words; then (table, Q,
-    # nb, need_lo, need_hi, count, depth, S, W, out, device, stream)
+    # (the plan's parameter block and its bytes; each operand a pointer and
+    # its shard stride in words; depth, S, W, then the block shape: dmax,
+    # vec, grid_x; count, out, n_out, device, stream)
     "pilosa_bsi_range": (
-        _VOIDP, _LL, _VOIDP, _LL, _VOIDP, _LL, _VOIDP, *(_INT,) * 8, _VOIDP, _INT, _VOIDP,
+        _VOIDP, _INT, _VOIDP, _LL, _VOIDP, _LL, _VOIDP, _LL, *(_INT,) * 7, _VOIDP, _INT, _INT,
+        _VOIDP,
     ),
     # (planes, exists, sign, filters (shard and query strides), Q, depth, S,
     # W, out, device, stream)
@@ -199,21 +201,26 @@ def check(lib: ctypes.CDLL, fn: str, code: int) -> None:
 _MMA_OPCODE = re.compile(r"\b(?:BMMA|IMMA|HMMA|[A-Z]*GMMA)\b")
 
 
-def sass_mma_counts(path: Path | None = None) -> dict[str, int]:
-    """Tensor-core MMA instructions in the built library's SASS, by kernel
-    (mangled name), from ``cuobjdump -sass`` beside ``nvcc``."""
+def sass(path: Path | None = None) -> dict[str, list[str]]:
+    """The built library's SASS, by kernel (mangled name): its lines, from
+    ``cuobjdump -sass`` beside ``nvcc``."""
     cuobjdump = Path(nvcc_path()).with_name("cuobjdump")
-    sass = subprocess.run(
+    text = subprocess.run(
         [str(cuobjdump), "-sass", str(path or library_path())],
         capture_output=True, text=True, check=True,
     ).stdout
-    counts: dict[str, int] = {}
-    fn = None
-    for line in sass.splitlines():
+    functions: dict[str, list[str]] = {}
+    lines = None
+    for line in text.splitlines():
         m = re.match(r"\s*Function : (\S+)", line)
         if m:
-            fn = m.group(1)
-            counts[fn] = 0
-        elif fn is not None:
-            counts[fn] += len(_MMA_OPCODE.findall(line))
-    return counts
+            lines = functions[m.group(1)] = []
+        elif lines is not None:
+            lines.append(line)
+    return functions
+
+
+def sass_mma_counts(functions: dict[str, list[str]]) -> dict[str, int]:
+    """Tensor-core MMA instructions of each kernel of :func:`sass`."""
+    return {fn: sum(len(_MMA_OPCODE.findall(line)) for line in lines)
+            for fn, lines in functions.items()}

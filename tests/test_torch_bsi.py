@@ -125,10 +125,11 @@ def test_encode_query_bounds_refuses_as_jax_does(queries, pad):
 
 
 def _emulate_table(planes, exists, sign, table) -> np.ndarray:
-    """The bounds table read as ``ops/csrc/bsi.cu`` reads it: flags and the
-    two magnitude halves per bound, each plane folded into the borrow
-    accumulators with the kernel's three-input functions; uint32
-    ``[Q, S, W]`` words."""
+    """The bounds table read entry by entry, as the range plan reads it:
+    flags and the two magnitude halves per bound, each plane folded into
+    the borrow accumulators with the kernel's three-input functions, the
+    flag channels composed as JAX composes them; uint32 ``[Q, S, W]``
+    words."""
     ones = np.uint32(0xFFFFFFFF)
     neg, non = exists & sign, exists & ~sign
     out = []
@@ -164,7 +165,8 @@ def test_bounds_table_read_as_the_kernel_reads_it_matches_jax(depth):
     qmask, _, qmeta, need = tb.encode_query_bounds(queries, depth)
     table = tb.bounds_table(qmask, qmeta)
     assert table.shape == (11, 2, 3) and table.dtype == np.int32
-    assert tb.table_need(table) == need
+    lo, hi = tb.table_sides(table)
+    assert (bool(lo.any()), bool(hi.any())) == need
     got = _emulate_table(planes, exists, sign, table)
     want = np.asarray(jb.range_batch(planes, exists, sign, queries, depth=depth))[:11]
     np.testing.assert_array_equal(got, want)
@@ -206,6 +208,230 @@ def test_pow2_padding_rows_select_nothing(depth):
     assert not words[5:].any() and not counts[5:].any()
     np.testing.assert_array_equal(
         _np(words[:5]), np.asarray(jb.range_batch(planes, exists, sign, queries, depth=depth))[:5])
+
+
+# -- the range kernel's launch plan -------------------------------------------
+
+
+# the accumulators each composition class reads (bsi.cu bsi_lo0, bsi_hi0,
+# bsi_lo1, bsi_hi1): (A, B, A1, B1)
+_C_SIDES = ((0, 0, 0, 0), (0, 0, 0, 0), (1, 0, 0, 0), (0, 1, 0, 0), (1, 1, 0, 0), (1, 1, 0, 0),
+            (0, 1, 1, 0), (1, 0, 1, 0), (1, 1, 0, 0), (1, 1, 1, 1))
+
+
+def _emulate_plan(plan, planes, exists, sign, Q, count) -> np.ndarray:
+    """The launches of a range plan read back as ``ops/csrc/bsi.cu`` reads
+    them: each launch's parameter block decoded, each bound's magnitude
+    expanded into full-word masks in groups of four planes (zero planes
+    and zero bits past the depth), each segment's queries folded with its
+    class's sides and epilogue against its sign selection, and each result
+    written to its query's row in the caller's order (every row once).
+    int64 ``[Q, S]`` counts or uint32 ``[Q, S, W]`` words."""
+    ones = np.uint32(0xFFFFFFFF)
+    S, _, W = planes.shape
+    out = np.zeros((Q, S) if count else (Q, S, W), dtype=np.int64 if count else np.uint32)
+    seen = np.zeros(Q, dtype=int)
+    neg, non = exists & sign, exists & ~sign
+    zero = np.zeros_like(neg)
+
+    def tt(t, a, b):
+        w = [ones if (t >> j) & 1 else np.uint32(0) for j in range(4)]
+        return (b & ((a & w[3]) | (~a & w[2]))) | (~b & ((a & w[1]) | (~a & w[0])))
+
+    for launch in plan.launches:
+        P = np.frombuffer(launch.param, dtype=tb._RANGE_PARAM)[0]
+        planes_k = [planes[:, k] for k in range(launch.depth)]
+        planes_k += [zero] * (-launch.depth % 4)
+        q0 = 0
+        for g in range(int(P["n_seg"])):
+            cls, swap = int(P["seg_cls"][g]) & 0xFF, int(P["seg_cls"][g]) >> 8
+            sel, fil = (neg, non) if swap else (non, neg)
+            lo0, hi0, lo1, hi1 = _C_SIDES[cls]
+            for i in range(q0, int(P["seg_end"][g])):
+                row, nb = int(P["row"][i]) & 0xFFFF, int(P["row"][i]) >> 16
+                assert nb == tb._C_BOUNDS[cls] and row + nb <= int(P["n_rows"])
+                A, B, A1, B1 = (np.full_like(neg, w) for w in P["init"][i])
+                for k, p in enumerate(planes_k):
+                    m = [ones if (int(P["mag"][i, j]) >> k) & 1 else np.uint32(0)
+                         for j in range(2)]
+                    A = (~p & (A | m[0])) | (A & m[0]) if lo0 else A
+                    B = (p & (B | ~m[0])) | (B & ~m[0]) if hi0 else B
+                    A1 = (~p & (A1 | m[1])) | (A1 & m[1]) if lo1 else A1
+                    B1 = (p & (B1 | ~m[1])) | (B1 & ~m[1]) if hi1 else B1
+                t = int(P["gen"][i])
+                r = {
+                    tb._C_ZERO: lambda: zero,
+                    tb._C_EXISTS: lambda: sel | fil,
+                    tb._C_FILL_A: lambda: fil | (sel & A),
+                    tb._C_SEL_B: lambda: sel & B,
+                    tb._C_EQ: lambda: sel & A & B,
+                    tb._C_NE: lambda: fil | (sel & ~(A & B)),
+                    tb._C_BT_SAME: lambda: sel & B & A1,
+                    tb._C_BT_MIX: lambda: (fil & A) | (sel & A1),
+                    tb._C_GEN1: lambda: (fil & tt(t, A, B)) | (sel & tt(t >> 4, A, B)),
+                    tb._C_GEN2: lambda: ((fil & tt(t, A, B) & tt(t >> 8, A1, B1))
+                                         | (sel & tt(t >> 4, A, B) & tt(t >> 12, A1, B1))),
+                }[cls]()
+                dest = int(P["dest"][i])
+                seen[dest] += 1
+                out[dest] = np.unpackbits(r.view(np.uint8), axis=-1).sum(-1) if count else r
+            q0 = int(P["seg_end"][g])
+        assert q0 == int(P["n_q"])
+        np.testing.assert_array_equal(np.asarray(P["dest"][:q0]), launch.queries)
+    return out, seen
+
+
+def _edge_queries(rng, n, depth):
+    """``n`` queries mixing one- and two-bound ones: every comparison,
+    signed and out-of-band bounds, between of either sign, "any"."""
+    out = []
+    for k in range(n):
+        r = k % 5
+        if r == 1:
+            lo, hi = sorted((_bound(rng, depth), _bound(rng, depth)))
+            out.append([(">=" if rng.random() < 0.5 else ">", lo),
+                        ("<=" if rng.random() < 0.5 else "<", hi)])
+        elif r == 3:
+            out.append([(CMPS[int(rng.integers(0, 6))], _bound(rng, depth)),
+                        (CMPS[int(rng.integers(0, 6))], _bound(rng, depth))])
+        elif r == 4 and rng.random() < 0.2:
+            out.append([("any", 0)])
+        else:
+            out.append([(CMPS[int(rng.integers(0, 6))], _bound(rng, depth))])
+    return out
+
+
+# (depth, Q): the depths of a stored value from 0 to 63, and Q at one query,
+# around a group of 8, the bench's 128, and around and past BSI_RANGE_MAX_Q
+_PLAN_CASES = [(0, 9), (1, 9), (20, 9), (31, 9), (32, 9), (63, 9), (20, 1), (20, 7), (20, 8),
+               (20, 128), (20, 255), (20, 256), (20, 257), (63, 300), (33, 40)]
+
+
+@pytest.mark.parametrize("depth,Q", _PLAN_CASES)
+def test_range_plan_read_as_the_kernel_reads_it_matches_jax(depth, Q):
+    rng = np.random.default_rng(7000 + 100 * depth + Q)
+    planes, exists, sign = _stack(rng, 2, depth, 8)
+    queries = _edge_queries(rng, Q, depth)
+    table = tb._queries_table(queries, depth)
+    want_words = np.asarray(jb.range_batch(planes, exists, sign, queries, depth=depth))[:Q]
+    want_counts = jb.range_count_batch(planes, exists, sign, queries, depth=depth)
+    configs = [c for c in tb.RANGE_CONFIGS if depth <= c[0]]
+    assert configs
+    for config in configs:
+        for count in (False, True):
+            plan = tb.range_plan(table, depth, 8, count, config=config)
+            launched = int(((tb.query_classes(table)[0] != tb._C_ZERO) | (not count)).sum())
+            assert sum(launch.queries.size for launch in plan.launches) == launched
+            assert len(plan.launches) >= -(-launched // tb.BSI_RANGE_MAX_Q)
+            got, seen = _emulate_plan(plan, planes, exists, sign, Q, count)
+            if count:
+                # ZERO queries are not launched: their counts stay zero
+                assert ((seen == 1) | (seen == 0) & (got.sum(-1) == 0)).all()
+                assert got.sum(-1).tolist() == want_counts
+            else:
+                assert (seen == 1).all()
+                np.testing.assert_array_equal(got, want_words)
+    # the wrapper's plain path at the same edges
+    np.testing.assert_array_equal(
+        _np(tb.range_batch(_t(planes), _t(exists), _t(sign), queries, depth=depth)), want_words)
+    assert tb.range_count_batch(_t(planes), _t(exists), _t(sign), queries,
+                                depth=depth) == want_counts
+
+
+# one query of each class, and its sign selection: (bounds, class, swap)
+_CLASS_CASES = [
+    ([("<", 5)], tb._C_FILL_A, 0), ([("<=", 5)], tb._C_FILL_A, 0),
+    ([(">", -5)], tb._C_FILL_A, 1), ([(">=", -5)], tb._C_FILL_A, 1),
+    ([(">", 5)], tb._C_SEL_B, 0), ([(">=", 0)], tb._C_SEL_B, 0),
+    ([("<", -5)], tb._C_SEL_B, 1), ([("<=", -5)], tb._C_SEL_B, 1),
+    ([("==", 5)], tb._C_EQ, 0), ([("==", -5)], tb._C_EQ, 1),
+    ([("!=", 5)], tb._C_NE, 0), ([("!=", -5)], tb._C_NE, 1),
+    ([(">=", 2), ("<=", 9)], tb._C_BT_SAME, 0), ([(">", -9), ("<", -2)], tb._C_BT_SAME, 1),
+    ([("<=", 9), (">=", 2)], tb._C_BT_SAME, 0), ([(">=", -2), ("<=", 9)], tb._C_BT_MIX, 0),
+    ([("<", 9), (">", -2)], tb._C_BT_MIX, 0), ([(">=", 2), ("<=", -9)], tb._C_ZERO, 0),
+    ([("any", 0)], tb._C_EXISTS, 0), ([("<", 1 << 20)], tb._C_EXISTS, 0),
+    ([("!=", -(1 << 20))], tb._C_EXISTS, 0), ([(">", 1 << 20)], tb._C_ZERO, 0),
+    ([("==", 1 << 20)], tb._C_ZERO, 0), ([("<", -(1 << 20))], tb._C_ZERO, 0),
+    ([("<", 5), ("any", 0)], tb._C_FILL_A, 0), ([(">=", -(1 << 20)), ("<=", 9)], tb._C_FILL_A, 0),
+    ([("<", 5), ("<", 9)], tb._C_GEN2, 0), ([("==", 3), ("!=", -3)], tb._C_GEN2, 0),
+]
+
+
+@pytest.mark.parametrize("bounds,cls,swap", _CLASS_CASES)
+def test_query_class_of_each_composition(bounds, cls, swap):
+    depth = 20
+    table = tb._queries_table([bounds], depth)
+    got_cls, got_swap, live, _ = (a[0] for a in tb.query_classes(table))
+    assert (got_cls, got_swap) == (cls, swap)
+    # a one-bound query carries no padding bound
+    assert (live >= 0).sum() == tb._C_BOUNDS[cls]
+    rng = np.random.default_rng(len(bounds) + cls)
+    planes, exists, sign = _stack(rng, 2, depth, 5)
+    want = np.asarray(jb.range_batch(planes, exists, sign, [bounds], depth=depth))[:1]
+    plan = tb.range_plan(table, depth, 5, False)
+    np.testing.assert_array_equal(_emulate_plan(plan, planes, exists, sign, 1, False)[0], want)
+
+
+@pytest.mark.parametrize("depth", [1, 20, 63])
+def test_range_plan_of_hand_made_flags_matches_the_plain_version(depth):
+    # flag words no condition encodes (the bounds table is the kernel's
+    # contract): the GEN classes evaluate their truth tables
+    rng = np.random.default_rng(depth)
+    planes, exists, sign = _stack(rng, 3, depth, 7)
+    Q = 40
+    table = np.zeros((Q, 2, 3), dtype=np.int32)
+    table[..., 0] = rng.integers(0, 1 << tb._M_CH, size=(Q, 2))
+    mags = rng.integers(0, 1 << min(depth, 62), size=(Q, 2), dtype=np.int64)
+    table[..., 1] = (mags & 0xFFFFFFFF).astype(np.uint32).view(np.int32)
+    table[..., 2] = (mags >> 32).astype(np.uint32).view(np.int32)
+    classes = set(tb.query_classes(table)[0].tolist())
+    assert {tb._C_GEN1, tb._C_GEN2} <= classes
+    for count in (False, True):
+        want = _np(tb.bsi_range_plain(_t(planes), _t(exists), _t(sign), table, count))
+        for config in [c for c in tb.RANGE_CONFIGS if depth <= c[0] and 7 % c[1] == 0]:
+            plan = tb.range_plan(table, depth, 7, count, config=config)
+            got, _ = _emulate_plan(plan, planes, exists, sign, Q, count)
+            np.testing.assert_array_equal(got, want.astype(got.dtype))
+
+
+def test_range_plan_sorts_by_class_and_cuts_launches():
+    depth = 63
+    queries = ([[("<", 9)]] * 5 + [[(">", 3), ("<", 40)]] * 3 + [[("==", -2)]] * 4
+               + [[(">", 1 << 63)]] * 2) * 30
+    table = tb._queries_table(queries, depth)
+    Q = len(queries)
+    for count in (False, True):
+        plan = tb.range_plan(table, depth, 1000, count, config=(64, 1))
+        order = np.concatenate([launch.queries for launch in plan.launches])
+        cls, swap = tb.query_classes(table)[:2]
+        zero = np.flatnonzero(cls == tb._C_ZERO).tolist()
+        assert sorted(order.tolist() + (zero if count else [])) == list(range(Q))
+        keys = list(zip(cls[order].tolist(), swap[order].tolist()))
+        assert keys == sorted(keys)  # one segment per class and swap
+        for launch in plan.launches:
+            P = np.frombuffer(launch.param, dtype=tb._RANGE_PARAM)[0]
+            assert int(P["n_q"]) == launch.queries.size <= tb.BSI_RANGE_MAX_Q
+            # the warps' counters and the masks of a launch fit a block's
+            # shared memory
+            counters = 4 * tb._RANGE_PARAM_Q * tb.RANGE_THREADS // 32 if count else 0
+            assert counters + int(P["n_rows"]) * 16 * 16 <= tb._RANGE_SMEM
+            assert launch.depth == (depth if int(P["n_rows"]) else 0)
+        assert len(plan.launches) >= 2
+        assert (plan.dmax, plan.vec) == (64, 1)
+        assert plan.grid_x == -(-1000 // (tb.RANGE_THREADS * tb.RANGE_BLOCK_CHUNKS))
+
+
+@pytest.mark.parametrize("depth,W,vec,config", [
+    (20, 32768, 4, (20, 4)), (21, 32768, 4, (32, 2)), (17, 1000, 4, (20, 4)),
+    (20, 32768, 2, (32, 2)), (32, 100, 2, (32, 2)), (33, 100, 2, (64, 1)), (20, 101, 1, (64, 1)),
+    (0, 8, 2, (32, 2)), (63, 8, 1, (64, 1)), (20, 1002, 4, (32, 2)),
+])
+def test_range_plan_config(depth, W, vec, config):
+    table = tb._queries_table([[("<", 1)]], depth)
+    plan = tb.range_plan(table, depth, W, True, vec=vec)
+    assert (plan.dmax, plan.vec) == config
+    with pytest.raises(ValueError):  # the planes past what a thread holds
+        tb.range_plan(table, 65, W, True, vec=vec)
 
 
 # -- the single conditions --------------------------------------------------

@@ -787,11 +787,22 @@ def _bsi_queries(rng, n, depth, two):
     return out
 
 
+def _range_launches(table, planes, count):
+    """The launches bsi_range's plan makes for ``table`` (in count mode a
+    flight of ZERO queries alone launches nothing)."""
+    return len(tb.range_plan(table, planes.shape[1], planes.shape[2], count).launches)
+
+
 @pytest.mark.parametrize(
     "S,W,depth,Q,two",
     [(1, 130, 1, 1, False), (3, 130, 20, 3, True), (2, 300, 63, 9, True),
      (5, 1000, 20, 17, False), (1, 128, 0, 4, True), (4, 257, 20, 128, False),
-     (2, 130, 63, 130, True)],
+     (2, 130, 63, 130, True),
+     # around a group of 8 queries and around and past BSI_RANGE_MAX_Q;
+     # depths 31-33 around the two-words-a-thread instance's limit
+     (3, 1024, 20, 7, True), (3, 1024, 20, 8, True), (3, 1024, 20, 9, True),
+     (2, 258, 20, 255, True), (2, 258, 31, 256, True), (2, 258, 32, 257, True),
+     (2, 259, 33, 600, True), (1, 4097, 63, 300, True)],
 )
 def test_bsi_range_matches_plain(cuda_device, S, W, depth, Q, two):
     rng = np.random.default_rng(S * 1000 + W + depth + Q)
@@ -803,7 +814,8 @@ def test_bsi_range_matches_plain(cuda_device, S, W, depth, Q, two):
     counts = tb.bsi_range(planes, exists, sign, table, count=True)
     words = tb.bsi_range(planes, exists, sign, table, count=False)
     torch.cuda.synchronize()
-    assert tk.LAUNCHES["bsi_range"] == before + 2
+    assert tk.LAUNCHES["bsi_range"] == before + _range_launches(
+        table, planes, True) + _range_launches(table, planes, False)
     want_words = tb.bsi_range_plain(planes, exists, sign, table, False)
     assert torch.equal(words, want_words)
     assert torch.equal(counts, tb.bsi_range_plain(planes, exists, sign, table, True))
@@ -816,11 +828,112 @@ def test_bsi_range_counts_past_one_launch(cuda_device, monkeypatch):
     _, planes, exists, sign = _bsi_operands(rng, 3, 20, 130, cuda_device)
     queries = _bsi_queries(rng, 21, 20, True)
     monkeypatch.setattr(tb, "BSI_RANGE_MAX_Q", 8)
+    launches = _range_launches(tb._queries_table(queries, 20), planes, True)
+    assert launches >= 2  # the ZERO queries are not launched
     before = tk.LAUNCHES["bsi_range"]
     got = tb.range_count_batch(planes, exists, sign, queries, depth=20)
-    assert tk.LAUNCHES["bsi_range"] == before + 3
+    assert tk.LAUNCHES["bsi_range"] == before + launches
     cpu = [t.cpu() for t in (planes, exists, sign)]
     assert got == tb.range_count_batch(*cpu, queries, depth=20)
+
+
+def _every_class_table(rng, depth):
+    """A flight with a query of each composition class and sign selection
+    (tests/test_torch_bsi.py checks the classes) in a shuffled order, then
+    hand-made flag words for the GEN classes."""
+    lim = 1 << depth
+    t = max(1, lim // 3)
+    queries = [
+        [("<", t)], [("<=", t)], [(">", -t)], [(">=", -t)], [(">", t)], [(">=", 0)],
+        [("<", -t)], [("<=", -t)], [("==", t)], [("==", -t)], [("!=", t)], [("!=", -t)],
+        [(">=", 1), ("<=", t)], [(">", -t), ("<", -1)], [(">=", -t), ("<=", t)],
+        [(">=", t), ("<=", -t)], [("any", 0)], [("<", lim)], [(">", lim)], [("<", -lim)],
+        [("<", t), ("<", 2 * t)], [("==", 0), ("!=", -t)],
+    ]
+    qmask, _, qmeta, _ = tb.encode_query_bounds(
+        [queries[i] for i in rng.permutation(len(queries))], depth)
+    hand = np.zeros((6, 2, 3), dtype=np.int32)
+    hand[..., 0] = rng.integers(0, 1 << tb._M_CH, size=(6, 2))
+    hand[:3, 1, 0] = (1 << tb._M_FNEG) | (1 << tb._M_FNON)  # one bound: GEN1
+    mags = rng.integers(0, lim, size=(6, 2), dtype=np.int64)
+    hand[..., 1] = (mags & 0xFFFFFFFF).astype(np.uint32).view(np.int32)
+    hand[..., 2] = (mags >> 32).astype(np.uint32).view(np.int32)
+    return np.concatenate([tb.bounds_table(qmask, qmeta), hand])
+
+
+def _forced_range_plan(monkeypatch, **change):
+    real = tb.range_plan
+
+    def forced(*a, **k):
+        return real(*a, **{**k, **change})
+
+    monkeypatch.setattr(tb, "range_plan", forced)
+
+
+# every kernel instance (RANGE_CONFIGS) at the depths it takes: ragged W,
+# depths 0, 1, 20, 32 and 63, an empty exists row
+_EVERY_CLASS_CASES = [
+    (config, *shape) for config in tb.RANGE_CONFIGS
+    for shape in [(2, 1000, 20, False), (3, 132, 1, False), (1, 4100, 0, False),
+                  (2, 1028, 20, True), (2, 260, 32, False), (2, 260, 63, False)]
+    if shape[2] <= config[0]
+]
+
+
+@pytest.mark.parametrize("config,S,W,depth,empty", _EVERY_CLASS_CASES)
+def test_bsi_range_every_class_and_instance_matches_plain(cuda_device, monkeypatch, config, S,
+                                                          W, depth, empty):
+    rng = np.random.default_rng(S + W + depth + config[0])
+    _, planes, exists, sign = _bsi_operands(rng, S, depth, W, cuda_device, empty)
+    table = _every_class_table(rng, depth)
+    if depth:  # at depth 0 no bound but 0 is in band: fewer classes
+        assert set(tb.query_classes(table)[0].tolist()) == set(range(10))
+    _forced_range_plan(monkeypatch, config=config, vec=config[1], chunks=2)
+    for count in (False, True):
+        before = tk.LAUNCHES["bsi_range"]
+        got = tb.bsi_range(planes, exists, sign, table, count=count)
+        torch.cuda.synchronize()
+        assert tk.LAUNCHES["bsi_range"] == before + 1
+        assert torch.equal(got, tb.bsi_range_plain(planes, exists, sign, table, count))
+
+
+def test_bsi_range_c_entry_refuses_a_bad_plan(cuda_device):
+    from pilosa_tpu_torch.ops import cuda_build
+
+    lib = cuda_build.load()
+    rng = np.random.default_rng(5)
+    _, planes, exists, sign = _bsi_operands(rng, 2, 20, 256, cuda_device)
+    table = tb._queries_table([[("<", 9)], [(">", 3)]], 20)
+    plan = tb.range_plan(table, 20, 256, True)
+    (launch,) = plan.launches
+    out = torch.zeros((2, 2), dtype=torch.int32, device=cuda_device)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def call(param=launch.param, depth=20, dmax=plan.dmax, vec=plan.vec, count=1, n_out=2,
+             W=256, grid_x=plan.grid_x):
+        return lib.pilosa_bsi_range(
+            param, len(param), planes.data_ptr(), planes.stride(0), exists.data_ptr(),
+            exists.stride(0), sign.data_ptr(), sign.stride(0), depth, 2, W, dmax, vec, grid_x,
+            count, out.data_ptr(), n_out, cuda_device.index or 0, stream)
+
+    P = np.frombuffer(launch.param, dtype=tb._RANGE_PARAM)[0].copy()
+    bad_dest, bad_seg, zero_count = P.copy(), P.copy(), P.copy()
+    bad_dest["dest"][1] = 2
+    bad_seg["seg_end"][int(P["n_seg"]) - 1] = 1
+    zero_count["seg_cls"][0] = tb._C_ZERO
+    invalid = 1  # cudaErrorInvalidValue
+    assert call(param=launch.param[:-16]) == invalid
+    assert call(param=bad_dest.tobytes()) == invalid
+    assert call(param=bad_seg.tobytes()) == invalid
+    assert call(param=zero_count.tobytes()) == invalid
+    assert call(depth=33) == invalid and call(dmax=48) == invalid
+    assert call(dmax=32, vec=3) == invalid and call(grid_x=0) == invalid
+    assert call(vec=4, W=254) == invalid
+    assert call(n_out=1) == invalid
+    assert call() == 0
+    torch.cuda.synchronize()
+    assert out.cpu().tolist() == tb.bsi_range_plain(
+        planes.cpu(), exists.cpu(), sign.cpu(), table, True).tolist()
 
 
 @pytest.mark.parametrize(
