@@ -79,7 +79,23 @@ Phases (any failure raises, and the script exits non-zero):
    64 filtered Sums (one launch each); Min/Max unfiltered and filtered;
    MinRow/MaxRow; a GroupBy filtered by a condition; then writes to v and
    w, seen by the next Range, Sum and Min/Max. Every answer equals numpy
-   on the values decoded from the host mirrors.
+   on the values decoded from the host mirrors. The budget path, last:
+   the reads below on the paths' executor with no cap (the reference
+   answers); then on a fresh executor the process device-memory budget's
+   cap below f's, g's and v's stacks together: pair batches on f and g, a
+   GroupBy f x g and range Counts on v and w, stacks evicting each other,
+   and a shrink of the cap that must free on the card the bytes it
+   evicts; then the cap below one
+   BSI stack, so the stacks of f, g, v and w are declined: a lone pair
+   Count (the native host tier), 64 pair Counts, a filtered TopN (the
+   masked row scan per fragment), GroupBys with a limit, `previous` and a
+   filter (the recursive path), a tree Count, and a range Count, a `><`
+   bitmap, Sum, Min and Max on v (the BSI kernels once per fragment).
+   Every answer equals its truth from the host mirrors; after every query
+   the budget holds no more than its cap (unless all is pinned) and the
+   card no more than the budget counts. Last, the host tier alone: a lone
+   cold pair Count over 160 shards native against numpy, and
+   ``Fragment.import_bits`` of 2^20 pairs native against numpy.
 4. Summary: one ``{"end_to_end": {...}}`` line, one ``{"kernels": [...]}``
    line, the card line, and last ``{"ok": true, "device": {...}}``.
 """
@@ -1346,19 +1362,21 @@ def check_bsi_kernels(dev):
 
 def mirror_stack(holder, field: str, n_rows: int, n_shards: int):
     """numpy uint32[S, R, W] of a field's standard view, from the host
-    mirrors (the ground truth's source)."""
+    mirrors (the ground truth's source), shards copied in parallel."""
     import numpy as np
 
     f = holder.field("i", field)
     view = f.view("standard")
     out = np.zeros((n_shards, n_rows, f.n_words), dtype=np.uint32)
-    for s in range(n_shards):
+
+    def fill(s):
         frag = view.fragment(s)
-        if frag is None:
-            continue
-        ids, mat = frag.rows_matrix_host()
-        for k, r in enumerate(ids):
-            out[s, r] = mat[k]
+        if frag is not None:
+            ids, mat = frag.rows_matrix_host()
+            out[s, ids] = mat
+
+    with ThreadPoolExecutor(max_workers=min(8, os.cpu_count() or 1)) as pool:
+        list(pool.map(fill, range(n_shards)))
     return out
 
 
@@ -1607,20 +1625,24 @@ def truth_groupby(levels, filt=None):
 
 def check_numpy_sample(what, answer, np_levels, np_filt, pool, rng, k=256):
     """A seeded sample of ``k`` combinations of ``answer`` (all of them when
-    there are fewer) recounted with numpy over the host mirrors."""
+    there are fewer) recounted with numpy over the host mirrors (the rows
+    read as 64-bit words: half the elements to AND and count)."""
     import numpy as np
 
     pick = (range(len(answer)) if len(answer) <= k
             else rng.choice(len(answer), size=k, replace=False))
     items = [answer[int(i)] for i in pick]
+    levels = [lv.view(np.uint64) for lv in np_levels]
+    filt = None if np_filt is None else np_filt.view(np.uint64)
 
     def one(item):
         combo, count = item
-        m = np_levels[0][:, combo[0]]
-        for lv, r in zip(np_levels[1:], combo[1:]):
-            m = m & lv[:, r]
-        if np_filt is not None:
-            m = m & np_filt
+        rows = [lv[:, r] for lv, r in zip(levels, combo)]
+        if filt is not None:
+            rows.append(filt)
+        m = rows[0] & rows[1] if len(rows) > 1 else rows[0]
+        for x in rows[2:]:
+            np.bitwise_and(m, x, out=m)
         return int(np.bitwise_count(m).sum(dtype=np.int64)) == count
 
     bad = sum(not ok for ok in pool.map(one, items))
@@ -2206,7 +2228,7 @@ def truth_filtered_sums(f_mirror, vals, ex, rows, dev, pool, rng, k=8):
     return truth
 
 
-def bsi_path(pool, ex, holder, device):
+def bsi_path(pool, ex, holder, device, keep=None):
     """The BSI path at the serving size: a lone Count(Row(v < 500000)) cold
     (the host tier, no launch) until the warm-up builds the stack, then on
     the card and from the aggregate cache; a `><` bitmap; one execute_batch
@@ -2216,7 +2238,8 @@ def bsi_path(pool, ex, holder, device):
     MinRow/MaxRow of f; a GroupBy of f and g filtered by Row(v > 250000)
     (one words launch, then the GroupBy kernels); then Set/Clear writes to
     v and w, each seen by the next Range, Sum and Min/Max. Every answer
-    equals numpy on values decoded from the host mirrors."""
+    equals numpy on values decoded from the host mirrors, which go into
+    ``keep`` (by field) as they stand after the writes."""
     import numpy as np
     import torch
 
@@ -2408,6 +2431,8 @@ def bsi_path(pool, ex, holder, device):
     # the written shards decoded anew from the mirrors
     written = sorted({c // SHARD_WIDTH for c in cols.values()})
     truth = {n: decode_bsi(holder, n, pool, into=truth[n], shards=written) for n in BSI_FIELDS}
+    if keep is not None:
+        keep.update(truth)
     reads_round("after_writes", True, *truth["v"], *truth["w"])
     if (ex.stack_incremental - patched, ex.stack_rebuilds - rebuilt) != (2, 0):
         raise AssertionError(f"after the writes: stack_incremental +"
@@ -2425,6 +2450,355 @@ def bsi_path(pool, ex, holder, device):
         f"Sum and Min/Max (stacks patched); every answer equals numpy; queries "
         f"{lat['served_s']:.1f} s of the path, the truth decoded in "
         f"{lat['truth_decode_s']:.1f} s")
+    return lat
+
+
+# ---------------------------------------------------------------------------
+# The budget path: the device-memory budget at the serving size
+# ---------------------------------------------------------------------------
+
+# lone cold pair Counts timed on the host tier, and (row, column) pairs of
+# the timed import into one fragment
+HOST_TIER_REPS = 5
+IMPORT_PAIRS = 1 << 20
+
+
+def budget_truths(pool, holder, dev, v_truth):
+    """Every truth the budget path holds its answers to, computed once from
+    the host mirrors before it runs (no write happens in the path): pair
+    counts, a tanimoto TopN and a tree Count with numpy, the GroupBys with
+    torch AND and popcount on the card (the stacks uploaded for it freed
+    again; the filtered 3-level one only as far as its limit needs) and
+    w's existence row counted; v's values are ``v_truth``, as the bsi path
+    decoded them from the mirrors after its writes. No code of the port
+    runs."""
+    import numpy as np
+    import torch
+
+    t0 = time.perf_counter()
+    qrng = np.random.default_rng(SEED + 11)
+    # the trees path created row R_FULL of f in one shard
+    f_rows = 1 + max(max(frag.row_ids())
+                     for frag in holder.field("i", "f").view("standard").fragments.values())
+    m = {name: mirror_stack(holder, name, n_rows, S_FULL)
+         for name, n_rows in (("f", f_rows), ("g", R_FULL), ("h", H_ROWS))}
+    t = {"f_rows": f_rows, "seconds": {"mirrors": time.perf_counter() - t0}}
+    t0 = time.perf_counter()
+    t["items"] = {
+        fld: [(OPS[int(qrng.integers(0, 4))], int(qrng.integers(0, m[fld].shape[1])),
+               int(qrng.integers(0, m[fld].shape[1]))) for _ in range(64)]
+        for fld in ("f", "g")
+    }
+    t["pairs"] = {fld: truth_pair_counts(m[fld], items, pool)
+                  for fld, items in t["items"].items()}
+    t["lone"] = t["items"]["f"][0], t["pairs"]["f"][0]
+    t["g_row"] = int(qrng.integers(0, R_FULL))
+    t["topn"] = truth_tanimoto_topn(m["f"], m["g"], t["g_row"], 10, 10, pool)
+    t["tree"] = int(sum(by_shard(pool, lambda s: int(np.bitwise_count(
+        m["f"][s, 1] & m["g"][s, 2] & m["h"][s, 3]).sum(dtype=np.int64)))))
+    t["w_notnull"] = int(sum(by_shard(pool, lambda s: int(np.bitwise_count(
+        holder.field("i", "w").view("bsig_w").fragment(s).row_words_host(0)).sum()))))
+    t["seconds"]["numpy"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        up = {k: torch.from_numpy(v.view(np.int32)).to(dev) for k, v in m.items()}
+        t["groupby_fg"] = truth_groupby([up["f"], up["g"]])
+        hgf = []
+        for hr in range(H_ROWS):  # depth first, until the limit of 20 is met
+            for gr in range(R_FULL):
+                if len(hgf) < 20:
+                    hgf.extend(((hr, gr) + c[0], c[1]) for c in truth_groupby(
+                        [up["f"]], filt=up["h"][:, hr] & up["g"][:, gr] & up["g"][:, 3]))
+        t["groupby_hgf20"] = hgf[:20]
+        del up
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+    t["seconds"]["groupby"] = time.perf_counter() - t0
+    t["v"] = v_truth
+    return t, m
+
+
+def budget_path(pool, ex_main, holder, device, v_truth):
+    """The device-memory budget at the serving size (``core/membudget.py``;
+    the process budget configured through ``membudget.configure`` and
+    restored after). The reference answers first: the declined phase's
+    reads on ``ex_main``, the executor of the other paths, with no cap.
+    Then a fresh executor whose lone conditions take the stack at once
+    (``_BSI_SINGLE_WARM = 0``) serves, with its stacks admitted to the
+    budget:
+
+    * eviction phase: a cap of f's and g's stacks and half of v's, so f's
+      and g's do not both fit beside v's: 64-call pair batches on f and
+      on g, a 2-level GroupBy f x g, range Counts on v and w, and f's
+      pair batch again; then a shrink of the cap (``set_cap``), which must
+      free on the card at least the bytes it evicts;
+    * declined phase: the cap below one BSI stack, so the stacks of f, g,
+      v and w are declined and each fragment's copy cycles through the
+      budget: a lone pair Count (the native host tier), a 64-call pair
+      batch, a filtered TopN, 2-level GroupBys with a limit and with
+      `previous`, a 3-level GroupBy with a filter, a tree Count, and on v
+      a range Count, a `><` bitmap, Sum, Min and Max (each BSI read one
+      launch per fragment).
+
+    After every query its answer equals its truth (and, declined, the
+    reference answer), the budget's bytes stay within the cap (unless
+    everything is pinned) and the card holds no more than the budget
+    counts. Last, the host tier alone: a lone cold pair Count over 160
+    shards on the native library against the numpy plain version, and
+    ``Fragment.import_bits`` of 2^20 pairs into one 64-row fragment
+    native against numpy, the two fragments equal."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from pilosa_tpu_torch.core import membudget, residency
+    from pilosa_tpu_torch.core.fragment import Fragment
+    from pilosa_tpu_torch.exec.executor import STACK_DECLINED, Executor
+    from pilosa_tpu_torch.ops import bitops, kernels as tk
+
+    on_card = torch.device(device).type == "cuda"
+    t_path = time.perf_counter()
+    t0 = time.perf_counter()
+    truth, mirrors = budget_truths(pool, holder, device, v_truth)
+    lat = {"truth_s": time.perf_counter() - t0, "truth_parts_s": truth["seconds"],
+           "queries": {}}
+    W = holder.n_words
+    f_bytes = S_FULL * truth["f_rows"] * W * 4
+    g_bytes = S_FULL * R_FULL * W * 4
+    bsi_bytes = S_FULL * (2 + BSI_DEPTH) * W * 4
+    cap_evict = f_bytes + g_bytes + bsi_bytes // 2
+    cap_decline = bsi_bytes * 85 // 100
+    prev_cap = membudget.default_budget(device).cap
+    vals, exv = truth["v"]
+
+    def mem():
+        if not on_card:
+            return 0
+        torch.cuda.synchronize()
+        gc.collect()
+        return torch.cuda.memory_allocated(device)
+
+    def pairs_q(fld):
+        return " ".join(f"Count({op}(Row({fld}={a}), Row({fld}={b})))"
+                        for op, a, b in truth["items"][fld])
+
+    def after(combos, bound):
+        return [c for c in combos if c[0] > tuple(bound)]
+
+    lo, hi = 250_000, 750_000
+    v_mask = {
+        "lt": lambda s: exv[s] & (vals[s] < 500_000),
+        "bt": lambda s: exv[s] & (vals[s] >= lo) & (vals[s] <= hi),
+        "all": lambda s: exv[s],
+    }
+    v_count = truth_count(pool, v_mask["lt"])
+    fg = truth["groupby_fg"]
+    prev_fg = [40, 10]
+    (lone_op, lone_a, lone_b), lone_n = truth["lone"]
+    declined_reads = [
+        ("lone pair Count", f"Count({lone_op}(Row(f={lone_a}), Row(f={lone_b})))", [lone_n]),
+        ("64 pair Counts on f", pairs_q("f"), truth["pairs"]["f"]),
+        ("filtered TopN", f"TopN(f, Row(g={truth['g_row']}), n=10, tanimotoThreshold=10)",
+         [truth["topn"]]),
+        ("GroupBy f x g, limit 12", "GroupBy(Rows(f), Rows(g), limit=12)", [fg[:12]]),
+        ("GroupBy f x g after previous, limit 12",
+         f"GroupBy(Rows(f), Rows(g), previous={prev_fg}, limit=12)",
+         [after(fg, prev_fg)[:12]]),
+        ("GroupBy h x g x f filtered, limit 20",
+         "GroupBy(Rows(h), Rows(g), Rows(f), filter=Row(g=3), limit=20)",
+         [truth["groupby_hgf20"]]),
+        ("tree Count", "Count(Intersect(Row(f=1), Row(g=2), Row(h=3)))", [truth["tree"]]),
+        ("range Count on v", "Count(Row(v < 500000))", [v_count]),
+        ("`><` bitmap on v", f"Row(v >< [{lo}, {hi}])", [truth_words(pool, v_mask["bt"])]),
+        ("Sum of v", "Sum(field=v)", [truth_sum(pool, vals, v_mask["all"])]),
+        ("Min of v", "Min(field=v)", [truth_extreme(pool, vals, v_mask["all"], False)]),
+        ("Max of v", "Max(field=v)", [truth_extreme(pool, vals, v_mask["all"], True)]),
+    ]
+
+    def norm(res):
+        out = []
+        for r in res:
+            if hasattr(r, "segments"):
+                zero = np.zeros(W, dtype=np.uint32)
+                out.append(np.stack([np.asarray(r.segments.get(s, zero)) for s in range(S_FULL)]))
+            elif hasattr(r, "value"):
+                out.append((r.value, r.count))
+            elif isinstance(r, list) and r and hasattr(r[0], "group"):
+                out.append([(tuple(fr.row_id for fr in g.group), g.count) for g in r])
+            elif isinstance(r, list):
+                out.append([(p.id, p.count) for p in r])
+            else:
+                out.append(r)
+        return out
+
+    def same(a, b):
+        return len(a) == len(b) and all(
+            np.array_equal(x, y) if isinstance(x, np.ndarray) else x == y
+            for x, y in zip(a, b))
+
+    # -- the reference answers: the other paths' executor, no cap
+    t0 = time.perf_counter()
+    membudget.configure(None)
+    reference = {}
+    for name, q, want in declined_reads:
+        t = time.perf_counter()
+        reference[name] = norm(ex_main.execute("i", q))
+        if not same(reference[name], want):
+            raise AssertionError(f"budget reference: {name}: answer differs from its truth")
+        log(f"  budget reference: {name}: {(time.perf_counter() - t) * 1e3:.1f} ms")
+    lat["reference_s"] = time.perf_counter() - t0
+
+    budget = membudget.configure(cap_evict)
+    tracker = residency.configure()
+    ex = Executor(holder)
+    # conditions go to the stack (or per fragment) at once: the warm-up of
+    # a lone cold condition is the bsi path's subject, not this one's
+    ex._BSI_SINGLE_WARM = 0
+    base = mem()
+
+    def run(phase, name, q, want, cap):
+        ev0, rb0, dec0, fl0 = (ex.stack_evictions, ex.stack_rebuilds, ex.stacks_declined,
+                               ex.bsi_fragment_launches)
+        before = dict(tk.LAUNCHES)
+        t = time.perf_counter()
+        res = norm(ex.execute("i", q))
+        ms = (time.perf_counter() - t) * 1e3
+        if not same(res, want):
+            raise AssertionError(f"budget {phase}: {name}: answer differs from its truth")
+        if phase == "declined" and not same(res, reference[name]):
+            raise AssertionError(f"budget {phase}: {name}: differs from the uncapped answer")
+        used, pinned = budget.used(), budget.pinned_bytes()
+        if used > cap:
+            if pinned < used:
+                raise AssertionError(f"budget {phase}: {name}: {used} bytes held over the cap "
+                                     f"{cap} with {pinned} pinned")
+            log(f"  budget {phase}: {name}: {used} bytes over the cap {cap}, every entry pinned")
+        alloc = mem() - base
+        launches = {k: tk.LAUNCHES[k] - before[k] for k in tk.LAUNCHES
+                    if tk.LAUNCHES[k] > before[k]}
+        row = {"ms": ms, "evictions": ex.stack_evictions - ev0,
+               "rebuilds": ex.stack_rebuilds - rb0, "declined": ex.stacks_declined - dec0,
+               "fragment_launches": ex.bsi_fragment_launches - fl0, "launches": launches,
+               "used": used, "pinned": pinned, "allocated": alloc}
+        lat["queries"].setdefault(phase, []).append({"name": name, **row})
+        log(f"  budget {phase}: {name}: {ms:.1f} ms, launches {launches}, stacks evicted "
+            f"{row['evictions']}, rebuilt {row['rebuilds']}, declined {row['declined']}, "
+            f"per-fragment BSI {row['fragment_launches']}; budget {used / 1e9:.3f} GB "
+            f"({pinned / 1e9:.3f} pinned), the card holds {alloc / 1e9:.3f} GB more than "
+            f"before the phase")
+        if on_card and alloc > used + (256 << 20):
+            raise AssertionError(f"budget {phase}: {name}: the card holds {alloc} bytes, the "
+                                 f"budget {used}: an evicted tensor is still alive")
+        return row
+
+    # -- eviction phase
+    t0 = time.perf_counter()
+    log(f"budget: cap {cap_evict / 1e9:.3f} GB (f {f_bytes / 1e9:.3f}, g "
+        f"{g_bytes / 1e9:.3f}, a BSI stack {bsi_bytes / 1e9:.3f} GB)")
+    for fld in ("f", "g"):
+        run("eviction", f"64 pair Counts on {fld}", pairs_q(fld), truth["pairs"][fld], cap_evict)
+    run("eviction", "GroupBy f x g", "GroupBy(Rows(f), Rows(g))", [fg], cap_evict)
+    run("eviction", "range Counts on v and w", "Count(Row(v < 500000)) Count(Row(w != null))",
+        [v_count, truth["w_notnull"]], cap_evict)
+    run("eviction", "64 pair Counts on f", pairs_q("f"), truth["pairs"]["f"], cap_evict)
+    if not any(r["evictions"] and r["rebuilds"] for r in lat["queries"]["eviction"]):
+        raise AssertionError("budget: no query of the eviction phase evicted and rebuilt")
+    # a shrink evicts the colder stacks: the card's memory falls by at
+    # least the bytes the budget releases
+    shrink = bsi_bytes + bsi_bytes // 2
+    used0, ev0, a0 = budget.used(), ex.stack_evictions, mem()
+    budget.set_cap(shrink)
+    a1 = mem()
+    freed = used0 - budget.used()
+    log(f"budget: cap shrunk to {shrink / 1e9:.3f} GB: {ex.stack_evictions - ev0} stacks "
+        f"evicted, {freed / 1e9:.3f} GB released by the budget, {(a0 - a1) / 1e9:.3f} GB "
+        f"freed on the card")
+    if freed <= 0 or (on_card and a0 - a1 < freed):
+        raise AssertionError(f"budget: evicting {freed} bytes freed {a0 - a1} of the card")
+    lat["shrink_released_bytes"], lat["shrink_card_freed_bytes"] = freed, a0 - a1
+    lat["eviction_s"] = time.perf_counter() - t0
+    lat["eviction_budget"] = budget.snapshot()
+    log(f"budget: eviction phase {lat['eviction_s']:.1f} s; budget "
+        f"{json.dumps(lat['eviction_budget'])}")
+
+    # -- declined phase
+    t0 = time.perf_counter()
+    budget.set_cap(cap_decline)
+    for name, q, want in declined_reads:
+        row = run("declined", name, q, want, cap_decline)
+        if name.endswith("on v") or name.endswith("of v"):
+            if on_card and sum(row["launches"].get(k, 0) for k in
+                               ("bsi_range", "bsi_sum", "bsi_extreme")) < S_FULL:
+                raise AssertionError(f"budget declined: {name}: BSI launches "
+                                     f"{row['launches']}, not one per fragment")
+            if row["fragment_launches"] < S_FULL:
+                raise AssertionError(f"budget declined: {name}: "
+                                     f"{row['fragment_launches']} per-fragment launches")
+    for fld in ("f", "g", "v", "w"):
+        field = holder.field("i", fld)
+        st = (ex._bsi_stack(field, list(range(S_FULL))) if field.is_bsi()
+              else ex._field_stack(field, list(range(S_FULL))))
+        if st is not STACK_DECLINED:
+            raise AssertionError(f"budget declined: {fld}'s stack was not declined")
+    lat["declined_s"] = time.perf_counter() - t0
+    lat["declined_budget"] = budget.snapshot()
+    lat["residency"] = tracker.snapshot()
+    log(f"budget: declined phase {lat['declined_s']:.1f} s under a {cap_decline / 1e9:.3f} GB "
+        f"cap; budget {json.dumps(lat['declined_budget'])}; residency "
+        f"{json.dumps(lat['residency'])}")
+
+    # -- the host tier alone
+    t0 = time.perf_counter()
+    view = holder.field("i", "f").view("standard")
+    shards = list(range(S_FULL))
+    op = lone_op.lower()
+    native, plain = [], []
+    for _ in range(HOST_TIER_REPS):
+        t = time.perf_counter()
+        n_native = ex._host_pair_count(view, lone_a, lone_b, op, shards)
+        native.append((time.perf_counter() - t) * 1e3)
+        t = time.perf_counter()
+        n_plain = sum(bitops.pair_count_host_plain(
+            view.fragment(s).row_words_host(lone_a), view.fragment(s).row_words_host(lone_b),
+            op) for s in shards)
+        plain.append((time.perf_counter() - t) * 1e3)
+        if n_native != lone_n or n_plain != lone_n:
+            raise AssertionError(f"host tier: {n_native}, plain {n_plain}, truth {lone_n}")
+    rng = np.random.default_rng(SEED + 12)
+    rows = rng.integers(0, R_FULL, IMPORT_PAIRS).astype(np.uint64)
+    cols = rng.integers(0, W * 32, IMPORT_PAIRS)
+    imp_native = []
+    for _ in range(3):
+        fa = Fragment(n_words=W, device=device)
+        t = time.perf_counter()
+        na = fa.import_bits(rows, cols)
+        imp_native.append((time.perf_counter() - t) * 1e3)
+    fb = Fragment(n_words=W, device=device)
+    t = time.perf_counter()
+    nb = fb.import_bits_plain(rows, cols)
+    imp_plain = (time.perf_counter() - t) * 1e3
+    (ia, ma), (ib, mb) = fa.rows_matrix_host(), fb.rows_matrix_host()
+    if na != nb or ia != ib or not np.array_equal(ma, mb):
+        raise AssertionError("import_bits: native and numpy fragments differ")
+    lat["host_tier"] = {
+        "cpu_count": os.cpu_count(), "pair_count_native_ms": native,
+        "pair_count_plain_ms": plain, "import_native_ms": imp_native,
+        "import_plain_ms": imp_plain, "import_changed_bits": int(na),
+    }
+    log(f"host tier ({os.cpu_count()} CPUs): a lone cold {lone_op} pair Count over {S_FULL} "
+        f"shards native {statistics.median(native):.2f} ms (median of {HOST_TIER_REPS}; "
+        f"{', '.join(f'{x:.2f}' for x in native)}), numpy {statistics.median(plain):.2f} ms "
+        f"({', '.join(f'{x:.2f}' for x in plain)}); import_bits of {IMPORT_PAIRS} pairs into "
+        f"one {R_FULL}-row fragment native {statistics.median(imp_native):.1f} ms (median of "
+        f"3), numpy {imp_plain:.1f} ms, the fragments equal; {time.perf_counter() - t0:.1f} s")
+    del mirrors
+    membudget.configure(prev_cap)
+    lat["path_s"] = time.perf_counter() - t_path
+    log(f"budget path: {lat['path_s']:.1f} s (truths {lat['truth_s']:.1f} s: "
+        f"{json.dumps(truth['seconds'])}, reference {lat['reference_s']:.1f} s, eviction "
+        f"{lat['eviction_s']:.1f} s, declined {lat['declined_s']:.1f} s)")
     return lat
 
 
@@ -2511,15 +2885,20 @@ def main() -> int:
                                         lambda: groupby_path(pool, ex, holder, "cuda"))
         l_trees, e2e["trees"] = drive("trees", ("tree_count", "tree_words"),
                                       lambda: trees_path(pool, ex, holder, "cuda"))
+        decoded = {}
         l_bsi, e2e["bsi"] = drive("bsi", ("bsi_range", "bsi_sum", "bsi_extreme"),
-                                  lambda: bsi_path(pool, ex, holder, "cuda"))
-    e2e["setup_s"] = setup_s
-    e2e["stack_rebuilds"] = ex.stack_rebuilds
-    e2e["stack_incremental"] = ex.stack_incremental
-    e2e["crossgram_cache_hits"] = ex.crossgram_cache_hits
-    e2e["bsi_agg_cache_hits"] = ex.bsi_agg_cache_hits
+                                  lambda: bsi_path(pool, ex, holder, "cuda", decoded))
+        e2e["setup_s"] = setup_s
+        e2e["stack_rebuilds"] = ex.stack_rebuilds
+        e2e["stack_incremental"] = ex.stack_incremental
+        e2e["crossgram_cache_hits"] = ex.crossgram_cache_hits
+        e2e["bsi_agg_cache_hits"] = ex.bsi_agg_cache_hits
+        l_budget, e2e["budget"] = drive(
+            "budget", ("bsi_range", "bsi_sum", "bsi_extreme", "masked_row_scan", "gram",
+                       "cross_gram"),
+            lambda: budget_path(pool, ex, holder, "cuda", decoded["v"]))
     by_path = {k: {"pair_topn": l_pair[k], "groupby": l_group[k], "trees": l_trees[k],
-                   "bsi": l_bsi[k]}
+                   "bsi": l_bsi[k], "budget": l_budget[k]}
                for k in l_pair}
 
     sources = {

@@ -11,6 +11,11 @@ A fragment is a dense bitmap of ``capacity`` rows by ``n_words`` words:
   lazily by :meth:`Fragment.device_bits`. Dirty rows go up with one
   in-place ``index_copy_``; a capacity change uploads the whole mirror.
   The final row is permanently zero, so a missing row id gathers it.
+  The copy is admitted to the process device-memory budget
+  (``core/membudget.py``), which may evict it (the tensor is dropped and
+  the next sync uploads it again); a fragment whose copy alone would
+  exceed the cap is *declined* and pages the rows a caller asks for from
+  the mirror instead (:meth:`row_device`, :meth:`rows_device`).
 
 Row ids are arbitrary uint64, so the row axis is sparse (row id -> slot
 through a dict, capacity grown in powers of two) and the column axis
@@ -28,13 +33,15 @@ from __future__ import annotations
 
 import itertools
 import threading
+import weakref
 from typing import Iterable
 
 import numpy as np
 import torch
 
 from pilosa_tpu_torch import device as device_mod
-from pilosa_tpu_torch.ops import bitops
+from pilosa_tpu_torch.core import membudget, residency
+from pilosa_tpu_torch.ops import _hostops, bitops
 from pilosa_tpu_torch.shardwidth import SHARD_WORDS
 
 # BSI row layout within a bsig_* view (reference fragment.go:90-96).
@@ -48,6 +55,20 @@ _MIN_CAPACITY = 8
 class FragmentInvariantError(AssertionError):
     """Internal coherence violation between slot map, host mirror and
     device copy (reference Container.check, roaring.go:2967-3028)."""
+
+
+def _retry_evict(ref) -> None:
+    """Complete a deferred budget eviction from a thread that holds no
+    fragment lock, so a blocking acquire is safe here."""
+    f = ref()
+    if f is None:
+        return
+    with f._lock:
+        if f._evict_pending:
+            f._evict_pending = False
+            # the flag may be stale (a sync re-admitted the copy since);
+            # the accounting follows the copy dropped here either way
+            f._drop_device()
 
 
 class Fragment:
@@ -75,7 +96,7 @@ class Fragment:
         self._lock = threading.RLock()
         self._slot_of: dict[int, int] = {}  # row id -> slot
         self._rowids: list[int] = []  # slot -> row id
-        self._host = np.zeros((0, n_words), dtype=np.uint32)
+        self._set_host(np.zeros((0, n_words), dtype=np.uint32))
         self._device: torch.Tensor | None = None
         self._dirty: set[int] = set()
         self._counts: np.ndarray | None = None  # per-slot cached popcounts
@@ -84,6 +105,28 @@ class Fragment:
         # at version 0, so the number alone could alias).
         self.version = 0
         self.epoch = next(self._epoch_counter)
+        # the device copy's key in the process budget (membudget), made at
+        # the first sync; released when the copy is dropped or the
+        # fragment is collected
+        self._budget_key = None
+        # set by the budget's evict callback when it could not take the
+        # lock; honoured at the next sync or by a retry thread
+        self._evict_pending = False
+        # residency state owned by core/residency.py: decayed hit heat,
+        # prefetch flags and a mirror of the budget's pin bit
+        self._heat = 0.0
+        self._heat_t = 0.0
+        self._res_staging = False
+        self._res_prefetched = False
+        self._res_pinned = False
+
+    def _set_host(self, arr: np.ndarray) -> None:
+        """The only way to (re)assign the host mirror: keeps the cached
+        base address in step (the host tier builds a row address per
+        shard from ``_host_addr``; a reassignment that forgot it would hand
+        the native kernel a pointer into the freed old buffer)."""
+        self._host = arr
+        self._host_addr = arr.__array_interface__["data"][0]
 
     # -- row bookkeeping ----------------------------------------------------
 
@@ -104,7 +147,7 @@ class Fragment:
         if cap != self.capacity:
             grown = np.zeros((cap, self.n_words), dtype=np.uint32)
             grown[: self.capacity] = self._host
-            self._host = grown
+            self._set_host(grown)
             self._drop_device()  # full re-upload on next sync
 
     def _slots_batch(self, row_ids: np.ndarray) -> np.ndarray:
@@ -140,8 +183,13 @@ class Fragment:
         return s
 
     def _drop_device(self) -> None:
+        """Drop the device copy and its budget accounting (caller holds the
+        lock); the host mirror stays authoritative."""
         self._device = None
         self._dirty.clear()
+        if self._budget_key is not None:
+            membudget.default_budget(self.device).release(self._budget_key)
+        residency.default_tracker().note_dropped(self)
 
     # -- mutation -----------------------------------------------------------
 
@@ -229,8 +277,19 @@ class Fragment:
 
     def import_bits(self, rows: np.ndarray, cols: np.ndarray, clear: bool = False) -> int:
         """Bulk import of (row, col-offset) pairs (reference
-        fragment.go:1995-2106 bulkImport), applied as one vectorized
-        masked update of the host mirror. Returns the changed-bit count."""
+        fragment.go:1995-2106 bulkImport), merged into the host mirror in
+        one native pass (``hostops.cpp ph_import_merge``, the roaring
+        AddN/RemoveN role, reference fragment.go:2052). Returns the
+        changed-bit count; :meth:`import_bits_plain` is its numpy plain
+        version."""
+        return self._import_bits(rows, cols, clear, self._merge_native)
+
+    def import_bits_plain(self, rows: np.ndarray, cols: np.ndarray, clear: bool = False) -> int:
+        """Plain version of :meth:`import_bits`: the same bookkeeping with
+        the merge done in numpy."""
+        return self._import_bits(rows, cols, clear, self._merge_plain)
+
+    def _import_bits(self, rows, cols, clear: bool, merge) -> int:
         rows = np.asarray(rows, dtype=np.uint64)
         cols = np.asarray(cols, dtype=np.int64)
         if rows.size == 0:
@@ -256,41 +315,66 @@ class Fragment:
                 )
             else:
                 slots = self._slots_batch(row_ids)
-            width = self.n_words * 32
-            inverse = np.searchsorted(row_ids, rows)
-            key = inverse.astype(np.int64) * width + cols
-            ukey = np.unique(key)
-            urow = ukey // width  # index into row_ids/slots
-            ucol = ukey % width
-            bitvals = np.uint32(1) << (ucol & 31).astype(np.uint32)
-            # group bits into their words: wkey = urow*n_words + word
-            wkey = ukey >> 5
-            starts = np.flatnonzero(np.r_[True, wkey[1:] != wkey[:-1]])
-            wordvals = np.bitwise_or.reduceat(bitvals, starts)
-            uw = wkey[starts]
-            flat = self._host.reshape(-1)
-            flat_idx = slots[uw // self.n_words] * self.n_words + uw % self.n_words
-            pre_words = flat[flat_idx]
-            if clear:
-                flat[flat_idx] = pre_words & ~wordvals
-            else:
-                flat[flat_idx] = pre_words | wordvals
-            # per-bit changed flags via the pre-update word of each key
-            pre_of_key = pre_words[np.searchsorted(uw, wkey)]
-            if clear:
-                newly = (pre_of_key & bitvals) != 0
-            else:
-                newly = (pre_of_key & bitvals) == 0
-            n_changed = int(np.count_nonzero(newly))
+            n_changed, per_row = merge(rows, cols, row_ids, slots, clear)
             if n_changed:
-                per_row = np.bincount(urow[newly], minlength=len(row_ids))
                 for i in np.nonzero(per_row)[0]:
                     self._dirty.add(int(slots[i]))
                 self._counts_delta(
                     counts0, slots, -per_row if clear else per_row
                 )
                 self.version += 1
-            return n_changed
+            return int(n_changed)
+
+    def _merge_native(self, rows, cols, row_ids, slots, clear: bool):
+        """``(n_changed, per-row changed counts)`` of one native merge pass
+        over sorted keys (caller holds the lock). The keys are
+        ``row_id*width + col`` while the largest row id allows it, so no
+        inverse pass is needed; else ``row_index*width + col``."""
+        width = self.n_words * 32
+        if int(row_ids[-1]) <= (2**62) // width:
+            key = rows.astype(np.int64) * width + cols
+            id_keys = True
+        else:
+            key = np.searchsorted(row_ids, rows).astype(np.int64) * width + cols
+            id_keys = False
+        key.sort()
+        n_changed, _, per_row, _ = _hostops.import_merge(
+            key, width, self.n_words, slots, row_ids, self._host, clear,
+            id_keys=id_keys,
+        )
+        return n_changed, per_row
+
+    def _merge_plain(self, rows, cols, row_ids, slots, clear: bool):
+        """The numpy merge of :meth:`_merge_native`: one sort of compact
+        keys gives the dedup, the per-word grouping and the changed bits."""
+        width = self.n_words * 32
+        inverse = np.searchsorted(row_ids, rows)
+        key = inverse.astype(np.int64) * width + cols
+        ukey = np.unique(key)
+        urow = ukey // width  # index into row_ids/slots
+        ucol = ukey % width
+        bitvals = np.uint32(1) << (ucol & 31).astype(np.uint32)
+        # group bits into their words: wkey = urow*n_words + word
+        wkey = ukey >> 5
+        starts = np.flatnonzero(np.r_[True, wkey[1:] != wkey[:-1]])
+        wordvals = np.bitwise_or.reduceat(bitvals, starts)
+        uw = wkey[starts]
+        flat = self._host.reshape(-1)
+        flat_idx = slots[uw // self.n_words] * self.n_words + uw % self.n_words
+        pre_words = flat[flat_idx]
+        if clear:
+            flat[flat_idx] = pre_words & ~wordvals
+        else:
+            flat[flat_idx] = pre_words | wordvals
+        # per-bit changed flags via the pre-update word of each key
+        pre_of_key = pre_words[np.searchsorted(uw, wkey)]
+        if clear:
+            newly = (pre_of_key & bitvals) != 0
+        else:
+            newly = (pre_of_key & bitvals) == 0
+        n_changed = int(np.count_nonzero(newly))
+        per_row = np.bincount(urow[newly], minlength=len(row_ids))
+        return n_changed, per_row
 
     def _merge_row_words(self, row: int, words: np.ndarray, clear: bool) -> None:
         """OR ``words`` into a row, or clear them from it when ``clear``
@@ -320,38 +404,115 @@ class Fragment:
 
     # -- device sync & query views -----------------------------------------
 
+    def _device_nbytes(self) -> int:
+        return (self.capacity + 1) * self.n_words * 4
+
+    def device_declined(self) -> bool:
+        """True when this fragment's whole device copy alone would exceed
+        the budget's cap: callers page rows from the host mirror instead of
+        making the copy (the reference's mmap -> file fallback,
+        syswrap/mmap.go)."""
+        return membudget.default_budget(self.device).would_decline(self._device_nbytes())
+
+    def _budget_evict_cb(self):
+        ref = weakref.ref(self)
+
+        def cb():
+            f = ref()
+            if f is None:
+                return
+            # NON-BLOCKING acquire: the evicting thread may hold another
+            # fragment's lock (its own admit), whose callback may want
+            # ours: blocking here could deadlock two fragments. When
+            # contended, defer and retry from a fresh thread that holds no
+            # lock, so a fragment never queried again still frees the
+            # card's memory the budget counted as reclaimed.
+            if f._lock.acquire(blocking=False):
+                try:
+                    # a concurrent sync may have re-admitted the entry
+                    # between the budget's pop and this call: drop that
+                    # accounting with the copy
+                    f._drop_device()
+                finally:
+                    f._lock.release()
+            else:
+                f._evict_pending = True
+                t = threading.Timer(0.05, _retry_evict, args=(ref,))
+                t.daemon = True
+                t.start()
+
+        return cb
+
+    def _account_device(self, rebuilt: bool) -> None:
+        """Admit (after an upload) or touch (on a hit) the device copy in
+        the process budget (caller holds the lock; the budget's lock nests
+        inside)."""
+        budget = membudget.default_budget(self.device)
+        if self._budget_key is None:
+            self._budget_key = membudget.register_owner(self, budget)
+        if rebuilt:
+            budget.admit(self._budget_key, self._device_nbytes(), self._budget_evict_cb())
+        else:
+            budget.touch(self._budget_key)
+
     def device_bits(self) -> torch.Tensor:
         """The compute copy ``int32[capacity+1, W]``; the final row is
         zeros. Syncs pending host mutations first: dirty rows are copied
         into the existing tensor IN PLACE, so a caller holding the tensor
-        from an earlier call sees them too."""
+        from an earlier call sees them too. The copy is admitted to the
+        budget when uploaded and touched on a hit."""
         with self._lock:
-            if self._device is None or self._device.shape[0] != self.capacity + 1:
+            if self._evict_pending:
+                self._evict_pending = False
+                self._drop_device()
+            was_resident = (
+                self._device is not None
+                and self._device.shape[0] == self.capacity + 1
+            )
+            rebuilt = False
+            h2d = 0
+            if not was_resident:
                 padded = np.zeros((self.capacity + 1, self.n_words), dtype=np.uint32)
                 padded[: self.capacity] = self._host
                 self._device = bitops.to_device(padded, self.device)
+                rebuilt = True
+                h2d = padded.nbytes
             elif self._dirty:
                 slots = np.fromiter(sorted(self._dirty), dtype=np.int64)
                 rows = bitops.to_device(self._host[slots], self.device)
                 self._device.index_copy_(
                     0, torch.from_numpy(slots).to(self.device), rows
                 )
+                h2d = slots.nbytes + rows.numel() * 4
             self._dirty.clear()
+            self._account_device(rebuilt)
+            residency.default_tracker().note_sync(self, was_resident, h2d)
             return self._device
 
     def row_device(self, row: int) -> torch.Tensor:
         """One row's words on the device (a copy); zeros when the row does
-        not exist (reference fragment.go:599 ``row``)."""
+        not exist (reference fragment.go:599 ``row``). When the fragment
+        is declined by the budget only this row is shipped (row paging)."""
         with self._lock:
+            if self.device_declined():
+                return bitops.to_device(self.row_words_host(row), self.device)
             bits = self.device_bits()
             s = self._slot_of.get(row, self.capacity)
             return bits[s].clone()
 
     def rows_device(self, rows: Iterable[int]) -> torch.Tensor:
         """Gather many rows -> ``int32[n, W]``; missing rows gather the
-        zero row."""
+        zero row. Pages just these rows from the host mirror when the
+        fragment is declined by the budget."""
         rows = list(rows)
         with self._lock:
+            if self.device_declined():
+                out = np.zeros((len(rows), self.n_words), dtype=np.uint32)
+                for i, r in enumerate(rows):
+                    s = self._slot_of.get(r)
+                    if s is not None:
+                        out[i] = self._host[s]
+                return bitops.to_device(out, self.device)
             bits = self.device_bits()
             slots = torch.tensor(
                 [self._slot_of.get(r, self.capacity) for r in rows],
@@ -560,7 +721,7 @@ class Fragment:
             if len(self._slot_of) != len(row_ids):
                 raise ValueError("duplicate row ids")
             self._rowids = [int(r) for r in row_ids]
-            self._host = np.zeros((0, self.n_words), dtype=np.uint32)
+            self._set_host(np.zeros((0, self.n_words), dtype=np.uint32))
             if row_ids:
                 self._grow(len(row_ids))
                 self._host[: len(row_ids)] = words

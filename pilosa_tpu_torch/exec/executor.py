@@ -32,6 +32,15 @@ of ``ops/kernels.py``:
   class (:meth:`_batch_bsi`): Q conditions or range counts one range scan,
   Q filtered Sums one sum launch while their filter words fit a budget.
 
+Every stack is admitted to the process device-memory budget
+(``core/membudget.py``), which evicts cold stacks (the next read rebuilds
+them) and declines a stack larger than its whole cap. A declined stack
+(``STACK_DECLINED``) sends its reads per fragment, each as its JAX
+counterpart does: pair Counts to the native host tier, a filtered TopN to
+the masked row scan per fragment, a GroupBy to the recursive cross
+product on the host mirrors, BSI conditions and aggregates to one launch
+per fragment, trees to the host tier.
+
 Everything else is the latency tier on the host mirrors: lone counts,
 trees the batch paths decline (a cold lone tree, Shift), unfiltered TopN
 from the maintained per-fragment counts, Rows, MinRow/MaxRow, a lone cold
@@ -45,6 +54,8 @@ Other calls (Store, attrs, keys, time views) raise
 from __future__ import annotations
 
 import bisect
+import concurrent.futures
+import contextlib
 import itertools
 import os
 import threading
@@ -55,6 +66,7 @@ import numpy as np
 import torch
 
 from pilosa_tpu_torch import pql
+from pilosa_tpu_torch.core import membudget, residency
 from pilosa_tpu_torch.core.field import (
     FIELD_TYPE_BOOL,
     FIELD_TYPE_INT,
@@ -74,7 +86,7 @@ from pilosa_tpu_torch.exec.result import (
     RowIdentifiers,
     ValCount,
 )
-from pilosa_tpu_torch.ops import bitops, bsi, kernels
+from pilosa_tpu_torch.ops import _hostops, bitops, bsi, kernels
 from pilosa_tpu_torch.pql.ast import Call, Condition
 
 # reference executor.go:66 defaultMinThreshold.
@@ -82,6 +94,41 @@ DEFAULT_MIN_THRESHOLD = 1
 
 # Sentinel for "not yet computed" result slots in the batch fast path.
 _UNSET = object()
+
+
+class _Declined:
+    """The type of :data:`STACK_DECLINED`."""
+
+    __slots__ = ()
+
+    def __repr__(self) -> str:
+        return "STACK_DECLINED"
+
+
+# What Executor._field_stack returns when the device-memory budget declines
+# the stack (it is larger than the budget's whole cap); None means the view
+# holds no rows over the shards. A caller unpacking it by mistake fails
+# loudly instead of answering as if the field were empty.
+STACK_DECLINED = _Declined()
+
+
+class _StackEntry(dict):
+    """A stack cache entry: a dict that a weakref (the budget's evict
+    callback, the entry's finalizer) can name."""
+
+    __slots__ = ("__weakref__",)
+
+
+def _dict_items(d: dict) -> list:
+    """A snapshot of ``d``'s items that a concurrent lock-free pop cannot
+    break: the copy runs in C without releasing the GIL, and a pop landing
+    mid-copy (a build without the GIL) retries."""
+    while True:
+        try:
+            return list(d.items())
+        except RuntimeError:  # the dict changed size during the copy
+            continue
+
 
 _PAIR_OPS = {
     "Intersect": "intersect",
@@ -198,6 +245,16 @@ class Executor:
         self.bsi_stack_launches = 0
         self.bsi_agg_cache_hits = 0
         self.bsi_batch_item_errors = 0
+        # the device-memory budget: stacks it evicted, and stack builds
+        # it declined (each sent its reads per fragment)
+        self.stack_evictions = 0
+        self.stacks_declined = 0
+        # BSI computations on one fragment's rows, the stack declined
+        self.bsi_fragment_launches = 0
+        # the host tier's thread pool, built at first need on a host of
+        # more than one core (_host_tier_pool)
+        self._host_pool: concurrent.futures.ThreadPoolExecutor | None = None
+        self._host_pool_lock = threading.Lock()
 
     # ------------------------------------------------------------------ API
 
@@ -451,9 +508,23 @@ class Executor:
         (shard set, view, fixed row count) until a fragment's (epoch,
         version) changes; then the changed shards are patched in
         (:meth:`_stack_incremental_update`) or, failing that, the stack is
-        rebuilt from the host mirrors. None when the view has no rows over
-        ``shards``. A stack larger than the device's free memory raises on
-        allocation; it is never served from the host instead."""
+        rebuilt from the host mirrors.
+
+        Two answers are not a stack: None when the view has no rows over
+        ``shards``, and :data:`STACK_DECLINED` when the process
+        device-memory budget (``core/membudget.py``) declines it, because
+        its bytes alone exceed the budget's cap; the caller then answers
+        per fragment. Every cached stack is admitted to the budget under a
+        key of its own, touched on a hit or a patch and released when the
+        cache drops it; the budget's eviction drops the cache entry, and
+        with it the only reference the executor keeps to the tensor (the
+        gram, row-count and aggregate caches on the entry go with it; the
+        cross-gram slots hold their partner's tensor weakly). A hot entry
+        is pinned (``residency.maybe_pin_stack``). The JAX executor also
+        declines any stack over a fixed 4 GiB (``_STACK_BUDGET_BYTES``,
+        tuned for a TPU's memory); the port does not carry that figure:
+        on the card the budget's cap (80 % of the card's memory unless set,
+        ``membudget.default_budget``) is the only limit."""
         v = field.view(view_name)
         if v is None:
             return None
@@ -467,19 +538,33 @@ class Executor:
             (frags[s].epoch, frags[s].version) if s in frags else (-1, -1)
             for s in shards
         )
+        budget = membudget.default_budget(self.holder.device)
+        tracker = residency.default_tracker()
         with self._stack_lock:
             caches = self._stacks.setdefault(field, {})
             entry = caches.get(key)
             if entry is not None:
                 entry["lru"] = next(self._lru_clock)
+                entry["hits"] += 1
                 if entry["versions"] == versions:
+                    budget.touch(entry["bkey"])
+                    tracker.note_stack_hit()
+                    tracker.note_hit()
+                    if not entry["pinned"] and tracker.maybe_pin_stack(
+                        budget, entry["bkey"], entry["hits"]
+                    ):
+                        entry["pinned"] = True
                     return entry["slot_of"], entry["dev"]
                 updated = self._stack_incremental_update(
                     field, entry, frags, shards, versions
                 )
                 if updated is not None:
+                    budget.touch(entry["bkey"])
+                    tracker.note_stack_hit()
+                    tracker.note_hit()
                     return updated
-                del caches[key]
+                caches.pop(key, None)
+                budget.release(entry["bkey"])
             if fixed_rows is not None:
                 row_ids = list(fixed_rows)
             else:
@@ -487,6 +572,10 @@ class Executor:
             if not row_ids:
                 return None
             S, R, W = len(shards), len(row_ids), field.n_words
+            nbytes = S * R * W * 4
+            if budget.would_decline(nbytes):
+                self.stacks_declined += 1
+                return STACK_DECLINED
             slot_of = {r: i for i, r in enumerate(row_ids)}
             bits = np.zeros((S, R, W), dtype=np.uint32)
             for si, s in enumerate(shards):
@@ -500,15 +589,52 @@ class Executor:
             dev = bitops.to_device(bits, self.holder.device)
             del bits
             self.stack_rebuilds += 1
+            tracker.note_miss()
+            # a BSI depth change (a new row-axis length) retires the entries
+            # of the same shards and view: they can never be hit again
+            # the budget's evict callback pops entries without the lock
+            # (_stack_evict_cb), so these scans read a snapshot and pop
+            # with a default: an entry may vanish under them
+            for stale in [k for k, _ in _dict_items(caches)
+                          if k[:2] == key[:2] and k[2] != key[2]]:
+                old = caches.pop(stale, None)
+                if old is not None:
+                    budget.release(old["bkey"])
             while len(caches) >= self._STACK_CACHE_ENTRIES:
-                del caches[min(caches, key=lambda k: caches[k]["lru"])]
-            caches[key] = {
-                "versions": versions,
-                "slot_of": slot_of,
-                "dev": dev,
-                "lru": next(self._lru_clock),
-            }
+                items = _dict_items(caches)
+                if not items:
+                    break
+                old = caches.pop(min(items, key=lambda kv: kv[1]["lru"])[0], None)
+                if old is not None:
+                    budget.release(old["bkey"])
+            entry = _StackEntry(
+                versions=versions, slot_of=slot_of, dev=dev,
+                lru=next(self._lru_clock), bkey=object(), hits=0, pinned=False,
+            )
+            caches[key] = entry
+            # an entry dropped without a release (the field or the executor
+            # collected) still leaves the budget
+            weakref.finalize(entry, budget.release_from_finalizer, entry["bkey"])
+            budget.admit(entry["bkey"], nbytes, self._stack_evict_cb(field, key, entry))
             return slot_of, dev
+
+    def _stack_evict_cb(self, field: Field, key, entry: dict):
+        """The budget's evict callback for one stack entry: drop the entry
+        from the cache (a lock-free pop, as the evicting thread may hold
+        another lock), if it is still the entry cached under ``key``. A
+        query already holding the tensor keeps using it."""
+        exref, fref, eref = weakref.ref(self), weakref.ref(field), weakref.ref(entry)
+
+        def evict():
+            ex, f, e = exref(), fref(), eref()
+            if ex is None or f is None or e is None:
+                return
+            caches = ex._stacks.get(f)
+            if caches is not None and caches.get(key) is e:
+                caches.pop(key, None)
+                ex.stack_evictions += 1
+
+        return evict
 
     def _stack_incremental_update(
         self, field: Field, entry: dict, frags, shards: list[int], versions
@@ -526,7 +652,9 @@ class Executor:
         transient second copy of the stack on the device (1.34 GB at 160
         shards x 64 rows x 2^20 columns, so 2.7 GB at the peak) and one
         device-to-device copy of it, besides uploading the changed shards'
-        blocks once."""
+        blocks once. The second copy is admitted to the device-memory
+        budget under a key of its own while both live (it may evict other
+        cold entries to fit) and released once the old one is dropped."""
         slot_of = entry["slot_of"]
         changed = [
             si for si, (a, b) in enumerate(zip(entry["versions"], versions))
@@ -550,8 +678,17 @@ class Executor:
             if ids:
                 blocks[k, dst] = matrix
         old = entry["dev"]
-        where = torch.tensor(changed, dtype=torch.int64, device=old.device)
-        dev = old.index_copy(0, where, bitops.to_device(blocks, old.device))
+        budget = membudget.default_budget(self.holder.device)
+        # the entry being patched takes its second chance before the copy's
+        # admission looks for victims
+        budget.touch(entry["bkey"])
+        copy_key = object()
+        budget.admit(copy_key, old.numel() * old.element_size(), lambda: None)
+        try:
+            where = torch.tensor(changed, dtype=torch.int64, device=old.device)
+            dev = old.index_copy(0, where, bitops.to_device(blocks, old.device))
+        finally:
+            budget.release(copy_key)
         for k in ("gram", "gram_misses", "rowcounts", "crossgram", "crossgram_misses",
                   "bsi_agg"):
             entry.pop(k, None)  # they described the old snapshot
@@ -563,7 +700,7 @@ class Executor:
     def _stack_entry_for(self, field: Field, bits: torch.Tensor):
         """The cache entry whose device snapshot IS ``bits``, or None."""
         with self._stack_lock:
-            for e in self._stacks.get(field, {}).values():
+            for _, e in _dict_items(self._stacks.get(field, {})):
                 if e["dev"] is bits:
                     return e
         return None
@@ -727,7 +864,11 @@ class Executor:
             if len(items) < 2 and not self._pair_single_ready(field, shard_list):
                 continue
             stack = self._field_stack(field, shard_list)
-            if stack is None:
+            if stack is None or stack is STACK_DECLINED:
+                # no rows, or over the budget: the items fall to the
+                # per-call path and the host tier; a lone count restarts
+                # its warm-up, so singles don't ask for a declined stack on
+                # every query
                 if len(items) < 2:
                     with self._stack_lock:
                         self._pair_single_demand[field] = 0
@@ -822,7 +963,9 @@ class Executor:
 
         def _stacks_for(pairs):
             """(stacks tuple, slot_of per pair), or None when a leaf's stack
-            is declined (cold and under-demanded, or no rows)."""
+            is not taken (cold and under-demanded, no rows, or declined by
+            the device-memory budget): the call then stays on the host
+            tier."""
             out: list[torch.Tensor] = []
             slot_maps = {}
             for pair in pairs:
@@ -833,7 +976,7 @@ class Executor:
                     )
                     stacks_by_view[pair] = self._field_stack(field, shard_list) if live else None
                 entry = stacks_by_view[pair]
-                if entry is None:
+                if entry is None or entry is STACK_DECLINED:
                     return None
                 slot_maps[pair], stack = entry
                 out.append(stack)
@@ -1024,15 +1167,16 @@ class Executor:
 
     def _bsi_stack(self, field: Field, shards: list[int]):
         """The field's BSI stack ``int32[S, 2+depth, W]`` (rows: exists,
-        sign, then the planes), or None when the BSI view holds no fragment
-        over ``shards``. It is a stack of the view like any other, cached
-        and patched after writes; a write that grows the depth changes its
-        key."""
+        sign, then the planes); None when the BSI view holds no fragment
+        over ``shards``, :data:`STACK_DECLINED` when the device-memory
+        budget declines it. It is a stack of the view like any other,
+        cached and patched after writes; a write that grows the depth
+        changes its key."""
         stack = self._field_stack(
             field, shards, view_name=field.bsi_view_name(),
             fixed_rows=range(2 + field.bit_depth),
         )
-        return None if stack is None else stack[1]
+        return stack if stack is None or stack is STACK_DECLINED else stack[1]
 
     @staticmethod
     def _bsi_split(bits: torch.Tensor):
@@ -1062,7 +1206,9 @@ class Executor:
         ``[S, W]`` words) over every shard, as a Row: on the stack in one
         launch, or, for a lone cold condition (not ``ready``), on CPU
         tensors filled from the host mirrors, with no device upload (the
-        BSI twin of the host pair-count tier)."""
+        BSI twin of the host pair-count tier). When the budget declines
+        the stack, one launch per fragment on its device copy (rows paged
+        from the mirror when the fragment itself is declined)."""
         out = Row(n_words=self.holder.n_words)
         if not ready:
             view = field.view(field.bsi_view_name())
@@ -1086,6 +1232,15 @@ class Executor:
             return out
         st = self._bsi_stack(field, shards)
         if st is None:
+            return out
+        if st is STACK_DECLINED:
+            view = field.view(field.bsi_view_name())
+            for s in shards:
+                frag = view.fragment(s)
+                if frag is not None:
+                    planes, exists, sign = frag.bsi_tensors(field.bit_depth)
+                    self.bsi_fragment_launches += 1
+                    out.segments[s] = bitops.to_host(kernel(planes, exists, sign))
             return out
         exists, sign, planes = self._bsi_split(st)
         self.bsi_stack_launches += 1
@@ -1119,7 +1274,7 @@ class Executor:
             # the host below; repeat demand builds the stack
             ready = self._BSI_SINGLE_WARM <= 0 or self._bsi_stack_live(field, shard_list)
             bits = self._bsi_stack(field, shard_list) if ready else None
-            if bits is not None:
+            if isinstance(bits, torch.Tensor):
                 cached, put = self._bsi_agg_cache(field, bits, key)
                 if cached is not None:
                     return cached
@@ -1158,18 +1313,81 @@ class Executor:
             return None
         return field, v
 
-    @staticmethod
-    def _host_pair_count(view, ra: int, rb: int, op: str, shard_list: list[int]) -> int:
-        """Sum over shards of the fused host pair count."""
+    # shards per host-tier fan-out chunk; also the engage threshold: below
+    # it the hand-off to a thread costs more than it saves
+    _HOST_FANOUT_CHUNK = 24
+
+    def _host_pair_count(self, view, ra: int, rb: int, op: str, shard_list: list[int]) -> int:
+        """Sum over shards of the fused host pair count, one native call
+        per chunk of fragments (a ctypes crossing per shard would cost more
+        than the count at 100+ shards), the chunks fanned over a small
+        thread pool when the host has cores to use (the native kernel
+        releases the GIL; the worker-pool role of reference
+        executor.go:2557-2611)."""
         if view is None:
             return 0
-        total = 0
-        for s in shard_list:
-            frag = view.fragment(s)
-            if frag is not None:
-                total += frag.row_pair_count(ra, rb, op)
-        return total
+        frags = [f for f in (view.fragment(s) for s in shard_list) if f is not None]
+        if not frags:
+            return 0
+        cores = os.cpu_count() or 1
+        if cores > 1 and len(frags) >= 2 * self._HOST_FANOUT_CHUNK:
+            chunks = [
+                frags[i : i + self._HOST_FANOUT_CHUNK]
+                for i in range(0, len(frags), self._HOST_FANOUT_CHUNK)
+            ]
+            return sum(self._host_tier_pool().map(
+                lambda ch: self._host_pair_count_chunk(ch, ra, rb, op), chunks
+            ))
+        return self._host_pair_count_chunk(frags, ra, rb, op)
 
+    @staticmethod
+    def _host_pair_count_chunk(frags, ra: int, rb: int, op: str) -> int:
+        """One native call for a chunk of fragments, every fragment's lock
+        held through it so the counts read one snapshot. Absent rows read a
+        shared zero row, which gives every op its zero-row answer. Row
+        addresses are computed in numpy (base + slot * stride) from each
+        fragment's ``_host_addr``."""
+        n_words = frags[0].n_words
+        zeros = np.zeros(n_words, dtype=np.uint32)
+        zaddr = np.uint64(zeros.__array_interface__["data"][0])
+        n = len(frags)
+        bases = np.empty(n, dtype=np.uint64)
+        slots_a = np.empty(n, dtype=np.int64)
+        slots_b = np.empty(n, dtype=np.int64)
+        hosts = []  # every backing array stays alive through the call
+        with contextlib.ExitStack() as st:
+            for i, f in enumerate(frags):
+                st.enter_context(f._lock)
+                hosts.append(f._host)
+                bases[i] = f._host_addr
+                sa = f._slot_of.get(ra)
+                sb = f._slot_of.get(rb)
+                slots_a[i] = -1 if sa is None else sa
+                slots_b[i] = -1 if sb is None else sb
+            stride = np.uint64(n_words * 4)
+            addr_a = np.where(
+                slots_a < 0, zaddr, bases + slots_a.astype(np.uint64) * stride
+            )
+            addr_b = np.where(
+                slots_b < 0, zaddr, bases + slots_b.astype(np.uint64) * stride
+            )
+            return _hostops.pair_count_addrs(addr_a, addr_b, n_words, op)
+
+    def _host_tier_pool(self) -> concurrent.futures.ThreadPoolExecutor:
+        """The executor's thread pool for the host tier's fan-out, built at
+        first need (never on a single-core host: the caller does not fan
+        out there)."""
+        pool = self._host_pool
+        if pool is None:
+            with self._host_pool_lock:
+                pool = self._host_pool
+                if pool is None:
+                    pool = concurrent.futures.ThreadPoolExecutor(
+                        max_workers=min(8, os.cpu_count() or 1),
+                        thread_name_prefix="pilosa-hosttier",
+                    )
+                    self._host_pool = pool
+        return pool
 
     # ------------------------------------------------------- BSI aggregates
 
@@ -1193,15 +1411,40 @@ class Executor:
         return field
 
     def _bsi_agg_shards(self, idx: Index, call: Call, shards: list[int] | None):
-        """Sum/Min/Max scaffold: ``(field, stacked)``, where ``stacked`` is
-        the deferred ``(bits, filter_row, shards)`` of the field's BSI
-        stack (views and filter words are made only on a cache miss, by
-        :meth:`_bsi_tensors`), or None when no fragment holds values."""
+        """Sum/Min/Max scaffold: ``(field, stacked, per_fragment)``.
+        ``stacked`` is the deferred ``(bits, filter_row, shards)`` of the
+        field's BSI stack (views and filter words are made only on a cache
+        miss, by :meth:`_bsi_tensors`), or None when there is no stack (no
+        fragment holds values, or the budget declined it). Then
+        ``per_fragment`` yields ``(planes, exists, sign, filter)`` of each
+        fragment on its device copy, one launch each (JAX's per-shard
+        generator); the exists row is the filter of an unfiltered query,
+        and a shard the filter does not reach is skipped."""
         shards = self._shards_for(idx, shards)
         field = self._bsi_field(idx, call)
         filt = self._sum_filter(idx, call, shards)
         bits = self._bsi_stack(field, shards)
-        return field, (None if bits is None else (bits, filt, shards))
+        stacked = (bits, filt, shards) if isinstance(bits, torch.Tensor) else None
+
+        def per_fragment():
+            view = field.view(field.bsi_view_name())
+            if stacked is not None or view is None:
+                return
+            for shard in shards:
+                frag = view.fragment(shard)
+                if frag is None:
+                    continue
+                seg = None
+                if filt is not None:
+                    seg = filt.segments.get(shard)
+                    if seg is None:
+                        continue
+                planes, exists, sign = frag.bsi_tensors(field.bit_depth)
+                fw = exists if seg is None else bitops.to_device(seg, exists.device)
+                self.bsi_fragment_launches += 1
+                yield planes, exists, sign, fw
+
+        return field, stacked, per_fragment()
 
     def _bsi_agg_cache(self, field: Field, dev: torch.Tensor, key: str):
         """``(cached value | None, put)``: scalar aggregates per BSI stack
@@ -1264,15 +1507,20 @@ class Executor:
 
     def _execute_sum(self, idx: Index, call: Call, shards: list[int] | None) -> ValCount:
         """reference executor.go:409-442 + executeSumCountShard."""
-        field, stacked = self._bsi_agg_shards(idx, call, shards)
-        if stacked is None:
-            return ValCount()
+        field, stacked, per_fragment = self._bsi_agg_shards(idx, call, shards)
         depth = field.bit_depth
-        tc = self._bsi_agg_serve(
-            field, stacked, "sum",
-            lambda p, e, s, fw: bsi.sum_host(p, e, s, fw, depth=depth),
-        )
-        return self._sum_valcount(field, tc)
+        if stacked is not None:
+            tc = self._bsi_agg_serve(
+                field, stacked, "sum",
+                lambda p, e, s, fw: bsi.sum_host(p, e, s, fw, depth=depth),
+            )
+            return self._sum_valcount(field, tc)
+        total, count = 0, 0
+        for planes, exists, sign, fw in per_fragment:
+            t, c = bsi.sum_host(planes, exists, sign, fw, depth=depth)
+            total += t
+            count += c
+        return self._sum_valcount(field, (total, count))
 
     def _execute_min_max(
         self, idx: Index, call: Call, shards: list[int] | None, maximal: bool
@@ -1280,17 +1528,30 @@ class Executor:
         """Min/Max over the whole stack: per-shard (and slice) extremes,
         combined on the host, which is the reference's per-shard merge
         (equal extremes add their counts)."""
-        field, stacked = self._bsi_agg_shards(idx, call, shards)
-        if stacked is None:
-            return ValCount()
+        field, stacked, per_fragment = self._bsi_agg_shards(idx, call, shards)
         depth = field.bit_depth
-        value, count = self._bsi_agg_serve(
-            field, stacked, f"minmax:{maximal}",
-            lambda p, e, s, fw: bsi.min_max_host(p, e, s, fw, depth=depth, maximal=maximal),
-        )
-        if count == 0:
-            return ValCount()
-        return ValCount(value=value + field.base, count=count)
+        if stacked is not None:
+            value, count = self._bsi_agg_serve(
+                field, stacked, f"minmax:{maximal}",
+                lambda p, e, s, fw: bsi.min_max_host(p, e, s, fw, depth=depth, maximal=maximal),
+            )
+            if count == 0:
+                return ValCount()
+            return ValCount(value=value + field.base, count=count)
+        # the per-fragment merge: equal extremes add their counts
+        best: ValCount | None = None
+        for planes, exists, sign, fw in per_fragment:
+            value, count = bsi.min_max_host(
+                planes, exists, sign, fw, depth=depth, maximal=maximal
+            )
+            if count == 0:
+                continue
+            value += field.base
+            if best is None or (value > best.value if maximal else value < best.value):
+                best = ValCount(value=value, count=count)
+            elif value == best.value:
+                best.count += count
+        return best or ValCount()
 
     def _execute_min_max_row(
         self, idx: Index, call: Call, shards: list[int] | None, maximal: bool
@@ -1370,8 +1631,8 @@ class Executor:
             if len(items) < 2 and not self._bsi_stack_live(field, shard_list):
                 continue
             bits = self._bsi_stack(field, shard_list)
-            if bits is None:
-                continue
+            if bits is None or bits is STACK_DECLINED:
+                continue  # the per-call path answers, per fragment
             groups: dict[str, list[tuple[int, Any]]] = {}
             for i, op_class, cond in items:
                 groups.setdefault(op_class, []).append((i, cond))
@@ -1549,8 +1810,10 @@ class Executor:
     def _execute_topn(self, idx: Index, call: Call, shards: list[int] | None) -> list[Pair]:
         """Exact TopN (reference executor.go:860-999). A filtered TopN runs
         the masked row scan over the field's stack (plus the row scan for
-        tanimoto row totals); an unfiltered one merges the maintained
-        per-fragment counts on the host."""
+        tanimoto row totals), or, when the budget declines the stack, once
+        per fragment over its rows (:meth:`_topn_per_fragment`); an
+        unfiltered one merges the maintained per-fragment counts on the
+        host."""
         shards = self._shards_for(idx, shards)
         fname, ok = call.string_arg("_field")
         if not ok:
@@ -1586,7 +1849,9 @@ class Executor:
         if view is not None and src is not None:
             # a stack of None means the view holds no rows over ``shards``
             stack = self._field_stack(field, shards)
-            if stack is not None:
+            if stack is STACK_DECLINED:
+                self._topn_per_fragment(view, src, shards, has_tanimoto, counts, row_totals)
+            elif stack is not None:
                 slot_of, bits = stack
                 S, _, W = bits.shape
                 filt = self._row_to_shard_matrix(src, shards, S, W)
@@ -1640,6 +1905,32 @@ class Executor:
         if n and not has_ids:
             pairs = pairs[:n]
         return pairs
+
+    @staticmethod
+    def _topn_per_fragment(view, src: Row, shards, has_tanimoto: bool, counts, row_totals):
+        """A filtered TopN without a stack (JAX executor.py:2926-2960): per
+        fragment, the masked row scan at S = 1 over the fragment's rows
+        (its device copy, or rows paged from the mirror when the fragment
+        is declined) and the filter's segment. Tanimoto row totals sum the
+        maintained counts of every shard a row is in, filtered or not."""
+        for shard in shards:
+            frag = view.fragment(shard)
+            if frag is None:
+                continue
+            ids, row_counts = frag.row_counts()
+            if has_tanimoto:
+                for rid, t in zip(ids, row_counts.tolist()):
+                    row_totals[rid] = row_totals.get(rid, 0) + t
+            seg = src.segments.get(shard)
+            if seg is None or not ids:
+                continue
+            rows = frag.rows_device(ids)
+            mc = kernels.masked_row_counts(
+                rows[None], bitops.to_device(seg, rows.device)[None]
+            )
+            for rid, c in zip(ids, mc.tolist()):
+                if c:
+                    counts[rid] = counts.get(rid, 0) + c
 
     # ------------------------------------------------------------------ Rows
 
@@ -1703,9 +1994,11 @@ class Executor:
         intersection of its rows (and the filter), zero counts dropped.
         Every combination is counted on the stacks; a `previous` page is
         the answer's combinations after the bound (row order is the
-        answer's order), and `limit` cuts what is left. ``filt_row``, when
-        given, is the filter's row already evaluated (by the batched BSI
-        lane)."""
+        answer's order), and `limit` cuts what is left. When the budget
+        declines a level's stack, the recursive cross product on the host
+        mirrors answers instead (:meth:`_groupby_recursive`). ``filt_row``,
+        when given, is the filter's row already evaluated (by the batched
+        BSI lane)."""
         shards = self._shards_for(idx, shards)
         if not call.children:
             raise ExecuteError("GroupBy requires at least one Rows() child")
@@ -1738,6 +2031,11 @@ class Executor:
             out = self._groupby_two_level_batch(levels, shards)
         else:
             out = self._groupby_k_level_batch(levels, shards, filt_row)
+        if out is None:  # a level's stack was declined
+            return self._groupby_recursive(
+                levels, shards, filt_row, previous if has_prev else None,
+                limit if has_limit and limit > 0 else 0,
+            )
         if has_prev:
             bound = tuple(previous)
             out = out[bisect.bisect_right(
@@ -1749,9 +2047,13 @@ class Executor:
         self, level, shards: list[int], filt_row: Row | None
     ) -> list[GroupCount]:
         """Each row's count over ``shards``: the row scan (or a cached
-        gram's diagonal), the masked row scan under a filter."""
+        gram's diagonal), the masked row scan under a filter; None when
+        the stack is declined."""
         fname, field, rows = level
-        slot_of, bits = self._field_stack(field, shards)
+        stack = self._field_stack(field, shards)
+        if stack is STACK_DECLINED:
+            return None
+        slot_of, bits = stack
         if filt_row is None:
             counts = self._stack_row_counts(field, bits)
         else:
@@ -1767,10 +2069,14 @@ class Executor:
     def _groupby_two_level_batch(self, levels, shards: list[int]) -> list[GroupCount]:
         """Every (row1, row2) combination count of an unfiltered two-level
         GroupBy from one gram (one field) or one cross gram (two fields),
-        or the batched pair scans when the gram declines."""
+        or the batched pair scans when the gram declines; None when a
+        stack is declined."""
         (f1name, f1, rows1), (f2name, f2, rows2) = levels
-        slot1, bits1 = self._field_stack(f1, shards)
-        slot2, bits2 = self._field_stack(f2, shards) if f2 is not f1 else (slot1, bits1)
+        s1 = self._field_stack(f1, shards)
+        s2 = self._field_stack(f2, shards) if f2 is not f1 else s1
+        if s1 is STACK_DECLINED or s2 is STACK_DECLINED:
+            return None
+        (slot1, bits1), (slot2, bits2) = s1, s2
         sub1 = [slot1[r] for r in rows1]
         sub2 = [slot2[r] for r in rows2]
         counts2d = None
@@ -1828,8 +2134,13 @@ class Executor:
         first, so the masks held at once (one piece per level plus one
         temporary) stay within the prefix budget. Matches the reference's
         semantics (executor.go:3057-3230): DFS row order, each count over
-        all levels and the filter."""
-        stacks = [self._field_stack(f, shards) for _, f, _ in levels]
+        all levels and the filter. None when a level's stack is declined."""
+        stacks = []
+        for _, f, _ in levels:
+            st = self._field_stack(f, shards)
+            if st is STACK_DECLINED:
+                return None
+            stacks.append(st)
         slot0, bits0 = stacks[0]
         S, _, W = bits0.shape
         budget = self._groupby_prefix_budget(bits0.device)
@@ -1882,6 +2193,56 @@ class Executor:
             expand(1, prefix, [(r,) for r in part])
             del prefix
         return out
+
+    def _groupby_recursive(
+        self, levels, shards: list[int], filt_row: Row | None,
+        previous: list[int] | None, limit: int,
+    ) -> list[GroupCount]:
+        """The depth-first cross product in row order on the host mirrors
+        (JAX executor.py:3128-3175), for a GroupBy whose stacks the budget
+        declined: each level's row read once, each combination intersected
+        with its prefix (and the filter) and counted; combinations up to
+        the `previous` bound skipped, at most ``limit`` kept (0: all)."""
+        results: list[GroupCount] = []
+        row_cache: dict[tuple[int, int], Row] = {}
+
+        def level_row(level: int, rid: int) -> Row:
+            key = (level, rid)
+            if key not in row_cache:
+                row_cache[key] = self._field_row(levels[level][1], rid, shards)
+            return row_cache[key]
+
+        def done() -> bool:
+            return limit > 0 and len(results) >= limit
+
+        def recurse(level: int, acc: Row | None, group: list[FieldRow], on_bound: bool):
+            """``on_bound``: the prefix equals the bound's, so rows before
+            the bound are skipped and the bound combination itself too
+            (reference executor.go:3127-3156 paging)."""
+            fname, _, row_ids = levels[level]
+            is_last = level + 1 == len(levels)
+            for rid in row_ids:
+                if done():
+                    return
+                bound_here = False
+                if on_bound:
+                    b = previous[level]
+                    if rid < b or (rid == b and is_last):
+                        continue
+                    bound_here = rid == b
+                row = level_row(level, rid)
+                cur = row if acc is None else acc.intersect(row)
+                g = group + [FieldRow(field=fname, row_id=rid)]
+                if not is_last:
+                    recurse(level + 1, cur, g, bound_here)
+                    continue
+                final = cur if filt_row is None else cur.intersect(filt_row)
+                cnt = final.count()
+                if cnt > 0:
+                    results.append(GroupCount(group=g, count=cnt))
+
+        recurse(0, None, [], previous is not None)
+        return results
 
     @staticmethod
     def _row_to_shard_matrix(row: Row, shards: list[int], S: int, W: int) -> np.ndarray:

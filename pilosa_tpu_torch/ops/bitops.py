@@ -62,7 +62,15 @@ def pack_positions(positions: np.ndarray, n_words: int) -> tuple[np.ndarray, np.
 
 
 def popcount_host(words: np.ndarray) -> int:
-    """Host popcount over a word array of any shape."""
+    """Host popcount over a word array of any shape, in one native pass
+    (``native/hostops.cpp``); raises where the library cannot be built."""
+    from pilosa_tpu_torch.ops import _hostops
+
+    return _hostops.popcount(words)
+
+
+def popcount_host_plain(words: np.ndarray) -> int:
+    """Plain version of :func:`popcount_host` in numpy."""
     return int(np.bitwise_count(np.asarray(words, dtype=np.uint32)).sum(dtype=np.int64))
 
 
@@ -75,12 +83,19 @@ _HOST_OPS = {
 
 
 def pair_count_host(a: np.ndarray, b: np.ndarray, op: str) -> int:
-    """Host ``popcount(op(a, b))``; ``op`` is one of
-    intersect/union/difference/xor."""
+    """Fused host ``popcount(op(a, b))`` with no temporary, in one native
+    pass; ``op`` is one of intersect/union/difference/xor."""
+    from pilosa_tpu_torch.ops import _hostops
+
+    return _hostops.pair_count(a, b, op)
+
+
+def pair_count_host_plain(a: np.ndarray, b: np.ndarray, op: str) -> int:
+    """Plain version of :func:`pair_count_host` in numpy."""
     fn = _HOST_OPS.get(op)
     if fn is None:
         raise ValueError(f"unknown pair op: {op}")
-    return popcount_host(fn(np.asarray(a, np.uint32), np.asarray(b, np.uint32)))
+    return popcount_host_plain(fn(np.asarray(a, np.uint32), np.asarray(b, np.uint32)))
 
 
 def shift_row_host(words: np.ndarray, n: int = 1) -> np.ndarray:

@@ -867,7 +867,9 @@ def min_max_host(planes, exists, sign, filter_words, *, depth: int, maximal: boo
     column of ``exists & filter_words`` holds a value. One bsi_extreme
     launch and one copy of its rows to the host; magnitudes are exact to
     depth 63."""
-    planes, exists, sign, _ = _operands("min_max_host", planes, exists, sign, depth)
+    planes, exists, sign, one = _operands("min_max_host", planes, exists, sign, depth)
+    if one and filter_words is not None:
+        filter_words = filter_words[None]  # the shard axis the operands gained
     rows = bsi_extreme(planes, exists, sign, filter_words, maximal=maximal)
     return extreme_combine(rows.cpu().numpy(), maximal)
 

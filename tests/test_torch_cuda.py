@@ -983,3 +983,158 @@ def test_bsi_extreme_matches_plain(cuda_device, S, W, depth, empty):
                 tb.min_max_host(*cpu, fw.cpu(), depth=depth, maximal=maximal))
     torch.cuda.synchronize()
     assert tk.LAUNCHES["bsi_extreme"] == before + 8
+
+
+# -- the device-memory budget on the card: evictions free the card's memory,
+#    the default cap reads the card, the per-fragment BSI launches (S = 1)
+#    and an executor under a small cap answer as on the CPU
+
+
+@pytest.fixture
+def fresh_budget():
+    from pilosa_tpu_torch.core import membudget, residency
+
+    saved = (membudget._default, residency._default)
+    membudget.configure(None)
+    residency.configure()
+    yield membudget
+    membudget._default, residency._default = saved
+
+
+def _budget_index(dev, seed=13, n_shards=4):
+    from pilosa_tpu_torch.core.field import FieldOptions
+    from pilosa_tpu_torch.core.holder import Holder
+    from pilosa_tpu_torch.exec.executor import Executor
+    from pilosa_tpu_torch.shardwidth import SHARD_WIDTH
+
+    rng = np.random.default_rng(seed)
+    h = Holder(device=dev)
+    idx = h.create_index("i")
+    for name, rows in (("f", 12), ("g", 6)):
+        view = idx.create_field(name).create_view_if_not_exists("standard")
+        for s in range(n_shards):
+            view.create_fragment_if_not_exists(s).import_bits(
+                rng.integers(0, rows, 5000).astype(np.uint64),
+                rng.integers(0, SHARD_WIDTH, 5000))
+    idx.create_field("v", FieldOptions(field_type="int", min_=-500, max_=1000))
+    ex = Executor(h)
+    ex.execute("i", " ".join(
+        f"Set({int(c)}, v={int(x)})"
+        for c, x in zip(rng.integers(0, n_shards * SHARD_WIDTH, 3000),
+                        rng.integers(-500, 1001, 3000))))
+    return ex
+
+
+def test_evicted_stack_frees_its_bytes(cuda_device, fresh_budget):
+    import gc
+
+    ex = _budget_index(cuda_device)
+    budget = fresh_budget.configure(None)
+    ex.execute("i", "Count(Intersect(Row(f=1), Row(f=2))) Count(Union(Row(f=3), Row(f=4)))")
+    ex.execute("i", "Count(Intersect(Row(g=1), Row(g=2))) Count(Union(Row(g=3), Row(g=4)))")
+    used = budget.used()
+    f_bytes = 4 * 12 * ex.holder.n_words * 4
+    assert used == f_bytes + 4 * 6 * ex.holder.n_words * 4
+    torch.cuda.synchronize()
+    gc.collect()
+    before = torch.cuda.memory_allocated(cuda_device)
+    budget.set_cap(used - 1)  # the colder stack, f's, must go
+    gc.collect()
+    after = torch.cuda.memory_allocated(cuda_device)
+    assert ex.stack_evictions == 1 and budget.used() == used - f_bytes
+    assert before - after >= f_bytes, (before, after, f_bytes)
+
+
+def test_probe_device_cap_reads_the_card(cuda_device):
+    from pilosa_tpu_torch.core import membudget
+
+    total = torch.cuda.mem_get_info(cuda_device)[1]
+    want = int(total * membudget.DEFAULT_HBM_FRACTION)
+    assert membudget._probe_device_cap() == want
+    assert membudget._probe_device_cap(cuda_device) == want
+
+
+def test_bsi_launches_per_fragment_match_plain(cuda_device):
+    """The over-budget BSI paths launch each kernel on one fragment's rows
+    (S = 1: planes ``[depth, W]`` gathered from the fragment's copy, rows
+    ``[W]``); each equals its plain version on the CPU."""
+    ex = _budget_index(cuda_device)
+    field = ex.holder.index("i").field("v")
+    depth = field.bit_depth
+    frag = field.view(field.bsi_view_name()).fragment(1)
+    planes, exists, sign = frag.bsi_tensors(depth)
+    assert planes.shape == (depth, ex.holder.n_words) and planes.is_cuda
+    cpu = [t.cpu() for t in (planes, exists, sign)]
+    rng = np.random.default_rng(3)
+    filt = _words(rng, ex.holder.n_words).to(cuda_device)
+    before = dict(tk.LAUNCHES)
+    conds = [
+        lambda p, e, s: tb.range_lt(p, e, s, value=300, depth=depth, allow_eq=True),
+        lambda p, e, s: tb.range_gt(p, e, s, value=-200, depth=depth, allow_eq=False),
+        lambda p, e, s: tb.range_eq(p, e, s, value_abs=17, negative=True, depth=depth),
+        lambda p, e, s: tb.range_between(p, e, s, lo=-100, hi=600, depth=depth),
+    ]
+    for fn in conds:
+        assert torch.equal(fn(planes, exists, sign).cpu(), fn(*cpu))
+    for fw in (exists, filt):
+        assert tb.sum_host(planes, exists, sign, fw, depth=depth) == tb.sum_host(
+            *cpu, fw.cpu(), depth=depth)
+        for maximal in (True, False):
+            assert tb.min_max_host(planes, exists, sign, fw, depth=depth, maximal=maximal) == (
+                tb.min_max_host(*cpu, fw.cpu(), depth=depth, maximal=maximal))
+    torch.cuda.synchronize()
+    assert tk.LAUNCHES["bsi_range"] == before["bsi_range"] + 4
+    assert tk.LAUNCHES["bsi_sum"] == before["bsi_sum"] + 2
+    assert tk.LAUNCHES["bsi_extreme"] == before["bsi_extreme"] + 4
+
+
+@pytest.mark.parametrize("cap_stacks", [1.5, 0.4], ids=["evicting", "declined"])
+def test_executor_under_small_cap_on_cuda_matches_cpu(cuda_device, fresh_budget, cap_stacks):
+    """The same reads on the CPU and on the card under the same cap (1.5
+    times f's stack: stacks evict each other; 0.4 of it: every stack
+    but the existence field's is declined) give the same answers; on the
+    card the declined BSI reads launch the BSI kernels per fragment."""
+    queries = (
+        "Count(Intersect(Row(f=1), Row(f=2))) Count(Xor(Row(f=3), Row(f=9))) "
+        "Count(Union(Row(g=1), Row(g=5)))",
+        "Count(Difference(Row(f=4), Row(f=5)))",
+        "TopN(f, Row(g=2), n=6, tanimotoThreshold=3)",
+        "GroupBy(Rows(f), Rows(g), limit=20) GroupBy(Rows(f), Rows(g), previous=[3, 2])",
+        "GroupBy(Rows(g), Rows(f), Rows(g), filter=Row(v > 100))",
+        "Count(Intersect(Row(f=1), Row(g=2), Row(f=3))) "
+        "Count(Intersect(Row(f=4), Row(g=5), Row(f=6)))",
+        "Count(Row(v < 40)) Row(-20 <= v < 300) Count(Row(v != null))",
+        "Sum(field=v) Sum(Row(f=3), field=v) Min(field=v) Max(Row(g=1), field=v)",
+    ) * 2
+
+    def plain(r):
+        if isinstance(r, int):
+            return r
+        if hasattr(r, "columns"):
+            return r.columns().tolist()
+        if hasattr(r, "value"):
+            return (r.value, r.count)
+        return [
+            (p.id, p.count) if hasattr(p, "id")
+            else ([(g.field, g.row_id) for g in p.group], p.count)
+            for p in r
+        ]
+
+    out, execs = [], []
+    for dev in ("cpu", cuda_device):
+        ex = _budget_index(dev)
+        ex._BSI_SINGLE_WARM = 0
+        cap = int(cap_stacks * 4 * 12 * ex.holder.n_words * 4)
+        budget = fresh_budget.configure(cap)
+        before = dict(tk.LAUNCHES)
+        out.append([plain(r) for q in queries for r in ex.execute("i", q)])
+        assert budget.used() <= cap or budget.pinned_bytes() > 0
+        execs.append((ex, {k: tk.LAUNCHES[k] - before[k] for k in tk.LAUNCHES}))
+    assert out[0] == out[1]
+    ex, launches = execs[1]
+    if cap_stacks < 1:
+        assert ex.stacks_declined > 0 and ex.bsi_fragment_launches > 0
+        for k in ("bsi_range", "bsi_sum", "bsi_extreme", "masked_row_scan"):
+            assert launches[k] > 0, (k, launches)
+    else:
+        assert ex.stack_evictions > 0 and ex.stacks_declined == 0

@@ -1,6 +1,7 @@
 """The port stands alone: ``pilosa_tpu_torch`` and ``chip_smoke.py`` load
-neither JAX nor any module of the JAX package, and the port's default
-device is ``cuda`` with no fallback to the CPU."""
+neither JAX nor any module of the JAX package (the device-memory budget,
+the residency tracker and the native host tier included), and the port's
+default device is ``cuda`` with no fallback to the CPU."""
 
 import ast
 import os
@@ -45,6 +46,25 @@ e.execute("i", "Set(1, v=7) Set(2, v=-3) Set(70000, v=90)")
 res = e.execute("i", "Sum(field=v) Row(v > 5)")
 assert (res[0].value, res[0].count) == (94, 3), res[0]
 assert res[1].columns().tolist() == [1, 70000], res[1]
+# the budget, the tracker and the native host tier: every stack declined,
+# the same answers per fragment and on the host tier
+from pilosa_tpu_torch import nativelib
+from pilosa_tpu_torch.core import membudget, residency
+from pilosa_tpu_torch.ops import _hostops
+budget = membudget.configure(1)
+e = Executor(h)  # no stack cached yet
+res = e.execute(
+    "i",
+    "Count(Intersect(Row(f=1), Row(f=2))) Count(Union(Row(f=1), Row(f=2))) "
+    "Sum(field=v) Count(Row(v > 5))",
+)
+assert res[:2] == [1, 3] and (res[2].value, res[2].count) == (94, 3), res
+assert res[3] == 2 and e.stacks_declined > 0, (res, e.stacks_declined)
+assert residency.default_tracker().snapshot()["deviceMisses"] > 0
+import numpy as np
+assert _hostops.popcount(np.array([3, 1], dtype=np.uint32)) == 3
+assert nativelib.lib_path(nativelib.NATIVE_SRC / "hostops.cpp").is_file()
+membudget.configure(None)
 bad = sorted(
     m for m in sys.modules
     if m == "jax" or m.startswith("jax.") or m.startswith("jaxlib")
