@@ -51,7 +51,7 @@ Phases (any failure raises, and the script exits non-zero):
    160 shards x 64 rows at shard width 2^20, about 25 % dense; a second
    64-row field g, a 4-row field h and the existence field) on
    ``Holder(device="cuda")``, served through ``Executor.execute`` and
-   ``execute_batch`` in four paths, each with every launch count set to 0
+   ``execute_batch`` in six paths, each with every launch count set to 0
    just before it and read
    just after. The pair/TopN path: tanimoto TopN, a 1024-call batch of
    mixed pair Counts, writes, the same reads again; every answer equals
@@ -95,7 +95,21 @@ Phases (any failure raises, and the script exits non-zero):
    the budget holds no more than its cap (unless all is pinned) and the
    card no more than the budget counts. Last, the host tier alone: a lone
    cold pair Count over 160 shards native against numpy, and
-   ``Fragment.import_bits`` of 2^20 pairs native against numpy.
+   ``Fragment.import_bits`` of 2^20 pairs native against numpy. The
+   storage path, after it: f, h, v and the existence field, copied from
+   the mirrors, written by a fresh holder bound to a ``HolderStore`` on a
+   new directory under ``build/`` (every fragment snapshotted), served
+   (the pre-close answers), closed and opened again by a second holder
+   (the ``open`` timed alone); a 1024-call pair batch, a tanimoto TopN, a
+   TopN filtered by a row, GroupBy f x h, a tree Count, a range Count and
+   a Sum on v, cold and warm, each equal to the pre-close answer and to
+   numpy over the written data, the cold reads' kernels asserted; three
+   files decoded and encoded by the native codec and the plain Python
+   one, all equal; 64 writes to f and v, closed without a snapshot and
+   reopened (the op logs replayed, the next reads see them); an index of
+   2^20 column keys and a keyed field of 64 row keys served by key (pair
+   Counts, a filtered TopN, a GroupBy, a Row with its column keys), a Set
+   with a new key, and after the reopen the same ids and answers.
 4. Summary: one ``{"end_to_end": {...}}`` line, one ``{"kernels": [...]}``
    line, the card line, and last ``{"ok": true, "device": {...}}``.
 """
@@ -167,8 +181,25 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+_L2_SCRUB = []
+
+
+def scrub_l2() -> None:
+    """Write over the card's L2 cache (a buffer of twice its size), so the
+    next timed call reads its inputs from memory, as its byte bound
+    assumes: a call timed right after one that read the same tensors finds
+    part of them in L2 and can beat that bound."""
+    import torch
+
+    if not _L2_SCRUB:
+        l2 = getattr(torch.cuda.get_device_properties(0), "L2_cache_size", 0) or 50 << 20
+        _L2_SCRUB.append(torch.empty(2 * l2, dtype=torch.uint8, device="cuda"))
+    _L2_SCRUB[0].fill_(1)
+
+
 def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
-    """Median milliseconds of ``fn`` on the card, from CUDA events."""
+    """Median milliseconds of ``fn`` on the card, from CUDA events, the L2
+    cache written over before each timed call."""
     import torch
 
     for _ in range(warmup):
@@ -178,6 +209,7 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        scrub_l2()
         start.record()
         fn()
         end.record()
@@ -240,7 +272,9 @@ def device_ms(fn, reps: int = 5):
 
     The trace may keep fewer kernel events than the wrappers launched (on
     the H100 it has dropped two of five), so the time is the mean over
-    the events it kept, times the launches the wrappers counted per call."""
+    the events it kept, times the launches the wrappers counted per call.
+    The L2 cache is written over before each call (:func:`scrub_l2`; its
+    fill is not a kernel of the port)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -251,6 +285,7 @@ def device_ms(fn, reps: int = 5):
     launched0 = sum(tk.LAUNCHES.values())
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
+            scrub_l2()
             fn()
         torch.cuda.synchronize()
     launched = sum(tk.LAUNCHES.values()) - launched0
@@ -2802,6 +2837,469 @@ def budget_path(pool, ex_main, holder, device, v_truth):
     return lat
 
 
+
+# ---------------------------------------------------------------------------
+# The storage path: the served index written to a data directory, reopened
+# and served again; op-log replay; a keyed index
+# ---------------------------------------------------------------------------
+
+# the keyed index: column keys (ids 1..2^20, two shards) and row keys of a
+# keyed field, and the pair Counts of its batch
+KEY_COLS = 1 << 20
+KEY_ROWS = 64
+KEY_PAIRS = 64
+# writes to f and v made before the op-log reopen
+STORAGE_WRITES = 64
+
+
+def storage_data(holder):
+    """The schema of index ``i`` with f, h and v (and its existence field),
+    and every fragment of theirs as ``(row ids, words)`` copied from the
+    served holder's host mirrors: the data the storage path writes."""
+    schema = [{
+        "name": "i",
+        "options": {"keys": False, "trackExistence": True},
+        "fields": [{"name": "f", "options": {}}, {"name": "h", "options": {}},
+                   {"name": "v", "options": {"type": "int", "min": BSI_FIELDS["v"][0],
+                                             "max": BSI_FIELDS["v"][1]}}],
+    }]
+    fragments = {}
+    for field, view in (("f", "standard"), ("h", "standard"), ("_exists", "standard"),
+                        ("v", "bsig_v")):
+        for s, frag in holder.field("i", field).view(view).fragments.items():
+            fragments[("i", field, view, s)] = frag.rows_matrix_host()
+    return schema, fragments
+
+
+def fragments_of(holder):
+    """Every fragment of every index of ``holder``."""
+    return [frag for idx in holder.indexes.values() for f in idx.fields.values()
+            for v in f.views.values() for frag in v.fragments.values()]
+
+
+def storage_truths(pool, holder, v_truth, items, h_rows):
+    """numpy over the data the storage path writes (the served holder's
+    mirrors): the pair counts of ``items`` on f, each f row's total and its
+    count under each h row (the TopNs and the GroupBy f x h), a tree
+    Count, and the range Count and Sum of v from ``v_truth``."""
+    import numpy as np
+
+    f_rows = 1 + max(max(frag.row_ids())
+                     for frag in holder.field("i", "f").view("standard").fragments.values())
+    f = mirror_stack(holder, "f", f_rows, S_FULL)
+    h = mirror_stack(holder, "h", H_ROWS, S_FULL)
+
+    def per_shard(s):
+        tot = np.bitwise_count(f[s]).sum(axis=1, dtype=np.int64)
+        under = np.stack([np.bitwise_count(f[s] & h[s, q]).sum(axis=1, dtype=np.int64)
+                          for q in range(H_ROWS)])
+        tree = int(np.bitwise_count((f[s, 1] & h[s, 2]) | (f[s, 3] & ~f[s, 4]))
+                   .sum(dtype=np.int64))
+        return tot, under, tree
+
+    parts = by_shard(pool, per_shard)
+    tot = sum(p[0] for p in parts)
+    under = sum(p[1] for p in parts)
+    vals, exv = v_truth
+    t = {
+        "f_rows": f_rows, "items": items, "pairs": truth_pair_counts(f, items, pool),
+        "tot": tot, "under": under, "tree": sum(p[2] for p in parts),
+        "range": truth_count(pool, lambda s: exv[s] & (vals[s] < 500_000)),
+        "sum": truth_sum(pool, vals, lambda s: exv[s]),
+    }
+    h_tan, h_filt = h_rows
+    src = int(np.bitwise_count(h[:, h_tan]).sum(dtype=np.int64))
+    tan = []
+    for r in range(f_rows):
+        c = int(under[h_tan, r])
+        denom = int(tot[r]) + src - c
+        if c >= 1 and denom > 0 and c * 100 >= 10 * denom:
+            tan.append((r, c))
+    # as answer_of gives them: an unkeyed field's pairs and groups carry None
+    t["tanimoto"] = [(r, c, None) for r, c in sorted(tan, key=lambda p: (-p[1], p[0]))[:10]]
+    filt = [(r, int(c)) for r, c in enumerate(under[h_filt]) if c]
+    t["filtered"] = [(r, c, None) for r, c in sorted(filt, key=lambda p: (-p[1], p[0]))[:10]]
+    t["groupby"] = [((r, q), int(under[q, r]), (None, None)) for r in range(f_rows)
+                    for q in range(H_ROWS) if under[q, r]]
+    return t, f
+
+
+def storage_reads(truth, h_rows):
+    """The reads the storage path serves on the index it wrote, each as
+    ``(name, query or list of queries for execute_batch, kernels it must
+    launch cold, answer)``."""
+    h_tan, h_filt = h_rows
+    pair_calls = [f"Count({op}(Row(f={a}), Row(f={b})))" for op, a, b in truth["items"]]
+    return [  # the TopNs first: after the gram, row totals come from its diagonal
+        ("tanimoto TopN", f"TopN(f, Row(h={h_tan}), n=10, tanimotoThreshold=10)",
+         ("masked_row_scan", "row_scan"), truth["tanimoto"]),
+        ("filtered TopN", f"TopN(f, Row(h={h_filt}), n=10)", ("masked_row_scan",),
+         truth["filtered"]),
+        (f"{len(pair_calls)} pair Counts", pair_calls, ("gram",), truth["pairs"]),
+        ("GroupBy f x h", "GroupBy(Rows(f), Rows(h))", ("cross_gram",), truth["groupby"]),
+        ("tree Count", "Count(Union(Intersect(Row(f=1), Row(h=2)), "
+         "Difference(Row(f=3), Row(f=4))))", ("tree_count",), truth["tree"]),
+        ("range Count on v", "Count(Row(v < 500000))", ("bsi_range",), truth["range"]),
+        ("Sum of v", "Sum(field=v)", ("bsi_sum",), truth["sum"]),
+    ]
+
+
+def answer_of(res):
+    """A result in plain Python values, keys included."""
+    if isinstance(res, list):
+        return [answer_of(r) for r in res]
+    if hasattr(res, "segments"):
+        return (res.columns().tolist(), res.keys)
+    if hasattr(res, "value"):
+        return (res.value, res.count)
+    if hasattr(res, "group"):
+        return (tuple(g.row_id for g in res.group), res.count,
+                tuple(g.row_key for g in res.group))
+    if hasattr(res, "rows"):
+        return (res.rows, res.keys)
+    if hasattr(res, "key"):
+        return (res.id, res.count, res.key)
+    return res
+
+
+def serve_reads(ex, index, reads, tag, lat, on_card, cold):
+    """Serve ``reads`` on ``ex`` over ``index``: each answer (keys
+    included, :func:`answer_of`) against its truth, its latency in
+    ``lat[tag]``, and, ``cold``, each kernel it names launched; returns the
+    answers by name."""
+    from pilosa_tpu_torch.ops import kernels as tk
+
+    out = {}
+    lat[tag] = {}
+    for name, q, kernels, want in reads:
+        before = dict(tk.LAUNCHES)
+        t = time.perf_counter()
+        if isinstance(q, list):
+            res = ex.execute_batch(index, [(c, None) for c in q])
+            bad = [r for r in res if isinstance(r, Exception)]
+            if bad:
+                raise bad[0]
+            got = [r[0] for r in res]
+        else:
+            (got,) = ex.execute(index, q)
+        lat[tag][name] = (time.perf_counter() - t) * 1e3
+        made = {k: tk.LAUNCHES[k] - before[k] for k in tk.LAUNCHES if tk.LAUNCHES[k] > before[k]}
+        out[name] = answer_of(got)
+        if out[name] != want:
+            raise AssertionError(f"storage {tag}: {name}: {str(out[name])[:200]} != "
+                                 f"{str(want)[:200]}")
+        if on_card and cold:
+            missing = [k for k in kernels if k not in made]
+            if missing:
+                raise AssertionError(f"storage {tag}: {name}: launched {made}, not {missing}")
+        log(f"  storage {tag}: {name}: {lat[tag][name]:.1f} ms, launches {made}")
+    return out
+
+
+def storage_path(pool, holder, device, v_truth):
+    """Storage and keys at the serving size (``storage/disk.py``,
+    ``storage/fragmentfile.py``, ``storage/translatelog.py``):
+
+    1. write: a fresh holder bound to a ``HolderStore`` on a new directory
+       under ``build/`` (the free bytes checked first), loaded with f, h, v
+       and the existence field copied from the served holder's mirrors;
+       every fragment snapshotted through its ``FragmentFile`` (in
+       parallel), ``sync()``; the reads below served on it (the pre-close
+       answers), then ``close()``;
+    2. reopen: a second holder and executor open the directory (the
+       ``open`` timed alone: each file decoded straight into its
+       fragment's row words); the reads served cold and warm, every answer
+       equal to the pre-close one and to numpy over the written data;
+       three files decoded and encoded by the native codec and by the
+       plain Python one, all equal;
+    3. writes: 64 Set/Clear and value writes to f and v through the
+       executor, the holder closed without a snapshot and reopened: the
+       op logs replay them, and the next reads see them;
+    4. keys: an index with column keys (2^20 keys, ids 1..2^20 over two
+       shards) and a keyed field of 64 row keys, served by key (pair
+       Counts, a filtered TopN whose pairs carry keys, a GroupBy with row
+       keys, a Row bitmap with its column keys), a Set with a new column
+       key, then a reopen: the same keys give the same ids and answers.
+
+    The reads: a 1024-call pair batch on f, a tanimoto TopN, a TopN
+    filtered by a row, GroupBy f x h, a tree Count, and a range Count and
+    Sum on v, each cold read asserting the kernels it launched. ``v_truth``
+    is the bsi path's decode of v, updated here in place by the writes."""
+    import gc
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from pilosa_tpu_torch import convert
+    from pilosa_tpu_torch.core.field import FieldOptions
+    from pilosa_tpu_torch.core.holder import Holder
+    from pilosa_tpu_torch.exec.executor import Executor
+    from pilosa_tpu_torch.ops import kernels as tk
+    from pilosa_tpu_torch.shardwidth import SHARD_WIDTH
+    from pilosa_tpu_torch.storage import roaring
+    from pilosa_tpu_torch.storage.disk import HolderStore
+
+    on_card = torch.device(device).type == "cuda"
+    t_path = time.perf_counter()
+    qrng = np.random.default_rng(SEED + 13)
+    W = holder.n_words
+    lat = {}
+
+    schema, fragments = storage_data(holder)
+    data_bytes = sum(w.nbytes for _, w in fragments.values())
+    items = [(OPS[int(qrng.integers(0, 4))], int(qrng.integers(0, R_FULL)),
+              int(qrng.integers(0, R_FULL))) for _ in range(BATCH)]
+    h_rows = (int(qrng.integers(0, H_ROWS)), int(qrng.integers(0, H_ROWS)))
+    t0 = time.perf_counter()
+    truth, f_np = storage_truths(pool, holder, v_truth, items, h_rows)
+    lat["truth_s"] = time.perf_counter() - t0
+    reads = storage_reads(truth, h_rows)
+
+    root = HERE / "build"
+    root.mkdir(exist_ok=True)
+    free = shutil.disk_usage(root).free
+    need = 2 * data_bytes + (1 << 30)
+    if free < need:
+        raise AssertionError(f"storage: {free} bytes free under {root}, {need} needed")
+    data_dir = tempfile.mkdtemp(prefix="storage-", dir=root)
+    log(f"storage: {data_bytes / 1e9:.3f} GB of mirror words to write under {data_dir} "
+        f"({free / 1e9:.1f} GB free)")
+
+    def open_store():
+        h = Holder(device=device)
+        st = HolderStore(h, data_dir)
+        t = time.perf_counter()
+        st.open()
+        return h, st, time.perf_counter() - t
+
+    def executor(h, st):
+        ex = Executor(h, translator=st.translator)
+        ex._BSI_SINGLE_WARM = 0  # a lone range Count takes the stack at once
+        return ex
+
+    def release():
+        gc.collect()
+        if on_card:
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+
+    try:
+        # -- 1. write
+        t0 = time.perf_counter()
+        h1 = Holder(device=device)
+        st1 = HolderStore(h1, data_dir)
+        st1.open()
+        convert.load_arrays(h1, schema, fragments)
+        del fragments
+        frags = fragments_of(h1)
+        list(pool.map(lambda fr: fr.store.snapshot(), frags))
+        st1.sync()
+        lat["write_s"] = time.perf_counter() - t0
+        lat["file_bytes"] = sum(os.path.getsize(fr.store.path) for fr in frags)
+        lat["files"] = len(frags)
+        log(f"storage: wrote {len(frags)} fragment files, {lat['file_bytes'] / 1e9:.3f} GB, "
+            f"in {lat['write_s']:.2f} s (load and snapshot)")
+        pre = serve_reads(executor(h1, st1), "i", reads, "pre_close", lat, on_card, cold=True)
+        t = time.perf_counter()
+        st1.close()
+        lat["close_s"] = time.perf_counter() - t
+        del h1, st1, frags
+        release()
+
+        # -- 2. reopen
+        h2, st2, lat["open_s"] = open_store()
+        n_frags = len(fragments_of(h2))
+        log(f"storage: open of {n_frags} fragments in {lat['open_s']:.2f} s")
+        if n_frags != lat["files"]:
+            raise AssertionError(f"storage: reopened {n_frags} fragments, wrote {lat['files']}")
+        ex2 = executor(h2, st2)
+        for tag, cold in (("reopen_cold", True), ("reopen_warm", False)):
+            got = serve_reads(ex2, "i", reads, tag, lat, on_card, cold)
+            if got != pre:
+                bad = [k for k in pre if got[k] != pre[k]]
+                raise AssertionError(f"storage {tag}: {bad} differ from the pre-close answers")
+
+        # the codec: native against the plain Python codec on three files
+        codec = {}
+        for field, view in (("f", "standard"), ("h", "standard"), ("v", "bsig_v")):
+            frag = h2.field("i", field).view(view).fragment(0)
+            with open(frag.store.path, "rb") as fh:
+                data = fh.read()
+            rids, words = frag.snapshot_rows()
+            t = time.perf_counter()
+            pos_n, ops_n = roaring.deserialize_with_opcount(data)
+            dec_n = time.perf_counter() - t
+            t = time.perf_counter()
+            pos_p, ops_p = roaring._deserialize_py(data)
+            dec_p = time.perf_counter() - t
+            t = time.perf_counter()
+            ids_w, words_w, ops_w = roaring.decode_rows(data, W)
+            dec_w = time.perf_counter() - t
+            t = time.perf_counter()
+            enc_n = roaring.serialize_rows(rids, words)
+            enc_ns = time.perf_counter() - t
+            t = time.perf_counter()
+            enc_p = roaring._serialize_py(pos_p)
+            enc_ps = time.perf_counter() - t
+            if not (np.array_equal(pos_n, pos_p) and ops_n == ops_p == ops_w == 0):
+                raise AssertionError(f"storage codec: {field}: native and plain decode differ")
+            if not (np.array_equal(ids_w, rids) and np.array_equal(words_w, words)):
+                raise AssertionError(f"storage codec: {field}: word decode differs")
+            if not enc_n == enc_p == data:
+                raise AssertionError(f"storage codec: {field}: native and plain bytes differ")
+            codec[field] = {"bytes": len(data), "bits": int(pos_p.size),
+                            "decode_native_ms": dec_n * 1e3, "decode_plain_ms": dec_p * 1e3,
+                            "decode_words_ms": dec_w * 1e3, "encode_native_ms": enc_ns * 1e3,
+                            "encode_plain_ms": enc_ps * 1e3}
+            log(f"  storage codec: {field}/{view} shard 0, {len(data)} bytes, {pos_p.size} bits: "
+                f"decode native {dec_n * 1e3:.1f} ms, plain {dec_p * 1e3:.1f} ms, into words "
+                f"{dec_w * 1e3:.2f} ms; encode native {enc_ns * 1e3:.1f} ms, plain "
+                f"{enc_ps * 1e3:.1f} ms; all equal")
+        lat["codec"] = codec
+
+        # -- 3. writes, replayed from the op logs
+        wr = np.random.default_rng(SEED + 14)
+        vals, exv = v_truth
+        writes, calls = [], []
+        for k in range(STORAGE_WRITES):
+            col = int(wr.integers(0, S_FULL * SHARD_WIDTH))
+            if k % 4 == 3:
+                val = int(wr.integers(BSI_FIELDS["v"][0], BSI_FIELDS["v"][1] + 1))
+                writes.append(("v", col, val))
+                calls.append(f"Set({col}, v={val})")
+            else:
+                op = "Set" if wr.random() < 0.6 else "Clear"
+                row = int(wr.integers(0, R_FULL))
+                writes.append(("f", col, (op, row)))
+                calls.append(f"{op}({col}, f={row})")
+        t = time.perf_counter()
+        ex2.execute("i", " ".join(calls))
+        lat["writes_ms"] = (time.perf_counter() - t) * 1e3
+        for fld, col, arg in writes:  # the truth follows the writes
+            s, off = divmod(col, SHARD_WIDTH)
+            if fld == "v":
+                vals[s][off], exv[s][off] = arg, True
+            elif arg[0] == "Set":
+                f_np[s, arg[1], off >> 5] |= np.uint32(1 << (off & 31))
+            else:
+                f_np[s, arg[1], off >> 5] &= ~np.uint32(1 << (off & 31))
+        logged = sum(1 for fr in fragments_of(h2) if fr.store.op_n)
+        if not logged:
+            raise AssertionError("storage: the writes reached no op log")
+        wrote_rows = sorted({arg[1] for fld, _, arg in writes if fld == "f"})
+        w_items = [(OPS[int(wr.integers(0, 4))], wrote_rows[int(wr.integers(0, len(wrote_rows)))],
+                    int(wr.integers(0, R_FULL))) for _ in range(KEY_PAIRS)]
+        w_reads = [
+            (f"{KEY_PAIRS} pair Counts on written rows",
+             [f"Count({op}(Row(f={a}), Row(f={b})))" for op, a, b in w_items], ("gram",),
+             truth_pair_counts(f_np, w_items, pool)),
+            ("range Count on v", "Count(Row(v < 500000))", ("bsi_range",),
+             truth_count(pool, lambda s: exv[s] & (vals[s] < 500_000))),
+            ("Sum of v", "Sum(field=v)", ("bsi_sum",), truth_sum(pool, vals, lambda s: exv[s])),
+        ]
+        after = serve_reads(ex2, "i", w_reads, "after_writes", lat, on_card, cold=False)
+
+        # -- 4. keys: built on the same store, closed with the writes above
+        t0 = time.perf_counter()
+        h2.create_index("k", keys=True).create_field("kf", FieldOptions(keys=True))
+        col_keys = [f"user{i:07d}" for i in range(1, KEY_COLS + 1)]
+        row_keys = [f"attr{j:02d}" for j in range(KEY_ROWS)]
+        t = time.perf_counter()
+        col_ids = st2.translator.translate_keys("k", "", col_keys)
+        row_ids = st2.translator.translate_keys("k", "kf", row_keys)
+        lat["keys_translate_s"] = time.perf_counter() - t
+        if col_ids != list(range(1, KEY_COLS + 1)) or row_ids != list(range(1, KEY_ROWS + 1)):
+            raise AssertionError("storage keys: ids are not allocated from 1 in order")
+        kw = random_words(np.random.default_rng(SEED + 15), (2, KEY_ROWS, W), dense=True)
+        kw[0, :, 0] &= ~np.uint32(1)  # column 0 has no key
+        kw[1, :, 1:] = 0  # shard 1 holds only column 2^20
+        kw[1, :, 0] &= np.uint32(1)
+        rows = list(range(1, KEY_ROWS + 1))
+        convert.load_arrays(h2, [], {("k", "kf", "standard", s): (rows, kw[s]) for s in (0, 1)})
+        for s in (0, 1):
+            h2.field("k", "kf").view("standard").fragment(s).store.snapshot()
+        lat["keys_build_s"] = time.perf_counter() - t0
+        kitems = [(int(wr.integers(0, KEY_ROWS)), int(wr.integers(0, KEY_ROWS)))
+                  for _ in range(KEY_PAIRS)]
+        k_filt, k_row = int(wr.integers(0, KEY_ROWS)), int(wr.integers(0, KEY_ROWS))
+        new_key = "user-new"
+
+        def keyed_reads():
+            """The keyed reads, their truths from ``kw`` as it stands."""
+            counts = np.bitwise_count(kw).sum(axis=(0, 2), dtype=np.int64)
+            under = np.bitwise_count(kw & kw[:, k_filt][:, None]).sum(axis=(0, 2),
+                                                                     dtype=np.int64)
+            top = sorted(((j, int(c)) for j, c in enumerate(under) if c),
+                         key=lambda p: (-p[1], p[0]))
+            cols = [s * SHARD_WIDTH + int(c) for s in (0, 1)
+                    for c in np.flatnonzero(np.unpackbits(kw[s, k_row].view(np.uint8),
+                                                          bitorder="little"))]
+            return [
+                (f"{KEY_PAIRS} pair Counts by key",
+                 [f'Count(Intersect(Row(kf="{row_keys[a]}"), Row(kf="{row_keys[b]}")))'
+                  for a, b in kitems], ("gram",),
+                 [int(np.bitwise_count(kw[:, a] & kw[:, b]).sum(dtype=np.int64))
+                  for a, b in kitems]),
+                ("filtered TopN by key", f'TopN(kf, Row(kf="{row_keys[k_filt]}"), n=5)',
+                 ("masked_row_scan",), [(j + 1, c, row_keys[j]) for j, c in top[:5]]),
+                ("GroupBy with row keys", "GroupBy(Rows(kf))", (),
+                 [((j + 1,), int(c), (row_keys[j],)) for j, c in enumerate(counts) if c]),
+                ("Row bitmap with column keys", f'Row(kf="{row_keys[k_row]}")', (),
+                 (cols, [col_keys[c - 1] if c <= KEY_COLS else new_key for c in cols])),
+            ]
+
+        ek = executor(h2, st2)
+        keyed = serve_reads(ek, "k", keyed_reads(), "keys_cold", lat, on_card, cold=True)
+        t = time.perf_counter()
+        (changed,) = ek.execute("k", f'Set("{new_key}", kf="{row_keys[k_row]}")')
+        lat["keys_set_ms"] = (time.perf_counter() - t) * 1e3
+        if not changed or st2.translator.translate_key("k", "", new_key, create=False) != \
+                KEY_COLS + 1:
+            raise AssertionError("storage keys: Set with a new column key")
+        kw[1, k_row, 0] |= np.uint32(2)  # column 2^20 + 1, the new key's id
+        keyed = serve_reads(ek, "k", keyed_reads(), "keys_after_set", lat, on_card, cold=False)
+        t = time.perf_counter()
+        st2.close()
+        lat["close_with_log_s"] = time.perf_counter() - t
+        del h2, st2, ex2, ek
+        release()
+
+        # -- 3 and 4 after the reopen: the op logs and the keys log replayed
+        h3, st3, lat["reopen_with_log_s"] = open_store()
+        log(f"storage: reopen with {logged} op logs and {KEY_COLS + KEY_ROWS + 1} keys to "
+            f"replay in {lat['reopen_with_log_s']:.2f} s")
+        for fld, col, arg in writes:
+            if fld == "v":
+                got = h3.field("i", "v").value(col)
+                if got != (vals[col // SHARD_WIDTH][col % SHARD_WIDTH], True):
+                    raise AssertionError(f"storage: Set({col}, v=...) not replayed: {got}")
+        ex3 = executor(h3, st3)
+        if serve_reads(ex3, "i", w_reads, "replayed", lat, on_card, cold=True) != after:
+            raise AssertionError("storage: reads after the replay differ")
+        tr = st3.translator
+        if (tr.translate_keys("k", "", col_keys[:: KEY_COLS // 64], create=False)
+                != col_ids[:: KEY_COLS // 64]
+                or tr.translate_keys("k", "kf", row_keys, create=False) != row_ids
+                or tr.translate_key("k", "", new_key, create=False) != KEY_COLS + 1):
+            raise AssertionError("storage keys: the reopened store maps keys to other ids")
+        if serve_reads(executor(h3, st3), "k", keyed_reads(), "keys_reopen_cold", lat, on_card,
+                       cold=True) != keyed:
+            raise AssertionError("storage keys: answers after the reopen differ")
+        st3.close()
+        del h3, st3, ex3
+        release()
+    finally:
+        shutil.rmtree(data_dir, ignore_errors=True)
+    lat["path_s"] = time.perf_counter() - t_path
+    log(f"storage path: {lat['path_s']:.1f} s (truth {lat['truth_s']:.1f} s, write "
+        f"{lat['write_s']:.1f} s, {lat['file_bytes'] / 1e9:.3f} GB in {lat['files']} files; "
+        f"open {lat['open_s']:.2f} s; keys translated {lat['keys_translate_s']:.1f} s; reopen "
+        f"with logs {lat['reopen_with_log_s']:.2f} s)")
+    return lat
+
+
 def drive(path, required, fn):
     """Run one path of the main path with every launch count set to 0 just
     before it; fail if a kernel of the path was not launched in it."""
@@ -2897,8 +3395,12 @@ def main() -> int:
             "budget", ("bsi_range", "bsi_sum", "bsi_extreme", "masked_row_scan", "gram",
                        "cross_gram"),
             lambda: budget_path(pool, ex, holder, "cuda", decoded["v"]))
+        l_storage, e2e["storage"] = drive(
+            "storage", ("gram", "cross_gram", "row_scan", "masked_row_scan", "tree_count",
+                        "bsi_range", "bsi_sum"),
+            lambda: storage_path(pool, holder, "cuda", decoded["v"]))
     by_path = {k: {"pair_topn": l_pair[k], "groupby": l_group[k], "trees": l_trees[k],
-                   "bsi": l_bsi[k], "budget": l_budget[k]}
+                   "bsi": l_bsi[k], "budget": l_budget[k], "storage": l_storage[k]}
                for k in l_pair}
 
     sources = {

@@ -33,6 +33,19 @@ def holder_from_arrays(
     fragment per ``(index, field, view, shard)`` key of ``fragments``,
     each loaded from its ``(row_ids, uint32[len(row_ids), W])`` pair."""
     holder = Holder(n_words=n_words, device=device)
+    load_arrays(holder, schema, fragments)
+    return holder
+
+
+def load_arrays(
+    holder: Holder,
+    schema: list[dict],
+    fragments: Mapping[tuple[str, str, str, int], tuple],
+) -> None:
+    """Load ``schema`` and ``fragments`` (as :func:`holder_from_arrays`
+    takes them) into an existing ``holder``: one bound to a data directory
+    (``storage.disk.HolderStore``) gets a file for each new fragment, which
+    its next snapshot fills."""
     holder.apply_schema(schema)
     for (index, field, view, shard), (row_ids, words) in fragments.items():
         f = holder.field(index, field)
@@ -46,4 +59,3 @@ def holder_from_arrays(
             if not f.is_bsi():
                 raise ValueError(f"BSI view {view!r} of non-int field {index}/{field}")
             f.grow_bit_depth(int(max(row_ids)) - BSI_OFFSET_BIT + 1)
-    return holder

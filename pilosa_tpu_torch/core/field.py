@@ -128,6 +128,11 @@ class Field:
         self.views: dict[str, View] = {}
         # row attributes (reference field.go rowAttrStore)
         self.row_attrs = AttrStore()
+        # creation hooks (reference field.go:795-815): called with (field,
+        # view name) for each new view; each new view takes
+        # on_create_fragment (storage wiring)
+        self.on_create_view = None
+        self.on_create_fragment = None
         o = self.options
         if o.field_type == FIELD_TYPE_INT:
             if o.min > o.max:
@@ -169,7 +174,10 @@ class Field:
             v = self.views.get(name)
             if v is None:
                 v = View(self.index, self.name, name, self.n_words, device=self.device)
+                v.on_create_fragment = self.on_create_fragment
                 self.views[name] = v
+                if self.on_create_view is not None:
+                    self.on_create_view(self, name)
             return v
 
     def bsi_view_name(self) -> str:

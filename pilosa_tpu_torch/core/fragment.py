@@ -27,6 +27,12 @@ bit-sliced (reference fragment.go:90-96): row 0 the exists bit, row 1 the
 sign bit, rows 2.. the magnitude planes, LSB first. The stored value is
 ``value - base``; the sign row marks stored < 0 and the planes hold
 ``abs(stored)``.
+
+With a ``store`` attached (``storage.fragmentfile.FragmentFile``) every
+mutation appends op records to the fragment's file as the JAX fragment's
+does, record for record (reference fragment.go:453 storage.OpWriter): row
+ids are checked before anything changes, and one logical mutation's bits
+go out as batch records.
 """
 
 from __future__ import annotations
@@ -34,6 +40,7 @@ from __future__ import annotations
 import itertools
 import threading
 import weakref
+from contextlib import contextmanager
 from typing import Iterable
 
 import numpy as np
@@ -119,6 +126,10 @@ class Fragment:
         self._res_staging = False
         self._res_prefetched = False
         self._res_pinned = False
+        # optional storage.FragmentFile: mutations append to its op log
+        # (reference fragment.go:453 storage.OpWriter). Lock order is
+        # always fragment._lock (outer) -> store lock (inner).
+        self.store = None
 
     def _set_host(self, arr: np.ndarray) -> None:
         """The only way to (re)assign the host mirror: keeps the cached
@@ -213,10 +224,30 @@ class Fragment:
         counts0[slots] += deltas
         self._counts = counts0
 
+    def _check_persistable(self, row: int) -> None:
+        """With a store attached, reject a row id it cannot persist BEFORE
+        mutating, so the mirror and the op log cannot diverge."""
+        if self.store is not None:
+            self.store.check_row(row)
+
+    @contextmanager
+    def _batched_store(self):
+        """Coalesce one logical mutation's ops into batch records (one
+        locked append instead of one write and flush per bit)."""
+        if self.store is None:
+            yield
+            return
+        self.store.begin_batch()
+        try:
+            yield
+        finally:
+            self.store.end_batch()
+
     def set_bit(self, row: int, col: int) -> bool:
         """Set bit (row, col-offset); True if it changed (reference
         fragment.go:645-713)."""
         with self._lock:
+            self._check_persistable(row)
             counts0 = self._counts
             s = self._slot(row, create=True)
             w, b = col >> 5, np.uint32(1 << (col & 31))
@@ -225,6 +256,8 @@ class Fragment:
             self._host[s, w] |= b
             self._touch(s)
             self._counts_delta(counts0, s, 1)
+            if self.store is not None:
+                self.store.log_add(row, col)
             return True
 
     def clear_bit(self, row: int, col: int) -> bool:
@@ -239,6 +272,8 @@ class Fragment:
             self._host[s, w] &= ~b
             self._touch(s)
             self._counts_delta(counts0, s, -1)
+            if self.store is not None:
+                self.store.log_remove(row, col)
             return True
 
     def get_bit(self, row: int, col: int) -> bool:
@@ -264,12 +299,24 @@ class Fragment:
         """Replace a whole row (reference fragment.go:781-834 setRow);
         True if the row changed."""
         with self._lock:
+            self._check_persistable(row)
             s = self._slot(row, create=True)
             words = np.asarray(words, dtype=np.uint32)
             if np.array_equal(self._host[s], words):
                 return False
+            old = self._host[s].copy()
             self._host[s] = words
             self._touch(s)
+            # logged after the change: a snapshot that the logging triggers
+            # then writes the new state, on which these ops replay alike
+            if self.store is not None:
+                added = words & ~old
+                removed = old & ~words
+                with self._batched_store():
+                    if added.any():
+                        self.store.log_add_mask(row, added)
+                    if removed.any():
+                        self.store.log_remove_mask(row, removed)
             return True
 
     def clear_row(self, row: int) -> bool:
@@ -294,7 +341,7 @@ class Fragment:
         cols = np.asarray(cols, dtype=np.int64)
         if rows.size == 0:
             return 0
-        with self._lock:
+        with self._lock, self._batched_store():
             counts0 = self._counts  # before slot creation nulls it
             # group by row directly (row*width+col would wrap uint64 for
             # hashed row ids)
@@ -310,15 +357,24 @@ class Fragment:
                     rows = rows[sel]
                     cols = cols[sel]
                     row_ids = row_ids[keep]
+                for r in row_ids:  # before the change: mirror/log atomicity
+                    self._check_persistable(int(r))
                 slots = np.array(
                     [self._slot_of[int(r)] for r in row_ids], dtype=np.int64
                 )
             else:
+                for r in row_ids:
+                    self._check_persistable(int(r))
                 slots = self._slots_batch(row_ids)
-            n_changed, per_row = merge(rows, cols, row_ids, slots, clear)
+            n_changed, per_row, positions = merge(rows, cols, row_ids, slots, clear)
             if n_changed:
                 for i in np.nonzero(per_row)[0]:
                     self._dirty.add(int(slots[i]))
+                if self.store is not None:
+                    if clear:
+                        self.store.log_remove_positions(positions)
+                    else:
+                        self.store.log_add_positions(positions)
                 self._counts_delta(
                     counts0, slots, -per_row if clear else per_row
                 )
@@ -326,8 +382,10 @@ class Fragment:
             return int(n_changed)
 
     def _merge_native(self, rows, cols, row_ids, slots, clear: bool):
-        """``(n_changed, per-row changed counts)`` of one native merge pass
-        over sorted keys (caller holds the lock). The keys are
+        """``(n_changed, per-row changed counts, changed positions)`` of one
+        native merge pass over sorted keys (caller holds the lock); the
+        positions (``row_id*width + col``, ascending: the op log's records)
+        only with a store attached, else None. The keys are
         ``row_id*width + col`` while the largest row id allows it, so no
         inverse pass is needed; else ``row_index*width + col``."""
         width = self.n_words * 32
@@ -338,11 +396,11 @@ class Fragment:
             key = np.searchsorted(row_ids, rows).astype(np.int64) * width + cols
             id_keys = False
         key.sort()
-        n_changed, _, per_row, _ = _hostops.import_merge(
+        n_changed, positions, per_row, _ = _hostops.import_merge(
             key, width, self.n_words, slots, row_ids, self._host, clear,
-            id_keys=id_keys,
+            id_keys=id_keys, want_wal=self.store is not None,
         )
-        return n_changed, per_row
+        return n_changed, per_row, positions
 
     def _merge_plain(self, rows, cols, row_ids, slots, clear: bool):
         """The numpy merge of :meth:`_merge_native`: one sort of compact
@@ -374,24 +432,39 @@ class Fragment:
             newly = (pre_of_key & bitvals) == 0
         n_changed = int(np.count_nonzero(newly))
         per_row = np.bincount(urow[newly], minlength=len(row_ids))
-        return n_changed, per_row
+        positions = None
+        if self.store is not None:
+            positions = (
+                row_ids[urow[newly]].astype(np.uint64) * np.uint64(width)
+                + ucol[newly].astype(np.uint64)
+            )
+        return n_changed, per_row, positions
 
     def _merge_row_words(self, row: int, words: np.ndarray, clear: bool) -> None:
         """OR ``words`` into a row, or clear them from it when ``clear``
-        (a missing row is created only to set bits)."""
+        (a missing row is created only to set bits); the changed bits go to
+        the op log as one mask record."""
+        if not clear:
+            self._check_persistable(row)
         s = self._slot(row, create=not clear)
         if s is None:
             return
         old = self._host[s]
-        new = old & ~words if clear else old | words
-        if not np.array_equal(new, old):
-            self._host[s] = new
+        changed = old & words if clear else words & ~old
+        if changed.any():
+            self._host[s] = old & ~words if clear else old | words
             self._touch(s)
+            if self.store is not None:
+                if clear:
+                    self.store.log_remove_mask(row, changed)
+                else:
+                    self.store.log_add_mask(row, changed)
 
     def set_mutex(self, row: int, col: int) -> bool:
         """Mutex-field write: clear col in every other row, set (row, col)
         (reference fragment.go:715-759)."""
-        with self._lock:
+        with self._lock, self._batched_store():
+            self._check_persistable(row)
             w, b = col >> 5, np.uint32(1 << (col & 31))
             target = self._slot(row, create=True)
             holders = np.flatnonzero(self._host[:, w] & b)
@@ -600,8 +673,9 @@ class Fragment:
 
     def set_value(self, col: int, bit_depth: int, value: int) -> bool:
         """Write a stored (already base-offset) value for a column
-        (reference fragment.go:929-1003 setValueBase)."""
-        with self._lock:
+        (reference fragment.go:929-1003 setValueBase); its bits go to the op
+        log as one batch record of adds and one of removes."""
+        with self._lock, self._batched_store():
             changed = self.set_bit(BSI_EXISTS_BIT, col)
             mag = abs(value)
             if value < 0:
@@ -632,7 +706,7 @@ class Fragment:
     def clear_value(self, col: int) -> bool:
         """Remove a column's value: one masked pass over the column's word
         of every row."""
-        with self._lock:
+        with self._lock, self._batched_store():
             s_exists = self._slot_of.get(BSI_EXISTS_BIT)
             w, bmask = col >> 5, np.uint32(1 << (col & 31))
             if s_exists is None or not self._host[s_exists, w] & bmask:
@@ -642,6 +716,8 @@ class Fragment:
             self._host[set_slots, w] &= ~bmask
             for s in set_slots.tolist():
                 self._touch(int(s))
+                if self.store is not None:
+                    self.store.log_remove(self._rowids[s], col)
             return True
 
     def import_values(
@@ -656,7 +732,7 @@ class Fragment:
             return
         last = len(cols) - 1 - np.unique(cols[::-1], return_index=True)[1]
         cols, values = cols[last], values[last]
-        with self._lock:
+        with self._lock, self._batched_store():
             col_words = bitops.pack_columns(cols, self.n_words)
             if clear:
                 for row in list(self._slot_of):

@@ -1,8 +1,11 @@
 """Holder: the root container of indexes (counterpart of
 ``pilosa_tpu/core/holder.py``; reference holder.go:50).
 
-Memory-resident. The holder fixes the device of everything below it:
-``cuda`` by default, the CPU only when the caller passes ``device="cpu"``.
+Memory-resident; the storage layer (``pilosa_tpu_torch.storage.disk``)
+binds a holder to a data directory through ``on_create_index`` (reference
+holder.go:134-198 Open). The holder fixes the device of everything below
+it: ``cuda`` by default, the CPU only when the caller passes
+``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -27,6 +30,8 @@ class Holder:
         self.device = device_mod.resolve(device)
         self._lock = threading.RLock()
         self.indexes: dict[str, Index] = {}
+        # called with each new index (the storage layer wires its files)
+        self.on_create_index = None
 
     def index(self, name: str) -> Index | None:
         return self.indexes.get(name)
@@ -42,6 +47,8 @@ class Holder:
                 n_words=self.n_words, device=self.device,
             )
             self.indexes[name] = idx
+            if self.on_create_index is not None:
+                self.on_create_index(idx)
             return idx
 
     def create_index_if_not_exists(

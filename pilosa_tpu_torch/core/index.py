@@ -12,6 +12,7 @@ import threading
 import torch
 
 from pilosa_tpu_torch import device as device_mod
+from pilosa_tpu_torch.core.attrs import AttrStore
 from pilosa_tpu_torch.core.field import Field, FieldOptions, validate_name
 from pilosa_tpu_torch.shardwidth import SHARD_WORDS
 
@@ -35,6 +36,10 @@ class Index:
         self.device = device_mod.resolve(device)
         self._lock = threading.RLock()
         self.fields: dict[str, Field] = {}
+        # column attributes (reference index.go columnAttrs boltdb store)
+        self.column_attrs = AttrStore()
+        # called with (index, field) for each new field (storage wiring)
+        self.on_create_field = None
         if track_existence:
             self.fields[EXISTENCE_FIELD_NAME] = Field(
                 self.name, EXISTENCE_FIELD_NAME, n_words=self.n_words,
@@ -54,6 +59,8 @@ class Index:
                 raise ValueError(f"field already exists: {name}")
             f = Field(self.name, name, options, self.n_words, device=self.device)
             self.fields[name] = f
+            if self.on_create_field is not None:
+                self.on_create_field(self, f)
             return f
 
     def create_field_if_not_exists(self, name: str, options: FieldOptions | None = None) -> Field:

@@ -41,6 +41,9 @@ class View:
         self.device = device_mod.resolve(device)
         self._lock = threading.RLock()
         self.fragments: dict[int, Fragment] = {}
+        # called with (view, shard) for each new fragment (reference
+        # view.go:239-261; the storage layer attaches its file)
+        self.on_create_fragment = None
 
     def fragment(self, shard: int) -> Fragment | None:
         return self.fragments.get(shard)
@@ -55,6 +58,8 @@ class View:
                     device=self.device,
                 )
                 self.fragments[shard] = frag
+                if self.on_create_fragment is not None:
+                    self.on_create_fragment(self, shard)
             return frag
 
     def available_shards(self) -> set[int]:

@@ -47,7 +47,12 @@ from the maintained per-fragment counts, Rows, MinRow/MaxRow, a lone cold
 BSI condition (the ``ops/bsi.py`` functions on CPU tensors built from the
 mirrors, until _BSI_SINGLE_WARM lone conditions have asked), and
 Set/Clear/ClearRow writes.
-Other calls (Store, attrs, keys, time views) raise
+String keys are translated as in JAX: an index with ``keys`` takes column
+keys, a field with ``keys`` row keys, each through the executor's
+``translator`` (``core/translate.py``; a data directory's store passes its
+own, ``storage/disk.py``) before the call runs, and results carry the keys
+back (``Row.keys``, ``Pair.key``, ``RowIdentifiers.keys``,
+``FieldRow.row_key``). Other calls (Store, attrs, time views) raise
 ``ExecuteError("... not yet ported")``.
 """
 
@@ -76,6 +81,7 @@ from pilosa_tpu_torch.core.field import (
 )
 from pilosa_tpu_torch.core.holder import Holder
 from pilosa_tpu_torch.core.index import Index
+from pilosa_tpu_torch.core.translate import TranslateStore
 from pilosa_tpu_torch.core.view import VIEW_STANDARD
 from pilosa_tpu_torch.exec import astbatch
 from pilosa_tpu_torch.exec.result import (
@@ -213,8 +219,14 @@ class Executor:
     # repeat range counts, a few ints each)
     _BSI_AGG_SLOTS = 128
 
-    def __init__(self, holder: Holder, max_writes_per_request: int | None = None):
+    def __init__(
+        self,
+        holder: Holder,
+        translator: TranslateStore | None = None,
+        max_writes_per_request: int | None = None,
+    ):
         self.holder = holder
+        self.translator = translator or TranslateStore()
         self.max_writes_per_request = (
             self.DEFAULT_MAX_WRITES_PER_REQUEST
             if max_writes_per_request is None
@@ -264,7 +276,8 @@ class Executor:
         query: str | pql.Query,
         shards: list[int] | None = None,
     ) -> list[Any]:
-        """reference executor.go:116 Execute: translate, then execute."""
+        """reference executor.go:116 Execute: translate, execute, translate
+        the results back."""
         idx = self.holder.index(index_name)
         if idx is None:
             raise IndexNotFoundError(f"index not found: {index_name}")
@@ -290,7 +303,7 @@ class Executor:
         for i, call in enumerate(calls):
             if results[i] is _UNSET:
                 results[i] = self._execute_call(idx, call, shards)
-        return results
+        return [self._translate_result(idx, c, r) for c, r in zip(q.calls, results)]
 
     def execute_batch(
         self,
@@ -310,6 +323,7 @@ class Executor:
             err = IndexNotFoundError(f"index not found: {index_name}")
             return [err for _ in queries]
         out: list[Any] = [None] * len(queries)
+        parsed: list[pql.Query | None] = [None] * len(queries)
         cloned: list[list[Call] | None] = [None] * len(queries)
         groups: dict[tuple[int, ...] | None, list[int]] = {}
         for qi, (query, shards) in enumerate(queries):
@@ -318,6 +332,7 @@ class Executor:
                 if q.write_calls():
                     out[qi] = self.execute(index_name, q, shards=shards)
                     continue
+                parsed[qi] = q
                 calls = [c.clone() for c in q.calls]
                 for call in calls:
                     self._translate_call(idx, call)
@@ -342,52 +357,85 @@ class Executor:
                     for ci, call in enumerate(calls):
                         if res[ci] is _UNSET:
                             res[ci] = self._execute_call(idx, call, shards)
-                    out[qi] = res
+                    out[qi] = [
+                        self._translate_result(idx, c, r)
+                        for c, r in zip(parsed[qi].calls, res)
+                    ]
                 except Exception as e:  # per-query isolation
                     out[qi] = e
         return out
 
     # ----------------------------------------------------------- translate
 
+    def _field_of_call(self, idx: Index, call: Call) -> Field | None:
+        fname = call.args.get("_field") or call.field_arg()
+        if fname is None:
+            return None
+        return idx.field(fname)
+
     def _translate_call(self, idx: Index, call: Call) -> None:
-        """Bool row values -> row ids in place, and the reference's
-        argument checks (executor.go:2625-2712 translateCall). String keys
-        are not yet ported."""
-        if idx.keys:
-            raise _not_ported("an index with string keys")
+        """keys -> ids in place. Mirrors the reference's per-call-name arg
+        dispatch (executor.go:2625-2712 translateCall): each call shape
+        names which args hold column keys vs row keys."""
         name = call.name
         if name == "GroupBy":
             self._translate_groupby(idx, call)
             return
-        if name in ("Set", "Clear", "Row", "Range", "ClearRow"):
+        if name in ("Set", "Clear", "Row", "Range", "SetColumnAttrs", "ClearRow"):
             col_key = "_col"
             field_name = call.field_arg()
             row_key = field_name
+        elif name == "SetRowAttrs":
+            col_key = None
+            row_key = "_row"
+            field_name = call.args.get("_field")
         elif name == "Rows":
-            col_key = "column"
             field_name = call.args.get("_field")
             row_key = "previous"
+            col_key = "column"
         else:
             col_key = "col"
             field_name = call.args.get("field")
             row_key = "row"
-        if isinstance(call.args.get(col_key), str):
-            raise ExecuteError(
-                "string 'col' value not allowed unless index 'keys' option enabled"
-            )
-        for fname in (field_name, call.args.get("_field")):
-            field = idx.field(fname) if isinstance(fname, str) else None
-            if field is not None and field.keys:
-                raise _not_ported("a field with string keys")
-        field = idx.field(field_name) if field_name else None
-        if field is not None:
-            v = call.args.get(row_key)
-            if field.field_type == FIELD_TYPE_BOOL and isinstance(v, bool):
-                call.args[row_key] = TRUE_ROW_ID if v else FALSE_ROW_ID
-            elif isinstance(v, str):
+
+        # Translate column key (reference executor.go:2648-2664).
+        if col_key is not None:
+            col = call.args.get(col_key)
+            if idx.keys:
+                if col is not None and not isinstance(col, str):
+                    raise ExecuteError(
+                        "column value must be a string when index 'keys' option enabled"
+                    )
+                if isinstance(col, str):
+                    call.args[col_key] = self.translator.translate_key(
+                        idx.name, "", col
+                    )
+            elif isinstance(col, str):
                 raise ExecuteError(
-                    "string 'row' value not allowed unless field 'keys' option enabled"
+                    "string 'col' value not allowed unless index 'keys' option enabled"
                 )
+
+        # Translate row key (reference executor.go:2666-2712).
+        if field_name:
+            field = idx.field(field_name)
+            if field is not None and row_key is not None:
+                v = call.args.get(row_key)
+                if field.field_type == FIELD_TYPE_BOOL and isinstance(v, bool):
+                    call.args[row_key] = TRUE_ROW_ID if v else FALSE_ROW_ID
+                elif field.keys:
+                    if v is not None and not isinstance(v, str):
+                        raise ExecuteError(
+                            "row value must be a string when field 'keys' option enabled"
+                        )
+                    if isinstance(v, str):
+                        call.args[row_key] = self.translator.translate_key(
+                            idx.name, field_name, v
+                        )
+                elif isinstance(v, str):
+                    raise ExecuteError(
+                        "string 'row' value not allowed unless field 'keys' option enabled"
+                    )
+
         for child in call.children:
             self._translate_call(idx, child)
         filt = call.args.get("filter")
@@ -395,7 +443,7 @@ class Executor:
             self._translate_call(idx, filt)
 
     def _translate_groupby(self, idx: Index, call: Call) -> None:
-        """The `previous` paging list holds one row id per child field
+        """The `previous` paging list holds one row key/id per child field
         (reference executor.go:2718-2748 translateGroupByCall)."""
         for child in call.children:
             self._translate_call(idx, child)
@@ -419,9 +467,47 @@ class Executor:
             if field.field_type == FIELD_TYPE_BOOL and isinstance(prev, bool):
                 previous[i] = TRUE_ROW_ID if prev else FALSE_ROW_ID
             elif isinstance(prev, str):
-                raise ExecuteError(
-                    f"prev value must be a uint64 for field {fname!r}"
+                if not field.keys:
+                    raise ExecuteError(
+                        f"prev value must be a uint64 for field {fname!r}"
+                    )
+                previous[i] = self.translator.translate_key(idx.name, fname, prev)
+
+    def _translate_result(self, idx: Index, call: Call, result: Any) -> Any:
+        """ids -> keys on results (reference executor.go:2783-2907)."""
+        if isinstance(result, Row) and idx.keys:
+            result.keys = self.translator.translate_ids(
+                idx.name, "", [int(c) for c in result.columns()]
+            )
+        elif isinstance(result, list) and result and isinstance(result[0], Pair):
+            field = self._field_of_call(idx, call)
+            if field is not None and field.keys:
+                keys = self.translator.translate_ids(
+                    idx.name, field.name, [p.id for p in result]
                 )
+                for p, k in zip(result, keys):
+                    p.key = k
+        elif isinstance(result, Pair):
+            field = self._field_of_call(idx, call)
+            if field is not None and field.keys:
+                result.key = self.translator.translate_id(
+                    idx.name, field.name, result.id
+                )
+        elif isinstance(result, RowIdentifiers):
+            field = self._field_of_call(idx, call)
+            if field is not None and field.keys:
+                result.keys = self.translator.translate_ids(
+                    idx.name, field.name, result.rows
+                )
+        elif isinstance(result, list) and result and isinstance(result[0], GroupCount):
+            for gc in result:
+                for fr in gc.group:
+                    field = idx.field(fr.field)
+                    if field is not None and field.keys:
+                        fr.row_key = self.translator.translate_id(
+                            idx.name, fr.field, fr.row_id
+                        )
+        return result
 
     # ------------------------------------------------------------- dispatch
 
@@ -1968,7 +2054,7 @@ class Executor:
 
         col = call.args.get("column")
         if col is not None:
-            col = int(col)
+            col = self._maybe_translate_col(idx, col)
             shard, off = divmod(col, field.n_words * 32)
             v = field.view(VIEW_STANDARD)
             frag = v.fragment(shard) if v is not None else None
@@ -1982,6 +2068,13 @@ class Executor:
         if has_limit:
             ids = ids[:limit]
         return RowIdentifiers(rows=ids)
+
+    def _maybe_translate_col(self, idx: Index, col) -> int:
+        if isinstance(col, str):
+            if not idx.keys:
+                raise ExecuteError("string column on unkeyed index")
+            return self.translator.translate_key(idx.name, "", col)
+        return int(col)
 
     # --------------------------------------------------------------- GroupBy
 

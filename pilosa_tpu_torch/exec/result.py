@@ -25,6 +25,8 @@ class Row:
         self.segments: dict[int, np.ndarray] = segments or {}
         self.n_words = n_words
         self.attrs: dict[str, Any] = {}
+        # column keys of a keyed index's result, set by the executor
+        self.keys: list[str] | None = None
 
     def shards(self) -> list[int]:
         return sorted(self.segments)

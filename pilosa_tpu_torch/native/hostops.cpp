@@ -1,5 +1,5 @@
 // Host latency-tier bitmap kernels (a copy of the JAX package's
-// native/hostops.cpp, without ph_extract, which snapshot encoding uses).
+// native/hostops.cpp).
 //
 // The serving architecture splits by regime: the card runs the
 // throughput tier (batched gram launches, full-index scans —
@@ -130,6 +130,46 @@ void ph_pair_op(const uint8_t* a, const uint8_t* b, uint8_t* out,
             apply(xa, xb, op) & 0xFFFFFFFFULL);
         std::memcpy(out + 8 * n8, &r, 4);
     }
+}
+
+// Extract set-bit offsets of an n_words uint32 vector into out
+// (caller sized it via ph_popcount), each offset + base.  The
+// classic ctz loop — the hot part of snapshot encoding and op-record
+// position extraction (reference roaring.go walks containers the same
+// way when it serializes).  Bit addressing: word w bit b -> w*32+b,
+// which under little-endian 64-bit lanes is lane*64 + ctz.
+size_t ph_extract(const uint8_t* words, size_t n_words, uint64_t base,
+                  uint64_t* out) {
+    size_t k = 0;
+    size_t n8 = n_words / 2;
+    for (size_t i = 0; i < n8; i++) {
+        uint64_t x = load64(words + 8 * i);
+        while (x) {
+#if defined(__GNUC__) || defined(__clang__)
+            uint64_t b = static_cast<uint64_t>(__builtin_ctzll(x));
+#else
+            uint64_t b = 0;
+            while (!((x >> b) & 1)) b++;
+#endif
+            out[k++] = base + i * 64 + b;
+            x &= x - 1;
+        }
+    }
+    if (n_words & 1) {
+        uint32_t x;
+        std::memcpy(&x, words + 8 * n8, 4);
+        while (x) {
+#if defined(__GNUC__) || defined(__clang__)
+            uint32_t b = static_cast<uint32_t>(__builtin_ctz(x));
+#else
+            uint32_t b = 0;
+            while (!((x >> b) & 1)) b++;
+#endif
+            out[k++] = base + n8 * 64 + b;
+            x &= x - 1;
+        }
+    }
+    return k;
 }
 
 // One-pass bulk-import merge over SORTED compact keys (row_index *

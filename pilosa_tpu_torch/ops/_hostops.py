@@ -32,6 +32,8 @@ OP_CODES = {"intersect": 0, "union": 1, "difference": 2, "xor": 3}
 def _bind(lib: ctypes.CDLL) -> None:
     lib.ph_popcount.restype = ctypes.c_uint64
     lib.ph_popcount.argtypes = [_U8P, ctypes.c_size_t]
+    lib.ph_extract.restype = ctypes.c_size_t
+    lib.ph_extract.argtypes = [_U8P, ctypes.c_size_t, ctypes.c_uint64, _U64P]
     lib.ph_import_merge.restype = ctypes.c_int64
     lib.ph_import_merge.argtypes = [
         _I64P, ctypes.c_size_t, ctypes.c_int64, ctypes.c_int64,
@@ -104,6 +106,19 @@ def pair_count_addrs(addr_a: np.ndarray, addr_b: np.ndarray, n_words: int, op: s
     ))
 
 
+def extract_positions(words: np.ndarray, base: int = 0) -> np.ndarray:
+    """Set-bit offsets (+ ``base``) of a contiguous uint32 word vector,
+    ascending: the ctz walk behind the op log's mask records."""
+    lib = load()
+    words = np.ascontiguousarray(words, dtype=np.uint32)
+    n = int(lib.ph_popcount(_u8(words), words.size))
+    out = np.empty(n, dtype=np.uint64)
+    k = lib.ph_extract(
+        _u8(words), words.size, ctypes.c_uint64(base), out.ctypes.data_as(_U64P)
+    )
+    return out[:k]
+
+
 def import_merge(
     keys: np.ndarray,
     width: int,
@@ -120,9 +135,9 @@ def import_merge(
     apply the bulk set/clear to ``mirror`` (uint32 ``[capacity, n_words]``,
     C-contiguous, mutated in place) and return ``(n_changed,
     wal_positions, perrow_changed, changed_word_indices)``.
-    ``wal_positions`` (changed ``row_id*width + col``, ascending) is None
-    unless ``want_wal``: the port has no op log yet. The caller owns key
-    bounds and holds the fragment lock."""
+    ``wal_positions`` (changed ``row_id*width + col``, ascending: the op
+    log's records of a fragment with a store) is None unless ``want_wal``.
+    The caller owns key bounds and holds the fragment lock."""
     lib = load()
     if not (mirror.dtype == np.uint32 and mirror.flags.c_contiguous):
         raise ValueError("import_merge: mirror must be C-contiguous uint32")

@@ -1138,3 +1138,51 @@ def test_executor_under_small_cap_on_cuda_matches_cpu(cuda_device, fresh_budget,
             assert launches[k] > 0, (k, launches)
     else:
         assert ex.stack_evictions > 0 and ex.stacks_declined == 0
+
+
+def test_reopen_on_cuda_matches_cpu(cuda_device, tmp_path):
+    """A data dir written on the card opens on the card and on the CPU, and
+    both serve the same answers, keys included, through the kernels."""
+    from pilosa_tpu_torch.core.field import FieldOptions
+    from pilosa_tpu_torch.core.holder import Holder
+    from pilosa_tpu_torch.exec.executor import Executor
+    from pilosa_tpu_torch.storage.disk import HolderStore
+
+    rng = np.random.default_rng(10)
+    st = HolderStore(Holder(n_words=512, device=cuda_device), str(tmp_path))
+    st.open()
+    idx = st.holder.create_index("i")
+    idx.create_field("f")
+    idx.create_field("v", FieldOptions(field_type="int", min_=0, max_=1000))
+    st.holder.create_index("k", keys=True).create_field("kf", FieldOptions(keys=True))
+    ex = Executor(st.holder, translator=st.translator)
+    # most columns in a narrow range, so that rows overlap; some in each shard
+    cols = np.concatenate([rng.integers(0, 1500, 300), rng.integers(0, 3 * 512 * 32, 100)])
+    ex.execute("i", " ".join(f"Set({c}, f={r})" for c, r in zip(cols, rng.integers(0, 6, 400))))
+    ex.execute("i", " ".join(f"Set({c}, v={x})" for c, x in zip(cols[:50], rng.integers(0, 1000, 50))))
+    ex.execute("k", " ".join(f'Set("c{c}", kf="r{c % 5}")' for c in range(60)))
+    for frag in st.holder.field("i", "f").view("standard").fragments.values():
+        frag.store.snapshot()
+    ex.execute("i", "Clear(%d, f=1) Set(7, f=1)" % cols[0])
+    st.close()
+    reads = ["Count(Intersect(Row(f=1), Row(f=2))) Count(Union(Row(f=3), Row(f=4)))" * 2,
+             "TopN(f, Row(f=2), n=4) GroupBy(Rows(f), Rows(f))",
+             "Count(Row(v < 500)) Sum(field=v)"]
+    answers = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        ro = HolderStore(Holder(n_words=512, device=dev), str(tmp_path))
+        ro.open()
+        ex = Executor(ro.holder, translator=ro.translator)
+        ex._BSI_SINGLE_WARM = 0
+        before = dict(tk.LAUNCHES)
+        got = [[repr(r) if not hasattr(r, "columns") else r.columns().tolist() for r in
+                ex.execute("i", q)] for q in reads]
+        got.append([(p.id, p.key, p.count) for p in ex.execute("k", 'TopN(kf, n=3)')[0]])
+        got.append(ex.execute("k", 'Row(kf="r2")')[0].keys)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            launched = {k for k in tk.LAUNCHES if tk.LAUNCHES[k] > before[k]}
+            assert {"gram", "masked_row_scan", "bsi_range", "bsi_sum"} <= launched, launched
+        answers[dev.type] = got
+        ro.close()
+    assert answers["cuda"] == answers["cpu"]

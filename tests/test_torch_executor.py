@@ -290,12 +290,18 @@ def test_unported_calls_raise(query):
 
 
 def test_keyed_index_raises():
+    """A keyed index is served; an integer column on it raises JAX's
+    error."""
     from pilosa_tpu_torch.core.holder import Holder
 
     h = Holder(device="cpu")
-    h.create_index("k", keys=True)
-    with pytest.raises(ExecuteError, match="not yet ported"):
-        TorchExecutor(h).execute("k", "Row(f=1)")
+    h.create_index("k", keys=True).create_field("f")
+    ex = TorchExecutor(h)
+    with pytest.raises(ExecuteError, match="column value must be a string when index "
+                       "'keys' option enabled"):
+        ex.execute("k", "Set(1, f=1)")
+    assert ex.execute("k", 'Set("a", f=1)') == [True]
+    assert ex.execute("k", "Row(f=1)")[0].keys == ["a"]
 
 
 # -- the incremental stack update (counterparts of

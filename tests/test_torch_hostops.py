@@ -183,6 +183,21 @@ def test_host_tier_pair_counts_match_jax(n_shards, monkeypatch):
     assert (te._host_pool is not None) == (n_shards >= 48 and (os.cpu_count() or 1) > 1)
 
 
+@pytest.mark.parametrize("n", [0, 1, 7, 512, 1025])
+def test_extract_positions_matches_jax(n):
+    """``ph_extract`` (the op log's mask records): the set bits' offsets
+    plus a base, ascending, as JAX's binding and numpy give them."""
+    rng = np.random.default_rng(n + 3)
+    words = rng.integers(0, 2**32, size=n, dtype=np.uint64).astype(np.uint32)
+    words[::3] = 0
+    base = (1 << 40) + n
+    want = np.flatnonzero(np.unpackbits(words.view(np.uint8), bitorder="little"))
+    got = th.extract_positions(words, base)
+    assert got.dtype == np.uint64
+    assert np.array_equal(got, want.astype(np.uint64) + np.uint64(base))
+    assert np.array_equal(got, jh.extract_positions(words, base))
+
+
 _BUILD_RACE = r"""
 import sys, time
 from pathlib import Path

@@ -1,7 +1,8 @@
 """The port stands alone: ``pilosa_tpu_torch`` and ``chip_smoke.py`` load
 neither JAX nor any module of the JAX package (the device-memory budget,
-the residency tracker and the native host tier included), and the port's
-default device is ``cuda`` with no fallback to the CPU."""
+the residency tracker, the native host tier, storage and the translate
+store included), and the port's default device is ``cuda`` with no
+fallback to the CPU."""
 
 import ast
 import os
@@ -65,6 +66,26 @@ import numpy as np
 assert _hostops.popcount(np.array([3, 1], dtype=np.uint32)) == 3
 assert nativelib.lib_path(nativelib.NATIVE_SRC / "hostops.cpp").is_file()
 membudget.configure(None)
+# storage and keys: a data dir written, closed and opened again, keyed
+import tempfile
+from pilosa_tpu_torch.core import translate
+from pilosa_tpu_torch.storage import _native, disk, fragmentfile, roaring, translatelog
+d = tempfile.mkdtemp()
+st = disk.HolderStore(Holder(device="cpu"), d)
+st.open()
+st.holder.create_index("k", keys=True).create_field("kf", FieldOptions(keys=True))
+ek = Executor(st.holder, translator=st.translator)
+ek.execute("k", 'Set("a", kf="x") Set("b", kf="x") Set("b", kf="y")')
+st.holder.field("k", "kf").view("standard").fragment(0).store.snapshot()
+ek.execute("k", 'Clear("a", kf="x")')
+st.close()
+st = disk.HolderStore(Holder(device="cpu"), d)
+st.open()
+res = Executor(st.holder, translator=st.translator).execute("k", 'Row(kf="x") TopN(kf)')
+assert res[0].keys == ["b"], res[0].keys
+assert [(p.key, p.count) for p in res[1]] == [("x", 1), ("y", 1)], res[1]
+assert nativelib.lib_path(nativelib.NATIVE_SRC / "roaring_codec.cpp").is_file()
+st.close()
 bad = sorted(
     m for m in sys.modules
     if m == "jax" or m.startswith("jax.") or m.startswith("jaxlib")
