@@ -51,7 +51,7 @@ Phases (any failure raises, and the script exits non-zero):
    160 shards x 64 rows at shard width 2^20, about 25 % dense; a second
    64-row field g, a 4-row field h and the existence field) on
    ``Holder(device="cuda")``, served through ``Executor.execute`` and
-   ``execute_batch`` in six paths, each with every launch count set to 0
+   ``execute_batch`` in seven paths, each with every launch count set to 0
    just before it and read
    just after. The pair/TopN path: tanimoto TopN, a 1024-call batch of
    mixed pair Counts, writes, the same reads again; every answer equals
@@ -110,6 +110,22 @@ Phases (any failure raises, and the script exits non-zero):
    2^20 column keys and a keyed field of 64 row keys served by key (pair
    Counts, a filtered TopN, a GroupBy, a Row with its column keys), a Set
    with a new key, and after the reopen the same ids and answers.
+   The time path, last, on a fresh executor: a time field t of quantum
+   YMDH and 8 rows on the served index, loaded through
+   ``Field.import_bits`` with a timestamp a bit (a bit in a quarter of the
+   columns, over 30 hours: 35 views); windows whose covers are one D view,
+   one M view, a D view and 3 H views, 16 H views, 17 H views (the host,
+   as in JAX) and none, each window's first Count (its views' stacks
+   built) and warm; a 1024-call batch of windowed Counts and Intersects
+   with rows of f (one tree_count launch per shape and window), windowed
+   bitmaps (tree_words), TopN of f filtered by a window (the scans), a
+   GroupBy f x h filtered by a window (the cross gram), Rows with from/to
+   and pair Counts over t's standard view (the gram); 64 timestamped Sets
+   seen by the next batch through the per-view patch, a Clear from every
+   view, Store, SetRowAttrs with TopN by attribute and Options; then t
+   deleted, its stacks' bytes leaving the card and the budget, and a new t
+   answering from its own data. Every answer equals numpy over the
+   generated bits.
 4. Summary: one ``{"end_to_end": {...}}`` line, one ``{"kernels": [...]}``
    line, the card line, and last ``{"ok": true, "device": {...}}``.
 """
@@ -3300,6 +3316,463 @@ def storage_path(pool, holder, device, v_truth):
     return lat
 
 
+# ---------------------------------------------------------------------------
+# The time path: a time field of quantum YMDH at the serving size
+# ---------------------------------------------------------------------------
+
+T_ROWS = 8
+T_HOURS = 30
+T_EPOCH = "2024-01-01T00:00"
+# (name, from, to): covers of one D view, one M view, a D view and 3 H
+# views, exactly 16 H views (astbatch.MAX_TIME_COVER), 17 H views (declined
+# to the host, as in JAX) and none
+T_WINDOWS = (
+    ("day", "2024-01-01T00:00", "2024-01-02T00:00"),
+    ("month", "2024-01-01T00:00", "2024-02-01T00:00"),
+    ("day_hours", "2024-01-01T00:00", "2024-01-02T03:00"),
+    ("hours16", "2024-01-01T04:00", "2024-01-01T20:00"),
+    ("hours17", "2024-01-01T03:00", "2024-01-01T20:00"),
+    ("empty", "2024-01-01T05:00", "2024-01-01T05:00"),
+)
+T_COVER_LEN = {"day": 1, "month": 1, "day_hours": 4, "hours16": 16, "hours17": 17, "empty": 0}
+T_BATCHED = ("day", "month", "day_hours", "hours16")
+# the rows of f that windowed Intersects name
+T_F_ROWS = (3, 17, 40, 62)
+T_WRITES = 64
+T_WRITE_HOUR = 7
+
+
+def mem_available() -> int:
+    """Bytes of ``MemAvailable`` in ``/proc/meminfo``."""
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith("MemAvailable:"):
+                return int(line.split()[1]) * 1024
+    raise RuntimeError("no MemAvailable in /proc/meminfo")
+
+
+def window_hours(fr, to):
+    """``[a, b)``: the window as hours since T_EPOCH."""
+    import numpy as np
+
+    e = np.datetime64(T_EPOCH).astype("datetime64[h]")
+    return tuple(int((np.datetime64(x).astype("datetime64[h]") - e).astype(np.int64))
+                 for x in (fr, to))
+
+
+class TimeTruth:
+    """The generated bits (``rows``, ``cols``, ``hours``: each column holds
+    at most one bit of t) and what numpy makes of them, independent of the
+    port: per (row, hour) counts, overall and of the columns that row x of
+    f holds, the words of a window's row, and the row totals."""
+
+    def __init__(self, rows, cols, hours, f_rows):
+        import numpy as np
+
+        from pilosa_tpu_torch.shardwidth import SHARD_WIDTH
+
+        self.width, self.shift = SHARD_WIDTH, np.uint64(SHARD_WIDTH.bit_length() - 1)
+        self.rows, self.cols, self.hours = rows, cols, hours
+        self.f_rows = f_rows  # x -> uint32 [S, W] words of f's row x
+        self.hist = np.zeros((T_ROWS, T_HOURS), dtype=np.int64)
+        self.hist_f = {x: np.zeros((T_ROWS, T_HOURS), dtype=np.int64) for x in f_rows}
+        self._add(rows, cols, hours, 1)
+
+    def _add(self, rows, cols, hours, sign):
+        import numpy as np
+
+        key = rows.astype(np.int64) * T_HOURS + hours
+        n = T_ROWS * T_HOURS
+        self.hist += sign * np.bincount(key, minlength=n).reshape(T_ROWS, T_HOURS)
+        shard = (cols >> self.shift).astype(np.int64)
+        off = (cols & np.uint64(self.width - 1)).astype(np.int64)
+        for x, fx in self.f_rows.items():
+            inf = ((fx[shard, off >> 5] >> (off & 31).astype(np.uint32)) & 1).astype(bool)
+            self.hist_f[x] += sign * np.bincount(key[inf], minlength=n).reshape(T_ROWS, T_HOURS)
+
+    def write(self, rows, cols, hours, sign=1):
+        import numpy as np
+
+        if sign > 0:
+            self.rows = np.concatenate([self.rows, rows])
+            self.cols = np.concatenate([self.cols, cols])
+            self.hours = np.concatenate([self.hours, hours])
+        else:
+            keep = ~np.isin(self.cols, cols)
+            self.rows, self.cols, self.hours = self.rows[keep], self.cols[keep], self.hours[keep]
+        self._add(rows, cols, hours, sign)
+
+    def count(self, r, fr, to, x=None):
+        a, b = window_hours(fr, to)
+        a, b = max(a, 0), min(b, T_HOURS)
+        h = self.hist if x is None else self.hist_f[x]
+        return int(h[r, a:b].sum()) if b > a else 0
+
+    def total(self, r):
+        return int(self.hist[r].sum())
+
+    def mask(self, r, fr, to, shards=None):
+        """uint32 ``[S, W]`` words of row ``r`` over the window, or
+        ``{shard: [W] words}`` for the given shards."""
+        import numpy as np
+
+        a, b = window_hours(fr, to)
+        cols = self.cols[(self.rows == r) & (self.hours >= a) & (self.hours < b)]
+
+        def words(c, n_bits):
+            bits = np.zeros(n_bits, dtype=bool)
+            bits[c.astype(np.int64)] = True
+            return np.packbits(bits, bitorder="little").view(np.uint32)
+
+        if shards is None:
+            return words(cols, S_FULL * self.width).reshape(S_FULL, -1)
+        return {s: words(cols[(cols >> self.shift) == s] & np.uint64(self.width - 1),
+                         self.width) for s in shards}
+
+
+def time_load(holder, pool):
+    """Field t (quantum YMDH, T_ROWS rows) on the serving index: a bit in
+    about a quarter of the columns, in one of T_ROWS rows, stamped with one
+    of T_HOURS consecutive hours from T_EPOCH, loaded through
+    ``Field.import_bits(rows, cols, timestamps=...)`` (timed)."""
+    import numpy as np
+
+    from pilosa_tpu_torch.core.field import FieldOptions
+    from pilosa_tpu_torch.shardwidth import SHARD_WIDTH
+
+    # the host mirrors of 35 views (a fragment holds at least 8 rows), the
+    # generated bits and the import's temporaries (about 18 bytes a column)
+    need = int((T_HOURS + 5) * S_FULL * max(8, T_ROWS) * SHARD_WIDTH // 8 * 1.1
+               + S_FULL * SHARD_WIDTH * 18 + (1 << 30))
+    avail = mem_available()
+    log(f"time: MemAvailable {avail / 2**30:.1f} GiB; the load needs about "
+        f"{need / 2**30:.1f} GiB")
+    if avail < need:
+        raise MemoryError(f"MemAvailable {avail} bytes, the time path needs {int(need)}")
+    rng = np.random.default_rng(SEED + 17)
+    n = S_FULL * SHARD_WIDTH
+    b = rng.integers(0, 1 << 16, size=n, dtype=np.uint16)
+    cols = np.flatnonzero((b & 3) == 0).astype(np.uint64)
+    rows = ((b[cols] >> 2) & (T_ROWS - 1)).astype(np.uint64)
+    del b
+    hours = rng.integers(0, T_HOURS, size=cols.size)
+    stamps = np.datetime64(T_EPOCH).astype("datetime64[h]") + hours
+    t = holder.index("i").create_field("t", FieldOptions(field_type="time", time_quantum="YMDH"))
+    t0 = time.perf_counter()
+    t.import_bits(rows, cols, timestamps=stamps)
+    import_s = time.perf_counter() - t0
+    n_views = len(t.views)
+    del stamps, t
+    f_view = holder.field("i", "f").view("standard")
+    f_rows = {x: np.stack([f_view.fragment(s).row_words_host(x) for s in range(S_FULL)])
+              for x in T_F_ROWS}
+    truth = TimeTruth(rows, cols, hours, f_rows)
+    log(f"time: loaded t, {cols.size} bits ({cols.size / n:.4f} of the columns) in {n_views} "
+        f"views through import_bits with timestamps in {import_s:.2f} s")
+    return truth, import_s, n_views
+
+
+def time_path(pool, ex, holder, device):
+    """Time-quantum views at the serving size: a field t of quantum YMDH
+    and T_ROWS rows, 160 shards x 2^20 columns, loaded with about 42 M
+    timestamped bits over 30 hours (35 views: standard, Y, M, 2 D, 30 H);
+    windows whose covers are one D view, one M view, a D view and 3 H
+    views, 16 H views, 17 H views and none. Reads, each against numpy over
+    the generated bits: each window's first Count (its cover's stacks
+    built) and warm; a 1024-call batch of windowed Counts and Intersects
+    with rows of f (one tree_count launch per shape and window), before
+    and after writes; windowed bitmaps (tree_words); TopN of f filtered by
+    a window, plain and tanimoto (the scans); GroupBy f x h filtered by a
+    window (the cross gram); Rows with from/to; pair Counts over t's
+    standard view (the gram). Writes: 64 timestamped Sets seen by the next
+    batch through the per-view patch, a Clear from every view, Store,
+    SetRowAttrs with TopN by attribute, and Options. Last, t deleted: its
+    stacks leave the card and the budget, and a new t answers from its own
+    data. ``ex`` is a fresh executor, so the scans' caches start empty."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from pilosa_tpu_torch.core import membudget
+    from pilosa_tpu_torch.core.field import FieldOptions
+    from pilosa_tpu_torch.exec.result import result_to_json
+    from pilosa_tpu_torch.ops import kernels as tk
+    from pilosa_tpu_torch.shardwidth import SHARD_WIDTH
+
+    on_card = torch.device(device).type == "cuda"
+    t_path = time.perf_counter()
+    lat = {}
+    truth, lat["import_s"], lat["views"] = time_load(holder, pool)
+    t_field = holder.field("i", "t")
+    covers = {}
+    for name, fr, to in T_WINDOWS:
+        from pilosa_tpu_torch.core import timequantum
+
+        covers[name] = timequantum.view_cover(t_field, fr, to, "standard")
+        if len(covers[name]) != T_COVER_LEN[name]:
+            raise AssertionError(f"window {name}: cover {covers[name]}")
+        log(f"time: window {name} [{fr}, {to}): cover of {len(covers[name])} views "
+            f"{covers[name][:3]}{' ...' if len(covers[name]) > 3 else ''}")
+    del t_field
+    win = {name: (fr, to) for name, fr, to in T_WINDOWS}
+
+    def w_arg(name):
+        fr, to = win[name]
+        return f"from={fr}, to={to}"
+
+    def launched(before, *names):
+        return {k: tk.LAUNCHES[k] - before[k] for k in names}
+
+    def expect(tag, got, want):
+        if on_card and got != want:
+            raise AssertionError(f"time: {tag}: launches {got}, not {want}")
+
+    # -- each window's first Count (two calls demand the stacks), then warm
+    qrng = np.random.default_rng(SEED + 18)
+    first = {}
+    for name, _, _ in T_WINDOWS:
+        r = int(qrng.integers(0, T_ROWS))
+        q = f"Count(Row(t={r}, {w_arg(name)}))"
+        want = truth.count(r, *win[name])
+        b0 = dict(tk.LAUNCHES)
+        rb0 = ex.stack_rebuilds
+        t0 = time.perf_counter()
+        got = ex.execute("i", f"{q} {q}")
+        cold_ms = (time.perf_counter() - t0) * 1e3
+        batched = name in T_BATCHED
+        expect(f"{name} first Count", launched(b0, "tree_count"), {"tree_count": int(batched)})
+        built = ex.stack_rebuilds - rb0
+        warm = []
+        for _ in range(3):
+            b0 = dict(tk.LAUNCHES)
+            t0 = time.perf_counter()
+            (w_got,) = ex.execute("i", q)
+            warm.append((time.perf_counter() - t0) * 1e3)
+            expect(f"{name} warm Count", launched(b0, "tree_count"), {"tree_count": int(batched)})
+            if w_got != want:
+                raise AssertionError(f"time: {q} warm -> {w_got} != numpy {want}")
+        if got != [want, want]:
+            raise AssertionError(f"time: {q} -> {got} != numpy {want}")
+        first[name] = {"first_ms": cold_ms, "stacks_built": built,
+                       "warm_ms": statistics.median(warm), "cover": len(covers[name])}
+        log(f"time: window {name}: first Count {cold_ms:.1f} ms ({built} stacks built), warm "
+            f"{statistics.median(warm):.2f} ms, {'tree_count' if batched else 'host'}; = numpy")
+    lat["windows"] = first
+
+    # -- the 1024-call windowed batch
+    items = []
+    for _ in range(BATCH):
+        name = T_BATCHED[int(qrng.integers(0, len(T_BATCHED)))]
+        r = int(qrng.integers(0, T_ROWS))
+        x = T_F_ROWS[int(qrng.integers(0, len(T_F_ROWS)))] if qrng.random() < 0.5 else None
+        items.append((name, r, x))
+
+    def batch_round(tag):
+        calls = [f"Count(Row(t={r}, {w_arg(n)}))" if x is None else
+                 f"Count(Intersect(Row(t={r}, {w_arg(n)}), Row(f={x})))" for n, r, x in items]
+        b0 = dict(tk.LAUNCHES)
+        t0 = time.perf_counter()
+        out = ex.execute_batch("i", [(c, None) for c in calls])
+        s = time.perf_counter() - t0
+        got = launched(b0, "tree_count", "tree_words")
+        expect(f"{tag} batch", got, {"tree_count": 2 * len(T_BATCHED), "tree_words": 0})
+        for (n, r, x), o in zip(items, out):
+            if isinstance(o, Exception):
+                raise o
+            want = truth.count(r, *win[n], x=x)
+            if o != [want]:
+                raise AssertionError(f"time: {tag}: Count over {n}, row {r}, f {x}: {o} != {want}")
+        log(f"time: {tag}: {BATCH} windowed Counts and Intersects via execute_batch "
+            f"{s * 1e3:.1f} ms ({BATCH / s:.0f} queries/s), launches {got}; all equal numpy")
+        return {"batch_s": s, "batch_qps": BATCH / s, "tree_count_launches": got["tree_count"]}
+
+    lat["batch_cold"] = batch_round("batch (f's stack built)")
+    lat["batch"] = batch_round("batch warm")
+
+    # -- windowed bitmaps through tree_words, words against numpy
+    bitmaps = [("hours16", 2), ("day_hours", 5), ("month", 0), ("day", 7)]
+    b0 = dict(tk.LAUNCHES)
+    t0 = time.perf_counter()
+    out = ex.execute_batch("i", [(f"Row(t={r}, {w_arg(n)})", None) for n, r in bitmaps])
+    lat["bitmaps_ms"] = (time.perf_counter() - t0) * 1e3
+    expect("bitmaps", launched(b0, "tree_words"), {"tree_words": len(bitmaps)})
+    check = np.random.default_rng(SEED + 19).choice(S_FULL, size=min(4, S_FULL), replace=False)
+    for (n, r), (row,) in zip(bitmaps, out):
+        if row.count() != truth.count(r, *win[n]):
+            raise AssertionError(f"time: Row(t={r}) over {n}: count {row.count()}")
+        want = truth.mask(r, *win[n], shards=check.tolist())
+        for s in check.tolist():
+            if not np.array_equal(row.segments[s], want[s]):
+                raise AssertionError(f"time: Row(t={r}) over {n}: shard {s} words differ")
+    log(f"time: {len(bitmaps)} windowed bitmaps via execute_batch {lat['bitmaps_ms']:.1f} ms, "
+        f"one tree_words launch each; counts and sampled words equal numpy")
+
+    # -- TopN of f filtered by a window: tanimoto (row scan), then plain
+    f_np = mirror_stack(holder, "f", R_FULL + 1, S_FULL)
+    for tag, name, r, extra, threshold in (("tanimoto", "month", 3, ", tanimotoThreshold=2", 2),
+                                           ("plain", "hours16", 6, "", 0)):
+        q = f"TopN(f, Row(t={r}, {w_arg(name)}), n=10{extra})"
+        b0 = dict(tk.LAUNCHES)
+        t0 = time.perf_counter()
+        (res,) = ex.execute("i", q)
+        lat[f"topn_{tag}_ms"] = (time.perf_counter() - t0) * 1e3
+        got = launched(b0, "masked_row_scan", "row_scan")
+        expect(f"TopN {tag}", got, {"masked_row_scan": 1, "row_scan": int(tag == "tanimoto")})
+        filt = truth.mask(r, *win[name])
+        want = truth_tanimoto_topn(f_np, filt[:, None], 0, threshold, 10, pool)
+        if [(p.id, p.count) for p in res] != want:
+            raise AssertionError(f"time: {q} -> {res} != {want}")
+        log(f"time: {q} {lat[f'topn_{tag}_ms']:.1f} ms, launches {got}; equals numpy")
+
+    # -- GroupBy f x h filtered by a window (the k-level engine)
+    name, r = "day_hours", 1
+    q = f"GroupBy(Rows(f), Rows(h), filter=Row(t={r}, {w_arg(name)}))"
+    b0 = dict(tk.LAUNCHES)
+    t0 = time.perf_counter()
+    (res,) = ex.execute("i", q)
+    lat["groupby_ms"] = (time.perf_counter() - t0) * 1e3
+    got = launched(b0, "cross_gram")
+    if on_card and got["cross_gram"] < 1:
+        raise AssertionError(f"time: {q}: launches {got}")
+    dev = torch.device(device)
+    f_dev = torch.from_numpy(f_np.view(np.int32)).to(dev)
+    h_dev = torch.from_numpy(mirror_stack(holder, "h", H_ROWS, S_FULL).view(np.int32)).to(dev)
+    filt_dev = torch.from_numpy(truth.mask(r, *win[name]).view(np.int32)).to(dev)
+    want = truth_groupby([f_dev, h_dev], filt_dev)
+    del f_dev, h_dev, filt_dev
+    if [(tuple(fr.row_id for fr in g.group), g.count) for g in res] != want:
+        raise AssertionError(f"time: {q}: {len(res)} groups differ from the truth")
+    log(f"time: {q} {lat['groupby_ms']:.1f} ms, {len(res)} groups, launches {got}; equal "
+        f"the card's AND and popcount per combination")
+
+    # -- Rows with from/to, and pair Counts over t's standard view (the gram)
+    for name in ("hours16", "empty", "day"):
+        (res,) = ex.execute("i", f"Rows(t, {w_arg(name)})")
+        want = [r for r in range(T_ROWS) if truth.count(r, *win[name]) > 0]
+        if res.rows != want:
+            raise AssertionError(f"time: Rows(t) over {name}: {res.rows} != {want}")
+    pairs = [(OPS[int(qrng.integers(0, 4))], int(qrng.integers(0, T_ROWS)),
+              int(qrng.integers(0, T_ROWS))) for _ in range(64)]
+    b0 = dict(tk.LAUNCHES)
+    t0 = time.perf_counter()
+    out = ex.execute_batch("i", [(f"Count({op}(Row(t={a}), Row(t={b_})))", None)
+                                 for op, a, b_ in pairs])
+    lat["pair_counts_ms"] = (time.perf_counter() - t0) * 1e3
+    expect("t pair Counts", launched(b0, "gram"), {"gram": 1})
+    for (op, a, b_), o in zip(pairs, out):
+        ta, tb = truth.total(a), truth.total(b_)
+        # each column holds at most one bit of t
+        want = {"Intersect": ta if a == b_ else 0, "Union": ta if a == b_ else ta + tb,
+                "Difference": 0 if a == b_ else ta, "Xor": 0 if a == b_ else ta + tb}[op]
+        if o != [want]:
+            raise AssertionError(f"time: Count({op}(Row(t={a}), Row(t={b_}))) {o} != {want}")
+    log(f"time: Rows(t) with from/to equal numpy; 64 pair Counts over t's standard view "
+        f"{lat['pair_counts_ms']:.1f} ms, one gram launch; equal the row totals")
+
+    # -- writes: 64 timestamped Sets, seen by the next batch (the per-view patch)
+    wrng = np.random.default_rng(SEED + 20)
+    cand = wrng.integers(0, S_FULL * SHARD_WIDTH, 4 * T_WRITES).astype(np.uint64)
+    cand = np.unique(cand[~np.isin(cand, truth.cols)])[:T_WRITES]
+    w_rows = wrng.integers(0, T_ROWS, cand.size).astype(np.uint64)
+    stamp = f"2024-01-01T{T_WRITE_HOUR:02d}:00"
+    inc0, reb0 = ex.stack_incremental, ex.stack_rebuilds
+    t0 = time.perf_counter()
+    changed = ex.execute("i", " ".join(f"Set({c}, t={r}, {stamp})" for c, r in zip(
+        cand.tolist(), w_rows.tolist())))
+    lat["writes_ms"] = (time.perf_counter() - t0) * 1e3
+    if not all(changed):
+        raise AssertionError("time: a timestamped Set changed nothing")
+    truth.write(w_rows, cand, np.full(cand.size, T_WRITE_HOUR))
+    lat["batch_after_writes"] = batch_round("batch after 64 timestamped Sets")
+    patched = ex.stack_incremental - inc0
+    if patched < 3 or ex.stack_rebuilds != reb0:
+        raise AssertionError(f"time: after the writes {patched} stacks patched, "
+                             f"{ex.stack_rebuilds - reb0} rebuilt")
+    log(f"time: {cand.size} Sets with a timestamp in one execute {lat['writes_ms']:.1f} ms; "
+        f"the next batch patched {patched} stacks, rebuilt none")
+    # Clear from the standard view and every time view
+    c0, r0 = int(cand[0]), int(w_rows[0])
+    (cleared,) = ex.execute("i", f"Clear({c0}, t={r0})")
+    t_field = holder.field("i", "t")
+    left = [v.name for v in t_field.views.values() if v.get_bit(r0, c0)]
+    del t_field
+    if not cleared or left:
+        raise AssertionError(f"time: Clear({c0}, t={r0}) left the bit in {left}")
+    truth.write(w_rows[:1], cand[:1], np.full(1, T_WRITE_HOUR), sign=-1)
+    q = f"Count(Row(t={r0}, {w_arg('hours16')}))"
+    if ex.execute("i", q) != [truth.count(r0, *win["hours16"])]:
+        raise AssertionError(f"time: {q} after the Clear differs from numpy")
+    # Store a window as a row of a new field s
+    name, r = "day_hours", 4
+    want = truth.count(r, *win[name])
+    res = ex.execute("i", f"Store(Row(t={r}, {w_arg(name)}), s=0) Count(Row(s=0))")
+    if res[1] != want or holder.field("i", "s") is None:
+        raise AssertionError(f"time: Store then Count(Row(s=0)) {res} != {want}")
+    # row attributes, TopN by attribute (maintained counts, then the masked scan)
+    b0 = dict(tk.LAUNCHES)
+    x = T_F_ROWS[0]
+    res = ex.execute("i", 'SetRowAttrs(t, 1, tier="gold") SetRowAttrs(t, 4, tier="silver") '
+                          'TopN(t, attrName=tier, attrValues=["gold"]) '
+                          f'TopN(t, Row(f={x}), attrName=tier)')
+    want_f = sorted(((r_, int(truth.hist_f[x][r_].sum())) for r_ in (1, 4)),
+                    key=lambda p: (-p[1], p[0]))
+    if ([(p.id, p.count) for p in res[2]] != [(1, truth.total(1))]
+            or [(p.id, p.count) for p in res[3]] != want_f):
+        raise AssertionError(f"time: TopN by attribute {res[2:]} != {want_f}")
+    expect("filtered TopN of t", launched(b0, "masked_row_scan"), {"masked_row_scan": 1})
+    # Options
+    res = result_to_json(ex.execute(
+        "i", f"Options(Row(t=1, {w_arg('day')}), excludeColumns=true) "
+             f"Options(Row(t=1, {w_arg('day')}), excludeRowAttrs=true)"))
+    if res[0] != {"attrs": {"tier": "gold"}, "columns": []} or res[1]["attrs"] != {} \
+            or len(res[1]["columns"]) != truth.count(1, *win["day"]):
+        raise AssertionError(f"time: Options -> {str(res)[:200]}")
+    log("time: Clear left the bit in no view; Store, SetRowAttrs with TopN by attribute and "
+        "Options equal numpy")
+
+    # -- delete t: its stacks leave the card and the budget
+    budget = membudget.default_budget(device)
+    t_field = holder.field("i", "t")
+    live = sum(e["dev"].numel() * e["dev"].element_size()
+               for _, e in list(ex._stacks.get(t_field, {}).items()))
+    n_live = len(ex._stacks.get(t_field, {}))
+    del t_field
+    gc.collect()
+    if on_card:
+        torch.cuda.synchronize()
+    used0 = budget.snapshot()["usedBytes"]
+    alloc0 = torch.cuda.memory_allocated() if on_card else 0
+    t0 = time.perf_counter()
+    if not holder.index("i").delete_field("t"):
+        raise AssertionError("time: delete_field('t') found no field")
+    gc.collect()
+    lat["delete_s"] = time.perf_counter() - t0
+    if on_card:
+        torch.cuda.synchronize()
+    used1 = budget.snapshot()["usedBytes"]
+    alloc1 = torch.cuda.memory_allocated() if on_card else 0
+    if used0 - used1 < live or (on_card and alloc0 - alloc1 < live):
+        raise AssertionError(f"time: deleting t freed {used0 - used1} budget bytes and "
+                             f"{alloc0 - alloc1} card bytes, less than its {live} live")
+    lat.update(deleted_stacks=n_live, deleted_bytes=live, budget_freed=used0 - used1,
+               card_freed=alloc0 - alloc1)
+    t_new = holder.index("i").create_field(
+        "t", FieldOptions(field_type="time", time_quantum="YMDH"))
+    t_new.import_bits([2, 2, 5], [11, 12, 13], timestamps=np.array(
+        ["2024-01-01T10", "2024-01-01T11", "2023-03-01T00"], dtype="datetime64[h]"))
+    del t_new
+    q = f"Count(Row(t=2, {w_arg('hours16')}))"
+    if ex.execute("i", f"{q} {q}") != [2, 2]:
+        raise AssertionError(f"time: {q} over the new t is not its own data")
+    log(f"time: t deleted: {n_live} live stacks of {live / 1e9:.3f} GB; the budget freed "
+        f"{(used0 - used1) / 1e9:.3f} GB and the card {(alloc0 - alloc1) / 1e9:.3f} GB; a new "
+        "t answers from its own data")
+    lat["path_s"] = time.perf_counter() - t_path
+    log(f"time path: {lat['path_s']:.1f} s (import {lat['import_s']:.2f} s)")
+    return lat
+
+
 def drive(path, required, fn):
     """Run one path of the main path with every launch count set to 0 just
     before it; fail if a kernel of the path was not launched in it."""
@@ -3399,8 +3872,14 @@ def main() -> int:
             "storage", ("gram", "cross_gram", "row_scan", "masked_row_scan", "tree_count",
                         "bsi_range", "bsi_sum"),
             lambda: storage_path(pool, holder, "cuda", decoded["v"]))
+        del decoded
+        l_time, e2e["time"] = drive(
+            "time", ("tree_count", "tree_words", "row_scan", "masked_row_scan", "gram",
+                     "cross_gram"),
+            lambda: time_path(pool, Executor(holder), holder, "cuda"))
     by_path = {k: {"pair_topn": l_pair[k], "groupby": l_group[k], "trees": l_trees[k],
-                   "bsi": l_bsi[k], "budget": l_budget[k], "storage": l_storage[k]}
+                   "bsi": l_bsi[k], "budget": l_budget[k], "storage": l_storage[k],
+                   "time": l_time[k]}
                for k in l_pair}
 
     sources = {

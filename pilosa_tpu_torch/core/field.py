@@ -4,15 +4,31 @@
 ``set``, ``mutex`` and ``bool`` fields write through their standard view
 (a bool field is a two-row mutex); ``int`` fields store their values
 bit-sliced in the ``bsig_<field>`` view, offset by the field's ``base``
-and auto-growing ``bit_depth`` (reference field.go:1012-1160). ``time``
-fields can be declared, so schemas carry over whole, but their writes are
-not yet ported and raise.
+and auto-growing ``bit_depth`` (reference field.go:1012-1160). A field
+with a time quantum also writes a timestamped bit into one view per unit
+of its quantum (``standard_2024``, ``standard_202401``, ...; reference
+time.go:75-101), which time-range reads cover.
+
+Bulk imports (:meth:`Field.import_bits`) merge each fragment once through
+the native host merge, fragments in parallel. Timestamped bits are grouped by the views
+their timestamp lands in: each distinct timestamp, truncated to the
+quantum's finest unit, is mapped to its views once, and each (view,
+shard) then takes one merge. A time view's op log therefore holds one
+batch record per fragment and call where the JAX package writes one
+record per bit (its per-bit loop is kept as
+:meth:`Field.import_bits_plain`): the files replay to the same bits, and
+after a snapshot they are byte-equal. The standard view's records are
+JAX's, record for record.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
+import os
 import re
 import threading
+import warnings
+from datetime import datetime
 from typing import Iterable
 
 import numpy as np
@@ -180,6 +196,13 @@ class Field:
                     self.on_create_view(self, name)
             return v
 
+    def view_names(self) -> list[str]:
+        return sorted(self.views)
+
+    def delete_view(self, name: str) -> bool:
+        with self._lock:
+            return self.views.pop(name, None) is not None
+
     def bsi_view_name(self) -> str:
         return view_name_bsi(self.name)
 
@@ -189,21 +212,36 @@ class Field:
             shards |= v.available_shards()
         return shards
 
-    # -- set/mutex/bool writes (reference field.go:886-968) ----------------
+    # -- set/time/mutex/bool writes (reference field.go:886-968) -----------
 
-    def set_bit(self, row: int, col: int) -> bool:
+    def set_bit(self, row: int, col: int, timestamp: datetime | None = None) -> bool:
+        """Set (row, col) in the standard view (unless the field has none)
+        and, with a timestamp, in each view of the field's time quantum."""
+        o = self.options
         if self.is_bsi():
             raise ValueError(f"field {self.name} is an int field; use set_value")
-        if self.options.no_standard_view:
-            return False
-        std = self.create_view_if_not_exists(VIEW_STANDARD)
-        if self.field_type in (FIELD_TYPE_MUTEX, FIELD_TYPE_BOOL):
-            return std.set_mutex(row, col)
-        return std.set_bit(row, col)
+        changed = False
+        if not o.no_standard_view:
+            std = self.create_view_if_not_exists(VIEW_STANDARD)
+            if self.field_type in (FIELD_TYPE_MUTEX, FIELD_TYPE_BOOL):
+                changed |= std.set_mutex(row, col)
+            else:
+                changed |= std.set_bit(row, col)
+        if timestamp is not None:
+            if not o.time_quantum:
+                raise ValueError(f"cannot set timestamp on non-time field {self.name}")
+            for vname in timequantum.views_by_time(VIEW_STANDARD, timestamp, o.time_quantum):
+                changed |= self.create_view_if_not_exists(vname).set_bit(row, col)
+        return changed
 
     def clear_bit(self, row: int, col: int) -> bool:
-        v = self.view(VIEW_STANDARD)
-        return v.clear_bit(row, col) if v is not None else False
+        """Clear (row, col) from the standard view and every time view
+        (reference field.go:926-968)."""
+        changed = False
+        for v in list(self.views.values()):
+            if v.name == VIEW_STANDARD or v.name.startswith(VIEW_STANDARD + "_"):
+                changed |= v.clear_bit(row, col)
+        return changed
 
     def get_bit(self, row: int, col: int) -> bool:
         v = self.view(VIEW_STANDARD)
@@ -277,7 +315,224 @@ class Field:
                 clear=clear,
             )
 
+    # -- bulk imports of bits (reference field.go:1163-1352) ---------------
+
+    def _import_args(self, rows, cols, timestamps, clear: bool, pipeline):
+        if clear and timestamps is not None:
+            # reference field.go:1180
+            raise ValueError("import clear is not supported with timestamps")
+        if pipeline is not None:
+            from pilosa_tpu_torch.exec.executor import ExecuteError
+
+            raise ExecuteError("import_bits with an ingest pipeline is not yet ported")
+        rows = np.asarray(rows if isinstance(rows, np.ndarray) else list(rows), dtype=np.uint64)
+        cols = np.asarray(cols if isinstance(cols, np.ndarray) else list(cols), dtype=np.uint64)
+        std = (
+            None if self.options.no_standard_view
+            else self.create_view_if_not_exists(VIEW_STANDARD)
+        )
+        mutexlike = self.field_type in (FIELD_TYPE_MUTEX, FIELD_TYPE_BOOL) and not clear
+        return rows, cols, std, mutexlike
+
+    def import_bits(
+        self,
+        rows: Iterable[int],
+        cols: Iterable[int],
+        timestamps: Iterable[datetime | None] | None = None,
+        clear: bool = False,
+        pipeline=None,
+        segments=None,
+    ) -> None:
+        """Import (row, col[, timestamp]) triples (JAX ``Field.import_bits``,
+        its arguments, errors and result): the standard view one native
+        merge per shard (a mutex or bool field bit by bit), ``segments``
+        (``[(shard, rows, offsets), ...]``, the batch already split by
+        shard) taken as given; then each timestamped pair into the views of
+        its timestamp, grouped (module docstring). ``timestamps`` holds a
+        ``datetime`` or None per pair, or is a ``datetime64`` array (NaT for
+        none), the fast form. An ingest ``pipeline`` is not ported yet."""
+        rows, cols, std, mutexlike = self._import_args(rows, cols, timestamps, clear, pipeline)
+        width = self.n_words * 32
+        if std is not None:
+            if segments is None or mutexlike:
+                segments = _split_by_shard(rows, cols, width)
+            merges = []
+            for shard, seg_rows, seg_offs in segments:
+                frag = std.create_fragment_if_not_exists(int(shard))
+                if mutexlike:
+                    for r, c in zip(seg_rows.tolist(), seg_offs.tolist()):
+                        frag.set_mutex(int(r), int(c))
+                else:
+                    merges.append((frag, seg_rows, np.asarray(seg_offs, dtype=np.int64)))
+            _run_merges(merges, clear)
+        if timestamps is not None:
+            self._import_time_views(rows, cols, timestamps)
+
+    def _import_time_views(self, rows: np.ndarray, cols: np.ndarray, timestamps) -> None:
+        """The time views of an import: pairs sorted by (shard, truncated
+        timestamp), each view's pairs at a shard one slice of that order,
+        one native merge per (view, shard)."""
+        q = self.options.time_quantum
+        ts = _timestamp_array(timestamps)
+        if len(ts) > len(rows):
+            raise ValueError(f"{len(ts)} timestamps for {len(rows)} bits")
+        if not q or not len(ts):
+            return
+        unit = next(u for u in ("H", "D", "M", "Y") if u in q)
+        rows, cols = rows[: len(ts)], cols[: len(ts)]
+        nat = np.isnat(ts)
+        if nat.any():
+            sel = np.flatnonzero(~nat)
+            ts, rows, cols = ts[sel], rows[sel], cols[sel]
+        if not len(ts):
+            return
+        tkeys, tinv = _dense_codes(ts.astype(f"datetime64[{_NP_UNIT[unit]}]").view(np.int64))
+        width = self.n_words * 32
+        shards, sinv = _dense_codes(cols // np.uint64(width))
+        n_keys = len(tkeys)
+        order, starts = _group_order(sinv * n_keys + tinv, len(shards) * n_keys)
+        s_rows = rows[order]
+        s_offs = (cols[order] % np.uint64(width)).astype(np.int64)
+        # view -> the (ascending) indices of the truncated timestamps in it
+        keys_of: dict[str, list[int]] = {}
+        for k, key in enumerate(tkeys.tolist()):
+            t = np.datetime64(key, _NP_UNIT[unit]).astype("datetime64[us]").item()
+            for vname in timequantum.views_by_time(VIEW_STANDARD, t, q):
+                keys_of.setdefault(vname, []).append(k)
+        merges = []
+        for vname, ks in keys_of.items():
+            # a view covers a span of time, so its keys are consecutive
+            a, b = ks[0], ks[-1]
+            view = self.create_view_if_not_exists(vname)
+            for j, shard in enumerate(shards.tolist()):
+                lo, hi = starts[j * n_keys + a], starts[j * n_keys + b + 1]
+                if hi > lo:
+                    merges.append((view.create_fragment_if_not_exists(shard),
+                                   s_rows[lo:hi], s_offs[lo:hi]))
+        _run_merges(merges, False)
+
+    def import_bits_plain(
+        self,
+        rows: Iterable[int],
+        cols: Iterable[int],
+        timestamps: Iterable[datetime | None] | None = None,
+        clear: bool = False,
+        pipeline=None,
+        segments=None,
+    ) -> None:
+        """Plain version of :meth:`import_bits`: the JAX package's loop, each
+        shard's pairs selected by a mask and each timestamped bit written
+        through ``View.set_bit`` (one op-log record a bit). Tests hold the
+        grouped import to it; no serving path calls it."""
+        rows, cols, std, mutexlike = self._import_args(rows, cols, timestamps, clear, pipeline)
+        width = self.n_words * 32
+        if segments is None or std is None or mutexlike:
+            shards = cols // width
+            offs = cols % width
+            segments = [(int(s), rows[shards == s], offs[shards == s]) for s in np.unique(shards)]
+        if std is not None:
+            for shard, seg_rows, seg_offs in segments:
+                frag = std.create_fragment_if_not_exists(int(shard))
+                if mutexlike:
+                    for r, c in zip(seg_rows, seg_offs):
+                        frag.set_mutex(int(r), int(c))
+                else:
+                    frag.import_bits(seg_rows, np.asarray(seg_offs, dtype=np.int64), clear=clear)
+        if timestamps is not None:
+            for i, ts in enumerate(list(timestamps)):
+                if ts is None:
+                    continue
+                for vname in timequantum.views_by_time(
+                    VIEW_STANDARD, ts, self.options.time_quantum
+                ):
+                    self.create_view_if_not_exists(vname).set_bit(int(rows[i]), int(cols[i]))
+
     # -- schema -------------------------------------------------------------
 
     def to_dict(self) -> dict:
         return {"name": self.name, "options": self.options.to_dict()}
+
+
+# numpy's datetime64 unit of each time-quantum unit
+_NP_UNIT = {"Y": "Y", "M": "M", "D": "D", "H": "h"}
+
+
+def _timestamp_array(timestamps) -> np.ndarray:
+    """``datetime64`` of an import's timestamps, NaT where none: a
+    ``datetime64`` array as it is, else ``datetime`` objects (or None)
+    converted by numpy in one pass (to microseconds). A timezone-aware
+    ``datetime`` keeps its wall-clock fields, as ``strftime`` reads them in
+    the JAX package (numpy alone would move it to UTC)."""
+    if isinstance(timestamps, np.ndarray) and timestamps.dtype.kind == "M":
+        return timestamps.reshape(-1)
+    objs = np.asarray(
+        timestamps if isinstance(timestamps, np.ndarray) else list(timestamps), dtype=object
+    ).reshape(-1)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        out = objs.astype("datetime64[us]")
+    if caught:  # timezone-aware datetimes among them
+        out = np.array(
+            [None if t is None else t.replace(tzinfo=None) for t in objs.tolist()],
+            dtype=object,
+        ).astype("datetime64[us]")
+    return out
+
+
+def _dense_codes(keys: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """``(uniq, inverse)``: the distinct keys ascending and each key's index
+    among them (int64), in linear passes when the keys span a small range
+    (a few hours or shards), else by ``np.unique``."""
+    if not keys.size:
+        return keys[:0], np.zeros(0, dtype=np.int64)
+    lo, hi = int(keys.min()), int(keys.max())
+    if hi - lo >= 1 << 22:
+        uniq, inv = np.unique(keys, return_inverse=True)
+        return uniq, inv.astype(np.int64).reshape(-1)
+    off = (keys - keys.dtype.type(lo)).astype(np.int64)
+    present = np.bincount(off, minlength=hi - lo + 1) > 0
+    code = np.cumsum(present) - 1
+    return (np.flatnonzero(present) + lo).astype(keys.dtype), code[off]
+
+
+def _group_order(groups: np.ndarray, n_groups: int) -> tuple[np.ndarray, np.ndarray]:
+    """``(order, starts)``: a stable order of ``groups`` (codes below
+    ``n_groups``; a radix sort when they fit 16 bits) and where each group
+    starts in it (``starts[n_groups]`` is the total)."""
+    codes = groups.astype(np.uint16 if n_groups <= 1 << 16 else np.int64)
+    order = np.argsort(codes, kind="stable")
+    starts = np.zeros(n_groups + 1, dtype=np.int64)
+    np.cumsum(np.bincount(groups, minlength=n_groups), out=starts[1:])
+    return order, starts
+
+
+# pairs an import must carry before its fragments merge on a thread pool
+_PARALLEL_MERGE_PAIRS = 1 << 16
+
+
+def _run_merges(merges: list, clear: bool) -> None:
+    """``Fragment.import_bits`` of each ``(fragment, rows, offsets)``, the
+    fragments (all distinct, created beforehand) merged on a small thread
+    pool when there are enough pairs: the native merge and numpy's sorts
+    release the interpreter, so fragments merge in parallel."""
+    workers = min(8, os.cpu_count() or 1, len(merges))
+    if workers < 2 or sum(len(r) for _, r, _ in merges) < _PARALLEL_MERGE_PAIRS:
+        for frag, r, c in merges:
+            frag.import_bits(r, c, clear=clear)
+        return
+    with concurrent.futures.ThreadPoolExecutor(
+        max_workers=workers, thread_name_prefix="pilosa-import"
+    ) as pool:
+        # list(): a merge's error raises here
+        list(pool.map(lambda m: m[0].import_bits(m[1], m[2], clear=clear), merges))
+
+
+def _split_by_shard(rows: np.ndarray, cols: np.ndarray, width: int):
+    """``(shard, rows, offsets)`` of each shard the columns reach, in shard
+    order, the pairs of a shard in their input order."""
+    shards, inv = _dense_codes(cols // np.uint64(width))
+    order, starts = _group_order(inv, len(shards))
+    rows, cols = rows[order], cols[order]
+    for j, shard in enumerate(shards.tolist()):
+        lo, hi = starts[j], starts[j + 1]
+        yield int(shard), rows[lo:hi], (cols[lo:hi] % np.uint64(width)).astype(np.int64)

@@ -16,6 +16,7 @@ import torch
 
 from pilosa_tpu_torch import device as device_mod
 from pilosa_tpu_torch.core.field import FieldOptions
+from pilosa_tpu_torch.core.fragment import Fragment
 from pilosa_tpu_torch.core.index import Index
 from pilosa_tpu_torch.shardwidth import SHARD_WORDS
 
@@ -60,12 +61,24 @@ class Holder:
                 return self.create_index(name, keys, track_existence)
             return idx
 
+    def delete_index(self, name: str) -> bool:
+        with self._lock:
+            return self.indexes.pop(name, None) is not None
+
     def index_names(self) -> list[str]:
         return sorted(self.indexes)
 
     def field(self, index: str, field: str):
         idx = self.index(index)
         return idx.field(field) if idx is not None else None
+
+    def fragment(self, index: str, field: str, view: str, shard: int) -> Fragment | None:
+        """Direct fragment accessor (reference holder.go:496-502)."""
+        f = self.field(index, field)
+        if f is None:
+            return None
+        v = f.view(view)
+        return v.fragment(shard) if v is not None else None
 
     def schema(self) -> list[dict]:
         """reference holder.go:279-299 Schema."""

@@ -3,6 +3,10 @@ reference index.go).
 
 With ``trackExistence`` an internal ``_exists`` field records every column
 ever set, which ``Not()`` reads (reference index.go:173-180, holder.go:46).
+``generation`` counts the index's schema changes (a field created or
+deleted), as in the JAX package. A deleted field leaves the index only:
+its stacks and device copies go when nothing else holds it (the executor
+keys its caches weakly on the field object, never on its name).
 """
 
 from __future__ import annotations
@@ -35,6 +39,8 @@ class Index:
         self.n_words = n_words
         self.device = device_mod.resolve(device)
         self._lock = threading.RLock()
+        # schema generation: bumped on field create and delete
+        self.generation = 0
         self.fields: dict[str, Field] = {}
         # column attributes (reference index.go columnAttrs boltdb store)
         self.column_attrs = AttrStore()
@@ -59,6 +65,7 @@ class Index:
                 raise ValueError(f"field already exists: {name}")
             f = Field(self.name, name, options, self.n_words, device=self.device)
             self.fields[name] = f
+            self.generation += 1
             if self.on_create_field is not None:
                 self.on_create_field(self, f)
             return f
@@ -69,6 +76,14 @@ class Index:
             if f is None:
                 return self.create_field(name, options)
             return f
+
+    def delete_field(self, name: str) -> bool:
+        """reference index.go:430-453."""
+        with self._lock:
+            gone = self.fields.pop(name, None) is not None
+            if gone:
+                self.generation += 1
+            return gone
 
     def field_names(self, include_internal: bool = False) -> list[str]:
         return sorted(

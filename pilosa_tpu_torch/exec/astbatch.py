@@ -15,6 +15,13 @@ whole batch, and a bitmap tree by one launch of :func:`kernels.tree_words`.
   empty-row semantics of every operator (Not and Difference included).
 * ``Not`` is rewritten at match time into ``Difference(Row(_exists=0),
   child)``, the reference's executeNot against the existence field.
+* A time-range ``Row(f=v, from=..., to=...)`` expands into a Union of
+  per-view leaves over the minimal time-view cover (reference
+  executor.go:1515-1531), each view its own stack, so windowed reads ride
+  the same launches. A cover that is empty or longer than
+  ``MAX_TIME_COVER`` views is declined, as in JAX. Unlike JAX, a windowed
+  Row is signed alone too, under Count and as a bitmap (JAX reads a bare
+  Row on the host): it is a Union like any other.
 * A program evaluates the children of each node in the order that needs
   the fewest operand-stack entries (the Sethi-Ullman order), so a tree of
   L leaves needs at most floor(log2(L)) + 1 of them, within the kernel's
@@ -25,8 +32,8 @@ The BSI signing half (:func:`match_bsi`) signs the calls the executor's
 batched BSI lane answers: range conditions, their Counts, Sum, Min, Max
 and GroupBy filtered by a condition, each with its op class.
 
-Not ported here yet: time-range leaves (with time views) and the program
-over a process-spanning mesh (with the cluster).
+Not ported here yet: the program over a process-spanning mesh (with the
+cluster).
 """
 
 from __future__ import annotations
@@ -36,6 +43,7 @@ from typing import NamedTuple
 
 import numpy as np
 
+from pilosa_tpu_torch.core import timequantum
 from pilosa_tpu_torch.core.field import FIELD_TYPE_INT
 from pilosa_tpu_torch.core.view import VIEW_STANDARD
 from pilosa_tpu_torch.ops import kernels
@@ -47,6 +55,11 @@ _OPS = {
     "Difference": "difference",
     "Xor": "xor",
 }
+
+# Largest time-view cover a range leaf may expand to: past it the per-view
+# stack builds cost more than the per-fragment union on the host (a fine
+# quantum over a wide window covers thousands of views).
+MAX_TIME_COVER = 16
 
 # The flight planner's graft node (pilosa_tpu/exec/planner.py SHARED): a
 # subtree already materialized as a host row, which the compiled path
@@ -90,8 +103,8 @@ def _match(idx, call: Call, leaves: list, pairs: list):
         v = call.args.get(fname)
         if not isinstance(v, int) or isinstance(v, bool):
             return None
-        # a time range needs time views, which are not ported: the
-        # per-call path raises for it
+        if "from" in call.args or "to" in call.args:
+            return _match_time_range(field, call, v, leaves, pairs)
         if set(call.args) != {fname}:
             return None
         if field.view(VIEW_STANDARD) is None:
@@ -125,6 +138,31 @@ def _match(idx, call: Call, leaves: list, pairs: list):
     return None
 
 
+def _match_time_range(field, call: Call, row: int, leaves: list, pairs: list):
+    """``("union", leaf per view)`` of a time-range Row over its view cover;
+    None for another argument, a field without a quantum, an empty cover
+    or one longer than MAX_TIME_COVER (JAX astbatch.py:128-149)."""
+    fname = field.name
+    if set(call.args) - {fname, "from", "to"}:
+        return None
+    try:
+        cover = timequantum.view_cover(
+            field, call.args.get("from"), call.args.get("to"), VIEW_STANDARD
+        )
+    except ValueError:
+        return None
+    if not cover or len(cover) > MAX_TIME_COVER:
+        return None
+    for vname in cover:
+        leaves.append((fname, vname, row))
+    return ("union", *[("row", _ordinal(pairs, fname, vn)) for vn in cover])
+
+
+def is_time_range(call: Call) -> bool:
+    """Whether ``call`` is a time-range Row."""
+    return call.name == "Row" and ("from" in call.args or "to" in call.args)
+
+
 def match_tree(
     idx,
     call: Call,
@@ -145,11 +183,12 @@ def match_count(
     pairs: list[tuple[str, str]],
 ):
     """sig for ``Count(tree)`` when the tree is compilable and not a bare
-    Row (plain row counts are one fused count on the host tier)."""
+    plain Row (plain row counts are one fused count on the host tier; a
+    windowed Row is a Union over its views)."""
     if call.name != "Count" or len(call.children) != 1 or call.args:
         return None
     child = call.children[0]
-    if child.name == "Row":
+    if child.name == "Row" and not is_time_range(child):
         return None
     return match_tree(idx, child, leaves, pairs)
 

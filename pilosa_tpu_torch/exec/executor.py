@@ -1,20 +1,22 @@
 """PQL executor (counterpart of ``pilosa_tpu/exec/executor.py``; reference
 executor.go).
 
-Single-node PQL read serving over dense field stacks. A field's standard
-view is gathered from the fragments' host mirrors into one
-``int32[S, R, W]`` stack on the holder's device (:meth:`_field_stack`),
-cached; when a few fragments' (epoch, version) move, only their shards are
-patched into a new tensor (:meth:`_stack_incremental_update`), else the
-stack is rebuilt. The stacks serve these queries, each through the kernels
-of ``ops/kernels.py``:
+Single-node PQL serving over dense field stacks. A field's view (the
+standard view, a time view, an int field's BSI view) is gathered from the
+fragments' host mirrors into one ``int32[S, R, W]`` stack on the holder's
+device (:meth:`_field_stack`), cached per view; when a few fragments'
+(epoch, version) move, only their shards are patched into a new tensor
+(:meth:`_stack_incremental_update`), else the stack is rebuilt. The stacks
+serve these queries, each through the kernels of ``ops/kernels.py``:
 
 * a batch of ``Count(op(Row, Row))`` calls — one gram launch per field
   (:meth:`_batch_pair_counts`, :meth:`_field_gram`);
 * trees of Row/Intersect/Union/Difference/Xor/Not, under Count or as a
   bitmap — one tree-kernel launch per AST shape and stack set
   (:meth:`_batch_general`, ``exec/astbatch.py``) once their stacks are
-  live or demanded by two calls;
+  live or demanded by two calls. A time-range ``Row(f=r, from=, to=)``
+  is a Union over its time-view cover, one stack per view (a view the
+  cover names but the field lacks is a zero leaf), alone or in a tree;
 * filtered TopN — the masked row scan;
 * tanimoto TopN — the row scan for row totals (:meth:`_stack_row_counts`);
 * GroupBy — one level through the row scans, two levels from one gram
@@ -42,18 +44,24 @@ product on the host mirrors, BSI conditions and aggregates to one launch
 per fragment, trees to the host tier.
 
 Everything else is the latency tier on the host mirrors: lone counts,
-trees the batch paths decline (a cold lone tree, Shift), unfiltered TopN
-from the maintained per-fragment counts, Rows, MinRow/MaxRow, a lone cold
-BSI condition (the ``ops/bsi.py`` functions on CPU tensors built from the
-mirrors, until _BSI_SINGLE_WARM lone conditions have asked), and
-Set/Clear/ClearRow writes.
+trees the batch paths decline (a cold lone tree, Shift, a time range whose
+cover is empty or longer than ``astbatch.MAX_TIME_COVER`` views: the union
+of its views' rows), unfiltered TopN from the maintained per-fragment
+counts, Rows (with ``from``/``to``, over the cover's views), MinRow/MaxRow,
+a lone cold BSI condition (the ``ops/bsi.py`` functions on CPU tensors
+built from the mirrors, until _BSI_SINGLE_WARM lone conditions have
+asked), and the writes: Set (with a timestamp, into the time views too),
+Clear (every view), ClearRow, Store (a row written shard by shard),
+SetRowAttrs and SetColumnAttrs. TopN filters by a row attribute
+(``attrName``/``attrValues``) on every tier; Options excludes columns or
+row attributes, attaches column attributes or restricts shards.
 String keys are translated as in JAX: an index with ``keys`` takes column
 keys, a field with ``keys`` row keys, each through the executor's
 ``translator`` (``core/translate.py``; a data directory's store passes its
 own, ``storage/disk.py``) before the call runs, and results carry the keys
 back (``Row.keys``, ``Pair.key``, ``RowIdentifiers.keys``,
-``FieldRow.row_key``). Other calls (Store, attrs, time views) raise
-``ExecuteError("... not yet ported")``.
+``FieldRow.row_key``). Every call of the JAX executor on one node is
+served; ``exec/result.py`` ``result_to_json`` gives each answer's JSON form.
 """
 
 from __future__ import annotations
@@ -71,7 +79,7 @@ import numpy as np
 import torch
 
 from pilosa_tpu_torch import pql
-from pilosa_tpu_torch.core import membudget, residency
+from pilosa_tpu_torch.core import membudget, residency, timequantum
 from pilosa_tpu_torch.core.field import (
     FIELD_TYPE_BOOL,
     FIELD_TYPE_INT,
@@ -154,14 +162,6 @@ _WRITE_CALLS = {
     "SetColumnAttrs",
 }
 
-# Calls of the JAX executor that this slice does not serve yet.
-_NOT_PORTED_CALLS = {
-    "Store",
-    "SetRowAttrs",
-    "SetColumnAttrs",
-    "Options",
-}
-
 
 def _is_write(call: Call) -> bool:
     """A call writes if it or any descendant writes."""
@@ -186,16 +186,15 @@ class FieldNotFoundError(ExecuteError):
     pass
 
 
-def _not_ported(what: str) -> ExecuteError:
-    return ExecuteError(f"{what} is not yet ported")
-
-
 class Executor:
     # reference server/config.go:160 MaxWritesPerRequest default
     DEFAULT_MAX_WRITES_PER_REQUEST = 5000
 
-    # stacks kept per field (one per shard set); two entries so
-    # alternating shard arguments don't evict each other every call
+    # stacks kept per field view (one per shard set); two entries so
+    # alternating shard arguments don't evict each other every call. The
+    # cap is per view, not per field as in JAX: a time window's cover reads
+    # up to astbatch.MAX_TIME_COVER views of one field at once (the budget
+    # bounds their bytes)
     _STACK_CACHE_ENTRIES = 2
     # fields up to this many rows may get their FULL gram computed and
     # cached on the stack entry (the reference's ranked cache analogue)
@@ -518,8 +517,6 @@ class Executor:
 
     def _execute_call(self, idx: Index, call: Call, shards: list[int] | None) -> Any:
         name = call.name
-        if name in _NOT_PORTED_CALLS:
-            raise _not_ported(f"{name}()")
         if name == "Count":
             return self._execute_count(idx, call, shards)
         if name == "Sum":
@@ -540,6 +537,14 @@ class Executor:
             return self._execute_rows(idx, call, shards)
         if name == "GroupBy":
             return self._execute_groupby(idx, call, shards)
+        if name == "Store":
+            return self._execute_store(idx, call, shards)
+        if name == "SetRowAttrs":
+            return self._execute_set_row_attrs(idx, call)
+        if name == "SetColumnAttrs":
+            return self._execute_set_column_attrs(idx, call)
+        if name == "Options":
+            return self._execute_options(idx, call, shards)
         return self._execute_bitmap_call(idx, call, shards)
 
     # ----------------------------------------------- batched Count fast path
@@ -686,9 +691,9 @@ class Executor:
                 old = caches.pop(stale, None)
                 if old is not None:
                     budget.release(old["bkey"])
-            while len(caches) >= self._STACK_CACHE_ENTRIES:
-                items = _dict_items(caches)
-                if not items:
+            while True:
+                items = [kv for kv in _dict_items(caches) if kv[0][1] == view_name]
+                if len(items) < self._STACK_CACHE_ENTRIES:
                     break
                 old = caches.pop(min(items, key=lambda kv: kv[1]["lru"])[0], None)
                 if old is not None:
@@ -1029,7 +1034,9 @@ class Executor:
             sig = astbatch.match_count(idx, call, leaves, pairs)
             if sig is not None:
                 count_groups.setdefault((sig, tuple(pairs)), []).append((i, leaves))
-            elif call.name in ("Intersect", "Union", "Difference", "Xor", "Not"):
+            elif call.name in (
+                "Intersect", "Union", "Difference", "Xor", "Not"
+            ) or astbatch.is_time_range(call):
                 leaves, pairs = [], []
                 sig = astbatch.match_tree(idx, call, leaves, pairs)
                 if sig is None:
@@ -1043,30 +1050,51 @@ class Executor:
             return
         shard_list = self._shards_for(idx, shards)
 
-        # (field, view) -> (slot_of, stack), or None when declined; a
-        # matched leaf's field has its standard view (astbatch._match)
+        # (field, view) -> (slot_of, stack); None when not taken (cold and
+        # under-demanded, or the field is gone) or STACK_DECLINED by the
+        # budget; _ABSENT when the view holds no rows over the shards (a
+        # view of a time cover that was never written): a zero leaf
+        _ABSENT = object()
         stacks_by_view: dict[tuple[str, str], Any] = {}
 
         def _stacks_for(pairs):
             """(stacks tuple, slot_of per pair), or None when a leaf's stack
-            is not taken (cold and under-demanded, no rows, or declined by
-            the device-memory budget): the call then stays on the host
-            tier."""
-            out: list[torch.Tensor] = []
+            is not taken or declined, or every leaf's view is absent: the
+            call then stays on the host tier. Each (field, view) pair reads
+            its own view's stack."""
+            out: list[torch.Tensor | None] = []
             slot_maps = {}
             for pair in pairs:
+                fname, vname = pair
                 if pair not in stacks_by_view:
-                    field = idx.field(pair[0])  # the existence field too
-                    live = field is not None and (
-                        self._stack_cached(field, shard_list) or demand.get(pair, 0) >= 2
-                    )
-                    stacks_by_view[pair] = self._field_stack(field, shard_list) if live else None
+                    field = idx.field(fname)  # the existence field too
+                    if field is None:
+                        got = None
+                    elif field.view(vname) is None:
+                        got = _ABSENT
+                    elif (self._stack_cached(field, shard_list, vname)
+                          or demand.get(pair, 0) >= 2):
+                        got = self._field_stack(field, shard_list, vname)
+                        if got is None:
+                            got = _ABSENT
+                    else:
+                        got = None
+                    stacks_by_view[pair] = got
                 entry = stacks_by_view[pair]
                 if entry is None or entry is STACK_DECLINED:
                     return None
-                slot_maps[pair], stack = entry
-                out.append(stack)
-            return tuple(out), slot_maps
+                if entry is _ABSENT:
+                    slot_maps[pair] = {}
+                    out.append(None)
+                else:
+                    slot_maps[pair], stack = entry
+                    out.append(stack)
+            # an absent view's leaves are all slot -1: any real stack stands
+            # in for it
+            real = next((t for t in out if t is not None), None)
+            if real is None:
+                return None
+            return tuple(real if t is None else t for t in out), slot_maps
 
         def _slots_of(leaves, slot_maps) -> np.ndarray:
             # absent rows -> slot -1 (a zero leaf)
@@ -1092,9 +1120,13 @@ class Executor:
             words = bitops.to_host(
                 astbatch.run_bitmap(sig, stacks, _slots_of(leaves, slot_maps))
             )
-            results[i] = Row(
+            row = Row(
                 {s: words[si] for si, s in enumerate(shard_list)}, n_words=idx.n_words
             )
+            if calls[i].name == "Row":  # a windowed Row carries its attrs
+                fname = calls[i].field_arg()
+                row.attrs = idx.field(fname).row_attrs.attrs(calls[i].args[fname])
+            results[i] = row
 
     # --------------------------------------------------------- bitmap calls
 
@@ -1158,12 +1190,15 @@ class Executor:
         # default n=0: unchanged row (reference executor.go:1773)
         return child.shift(n if ok else 0)
 
-    def _field_row(self, field: Field | None, row_id: int, shards: list[int]) -> Row:
-        """Row segments from the host mirrors (the latency tier)."""
+    def _field_row(
+        self, field: Field | None, row_id: int, shards: list[int], view: str = VIEW_STANDARD
+    ) -> Row:
+        """Row segments of one of the field's views from the host mirrors
+        (the latency tier)."""
         out = Row(n_words=self.holder.n_words)
         if field is None:
             return out
-        v = field.view(VIEW_STANDARD)
+        v = field.view(view)
         if v is None:
             return out
         for shard in shards:
@@ -1173,8 +1208,8 @@ class Executor:
         return out
 
     def _execute_row(self, idx: Index, call: Call, shards: list[int]) -> Row:
-        """reference executor.go:1444 executeRowShard: a plain row or a BSI
-        condition."""
+        """reference executor.go:1444 executeRowShard: a plain row, a BSI
+        condition or a time range."""
         fname = call.field_arg()
         if fname is None:
             raise ExecuteError(f"{call.name}() requires a field argument")
@@ -1185,7 +1220,7 @@ class Executor:
         if isinstance(v, Condition):
             return self._execute_bsi_condition(idx, field, v, shards)
         if "from" in call.args or "to" in call.args:
-            raise _not_ported("a time-range row")
+            return self._execute_time_range(idx, field, call, shards)
         if not isinstance(v, int) or isinstance(v, bool):
             raise ExecuteError(f"{call.name}() row argument must be an integer")
         if field.is_bsi():
@@ -1194,6 +1229,28 @@ class Executor:
             )
         return self._field_row(field, v, shards)
 
+    @staticmethod
+    def _view_cover(field: Field, from_arg, to_arg) -> list[str] | None:
+        """The minimal time-view cover of [from, to) (``core/timequantum.py``
+        ``view_cover``); None when an open bound meets a field with no time
+        view."""
+        try:
+            return timequantum.view_cover(field, from_arg, to_arg, VIEW_STANDARD)
+        except ValueError as e:
+            raise ExecuteError(str(e))
+
+    def _execute_time_range(self, idx: Index, field: Field, call: Call, shards: list[int]) -> Row:
+        """The union of the row over the views of the minimal time-view cover
+        (reference executor.go:1515-1531, time.go viewsByTimeRange), on the
+        host mirrors."""
+        row_id = call.args.get(field.name)
+        views = self._view_cover(field, call.args.get("from"), call.args.get("to"))
+        out = Row(n_words=idx.n_words)
+        if views is None:
+            return out
+        for vname in views:
+            out = out.union(self._field_row(field, row_id, shards, view=vname))
+        return out
 
     # ------------------------------------------------------ BSI conditions
 
@@ -1834,19 +1891,18 @@ class Executor:
         field = idx.field(fname)
         if field is None:
             raise FieldNotFoundError(f"field not found: {fname}")
+        idx.add_column_existence(col)
         if field.is_bsi():
-            idx.add_column_existence(col)
             value, ok = call.int_arg(fname)
             if not ok:
                 raise ExecuteError("Set() row argument 'row' required")
             return field.set_value(col, value)
-        if call.args.get("_timestamp") is not None:
-            raise _not_ported("Set() with a timestamp")
-        idx.add_column_existence(col)
         row, ok = call.uint_arg(fname)
         if not ok:
             raise ExecuteError("Set() row argument 'row' required")
-        return field.set_bit(row, col)
+        ts = call.args.get("_timestamp")
+        timestamp = timequantum.parse_time(ts) if ts is not None else None
+        return field.set_bit(row, col, timestamp)
 
     def _execute_clear(self, idx: Index, call: Call) -> bool:
         col, ok = call.uint_arg("_col")
@@ -1891,6 +1947,81 @@ class Executor:
                     changed |= frag.clear_row(row)
         return changed
 
+    def _execute_store(self, idx: Index, call: Call, shards: list[int] | None) -> bool:
+        """Store(child, f=row): the child's bitmap written as the row, shard by
+        shard (reference executor.go:1999-2067 executeSetRow); a missing
+        field is created as a set field (executor.go:2016-2023)."""
+        if len(call.children) != 1:
+            raise ExecuteError("Store() requires a source query")
+        fname = call.field_arg()
+        if fname is None:
+            raise ExecuteError("Store() argument required: field")
+        field = idx.field(fname)
+        if field is None:
+            field = idx.create_field(fname)
+        row = call.args.get(fname)
+        if not isinstance(row, int) or isinstance(row, bool):
+            raise ExecuteError("Store() requires a row argument")
+        shards = self._shards_for(idx, shards)
+        child = self._bitmap_call(idx, call.children[0], shards)
+        view = field.create_view_if_not_exists(VIEW_STANDARD)
+        changed = False
+        for shard in shards:
+            seg = child.segments.get(shard)
+            words = (
+                np.zeros(field.n_words, dtype=np.uint32) if seg is None else np.asarray(seg)
+            )
+            changed |= view.create_fragment_if_not_exists(shard).set_row_words(row, words)
+        return changed
+
+    @staticmethod
+    def _execute_set_row_attrs(idx: Index, call: Call) -> None:
+        fname, ok = call.string_arg("_field")
+        field = idx.field(fname) if ok else None
+        if field is None:
+            raise FieldNotFoundError("SetRowAttrs() field not found")
+        row, ok = call.uint_arg("_row")
+        if not ok:
+            raise ExecuteError("SetRowAttrs() row required")
+        field.row_attrs.set_attrs(
+            row, {k: v for k, v in call.args.items() if k not in ("_field", "_row")}
+        )
+        return None
+
+    @staticmethod
+    def _execute_set_column_attrs(idx: Index, call: Call) -> None:
+        col, ok = call.uint_arg("_col")
+        if not ok:
+            raise ExecuteError("SetColumnAttrs() column required")
+        idx.column_attrs.set_attrs(col, {k: v for k, v in call.args.items() if k != "_col"})
+        return None
+
+    # --------------------------------------------------------------- Options
+
+    def _execute_options(self, idx: Index, call: Call, shards: list[int] | None) -> Any:
+        """reference executor.go:344-406 executeOptionsCall."""
+        if len(call.children) != 1:
+            raise ExecuteError("Options() requires exactly one child")
+        exclude_columns, _ = call.bool_arg("excludeColumns")
+        exclude_row_attrs, _ = call.bool_arg("excludeRowAttrs")
+        column_attrs, _ = call.bool_arg("columnAttrs")
+        shards_arg, has_shards = call.uint_slice_arg("shards")
+        if has_shards:
+            shards = shards_arg
+        result = self._execute_call(idx, call.children[0], shards)
+        if isinstance(result, Row):
+            if exclude_columns:
+                result.segments = {}
+            if exclude_row_attrs:
+                result.attrs = {}
+            if column_attrs:
+                result.attrs["columnattrs"] = [
+                    {"id": int(c), "attrs": idx.column_attrs.attrs(int(c))}
+                    for c in result.columns()
+                    if idx.column_attrs.attrs(int(c))
+                ]
+        return result
+
     # ------------------------------------------------------------------ TopN
 
     def _execute_topn(self, idx: Index, call: Call, shards: list[int] | None) -> list[Pair]:
@@ -1911,8 +2042,6 @@ class Executor:
             raise ExecuteError(f"cannot compute TopN() on integer field: {fname!r}")
         if field.options.cache_type == "none":
             raise ExecuteError(f"cannot compute TopN(), field has no cache: {fname!r}")
-        if call.args.get("attrName") is not None:
-            raise _not_ported("TopN() with attrName")
         n, _ = call.uint_arg("n")
         ids_arg, has_ids = call.uint_slice_arg("ids")
         threshold, has_threshold = call.uint_arg("threshold")
@@ -1921,6 +2050,8 @@ class Executor:
         tanimoto, has_tanimoto = call.uint_arg("tanimotoThreshold")
         if has_tanimoto and tanimoto > 100:
             raise ExecuteError("Tanimoto Threshold is from 1 to 100 only")
+        attr_name, _ = call.string_arg("attrName")
+        attr_values = call.args.get("attrValues")
 
         src: Row | None = None
         if len(call.children) == 1:
@@ -1975,6 +2106,15 @@ class Executor:
 
         if has_ids and ids_arg is not None:
             counts = {r: counts.get(r, 0) for r in ids_arg}
+        if attr_name:
+            # rows whose attribute is set (to one of attrValues, when given)
+            wanted = set(attr_values) if isinstance(attr_values, list) else set()
+            keep = {}
+            for rid, c in counts.items():
+                av = field.row_attrs.attrs(rid).get(attr_name)
+                if av is not None and (not wanted or av in wanted):
+                    keep[rid] = c
+            counts = keep
         if has_tanimoto and src is not None:
             keep = {}
             for rid, c in counts.items():
@@ -2021,26 +2161,30 @@ class Executor:
     # ------------------------------------------------------------------ Rows
 
     @staticmethod
-    def _rows_of_field(field: Field, shards: list[int]) -> list[int]:
+    def _rows_of_field(
+        field: Field, shards: list[int], views: list[str] | None = None
+    ) -> list[int]:
         """Sorted distinct row ids with at least one bit in the standard
-        view (reference fragment.go:2601-2712 rows())."""
-        v = field.view(VIEW_STANDARD)
-        if v is None:
-            return []
+        view, or in any of ``views`` (reference fragment.go:2601-2712
+        rows())."""
         ids: set[int] = set()
-        for shard in shards:
-            frag = v.fragment(shard)
-            if frag is None:
+        for vname in [VIEW_STANDARD] if views is None else views:
+            v = field.view(vname)
+            if v is None:
                 continue
-            rids, counts = frag.row_counts()
-            ids.update(r for r, c in zip(rids, counts.tolist()) if c > 0)
+            for shard in shards:
+                frag = v.fragment(shard)
+                if frag is None:
+                    continue
+                rids, counts = frag.row_counts()
+                ids.update(r for r, c in zip(rids, counts.tolist()) if c > 0)
         return sorted(ids)
 
     def _execute_rows(
         self, idx: Index, call: Call, shards: list[int] | None
     ) -> RowIdentifiers:
         """reference executor.go:1277-1442 executeRows, over the standard
-        view (time views are not ported)."""
+        view or, with ``from``/``to``, the views of the time cover."""
         shards = self._shards_for(idx, shards)
         fname, ok = call.string_arg("_field")
         if not ok:
@@ -2048,17 +2192,19 @@ class Executor:
         field = idx.field(fname)
         if field is None:
             raise FieldNotFoundError(f"field not found: {fname}")
-        if call.args.get("from") is not None or call.args.get("to") is not None:
-            raise _not_ported("Rows() with from/to")
-        ids = self._rows_of_field(field, shards)
+        views = self._rows_views(field, call)
+        ids = self._rows_of_field(field, shards, views)
 
         col = call.args.get("column")
         if col is not None:
             col = self._maybe_translate_col(idx, col)
             shard, off = divmod(col, field.n_words * 32)
-            v = field.view(VIEW_STANDARD)
-            frag = v.fragment(shard) if v is not None else None
-            present = set(frag.rows_with_column(off)) if frag is not None else set()
+            present: set[int] = set()
+            for vname in [VIEW_STANDARD] if views is None else views:
+                v = field.view(vname)
+                frag = v.fragment(shard) if v is not None else None
+                if frag is not None:
+                    present.update(frag.rows_with_column(off))
             ids = [r for r in ids if r in present]
 
         prev, has_prev = call.uint_arg("previous")
@@ -2068,6 +2214,16 @@ class Executor:
         if has_limit:
             ids = ids[:limit]
         return RowIdentifiers(rows=ids)
+
+    def _rows_views(self, field: Field, call: Call) -> list[str] | None:
+        """The time cover of a Rows() with ``from``/``to`` (reference
+        executor.go:1342-1402); None without them."""
+        from_arg = call.args.get("from")
+        to_arg = call.args.get("to")
+        if from_arg is None and to_arg is None:
+            return None
+        cover = self._view_cover(field, from_arg, to_arg)
+        return [] if cover is None else cover
 
     def _maybe_translate_col(self, idx: Index, col) -> int:
         if isinstance(col, str):
@@ -2141,12 +2297,16 @@ class Executor:
     ) -> list[GroupCount]:
         """Each row's count over ``shards``: the row scan (or a cached
         gram's diagonal), the masked row scan under a filter; None when
-        the stack is declined."""
+        the stack is declined. A row the standard view lacks (named by a
+        time window's views) counts 0, as in every GroupBy engine here."""
         fname, field, rows = level
         stack = self._field_stack(field, shards)
         if stack is STACK_DECLINED:
             return None
+        if stack is None:
+            return []
         slot_of, bits = stack
+        rows = [r for r in rows if r in slot_of]
         if filt_row is None:
             counts = self._stack_row_counts(field, bits)
         else:
@@ -2169,7 +2329,13 @@ class Executor:
         s2 = self._field_stack(f2, shards) if f2 is not f1 else s1
         if s1 is STACK_DECLINED or s2 is STACK_DECLINED:
             return None
+        if s1 is None or s2 is None:
+            return []
         (slot1, bits1), (slot2, bits2) = s1, s2
+        rows1 = [r for r in rows1 if r in slot1]
+        rows2 = [r for r in rows2 if r in slot2]
+        if not rows1 or not rows2:
+            return []
         sub1 = [slot1[r] for r in rows1]
         sub2 = [slot2[r] for r in rows2]
         counts2d = None
@@ -2234,6 +2400,12 @@ class Executor:
             if st is STACK_DECLINED:
                 return None
             stacks.append(st)
+        if any(st is None for st in stacks):
+            return []
+        levels = [(n, f, [r for r in rows if r in st[0]])
+                  for (n, f, rows), st in zip(levels, stacks)]
+        if any(not rows for _, _, rows in levels):
+            return []
         slot0, bits0 = stacks[0]
         S, _, W = bits0.shape
         budget = self._groupby_prefix_budget(bits0.device)

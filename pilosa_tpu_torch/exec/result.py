@@ -1,5 +1,6 @@
 """Query result types (counterpart of ``pilosa_tpu/exec/result.py``;
-reference row.go Row, pilosa.go Pair/ValCount/RowIdentifiers/GroupCount).
+reference row.go Row, pilosa.go Pair/ValCount/RowIdentifiers/GroupCount),
+and :func:`result_to_json`, their JSON form.
 
 ``Row`` is the cross-shard bitmap result: one host ``uint32[W]`` numpy
 word vector per shard (the reference's rowSegments, row.go:332-344). The
@@ -85,6 +86,14 @@ class Row:
             return np.array([], dtype=np.uint64)
         return np.concatenate(parts)
 
+    def to_dict(self) -> dict:
+        d: dict[str, Any] = {"attrs": self.attrs}
+        if self.keys is not None:
+            d["keys"] = self.keys
+        else:
+            d["columns"] = [int(c) for c in self.columns()]
+        return d
+
 
 @dataclass
 class ValCount:
@@ -92,6 +101,9 @@ class ValCount:
 
     value: int = 0
     count: int = 0
+
+    def to_dict(self) -> dict:
+        return {"value": self.value, "count": self.count}
 
 
 @dataclass
@@ -101,6 +113,14 @@ class Pair:
     id: int = 0
     key: str | None = None
     count: int = 0
+
+    def to_dict(self) -> dict:
+        d: dict[str, Any] = {"count": self.count}
+        if self.key is not None:
+            d["key"] = self.key
+        else:
+            d["id"] = self.id
+        return d
 
 
 @dataclass
@@ -140,3 +160,17 @@ class GroupCount:
 
     def to_dict(self) -> dict:
         return {"group": [g.to_dict() for g in self.group], "count": self.count}
+
+
+def result_to_json(result: Any) -> Any:
+    """Any executor result as JSON-encodable data (the HTTP layer's
+    QueryResult union, reference internal/public.proto:72-82)."""
+    if isinstance(result, (Row, ValCount, RowIdentifiers, GroupCount, Pair)):
+        return result.to_dict()
+    if isinstance(result, list):
+        return [result_to_json(r) for r in result]
+    if isinstance(result, (bool, int, str)) or result is None:
+        return result
+    if isinstance(result, np.integer):
+        return int(result)
+    raise TypeError(f"unencodable result type: {type(result)!r}")

@@ -14,6 +14,8 @@ against the stack. Spies on the kernel wrappers of ``ops/bsi.py`` show
 which branch answered.
 """
 
+import gc
+
 import numpy as np
 import pytest
 
@@ -24,6 +26,30 @@ from pilosa_tpu_torch import convert
 from pilosa_tpu_torch.exec.executor import Executor as TorchExecutor
 from pilosa_tpu_torch.ops import bsi as tb
 from pilosa_tpu_torch.shardwidth import SHARD_WIDTH
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _freeze_what_came_before():
+    """Freeze what is alive when the module's tests begin (the imports'
+    objects, above all JAX's), so that the collection after each test
+    scans only what the tests made; unfreeze and collect at the end."""
+    gc.collect()
+    gc.freeze()
+    yield
+    gc.unfreeze()
+    gc.collect()
+
+
+@pytest.fixture(autouse=True)
+def _collect_after_each_test():
+    """Collect each test's garbage at its end, where no lock is held: the
+    JAX holders' and executors' device-budget entries release their bytes
+    in finalizers that take the budget's lock, and left to a later
+    collection they may run while another test's code holds a lock (a
+    collection can start at any allocation)."""
+    yield
+    gc.collect()
+
 
 N_SHARDS = 3
 N_COLS = N_SHARDS * SHARD_WIDTH

@@ -1186,3 +1186,118 @@ def test_reopen_on_cuda_matches_cpu(cuda_device, tmp_path):
         answers[dev.type] = got
         ro.close()
     assert answers["cuda"] == answers["cpu"]
+
+
+def _time_index(dev, n_shards=3, seed=21):
+    """An index on ``dev`` with a time field t (quantum YMDH, 6 rows) loaded
+    with timestamps over 30 hours, and a set field f."""
+    from datetime import datetime
+
+    from pilosa_tpu_torch.core.field import FieldOptions
+    from pilosa_tpu_torch.core.holder import Holder
+    from pilosa_tpu_torch.exec.executor import Executor
+
+    rng = np.random.default_rng(seed)
+    h = Holder(n_words=512, device=dev)
+    width = 512 * 32
+    idx = h.create_index("i")
+    t = idx.create_field("t", FieldOptions(field_type="time", time_quantum="YMDH"))
+    f = idx.create_field("f")
+    n = 20000
+    cols = rng.integers(0, n_shards * width, n).astype(np.uint64)
+    hours = np.datetime64("2024-01-01T00", "h") + rng.integers(0, 30, n)
+    t.import_bits(rng.integers(0, 6, n).astype(np.uint64), cols, timestamps=hours)
+    f.import_bits(rng.integers(0, 4, 8000).astype(np.uint64),
+                  rng.integers(0, n_shards * width, 8000).astype(np.uint64))
+    return Executor(h)
+
+
+_TIME_WINDOWS = ["from=2024-01-01T00:00, to=2024-01-02T00:00",
+                 "from=2024-01-01T03:00, to=2024-01-01T19:00",
+                 "from=2023-12-31T22:00, to=2024-01-02T04:00"]
+
+
+def _time_reads():
+    out = []
+    for w in _TIME_WINDOWS:
+        for r in range(6):
+            out += [f"Count(Row(t={r}, {w}))", f"Count(Intersect(Row(t={r}, {w}), Row(f=1)))"]
+        out.append(f"Row(t=2, {w})")
+    return out
+
+
+def test_windowed_batch_on_cuda_matches_cpu(cuda_device):
+    """Windowed Counts, trees and bitmaps in one batch on the card: the
+    tree kernels launched, the answers equal to the CPU's."""
+    from pilosa_tpu_torch.exec.result import result_to_json
+
+    reads = [(q, None) for q in _time_reads()]
+    answers = {}
+    for dev in ("cpu", cuda_device):
+        ex = _time_index(dev)
+        before = dict(tk.LAUNCHES)
+        got = ex.execute_batch("i", reads)
+        answers[torch.device(dev).type] = [result_to_json(r) for r in got]
+        if torch.device(dev).type == "cuda":
+            assert tk.LAUNCHES["tree_count"] - before["tree_count"] >= len(_TIME_WINDOWS)
+            assert tk.LAUNCHES["tree_words"] - before["tree_words"] == len(_TIME_WINDOWS)
+    assert answers["cuda"] == answers["cpu"]
+    assert any(a != [0] for a in answers["cpu"])
+
+
+def test_per_view_stacks_are_admitted_to_the_budget(cuda_device, fresh_budget):
+    """Each view of a window's cover is a stack of its own on the card,
+    admitted to the budget: the budget counts their bytes and the card
+    holds them."""
+    import gc
+
+    ex = _time_index(cuda_device)
+    budget = fresh_budget.configure(None)
+    gc.collect()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated(cuda_device)
+    w = _TIME_WINDOWS[2]  # 2 + 1 + 4 views
+    ex.execute_batch("i", [(f"Count(Row(t={r}, {w}))", None) for r in range(6)])
+    t = ex.holder.field("i", "t")
+    from pilosa_tpu_torch.core import timequantum
+
+    cover = timequantum.view_cover(t, "2023-12-31T22:00", "2024-01-02T04:00", "standard")
+    want = 0
+    for vname in cover:
+        v = t.view(vname)
+        if v is not None:
+            rows = {r for fr in v.fragments.values() for r in fr.row_ids()}
+            want += 3 * len(rows) * 512 * 4
+    assert want > 0 and ex.stack_rebuilds >= len([v for v in cover if t.view(v) is not None])
+    assert budget.used() == want
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_allocated(cuda_device) - before >= want
+
+
+def test_a_deleted_fields_bytes_leave_the_card(cuda_device, fresh_budget):
+    """After Index.delete_field and a collection, the field's stacks leave
+    the budget and the card; a new field of the same name answers from its
+    own data."""
+    import gc
+    from datetime import datetime
+
+    from pilosa_tpu_torch.core.field import FieldOptions
+
+    ex = _time_index(cuda_device)
+    budget = fresh_budget.configure(None)
+    reads = [(f"Count(Row(t={r}, {_TIME_WINDOWS[1]}))", None) for r in range(6)]
+    first = ex.execute_batch("i", reads)
+    torch.cuda.synchronize()
+    used = budget.used()
+    allocated = torch.cuda.memory_allocated(cuda_device)
+    assert used > 0
+    idx = ex.holder.index("i")
+    idx.delete_field("t")
+    gc.collect()
+    torch.cuda.synchronize()
+    assert budget.used() == 0
+    assert allocated - torch.cuda.memory_allocated(cuda_device) >= used
+    t = idx.create_field("t", FieldOptions(field_type="time", time_quantum="YMDH"))
+    t.import_bits([2], [5], timestamps=[datetime(2024, 1, 1, 4)])
+    again = ex.execute_batch("i", reads)
+    assert again == [[0], [0], [1], [0], [0], [0]] and again != first

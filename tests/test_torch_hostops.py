@@ -11,6 +11,7 @@ against the JAX executor's, and the loader: two processes building the
 library at once both load it, and a missing compiler raises.
 """
 
+import gc
 import os
 import subprocess
 import sys
@@ -28,6 +29,30 @@ from pilosa_tpu_torch.core.fragment import Fragment as TorchFragment
 from pilosa_tpu_torch.exec.executor import Executor as TorchExecutor
 from pilosa_tpu_torch.ops import _hostops as th
 from pilosa_tpu_torch.ops import bitops as tb
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _freeze_what_came_before():
+    """Freeze what is alive when the module's tests begin (the imports'
+    objects, above all JAX's), so that the collection after each test
+    scans only what the tests made; unfreeze and collect at the end."""
+    gc.collect()
+    gc.freeze()
+    yield
+    gc.unfreeze()
+    gc.collect()
+
+
+@pytest.fixture(autouse=True)
+def _collect_after_each_test():
+    """Collect each test's garbage at its end, where no lock is held: the
+    JAX holders' and executors' device-budget entries release their bytes
+    in finalizers that take the budget's lock, and left to a later
+    collection they may run while another test's code holds a lock (a
+    collection can start at any allocation)."""
+    yield
+    gc.collect()
+
 
 REPO = Path(__file__).resolve().parents[1]
 OPS = ["intersect", "union", "difference", "xor"]

@@ -1,8 +1,8 @@
 """The port stands alone: ``pilosa_tpu_torch`` and ``chip_smoke.py`` load
 neither JAX nor any module of the JAX package (the device-memory budget,
-the residency tracker, the native host tier, storage and the translate
-store included), and the port's default device is ``cuda`` with no
-fallback to the CPU."""
+the residency tracker, the native host tier, storage, the translate store,
+time views, Store, the attrs calls and Options included), and the port's
+default device is ``cuda`` with no fallback to the CPU."""
 
 import ast
 import os
@@ -86,6 +86,20 @@ assert res[0].keys == ["b"], res[0].keys
 assert [(p.key, p.count) for p in res[1]] == [("x", 1), ("y", 1)], res[1]
 assert nativelib.lib_path(nativelib.NATIVE_SRC / "roaring_codec.cpp").is_file()
 st.close()
+# time views, Store, attrs, Options and the deletes, in JSON form
+import datetime
+from pilosa_tpu_torch.exec.result import result_to_json
+t = idx.create_field("t", FieldOptions(field_type="time", time_quantum="YMDH"))
+t.import_bits([1, 2], [3, 70000], timestamps=[datetime.datetime(2024, 1, 1, 5), None])
+e = Executor(h)
+e.execute("i", "Set(4, t=1, 2024-01-01T06:00)")
+w = "from=2024-01-01T00:00, to=2024-01-01T06:00"
+res = e.execute_batch("i", [(f"Count(Row(t=1, {w}))", None)] * 2)
+assert res == [[1], [1]], res
+res = result_to_json(e.execute(
+    "i", f"Store(Row(t=1, {w}), s=0) SetRowAttrs(s, 0, x=1) Options(Row(s=0), columnAttrs=true)"))
+assert res == [True, None, {"attrs": {"x": 1, "columnattrs": []}, "columns": [3]}], res
+assert idx.delete_field("t") and h.fragment("i", "s", "standard", 0) is not None
 bad = sorted(
     m for m in sys.modules
     if m == "jax" or m.startswith("jax.") or m.startswith("jaxlib")

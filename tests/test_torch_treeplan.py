@@ -10,6 +10,8 @@ The kernels themselves are held to the plain count on the card in
 ``tests/test_torch_cuda.py``.
 """
 
+import gc
+
 import numpy as np
 import pytest
 import torch
@@ -19,6 +21,30 @@ import jax.numpy as jnp
 from pilosa_tpu.exec import astbatch as jast
 from pilosa_tpu_torch.exec import astbatch as tast
 from pilosa_tpu_torch.ops import kernels as tk
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _freeze_what_came_before():
+    """Freeze what is alive when the module's tests begin (the imports'
+    objects, above all JAX's), so that the collection after each test
+    scans only what the tests made; unfreeze and collect at the end."""
+    gc.collect()
+    gc.freeze()
+    yield
+    gc.unfreeze()
+    gc.collect()
+
+
+@pytest.fixture(autouse=True)
+def _collect_after_each_test():
+    """Collect each test's garbage at its end, where no lock is held: the
+    JAX holders' and executors' device-budget entries release their bytes
+    in finalizers that take the budget's lock, and left to a later
+    collection they may run while another test's code holds a lock (a
+    collection can start at any allocation)."""
+    yield
+    gc.collect()
+
 
 _FLAT3 = ("intersect", ("row", 0), ("row", 1), ("row", 2))
 _PAIRS = ("union", ("intersect", ("row", 0), ("row", 1)),
