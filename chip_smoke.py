@@ -51,7 +51,8 @@ Phases (any failure raises, and the script exits non-zero):
    160 shards x 64 rows at shard width 2^20, about 25 % dense; a second
    64-row field g, a 4-row field h and the existence field) on
    ``Holder(device="cuda")``, served through ``Executor.execute`` and
-   ``execute_batch`` in seven paths, each with every launch count set to 0
+   ``execute_batch`` in seven paths and over HTTP in an eighth, each with
+   every launch count set to 0
    just before it and read
    just after. The pair/TopN path: tanimoto TopN, a 1024-call batch of
    mixed pair Counts, writes, the same reads again; every answer equals
@@ -125,7 +126,24 @@ Phases (any failure raises, and the script exits non-zero):
    view, Store, SetRowAttrs with TopN by attribute and Options; then t
    deleted, its stacks' bytes leaving the card and the budget, and a new t
    answering from its own data. Every answer equals numpy over the
-   generated bits.
+   generated bits. The http path, last (the served index released
+   first): ``NodeServer`` on the storage path's directory (kept for it
+   and removed at the end of the script), booted and timed to its first
+   answer; over HTTP, cold and warm, each beside the same query
+   in-process: the 1024-call pair body, a tree Count, a selective 8-row
+   Intersect bitmap (tree_words), the tanimoto and filtered TopNs,
+   GroupBy f x h, a range Count, Sum, Min and Max on v and a keyed TopN,
+   every answer equal to numpy over the written data; 16 client threads
+   on keep-alive connections for 10 s (queries/s, p50/p99, every answer
+   equal to its serial one); import-roaring of a new 64-row field on 8
+   shards (MB/s, bits/s), a JSON import of 2^20 timestamped pairs into a
+   YMDH field read back through windowed Counts (pairs/s), values into an
+   int field, /export of one shard of h; /debug/vars' kernels block
+   against ``LAUNCHES``, /metrics parsed, /debug/fragments over f's 160
+   fragments, a field's DELETE freeing its stack on the card and in the
+   budget; then ``python -m pilosa_tpu_torch.cli server`` on the
+   directory: /status, a pair batch against numpy with its launch in
+   /debug/vars, SIGTERM and exit 0.
 4. Summary: one ``{"end_to_end": {...}}`` line, one ``{"kernels": [...]}``
    line, the card line, and last ``{"ok": true, "device": {...}}``.
 """
@@ -2861,6 +2879,9 @@ def budget_path(pool, ex_main, holder, device, v_truth):
 
 # the keyed index: column keys (ids 1..2^20, two shards) and row keys of a
 # keyed field, and the pair Counts of its batch
+# data directories the storage path leaves for the http path; main
+# removes them at its end, whatever happened
+STORAGE_DIRS: list = []
 KEY_COLS = 1 << 20
 KEY_ROWS = 64
 KEY_PAIRS = 64
@@ -2895,15 +2916,22 @@ def fragments_of(holder):
 
 def storage_truths(pool, holder, v_truth, items, h_rows):
     """numpy over the data the storage path writes (the served holder's
-    mirrors): the pair counts of ``items`` on f, each f row's total and its
-    count under each h row (the TopNs and the GroupBy f x h), a tree
-    Count, and the range Count and Sum of v from ``v_truth``."""
-    import numpy as np
-
+    mirrors): :func:`truths_of` f's and h's stacks, and f's stack."""
     f_rows = 1 + max(max(frag.row_ids())
                      for frag in holder.field("i", "f").view("standard").fragments.values())
     f = mirror_stack(holder, "f", f_rows, S_FULL)
     h = mirror_stack(holder, "h", H_ROWS, S_FULL)
+    return truths_of(pool, f, h, v_truth, items, h_rows), f
+
+
+def truths_of(pool, f, h, v_truth, items, h_rows):
+    """numpy over f's and h's stacks (uint32 ``[S, R, W]``) and v's values:
+    the pair counts of ``items`` on f, each f row's total and its count
+    under each h row (the TopNs and the GroupBy f x h), a tree Count, and
+    the range Count and Sum of v from ``v_truth``."""
+    import numpy as np
+
+    f_rows = f.shape[1]
 
     def per_shard(s):
         tot = np.bitwise_count(f[s]).sum(axis=1, dtype=np.int64)
@@ -2937,7 +2965,7 @@ def storage_truths(pool, holder, v_truth, items, h_rows):
     t["filtered"] = [(r, c, None) for r, c in sorted(filt, key=lambda p: (-p[1], p[0]))[:10]]
     t["groupby"] = [((r, q), int(under[q, r]), (None, None)) for r in range(f_rows)
                     for q in range(H_ROWS) if under[q, r]]
-    return t, f
+    return t
 
 
 def storage_reads(truth, h_rows):
@@ -3040,7 +3068,12 @@ def storage_path(pool, holder, device, v_truth):
     The reads: a 1024-call pair batch on f, a tanimoto TopN, a TopN
     filtered by a row, GroupBy f x h, a tree Count, and a range Count and
     Sum on v, each cold read asserting the kernels it launched. ``v_truth``
-    is the bsi path's decode of v, updated here in place by the writes."""
+    is the bsi path's decode of v, updated here in place by the writes.
+
+    The directory stays for the http path, which serves it next: returns
+    the path's numbers and what the http path needs (the directory, f's
+    stack after the writes, h's stack, the pair items, the h rows and the
+    keyed reads' truths); the caller removes the directory."""
     import gc
     import shutil
     import tempfile
@@ -3080,6 +3113,7 @@ def storage_path(pool, holder, device, v_truth):
     if free < need:
         raise AssertionError(f"storage: {free} bytes free under {root}, {need} needed")
     data_dir = tempfile.mkdtemp(prefix="storage-", dir=root)
+    STORAGE_DIRS.append(data_dir)
     log(f"storage: {data_bytes / 1e9:.3f} GB of mirror words to write under {data_dir} "
         f"({free / 1e9:.1f} GB free)")
 
@@ -3101,219 +3135,219 @@ def storage_path(pool, holder, device, v_truth):
             torch.cuda.synchronize()
             torch.cuda.empty_cache()
 
-    try:
-        # -- 1. write
-        t0 = time.perf_counter()
-        h1 = Holder(device=device)
-        st1 = HolderStore(h1, data_dir)
-        st1.open()
-        convert.load_arrays(h1, schema, fragments)
-        del fragments
-        frags = fragments_of(h1)
-        list(pool.map(lambda fr: fr.store.snapshot(), frags))
-        st1.sync()
-        lat["write_s"] = time.perf_counter() - t0
-        lat["file_bytes"] = sum(os.path.getsize(fr.store.path) for fr in frags)
-        lat["files"] = len(frags)
-        log(f"storage: wrote {len(frags)} fragment files, {lat['file_bytes'] / 1e9:.3f} GB, "
-            f"in {lat['write_s']:.2f} s (load and snapshot)")
-        pre = serve_reads(executor(h1, st1), "i", reads, "pre_close", lat, on_card, cold=True)
+    # -- 1. write
+    t0 = time.perf_counter()
+    h_np = mirror_stack(holder, "h", H_ROWS, S_FULL)
+    h1 = Holder(device=device)
+    st1 = HolderStore(h1, data_dir)
+    st1.open()
+    convert.load_arrays(h1, schema, fragments)
+    del fragments
+    frags = fragments_of(h1)
+    list(pool.map(lambda fr: fr.store.snapshot(), frags))
+    st1.sync()
+    lat["write_s"] = time.perf_counter() - t0
+    lat["file_bytes"] = sum(os.path.getsize(fr.store.path) for fr in frags)
+    lat["files"] = len(frags)
+    log(f"storage: wrote {len(frags)} fragment files, {lat['file_bytes'] / 1e9:.3f} GB, "
+        f"in {lat['write_s']:.2f} s (load and snapshot)")
+    pre = serve_reads(executor(h1, st1), "i", reads, "pre_close", lat, on_card, cold=True)
+    t = time.perf_counter()
+    st1.close()
+    lat["close_s"] = time.perf_counter() - t
+    del h1, st1, frags
+    release()
+
+    # -- 2. reopen
+    h2, st2, lat["open_s"] = open_store()
+    n_frags = len(fragments_of(h2))
+    log(f"storage: open of {n_frags} fragments in {lat['open_s']:.2f} s")
+    if n_frags != lat["files"]:
+        raise AssertionError(f"storage: reopened {n_frags} fragments, wrote {lat['files']}")
+    ex2 = executor(h2, st2)
+    for tag, cold in (("reopen_cold", True), ("reopen_warm", False)):
+        got = serve_reads(ex2, "i", reads, tag, lat, on_card, cold)
+        if got != pre:
+            bad = [k for k in pre if got[k] != pre[k]]
+            raise AssertionError(f"storage {tag}: {bad} differ from the pre-close answers")
+
+    # the codec: native against the plain Python codec on three files
+    codec = {}
+    for field, view in (("f", "standard"), ("h", "standard"), ("v", "bsig_v")):
+        frag = h2.field("i", field).view(view).fragment(0)
+        with open(frag.store.path, "rb") as fh:
+            data = fh.read()
+        rids, words = frag.snapshot_rows()
         t = time.perf_counter()
-        st1.close()
-        lat["close_s"] = time.perf_counter() - t
-        del h1, st1, frags
-        release()
-
-        # -- 2. reopen
-        h2, st2, lat["open_s"] = open_store()
-        n_frags = len(fragments_of(h2))
-        log(f"storage: open of {n_frags} fragments in {lat['open_s']:.2f} s")
-        if n_frags != lat["files"]:
-            raise AssertionError(f"storage: reopened {n_frags} fragments, wrote {lat['files']}")
-        ex2 = executor(h2, st2)
-        for tag, cold in (("reopen_cold", True), ("reopen_warm", False)):
-            got = serve_reads(ex2, "i", reads, tag, lat, on_card, cold)
-            if got != pre:
-                bad = [k for k in pre if got[k] != pre[k]]
-                raise AssertionError(f"storage {tag}: {bad} differ from the pre-close answers")
-
-        # the codec: native against the plain Python codec on three files
-        codec = {}
-        for field, view in (("f", "standard"), ("h", "standard"), ("v", "bsig_v")):
-            frag = h2.field("i", field).view(view).fragment(0)
-            with open(frag.store.path, "rb") as fh:
-                data = fh.read()
-            rids, words = frag.snapshot_rows()
-            t = time.perf_counter()
-            pos_n, ops_n = roaring.deserialize_with_opcount(data)
-            dec_n = time.perf_counter() - t
-            t = time.perf_counter()
-            pos_p, ops_p = roaring._deserialize_py(data)
-            dec_p = time.perf_counter() - t
-            t = time.perf_counter()
-            ids_w, words_w, ops_w = roaring.decode_rows(data, W)
-            dec_w = time.perf_counter() - t
-            t = time.perf_counter()
-            enc_n = roaring.serialize_rows(rids, words)
-            enc_ns = time.perf_counter() - t
-            t = time.perf_counter()
-            enc_p = roaring._serialize_py(pos_p)
-            enc_ps = time.perf_counter() - t
-            if not (np.array_equal(pos_n, pos_p) and ops_n == ops_p == ops_w == 0):
-                raise AssertionError(f"storage codec: {field}: native and plain decode differ")
-            if not (np.array_equal(ids_w, rids) and np.array_equal(words_w, words)):
-                raise AssertionError(f"storage codec: {field}: word decode differs")
-            if not enc_n == enc_p == data:
-                raise AssertionError(f"storage codec: {field}: native and plain bytes differ")
-            codec[field] = {"bytes": len(data), "bits": int(pos_p.size),
-                            "decode_native_ms": dec_n * 1e3, "decode_plain_ms": dec_p * 1e3,
-                            "decode_words_ms": dec_w * 1e3, "encode_native_ms": enc_ns * 1e3,
-                            "encode_plain_ms": enc_ps * 1e3}
-            log(f"  storage codec: {field}/{view} shard 0, {len(data)} bytes, {pos_p.size} bits: "
-                f"decode native {dec_n * 1e3:.1f} ms, plain {dec_p * 1e3:.1f} ms, into words "
-                f"{dec_w * 1e3:.2f} ms; encode native {enc_ns * 1e3:.1f} ms, plain "
-                f"{enc_ps * 1e3:.1f} ms; all equal")
-        lat["codec"] = codec
-
-        # -- 3. writes, replayed from the op logs
-        wr = np.random.default_rng(SEED + 14)
-        vals, exv = v_truth
-        writes, calls = [], []
-        for k in range(STORAGE_WRITES):
-            col = int(wr.integers(0, S_FULL * SHARD_WIDTH))
-            if k % 4 == 3:
-                val = int(wr.integers(BSI_FIELDS["v"][0], BSI_FIELDS["v"][1] + 1))
-                writes.append(("v", col, val))
-                calls.append(f"Set({col}, v={val})")
-            else:
-                op = "Set" if wr.random() < 0.6 else "Clear"
-                row = int(wr.integers(0, R_FULL))
-                writes.append(("f", col, (op, row)))
-                calls.append(f"{op}({col}, f={row})")
+        pos_n, ops_n = roaring.deserialize_with_opcount(data)
+        dec_n = time.perf_counter() - t
         t = time.perf_counter()
-        ex2.execute("i", " ".join(calls))
-        lat["writes_ms"] = (time.perf_counter() - t) * 1e3
-        for fld, col, arg in writes:  # the truth follows the writes
-            s, off = divmod(col, SHARD_WIDTH)
-            if fld == "v":
-                vals[s][off], exv[s][off] = arg, True
-            elif arg[0] == "Set":
-                f_np[s, arg[1], off >> 5] |= np.uint32(1 << (off & 31))
-            else:
-                f_np[s, arg[1], off >> 5] &= ~np.uint32(1 << (off & 31))
-        logged = sum(1 for fr in fragments_of(h2) if fr.store.op_n)
-        if not logged:
-            raise AssertionError("storage: the writes reached no op log")
-        wrote_rows = sorted({arg[1] for fld, _, arg in writes if fld == "f"})
-        w_items = [(OPS[int(wr.integers(0, 4))], wrote_rows[int(wr.integers(0, len(wrote_rows)))],
-                    int(wr.integers(0, R_FULL))) for _ in range(KEY_PAIRS)]
-        w_reads = [
-            (f"{KEY_PAIRS} pair Counts on written rows",
-             [f"Count({op}(Row(f={a}), Row(f={b})))" for op, a, b in w_items], ("gram",),
-             truth_pair_counts(f_np, w_items, pool)),
-            ("range Count on v", "Count(Row(v < 500000))", ("bsi_range",),
-             truth_count(pool, lambda s: exv[s] & (vals[s] < 500_000))),
-            ("Sum of v", "Sum(field=v)", ("bsi_sum",), truth_sum(pool, vals, lambda s: exv[s])),
+        pos_p, ops_p = roaring._deserialize_py(data)
+        dec_p = time.perf_counter() - t
+        t = time.perf_counter()
+        ids_w, words_w, ops_w = roaring.decode_rows(data, W)
+        dec_w = time.perf_counter() - t
+        t = time.perf_counter()
+        enc_n = roaring.serialize_rows(rids, words)
+        enc_ns = time.perf_counter() - t
+        t = time.perf_counter()
+        enc_p = roaring._serialize_py(pos_p)
+        enc_ps = time.perf_counter() - t
+        if not (np.array_equal(pos_n, pos_p) and ops_n == ops_p == ops_w == 0):
+            raise AssertionError(f"storage codec: {field}: native and plain decode differ")
+        if not (np.array_equal(ids_w, rids) and np.array_equal(words_w, words)):
+            raise AssertionError(f"storage codec: {field}: word decode differs")
+        if not enc_n == enc_p == data:
+            raise AssertionError(f"storage codec: {field}: native and plain bytes differ")
+        codec[field] = {"bytes": len(data), "bits": int(pos_p.size),
+                        "decode_native_ms": dec_n * 1e3, "decode_plain_ms": dec_p * 1e3,
+                        "decode_words_ms": dec_w * 1e3, "encode_native_ms": enc_ns * 1e3,
+                        "encode_plain_ms": enc_ps * 1e3}
+        log(f"  storage codec: {field}/{view} shard 0, {len(data)} bytes, {pos_p.size} bits: "
+            f"decode native {dec_n * 1e3:.1f} ms, plain {dec_p * 1e3:.1f} ms, into words "
+            f"{dec_w * 1e3:.2f} ms; encode native {enc_ns * 1e3:.1f} ms, plain "
+            f"{enc_ps * 1e3:.1f} ms; all equal")
+    lat["codec"] = codec
+
+    # -- 3. writes, replayed from the op logs
+    wr = np.random.default_rng(SEED + 14)
+    vals, exv = v_truth
+    writes, calls = [], []
+    for k in range(STORAGE_WRITES):
+        col = int(wr.integers(0, S_FULL * SHARD_WIDTH))
+        if k % 4 == 3:
+            val = int(wr.integers(BSI_FIELDS["v"][0], BSI_FIELDS["v"][1] + 1))
+            writes.append(("v", col, val))
+            calls.append(f"Set({col}, v={val})")
+        else:
+            op = "Set" if wr.random() < 0.6 else "Clear"
+            row = int(wr.integers(0, R_FULL))
+            writes.append(("f", col, (op, row)))
+            calls.append(f"{op}({col}, f={row})")
+    t = time.perf_counter()
+    ex2.execute("i", " ".join(calls))
+    lat["writes_ms"] = (time.perf_counter() - t) * 1e3
+    for fld, col, arg in writes:  # the truth follows the writes
+        s, off = divmod(col, SHARD_WIDTH)
+        if fld == "v":
+            vals[s][off], exv[s][off] = arg, True
+        elif arg[0] == "Set":
+            f_np[s, arg[1], off >> 5] |= np.uint32(1 << (off & 31))
+        else:
+            f_np[s, arg[1], off >> 5] &= ~np.uint32(1 << (off & 31))
+    logged = sum(1 for fr in fragments_of(h2) if fr.store.op_n)
+    if not logged:
+        raise AssertionError("storage: the writes reached no op log")
+    wrote_rows = sorted({arg[1] for fld, _, arg in writes if fld == "f"})
+    w_items = [(OPS[int(wr.integers(0, 4))], wrote_rows[int(wr.integers(0, len(wrote_rows)))],
+                int(wr.integers(0, R_FULL))) for _ in range(KEY_PAIRS)]
+    w_reads = [
+        (f"{KEY_PAIRS} pair Counts on written rows",
+         [f"Count({op}(Row(f={a}), Row(f={b})))" for op, a, b in w_items], ("gram",),
+         truth_pair_counts(f_np, w_items, pool)),
+        ("range Count on v", "Count(Row(v < 500000))", ("bsi_range",),
+         truth_count(pool, lambda s: exv[s] & (vals[s] < 500_000))),
+        ("Sum of v", "Sum(field=v)", ("bsi_sum",), truth_sum(pool, vals, lambda s: exv[s])),
+    ]
+    after = serve_reads(ex2, "i", w_reads, "after_writes", lat, on_card, cold=False)
+
+    # -- 4. keys: built on the same store, closed with the writes above
+    t0 = time.perf_counter()
+    h2.create_index("k", keys=True).create_field("kf", FieldOptions(keys=True))
+    col_keys = [f"user{i:07d}" for i in range(1, KEY_COLS + 1)]
+    row_keys = [f"attr{j:02d}" for j in range(KEY_ROWS)]
+    t = time.perf_counter()
+    col_ids = st2.translator.translate_keys("k", "", col_keys)
+    row_ids = st2.translator.translate_keys("k", "kf", row_keys)
+    lat["keys_translate_s"] = time.perf_counter() - t
+    if col_ids != list(range(1, KEY_COLS + 1)) or row_ids != list(range(1, KEY_ROWS + 1)):
+        raise AssertionError("storage keys: ids are not allocated from 1 in order")
+    kw = random_words(np.random.default_rng(SEED + 15), (2, KEY_ROWS, W), dense=True)
+    kw[0, :, 0] &= ~np.uint32(1)  # column 0 has no key
+    kw[1, :, 1:] = 0  # shard 1 holds only column 2^20
+    kw[1, :, 0] &= np.uint32(1)
+    rows = list(range(1, KEY_ROWS + 1))
+    convert.load_arrays(h2, [], {("k", "kf", "standard", s): (rows, kw[s]) for s in (0, 1)})
+    for s in (0, 1):
+        h2.field("k", "kf").view("standard").fragment(s).store.snapshot()
+    lat["keys_build_s"] = time.perf_counter() - t0
+    kitems = [(int(wr.integers(0, KEY_ROWS)), int(wr.integers(0, KEY_ROWS)))
+              for _ in range(KEY_PAIRS)]
+    k_filt, k_row = int(wr.integers(0, KEY_ROWS)), int(wr.integers(0, KEY_ROWS))
+    new_key = "user-new"
+
+    def keyed_reads():
+        """The keyed reads, their truths from ``kw`` as it stands."""
+        counts = np.bitwise_count(kw).sum(axis=(0, 2), dtype=np.int64)
+        under = np.bitwise_count(kw & kw[:, k_filt][:, None]).sum(axis=(0, 2),
+                                                                 dtype=np.int64)
+        top = sorted(((j, int(c)) for j, c in enumerate(under) if c),
+                     key=lambda p: (-p[1], p[0]))
+        cols = [s * SHARD_WIDTH + int(c) for s in (0, 1)
+                for c in np.flatnonzero(np.unpackbits(kw[s, k_row].view(np.uint8),
+                                                      bitorder="little"))]
+        return [
+            (f"{KEY_PAIRS} pair Counts by key",
+             [f'Count(Intersect(Row(kf="{row_keys[a]}"), Row(kf="{row_keys[b]}")))'
+              for a, b in kitems], ("gram",),
+             [int(np.bitwise_count(kw[:, a] & kw[:, b]).sum(dtype=np.int64))
+              for a, b in kitems]),
+            ("filtered TopN by key", f'TopN(kf, Row(kf="{row_keys[k_filt]}"), n=5)',
+             ("masked_row_scan",), [(j + 1, c, row_keys[j]) for j, c in top[:5]]),
+            ("GroupBy with row keys", "GroupBy(Rows(kf))", (),
+             [((j + 1,), int(c), (row_keys[j],)) for j, c in enumerate(counts) if c]),
+            ("Row bitmap with column keys", f'Row(kf="{row_keys[k_row]}")', (),
+             (cols, [col_keys[c - 1] if c <= KEY_COLS else new_key for c in cols])),
         ]
-        after = serve_reads(ex2, "i", w_reads, "after_writes", lat, on_card, cold=False)
 
-        # -- 4. keys: built on the same store, closed with the writes above
-        t0 = time.perf_counter()
-        h2.create_index("k", keys=True).create_field("kf", FieldOptions(keys=True))
-        col_keys = [f"user{i:07d}" for i in range(1, KEY_COLS + 1)]
-        row_keys = [f"attr{j:02d}" for j in range(KEY_ROWS)]
-        t = time.perf_counter()
-        col_ids = st2.translator.translate_keys("k", "", col_keys)
-        row_ids = st2.translator.translate_keys("k", "kf", row_keys)
-        lat["keys_translate_s"] = time.perf_counter() - t
-        if col_ids != list(range(1, KEY_COLS + 1)) or row_ids != list(range(1, KEY_ROWS + 1)):
-            raise AssertionError("storage keys: ids are not allocated from 1 in order")
-        kw = random_words(np.random.default_rng(SEED + 15), (2, KEY_ROWS, W), dense=True)
-        kw[0, :, 0] &= ~np.uint32(1)  # column 0 has no key
-        kw[1, :, 1:] = 0  # shard 1 holds only column 2^20
-        kw[1, :, 0] &= np.uint32(1)
-        rows = list(range(1, KEY_ROWS + 1))
-        convert.load_arrays(h2, [], {("k", "kf", "standard", s): (rows, kw[s]) for s in (0, 1)})
-        for s in (0, 1):
-            h2.field("k", "kf").view("standard").fragment(s).store.snapshot()
-        lat["keys_build_s"] = time.perf_counter() - t0
-        kitems = [(int(wr.integers(0, KEY_ROWS)), int(wr.integers(0, KEY_ROWS)))
-                  for _ in range(KEY_PAIRS)]
-        k_filt, k_row = int(wr.integers(0, KEY_ROWS)), int(wr.integers(0, KEY_ROWS))
-        new_key = "user-new"
+    ek = executor(h2, st2)
+    keyed = serve_reads(ek, "k", keyed_reads(), "keys_cold", lat, on_card, cold=True)
+    t = time.perf_counter()
+    (changed,) = ek.execute("k", f'Set("{new_key}", kf="{row_keys[k_row]}")')
+    lat["keys_set_ms"] = (time.perf_counter() - t) * 1e3
+    if not changed or st2.translator.translate_key("k", "", new_key, create=False) != \
+            KEY_COLS + 1:
+        raise AssertionError("storage keys: Set with a new column key")
+    kw[1, k_row, 0] |= np.uint32(2)  # column 2^20 + 1, the new key's id
+    keyed = serve_reads(ek, "k", keyed_reads(), "keys_after_set", lat, on_card, cold=False)
+    t = time.perf_counter()
+    st2.close()
+    lat["close_with_log_s"] = time.perf_counter() - t
+    del h2, st2, ex2, ek
+    release()
 
-        def keyed_reads():
-            """The keyed reads, their truths from ``kw`` as it stands."""
-            counts = np.bitwise_count(kw).sum(axis=(0, 2), dtype=np.int64)
-            under = np.bitwise_count(kw & kw[:, k_filt][:, None]).sum(axis=(0, 2),
-                                                                     dtype=np.int64)
-            top = sorted(((j, int(c)) for j, c in enumerate(under) if c),
-                         key=lambda p: (-p[1], p[0]))
-            cols = [s * SHARD_WIDTH + int(c) for s in (0, 1)
-                    for c in np.flatnonzero(np.unpackbits(kw[s, k_row].view(np.uint8),
-                                                          bitorder="little"))]
-            return [
-                (f"{KEY_PAIRS} pair Counts by key",
-                 [f'Count(Intersect(Row(kf="{row_keys[a]}"), Row(kf="{row_keys[b]}")))'
-                  for a, b in kitems], ("gram",),
-                 [int(np.bitwise_count(kw[:, a] & kw[:, b]).sum(dtype=np.int64))
-                  for a, b in kitems]),
-                ("filtered TopN by key", f'TopN(kf, Row(kf="{row_keys[k_filt]}"), n=5)',
-                 ("masked_row_scan",), [(j + 1, c, row_keys[j]) for j, c in top[:5]]),
-                ("GroupBy with row keys", "GroupBy(Rows(kf))", (),
-                 [((j + 1,), int(c), (row_keys[j],)) for j, c in enumerate(counts) if c]),
-                ("Row bitmap with column keys", f'Row(kf="{row_keys[k_row]}")', (),
-                 (cols, [col_keys[c - 1] if c <= KEY_COLS else new_key for c in cols])),
-            ]
-
-        ek = executor(h2, st2)
-        keyed = serve_reads(ek, "k", keyed_reads(), "keys_cold", lat, on_card, cold=True)
-        t = time.perf_counter()
-        (changed,) = ek.execute("k", f'Set("{new_key}", kf="{row_keys[k_row]}")')
-        lat["keys_set_ms"] = (time.perf_counter() - t) * 1e3
-        if not changed or st2.translator.translate_key("k", "", new_key, create=False) != \
-                KEY_COLS + 1:
-            raise AssertionError("storage keys: Set with a new column key")
-        kw[1, k_row, 0] |= np.uint32(2)  # column 2^20 + 1, the new key's id
-        keyed = serve_reads(ek, "k", keyed_reads(), "keys_after_set", lat, on_card, cold=False)
-        t = time.perf_counter()
-        st2.close()
-        lat["close_with_log_s"] = time.perf_counter() - t
-        del h2, st2, ex2, ek
-        release()
-
-        # -- 3 and 4 after the reopen: the op logs and the keys log replayed
-        h3, st3, lat["reopen_with_log_s"] = open_store()
-        log(f"storage: reopen with {logged} op logs and {KEY_COLS + KEY_ROWS + 1} keys to "
-            f"replay in {lat['reopen_with_log_s']:.2f} s")
-        for fld, col, arg in writes:
-            if fld == "v":
-                got = h3.field("i", "v").value(col)
-                if got != (vals[col // SHARD_WIDTH][col % SHARD_WIDTH], True):
-                    raise AssertionError(f"storage: Set({col}, v=...) not replayed: {got}")
-        ex3 = executor(h3, st3)
-        if serve_reads(ex3, "i", w_reads, "replayed", lat, on_card, cold=True) != after:
-            raise AssertionError("storage: reads after the replay differ")
-        tr = st3.translator
-        if (tr.translate_keys("k", "", col_keys[:: KEY_COLS // 64], create=False)
-                != col_ids[:: KEY_COLS // 64]
-                or tr.translate_keys("k", "kf", row_keys, create=False) != row_ids
-                or tr.translate_key("k", "", new_key, create=False) != KEY_COLS + 1):
-            raise AssertionError("storage keys: the reopened store maps keys to other ids")
-        if serve_reads(executor(h3, st3), "k", keyed_reads(), "keys_reopen_cold", lat, on_card,
-                       cold=True) != keyed:
-            raise AssertionError("storage keys: answers after the reopen differ")
-        st3.close()
-        del h3, st3, ex3
-        release()
-    finally:
-        shutil.rmtree(data_dir, ignore_errors=True)
+    # -- 3 and 4 after the reopen: the op logs and the keys log replayed
+    h3, st3, lat["reopen_with_log_s"] = open_store()
+    log(f"storage: reopen with {logged} op logs and {KEY_COLS + KEY_ROWS + 1} keys to "
+        f"replay in {lat['reopen_with_log_s']:.2f} s")
+    for fld, col, arg in writes:
+        if fld == "v":
+            got = h3.field("i", "v").value(col)
+            if got != (vals[col // SHARD_WIDTH][col % SHARD_WIDTH], True):
+                raise AssertionError(f"storage: Set({col}, v=...) not replayed: {got}")
+    ex3 = executor(h3, st3)
+    if serve_reads(ex3, "i", w_reads, "replayed", lat, on_card, cold=True) != after:
+        raise AssertionError("storage: reads after the replay differ")
+    tr = st3.translator
+    if (tr.translate_keys("k", "", col_keys[:: KEY_COLS // 64], create=False)
+            != col_ids[:: KEY_COLS // 64]
+            or tr.translate_keys("k", "kf", row_keys, create=False) != row_ids
+            or tr.translate_key("k", "", new_key, create=False) != KEY_COLS + 1):
+        raise AssertionError("storage keys: the reopened store maps keys to other ids")
+    if serve_reads(executor(h3, st3), "k", keyed_reads(), "keys_reopen_cold", lat, on_card,
+                   cold=True) != keyed:
+        raise AssertionError("storage keys: answers after the reopen differ")
+    st3.close()
+    del h3, st3, ex3
+    release()
     lat["path_s"] = time.perf_counter() - t_path
     log(f"storage path: {lat['path_s']:.1f} s (truth {lat['truth_s']:.1f} s, write "
         f"{lat['write_s']:.1f} s, {lat['file_bytes'] / 1e9:.3f} GB in {lat['files']} files; "
         f"open {lat['open_s']:.2f} s; keys translated {lat['keys_translate_s']:.1f} s; reopen "
         f"with logs {lat['reopen_with_log_s']:.2f} s)")
-    return lat
+    hand = {"data_dir": data_dir, "f": f_np, "h": h_np, "items": items, "h_rows": h_rows,
+            "keyed_reads": keyed_reads}
+    return lat, hand
 
 
 # ---------------------------------------------------------------------------
@@ -3773,6 +3807,510 @@ def time_path(pool, ex, holder, device):
     return lat
 
 
+# ---------------------------------------------------------------------------
+# The http path: one node serving the storage path's directory over HTTP
+# ---------------------------------------------------------------------------
+
+HTTP_CLIENTS = 16
+HTTP_SECONDS = 10.0
+HTTP_WARM_REPS = 5
+# the 64-row field the http path imports through import-roaring, its shards
+R_IMPORT_ROWS, R_IMPORT_SHARDS = 64, 8
+# (row, column, timestamp) pairs of the JSON import into a YMDH field
+TT_PAIRS = 1 << 20
+TT_ROWS, TT_HOURS = 4, 6
+# values of the JSON import into an int field
+U_VALUES = 1 << 18
+
+
+def norm_answer(a):
+    """An :func:`answer_of` answer in the form :func:`norm_json` gives the
+    same result's JSON: rows by columns (or keys), pairs and groups by id
+    (or key) and count."""
+    if isinstance(a, tuple) and len(a) == 2 and isinstance(a[0], list):
+        return ("row", a[1] if a[1] is not None else a[0])
+    if isinstance(a, tuple) and len(a) == 2:
+        return ("vc", a[0], a[1])
+    if isinstance(a, list):
+        out = []
+        for e in a:
+            if isinstance(e, tuple) and len(e) == 3 and isinstance(e[0], tuple):
+                out.append(("group", tuple(k if k is not None else i
+                                           for i, k in zip(e[0], e[2])), e[1]))
+            elif isinstance(e, tuple) and len(e) == 3:
+                out.append(("pair", e[2] if e[2] is not None else e[0], e[1]))
+            else:
+                out.append(norm_answer(e))
+        return out
+    return a
+
+
+def norm_json(j):
+    """One result of an HTTP answer in :func:`norm_answer`'s form."""
+    if isinstance(j, dict) and "value" in j:
+        return ("vc", j["value"], j["count"])
+    if isinstance(j, dict) and ("columns" in j or "keys" in j):
+        return ("row", j["keys"] if "keys" in j else j["columns"])
+    if isinstance(j, list):
+        out = []
+        for e in j:
+            if isinstance(e, dict) and "group" in e:
+                out.append(("group", tuple(g.get("rowKey", g.get("rowID"))
+                                           for g in e["group"]), e["count"]))
+            elif isinstance(e, dict) and "count" in e:
+                out.append(("pair", e.get("key", e.get("id")), e["count"]))
+            else:
+                out.append(norm_json(e))
+        return out
+    return j
+
+
+class HttpClient:
+    """One keep-alive connection to a node: ``post``/``get`` return
+    ``(status, body bytes)``; ``query`` the decoded results of a PQL body."""
+
+    def __init__(self, port: int, timeout: float = 120.0):
+        import http.client
+
+        self.conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+
+    def request(self, method, path, body=None, ctype="application/json"):
+        self.conn.request(method, path, body=body, headers={"Content-Type": ctype})
+        r = self.conn.getresponse()
+        return r.status, r.read()
+
+    def get(self, path):
+        return self.request("GET", path)
+
+    def post(self, path, body, ctype="application/json"):
+        if isinstance(body, (dict, list)):
+            body = json.dumps(body).encode()
+        elif isinstance(body, str):
+            body = body.encode()
+        return self.request("POST", path, body, ctype)
+
+    def query(self, index, pql):
+        code, body = self.post(f"/index/{index}/query", pql, "text/plain")
+        if code != 200:
+            raise AssertionError(f"http: {pql[:80]}: {code} {body[:300]!r}")
+        return json.loads(body)["results"]
+
+    def close(self):
+        self.conn.close()
+
+
+def http_reads(truth, keyed, h_rows, sel_rows, bsi):
+    """The reads the http path posts, each ``(name, PQL body, index, answer
+    in norm_answer form)``: a 1024-call pair Count body, a tree Count, a
+    selective 8-row Intersect bitmap, the TopNs, GroupBy f x h, a range
+    Count, Sum, Min and Max on v, and a keyed filtered TopN."""
+    h_tan, h_filt = h_rows
+    pair_body = " ".join(f"Count({op}(Row(f={a}), Row(f={b})))" for op, a, b in truth["items"])
+    sel_q = "Intersect(" + ", ".join(f"Row(f={r})" for r in sel_rows[0]) + ")"
+    k_name, k_q, _, k_want = keyed
+    return [
+        ("tanimoto TopN", f"TopN(f, Row(h={h_tan}), n=10, tanimotoThreshold=10)", "i",
+         norm_answer(truth["tanimoto"])),
+        ("filtered TopN", f"TopN(f, Row(h={h_filt}), n=10)", "i", norm_answer(truth["filtered"])),
+        (f"{len(truth['items'])} pair Counts", pair_body, "i", truth["pairs"]),
+        ("GroupBy f x h", "GroupBy(Rows(f), Rows(h))", "i", norm_answer(truth["groupby"])),
+        ("tree Count", "Count(Union(Intersect(Row(f=1), Row(h=2)), "
+         "Difference(Row(f=3), Row(f=4))))", "i", truth["tree"]),
+        ("8-row Intersect", sel_q, "i", ("row", sel_rows[1])),
+        ("range Count on v", "Count(Row(v < 500000))", "i", truth["range"]),
+        ("Sum of v", "Sum(field=v)", "i", ("vc",) + tuple(truth["sum"])),
+        ("Min of v", "Min(field=v)", "i", ("vc",) + tuple(bsi["min"])),
+        ("Max of v", "Max(field=v)", "i", ("vc",) + tuple(bsi["max"])),
+        ("keyed " + k_name, k_q, "k", norm_answer(k_want)),
+    ]
+
+
+def http_path(pool, device, hand, v_truth):
+    """One node over HTTP (``server/node.py``, ``server/http.py``,
+    ``server/api.py``) on the storage path's directory:
+
+    1. boot: ``NodeServer`` in-process on the directory (port 0, the
+       metric service expvar), timed to the first answer (``open``, then a
+       first Count, whose stacks are built then);
+    2. reads, cold and warm, each answer against numpy over the written
+       data, and each warm one beside the same query in-process on the
+       node's executor (the cost of HTTP): the 1024-call pair body, a tree
+       Count, a selective 8-row Intersect bitmap (about 2.5 k columns),
+       the tanimoto and filtered TopNs, GroupBy f x h, a range Count, Sum,
+       Min and Max on v, and a keyed TopN on the 2^20-key index;
+    3. concurrency: 16 client threads on keep-alive connections post a
+       mixed read mix for 10 s, every answer equal to its serial answer:
+       queries/s and p50/p99 latency;
+    4. writes, each read back over HTTP against numpy: import-roaring of a
+       new 64-row field r on 8 shards at 25 % density (MB/s, bits/s), a
+       JSON import of 2^20 (row, column, timestamp) pairs over 6 hours
+       into a YMDH field (pairs/s; read back through windowed Counts), a
+       JSON import of values into an int field (both fields deleted
+       after), and /export of one shard of h;
+    5. the node's reports: /debug/vars' kernels block equals ``LAUNCHES``,
+       /metrics parses, /debug/fragments lists f's 160 fragments with
+       their residency, and a DELETE of r frees its stacks' bytes on the
+       card and in the budget;
+    6. the CLI: the node stopped and its tensors released, ``python -m
+       pilosa_tpu_torch.cli server`` on the directory as a subprocess:
+       /status, one Count against its truth, its launch in /debug/vars,
+       then SIGTERM, and exit 0 within 30 s."""
+    import gc
+    import re
+    import signal
+    import socket
+    import threading
+
+    import numpy as np
+    import torch
+
+    from pilosa_tpu_torch.core import membudget
+    from pilosa_tpu_torch.exec.result import result_to_json
+    from pilosa_tpu_torch.obs.stats import MemStatsClient
+    from pilosa_tpu_torch.ops import kernels as tk
+    from pilosa_tpu_torch.server.node import NodeServer
+    from pilosa_tpu_torch.shardwidth import SHARD_WIDTH
+    from pilosa_tpu_torch.storage import roaring
+
+    on_card = torch.device(device).type == "cuda"
+    t_path = time.perf_counter()
+    out = {}
+    data_dir = hand["data_dir"]
+    f_np, h_np = hand["f"], hand["h"]
+    vals, exv = v_truth
+    rng = np.random.default_rng(SEED + 21)
+    t0 = time.perf_counter()
+    truth = truths_of(pool, f_np, h_np, v_truth, hand["items"], hand["h_rows"])
+    truth["items"] = hand["items"]
+    bsi = {"min": truth_extreme(pool, vals, lambda s: exv[s], False),
+           "max": truth_extreme(pool, vals, lambda s: exv[s], True)}
+    sel = [int(r) for r in rng.choice(f_np.shape[1], 8, replace=False)]
+    sel_words = np.bitwise_and.reduce(f_np[:, sel], axis=1)
+    sel_cols = [s * SHARD_WIDTH + int(c) for s in range(S_FULL)
+                for c in np.flatnonzero(np.unpackbits(sel_words[s].view(np.uint8),
+                                                      bitorder="little"))]
+    keyed = [r for r in hand["keyed_reads"]() if r[0].startswith("filtered TopN")][0]
+    reads = http_reads(truth, keyed, hand["h_rows"], (sel, sel_cols), bsi)
+    out["truth_s"] = time.perf_counter() - t0
+    log(f"http: truths in {out['truth_s']:.1f} s; the 8-row Intersect holds "
+        f"{len(sel_cols)} columns")
+
+    def release():
+        gc.collect()
+        if on_card:
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+
+    # -- 1. boot
+    t0 = time.perf_counter()
+    node = NodeServer(data_dir=data_dir, device=device, port=0, stats_client=MemStatsClient())
+    out["open_s"] = time.perf_counter() - t0
+    node.start()
+    ex = node.api.executor
+    ex._BSI_SINGLE_WARM = 0  # a lone range Count takes the stack at once, as in storage
+    cli = HttpClient(node.server.port)
+    try:
+        first = cli.query("i", "Count(Row(h=0))")
+        out["boot_to_first_answer_s"] = time.perf_counter() - t0
+        want = int(np.bitwise_count(h_np[:, 0]).sum(dtype=np.int64))
+        if first != [want]:
+            raise AssertionError(f"http: first Count {first} != {want}")
+        log(f"http: node open in {out['open_s']:.2f} s, first answer at "
+            f"{out['boot_to_first_answer_s']:.2f} s")
+
+        # -- 2. reads, cold and warm, beside in-process
+        lat = {}
+        for name, q, index, want in reads:
+            before = dict(tk.LAUNCHES)
+            t = time.perf_counter()
+            got = cli.query(index, q)
+            cold = (time.perf_counter() - t) * 1e3
+            made = {k: tk.LAUNCHES[k] - before[k] for k in tk.LAUNCHES
+                    if tk.LAUNCHES[k] > before[k]}
+            # the pair body answers one Count a call, every other read one result
+            norm = got if name.endswith("pair Counts") else norm_json(got[0])
+            if norm != want:
+                raise AssertionError(f"http: {name}: {str(norm)[:200]} != {str(want)[:200]}")
+            warm = []
+            for _ in range(HTTP_WARM_REPS):
+                t = time.perf_counter()
+                again = cli.query(index, q)
+                warm.append((time.perf_counter() - t) * 1e3)
+                if again != got:
+                    raise AssertionError(f"http: {name}: a warm answer differs")
+            inproc = []
+            for _ in range(HTTP_WARM_REPS):
+                t = time.perf_counter()
+                res = ex.execute(index, q)
+                inproc.append((time.perf_counter() - t) * 1e3)
+            if result_to_json(res) != got:
+                raise AssertionError(f"http: {name}: the in-process answer differs")
+            lat[name] = {"cold_ms": cold, "warm_ms": statistics.median(warm),
+                         "inproc_ms": statistics.median(inproc), "cold_launches": made}
+            log(f"  http: {name}: cold {cold:.2f} ms, warm {lat[name]['warm_ms']:.3f} ms, "
+                f"in-process {lat[name]['inproc_ms']:.3f} ms, launches {made}")
+        out["reads"] = lat
+        pair_name = reads[2][0]
+        out["pair_body_qps"] = len(truth["items"]) / (lat[pair_name]["warm_ms"] / 1e3)
+
+        # -- 3. concurrency: serial answers first, then 16 clients
+        mix = [(n, q, index) for n, q, index, _ in reads
+               if not n.endswith("pair Counts") and not n.startswith("GroupBy")]
+        mix += [(f"pair {k}", f"Count({op}(Row(f={a}), Row(f={b})))", "i")
+                for k, (op, a, b) in enumerate(hand["items"][:16])]
+        serial = {n: cli.query(index, q) for n, q, index in mix}
+        stop = time.perf_counter() + HTTP_SECONDS
+        lats: list = [[] for _ in range(HTTP_CLIENTS)]
+        errors: list = []
+
+        def client(c):
+            conn = HttpClient(node.server.port)
+            crng = np.random.default_rng(SEED + 100 + c)
+            try:
+                while time.perf_counter() < stop:
+                    n, q, index = mix[int(crng.integers(0, len(mix)))]
+                    t = time.perf_counter()
+                    got = conn.query(index, q)
+                    lats[c].append(time.perf_counter() - t)
+                    if got != serial[n]:
+                        errors.append(f"{n}: {str(got)[:100]}")
+                        return
+            except Exception as e:  # reported below, after every client stopped
+                errors.append(repr(e))
+            finally:
+                conn.close()
+
+        t = time.perf_counter()
+        threads = [threading.Thread(target=client, args=(c,)) for c in range(HTTP_CLIENTS)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=HTTP_SECONDS + 120)
+        wall = time.perf_counter() - t
+        if any(th.is_alive() for th in threads) or errors:
+            raise AssertionError(f"http: concurrent clients: {errors[:3]}")
+        every = np.array([x for per in lats for x in per]) * 1e3
+        out["concurrency"] = {
+            "clients": HTTP_CLIENTS, "seconds": wall, "queries": int(every.size),
+            "qps": every.size / wall, "p50_ms": float(np.percentile(every, 50)),
+            "p99_ms": float(np.percentile(every, 99)), "mix": len(mix),
+        }
+        log(f"http: {HTTP_CLIENTS} clients: {every.size} queries in {wall:.1f} s, "
+            f"{out['concurrency']['qps']:.0f} queries/s, p50 {out['concurrency']['p50_ms']:.2f} "
+            f"ms, p99 {out['concurrency']['p99_ms']:.2f} ms, all equal to the serial answers")
+
+        # -- 4. writes
+        code, body = cli.post("/index/i/field/r", {})
+        if code != 200:
+            raise AssertionError(f"http: create r: {code} {body!r}")
+        r_words = random_words(rng, (R_IMPORT_SHARDS, R_IMPORT_ROWS, W_FULL), dense=True)
+        payloads = [roaring.serialize_rows(np.arange(R_IMPORT_ROWS, dtype=np.uint64),
+                                           r_words[s]) for s in range(R_IMPORT_SHARDS)]
+        n_bits = int(np.bitwise_count(r_words).sum(dtype=np.int64))
+        t = time.perf_counter()
+        changed = 0
+        for s, data in enumerate(payloads):
+            code, body = cli.post(f"/index/i/field/r/import-roaring/{s}", data,
+                                  "application/octet-stream")
+            if code != 200:
+                raise AssertionError(f"http: import-roaring {s}: {code} {body[:200]!r}")
+            changed += json.loads(body)["changed"]
+        dt = time.perf_counter() - t
+        n_bytes = sum(len(d) for d in payloads)
+        if changed != n_bits:
+            raise AssertionError(f"http: import-roaring changed {changed}, wrote {n_bits} bits")
+        r_rows = [int(x) for x in rng.choice(R_IMPORT_ROWS, 4, replace=False)]
+        got = cli.query("i", " ".join(f"Count(Row(r={x}))" for x in r_rows))
+        want = [int(np.bitwise_count(r_words[:, x]).sum(dtype=np.int64)) for x in r_rows]
+        if got != want:
+            raise AssertionError(f"http: import-roaring read back {got} != {want}")
+        out["import_roaring"] = {"bytes": n_bytes, "bits": n_bits, "seconds": dt,
+                                 "mb_per_s": n_bytes / dt / 1e6, "bits_per_s": n_bits / dt}
+        log(f"http: import-roaring of {n_bits} bits, {n_bytes / 1e6:.1f} MB on "
+            f"{R_IMPORT_SHARDS} shards in {dt:.2f} s: {n_bytes / dt / 1e6:.1f} MB/s, "
+            f"{n_bits / dt / 1e6:.1f} M bits/s")
+
+        # a pair batch on r builds its stack, which the DELETE below frees
+        got = cli.query("i", " ".join(f"Count(Intersect(Row(r={a}), Row(r={b})))"
+                                      for a, b in zip(r_rows, r_rows[1:])))
+        want = [int(np.bitwise_count(r_words[:, a] & r_words[:, b]).sum(dtype=np.int64))
+                for a, b in zip(r_rows, r_rows[1:])]
+        if got != want:
+            raise AssertionError(f"http: pair Counts on r {got} != {want}")
+        del payloads
+
+        code, body = cli.post("/index/i/field/tt", {"options": {"type": "time",
+                                                               "timeQuantum": "YMDH"}})
+        if code != 200:
+            raise AssertionError(f"http: create tt: {code} {body!r}")
+        tt_rows = rng.integers(0, TT_ROWS, TT_PAIRS)
+        tt_cols = rng.integers(0, S_FULL * SHARD_WIDTH, TT_PAIRS)
+        tt_hours = rng.integers(0, TT_HOURS, TT_PAIRS)
+        stamps = [f"2024-01-{1 + h // 24:02d}T{h % 24:02d}:00" for h in range(TT_HOURS)]
+        body = json.dumps({"rowIDs": tt_rows.tolist(), "columnIDs": tt_cols.tolist(),
+                           "timestamps": [stamps[h] for h in tt_hours.tolist()]}).encode()
+        t = time.perf_counter()
+        code, resp = cli.post("/index/i/field/tt/import", body)
+        dt = time.perf_counter() - t
+        if code != 200:
+            raise AssertionError(f"http: time import: {code} {resp[:200]!r}")
+        out["import_json_time"] = {"pairs": TT_PAIRS, "bytes": len(body), "seconds": dt,
+                                   "pairs_per_s": TT_PAIRS / dt}
+        windows = [(0, TT_HOURS), (1, 4), (2, 3), (5, 6)]
+        qs, want = [], []
+        for r in range(TT_ROWS):
+            for a, b in windows:
+                lo = f"2024-01-{1 + a // 24:02d}T{a % 24:02d}:00"
+                hi = f"2024-01-{1 + b // 24:02d}T{b % 24:02d}:00"
+                qs.append(f"Count(Row(tt={r}, from={lo}, to={hi}))")
+                m = (tt_rows == r) & (tt_hours >= a) & (tt_hours < b)
+                want.append(int(np.unique(tt_cols[m]).size))
+        got = cli.query("i", " ".join(qs))
+        if got != want:
+            raise AssertionError(f"http: windowed Counts {got} != {want}")
+        log(f"http: JSON import of {TT_PAIRS} timestamped pairs ({len(body) / 1e6:.1f} MB) in "
+            f"{dt:.2f} s: {TT_PAIRS / dt:.0f} pairs/s; {len(qs)} windowed Counts equal numpy")
+        del body
+
+        code, body = cli.post("/index/i/field/u", {"options": {"type": "int", "min": -1000,
+                                                              "max": 1_000_000}})
+        if code != 200:
+            raise AssertionError(f"http: create u: {code} {body!r}")
+        u_cols = rng.choice(S_FULL * SHARD_WIDTH, U_VALUES, replace=False)
+        u_vals = rng.integers(-1000, 1_000_001, U_VALUES)
+        t = time.perf_counter()
+        code, resp = cli.post("/index/i/field/u/import", {"columnIDs": u_cols.tolist(),
+                                                          "values": u_vals.tolist()})
+        out["import_json_values_s"] = time.perf_counter() - t
+        if code != 200:
+            raise AssertionError(f"http: value import: {code} {resp[:200]!r}")
+        got = cli.query("i", "Sum(field=u) Count(Row(u > 500000)) Min(field=u)")
+        want = [{"value": int(u_vals.sum()), "count": U_VALUES}, int((u_vals > 500_000).sum()),
+                {"value": int(u_vals.min()), "count": int((u_vals == u_vals.min()).sum())}]
+        if got != want:
+            raise AssertionError(f"http: int field u read back {got} != {want}")
+
+        s_exp = int(rng.integers(0, S_FULL))
+        t = time.perf_counter()
+        code, csv = cli.get(f"/export?index=i&field=h&shard={s_exp}")
+        out["export_s"] = time.perf_counter() - t
+        want_lines = [f"{r},{s_exp * SHARD_WIDTH + int(c)}" for r in range(H_ROWS)
+                      for c in np.flatnonzero(np.unpackbits(h_np[s_exp, r].view(np.uint8),
+                                                            bitorder="little"))]
+        if code != 200 or csv.decode().splitlines() != want_lines:
+            raise AssertionError(f"http: export of h shard {s_exp} differs from numpy")
+        log(f"http: values into u and /export of h shard {s_exp} ({len(want_lines)} lines, "
+            f"{out['export_s']:.2f} s) equal numpy")
+        # the written fields go, so the CLI below opens what the node opened
+        for fld in ("tt", "u"):
+            code, body = cli.request("DELETE", f"/index/i/field/{fld}")
+            if code != 200:
+                raise AssertionError(f"http: DELETE {fld}: {code} {body!r}")
+
+        # -- 5. the node's reports
+        code, body = cli.get("/debug/vars")
+        kern = json.loads(body)["kernels"]
+        launched = {k: v["launches"] for k, v in kern.items()}
+        if launched != dict(tk.LAUNCHES):
+            raise AssertionError(f"http: /debug/vars kernels {launched} != {tk.LAUNCHES}")
+        if on_card and any(v["launches"] and v["deviceMs"] <= 0 for v in kern.values()):
+            raise AssertionError(f"http: a launched kernel has no device ms: {kern}")
+        out["debug_vars_kernels"] = kern
+        # the ledger's device ms a launch (its CUDA event pairs), beside
+        # each kernel's own device time in the kernel line
+        out["ledger_ms_per_launch"] = {k: v["deviceMs"] / v["launches"]
+                                       for k, v in kern.items() if v["launches"]}
+        log(f"http: the ledger's device ms a launch {json.dumps(out['ledger_ms_per_launch'])}")
+        code, text = cli.get("/metrics")
+        for line in text.decode().splitlines():
+            if line and not line.startswith("#") and not re.match(
+                    r"^[a-zA-Z_:][\w:]*(\{.*\})? \S+( # .*)?$", line):
+                raise AssertionError(f"http: /metrics line does not parse: {line[:120]}")
+        t = time.perf_counter()
+        code, body = cli.get("/debug/fragments?index=i&field=f")
+        out["debug_fragments_s"] = time.perf_counter() - t
+        frags = json.loads(body)
+        if code != 200 or frags["totals"]["fragments"] != S_FULL:
+            raise AssertionError(f"http: /debug/fragments lists {frags['totals']}")
+        out["f_fragments_resident"] = frags["totals"]["deviceResident"]
+        out["f_bits"] = frags["totals"]["bits"]
+        if out["f_bits"] != int(np.bitwise_count(f_np).sum(dtype=np.int64)):
+            raise AssertionError("http: /debug/fragments counts other bits than numpy")
+        budget = membudget.default_budget()
+        release()
+        used0 = budget.used()
+        alloc0 = torch.cuda.memory_allocated() if on_card else 0
+        code, body = cli.request("DELETE", "/index/i/field/r")
+        if code != 200:
+            raise AssertionError(f"http: DELETE r: {code} {body!r}")
+        release()
+        freed = used0 - budget.used()
+        r_stack = R_IMPORT_ROWS * S_FULL * W_FULL * 4
+        if freed < r_stack or (on_card and alloc0 - torch.cuda.memory_allocated() < r_stack):
+            raise AssertionError(f"http: DELETE r freed {freed} bytes of the budget, "
+                                 f"{alloc0 - torch.cuda.memory_allocated() if on_card else 0} "
+                                 f"on the card; its stack holds {r_stack}")
+        out["delete_freed_bytes"] = freed
+        log(f"http: /debug/vars kernels equal LAUNCHES, /metrics parses, /debug/fragments "
+            f"lists {S_FULL} fragments of f ({out['f_fragments_resident']} on the card) in "
+            f"{out['debug_fragments_s']:.2f} s, DELETE r freed {freed} bytes")
+    finally:
+        cli.close()
+        node.stop()
+    del node, ex
+    release()
+
+    # -- 6. the CLI, on the same directory
+    with socket.socket() as so:
+        so.bind(("127.0.0.1", 0))
+        port = so.getsockname()[1]
+    env = dict(os.environ, PYTHONPATH=str(HERE))
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "pilosa_tpu_torch.cli", "server", "-d", data_dir,
+         "--bind", f"127.0.0.1:{port}", "--device", device],
+        cwd=HERE, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        while True:
+            try:
+                sc = HttpClient(port, timeout=10)
+                code, _ = sc.get("/status")
+                break
+            except OSError:
+                if proc.poll() is not None:
+                    raise AssertionError(f"http: the CLI server exited: {proc.communicate()}")
+                if time.perf_counter() - t0 > 120:
+                    raise AssertionError("http: the CLI server did not answer in 120 s")
+                time.sleep(0.2)
+        out["cli_boot_s"] = time.perf_counter() - t0
+        # two pair Counts of f in one body: a stack of f and one gram launch
+        calls = [f"Count({op}(Row(f={a}), Row(f={b})))" for op, a, b in hand["items"][:2]]
+        got = sc.query("i", " ".join(calls) + " Count(Row(h=1))")
+        want = truth["pairs"][:2] + [int(np.bitwise_count(h_np[:, 1]).sum(dtype=np.int64))]
+        if code != 200 or got != want:
+            raise AssertionError(f"http: the CLI server answered {got}, not {want}")
+        kern = json.loads(sc.get("/debug/vars")[1])["kernels"]
+        if on_card and sum(v["launches"] for v in kern.values()) < 1:
+            raise AssertionError(f"http: the CLI server launched nothing: {kern}")
+        sc.close()
+        t = time.perf_counter()
+        proc.send_signal(signal.SIGTERM)
+        stdout, stderr = proc.communicate(timeout=30)
+        out["cli_stop_s"] = time.perf_counter() - t
+        if proc.returncode != 0:
+            raise AssertionError(f"http: the CLI server exited {proc.returncode}: {stderr[-500:]}")
+        out["cli_launches"] = {k: v["launches"] for k, v in kern.items() if v["launches"]}
+        log(f"http: CLI server up in {out['cli_boot_s']:.1f} s, answered, launches "
+            f"{out['cli_launches']}, stopped by SIGTERM in {out['cli_stop_s']:.1f} s (exit 0)")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate(timeout=30)
+    out["path_s"] = time.perf_counter() - t_path
+    log(f"http path: {out['path_s']:.1f} s")
+    return out
+
+
 def drive(path, required, fn):
     """Run one path of the main path with every launch count set to 0 just
     before it; fail if a kernel of the path was not launched in it."""
@@ -3845,6 +4383,22 @@ def main() -> int:
     kern.update(check_bsi_kernels(torch.device("cuda")))
     log(f"bsi kernels checked and timed in {time.perf_counter() - t:.1f} s")
 
+    try:
+        return serve(kern, sass, card, t_start)
+    finally:
+        import shutil
+
+        for d in STORAGE_DIRS:
+            shutil.rmtree(d, ignore_errors=True)
+
+
+def serve(kern, sass, card, t_start) -> int:
+    """The main path's eight paths on the served index, then the summary
+    lines."""
+    import gc
+
+    import torch
+
     from pilosa_tpu_torch.exec.executor import Executor
 
     holder, setup_s = build_index("cuda")
@@ -3868,18 +4422,27 @@ def main() -> int:
             "budget", ("bsi_range", "bsi_sum", "bsi_extreme", "masked_row_scan", "gram",
                        "cross_gram"),
             lambda: budget_path(pool, ex, holder, "cuda", decoded["v"]))
-        l_storage, e2e["storage"] = drive(
+        l_storage, (e2e["storage"], hand) = drive(
             "storage", ("gram", "cross_gram", "row_scan", "masked_row_scan", "tree_count",
                         "bsi_range", "bsi_sum"),
             lambda: storage_path(pool, holder, "cuda", decoded["v"]))
-        del decoded
         l_time, e2e["time"] = drive(
             "time", ("tree_count", "tree_words", "row_scan", "masked_row_scan", "gram",
                      "cross_gram"),
             lambda: time_path(pool, Executor(holder), holder, "cuda"))
+        # the served index's tensors go before the node opens its own copy
+        del ex, holder
+        gc.collect()
+        torch.cuda.empty_cache()
+        l_http, e2e["http"] = drive(
+            "http", tuple(sorted(l_pair)),
+            lambda: http_path(pool, "cuda", hand, decoded["v"]))
+        del decoded, hand
+    name, limit = [x.strip() for x in card.split(",", 1)]
+    e2e["http"].update(card=name, power_limit=limit)
     by_path = {k: {"pair_topn": l_pair[k], "groupby": l_group[k], "trees": l_trees[k],
                    "bsi": l_bsi[k], "budget": l_budget[k], "storage": l_storage[k],
-                   "time": l_time[k]}
+                   "time": l_time[k], "http": l_http[k]}
                for k in l_pair}
 
     sources = {
@@ -3904,7 +4467,6 @@ def main() -> int:
         "bsi_extreme": ("pilosa_tpu_torch/ops/csrc/bsi.cu",
                         "pilosa_tpu/ops/bsi.py:211 _min_max_fused (XLA, no pallas_call)"),
     }
-    name, limit = [x.strip() for x in card.split(",", 1)]
     entries = []
     for k, (src, replaces) in sources.items():
         v = kern[k]

@@ -38,6 +38,8 @@ from pilosa_tpu_torch import device as device_mod
 from pilosa_tpu_torch.core import timequantum
 from pilosa_tpu_torch.core.attrs import AttrStore
 from pilosa_tpu_torch.core.view import VIEW_STANDARD, View, view_name_bsi
+from pilosa_tpu_torch.obs import stats as stats_mod
+from pilosa_tpu_torch.obs import tracing
 from pilosa_tpu_torch.shardwidth import SHARD_WORDS
 
 FIELD_TYPE_SET = "set"
@@ -149,6 +151,8 @@ class Field:
         # on_create_fragment (storage wiring)
         self.on_create_view = None
         self.on_create_fragment = None
+        # metrics sink, tagged by the index (reference field.go Stats)
+        self.stats = stats_mod.NOP
         o = self.options
         if o.field_type == FIELD_TYPE_INT:
             if o.min > o.max:
@@ -232,6 +236,8 @@ class Field:
                 raise ValueError(f"cannot set timestamp on non-time field {self.name}")
             for vname in timequantum.views_by_time(VIEW_STANDARD, timestamp, o.time_quantum):
                 changed |= self.create_view_if_not_exists(vname).set_bit(row, col)
+        if changed:
+            self.stats.count("set_bit")
         return changed
 
     def clear_bit(self, row: int, col: int) -> bool:
@@ -241,6 +247,8 @@ class Field:
         for v in list(self.views.values()):
             if v.name == VIEW_STANDARD or v.name.startswith(VIEW_STANDARD + "_"):
                 changed |= v.clear_bit(row, col)
+        if changed:
+            self.stats.count("clear_bit")
         return changed
 
     def get_bit(self, row: int, col: int) -> bool:
@@ -272,7 +280,10 @@ class Field:
         stored = value - self.base
         self.grow_bit_depth(bit_depth_of(stored))
         view = self.create_view_if_not_exists(self.bsi_view_name())
-        return view.set_value(col, self.bit_depth, stored)
+        changed = view.set_value(col, self.bit_depth, stored)
+        if changed:
+            self.stats.count("set_value")
+        return changed
 
     def value(self, col: int) -> tuple[int, bool]:
         self._check_bsi()
@@ -352,21 +363,27 @@ class Field:
         ``datetime`` or None per pair, or is a ``datetime64`` array (NaT for
         none), the fast form. An ingest ``pipeline`` is not ported yet."""
         rows, cols, std, mutexlike = self._import_args(rows, cols, timestamps, clear, pipeline)
-        width = self.n_words * 32
-        if std is not None:
-            if segments is None or mutexlike:
-                segments = _split_by_shard(rows, cols, width)
-            merges = []
-            for shard, seg_rows, seg_offs in segments:
-                frag = std.create_fragment_if_not_exists(int(shard))
-                if mutexlike:
-                    for r, c in zip(seg_rows.tolist(), seg_offs.tolist()):
-                        frag.set_mutex(int(r), int(c))
-                else:
-                    merges.append((frag, seg_rows, np.asarray(seg_offs, dtype=np.int64)))
-            _run_merges(merges, clear)
-        if timestamps is not None:
-            self._import_time_views(rows, cols, timestamps)
+        self.stats.count("import_bits", len(cols))
+        # import span (reference fragment.go:2245-2277)
+        span = tracing.start_span("field.Import")
+        span.set_tag("index", self.index).set_tag("field", self.name)
+        span.set_tag("bits", int(len(cols)))
+        with span:
+            width = self.n_words * 32
+            if std is not None:
+                if segments is None or mutexlike:
+                    segments = _split_by_shard(rows, cols, width)
+                merges = []
+                for shard, seg_rows, seg_offs in segments:
+                    frag = std.create_fragment_if_not_exists(int(shard))
+                    if mutexlike:
+                        for r, c in zip(seg_rows.tolist(), seg_offs.tolist()):
+                            frag.set_mutex(int(r), int(c))
+                    else:
+                        merges.append((frag, seg_rows, np.asarray(seg_offs, dtype=np.int64)))
+                _run_merges(merges, clear)
+            if timestamps is not None:
+                self._import_time_views(rows, cols, timestamps)
 
     def _import_time_views(self, rows: np.ndarray, cols: np.ndarray, timestamps) -> None:
         """The time views of an import: pairs sorted by (shard, truncated

@@ -440,25 +440,40 @@ class Fragment:
             )
         return n_changed, per_row, positions
 
-    def _merge_row_words(self, row: int, words: np.ndarray, clear: bool) -> None:
+    def _merge_row_words(self, row: int, words: np.ndarray, clear: bool) -> int:
         """OR ``words`` into a row, or clear them from it when ``clear``
         (a missing row is created only to set bits); the changed bits go to
-        the op log as one mask record."""
+        the op log as one mask record. Returns the changed-bit count."""
         if not clear:
             self._check_persistable(row)
         s = self._slot(row, create=not clear)
         if s is None:
-            return
+            return 0
         old = self._host[s]
         changed = old & words if clear else words & ~old
-        if changed.any():
-            self._host[s] = old & ~words if clear else old | words
-            self._touch(s)
-            if self.store is not None:
-                if clear:
-                    self.store.log_remove_mask(row, changed)
-                else:
-                    self.store.log_add_mask(row, changed)
+        if not changed.any():
+            return 0
+        self._host[s] = old & ~words if clear else old | words
+        self._touch(s)
+        if self.store is not None:
+            if clear:
+                self.store.log_remove_mask(row, changed)
+            else:
+                self.store.log_add_mask(row, changed)
+        return int(np.bitwise_count(changed).sum(dtype=np.int64))
+
+    def import_row_words(self, row_ids: np.ndarray, words: np.ndarray, clear: bool = False) -> int:
+        """Merge whole rows: ``words[i]`` (uint32, ``n_words``) OR-ed into row
+        ``row_ids[i]``, or cleared from it when ``clear``. Returns the
+        changed-bit count, which :meth:`import_bits` of the same bits
+        returns: the bulk form of a roaring import, made of words and no
+        positions."""
+        words = np.asarray(words, dtype=np.uint32)
+        changed = 0
+        with self._lock, self._batched_store():
+            for row, w in zip(np.asarray(row_ids, dtype=np.uint64).tolist(), words):
+                changed += self._merge_row_words(int(row), w, clear)
+        return changed
 
     def set_mutex(self, row: int, col: int) -> bool:
         """Mutex-field write: clear col in every other row, set (row, col)

@@ -18,6 +18,11 @@ from pilosa_tpu_torch import device as device_mod
 from pilosa_tpu_torch.core.field import FieldOptions
 from pilosa_tpu_torch.core.fragment import Fragment
 from pilosa_tpu_torch.core.index import Index
+from pilosa_tpu_torch.obs import stats as stats_mod
+from pilosa_tpu_torch.obs.events import EventJournal
+from pilosa_tpu_torch.obs.jobs import JobTracker
+from pilosa_tpu_torch.obs.slo import SLOTracker
+from pilosa_tpu_torch.obs.tracestore import TraceStore
 from pilosa_tpu_torch.shardwidth import SHARD_WORDS
 
 
@@ -33,6 +38,28 @@ class Holder:
         self.indexes: dict[str, Index] = {}
         # called with each new index (the storage layer wires its files)
         self.on_create_index = None
+        # metrics sink (reference holder.go Stats, default nop)
+        self.stats = stats_mod.NOP
+        # control-plane observability shared by the layers below, as the
+        # stats client is: the event journal, the background-job tracker,
+        # the SLO plane (per-op-class latency and error budgets, recorded
+        # at the HTTP boundary, /debug/slo) and the tail-sampled trace
+        # store (/debug/traces), whose slow-keep thresholds come from the
+        # SLO objectives and whose kept traces feed the SLO exemplars
+        self.events = EventJournal()
+        self.jobs = JobTracker()
+        self.slo = SLOTracker()
+        self.traces = TraceStore(slo=self.slo)
+        self.traces.on_keep = self.slo.attach_exemplar
+
+    def set_stats(self, client: stats_mod.StatsClient) -> None:
+        """Install a stats client, tagging each index's (reference
+        holder.go:112)."""
+        with self._lock:
+            self.stats = client
+            self.jobs.stats = client
+            for name, idx in self.indexes.items():
+                idx.set_stats(client.with_tags(f"index:{name}"))
 
     def index(self, name: str) -> Index | None:
         return self.indexes.get(name)
@@ -47,6 +74,7 @@ class Holder:
                 name, keys=keys, track_existence=track_existence,
                 n_words=self.n_words, device=self.device,
             )
+            idx.set_stats(self.stats.with_tags(f"index:{name}"))
             self.indexes[name] = idx
             if self.on_create_index is not None:
                 self.on_create_index(idx)

@@ -18,6 +18,7 @@ import torch
 from pilosa_tpu_torch import device as device_mod
 from pilosa_tpu_torch.core.attrs import AttrStore
 from pilosa_tpu_torch.core.field import Field, FieldOptions, validate_name
+from pilosa_tpu_torch.obs import stats as stats_mod
 from pilosa_tpu_torch.shardwidth import SHARD_WORDS
 
 EXISTENCE_FIELD_NAME = "_exists"
@@ -46,11 +47,21 @@ class Index:
         self.column_attrs = AttrStore()
         # called with (index, field) for each new field (storage wiring)
         self.on_create_field = None
+        # metrics sink, tagged by the holder (reference index.go Stats)
+        self.stats = stats_mod.NOP
         if track_existence:
             self.fields[EXISTENCE_FIELD_NAME] = Field(
                 self.name, EXISTENCE_FIELD_NAME, n_words=self.n_words,
                 device=self.device,
             )
+
+    def set_stats(self, client) -> None:
+        """Install a stats client, tagging each field's (reference
+        holder.go:112 wiring)."""
+        with self._lock:
+            self.stats = client
+            for name, f in self.fields.items():
+                f.stats = client.with_tags(f"field:{name}")
 
     def existence_field(self) -> Field | None:
         return self.fields.get(EXISTENCE_FIELD_NAME)
@@ -64,6 +75,7 @@ class Index:
             if name in self.fields:
                 raise ValueError(f"field already exists: {name}")
             f = Field(self.name, name, options, self.n_words, device=self.device)
+            f.stats = self.stats.with_tags(f"field:{name}")
             self.fields[name] = f
             self.generation += 1
             if self.on_create_field is not None:

@@ -17,44 +17,16 @@ from __future__ import annotations
 import threading
 import time
 
-
-class _Counters:
-    """The key-translation telemetry: counters and one timing summary per
-    name (the JAX package's ``MemStatsClient`` role, reduced to what the
-    translate store and its log feed)."""
-
-    def __init__(self):
-        self._lock = threading.Lock()
-        self._counters: dict[str, int] = {}
-        self._timings: dict[str, dict] = {}
-
-    def count(self, name: str, value: int = 1) -> None:
-        with self._lock:
-            self._counters[name] = self._counters.get(name, 0) + value
-
-    def timing(self, name: str, seconds: float) -> None:
-        with self._lock:
-            t = self._timings.setdefault(
-                name + "_seconds", {"count": 0, "sum": 0.0, "min": None, "max": None}
-            )
-            t["count"] += 1
-            t["sum"] += seconds
-            t["min"] = seconds if t["min"] is None else min(t["min"], seconds)
-            t["max"] = seconds if t["max"] is None else max(t["max"], seconds)
-
-    def snapshot(self) -> dict:
-        with self._lock:
-            return {
-                "counters": dict(self._counters),
-                "histograms": {k: dict(v) for k, v in self._timings.items()},
-            }
+from pilosa_tpu_torch.obs import stats as stats_mod
 
 
-# Process-global key-translation telemetry. Counters:
-# translate_keys_created / translate_keys_found / translate_ids_looked_up /
-# translate_log_appends (the last fed by storage/translatelog.py); timing:
-# translate_lookup_seconds per translate_keys batch.
-translate_stats = _Counters()
+# Process-global key-translation telemetry (a MemStatsClient, as in the
+# JAX package): visible in /metrics and /debug/vars whatever stats client
+# the holder runs. Counters: translate_keys_created / translate_keys_found /
+# translate_ids_looked_up / translate_log_appends (the last fed by
+# storage/translatelog.py); histogram: translate_lookup_seconds per
+# translate_keys batch.
+translate_stats = stats_mod.MemStatsClient()
 
 
 def telemetry_snapshot() -> dict:

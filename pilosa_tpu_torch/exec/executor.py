@@ -78,7 +78,7 @@ from typing import Any
 import numpy as np
 import torch
 
-from pilosa_tpu_torch import pql
+from pilosa_tpu_torch import deadline, pql
 from pilosa_tpu_torch.core import membudget, residency, timequantum
 from pilosa_tpu_torch.core.field import (
     FIELD_TYPE_BOOL,
@@ -92,6 +92,7 @@ from pilosa_tpu_torch.core.index import Index
 from pilosa_tpu_torch.core.translate import TranslateStore
 from pilosa_tpu_torch.core.view import VIEW_STANDARD
 from pilosa_tpu_torch.exec import astbatch
+from pilosa_tpu_torch.obs import qprofile, tracing
 from pilosa_tpu_torch.exec.result import (
     FieldRow,
     GroupCount,
@@ -244,6 +245,8 @@ class Executor:
         # stacks patched shard by shard after writes instead of rebuilt
         self.stack_incremental = 0
         self.gram_cache_hits = 0
+        # unfiltered TopN row counts served from a stack entry's cache
+        self.rowcount_cache_hits = 0
         # GroupBy combination matrices served from a cached cross gram
         self.crossgram_cache_hits = 0
         # field -> lone BSI-condition demand (warm-up for the BSI stack)
@@ -286,23 +289,27 @@ class Executor:
             and len(q.write_calls()) > self.max_writes_per_request
         ):
             raise TooManyWritesError("too many write commands")
-        calls = [c.clone() for c in q.calls]
-        for call in calls:
-            self._translate_call(idx, call)
-        results: list[Any] = [_UNSET] * len(calls)
-        # Many Count(op(Row,Row)) calls collapse into one gram launch. Only
-        # calls BEFORE the first write are eligible: they observe exactly
-        # the state they would see executing in order.
-        first_write = next(
-            (i for i, c in enumerate(calls) if _is_write(c)), len(calls)
-        )
-        self._batch_pair_counts(idx, calls[:first_write], shards, results)
-        self._batch_general(idx, calls[:first_write], shards, results)
-        self._batch_bsi(idx, calls[:first_write], shards, results)
-        for i, call in enumerate(calls):
-            if results[i] is _UNSET:
-                results[i] = self._execute_call(idx, call, shards)
-        return [self._translate_result(idx, c, r) for c, r in zip(q.calls, results)]
+        # span per query (reference executor.go:117 "Executor.Execute")
+        with tracing.start_span("executor.Execute").set_tag("index", index_name):
+            calls = [c.clone() for c in q.calls]
+            for call in calls:
+                self._translate_call(idx, call)
+            results: list[Any] = [_UNSET] * len(calls)
+            # Many Count(op(Row,Row)) calls collapse into one gram launch.
+            # Only calls BEFORE the first write are eligible: they observe
+            # exactly the state they would see executing in order.
+            first_write = next(
+                (i for i, c in enumerate(calls) if _is_write(c)), len(calls)
+            )
+            self._batch_pair_counts(idx, calls[:first_write], shards, results)
+            self._batch_general(idx, calls[:first_write], shards, results)
+            self._batch_bsi(idx, calls[:first_write], shards, results)
+            for i, call in enumerate(calls):
+                if results[i] is _UNSET:
+                    with tracing.start_span(f"executor.execute{call.name}"):
+                        results[i] = self._execute_call(idx, call, shards)
+            self._count_stats(idx, calls)
+            return [self._translate_result(idx, c, r) for c, r in zip(q.calls, results)]
 
     def execute_batch(
         self,
@@ -321,6 +328,12 @@ class Executor:
         if idx is None:
             err = IndexNotFoundError(f"index not found: {index_name}")
             return [err for _ in queries]
+        with tracing.start_span("executor.ExecuteBatch").set_tag(
+            "index", index_name
+        ).set_tag("queries", len(queries)):
+            return self._execute_batch(idx, index_name, queries)
+
+    def _execute_batch(self, idx: Index, index_name: str, queries) -> list[Any]:
         out: list[Any] = [None] * len(queries)
         parsed: list[pql.Query | None] = [None] * len(queries)
         cloned: list[list[Call] | None] = [None] * len(queries)
@@ -355,7 +368,9 @@ class Executor:
                 try:
                     for ci, call in enumerate(calls):
                         if res[ci] is _UNSET:
-                            res[ci] = self._execute_call(idx, call, shards)
+                            with tracing.start_span(f"executor.execute{call.name}"):
+                                res[ci] = self._execute_call(idx, call, shards)
+                    self._count_stats(idx, calls)
                     out[qi] = [
                         self._translate_result(idx, c, r)
                         for c, r in zip(parsed[qi].calls, res)
@@ -363,6 +378,14 @@ class Executor:
                 except Exception as e:  # per-query isolation
                     out[qi] = e
         return out
+
+    def _count_stats(self, idx: Index, calls: list[Call]) -> None:
+        """Per-call-type query counts of answered calls, however answered
+        (reference executor.go:298-339)."""
+        for call in calls:
+            self.holder.stats.count_with_tags(
+                "query_total", 1, 1.0, (f"index:{idx.name}", f"call:{call.name}")
+            )
 
     # ----------------------------------------------------------- translate
 
@@ -517,6 +540,8 @@ class Executor:
 
     def _execute_call(self, idx: Index, call: Call, shards: list[int] | None) -> Any:
         name = call.name
+        # stop before a scan the caller will no longer wait for
+        deadline.check(f"executing {name} on {idx.name!r}")
         if name == "Count":
             return self._execute_count(idx, call, shards)
         if name == "Sum":
@@ -680,6 +705,7 @@ class Executor:
             dev = bitops.to_device(bits, self.holder.device)
             del bits
             self.stack_rebuilds += 1
+            qprofile.incr("stack_rebuilds")
             tracker.note_miss()
             # a BSI depth change (a new row-axis length) retires the entries
             # of the same shards and view: they can never be hit again
@@ -786,6 +812,7 @@ class Executor:
         entry["dev"] = dev  # dev before versions: a reader keyed on versions
         entry["versions"] = versions  # must never see the old dev
         self.stack_incremental += 1
+        qprofile.incr("stack_incremental")
         return slot_of, dev
 
     def _stack_entry_for(self, field: Field, bits: torch.Tensor):
@@ -819,6 +846,7 @@ class Executor:
             cached = entry.get("gram")
             if cached is not None:
                 self.gram_cache_hits += 1
+                qprofile.incr("gram_cache_hits")
                 return cached, {s: s for s in uniq}
             if (
                 2 * len(uniq) >= R
@@ -856,6 +884,8 @@ class Executor:
         if entry is not None:
             cached = entry.get("rowcounts")
             if cached is not None:
+                self.rowcount_cache_hits += 1
+                qprofile.incr("rowcount_cache_hits")
                 return cached
             gram = entry.get("gram")
             if gram is not None:
@@ -906,10 +936,12 @@ class Executor:
             entry, t = self._cross_slot(f1, bits1, f2.name)
             if t is not None and t[0]() is bits2:
                 self.crossgram_cache_hits += 1
+                qprofile.incr("crossgram_cache_hits")
                 return t[1][np.ix_(sub1, sub2)]
             _, t2 = self._cross_slot(f2, bits2, f1.name)
             if t2 is not None and t2[0]() is bits1:
                 self.crossgram_cache_hits += 1
+                qprofile.incr("crossgram_cache_hits")
                 return t2[1].T[np.ix_(sub1, sub2)]
             if entry is not None:
                 with self._stack_lock:
@@ -980,31 +1012,39 @@ class Executor:
             # one gram answers every op: each pair op is a formula over
             # gram entries (|a|b| = Gaa+Gbb-Gab, ...)
             uniq = sorted({s for _, _, sa, sb in launch for s in (sa, sb)})
-            gram, pos = self._field_gram(field, bits, uniq)
-            if gram is not None:
-                pa = np.array([pos[sa] for _, _, sa, _ in launch])
-                pb = np.array([pos[sb] for _, _, _, sb in launch])
-                for op in {op for _, op, _, _ in launch}:
-                    sel = [j for j, it in enumerate(launch) if it[1] == op]
-                    counts = kernels.pair_counts_from_gram(gram, pa[sel], pb[sel], op)
-                    for c, j in zip(counts, sel):
-                        results[launch[j][0]] = int(c)
-                continue
-            # gram declined (too many distinct rows): batched scans, one
-            # per op, per-shard partials summed in int64
-            by_op: dict[str, list[tuple[int, int, int]]] = {}
-            for i, op, sa, sb in launch:
-                by_op.setdefault(op, []).append((i, sa, sb))
-            for op, olaunch in by_op.items():
-                partials = kernels.pair_count_batched(
-                    bits,
-                    [sa for _, sa, _ in olaunch],
-                    [sb for _, _, sb in olaunch],
-                    op=op,
-                )
-                counts = partials.to(torch.int64).sum(dim=1).cpu().numpy()
-                for j, (i, _, _) in enumerate(olaunch):
-                    results[i] = int(counts[j])
+            with tracing.start_span("executor.batchPairCount").set_tag(
+                "field", fname
+            ).set_tag("n", len(launch)):
+                self._pair_counts_launch(field, bits, uniq, launch, results)
+
+    def _pair_counts_launch(self, field: Field, bits: torch.Tensor, uniq, launch, results) -> None:
+        """One field's batched pair counts: from its gram, or batched scans
+        where the gram declines."""
+        gram, pos = self._field_gram(field, bits, uniq)
+        if gram is not None:
+            pa = np.array([pos[sa] for _, _, sa, _ in launch])
+            pb = np.array([pos[sb] for _, _, _, sb in launch])
+            for op in {op for _, op, _, _ in launch}:
+                sel = [j for j, it in enumerate(launch) if it[1] == op]
+                counts = kernels.pair_counts_from_gram(gram, pa[sel], pb[sel], op)
+                for c, j in zip(counts, sel):
+                    results[launch[j][0]] = int(c)
+            return
+        # gram declined (too many distinct rows): batched scans, one
+        # per op, per-shard partials summed in int64
+        by_op: dict[str, list[tuple[int, int, int]]] = {}
+        for i, op, sa, sb in launch:
+            by_op.setdefault(op, []).append((i, sa, sb))
+        for op, olaunch in by_op.items():
+            partials = kernels.pair_count_batched(
+                bits,
+                [sa for _, sa, _ in olaunch],
+                [sb for _, _, sb in olaunch],
+                op=op,
+            )
+            counts = partials.to(torch.int64).sum(dim=1).cpu().numpy()
+            for j, (i, _, _) in enumerate(olaunch):
+                results[i] = int(counts[j])
 
     # ------------------------------------------------ compiled tree batches
 
@@ -1108,7 +1148,8 @@ class Executor:
                 continue
             stacks, slot_maps = st
             slots = np.stack([_slots_of(leaves, slot_maps) for _, leaves in items])
-            totals = astbatch.run_count_batch(sig, stacks, slots)
+            with tracing.start_span("executor.batchCountTree").set_tag("n", len(items)):
+                totals = astbatch.run_count_batch(sig, stacks, slots)
             for j, (i, _) in enumerate(items):
                 results[i] = int(totals[j])
 
@@ -1117,9 +1158,10 @@ class Executor:
             if st is None:
                 continue
             stacks, slot_maps = st
-            words = bitops.to_host(
-                astbatch.run_bitmap(sig, stacks, _slots_of(leaves, slot_maps))
-            )
+            with tracing.start_span("executor.batchBitmapTree"):
+                words = bitops.to_host(
+                    astbatch.run_bitmap(sig, stacks, _slots_of(leaves, slot_maps))
+                )
             row = Row(
                 {s: words[si] for si, s in enumerate(shard_list)}, n_words=idx.n_words
             )
@@ -1602,6 +1644,7 @@ class Executor:
             t = slots.get(key) if slots else None
             if t is not None and t[0] is dev:
                 self.bsi_agg_cache_hits += 1
+                qprofile.incr("bsi_agg_cache_hits")
                 slots[key] = slots.pop(key)
                 return t[1], lambda v: None
 
@@ -1779,7 +1822,10 @@ class Executor:
             groups: dict[str, list[tuple[int, Any]]] = {}
             for i, op_class, cond in items:
                 groups.setdefault(op_class, []).append((i, cond))
-            self._batch_bsi_field(idx, field, bits, groups, shard_list, calls, results)
+            with tracing.start_span("executor.batchBSI").set_tag(
+                "field", fname
+            ).set_tag("n", len(items)):
+                self._batch_bsi_field(idx, field, bits, groups, shard_list, calls, results)
 
     def _batch_bsi_field(
         self, idx: Index, field: Field, bits: torch.Tensor, groups, shard_list,
@@ -1803,9 +1849,12 @@ class Executor:
             cap = bsi.range_words_cap(*exists.shape)
             for q0 in range(0, len(queries), cap):
                 self.bsi_stack_launches += 1
-                masks = bitops.to_host(bsi.range_batch(
-                    planes, exists, sign, queries[q0 : q0 + cap], depth=depth
-                ))
+                with tracing.start_span("executor.bsiRangeBatch").set_tag(
+                    "n", len(queries[q0 : q0 + cap])
+                ):
+                    masks = bitops.to_host(bsi.range_batch(
+                        planes, exists, sign, queries[q0 : q0 + cap], depth=depth
+                    ))
                 for qi, (i, _) in enumerate(mask_items[q0 : q0 + cap]):
                     row = Row(n_words=self.holder.n_words)
                     for si, s in enumerate(shard_list):
@@ -1838,7 +1887,8 @@ class Executor:
         queries = queries_of(pending) if pending else None
         if queries is not None:
             self.bsi_stack_launches += 1
-            counts = bsi.range_count_batch(planes, exists, sign, queries, depth=depth)
+            with tracing.start_span("executor.bsiRangeCountBatch").set_tag("n", len(pending)):
+                counts = bsi.range_count_batch(planes, exists, sign, queries, depth=depth)
             for (i, _), put, n in zip(pending, puts, counts):
                 put(n)
                 results[i] = n
@@ -2338,25 +2388,26 @@ class Executor:
             return []
         sub1 = [slot1[r] for r in rows1]
         sub2 = [slot2[r] for r in rows2]
-        counts2d = None
-        if f2 is f1:
-            g, pos = self._field_gram(f1, bits1, sorted(set(sub1) | set(sub2)))
-            if g is not None:
-                counts2d = g[np.ix_([pos[s] for s in sub1], [pos[s] for s in sub2])]
-        else:
-            counts2d = self._cross_gram(f1, bits1, f2, bits2, sub1, sub2)
-        if counts2d is not None:
-            counts = counts2d.reshape(-1)
-        else:
-            # more distinct rows than the gram takes: per-shard partials
-            # of every combination, summed in int64
-            ras = np.repeat(sub1, len(sub2))
-            rbs = np.tile(sub2, len(sub1))
+        with tracing.start_span("executor.groupByBatch").set_tag("n", len(sub1) * len(sub2)):
+            counts2d = None
             if f2 is f1:
-                partials = kernels.pair_count_batched(bits1, ras, rbs)
+                g, pos = self._field_gram(f1, bits1, sorted(set(sub1) | set(sub2)))
+                if g is not None:
+                    counts2d = g[np.ix_([pos[s] for s in sub1], [pos[s] for s in sub2])]
             else:
-                partials = kernels.pair_count_two_batched(bits1, bits2, ras, rbs)
-            counts = partials.to(torch.int64).sum(dim=1).cpu().numpy()
+                counts2d = self._cross_gram(f1, bits1, f2, bits2, sub1, sub2)
+            if counts2d is not None:
+                counts = counts2d.reshape(-1)
+            else:
+                # more distinct rows than the gram takes: per-shard
+                # partials of every combination, summed in int64
+                ras = np.repeat(sub1, len(sub2))
+                rbs = np.tile(sub2, len(sub1))
+                if f2 is f1:
+                    partials = kernels.pair_count_batched(bits1, ras, rbs)
+                else:
+                    partials = kernels.pair_count_two_batched(bits1, bits2, ras, rbs)
+                counts = partials.to(torch.int64).sum(dim=1).cpu().numpy()
         out = []
         combos = ((r1, r2) for r1 in rows1 for r2 in rows2)
         for (r1, r2), c in zip(combos, counts.tolist()):
@@ -2449,14 +2500,15 @@ class Executor:
                 del child
 
         rows0 = levels[0][2]
-        for p0 in range(0, len(rows0), cmax):
-            part = rows0[p0 : p0 + cmax]
-            prefix = kernels.gather_prefix(bits0, [slot0[r] for r in part])
-            if filt is not None:
-                # in place: the prefix is this call's own copy
-                prefix &= filt[None]
-            expand(1, prefix, [(r,) for r in part])
-            del prefix
+        with tracing.start_span("executor.groupByKLevel").set_tag("levels", len(levels)):
+            for p0 in range(0, len(rows0), cmax):
+                part = rows0[p0 : p0 + cmax]
+                prefix = kernels.gather_prefix(bits0, [slot0[r] for r in part])
+                if filt is not None:
+                    # in place: the prefix is this call's own copy
+                    prefix &= filt[None]
+                expand(1, prefix, [(r,) for r in part])
+                del prefix
         return out
 
     def _groupby_recursive(

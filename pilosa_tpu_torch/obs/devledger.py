@@ -1,0 +1,398 @@
+"""Process-wide device cost ledger: launch and transfer accounting
+(counterpart of ``pilosa_tpu/obs/devledger.py``).
+
+Every kernel launch site registers a :class:`Site`
+(``ledger.site("kernels.row_scan")``) and reports through it, so the
+server can answer what the device work cost (launch counts, their wall
+and device time, H2D/D2H bytes) and who caused it: the *site* (which
+launch path) and the *principal* ``(tenant, index, op_class)``, with the
+tenant read from the ``X-Pilosa-Tenant`` request header and threaded
+http -> api -> executor -> kernel wrappers through contextvars.
+
+Device time comes from a CUDA event pair around each launch
+(:meth:`Site.record_cuda_launch`). Reading an event pair waits for the
+launch to finish, so the query path never reads one: pairs queue up and
+:meth:`Ledger.settle` folds them in when a snapshot is taken (and, without
+waiting, the pairs already finished whenever the queue grows long).
+
+The compile columns stay at 0: the port builds its kernels with nvcc
+before the first launch (``ops/cuda_build.py``), so no launch compiles
+anything, and JAX's ``jax.monitoring`` compile listener and recompile-storm
+detector have nothing to observe here. They keep their keys so the
+snapshot reads as JAX's does.
+
+The ledger is process-global by design, as devices are.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import threading
+import time
+from collections import deque
+from contextvars import ContextVar
+
+TENANT_HEADER = "X-Pilosa-Tenant"
+# THE canonical tenantless principal: every spelling of "no tenant"
+# (missing header, empty string, whitespace, the legacy "-") lands
+# here, so batcher admission, ledger rows and SLO accounting agree on
+# one identity for untagged traffic.
+DEFAULT_TENANT = "(default)"
+_LEGACY_TENANTLESS = ("-",)
+
+# Principal tables are label sets headed for /metrics: bound cardinality.
+_MAX_PRINCIPALS = 512
+_OVERFLOW_PRINCIPAL = ("~overflow", "-", "-")
+_MAX_TENANT_LEN = 64
+# event pairs queued before a launch folds in the finished ones, and the
+# most kept unread (past it the oldest pair's device time is dropped and
+# counted, so the query path never waits on the card)
+_SETTLE_AT = 256
+_MAX_PENDING = 1 << 16
+
+_tenant: ContextVar[str] = ContextVar("devledger_tenant", default=DEFAULT_TENANT)
+# (index, op_class) bound by the api layer once both are known.
+_binding: ContextVar[tuple] = ContextVar("devledger_binding", default=("-", "-"))
+
+
+def clean_tenant(raw) -> str:
+    """Sanitize a tenant label from the wire: printable, bounded,
+    non-empty — and NORMALIZED: every tenantless spelling (None, "",
+    whitespace, legacy "-") maps to the one canonical
+    :data:`DEFAULT_TENANT` so per-tenant accounting never splits
+    untagged traffic across aliases."""
+    if not raw:
+        return DEFAULT_TENANT
+    t = "".join(c for c in str(raw).strip() if c.isprintable() and c not in '{}",\\')
+    t = t[:_MAX_TENANT_LEN]
+    if not t or t in _LEGACY_TENANTLESS:
+        return DEFAULT_TENANT
+    return t
+
+
+def current_principal() -> tuple:
+    idx, cls = _binding.get()
+    return (_tenant.get(), idx, cls)
+
+
+def ambient_weights() -> tuple:
+    """The weighted principal list launches book against: the ambient
+    principal at weight 1 (JAX's batcher splits a shared flight across
+    several; the port has no batcher yet)."""
+    return ((current_principal(), 1.0),)
+
+
+@contextlib.contextmanager
+def tenant_scope(tenant):
+    tok = _tenant.set(clean_tenant(tenant))
+    try:
+        yield
+    finally:
+        _tenant.reset(tok)
+
+
+@contextlib.contextmanager
+def principal_scope(index="-", op_class="-"):
+    tok = _binding.set((str(index or "-"), str(op_class or "-")))
+    try:
+        yield
+    finally:
+        _binding.reset(tok)
+
+
+class _Accum:
+    """One row of the cost table (a site, a principal, or the totals)."""
+
+    __slots__ = (
+        "launches",
+        "launch_ms",
+        "device_ms",
+        "h2d_bytes",
+        "d2h_bytes",
+    )
+
+    def __init__(self):
+        self.launches = 0
+        self.launch_ms = 0.0
+        self.device_ms = 0.0
+        self.h2d_bytes = 0
+        self.d2h_bytes = 0
+
+    def to_dict(self, uptime=None):
+        d = {
+            # no launch compiles (module docstring): the keys stay at 0
+            "compiles": 0,
+            "compileMs": 0.0,
+            "launches": self.launches,
+            "launchMs": round(self.launch_ms, 3),
+            "deviceMs": round(self.device_ms, 3),
+            "h2dBytes": self.h2d_bytes,
+            "d2hBytes": self.d2h_bytes,
+        }
+        if uptime and uptime > 0:
+            d["launchesPerSec"] = round(self.launches / uptime, 3)
+            d["transferBytesPerSec"] = round(
+                (self.h2d_bytes + self.d2h_bytes) / uptime, 1
+            )
+        return d
+
+
+class Site:
+    """One registered launch site. Cheap to hold; all mutation funnels
+    through the owning ledger's lock."""
+
+    __slots__ = ("name", "ledger", "acc")
+
+    def __init__(self, name, ledger):
+        self.name = name
+        self.ledger = ledger
+        self.acc = _Accum()
+
+    def record_cuda_launch(self, start, end, wall_s=0.0, n=1):
+        """Book ``n`` launches bracketed by the recorded CUDA events
+        ``start`` and ``end``: the count and wall time now, the device time
+        when :meth:`Ledger.settle` reads the pair."""
+        self.ledger._book_launch(self, n, wall_s * 1e3)
+        self.ledger._pend(self, start, end)
+
+    def record_transfer(self, nbytes, direction="h2d"):
+        self.ledger._book_transfer(self, int(nbytes), direction)
+
+
+class Ledger:
+    def __init__(self):
+        self._lock = threading.Lock()
+        # one settler at a time, so pairs fold in launch order
+        self._settle_lock = threading.Lock()
+        self._sites = {}
+        self._principals = {}
+        self.totals = _Accum()
+        self.started = time.monotonic()
+        # (site, principal weights, start event, end event) not yet read
+        self._pending: deque = deque()
+        self.timings_dropped = 0
+
+    # -- registration -----------------------------------------------------
+    def site(self, name) -> Site:
+        with self._lock:
+            s = self._sites.get(name)
+            if s is None:
+                s = self._sites[name] = Site(name, self)
+        return s
+
+    def reset_sites(self, names) -> None:
+        """Zero the named sites' tables; their unread event pairs are
+        dropped. The totals and the principal rows keep counting."""
+        names = set(names)
+        with self._settle_lock, self._lock:
+            for name in names:
+                site = self._sites.get(name)
+                if site is not None:
+                    site.acc = _Accum()
+            self._pending = deque(p for p in self._pending if p[0].name not in names)
+
+    # -- principal table --------------------------------------------------
+    def _principal_row(self, principal) -> _Accum:
+        # caller holds self._lock
+        row = self._principals.get(principal)
+        if row is None:
+            if len(self._principals) >= _MAX_PRINCIPALS:
+                principal = _OVERFLOW_PRINCIPAL
+                row = self._principals.get(principal)
+                if row is None:
+                    row = self._principals[principal] = _Accum()
+            else:
+                row = self._principals[principal] = _Accum()
+        return row
+
+    # -- booking ----------------------------------------------------------
+    def _book_launch(self, site, n, wall_ms):
+        weights = ambient_weights()
+        with self._lock:
+            site.acc.launches += n
+            site.acc.launch_ms += wall_ms
+            self.totals.launches += n
+            self.totals.launch_ms += wall_ms
+            for principal, w in weights:
+                row = self._principal_row(principal)
+                row.launches += max(1, round(n * w)) if n else 0
+                row.launch_ms += wall_ms * w
+
+    def _book_device_ms(self, site, weights, ms):
+        # caller holds self._lock
+        site.acc.device_ms += ms
+        self.totals.device_ms += ms
+        for principal, w in weights:
+            self._principal_row(principal).device_ms += ms * w
+
+    def _book_transfer(self, site, nbytes, direction):
+        weights = ambient_weights()
+        with self._lock:
+            if direction == "d2h":
+                site.acc.d2h_bytes += nbytes
+                self.totals.d2h_bytes += nbytes
+            else:
+                site.acc.h2d_bytes += nbytes
+                self.totals.h2d_bytes += nbytes
+            for principal, w in weights:
+                row = self._principal_row(principal)
+                if direction == "d2h":
+                    row.d2h_bytes += int(nbytes * w)
+                else:
+                    row.h2d_bytes += int(nbytes * w)
+
+    # -- CUDA event pairs -------------------------------------------------
+    def _pend(self, site, start, end) -> None:
+        weights = ambient_weights()
+        with self._lock:
+            self._pending.append((site, weights, start, end))
+            n = len(self._pending)
+        if n >= _SETTLE_AT:
+            self.settle(wait=False)
+            with self._lock:
+                while len(self._pending) > _MAX_PENDING:
+                    self._pending.popleft()
+                    self.timings_dropped += 1
+
+    def settle(self, wait: bool = True) -> None:
+        """Fold the device time of queued event pairs into the tables, in
+        launch order. ``wait=False`` stops at the first pair whose launch
+        has not finished (the query path's form: it never waits)."""
+        with self._settle_lock:
+            while True:
+                with self._lock:
+                    if not self._pending:
+                        return
+                    site, weights, start, end = self._pending[0]
+                if not wait and not end.query():
+                    return
+                end.synchronize()
+                ms = float(start.elapsed_time(end))
+                with self._lock:
+                    if self._pending and self._pending[0][3] is end:
+                        self._pending.popleft()
+                        self._book_device_ms(site, weights, ms)
+
+    # -- exposition -------------------------------------------------------
+    def site_device_ms(self) -> dict:
+        """site name -> (launches, device ms), every pair read first."""
+        self.settle()
+        with self._lock:
+            return {
+                name: (s.acc.launches, s.acc.device_ms)
+                for name, s in self._sites.items()
+            }
+
+    def snapshot(self) -> dict:
+        self.settle()
+        uptime = max(time.monotonic() - self.started, 1e-9)
+        with self._lock:
+            sites = {
+                name: s.acc.to_dict(uptime)
+                for name, s in sorted(self._sites.items())
+            }
+            principals = []
+            for (tenant, idx, cls), row in sorted(self._principals.items()):
+                p = row.to_dict(uptime)
+                p["tenant"] = tenant
+                p["index"] = idx
+                p["opClass"] = cls
+                principals.append(p)
+            return {
+                "uptimeSec": round(uptime, 3),
+                "totals": self.totals.to_dict(uptime),
+                "sites": sites,
+                "principals": principals,
+                "timingsDropped": self.timings_dropped,
+            }
+
+    def prometheus_text(self) -> str:
+        self.settle()
+        out = []
+
+        def emit(metric, help_text, rows):
+            out.append(f"# HELP pilosa_{metric} {help_text}")
+            out.append(f"# TYPE pilosa_{metric} counter")
+            for labels, value in rows:
+                lbl = ",".join(f'{k}="{v}"' for k, v in labels)
+                out.append(f"pilosa_{metric}{{{lbl}}} {value}")
+
+        with self._lock:
+            site_rows = [(n, s.acc) for n, s in sorted(self._sites.items())]
+            prin_rows = sorted(self._principals.items())
+        emit(
+            "dev_launches",
+            "device launches per ledger site",
+            [((("site", n),), a.launches) for n, a in site_rows],
+        )
+        emit(
+            "dev_device_ms",
+            "device launch milliseconds per ledger site",
+            [((("site", n),), round(a.device_ms, 3)) for n, a in site_rows],
+        )
+        emit(
+            "dev_transfer_bytes",
+            "host<->device bytes per ledger site",
+            [
+                ((("site", n), ("direction", "h2d")), a.h2d_bytes)
+                for n, a in site_rows
+            ]
+            + [
+                ((("site", n), ("direction", "d2h")), a.d2h_bytes)
+                for n, a in site_rows
+            ],
+        )
+        emit(
+            "dev_tenant_launches",
+            "device launches per principal",
+            [
+                (
+                    (("tenant", t), ("index", i), ("op_class", c)),
+                    a.launches,
+                )
+                for (t, i, c), a in prin_rows
+            ],
+        )
+        emit(
+            "dev_tenant_device_ms",
+            "device milliseconds per principal",
+            [
+                (
+                    (("tenant", t), ("index", i), ("op_class", c)),
+                    round(a.device_ms, 3),
+                )
+                for (t, i, c), a in prin_rows
+            ],
+        )
+        emit(
+            "dev_tenant_transfer_bytes",
+            "host<->device bytes per principal",
+            [
+                (
+                    (("tenant", t), ("index", i), ("op_class", c)),
+                    a.h2d_bytes + a.d2h_bytes,
+                )
+                for (t, i, c), a in prin_rows
+            ],
+        )
+        return "\n".join(out) + "\n"
+
+
+_LEDGER = Ledger()
+
+
+def ledger() -> Ledger:
+    return _LEDGER
+
+
+def site(name) -> Site:
+    return _LEDGER.site(name)
+
+
+def snapshot() -> dict:
+    return _LEDGER.snapshot()
+
+
+def prometheus_text() -> str:
+    return _LEDGER.prometheus_text()
+

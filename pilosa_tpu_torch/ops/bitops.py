@@ -13,7 +13,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from pilosa_tpu_torch.obs import devledger, qprofile
 from pilosa_tpu_torch.shardwidth import SHARD_WORDS, WORD_BITS
+
+_DL_H2D = devledger.site("bitops.to_device")
 
 # ---------------------------------------------------------------------------
 # Host-side (numpy) helpers — the ingest/serialization boundary.
@@ -40,8 +43,15 @@ def pack_columns(cols: np.ndarray, n_words: int = SHARD_WORDS) -> np.ndarray:
 
 
 def unpack_columns(words: np.ndarray) -> np.ndarray:
-    """Inverse of :func:`pack_columns`: packed words -> sorted column offsets."""
+    """Inverse of :func:`pack_columns`: packed words -> sorted column offsets.
+    A sparse row (a selective tree's result) unpacks only its nonzero
+    words."""
     words = np.ascontiguousarray(words, dtype=np.uint32)
+    nz = np.flatnonzero(words)
+    if nz.size * 8 < words.size:
+        bits = np.unpackbits(words[nz].view(np.uint8), bitorder="little").reshape(-1, 32)
+        at, bit = np.nonzero(bits)
+        return nz[at].astype(np.uint64) * np.uint64(32) + bit.astype(np.uint64)
     bits = np.unpackbits(words.view(np.uint8), bitorder="little")
     return np.flatnonzero(bits).astype(np.uint64)
 
@@ -143,6 +153,10 @@ def to_device(words: np.ndarray, device: torch.device) -> torch.Tensor:
     t = torch.from_numpy(arr)
     if torch.device(device).type == "cpu":
         return t.clone()
+    # the port's host-to-card funnel: the bytes go on the device ledger
+    # and the active query profile
+    _DL_H2D.record_transfer(arr.nbytes, "h2d")
+    qprofile.incr("transfer_h2d_bytes", arr.nbytes)
     return t.to(device)
 
 

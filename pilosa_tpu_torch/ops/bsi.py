@@ -594,13 +594,14 @@ def bsi_range(planes, exists, sign, table: np.ndarray, *, count: bool) -> torch.
             vec = _range_vec(planes, exists, sign, *(() if count else (out,)))
             plan = range_plan(table, depth, W, count, vec=vec)
             for launch in plan.launches:
-                kernels._launch(
-                    "pilosa_bsi_range", launch.param, len(launch.param), planes.data_ptr(),
-                    planes.stride(0), exists.data_ptr(), exists.stride(0), sign.data_ptr(),
-                    sign.stride(0), launch.depth, S, W, plan.dmax, plan.vec, plan.grid_x,
-                    int(count), out.data_ptr(), Q, dev.index, kernels._stream(dev),
-                )
-                kernels.LAUNCHES["bsi_range"] += 1
+                with kernels._launching("bsi_range", dev):
+                    kernels._launch(
+                        "pilosa_bsi_range", launch.param, len(launch.param),
+                        planes.data_ptr(), planes.stride(0), exists.data_ptr(),
+                        exists.stride(0), sign.data_ptr(), sign.stride(0), launch.depth,
+                        S, W, plan.dmax, plan.vec, plan.grid_x, int(count),
+                        out.data_ptr(), Q, dev.index, kernels._stream(dev),
+                    )
     return out[:, 0] if one else out
 
 
@@ -701,12 +702,12 @@ def bsi_sum(planes, exists, sign, filters=None) -> torch.Tensor:
     # unfiltered: the exists row is its own filter (f = exists & exists)
     f, f_s, f_q = (exists, exists.stride(0), 0) if filters is None else (
         filters, filters.stride(0), filters.stride(1))
-    kernels._launch(
-        "pilosa_bsi_sum", planes.data_ptr(), planes.stride(0), exists.data_ptr(),
-        exists.stride(0), sign.data_ptr(), sign.stride(0), f.data_ptr(), f_s, f_q,
-        Q, depth, S, W, out.data_ptr(), dev.index, kernels._stream(dev),
-    )
-    kernels.LAUNCHES["bsi_sum"] += 1
+    with kernels._launching("bsi_sum", dev):
+        kernels._launch(
+            "pilosa_bsi_sum", planes.data_ptr(), planes.stride(0), exists.data_ptr(),
+            exists.stride(0), sign.data_ptr(), sign.stride(0), f.data_ptr(), f_s, f_q,
+            Q, depth, S, W, out.data_ptr(), dev.index, kernels._stream(dev),
+        )
     return out
 
 
@@ -833,12 +834,12 @@ def bsi_extreme(planes, exists, sign, filt=None, *, maximal: bool) -> torch.Tens
     if not (S and n):
         return out
     f, f_s = (exists, exists.stride(0)) if filt is None else (filt, filt.stride(0))
-    kernels._launch(
-        "pilosa_bsi_extreme", planes.data_ptr(), planes.stride(0), exists.data_ptr(),
-        exists.stride(0), sign.data_ptr(), sign.stride(0), f.data_ptr(), f_s,
-        depth, S, W, int(maximal), out.data_ptr(), dev.index, kernels._stream(dev),
-    )
-    kernels.LAUNCHES["bsi_extreme"] += 1
+    with kernels._launching("bsi_extreme", dev):
+        kernels._launch(
+            "pilosa_bsi_extreme", planes.data_ptr(), planes.stride(0), exists.data_ptr(),
+            exists.stride(0), sign.data_ptr(), sign.stride(0), f.data_ptr(), f_s,
+            depth, S, W, int(maximal), out.data_ptr(), dev.index, kernels._stream(dev),
+        )
     return out
 
 

@@ -36,7 +36,11 @@ Each kernel wrapper checks device, dtype, shape and contiguity. Given a
 tensor on the CPU it computes the kernel's plain PyTorch version (the
 ``*_plain`` function beside it); given a CUDA tensor it launches the
 kernel or raises. The plain versions are the contract the kernels are
-held to on the card. ``LAUNCHES`` counts kernel launches per wrapper.
+held to on the card. Every launch goes through :func:`_launching`, the
+wrappers' funnel: it counts the launch in ``LAUNCHES`` (under a lock, as
+HTTP handler threads launch at once), books it on the kernel's device
+ledger site with a CUDA event pair for its device time, and adds a record
+to the active query profile.
 
 Stacks are ``int32[S, R, W]``: bit-identical views of the host's
 ``uint32`` words.
@@ -44,13 +48,17 @@ Stacks are ``int32[S, R, W]``: bit-identical views of the host's
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import threading
+import time
 from functools import lru_cache
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
+from pilosa_tpu_torch.obs import devledger, qprofile
 from pilosa_tpu_torch.ops import bitops, cuda_build
 
 _TORCH_OPS = {
@@ -69,9 +77,83 @@ LAUNCHES = {
 }
 
 
+_LAUNCH_LOCK = threading.Lock()
+# kernel name -> its device ledger site (launches, device ms, by principal)
+_DL_SITES = {name: devledger.site(f"kernels.{name}") for name in LAUNCHES}
+
+
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    """Zero ``LAUNCHES`` and the kernels' ledger sites together, so the
+    ``kernels`` block's launches and device ms count the same launches."""
+    with _LAUNCH_LOCK:
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
+        devledger.ledger().reset_sites(site.name for site in _DL_SITES.values())
+
+
+def telemetry_snapshot() -> dict:
+    """The ``kernels`` block of ``/debug/vars``: per kernel, its launches
+    (``LAUNCHES``) and the device milliseconds the ledger read for them
+    from their CUDA event pairs."""
+    sites = devledger.ledger().site_device_ms()
+    with _LAUNCH_LOCK:
+        launches = dict(LAUNCHES)
+    return {
+        name: {
+            "launches": n,
+            "deviceMs": round(sites.get(f"kernels.{name}", (0, 0.0))[1], 3),
+        }
+        for name, n in launches.items()
+    }
+
+
+def prometheus_text() -> str:
+    """``pilosa_kernel_launches`` and ``pilosa_kernel_device_ms`` per
+    kernel, for ``/metrics``."""
+    snap = telemetry_snapshot()
+    out = []
+    for metric, key, help_text in (
+        ("kernel_launches", "launches", "hand-written kernel launches"),
+        ("kernel_device_ms", "deviceMs", "device milliseconds of kernel launches"),
+    ):
+        out.append(f"# HELP pilosa_{metric} {help_text}")
+        out.append(f"# TYPE pilosa_{metric} counter")
+        out.extend(
+            f'pilosa_{metric}{{kernel="{name}"}} {row[key]}'
+            for name, row in sorted(snap.items())
+        )
+    return "\n".join(out) + "\n"
+
+
+# the start event of the launch this thread is about to make (_launching
+# sets it, _launch records it right before the C call)
+_starts = threading.local()
+
+
+@contextlib.contextmanager
+def _launching(name: str, device: torch.device):
+    """Bracket one launch of kernel ``name`` on ``device``: CUDA events
+    before and after it on the current stream (read later, by the ledger's
+    snapshot), and, once the launch returned, its count in ``LAUNCHES``, its
+    ledger booking and its profile record. A launch that raises is not
+    counted. The start event is recorded by :func:`_launch` just before the
+    C call, so the pair spans the launch and not the library's load before
+    it (the first launch of a process builds the kernels there)."""
+    stream = torch.cuda.current_stream(device)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    _starts.pending = (start, stream)
+    try:
+        yield
+    finally:
+        _starts.pending = None
+    end.record(stream)
+    wall = time.perf_counter() - t0
+    with _LAUNCH_LOCK:
+        LAUNCHES[name] += 1
+    _DL_SITES[name].record_cuda_launch(start, end, wall)
+    qprofile.record_kernel(kernel=name, lane="cuda", wall_ms=round(wall * 1e3, 3))
 
 
 def _check_words(name: str, t, ndim: int) -> None:
@@ -101,7 +183,12 @@ def _is_cpu(name: str, *ts: torch.Tensor) -> bool:
 
 def _launch(fn: str, *args) -> None:
     lib = cuda_build.load()
-    cuda_build.check(lib, fn, getattr(lib, fn)(*args))
+    call = getattr(lib, fn)
+    pending = getattr(_starts, "pending", None)
+    if pending is not None:
+        _starts.pending = None
+        pending[0].record(pending[1])
+    cuda_build.check(lib, fn, call(*args))
 
 
 def _stream(device: torch.device) -> int:
@@ -133,11 +220,11 @@ def row_counts_per_shard(bits: torch.Tensor) -> torch.Tensor:
         return out
     if W == 0:
         return out.zero_()
-    _launch(
-        "pilosa_row_scan", bits.data_ptr(), out.data_ptr(), S, R, W,
-        bits.device.index, _stream(bits.device),
-    )
-    LAUNCHES["row_scan"] += 1
+    with _launching("row_scan", bits.device):
+        _launch(
+            "pilosa_row_scan", bits.data_ptr(), out.data_ptr(), S, R, W,
+            bits.device.index, _stream(bits.device),
+        )
     return out
 
 
@@ -187,11 +274,11 @@ def masked_row_counts_per_shard(
         return out
     if W == 0:
         return out.zero_()
-    _launch(
-        "pilosa_masked_row_scan", bits.data_ptr(), filt.data_ptr(),
-        out.data_ptr(), S, R, W, bits.device.index, _stream(bits.device),
-    )
-    LAUNCHES["masked_row_scan"] += 1
+    with _launching("masked_row_scan", bits.device):
+        _launch(
+            "pilosa_masked_row_scan", bits.data_ptr(), filt.data_ptr(),
+            out.data_ptr(), S, R, W, bits.device.index, _stream(bits.device),
+        )
     return out
 
 
@@ -336,12 +423,12 @@ def gram_gather(bits: torch.Tensor, idx) -> torch.Tensor:
     plan = gram_plan(U, W, _copies16(W, bits))
     _check_plan(plan, U, U, W, self_gram=True)
     dev_idx = torch.from_numpy(host_idx).to(bits.device)
-    _launch(
-        "pilosa_gram_gather", bits.data_ptr(), dev_idx.data_ptr(),
-        out.data_ptr(), S, R, W, U, bits.device.index, _stream(bits.device),
-        int(plan.vec16), int(plan.tri), plan.tile_n,
-    )
-    LAUNCHES["gram"] += 1
+    with _launching("gram", bits.device):
+        _launch(
+            "pilosa_gram_gather", bits.data_ptr(), dev_idx.data_ptr(),
+            out.data_ptr(), S, R, W, U, bits.device.index, _stream(bits.device),
+            int(plan.vec16), int(plan.tri), plan.tile_n,
+        )
     return out
 
 
@@ -517,16 +604,16 @@ def cross_gram_gather(
     _check_plan(plan, Ua, Ub, W)
     dev_a = torch.from_numpy(host_a).to(dev)
     dev_b = torch.from_numpy(host_b).to(dev)
-    _launch(
-        "pilosa_cross_gram_gather",
-        bits_a.data_ptr(), bits_a.stride(0), bits_a.stride(1),
-        dev_a.data_ptr(), Ua,
-        bits_b.data_ptr(), bits_b.stride(0), bits_b.stride(1),
-        dev_b.data_ptr(), Ub,
-        out.data_ptr(), S, W, dev.index, _stream(dev),
-        int(plan.swap), int(plan.vec16), plan.tile_m, plan.tile_n,
-    )
-    LAUNCHES["cross_gram"] += 1
+    with _launching("cross_gram", dev):
+        _launch(
+            "pilosa_cross_gram_gather",
+            bits_a.data_ptr(), bits_a.stride(0), bits_a.stride(1),
+            dev_a.data_ptr(), Ua,
+            bits_b.data_ptr(), bits_b.stride(0), bits_b.stride(1),
+            dev_b.data_ptr(), Ub,
+            out.data_ptr(), S, W, dev.index, _stream(dev),
+            int(plan.swap), int(plan.vec16), plan.tile_m, plan.tile_n,
+        )
     return out
 
 
@@ -1386,22 +1473,23 @@ def tree_count(stacks, code, leaf_stack, slots) -> torch.Tensor:
         lay = tree_direct_layout(stacks, leaf_stack, slots, prog.steps, items,
                                  plan.row_tile if plan.stages else None)
         ptr, host_bytes, _owner = _tree_table(lay.parts, dev)
-        _launch(
-            "pilosa_tree_count", ptr, host_bytes, B, lay.n_rows, prog.steps.size,
-            prog.staged_depth, S, W, int(plan.vec16), lay.rows_max, plan.stages, plan.lanes,
-            plan.wsplit, plan.flat, out.data_ptr(), dev.index, _stream(dev),
-        )
+        with _launching("tree_count", dev):
+            _launch(
+                "pilosa_tree_count", ptr, host_bytes, B, lay.n_rows, prog.steps.size,
+                prog.staged_depth, S, W, int(plan.vec16), lay.rows_max, plan.stages,
+                plan.lanes, plan.wsplit, plan.flat, out.data_ptr(), dev.index, _stream(dev),
+            )
     else:
         out = torch.zeros((B, S), dtype=torch.int32, device=dev)
         lay = tree_staged_layout(stacks, rows, remap, prog.steps, plan)
         table = _upload(_pack(lay.parts), dev)
-        _launch(
-            "pilosa_tree_count_staged", table.data_ptr(), lay.tiles, lay.n_rows,
-            lay.n_items, prog.steps.size, L, prog.staged_depth, S, W, plan.stages,
-            lay.rows_max, lay.items_max, plan.wsplit, plan.flat, out.data_ptr(),
-            dev.index, _stream(dev),
-        )
-    LAUNCHES["tree_count"] += 1
+        with _launching("tree_count", dev):
+            _launch(
+                "pilosa_tree_count_staged", table.data_ptr(), lay.tiles, lay.n_rows,
+                lay.n_items, prog.steps.size, L, prog.staged_depth, S, W, plan.stages,
+                lay.rows_max, lay.items_max, plan.wsplit, plan.flat, out.data_ptr(),
+                dev.index, _stream(dev),
+            )
     return out
 
 
@@ -1421,9 +1509,9 @@ def tree_words(stacks, code, leaf_stack, slots) -> torch.Tensor:
     lay = tree_direct_layout(stacks, leaf_stack, slots[None], prog.steps)
     ptr, host_bytes, _owner = _tree_table(lay.parts, dev)
     vec16 = _copies16(W, *stacks) and out.data_ptr() % 16 == 0
-    _launch(
-        "pilosa_tree_words", ptr, host_bytes, lay.n_rows, prog.steps.size,
-        prog.staged_depth, S, W, int(vec16), out.data_ptr(), dev.index, _stream(dev),
-    )
-    LAUNCHES["tree_words"] += 1
+    with _launching("tree_words", dev):
+        _launch(
+            "pilosa_tree_words", ptr, host_bytes, lay.n_rows, prog.steps.size,
+            prog.staged_depth, S, W, int(vec16), out.data_ptr(), dev.index, _stream(dev),
+        )
     return out

@@ -1,0 +1,641 @@
+"""Programmatic API surface of one node (counterpart of
+``pilosa_tpu/server/api.py``; reference: api.go).
+
+Every HTTP route lands here. Methods are state-gated like the reference
+(api.go:100-124 validAPIMethods): during STARTING only status-ish methods
+work, during RESIZING only fragment transfer and abort. A single node sits
+in NORMAL.
+
+One node only: every query takes the direct path to the executor (the
+JAX package's path with its batcher off), imports apply on the bounded
+import pool with no ingest pipeline, and the cluster-only parts of the
+JAX API (the distributed executor, migrations, resize, peer messages,
+attribute and fragment blocks, the translate log, history, incidents and
+postmortems) are not here.
+"""
+
+from __future__ import annotations
+
+import io
+import os
+import threading
+import time
+import weakref
+from concurrent.futures import ThreadPoolExecutor
+
+import numpy as np
+
+from pilosa_tpu_torch import __version__, deadline, pql
+from pilosa_tpu_torch.core import membudget, residency, timequantum
+from pilosa_tpu_torch.core.field import FieldOptions
+from pilosa_tpu_torch.core.fragment import BSI_OFFSET_BIT
+from pilosa_tpu_torch.core.holder import Holder
+from pilosa_tpu_torch.core.view import VIEW_STANDARD
+from pilosa_tpu_torch.exec.executor import ExecuteError, Executor
+from pilosa_tpu_torch.exec.result import result_to_json
+from pilosa_tpu_torch.obs import devledger, qprofile, slo
+from pilosa_tpu_torch.ops import bitops
+from pilosa_tpu_torch.server import qos as qos_mod
+from pilosa_tpu_torch.server.importpool import ImportPool
+from pilosa_tpu_torch.shardwidth import SHARD_WIDTH_EXP
+from pilosa_tpu_torch.storage import roaring
+from pilosa_tpu_torch.storage.disk import HolderStore
+
+# Cluster states (reference cluster.go:46-51).
+STATE_STARTING = "STARTING"
+STATE_NORMAL = "NORMAL"
+STATE_DEGRADED = "DEGRADED"
+STATE_RESIZING = "RESIZING"
+
+# Methods valid in non-NORMAL states (reference api.go:100-124).
+_STARTING_METHODS = {
+    "Status", "Info", "Version", "Schema", "ClusterMessage", "Hosts",
+}
+_RESIZING_METHODS = {
+    "Status", "Info", "Version", "ClusterMessage", "Hosts",
+    "FragmentData", "ResizeAbort",
+}
+
+
+class ApiError(Exception):
+    def __init__(self, msg: str, code: int = 400):
+        super().__init__(msg)
+        self.code = code
+
+
+class NotFoundError(ApiError):
+    def __init__(self, msg: str):
+        super().__init__(msg, 404)
+
+
+class ConflictError(ApiError):
+    def __init__(self, msg: str):
+        super().__init__(msg, 409)
+
+
+class API:
+    """reference api.go:74 NewAPI, for one node."""
+
+    def __init__(
+        self,
+        holder: Holder | None = None,
+        store: HolderStore | None = None,
+        import_workers: int = 2,
+        import_queue_depth: int = 16,
+        max_writes_per_request: int | None = None,
+    ):
+        self.holder = holder if holder is not None else Holder()
+        self.store = store
+        self.executor = Executor(
+            self.holder,
+            translator=store.translator if store is not None else None,
+            max_writes_per_request=max_writes_per_request,
+        )
+        self._lock = threading.RLock()
+        self.state = STATE_NORMAL
+        # Slow-query ring (reference long-query-time, upgraded to full
+        # profiles at /debug/slow-queries); the server sets the threshold.
+        self.slow_queries = qprofile.SlowQueryLog()
+        # Bounded import worker pool: concurrency limit + backpressure
+        # (reference api.go:66-96 importWorkerPoolSize default 2,
+        # importWorker :313-348).
+        self.import_pool = ImportPool(
+            workers=import_workers, depth=import_queue_depth,
+            jobs=self.holder.jobs, stats=self.holder.stats,
+        )
+        # /debug/fragments: fragment -> ((epoch, version), its census),
+        # and the pool that computes them (made at first need)
+        self._census: weakref.WeakKeyDictionary = weakref.WeakKeyDictionary()
+        self._pool: ThreadPoolExecutor | None = None
+
+    # -- state gating (reference api.go:100-124) ---------------------------
+
+    def _validate(self, method: str) -> None:
+        if self.state in (STATE_NORMAL, STATE_DEGRADED):
+            return
+        allowed = (
+            _STARTING_METHODS if self.state == STATE_STARTING else _RESIZING_METHODS
+        )
+        if method not in allowed:
+            raise ApiError(
+                f"api method {method} not allowed in state {self.state}", 503
+            )
+
+    # -- queries ------------------------------------------------------------
+
+    def query(
+        self,
+        index: str,
+        pql_text: str,
+        shards: list[int] | None = None,
+        profile: bool = False,
+    ) -> dict:
+        """reference api.go:134 Query. ``profile=True`` returns the
+        per-query call tree (spans, kernel launches, cache hits) under
+        ``"profile"`` beside the results; a profile is also collected,
+        without being returned, whenever the slow-query log is armed."""
+        self._validate("Query")
+        # a spent budget fails fast; DeadlineExceeded stays outside the
+        # ApiError catch below so the transport maps it to 504
+        deadline.check(f"query on {index!r}")
+        prof = None
+        if profile or self.slow_queries.enabled:
+            prof = qprofile.QueryProfile(index, pql_text)
+        t0 = time.perf_counter()
+        err = None
+        try:
+            with qprofile.activate(prof):
+                try:
+                    results = self._execute_query(index, pql_text, shards)
+                    resp = {"results": result_to_json(results)}
+                    # an answer from the degraded tier is marked
+                    if qos_mod.take_degraded():
+                        resp["degraded"] = True
+                except (ExecuteError, pql.ParseError, ValueError, TypeError) as e:
+                    err = str(e)
+                    raise ApiError(str(e))
+        except BaseException as e:
+            if err is None:
+                err = repr(e)  # timeouts etc. still land in the slow log
+            raise
+        finally:
+            if prof is not None:
+                prof.finish(time.perf_counter() - t0, error=err)
+                self.slow_queries.observe(prof)
+        if prof is not None and profile:
+            resp["profile"] = prof.to_dict()
+        return resp
+
+    def _execute_query(self, index: str, pql_text: str, shards):
+        q = pql.parse(pql_text)
+        # the SLO op class rides a contextvar to the HTTP layer's
+        # recording point (this thread handles the whole request)
+        op_class = slo.classify_query(q)
+        slo.note_class(op_class)
+        # every launch this query causes books under (tenant, index,
+        # op_class) on the device ledger
+        with devledger.principal_scope(index, op_class):
+            return self.executor.execute(index, q, shards=shards)
+
+    # -- schema CRUD (reference api.go:161-495) -----------------------------
+
+    def schema(self) -> dict:
+        self._validate("Schema")
+        return {"indexes": self.holder.schema()}
+
+    def apply_schema(self, schema: dict) -> None:
+        self._validate("ApplySchema")
+        self.holder.apply_schema(schema.get("indexes", []))
+        self._sync()
+
+    def create_index(self, name: str, options: dict | None = None) -> dict:
+        self._validate("CreateIndex")
+        options = options or {}
+        with self._lock:
+            if self.holder.index(name) is not None:
+                raise ConflictError("index already exists")
+            try:
+                idx = self.holder.create_index(
+                    name,
+                    keys=options.get("keys", False),
+                    track_existence=options.get("trackExistence", True),
+                )
+            except ValueError as e:
+                raise ApiError(str(e))
+        self._sync()
+        return idx.to_dict()
+
+    def delete_index(self, name: str) -> None:
+        self._validate("DeleteIndex")
+        if not self.holder.delete_index(name):
+            raise NotFoundError("index not found")
+        if self.store is not None:
+            self.store.delete_index_dir(name)
+
+    def index_info(self, name: str) -> dict:
+        self._validate("Index")
+        idx = self.holder.index(name)
+        if idx is None:
+            raise NotFoundError("index not found")
+        return idx.to_dict()
+
+    def create_field(
+        self, index: str, field: str, options: dict | None = None
+    ) -> dict:
+        self._validate("CreateField")
+        idx = self.holder.index(index)
+        if idx is None:
+            raise NotFoundError("index not found")
+        if idx.field(field) is not None:
+            raise ConflictError("field already exists")
+        try:
+            f = idx.create_field(field, FieldOptions.from_dict(options or {}))
+        except ValueError as e:
+            raise ApiError(str(e))
+        self._sync()
+        return f.to_dict()
+
+    def delete_field(self, index: str, field: str) -> None:
+        self._validate("DeleteField")
+        idx = self.holder.index(index)
+        if idx is None:
+            raise NotFoundError("index not found")
+        if not idx.delete_field(field):
+            raise NotFoundError("field not found")
+        if self.store is not None:
+            self.store.delete_field_dir(index, field)
+
+    def field_info(self, index: str, field: str) -> dict:
+        self._validate("Field")
+        f = self.holder.field(index, field)
+        if f is None:
+            raise NotFoundError("field not found")
+        return f.to_dict()
+
+    # -- imports (reference api.go:919-1112 Import/ImportValue,
+    #    :367-427 ImportRoaring) --------------------------------------------
+
+    def import_bits(self, index: str, field: str, req: dict) -> None:
+        """JSON bulk import: rowIDs/rowKeys + columnIDs/columnKeys
+        (+ timestamps), or columnIDs/columnKeys + values for int fields;
+        ``clear`` clears instead. The apply runs on the bounded import
+        pool (reference api.go:313-348 backpressure) under one
+        import-drain record."""
+        self._validate("Import")
+        deadline.check(f"import into {index!r}/{field!r}")
+        idx = self.holder.index(index)
+        if idx is None:
+            raise NotFoundError("index not found")
+        f = idx.field(field)
+        if f is None:
+            raise NotFoundError("field not found")
+        cols = req.get("columnIDs")
+        if cols is None:
+            keys = req.get("columnKeys")
+            if keys is None:
+                raise ApiError("columnIDs or columnKeys required")
+            if not idx.keys:
+                raise ApiError("columnKeys given but index does not use keys")
+            cols = self.executor.translator.translate_keys(index, "", keys)
+        cols = np.asarray(cols, dtype=np.uint64)
+        with self.import_pool.drain_scope():
+            self.import_pool.run(
+                lambda: self._apply_import(idx, f, index, field, req, cols)
+            )
+
+    def _apply_import(self, idx, f, index: str, field: str, req: dict, cols) -> None:
+        clear = req.get("clear", False)
+        if "values" in req:
+            if not f.is_bsi():
+                raise ApiError(f"field {field!r} is not an int field")
+            values = np.asarray(req["values"], dtype=np.int64)
+            if len(values) != len(cols):
+                raise ApiError("columns/values length mismatch")
+            if len(values) and (
+                int(values.min()) < f.options.min or int(values.max()) > f.options.max
+            ):
+                raise ApiError("value out of field range")
+            f.import_values(cols, values, clear=clear)
+        else:
+            rows = req.get("rowIDs")
+            if rows is None:
+                keys = req.get("rowKeys")
+                if keys is None:
+                    raise ApiError("rowIDs or rowKeys required")
+                if not f.keys:
+                    raise ApiError("rowKeys given but field does not use keys")
+                rows = self.executor.translator.translate_keys(index, field, keys)
+            if len(rows) != len(cols):
+                raise ApiError("rows/columns length mismatch")
+            timestamps = req.get("timestamps")
+            ts = None if timestamps is None else _timestamps(timestamps)
+            f.import_bits(
+                np.asarray(rows, dtype=np.uint64), cols, timestamps=ts, clear=clear,
+            )
+        ef = idx.existence_field()
+        if ef is not None and not clear:
+            ef.import_bits(np.zeros(len(cols), dtype=np.uint64), cols)
+
+    def import_roaring(
+        self, index: str, field: str, shard: int, data: bytes,
+        clear: bool = False, view: str = VIEW_STANDARD,
+    ) -> dict:
+        """Binary roaring import, the highest-throughput ingest path
+        (reference api.go:367-427): decoded on the handler thread straight
+        into row words (no positions), merged on the import pool under
+        one import-drain record."""
+        self._validate("ImportRoaring")
+        f = self.holder.field(index, field)
+        if f is None:
+            raise NotFoundError("field not found")
+        with self.import_pool.drain_scope():
+            try:
+                row_ids, words, _ = roaring.decode_rows(data, f.n_words)
+            except roaring.RoaringError as e:
+                raise ApiError(f"bad roaring payload: {e}")
+            return self.import_pool.run(
+                lambda: self._apply_roaring_rows(index, f, shard, row_ids, words, clear, view)
+            )
+
+    def _apply_roaring_rows(
+        self, index: str, f, shard: int, row_ids: np.ndarray, words: np.ndarray,
+        clear: bool, view: str,
+    ) -> dict:
+        """Merge decoded roaring rows into the shard's fragment (JAX
+        ``_apply_roaring_positions``); ``changed`` counts the bits flipped,
+        as JAX's does."""
+        frag = f.create_view_if_not_exists(view).create_fragment_if_not_exists(shard)
+        changed = frag.import_row_words(row_ids, words, clear=clear)
+        if view.startswith("bsig_") and f.is_bsi() and len(row_ids):
+            # the schema carries only the options: the bit depth grows to
+            # the planes the payload holds (reference field.go:1050-1067)
+            f.grow_bit_depth(int(row_ids.max()) - BSI_OFFSET_BIT + 1)
+        idx = self.holder.index(index)
+        ef = idx.existence_field() if idx is not None else None
+        if ef is not None and not clear and len(row_ids):
+            cols = np.bitwise_or.reduce(words, axis=0)
+            ef.create_view_if_not_exists(VIEW_STANDARD).create_fragment_if_not_exists(
+                shard
+            ).import_row_words(np.zeros(1, dtype=np.uint64), cols[None])
+        return {"changed": int(changed)}
+
+    # -- export (reference api.go:499-573 ExportCSV) ------------------------
+
+    def export_csv(self, index: str, field: str, shard: int | None = None) -> str:
+        self._validate("ExportCSV")
+        f = self.holder.field(index, field)
+        if f is None:
+            raise NotFoundError("field not found")
+        v = f.view(VIEW_STANDARD)
+        out = io.StringIO()
+        translator = self.executor.translator
+        idx = self.holder.index(index)
+        if v is None:
+            return ""
+        for s in sorted(v.fragments) if shard is None else [shard]:
+            frag = v.fragment(s)
+            if frag is None:
+                continue
+            width = frag.shard_width
+            for row in frag.row_ids():
+                row_out = translator.translate_id(index, field, row) if f.keys else row
+                for c in bitops.unpack_columns(frag.row_words_host(row)):
+                    col = int(c) + s * width
+                    if idx is not None and idx.keys:
+                        col_out = translator.translate_id(index, "", col)
+                    else:
+                        col_out = col
+                    out.write(f"{row_out},{col_out}\n")
+        return out.getvalue()
+
+    # -- node info (reference api.go:1114-1342) -----------------------------
+
+    def _nodes_info(self) -> list[dict]:
+        return [{"id": self._node_id(), "uri": "", "isCoordinator": True, "state": "READY"}]
+
+    def status(self) -> dict:
+        self._validate("Status")
+        return {
+            "state": self.state,
+            "nodes": self._nodes_info(),
+            "localID": self._node_id(),
+            "schema": self.holder.schema(),
+            "availableShards": self.available_shards_map(),
+        }
+
+    def info(self) -> dict:
+        self._validate("Info")
+        return {"shardWidth": 1 << SHARD_WIDTH_EXP, "shardWidthExp": SHARD_WIDTH_EXP}
+
+    def version(self) -> dict:
+        return {"version": __version__}
+
+    def hosts(self) -> list[dict]:
+        self._validate("Hosts")
+        return self._nodes_info()
+
+    def shards_max(self) -> dict:
+        """reference api.go MaxShards /internal/shards/max."""
+        return {
+            "standard": {
+                name: max(idx.available_shards(), default=0)
+                for name, idx in self.holder.indexes.items()
+            }
+        }
+
+    # -- fragments ----------------------------------------------------------
+
+    def fragment_data(self, index: str, field: str, view: str, shard: int) -> bytes:
+        """Whole-fragment snapshot as a roaring blob (reference
+        api.go FragmentData)."""
+        self._validate("FragmentData")
+        frag = self.holder.fragment(index, field, view, shard)
+        if frag is None:
+            raise NotFoundError(
+                f"fragment not found: {index}/{field}/{view}/{shard}"
+            )
+        return roaring.serialize_rows(*frag.snapshot_rows())
+
+    def available_shards_map(self) -> dict:
+        """{index: {field: [shards]}} of the shards this node holds."""
+        out: dict = {}
+        for iname in self.holder.index_names():
+            idx = self.holder.index(iname)
+            if idx is None:
+                continue
+            out[iname] = {
+                fname: sorted(idx.field(fname).available_shards())
+                for fname in idx.field_names(include_internal=True)
+                if idx.field(fname) is not None
+            }
+        return out
+
+    def fragment_details(
+        self, index: str | None = None, field: str | None = None
+    ) -> dict:
+        """Per-fragment storage and residency introspection, a holder-level
+        aggregate, and the device budget block (/debug/fragments)."""
+        tracker = residency.default_tracker()
+        found = []
+        now = time.time()
+        for iname in self.holder.index_names():
+            if index is not None and iname != index:
+                continue
+            idx = self.holder.index(iname)
+            if idx is None:
+                continue
+            for fname in idx.field_names(include_internal=True):
+                if field is not None and fname != field:
+                    continue
+                fld = idx.field(fname)
+                if fld is None:
+                    continue
+                for vname in fld.view_names():
+                    view = fld.view(vname)
+                    found.extend(
+                        (iname, fname, vname, shard, view.fragments[shard])
+                        for shard in sorted(view.fragments)
+                    )
+        # the census reads every word of a fragment: on a pool, and cached
+        # per fragment version so repeat polls of an unchanged index are cheap
+        fragments = list(self._census_pool().map(
+            lambda a: self._fragment_detail(*a, tracker, now), found
+        ))
+        totals = {
+            "fragments": len(fragments),
+            "bits": sum(f["bits"] for f in fragments),
+            "hostBytes": sum(f["hostBytes"] for f in fragments),
+            "deviceResident": sum(1 for f in fragments if f["deviceResident"]),
+            "deviceBytes": sum(f["deviceBytes"] for f in fragments),
+            "opLogLength": sum(f["opLogLength"] for f in fragments),
+            "version": sum(f["version"] for f in fragments),
+            "pinned": sum(1 for f in fragments if f["pinned"]),
+            "staging": sum(
+                1 for f in fragments if f["residency"] == residency.STATE_STAGING
+            ),
+        }
+        return {
+            "fragments": fragments,
+            "totals": totals,
+            "device": membudget.default_budget().snapshot(),
+            "residency": tracker.snapshot(),
+        }
+
+    def _census_pool(self) -> ThreadPoolExecutor:
+        with self._lock:
+            if self._pool is None:
+                self._pool = ThreadPoolExecutor(
+                    max_workers=min(8, os.cpu_count() or 1), thread_name_prefix="census"
+                )
+            return self._pool
+
+    def _fragment_detail(self, iname, fname, vname, shard, frag, tracker, now) -> dict:
+        key = (frag.epoch, frag.version)
+        got = self._census.get(frag)
+        if got is None or got[0] != key:
+            with frag._lock:
+                key = (frag.epoch, frag.version)
+                row_ids, words = frag.snapshot_rows()
+            got = (key, {
+                "rows": len(row_ids),
+                "bits": int(np.bitwise_count(words).sum(dtype=np.int64)),
+                "containers": roaring.container_stats_words(row_ids, words),
+            })
+            self._census[frag] = got
+        return _fragment_detail_of(frag, got[1], tracker, now, (iname, fname, vname, shard))
+
+    # -- observability planes -----------------------------------------------
+
+    def events_since(self, since: int = 0, limit: int | None = None) -> dict:
+        """This node's event journal past cursor ``since``."""
+        return self.holder.events.since(since, limit)
+
+    def jobs_snapshot(self, kind: str | None = None) -> dict:
+        """Background-job records (active + bounded history)."""
+        return self.holder.jobs.snapshot(kind)
+
+    def slo_snapshot(self) -> dict:
+        """Live per-op-class objective state (/debug/slo)."""
+        return self.holder.slo.snapshot()
+
+    def traces_snapshot(self, limit: int = 100) -> dict:
+        """This node's kept-trace summaries + store counters."""
+        store = self.holder.traces
+        return {"traces": store.summaries(limit), "store": store.snapshot()}
+
+    def trace_detail(self, trace_id: str) -> dict | None:
+        """One kept trace's spans; None when not kept."""
+        return self.holder.traces.detail(trace_id)
+
+    def trace_spans(self, trace_id: str) -> dict:
+        """Local spans for one trace id, kept or recent."""
+        return {"spans": self.holder.traces.spans_for(trace_id)}
+
+    # -- key translation ----------------------------------------------------
+
+    def translate_keys(self, index: str, field: str | None, keys: list[str]) -> list[int]:
+        self._validate("TranslateKeys")
+        return self.executor.translator.translate_keys(index, field or "", keys)
+
+    def translate_ids(self, index: str, field: str | None, ids: list[int]) -> list[str]:
+        self._validate("TranslateKeys")
+        return self.executor.translator.translate_ids(index, field or "", ids)
+
+    # -- lifecycle ------------------------------------------------------------
+
+    def _node_id(self) -> str:
+        if self.store is not None:
+            return self.store.node_id()
+        return "local"
+
+    def _sync(self) -> None:
+        if self.store is not None:
+            self.store.sync()
+
+    def close(self) -> None:
+        self.import_pool.close()
+        if self._pool is not None:
+            self._pool.shutdown(wait=True)
+        if self.store is not None:
+            self.store.close()
+
+
+def _timestamps(timestamps: list) -> np.ndarray:
+    """JSON timestamps (PQL time strings or unix seconds; empty for none)
+    as ``datetime64[s]`` (NaT for none), the fast form of
+    ``Field.import_bits``: each distinct value parsed once."""
+    nat = np.datetime64("NaT", "s").astype(np.int64)
+    seconds: dict = {}
+
+    def one(t):
+        if not t:
+            return nat
+        v = seconds.get(t)
+        if v is None:
+            v = seconds[t] = np.datetime64(timequantum.parse_time(t), "s").astype(np.int64)
+        return v
+
+    return np.fromiter(map(one, timestamps), dtype=np.int64, count=len(timestamps)).view(
+        "datetime64[s]"
+    )
+
+
+def _fragment_detail_of(frag, census, tracker, now, names) -> dict:
+    """One /debug/fragments row: storage shape (``census``: bits and the
+    roaring container census of the host mirror), op-log length, and
+    device residency."""
+    iname, fname, vname, shard = names
+    with frag._lock:
+        host_bytes = frag._host.nbytes
+        device_resident = frag._device is not None
+        device_bytes = frag._device_nbytes() if device_resident else 0
+        counts_cached = frag._counts is not None
+        mut_version = frag.version
+        mut_epoch = frag.epoch
+        res_state = tracker.state_of(frag)
+        res_pinned = frag._res_pinned
+        res_heat = round(tracker.heat_of(frag), 3)
+    store = frag.store
+    last_snap = getattr(store, "last_snapshot_at", None)
+    return {
+        "index": iname,
+        "field": fname,
+        "view": vname,
+        "shard": shard,
+        "rows": census["rows"],
+        "bits": census["bits"],
+        "containers": census["containers"],
+        "hostBytes": host_bytes,
+        "deviceResident": device_resident,
+        "deviceBytes": device_bytes,
+        "countsCached": counts_cached,
+        "opLogLength": getattr(store, "op_n", 0) if store is not None else 0,
+        # never resets: the fragment's mutation counter, fenced by its
+        # process-unique epoch (the cache-correctness pair)
+        "version": mut_version,
+        "epoch": mut_epoch,
+        "residency": res_state,
+        "pinned": res_pinned,
+        "heat": res_heat,
+        "lastSnapshotAge": now - last_snap if last_snap else None,
+    }

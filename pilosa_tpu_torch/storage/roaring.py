@@ -169,6 +169,100 @@ def _serialize_py(positions: np.ndarray, flags: int = 0) -> bytes:
 # ---------------------------------------------------------------------------
 
 
+def container_stats(positions: np.ndarray) -> dict:
+    """Per-container-type counts for sorted uint64 positions, using the
+    same array/run/bitmap selection rules as :func:`serialize` — the
+    introspection view (/debug/fragments) reports what the codec would
+    actually write, without encoding anything."""
+    positions = np.asarray(positions, dtype=np.uint64)
+    if positions.size and np.any(positions[1:] <= positions[:-1]):
+        positions = np.unique(positions)
+    counts = {"array": 0, "run": 0, "bitmap": 0}
+    keys = positions >> np.uint64(16)
+    lows = (positions & np.uint64(0xFFFF)).astype(np.uint16)
+    ukeys, starts = np.unique(keys, return_index=True)
+    bounds = np.append(starts, len(positions))
+    for i in range(len(ukeys)):
+        vals = lows[bounds[i] : bounds[i + 1]]
+        n = len(vals)
+        if n:
+            breaks = np.flatnonzero(np.diff(vals.astype(np.int64)) != 1)
+            run_count = len(breaks) + 1
+        else:
+            run_count = 0
+        best = min(
+            (2 * n if n <= ARRAY_MAX_SIZE else 1 << 30, CONTAINER_ARRAY),
+            (2 + 4 * run_count if run_count <= RUN_MAX_SIZE else 1 << 30,
+             CONTAINER_RUN),
+            (8192, CONTAINER_BITMAP),
+            key=lambda t: t[0],
+        )
+        if best[1] == CONTAINER_ARRAY:
+            counts["array"] += 1
+        elif best[1] == CONTAINER_RUN:
+            counts["run"] += 1
+        else:
+            counts["bitmap"] += 1
+    counts["containers"] = len(ukeys)
+    return counts
+
+
+_CONTAINER_WORDS = 1 << 11  # 2^16 positions of 32-bit words
+
+
+def container_stats_words(row_ids: np.ndarray, words: np.ndarray) -> dict:
+    """:func:`container_stats` of a fragment's rows, read off the dense
+    words without making positions: ascending ``row_ids`` with their
+    ``uint32 [n, n_words]`` words. Each container is a 2^16-position block
+    of the fragment's position space (``row * width + column``); its bits
+    and runs are word popcounts summed per block, a run carried across a
+    word or row edge only inside one block, as :func:`container_stats`
+    sees them. Equal to ``container_stats`` on the positions."""
+    counts = {"array": 0, "run": 0, "bitmap": 0, "containers": 0}
+    row_ids = np.asarray(row_ids, dtype=np.uint64)
+    words = np.asarray(words, dtype=np.uint32)
+    if not len(row_ids):
+        return counts
+    n, W = words.shape
+    # the word before each word (its top bit continues a run), zeroed at a
+    # block's first word and, where rows share a block, after a row that
+    # is not adjacent
+    prev = np.zeros_like(words)
+    prev[:, 1:] = words[:, :-1]
+    if W % _CONTAINER_WORDS == 0:  # each row whole blocks: no carry across rows
+        prev[:, ::_CONTAINER_WORDS] = 0
+        starts = words & ~((words << np.uint32(1)) | (prev >> np.uint32(31)))
+        shape = (n * (W // _CONTAINER_WORDS), _CONTAINER_WORDS)
+        n_bits = np.bitwise_count(words).reshape(shape).sum(axis=1, dtype=np.int64)
+        n_runs = np.bitwise_count(starts).reshape(shape).sum(axis=1, dtype=np.int64)
+    else:
+        # word index of every word in the fragment's position space
+        widx = row_ids[:, None] * np.uint64(W) + np.arange(W, dtype=np.uint64)[None, :]
+        adjacent = np.zeros(n, dtype=bool)
+        adjacent[1:] = row_ids[1:] == row_ids[:-1] + np.uint64(1)
+        prev[1:, 0] = np.where(adjacent[1:], words[:-1, -1], 0)
+        prev[widx % np.uint64(_CONTAINER_WORDS) == 0] = 0
+        starts = words & ~((words << np.uint32(1)) | (prev >> np.uint32(31)))
+        _, inv = np.unique((widx // np.uint64(_CONTAINER_WORDS)).ravel(), return_inverse=True)
+        bits = np.bitwise_count(words).astype(np.int64).ravel()
+        runs = np.bitwise_count(starts).astype(np.int64).ravel()
+        n_bits = np.bincount(inv, weights=bits).astype(np.int64)
+        n_runs = np.bincount(inv, weights=runs).astype(np.int64)
+    live = n_bits > 0
+    n_bits, n_runs = n_bits[live], n_runs[live]
+    big = 1 << 30
+    array_cost = np.where(n_bits <= ARRAY_MAX_SIZE, 2 * n_bits, big)
+    run_cost = np.where(n_runs <= RUN_MAX_SIZE, 2 + 4 * n_runs, big)
+    # the first cheapest in (array, run, bitmap) order, as serialize picks
+    is_array = (array_cost <= run_cost) & (array_cost <= 8192)
+    is_run = ~is_array & (run_cost <= 8192)
+    counts["array"] = int(is_array.sum())
+    counts["run"] = int(is_run.sum())
+    counts["bitmap"] = int(live.sum() - is_array.sum() - is_run.sum())
+    counts["containers"] = int(live.sum())
+    return counts
+
+
 def _container_positions(key: int, ctype: int, card: int, data: bytes, off: int):
     base = np.uint64(key) << np.uint64(16)
     if ctype == CONTAINER_ARRAY:

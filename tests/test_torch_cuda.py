@@ -1301,3 +1301,56 @@ def test_a_deleted_fields_bytes_leave_the_card(cuda_device, fresh_budget):
     t.import_bits([2], [5], timestamps=[datetime(2024, 1, 1, 4)])
     again = ex.execute_batch("i", reads)
     assert again == [[0], [0], [1], [0], [0], [0]] and again != first
+
+
+def _http(node, path, body=None):
+    import json
+    import urllib.request
+
+    data = body.encode() if isinstance(body, str) else (
+        None if body is None else json.dumps(body).encode())
+    req = urllib.request.Request(node.uri + path, data=data,
+                                 method="GET" if body is None else "POST")
+    with urllib.request.urlopen(req, timeout=60) as r:
+        return json.loads(r.read())
+
+
+def _http_node(tmp_path, device, rng):
+    from pilosa_tpu_torch.server.node import NodeServer
+
+    node = NodeServer(data_dir=str(tmp_path / device), device=device, port=0)
+    node.start()
+    _http(node, "/index/i", {})
+    for f in ("f", "g"):
+        _http(node, f"/index/i/field/{f}", {})
+        _http(node, f"/index/i/field/{f}/import", {
+            "rowIDs": rng.integers(0, 8, 4000).tolist(),
+            "columnIDs": rng.integers(0, 3 << 20, 4000).tolist(),
+        })
+    return node
+
+
+@pytest.mark.parametrize("query,kernel", [
+    ("Count(Union(Row(f=1), Row(g=2))) Count(Xor(Row(f=3), Row(g=4)))", "tree_count"),
+    ("GroupBy(Rows(f), Rows(g))", "cross_gram"),
+])
+def test_a_node_on_the_card_answers_over_http_as_on_the_cpu(cuda_device, tmp_path,
+                                                            fresh_budget, query, kernel):
+    """A node on ``cuda`` answers a tree Count and a GroupBy over HTTP as a
+    node on the CPU does over the same imports, and its /debug/vars counts
+    the launches the query made."""
+    fresh_budget.configure(None)
+    cpu = _http_node(tmp_path, "cpu", np.random.default_rng(4))
+    card = _http_node(tmp_path, "cuda", np.random.default_rng(4))
+    try:
+        before = _http(card, "/debug/vars")["kernels"]
+        got = _http(card, "/index/i/query", query)
+        after = _http(card, "/debug/vars")["kernels"]
+        assert got == _http(cpu, "/index/i/query", query)
+        made = {k: after[k]["launches"] - before[k]["launches"] for k in after}
+        assert made[kernel] >= 1, made
+        assert after[kernel]["deviceMs"] > before[kernel]["deviceMs"]
+        assert after[kernel]["launches"] == tk.LAUNCHES[kernel]
+    finally:
+        card.stop()
+        cpu.stop()

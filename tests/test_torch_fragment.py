@@ -157,3 +157,28 @@ def test_hashed_row_ids():
     cols = np.arange(9, dtype=np.int64)
     assert jf.import_bits(rows, cols) == tf.import_bits(rows, cols)
     _assert_same(jf, tf)
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_import_row_words_counts_and_merges_as_jax_import_bits(seed):
+    """A roaring import's rows merged as words change what JAX's
+    ``import_bits`` of the same positions changes, and count the same
+    changed bits, setting and clearing, over rows old and new."""
+    rng = np.random.default_rng(seed)
+    jf, tf = _pair()
+    base_rows = rng.integers(0, N_ROWS, 3000).astype(np.uint64)
+    base_cols = rng.integers(0, SHARD_WIDTH, 3000)
+    jf.import_bits(base_rows, base_cols)
+    tf.import_bits(base_rows, base_cols)
+    for clear in (False, True, False):
+        rows = np.unique(rng.integers(0, N_ROWS + 3, 5)).astype(np.uint64)
+        words = np.zeros((len(rows), SHARD_WORDS), np.uint32)
+        r_of, c_of = [], []
+        for k, r in enumerate(rows):
+            cols = np.unique(rng.integers(0, SHARD_WIDTH, 400))
+            words[k] = tb.pack_columns(cols, SHARD_WORDS)
+            r_of.append(np.full(len(cols), r, np.uint64))
+            c_of.append(cols)
+        want = jf.import_bits(np.concatenate(r_of), np.concatenate(c_of), clear=clear)
+        assert tf.import_row_words(rows, words, clear=clear) == want
+        _assert_same(jf, tf)

@@ -1,8 +1,10 @@
 """The port stands alone: ``pilosa_tpu_torch`` and ``chip_smoke.py`` load
 neither JAX nor any module of the JAX package (the device-memory budget,
 the residency tracker, the native host tier, storage, the translate store,
-time views, Store, the attrs calls and Options included), and the port's
-default device is ``cuda`` with no fallback to the CPU."""
+time views, Store, the attrs calls and Options included, and one HTTP
+node booted on the CPU answering a query, with its API, routes,
+observability planes and CLI loaded), and the port's default device is
+``cuda`` with no fallback to the CPU."""
 
 import ast
 import os
@@ -100,6 +102,28 @@ res = result_to_json(e.execute(
     "i", f"Store(Row(t=1, {w}), s=0) SetRowAttrs(s, 0, x=1) Options(Row(s=0), columnAttrs=true)"))
 assert res == [True, None, {"attrs": {"x": 1, "columnattrs": []}, "columns": [3]}], res
 assert idx.delete_field("t") and h.fragment("i", "s", "standard", 0) is not None
+# one HTTP node on the CPU: the API, the routes, the observability planes
+# and the CLI's module load, and a query answered over HTTP
+import json
+import urllib.request
+from pilosa_tpu_torch import cli, deadline
+from pilosa_tpu_torch.obs import (devledger, events, jobs, profile, qprofile, slo, stats,
+                                  sysinfo, tracestore, tracing)
+from pilosa_tpu_torch.server import api, http, importpool, node, qos
+n = node.NodeServer(data_dir=tempfile.mkdtemp(), device="cpu", port=0)
+n.start()
+def post(path, body):
+    req = urllib.request.Request(n.uri + path, data=body.encode(), method="POST")
+    with urllib.request.urlopen(req, timeout=10) as r:
+        return json.loads(r.read())
+post("/index/h", "{}")
+post("/index/h/field/f", "{}")
+post("/index/h/field/f/import", '{"rowIDs": [1, 1], "columnIDs": [2, 70000]}')
+assert post("/index/h/query", "Count(Row(f=1))") == {"results": [2]}
+with urllib.request.urlopen(n.uri + "/debug/vars", timeout=10) as r:
+    assert "kernels" in json.loads(r.read())
+n.shutdown_graceful()
+assert n.wait(10)
 bad = sorted(
     m for m in sys.modules
     if m == "jax" or m.startswith("jax.") or m.startswith("jaxlib")

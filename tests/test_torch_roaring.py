@@ -323,3 +323,34 @@ def test_missing_compiler_raises(tmp_path, monkeypatch):
         tr.decode_rows(jr.serialize(np.arange(3, dtype=np.uint64)), 512)
     with pytest.raises(nativelib.NativeBuildError):
         tr.encode_op(tr.OP_ADD, 1)
+
+
+@pytest.mark.parametrize("n_words", [512, 2048, 4096])
+@pytest.mark.parametrize("seed", range(4))
+def test_container_census_of_words_equals_jax(n_words, seed):
+    """/debug/fragments' container census, read off a fragment's words,
+    equals JAX's ``container_stats`` of the same bits as positions: arrays,
+    runs (across word and adjacent-row edges inside a container) and
+    bitmaps, at widths under, at and over one container per row."""
+    rng = np.random.default_rng(seed)
+    row_ids = np.unique(rng.integers(0, 24, 10)).astype(np.uint64)
+    words = np.zeros((len(row_ids), n_words), np.uint32)
+    for k in range(len(row_ids)):
+        kind = k % 4
+        if kind == 0:
+            words[k] = rng.integers(0, 2**32, n_words, dtype=np.uint64).astype(np.uint32)
+        elif kind == 1:
+            words[k, rng.integers(0, n_words, 40)] = 1 << rng.integers(0, 32, 40)
+        elif kind == 2:
+            a, b = sorted(rng.integers(0, n_words, 2))
+            words[k, a:b] = 0xFFFFFFFF
+        else:
+            words[k] = 0xFFFFFFFF
+    width = np.uint64(n_words * 32)
+    positions = np.concatenate([
+        np.flatnonzero(np.unpackbits(w.view(np.uint8), bitorder="little")).astype(np.uint64)
+        + np.uint64(r) * width
+        for r, w in zip(row_ids, words)
+    ])
+    assert tr.container_stats_words(row_ids, words) == jr.container_stats(positions)
+    assert tr.container_stats(positions) == jr.container_stats(positions)
