@@ -134,7 +134,7 @@ Phases (any failure raises, and the script exits non-zero):
    Intersect bitmap (tree_words), the tanimoto and filtered TopNs,
    GroupBy f x h, a range Count, Sum, Min and Max on v and a keyed TopN,
    every answer equal to numpy over the written data; 16 client threads
-   on keep-alive connections for 10 s (queries/s, p50/p99, every answer
+   on keep-alive connections for 5 s (queries/s, p50/p99, every answer
    equal to its serial one); import-roaring of a new 64-row field on 8
    shards (MB/s, bits/s), a JSON import of 2^20 timestamped pairs into a
    YMDH field read back through windowed Counts (pairs/s), values into an
@@ -143,7 +143,27 @@ Phases (any failure raises, and the script exits non-zero):
    fragments, a field's DELETE freeing its stack on the card and in the
    budget; then ``python -m pilosa_tpu_torch.cli server`` on the
    directory: /status, a pair batch against numpy with its launch in
-   /debug/vars, SIGTERM and exit 0.
+   /debug/vars, SIGTERM and exit 0. The http path's node runs with the
+   serving plane cut down (``batch_window=0, rescache_entries=0,
+   planner_enabled=False``), so its numbers stay comparable; its CLI node
+   runs at the defaults. The serving path, last: ``NodeServer`` at JAX's defaults on
+   the same directory (the batcher, the result cache, the planner, the QoS
+   governor, the prefetcher and the ingest pipeline on): the http path's
+   25-query read mix from 16 keep-alive clients for 10 s with the result
+   cache emptied, through the batcher and then with it off (queries/s,
+   p50/p99, flights, flight sizes and window-close reasons, launches per
+   query by kernel, the device's idle share from ``torch.profiler``'s
+   kernel intervals and the ledger's ms per launch beside the
+   profiler's), then the defaults whole for 4 s; the mix repeated from
+   the cache with no launch, a write to f that drops exactly the entries
+   reading f (the next answers equal numpy after it), SetRowAttrs and a
+   TopN by attribute; a flight of 64 queries sharing one Intersect (the
+   planner's CSE counters); flights that evict each other's stacks under
+   a cap (the prefetcher's issued and useful counts); import-roaring of a
+   64-row field on 8 shards through the pipeline from 4 clients (MB/s,
+   uploads, overlap, no failed upload, read back exactly); and two tenants
+   by header, one sending 300-leaf Counts and GroupBys, one lone Counts
+   (``/debug/qos``; each tenant's debt equals its device ms in the ledger).
 4. Summary: one ``{"end_to_end": {...}}`` line, one ``{"kernels": [...]}``
    line, the card line, and last ``{"ok": true, "device": {...}}``.
 """
@@ -2721,7 +2741,7 @@ def budget_path(pool, ex_main, holder, device, v_truth):
 
     budget = membudget.configure(cap_evict)
     tracker = residency.configure()
-    ex = Executor(holder)
+    ex = kernel_executor(holder)
     # conditions go to the stack (or per fragment) at once: the warm-up of
     # a lone cold condition is the bsi path's subject, not this one's
     ex._BSI_SINGLE_WARM = 0
@@ -3084,7 +3104,6 @@ def storage_path(pool, holder, device, v_truth):
     from pilosa_tpu_torch import convert
     from pilosa_tpu_torch.core.field import FieldOptions
     from pilosa_tpu_torch.core.holder import Holder
-    from pilosa_tpu_torch.exec.executor import Executor
     from pilosa_tpu_torch.ops import kernels as tk
     from pilosa_tpu_torch.shardwidth import SHARD_WIDTH
     from pilosa_tpu_torch.storage import roaring
@@ -3125,7 +3144,7 @@ def storage_path(pool, holder, device, v_truth):
         return h, st, time.perf_counter() - t
 
     def executor(h, st):
-        ex = Executor(h, translator=st.translator)
+        ex = kernel_executor(h, translator=st.translator)
         ex._BSI_SINGLE_WARM = 0  # a lone range Count takes the stack at once
         return ex
 
@@ -3812,8 +3831,8 @@ def time_path(pool, ex, holder, device):
 # ---------------------------------------------------------------------------
 
 HTTP_CLIENTS = 16
-HTTP_SECONDS = 10.0
-HTTP_WARM_REPS = 5
+HTTP_SECONDS = 5.0
+HTTP_WARM_REPS = 3
 # the 64-row field the http path imports through import-roaring, its shards
 R_IMPORT_ROWS, R_IMPORT_SHARDS = 64, 8
 # (row, column, timestamp) pairs of the JSON import into a YMDH field
@@ -3874,20 +3893,21 @@ class HttpClient:
 
         self.conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
 
-    def request(self, method, path, body=None, ctype="application/json"):
-        self.conn.request(method, path, body=body, headers={"Content-Type": ctype})
+    def request(self, method, path, body=None, ctype="application/json", headers=None):
+        self.conn.request(method, path, body=body,
+                          headers={"Content-Type": ctype, **(headers or {})})
         r = self.conn.getresponse()
         return r.status, r.read()
 
     def get(self, path):
         return self.request("GET", path)
 
-    def post(self, path, body, ctype="application/json"):
+    def post(self, path, body, ctype="application/json", headers=None):
         if isinstance(body, (dict, list)):
             body = json.dumps(body).encode()
         elif isinstance(body, str):
             body = body.encode()
-        return self.request("POST", path, body, ctype)
+        return self.request("POST", path, body, ctype, headers)
 
     def query(self, index, pql):
         code, body = self.post(f"/index/{index}/query", pql, "text/plain")
@@ -3939,7 +3959,7 @@ def http_path(pool, device, hand, v_truth):
        the tanimoto and filtered TopNs, GroupBy f x h, a range Count, Sum,
        Min and Max on v, and a keyed TopN on the 2^20-key index;
     3. concurrency: 16 client threads on keep-alive connections post a
-       mixed read mix for 10 s, every answer equal to its serial answer:
+       mixed read mix for 5 s, every answer equal to its serial answer:
        queries/s and p50/p99 latency;
     4. writes, each read back over HTTP against numpy: import-roaring of a
        new 64-row field r on 8 shards at 25 % density (MB/s, bits/s), a
@@ -3991,6 +4011,8 @@ def http_path(pool, device, hand, v_truth):
                                                       bitorder="little"))]
     keyed = [r for r in hand["keyed_reads"]() if r[0].startswith("filtered TopN")][0]
     reads = http_reads(truth, keyed, hand["h_rows"], (sel, sel_cols), bsi)
+    # the serving path serves the same reads
+    hand.update(reads=reads, truth=truth, sel=(sel, sel_cols))
     out["truth_s"] = time.perf_counter() - t0
     log(f"http: truths in {out['truth_s']:.1f} s; the 8-row Intersect holds "
         f"{len(sel_cols)} columns")
@@ -4003,7 +4025,10 @@ def http_path(pool, device, hand, v_truth):
 
     # -- 1. boot
     t0 = time.perf_counter()
-    node = NodeServer(data_dir=data_dir, device=device, port=0, stats_client=MemStatsClient())
+    # the serving plane cut down, so this path's numbers stay comparable
+    # across versions; the serving path below runs the defaults
+    node = NodeServer(data_dir=data_dir, device=device, port=0, stats_client=MemStatsClient(),
+                      batch_window=0, rescache_entries=0, planner_enabled=False)
     out["open_s"] = time.perf_counter() - t0
     node.start()
     ex = node.api.executor
@@ -4054,10 +4079,7 @@ def http_path(pool, device, hand, v_truth):
         out["pair_body_qps"] = len(truth["items"]) / (lat[pair_name]["warm_ms"] / 1e3)
 
         # -- 3. concurrency: serial answers first, then 16 clients
-        mix = [(n, q, index) for n, q, index, _ in reads
-               if not n.endswith("pair Counts") and not n.startswith("GroupBy")]
-        mix += [(f"pair {k}", f"Count({op}(Row(f={a}), Row(f={b})))", "i")
-                for k, (op, a, b) in enumerate(hand["items"][:16])]
+        mix = read_mix(reads, hand["items"])
         serial = {n: cli.query(index, q) for n, q, index in mix}
         stop = time.perf_counter() + HTTP_SECONDS
         lats: list = [[] for _ in range(HTTP_CLIENTS)]
@@ -4311,6 +4333,638 @@ def http_path(pool, device, hand, v_truth):
     return out
 
 
+def read_mix(reads, items):
+    """The 25-query read mix of the http and serving paths: every read of
+    :func:`http_reads` but the pair body and the GroupBy, and 16 lone pair
+    Counts, each ``(name, PQL, index)``."""
+    mix = [(n, q, index) for n, q, index, _ in reads
+           if not n.endswith("pair Counts") and not n.startswith("GroupBy")]
+    mix += [(f"pair {k}", f"Count({op}(Row(f={a}), Row(f={b})))", "i")
+            for k, (op, a, b) in enumerate(items[:16])]
+    return mix
+
+
+SERVE_CLIENTS = 16
+SERVE_SECONDS = 10.0
+SERVE_DEFAULT_SECONDS = 4.0
+QOS_SECONDS = 4.0
+QOS_LEAVES = 300
+PLANNER_FLIGHT = 64
+INGEST_CLIENTS = 4
+# steps of the prefetch phase, alternating shard sets; odd, so the last is
+# over all shards
+PREFETCH_STEPS = 5
+
+
+def busy_union_us(intervals):
+    """Microseconds covered by the union of ``(start, end)`` intervals."""
+    total, cur_s, cur_e = 0.0, None, None
+    for a, b in sorted(intervals):
+        if cur_e is None or a > cur_e:
+            if cur_e is not None:
+                total += cur_e - cur_s
+            cur_s, cur_e = a, b
+        else:
+            cur_e = max(cur_e, b)
+    if cur_e is not None:
+        total += cur_e - cur_s
+    return total
+
+
+def serving_path(pool, device, hand, v_truth):
+    """One node at JAX's serving defaults (``server/batcher.py``,
+    ``exec/rescache.py``, ``exec/planner.py``, ``server/qos.py``,
+    ``server/prefetch.py``, ``ingest/``) on the storage path's directory:
+
+    1. boot, the defaults checked, and the 25-query read mix answered
+       once against numpy (its serial answers);
+    2. coalescing: 16 keep-alive clients for 10 s with the result cache
+       emptied, through the batcher and then with it off (the API's
+       ``batch_window=0`` route): queries/s, p50/p99, flights, their sizes
+       and close reasons, launches per query by kernel, every answer equal
+       to its serial one; on the card ``torch.profiler`` over each run for
+       the device's idle share (1 - the union of the card's activity
+       intervals over wall time) and its kernels' ms per launch beside the
+       ledger's, and the prefetches issued, useful and wasted; then the
+       defaults whole (cache on) for 4 s;
+    3. the result cache: the mix again from the cache with no launch; a
+       Set on f drops exactly the entries reading f and the next answers
+       equal numpy after it; SetRowAttrs and a TopN by that attribute;
+    4. the planner: 64 queries sharing an ``Intersect(Row(f=..),
+       Row(h=..))`` posted at once over HTTP while a lone query's flight
+       holds the dispatcher, so the batcher forms one flight of 64 (its
+       window widened for the phase, so a pause of the dispatcher thread
+       does not close it on age before it pops the 64); with
+       the planner on and off, twice each: the flight's dispatch time, its
+       launches, cseHits and cseShared, every answer equal to numpy;
+    5. prefetch: a cap that holds one of f's stacks over all shards and
+       over all but one, and steps of 4 clients posting at once,
+       alternating between them: issued, useful and wasted from
+       /debug/vars (useful/issued >= 0.5), answers exact;
+    6. ingest: import-roaring of a 64-row field on 8 shards through the
+       pipeline from 4 clients: MB/s, bits/s, uploads, coalesced uploads,
+       overlap, ``upload_errors == 0``, the fragments' device copies in
+       the budget, every row read back exactly;
+    7. QoS: tenants by header, one sending 300-leaf Counts and GroupBys,
+       one lone Counts: /debug/qos, each tenant's debt equal to its device
+       ms in the ledger, any degraded answer marked."""
+    import gc
+    import threading
+
+    import numpy as np
+    import torch
+
+    from pilosa_tpu_torch.core import membudget, residency
+    from pilosa_tpu_torch.obs import devledger
+    from pilosa_tpu_torch.obs.stats import MemStatsClient
+    from pilosa_tpu_torch.ops import kernels as tk
+    from pilosa_tpu_torch.server.node import NodeServer
+    from pilosa_tpu_torch.shardwidth import SHARD_WIDTH
+    from pilosa_tpu_torch.storage import roaring
+
+    on_card = torch.device(device).type == "cuda"
+    t_path = time.perf_counter()
+    out = {}
+    f_np, h_np = hand["f"], hand["h"]
+    reads, truth, items = hand["reads"], hand["truth"], hand["items"]
+    mix = read_mix(reads, items)
+    want_of = {n: w for n, _, _, w in reads}
+    for k in range(16):
+        want_of[f"pair {k}"] = truth["pairs"][k]
+    rng = np.random.default_rng(SEED + 31)
+
+    def check(name, got):
+        norm = norm_json(got[0]) if not name.startswith("pair ") else got[0]
+        if norm != want_of[name]:
+            raise AssertionError(f"serving: {name}: {str(norm)[:200]} != "
+                                 f"{str(want_of[name])[:200]}")
+
+    # -- 1. boot at the defaults
+    t0 = time.perf_counter()
+    node = NodeServer(data_dir=hand["data_dir"], device=device, port=0,
+                      stats_client=MemStatsClient())
+    node.start()
+    out["open_s"] = time.perf_counter() - t0
+    api, ex = node.api, node.api.executor
+    ex._BSI_SINGLE_WARM = 0  # as on the http path
+    b = api.batcher
+    if not (b is not None and b.window == 0.002 and b.max_batch == 64 and api.qos is not None
+            and api.qos.enabled and ex.rescache.max_entries == 512 and ex.planner.enabled
+            and api.prefetcher is not None and api.ingest.uploader is not None):
+        raise AssertionError("serving: the node is not at the serving defaults")
+    cli = HttpClient(node.server.port)
+    flights: list = []
+    dispatch = b._dispatch
+    # while it holds a test, the next flight waits in the dispatcher until
+    # the test passes (as a flight in progress holds the dispatcher while
+    # the next one queues); then it is dropped
+    hold: list = []
+    holding = threading.Event()
+
+    def counted_dispatch(batch, reason):
+        if hold:
+            until = hold.pop()
+            holding.set()
+            t_end = time.perf_counter() + 60
+            while not until() and time.perf_counter() < t_end:
+                time.sleep(0.0005)
+        t = time.perf_counter()
+        try:
+            return dispatch(batch, reason)
+        finally:
+            flights.append((len(batch), reason, time.perf_counter() - t))
+
+    b._dispatch = counted_dispatch
+    try:
+        serial = {}
+        for n, q, index in mix:
+            got = cli.query(index, q)
+            check(n, got)
+            serial[n] = got
+        log(f"serving: node at the defaults open in {out['open_s']:.2f} s; the "
+            f"{len(mix)}-query mix equals numpy")
+
+        # -- 2. coalescing, the cache emptied; then the defaults whole
+        def clients(seconds, tag):
+            ledger0 = tk.telemetry_snapshot()
+            launches0 = dict(tk.LAUNCHES)
+            n_flights = len(flights)
+            res0 = residency.default_tracker().snapshot()
+            lats = [[] for _ in range(SERVE_CLIENTS)]
+            errors = []
+            stop = [0.0]
+
+            def client(c):
+                conn = HttpClient(node.server.port)
+                crng = np.random.default_rng(SEED + 200 + c)
+                try:
+                    while time.perf_counter() < stop[0]:
+                        n, q, index = mix[int(crng.integers(0, len(mix)))]
+                        t = time.perf_counter()
+                        got = conn.query(index, q)
+                        lats[c].append(time.perf_counter() - t)
+                        if got != serial[n]:
+                            errors.append(f"{n}: {str(got)[:100]}")
+                            return
+                except Exception as e:  # reported below, after every client stopped
+                    errors.append(repr(e))
+                finally:
+                    conn.close()
+
+            prof = None
+            if on_card:
+                from torch.profiler import ProfilerActivity, profile
+
+                prof = profile(activities=[ProfilerActivity.CUDA])
+                prof.__enter__()
+            t = time.perf_counter()
+            stop[0] = t + seconds
+            threads = [threading.Thread(target=client, args=(c,))
+                       for c in range(SERVE_CLIENTS)]
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join(timeout=seconds + 120)
+            if on_card:
+                torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+            if prof is not None:
+                prof.__exit__(None, None, None)
+            if any(th.is_alive() for th in threads) or errors:
+                raise AssertionError(f"serving: {tag}: clients: {errors[:3]}")
+            every = np.array([x for per in lats for x in per]) * 1e3
+            nq = int(every.size)
+            made = {k: tk.LAUNCHES[k] - launches0[k] for k in tk.LAUNCHES}
+            ledger1 = tk.telemetry_snapshot()
+            led_ms = sum(ledger1[k]["deviceMs"] - ledger0[k]["deviceMs"] for k in ledger1)
+            led_n = sum(made.values())
+            mine = flights[n_flights:]
+            reasons = {}
+            for _, r, _ in mine:
+                reasons[r] = reasons.get(r, 0) + 1
+            res1 = residency.default_tracker().snapshot()
+            res = {
+                "clients": SERVE_CLIENTS, "seconds": wall, "queries": nq,
+                "qps": nq / wall, "p50_ms": float(np.percentile(every, 50)),
+                "p99_ms": float(np.percentile(every, 99)),
+                "flights": len(mine),
+                "mean_flight": (sum(x for x, _, _ in mine) / len(mine)) if mine else None,
+                "max_flight": max((x for x, _, _ in mine), default=None),
+                "close_reasons": reasons,
+                "prefetch": {k: res1[k] - res0[k] for k in (
+                    "prefetchIssued", "prefetchUseful", "prefetchWasted")},
+                "launches_per_query": {k: v / nq for k, v in made.items() if v},
+                "ledger_ms_per_launch": led_ms / led_n if led_n else None,
+                "idle_share": "not measured",
+                "profiler_ms_per_launch": "not measured",
+            }
+            if prof is not None:
+                dev_ev = [e for e in prof.events()
+                          if e.device_type == torch.autograd.DeviceType.CUDA]
+                ours = [e for e in dev_ev if "pilosa_" in e.name]
+                busy = busy_union_us([(e.time_range.start, e.time_range.end) for e in dev_ev])
+                res["idle_share"] = 1.0 - busy / (wall * 1e6)
+                res["profiler_kernel_events"] = len(ours)
+                res["profiler_ms_per_launch"] = (
+                    sum(e.time_range.end - e.time_range.start for e in ours) / len(ours) / 1e3
+                    if ours else None)
+            log(f"serving: {tag}: {nq} queries in {wall:.1f} s, {res['qps']:.0f} queries/s, "
+                f"p50 {res['p50_ms']:.2f} ms, p99 {res['p99_ms']:.2f} ms, {len(mine)} "
+                f"flights (mean {res['mean_flight']}, max {res['max_flight']}, closes "
+                f"{reasons}), launches a query {json.dumps(res['launches_per_query'])}, "
+                f"idle share {res['idle_share']}, ledger ms/launch "
+                f"{res['ledger_ms_per_launch']}, profiler ms/launch "
+                f"{res['profiler_ms_per_launch']}, prefetch {json.dumps(res['prefetch'])}; "
+                f"every answer equal to its serial one")
+            return res
+
+        ex.rescache.max_entries = 0
+        ex.rescache.clear()
+        out["coalesced"] = clients(SERVE_SECONDS, "batcher on, cache emptied")
+        api.batcher = None  # the API's direct route, as batch_window=0 gives
+        try:
+            out["direct"] = clients(SERVE_SECONDS, "batch_window=0, cache emptied")
+        finally:
+            api.batcher = b
+        if out["coalesced"]["max_flight"] is None or out["coalesced"]["max_flight"] < 2:
+            raise AssertionError("serving: no flight held more than one query")
+        ex.rescache.max_entries = 512
+        out["defaults"] = clients(SERVE_DEFAULT_SECONDS, "the defaults (cache on)")
+
+        # -- 3. the result cache
+        for n, q, index in mix:  # the entries (most are there already)
+            cli.query(index, q)
+        hits0, l0 = ex.rescache.hits, dict(tk.LAUNCHES)
+        for n, q, index in mix:
+            if cli.query(index, q) != serial[n]:
+                raise AssertionError(f"serving: cached {n} differs")
+        if dict(tk.LAUNCHES) != l0 or ex.rescache.hits - hits0 != len(mix):
+            raise AssertionError(f"serving: the repeats launched {tk.LAUNCHES} or hit "
+                                 f"{ex.rescache.hits - hits0} of {len(mix)}")
+        reading_f = len(ex.rescache._by_field.get(("i", "f"), ()))
+        entries0, inv0 = len(ex.rescache), ex.rescache.invalidations
+        op, a, b_row = items[0]
+        sel_rows = set(hand["sel"][0])
+        w_row = next(r for r in range(f_np.shape[1]) if r not in sel_rows)
+        s_w = min(3, S_FULL - 1)
+        col = int(np.flatnonzero(~np.unpackbits(f_np[s_w, w_row].view(np.uint8),
+                                                bitorder="little").astype(bool))[0])
+        code, body = cli.post("/index/i/query", f"Set({s_w * SHARD_WIDTH + col}, f={w_row})",
+                              "text/plain")
+        if code != 200 or json.loads(body)["results"] != [True]:
+            raise AssertionError(f"serving: Set: {code} {body!r}")
+        f_np[s_w, w_row, col // 32] |= np.uint32(1 << (col % 32))
+        dropped = ex.rescache.invalidations - inv0
+        if dropped != reading_f or len(ex.rescache) != entries0 - reading_f:
+            raise AssertionError(f"serving: the write dropped {dropped} entries; {reading_f} "
+                                 f"read f")
+        t = time.perf_counter()
+        t2 = truths_of(pool, f_np, h_np, v_truth, items[:16], hand["h_rows"])
+        truth_s = time.perf_counter() - t
+        want_of["tanimoto TopN"] = norm_answer(t2["tanimoto"])
+        want_of["filtered TopN"] = norm_answer(t2["filtered"])
+        want_of["tree Count"] = t2["tree"]
+        for k in range(16):
+            want_of[f"pair {k}"] = t2["pairs"][k]
+        for n, q, index in mix:
+            got = cli.query(index, q)
+            check(n, got)
+            serial[n] = got
+        code, body = cli.post("/index/i/query", 'SetRowAttrs(f, 3, shelf="top")', "text/plain")
+        if code != 200:
+            raise AssertionError(f"serving: SetRowAttrs: {code} {body!r}")
+        got = cli.query("i", 'TopN(f, n=5, attrName="shelf", attrValues=["top"])')
+        if got != [[{"id": 3, "count": int(t2["tot"][3])}]]:
+            raise AssertionError(f"serving: TopN by attribute {got}")
+        out["rescache"] = {"entries_reading_f": reading_f, "dropped_by_write": dropped,
+                           "snapshot": ex.rescache.snapshot(), "truth_s": truth_s}
+        log(f"serving: the mix again from the cache, no launch; Set on f dropped the "
+            f"{dropped} entries reading f of {entries0}; the next answers equal numpy; "
+            f"TopN by attribute {got}")
+
+        # -- 4. the planner: one flight of 64 over HTTP sharing one
+        # Intersect, with the planner on and off
+        pa, hb = 5, 1
+        shared = f"Intersect(Row(f={pa}), Row(h={hb}))"
+        qs = [f"Count(Union({shared}, Row(f={k})))" for k in range(PLANNER_FLIGHT)]
+
+        def union_counts(s):
+            base = f_np[s, pa] & h_np[s, hb]
+            return np.bitwise_count(base[None, :] | f_np[s, :PLANNER_FLIGHT]).sum(
+                axis=1, dtype=np.int64)
+
+        want = [int(x) for x in sum(by_shard(pool, union_counts))]
+        conns = [HttpClient(node.server.port) for _ in range(PLANNER_FLIGHT + 1)]
+
+        def planner_flight(enabled):
+            """The 64 queries posted at once from 64 connections while a lone
+            query's flight holds the dispatcher, so the batcher forms them
+            into one flight: its dispatch time, launches and CSE counters."""
+            ex.planner.enabled = enabled
+            ex.rescache.clear()
+            p0, l0, u0 = ex.planner.snapshot(), dict(tk.LAUNCHES), ex.shared_stack_uploads
+            n0 = len(flights)
+            got = [None] * PLANNER_FLIGHT
+            errs = []
+
+            def post(k):
+                try:
+                    got[k] = conns[k].query("i", qs[k])[0]
+                except Exception as e:  # reported below
+                    errs.append(repr(e))
+
+            holding.clear()
+
+            def queued():  # the lone query in dispatch and the 64 behind it
+                with b._lock:
+                    return b._depth >= PLANNER_FLIGHT + 1
+
+            hold.append(queued)
+            lone = threading.Thread(
+                target=lambda: conns[-1].query("i", f"Count(Row(h={H_ROWS - 1}))"))
+            lone.start()
+            if not holding.wait(30):
+                raise AssertionError("serving: planner: the lone flight never dispatched")
+            ths = [threading.Thread(target=post, args=(k,)) for k in range(PLANNER_FLIGHT)]
+            t = time.perf_counter()
+            for th in ths:
+                th.start()
+            for th in ths + [lone]:
+                th.join(120)
+            wall = time.perf_counter() - t
+            if errs or got != want:
+                raise AssertionError(f"serving: planner {enabled}: {errs[:2]} {got[:4]} "
+                                     f"!= {want[:4]}")
+            mine = [x for x in flights[n0:] if x[0] > 1]
+            if [x[:2] for x in mine] != [(PLANNER_FLIGHT, "size")]:
+                raise AssertionError(f"serving: planner {enabled}: flights {flights[n0:]}")
+            p1 = ex.planner.snapshot()
+            return {"dispatch_ms": mine[0][2] * 1e3, "wall_ms": wall * 1e3,
+                    "launches": {k: v - l0[k] for k, v in tk.LAUNCHES.items() if v - l0[k]},
+                    "cseHits": p1["cseHits"] - p0["cseHits"],
+                    "cseShared": p1["cseShared"] - p0["cseShared"],
+                    "shared_stacks": ex.shared_stack_uploads - u0}
+
+        # the 64 are queued before the window opens, so it closes on size;
+        # a wider window only keeps a pause of the dispatcher thread (the
+        # interpreter's switch interval is 5 ms) from cutting it on age
+        b.window = 0.25
+        try:
+            runs = [(on, planner_flight(on)) for on in (True, False, True, False)]
+        finally:
+            b.window = 0.002
+            ex.planner.enabled = True
+            for c in conns:
+                c.close()
+        pv = json.loads(cli.get("/debug/vars")[1])["planner"]
+        on_runs = [r for on, r in runs if on]
+        off_runs = [r for on, r in runs if not on]
+        out["planner"] = {"on": on_runs, "off": off_runs, "cseHits": pv["cseHits"],
+                          "cseShared": pv["cseShared"]}
+        if any(r["cseHits"] < 1 or r["shared_stacks"] != 1
+               or (on_card and not r["launches"].get("tree_count")) for r in on_runs):
+            raise AssertionError(f"serving: the flight's consumers left the shared stack or "
+                                 f"the tree kernel: {on_runs}")
+        for on, r in runs:
+            log(f"serving: one flight of {PLANNER_FLIGHT} over HTTP sharing {shared}, planner "
+                f"{'on' if on else 'off'}: dispatch {r['dispatch_ms']:.2f} ms, all answered in "
+                f"{r['wall_ms']:.1f} ms, launches {json.dumps(r['launches'])}, cseHits "
+                f"{r['cseHits']}, cseShared {r['cseShared']}, shared stacks "
+                f"{r['shared_stacks']}; every answer equal to numpy")
+
+        # -- 5. prefetch under an evicting cap
+        budget = membudget.default_budget()
+        cap0 = budget.cap
+        f_rows = f_np.shape[1]
+        # the index's shards (the http path's imports may have reached more
+        # than f's): a query without shards stacks over all of them
+        n_all = len(ex.holder.index("i").available_shards())
+        stack_all = n_all * f_rows * W_FULL * 4
+        stack_sub = (n_all - 1) * f_rows * W_FULL * 4
+        h_stack = n_all * H_ROWS * W_FULL * 4
+        cap = stack_all + stack_sub // 2 + 2 * h_stack
+        res0 = json.loads(cli.get("/debug/vars")[1])["residency"]
+        budget.set_cap(cap)
+        sub = sorted(ex.holder.index("i").available_shards())[1:]
+        try:
+            # every query a new one (a repeat would come from the result
+            # cache, with no flight); the last step over all shards, so f's
+            # full stack stays for the QoS phase
+            picks = rng.permutation(64 * H_ROWS)
+            steps = []
+            pconns = [HttpClient(node.server.port) for _ in range(4)]
+            for k in range(PREFETCH_STEPS):
+                shards = None if k % 2 == 0 else sub
+                use = [x for x in sub if x < S_FULL] if shards else range(S_FULL)
+                r_k = residency.default_tracker().snapshot()
+                answers = [None] * 4
+                wants = [None] * 4
+
+                def step_client(j, k=k, shards=shards, use=use):
+                    # 4 clients, each one query a step, all at once
+                    a_r, h_r = divmod(int(picks[4 * k + j]), H_ROWS)
+                    wants[j] = int(sum(np.bitwise_count(f_np[s, a_r] & h_np[s, h_r]).sum(
+                        dtype=np.int64) for s in use))
+                    q = f"Count(Intersect(Row(f={a_r}), Row(h={h_r})))"
+                    body = {"query": q, "shards": shards} if shards else q
+                    code, resp = pconns[j].post("/index/i/query", body,
+                                                "application/json" if shards else "text/plain")
+                    answers[j] = (json.loads(resp)["results"][0] if code == 200
+                                  else (code, resp[:200]))
+
+                ths = [threading.Thread(target=step_client, args=(j,)) for j in range(4)]
+                for th in ths:
+                    th.start()
+                for th in ths:
+                    th.join(120)
+                if answers != wants:
+                    raise AssertionError(f"serving: prefetch step {k}: {answers} != {wants}")
+                r_k1 = residency.default_tracker().snapshot()
+                steps.append({x: r_k1[x] - r_k[x] for x in (
+                    "prefetchIssued", "prefetchUseful", "prefetchUploads", "prefetchWasted",
+                    "deviceHits", "deviceMisses")})
+            for c in pconns:
+                c.close()
+        finally:
+            budget.set_cap(cap0)
+        api.ingest.uploader.flush(30)
+        res1 = json.loads(cli.get("/debug/vars")[1])["residency"]
+        issued = res1["prefetchIssued"] - res0["prefetchIssued"]
+        useful = res1["prefetchUseful"] - res0["prefetchUseful"]
+        wasted = res1["prefetchWasted"] - res0["prefetchWasted"]
+        out["prefetch"] = {"cap": cap, "issued": issued, "useful": useful, "wasted": wasted,
+                           "steps": steps,
+                           "useful_frac": useful / issued if issued else None,
+                           "evictions": ex.stack_evictions,
+                           "errors": res1["prefetchErrors"] - res0["prefetchErrors"]}
+        if not issued or useful / issued < 0.5 or out["prefetch"]["errors"]:
+            raise AssertionError(f"serving: prefetch issued {issued}, useful {useful}, "
+                                 f"errors {out['prefetch']['errors']}, by step {steps}")
+        log(f"serving: prefetch under a cap of {cap} bytes: issued {issued}, useful {useful} "
+            f"({useful / issued:.2f}), wasted {wasted}, stack evictions {ex.stack_evictions}, "
+            f"answers exact; "
+            f"by step {json.dumps(steps)}")
+
+        # -- 6. ingest through the pipeline
+        code, body = cli.post("/index/i/field/r2", {})
+        if code != 200:
+            raise AssertionError(f"serving: create r2: {code} {body!r}")
+        r_words = random_words(rng, (R_IMPORT_SHARDS, R_IMPORT_ROWS, W_FULL), dense=True)
+        payloads = [roaring.serialize_rows(np.arange(R_IMPORT_ROWS, dtype=np.uint64),
+                                           r_words[s]) for s in range(R_IMPORT_SHARDS)]
+        n_bits = int(np.bitwise_count(r_words).sum(dtype=np.int64))
+        ing0 = json.loads(cli.get("/debug/vars")[1])["ingest"]
+        used0 = budget.used()
+        changed = [0] * R_IMPORT_SHARDS
+        errs = []
+
+        def importer(c):
+            conn = HttpClient(node.server.port)
+            try:
+                for s in range(c, R_IMPORT_SHARDS, INGEST_CLIENTS):
+                    code, body = conn.post(f"/index/i/field/r2/import-roaring/{s}", payloads[s],
+                                           "application/octet-stream")
+                    if code != 200:
+                        errs.append(f"{s}: {code} {body[:200]!r}")
+                        return
+                    changed[s] = json.loads(body)["changed"]
+            finally:
+                conn.close()
+
+        t = time.perf_counter()
+        ths = [threading.Thread(target=importer, args=(c,)) for c in range(INGEST_CLIENTS)]
+        for th in ths:
+            th.start()
+        for th in ths:
+            th.join(timeout=300)
+        dt = time.perf_counter() - t
+        api.ingest.uploader.flush(60)
+        if errs or sum(changed) != n_bits:
+            raise AssertionError(f"serving: import {errs[:2]} changed {sum(changed)} of {n_bits}")
+        ing1 = json.loads(cli.get("/debug/vars")[1])["ingest"]
+        up0, up1 = ing0["uploader"], ing1["uploader"]
+        n_bytes = sum(len(d) for d in payloads)
+        out["ingest"] = {
+            "bytes": n_bytes, "bits": n_bits, "seconds": dt, "mb_per_s": n_bytes / dt / 1e6,
+            "bits_per_s": n_bits / dt,
+            "uploads": up1["uploads"] - up0["uploads"],
+            "uploads_coalesced": up1["uploadsCoalesced"] - up0["uploadsCoalesced"],
+            "upload_errors": up1["uploadErrors"] - up0["uploadErrors"],
+            "overlap_frac": up1["overlapFrac"], "h2d_bytes": up1["h2dBytes"] - up0["h2dBytes"],
+            "pinned": up1["pinnedSlots"], "budget_bytes_added": budget.used() - used0,
+        }
+        if out["ingest"]["upload_errors"] != 0 or up1["uploadErrors"] != 0:
+            raise AssertionError(f"serving: failed uploads {out['ingest']}")
+        frags = json.loads(cli.get("/debug/fragments?index=i&field=r2")[1])
+        out["ingest"]["fragments_on_card"] = frags["totals"]["deviceResident"]
+        r_rows = [int(x) for x in rng.choice(R_IMPORT_ROWS, 8, replace=False)]
+        got = cli.query("i", " ".join(f"Count(Row(r2={x}))" for x in r_rows)
+                        + " " + " ".join(f"Count(Intersect(Row(r2={x}), Row(r2={y})))"
+                                         for x, y in zip(r_rows, r_rows[1:])))
+        want = ([int(np.bitwise_count(r_words[:, x]).sum(dtype=np.int64)) for x in r_rows]
+                + [int(np.bitwise_count(r_words[:, x] & r_words[:, y]).sum(dtype=np.int64))
+                   for x, y in zip(r_rows, r_rows[1:])])
+        if got != want:
+            raise AssertionError(f"serving: r2 read back {got} != {want}")
+        log(f"serving: import-roaring of {n_bits} bits, {n_bytes / 1e6:.1f} MB on "
+            f"{R_IMPORT_SHARDS} shards from {INGEST_CLIENTS} clients in {dt:.2f} s: "
+            f"{n_bytes / dt / 1e6:.1f} MB/s, {n_bits / dt / 1e6:.1f} M bits/s; uploads "
+            f"{out['ingest']['uploads']} (coalesced {out['ingest']['uploads_coalesced']}), "
+            f"overlap {up1['overlapFrac']}, upload errors 0, {out['ingest']['fragments_on_card']}"
+            f" fragments on the card (+{out['ingest']['budget_bytes_added']} budget bytes); "
+            f"read back exactly")
+        del payloads, r_words
+        cli.request("DELETE", "/index/i/field/r2")
+
+        # -- 7. QoS: two tenants by header
+        q0 = json.loads(cli.get("/debug/qos")[1])
+        degraded = []
+        qerrs = []
+        per_tenant = {"heavy": 0, "light": 0}
+        stop = time.perf_counter() + QOS_SECONDS
+
+        def tenant_client(tenant, c):
+            conn = HttpClient(node.server.port)
+            crng = np.random.default_rng(SEED + 300 + c)
+            hdr = {devledger.TENANT_HEADER: tenant}
+            try:
+                while time.perf_counter() < stop:
+                    if tenant == "heavy":
+                        if crng.random() < 0.7:
+                            rows = crng.integers(0, 64, QOS_LEAVES)
+                            q = "Count(Union(" + ", ".join(f"Row(f={r})" for r in rows) + "))"
+                        elif crng.random() < 0.5:
+                            q = "GroupBy(Rows(f), Rows(h))"
+                        else:
+                            q = f"GroupBy(Rows(h), filter=Row(f={int(crng.integers(0, 64))}))"
+                    else:
+                        q = (f"Count(Intersect(Row(f={int(crng.integers(0, 64))}), "
+                             f"Row(h={int(crng.integers(0, H_ROWS))})))")
+                    code, body = conn.post("/index/i/query", q, "text/plain", hdr)
+                    if code == 429:
+                        continue
+                    if code != 200:
+                        qerrs.append(f"{tenant}: {code} {body[:200]!r}")
+                        return
+                    resp = json.loads(body)
+                    if "degraded" in resp:
+                        degraded.append(resp["degraded"])
+                    per_tenant[tenant] += 1
+            finally:
+                conn.close()
+
+        ths = [threading.Thread(target=tenant_client, args=(t, c))
+               for c, t in enumerate(["heavy"] * 4 + ["light"] * 4)]
+        for th in ths:
+            th.start()
+        for th in ths:
+            th.join(timeout=QOS_SECONDS + 120)
+        if qerrs or any(d is not True for d in degraded):
+            raise AssertionError(f"serving: tenants {qerrs[:2]} degraded marks {degraded[:3]}")
+        devledger.ledger().settle()
+        api.qos.tick()
+        qos = json.loads(cli.get("/debug/qos")[1])
+        totals = devledger.tenant_totals()
+        conserv = {}
+        for tname in ("heavy", "light"):
+            debt = qos["tenants"][tname]["debtMs"]
+            led = totals.get(tname, {"deviceMs": 0.0})["deviceMs"]
+            conserv[tname] = (debt, led)
+            if abs(debt - led) > 1e-3:
+                raise AssertionError(f"serving: tenant {tname} debt {debt} != ledger {led}")
+        out["qos"] = {"queries": per_tenant, "debt_vs_ledger_ms": conserv,
+                      "degraded": len(degraded),
+                      "tenants": {k: v for k, v in qos["tenants"].items()
+                                  if k in ("heavy", "light")},
+                      "transitions": qos["transitions"], "before": q0["episodes"]}
+        log(f"serving: QoS: queries {per_tenant}, debt against the ledger's device ms "
+            f"{conserv}, degraded {len(degraded)}; /debug/qos "
+            f"{json.dumps(out['qos']['tenants'])}")
+        out["batcher"] = b.snapshot()
+    finally:
+        b._dispatch = dispatch
+        cli.close()
+        node.stop()
+    del node, api, ex
+    gc.collect()
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+    out["path_s"] = time.perf_counter() - t_path
+    log(f"serving path: {out['path_s']:.1f} s")
+    return out
+
+
+def kernel_executor(holder, **kw):
+    """An executor for the in-process paths: the result cache and the
+    flight planner off, so each read reaches the kernel paths and their own
+    caches, whose launches and hits those paths assert (the serving path
+    runs the defaults)."""
+    from pilosa_tpu_torch.exec.executor import Executor
+
+    return Executor(holder, rescache_entries=0, planner_enabled=False, **kw)
+
+
 def drive(path, required, fn):
     """Run one path of the main path with every launch count set to 0 just
     before it; fail if a kernel of the path was not launched in it."""
@@ -4392,17 +5046,40 @@ def main() -> int:
             shutil.rmtree(d, ignore_errors=True)
 
 
+# each kernel: its source, and the TPU kernel (or XLA code) it replaces
+SOURCES = {
+    "row_scan": ("pilosa_tpu_torch/ops/csrc/row_scan.cu",
+                 "pilosa_tpu/ops/kernels.py:1537 _row_scan_kernel"),
+    "masked_row_scan": ("pilosa_tpu_torch/ops/csrc/masked_row_scan.cu",
+                        "pilosa_tpu/ops/kernels.py:1730 _masked_row_scan_kernel"),
+    "gram": ("pilosa_tpu_torch/ops/csrc/gram.cu",
+             "pilosa_tpu/ops/kernels.py:651 _gram_pallas_kernel"),
+    "cross_gram": ("pilosa_tpu_torch/ops/csrc/cross_gram.cu",
+                   "pilosa_tpu/ops/kernels.py:1265 _cross_gram_pallas_kernel"),
+    "tree_count": ("pilosa_tpu_torch/ops/csrc/tree_eval.cu",
+                   "pilosa_tpu/exec/astbatch.py:243 _count_scan (XLA, no pallas_call)"),
+    "tree_words": ("pilosa_tpu_torch/ops/csrc/tree_eval.cu",
+                   "pilosa_tpu/exec/astbatch.py:259 compiled (XLA, no pallas_call)"),
+    "bsi_range": ("pilosa_tpu_torch/ops/csrc/bsi.cu",
+                  "pilosa_tpu/ops/bsi.py:525 _range_count_batch_kernel and :475 "
+                  "_range_batch_kernel (XLA, no pallas_call)"),
+    "bsi_sum": ("pilosa_tpu_torch/ops/csrc/bsi.cu",
+                "pilosa_tpu/ops/bsi.py:629 _sum_batch_kernel and :145 sum_count "
+                "(XLA, no pallas_call)"),
+    "bsi_extreme": ("pilosa_tpu_torch/ops/csrc/bsi.cu",
+                    "pilosa_tpu/ops/bsi.py:211 _min_max_fused (XLA, no pallas_call)"),
+}
+
+
 def serve(kern, sass, card, t_start) -> int:
-    """The main path's eight paths on the served index, then the summary
+    """The main path's nine paths on the served index, then the summary
     lines."""
     import gc
 
     import torch
 
-    from pilosa_tpu_torch.exec.executor import Executor
-
     holder, setup_s = build_index("cuda")
-    ex = Executor(holder)
+    ex = kernel_executor(holder)
     with ThreadPoolExecutor(max_workers=min(8, os.cpu_count() or 1)) as pool:
         l_pair, e2e = drive("pair_topn", ("row_scan", "masked_row_scan", "gram"),
                             lambda: pair_topn_path(pool, ex, holder))
@@ -4429,7 +5106,7 @@ def serve(kern, sass, card, t_start) -> int:
         l_time, e2e["time"] = drive(
             "time", ("tree_count", "tree_words", "row_scan", "masked_row_scan", "gram",
                      "cross_gram"),
-            lambda: time_path(pool, Executor(holder), holder, "cuda"))
+            lambda: time_path(pool, kernel_executor(holder), holder, "cuda"))
         # the served index's tensors go before the node opens its own copy
         del ex, holder
         gc.collect()
@@ -4437,38 +5114,20 @@ def serve(kern, sass, card, t_start) -> int:
         l_http, e2e["http"] = drive(
             "http", tuple(sorted(l_pair)),
             lambda: http_path(pool, "cuda", hand, decoded["v"]))
+        l_serving, e2e["serving"] = drive(
+            "serving", tuple(sorted(SOURCES)),
+            lambda: serving_path(pool, "cuda", hand, decoded["v"]))
         del decoded, hand
     name, limit = [x.strip() for x in card.split(",", 1)]
     e2e["http"].update(card=name, power_limit=limit)
+    e2e["serving"].update(card=name, power_limit=limit)
     by_path = {k: {"pair_topn": l_pair[k], "groupby": l_group[k], "trees": l_trees[k],
                    "bsi": l_bsi[k], "budget": l_budget[k], "storage": l_storage[k],
-                   "time": l_time[k], "http": l_http[k]}
+                   "time": l_time[k], "http": l_http[k], "serving": l_serving[k]}
                for k in l_pair}
 
-    sources = {
-        "row_scan": ("pilosa_tpu_torch/ops/csrc/row_scan.cu",
-                     "pilosa_tpu/ops/kernels.py:1537 _row_scan_kernel"),
-        "masked_row_scan": ("pilosa_tpu_torch/ops/csrc/masked_row_scan.cu",
-                            "pilosa_tpu/ops/kernels.py:1730 _masked_row_scan_kernel"),
-        "gram": ("pilosa_tpu_torch/ops/csrc/gram.cu",
-                 "pilosa_tpu/ops/kernels.py:651 _gram_pallas_kernel"),
-        "cross_gram": ("pilosa_tpu_torch/ops/csrc/cross_gram.cu",
-                       "pilosa_tpu/ops/kernels.py:1265 _cross_gram_pallas_kernel"),
-        "tree_count": ("pilosa_tpu_torch/ops/csrc/tree_eval.cu",
-                       "pilosa_tpu/exec/astbatch.py:243 _count_scan (XLA, no pallas_call)"),
-        "tree_words": ("pilosa_tpu_torch/ops/csrc/tree_eval.cu",
-                       "pilosa_tpu/exec/astbatch.py:259 compiled (XLA, no pallas_call)"),
-        "bsi_range": ("pilosa_tpu_torch/ops/csrc/bsi.cu",
-                      "pilosa_tpu/ops/bsi.py:525 _range_count_batch_kernel and :475 "
-                      "_range_batch_kernel (XLA, no pallas_call)"),
-        "bsi_sum": ("pilosa_tpu_torch/ops/csrc/bsi.cu",
-                    "pilosa_tpu/ops/bsi.py:629 _sum_batch_kernel and :145 sum_count "
-                    "(XLA, no pallas_call)"),
-        "bsi_extreme": ("pilosa_tpu_torch/ops/csrc/bsi.cu",
-                        "pilosa_tpu/ops/bsi.py:211 _min_max_fused (XLA, no pallas_call)"),
-    }
     entries = []
-    for k, (src, replaces) in sources.items():
+    for k, (src, replaces) in SOURCES.items():
         v = kern[k]
         entries.append({
             "name": k,

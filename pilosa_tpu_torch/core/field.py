@@ -299,10 +299,15 @@ class Field:
         return view.clear_value(col) if view is not None else False
 
     def import_values(
-        self, cols: Iterable[int], values: Iterable[int], clear: bool = False
+        self, cols: Iterable[int], values: Iterable[int], clear: bool = False,
+        pipeline=None,
     ) -> None:
         """Bulk import of values (reference field.go:1163-1352), one
-        fragment at a time; the depth grows to fit them first."""
+        fragment at a time; the depth grows to fit them first. With an
+        ingest ``pipeline`` each shard's merge is a pipeline segment of its
+        own key (no coalescing: duplicate columns across batches carry
+        last-write-wins semantics that a concatenated group would reorder),
+        drained shard-parallel with the device uploads overlapped."""
         self._check_bsi()
         cols = np.asarray(
             cols if isinstance(cols, np.ndarray) else list(cols), dtype=np.uint64
@@ -319,12 +324,26 @@ class Field:
         width = self.n_words * 32
         shards = cols // width
         offs = cols % width
+        handles = []
         for shard in np.unique(shards):
             m = shards == shard
-            view.create_fragment_if_not_exists(int(shard)).import_values(
-                offs[m].astype(np.int64), values[m] - self.base, self.bit_depth,
-                clear=clear,
-            )
+            frag = view.create_fragment_if_not_exists(int(shard))
+            if pipeline is None:
+                frag.import_values(
+                    offs[m].astype(np.int64), values[m] - self.base, self.bit_depth,
+                    clear=clear,
+                )
+                continue
+
+            def apply_group(payloads, _frag=frag):
+                [(c, v)] = payloads
+                return _frag.import_values(c, v, self.bit_depth, clear=clear), _frag
+
+            handles.append(pipeline.submit_segment(
+                object(), (offs[m].astype(np.int64), values[m] - self.base), apply_group,
+            ))
+        if handles:
+            pipeline.drain(handles)
 
     # -- bulk imports of bits (reference field.go:1163-1352) ---------------
 
@@ -332,10 +351,6 @@ class Field:
         if clear and timestamps is not None:
             # reference field.go:1180
             raise ValueError("import clear is not supported with timestamps")
-        if pipeline is not None:
-            from pilosa_tpu_torch.exec.executor import ExecuteError
-
-            raise ExecuteError("import_bits with an ingest pipeline is not yet ported")
         rows = np.asarray(rows if isinstance(rows, np.ndarray) else list(rows), dtype=np.uint64)
         cols = np.asarray(cols if isinstance(cols, np.ndarray) else list(cols), dtype=np.uint64)
         std = (
@@ -361,7 +376,12 @@ class Field:
         shard) taken as given; then each timestamped pair into the views of
         its timestamp, grouped (module docstring). ``timestamps`` holds a
         ``datetime`` or None per pair, or is a ``datetime64`` array (NaT for
-        none), the fast form. An ingest ``pipeline`` is not ported yet."""
+        none), the fast form. With an ingest ``pipeline``
+        (``ingest/pipeline.py``) each shard's merge of the standard view is a
+        pipeline segment (:meth:`_submit_segment`): every segment is
+        submitted before any is awaited, queued segments of one fragment
+        coalesce into one merged apply, and each applied fragment goes to
+        the uploader; the time views merge as without one."""
         rows, cols, std, mutexlike = self._import_args(rows, cols, timestamps, clear, pipeline)
         self.stats.count("import_bits", len(cols))
         # import span (reference fragment.go:2245-2277)
@@ -374,16 +394,40 @@ class Field:
                 if segments is None or mutexlike:
                     segments = _split_by_shard(rows, cols, width)
                 merges = []
+                handles = []
                 for shard, seg_rows, seg_offs in segments:
                     frag = std.create_fragment_if_not_exists(int(shard))
                     if mutexlike:
                         for r, c in zip(seg_rows.tolist(), seg_offs.tolist()):
                             frag.set_mutex(int(r), int(c))
+                    elif pipeline is not None:
+                        handles.append(self._submit_segment(
+                            pipeline, frag, seg_rows, np.asarray(seg_offs, dtype=np.int64),
+                            clear,
+                        ))
                     else:
                         merges.append((frag, seg_rows, np.asarray(seg_offs, dtype=np.int64)))
                 _run_merges(merges, clear)
+                if handles:
+                    pipeline.drain(handles)
             if timestamps is not None:
                 self._import_time_views(rows, cols, timestamps)
+
+    def _submit_segment(self, pipeline, frag, seg_rows, seg_cols, clear):
+        """One shard's merge as a pipeline segment: queued segments of one
+        fragment coalesce by key into one pool job (a merge per payload
+        inside it, so the summed changes equal a concatenate-then-merge),
+        and the applied fragment goes to the upload stage once a group."""
+
+        def apply_group(payloads, _frag=frag):
+            changed = 0
+            for r, c in payloads:
+                changed += _frag.import_bits(r, c, clear=clear)
+            return changed, _frag
+
+        return pipeline.submit_segment(
+            (id(frag), bool(clear)), (seg_rows, seg_cols), apply_group
+        )
 
     def _import_time_views(self, rows: np.ndarray, cols: np.ndarray, timestamps) -> None:
         """The time views of an import: pairs sorted by (shard, truncated

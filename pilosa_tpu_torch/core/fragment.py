@@ -16,6 +16,11 @@ A fragment is a dense bitmap of ``capacity`` rows by ``n_words`` words:
   the next sync uploads it again); a fragment whose copy alone would
   exceed the cap is *declined* and pages the rows a caller asks for from
   the mirror instead (:meth:`row_device`, :meth:`rows_device`).
+  A sync may run on the ingest uploader's side stream
+  (``ingest/pipeline.py``): the copy then goes through pinned slots, a
+  resident copy's dirty rows are patched out of place, and the copy keeps
+  the event after it, which every later reader's stream waits for
+  (``ops/streams.py``).
 
 Row ids are arbitrary uint64, so the row axis is sparse (row id -> slot
 through a dict, capacity grown in powers of two) and the column axis
@@ -48,7 +53,7 @@ import torch
 
 from pilosa_tpu_torch import device as device_mod
 from pilosa_tpu_torch.core import membudget, residency
-from pilosa_tpu_torch.ops import _hostops, bitops
+from pilosa_tpu_torch.ops import _hostops, bitops, streams
 from pilosa_tpu_torch.shardwidth import SHARD_WORDS
 
 # BSI row layout within a bsig_* view (reference fragment.go:90-96).
@@ -105,6 +110,14 @@ class Fragment:
         self._rowids: list[int] = []  # slot -> row id
         self._set_host(np.zeros((0, n_words), dtype=np.uint32))
         self._device: torch.Tensor | None = None
+        # the event after the device copy's side-stream upload (None when
+        # it was made on the default stream): readers wait for it
+        self._device_ready = None
+        # bytes shipped host -> device by the latest device_bits() sync (0
+        # when the copy was current); the ingest uploader counts them
+        self.last_sync_h2d_bytes = 0
+        # ((epoch, version), stats) of container_profile
+        self._container_profile = None
         self._dirty: set[int] = set()
         self._counts: np.ndarray | None = None  # per-slot cached popcounts
         # Monotonic mutation counter; with the process-unique epoch it
@@ -197,6 +210,7 @@ class Fragment:
         """Drop the device copy and its budget accounting (caller holds the
         lock); the host mirror stays authoritative."""
         self._device = None
+        self._device_ready = None
         self._dirty.clear()
         if self._budget_key is not None:
             membudget.default_budget(self.device).release(self._budget_key)
@@ -563,18 +577,27 @@ class Fragment:
                 padded = np.zeros((self.capacity + 1, self.n_words), dtype=np.uint32)
                 padded[: self.capacity] = self._host
                 self._device = bitops.to_device(padded, self.device)
+                self._device_ready = streams.ready_event(self.device)
                 rebuilt = True
                 h2d = padded.nbytes
             elif self._dirty:
                 slots = np.fromiter(sorted(self._dirty), dtype=np.int64)
                 rows = bitops.to_device(self._host[slots], self.device)
-                self._device.index_copy_(
-                    0, torch.from_numpy(slots).to(self.device), rows
-                )
+                where = torch.from_numpy(slots).to(self.device)
+                streams.use_here(self._device, self._device_ready)
+                if not streams.on_side_stream(self.device):
+                    self._device.index_copy_(0, where, rows)
+                else:
+                    # a reader on another stream may hold the old tensor:
+                    # a side stream never writes into it
+                    self._device = self._device.index_copy(0, where, rows)
+                    self._device_ready = streams.ready_event(self.device)
                 h2d = slots.nbytes + rows.numel() * 4
             self._dirty.clear()
+            self.last_sync_h2d_bytes = h2d
             self._account_device(rebuilt)
             residency.default_tracker().note_sync(self, was_resident, h2d)
+            streams.use_here(self._device, self._device_ready)
             return self._device
 
     def row_device(self, row: int) -> torch.Tensor:
@@ -640,6 +663,37 @@ class Fragment:
                     return 0
                 return bitops.popcount_host(self._host[sa])
             return bitops.pair_count_host(self._host[sa], self._host[sb], op)
+
+    def container_profile(self, containers: bool = True) -> dict:
+        """Storage-shape stats (JAX ``Fragment.container_profile``): set
+        bits, rows, bit density and, with ``containers``, the roaring
+        container census (``storage/roaring.container_stats_words``, equal
+        to ``container_stats`` on the positions), cached under the
+        fragment's ``(epoch, version)``, so repeat readers (the flight
+        planner's selectivity model once a flight, ``/debug/fragments``)
+        pay a lookup while the fragment is unchanged. The bits come from
+        the maintained row counts; the census is made at the first full
+        request and folded into the same cached dict."""
+        from pilosa_tpu_torch.storage import roaring
+
+        with self._lock:
+            key = (self.epoch, self.version)
+            cached = self._container_profile
+            if cached is not None and cached[0] == key:
+                prof = cached[1]
+            else:
+                _, counts = self.row_counts()
+                bits = int(counts.sum())
+                rows = len(self._slot_of)
+                prof = {
+                    "bits": bits,
+                    "rows": rows,
+                    "density": bits / (rows * self.shard_width) if rows else 0.0,
+                }
+                self._container_profile = (key, prof)
+            if containers and "containers" not in prof:
+                prof["containers"] = roaring.container_stats_words(*self.snapshot_rows())
+            return prof
 
     def row_counts(self) -> tuple[list[int], np.ndarray]:
         """(row_ids, per-row popcounts) over existing rows, in slot order.
@@ -841,6 +895,7 @@ class Fragment:
                 if not np.array_equal(self._counts, want):
                     raise FragmentInvariantError("stale row-count cache")
             if device and self._device is not None:
+                streams.use_here(self._device, self._device_ready)
                 dev = bitops.to_host(self._device)
                 if dev.shape != (self.capacity + 1, self.n_words):
                     raise FragmentInvariantError(f"device copy shape {dev.shape}")

@@ -11,6 +11,7 @@ keys its caches weakly on the field object, never on its name).
 
 from __future__ import annotations
 
+import itertools
 import threading
 
 import torch
@@ -25,6 +26,11 @@ EXISTENCE_FIELD_NAME = "_exists"
 
 
 class Index:
+    # process-unique sequence per index object: a deleted and re-created
+    # index of the same name never shares result-cache keys with the old
+    # one (exec/rescache.py keys on it)
+    _SEQ = itertools.count()
+
     def __init__(
         self,
         name: str,
@@ -40,7 +46,9 @@ class Index:
         self.n_words = n_words
         self.device = device_mod.resolve(device)
         self._lock = threading.RLock()
-        # schema generation: bumped on field create and delete
+        self.seq = next(Index._SEQ)
+        # schema generation: bumped on field create and delete, so result
+        # cache keys built against the old field set cannot survive it
         self.generation = 0
         self.fields: dict[str, Field] = {}
         # column attributes (reference index.go columnAttrs boltdb store)

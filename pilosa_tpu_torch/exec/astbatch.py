@@ -61,9 +61,11 @@ _OPS = {
 # quantum over a wide window covers thousands of views).
 MAX_TIME_COVER = 16
 
-# The flight planner's graft node (pilosa_tpu/exec/planner.py SHARED): a
-# subtree already materialized as a host row, which the compiled path
-# declines by contract.
+# The flight planner's graft node (exec/planner.py SHARED): a subtree
+# already materialized as a row for the whole flight. It is a leaf of the
+# flight's shared stack (the pair ``(SHARED, "")``, one slot per distinct
+# row, keyed by the row's identity), which the executor uploads once for
+# the flight, so consumers still combine it in the tree kernel.
 SHARED = "__shared__"
 
 # sig nodes: ("row", stack_ordinal) | (op, *child_sigs). Leaves refer to
@@ -94,7 +96,8 @@ def _ordinal(pairs: list[tuple[str, str]], fname: str, vname: str) -> int:
 def _match(idx, call: Call, leaves: list, pairs: list):
     name = call.name
     if name == SHARED:
-        return None
+        leaves.append((SHARED, "", id(call._planner_row)))
+        return ("row", _ordinal(pairs, SHARED, ""))
     if name == "Row":
         fname = call.field_arg()
         field = _stackable_field(idx, fname)

@@ -62,6 +62,16 @@ own, ``storage/disk.py``) before the call runs, and results carry the keys
 back (``Row.keys``, ``Pair.key``, ``RowIdentifiers.keys``,
 ``FieldRow.row_key``). Every call of the JAX executor on one node is
 served; ``exec/result.py`` ``result_to_json`` gives each answer's JSON form.
+
+Ahead of the batch passes every read call probes the semantic result cache
+(``exec/rescache.py``): an answer whose fragments' (epoch, version) vector
+is unchanged launches nothing; writes invalidate the entries reading the
+written field. A flight of :meth:`execute_batch` is planned between the
+probe and the passes (``exec/planner.py``): commutative children are
+reordered cheapest first, subtrees repeated across the flight are
+evaluated once and grafted in (a grafted tree falls to the host algebra),
+and the warm-up gates of the gram and tree paths give way to measured
+prices once the device ledger has them.
 """
 
 from __future__ import annotations
@@ -72,6 +82,7 @@ import contextlib
 import itertools
 import os
 import threading
+import time
 import weakref
 from typing import Any
 
@@ -92,6 +103,8 @@ from pilosa_tpu_torch.core.index import Index
 from pilosa_tpu_torch.core.translate import TranslateStore
 from pilosa_tpu_torch.core.view import VIEW_STANDARD
 from pilosa_tpu_torch.exec import astbatch
+from pilosa_tpu_torch.exec import planner as planner_mod
+from pilosa_tpu_torch.exec import rescache
 from pilosa_tpu_torch.obs import qprofile, tracing
 from pilosa_tpu_torch.exec.result import (
     FieldRow,
@@ -101,7 +114,7 @@ from pilosa_tpu_torch.exec.result import (
     RowIdentifiers,
     ValCount,
 )
-from pilosa_tpu_torch.ops import _hostops, bitops, bsi, kernels
+from pilosa_tpu_torch.ops import _hostops, bitops, bsi, kernels, streams
 from pilosa_tpu_torch.pql.ast import Call, Condition
 
 # reference executor.go:66 defaultMinThreshold.
@@ -224,9 +237,25 @@ class Executor:
         holder: Holder,
         translator: TranslateStore | None = None,
         max_writes_per_request: int | None = None,
+        rescache_entries: int = 512,
+        rescache_promote_hits: int = 3,
+        rescache_demote_deltas: int = 64,
+        planner_enabled: bool = True,
     ):
         self.holder = holder
         self.translator = translator or TranslateStore()
+        # flight-level planner (exec/planner.py): CSE across a flight,
+        # cost-based reordering and measured lane choice
+        self.planner = planner_mod.FlightPlanner(self, enabled=planner_enabled)
+        # semantic result cache (exec/rescache.py): repeat reads with an
+        # unchanged fragment version vector skip every launch; entries <= 0
+        # keeps nothing
+        self.rescache = rescache.ResultCache(
+            entries=rescache_entries,
+            promote_hits=rescache_promote_hits,
+            demote_deltas=rescache_demote_deltas,
+            stats_fn=lambda: holder.stats,
+        )
         self.max_writes_per_request = (
             self.DEFAULT_MAX_WRITES_PER_REQUEST
             if max_writes_per_request is None
@@ -263,6 +292,8 @@ class Executor:
         # it declined (each sent its reads per fragment)
         self.stack_evictions = 0
         self.stacks_declined = 0
+        # flights whose planner-grafted operands went up as one stack
+        self.shared_stack_uploads = 0
         # BSI computations on one fragment's rows, the stack declined
         self.bsi_fragment_launches = 0
         # the host tier's thread pool, built at first need on a host of
@@ -301,6 +332,13 @@ class Executor:
             first_write = next(
                 (i for i, c in enumerate(calls) if _is_write(c)), len(calls)
             )
+            # the result cache ahead of the launches: a repeat read whose
+            # fragment version vector is unchanged skips the batch passes
+            tokens: list[Any] = [None] * len(calls)
+            for i, call in enumerate(calls[:first_write]):
+                res, tokens[i] = self.rescache.lookup(idx, call, shards)
+                if res is not rescache.MISS:
+                    results[i] = res
             self._batch_pair_counts(idx, calls[:first_write], shards, results)
             self._batch_general(idx, calls[:first_write], shards, results)
             self._batch_bsi(idx, calls[:first_write], shards, results)
@@ -308,6 +346,12 @@ class Executor:
                 if results[i] is _UNSET:
                     with tracing.start_span(f"executor.execute{call.name}"):
                         results[i] = self._execute_call(idx, call, shards)
+            for i, call in enumerate(calls[:first_write]):
+                if tokens[i] is not None:
+                    self.rescache.store(
+                        tokens[i], results[i],
+                        recompute=self._maintained_recompute(idx, call, shards),
+                    )
             self._count_stats(idx, calls)
             return [self._translate_result(idx, c, r) for c, r in zip(q.calls, results)]
 
@@ -357,6 +401,17 @@ class Executor:
             shards = list(key) if key is not None else None
             flat_calls = [c for qi in qis for c in cloned[qi]]
             flat_results: list[Any] = [_UNSET] * len(flat_calls)
+            # the cache probe before the batch passes: members served here
+            # never ride a launch
+            flat_tokens: list[Any] = [None] * len(flat_calls)
+            for fi, call in enumerate(flat_calls):
+                res, flat_tokens[fi] = self.rescache.lookup(idx, call, shards)
+                if res is not rescache.MISS:
+                    flat_results[fi] = res
+            # planning after the probe (the tokens and keys are taken, so
+            # grafts and reorders cannot shift an entry's identity) and
+            # before the batch passes (a grafted tree must decline them)
+            self.planner.plan_group(idx, flat_calls, shards, flat_results, _UNSET)
             self._batch_pair_counts(idx, flat_calls, shards, flat_results)
             self._batch_general(idx, flat_calls, shards, flat_results)
             self._batch_bsi(idx, flat_calls, shards, flat_results)
@@ -364,12 +419,19 @@ class Executor:
             for qi in qis:
                 calls = cloned[qi]
                 res = flat_results[pos : pos + len(calls)]
+                toks = flat_tokens[pos : pos + len(calls)]
                 pos += len(calls)
                 try:
                     for ci, call in enumerate(calls):
                         if res[ci] is _UNSET:
                             with tracing.start_span(f"executor.execute{call.name}"):
                                 res[ci] = self._execute_call(idx, call, shards)
+                    for ci, call in enumerate(calls):
+                        if toks[ci] is not None:
+                            self.rescache.store(
+                                toks[ci], res[ci],
+                                recompute=self._maintained_recompute(idx, call, shards),
+                            )
                     self._count_stats(idx, calls)
                     out[qi] = [
                         self._translate_result(idx, c, r)
@@ -378,6 +440,107 @@ class Executor:
                 except Exception as e:  # per-query isolation
                     out[qi] = e
         return out
+
+    def rescache_probe(
+        self, index_name: str, q: pql.Query, shards: list[int] | None = None,
+    ) -> list[Any] | None:
+        """All-or-nothing result-cache probe of a whole parsed query (the
+        batcher's, at submit): the translated results when every call hits,
+        else None (the query then takes the normal path)."""
+        return self._rescache_all(
+            index_name, q, shards, lambda idx, c, s: self.rescache.lookup(idx, c, s)[0]
+        )
+
+    def rescache_degraded(
+        self, index_name: str, q: pql.Query, shards: list[int] | None = None,
+    ) -> list[Any] | None:
+        """:meth:`rescache_probe` over the LAST-KNOWN entries, the version
+        check waived (``rescache.lookup_stale``): the QoS governor's
+        degraded tier for a pressure-staged tenant's TopN/GroupBy. None when
+        a call has no entry (the query then runs for real)."""
+        return self._rescache_all(index_name, q, shards, self.rescache.lookup_stale)
+
+    def _rescache_all(self, index_name: str, q: pql.Query, shards, lookup):
+        idx = self.holder.index(index_name)
+        if idx is None or not q.calls or q.write_calls():
+            return None
+        try:
+            results = []
+            for orig in q.calls:
+                call = orig.clone()
+                self._translate_call(idx, call)
+                res = lookup(idx, call, shards)
+                if res is rescache.MISS:
+                    return None
+                results.append(res)
+            self._count_stats(idx, q.calls)
+            return [self._translate_result(idx, c, r) for c, r in zip(q.calls, results)]
+        except Exception:  # the query takes the normal path, which raises it
+            return None
+
+    def cached_execute_call(
+        self, idx: Index, call: Call, shards: list[int] | None, consumers: int = 1
+    ) -> Any:
+        """One translated call through the result cache (the planner's
+        shared subtree evaluation). A tree on a miss goes to the tree
+        kernel first, weighed as ``consumers`` calls at its stacks' demand
+        gate (the calls it is shared by would have built them)."""
+        res, token = self.rescache.lookup(idx, call, shards)
+        if res is not rescache.MISS:
+            return res
+        slot = [_UNSET]
+        self._batch_general(idx, [call], shards, slot, weight=consumers)
+        out = slot[0] if slot[0] is not _UNSET else self._execute_call(idx, call, shards)
+        if token is not None:
+            self.rescache.store(
+                token, out, recompute=self._maintained_recompute(idx, call, shards)
+            )
+        return out
+
+    def _maintained_recompute(
+        self, idx: Index, call: Call, shards: list[int] | None
+    ):
+        """The promotion closure of a hot unfiltered TopN or GroupBy entry:
+        re-derive the answer instead of invalidating it. An unfiltered TopN
+        re-merges the maintained per-fragment row counts
+        (``Fragment._counts``, carried through point writes and imports), a
+        host reduce with no launch; a GroupBy reruns over the same state.
+        Other shapes do not promote (None)."""
+        if not (
+            (call.name == "TopN" and not call.children)
+            or (call.name == "GroupBy" and "filter" not in call.args)
+        ):
+            return None
+        frozen = call.clone()
+
+        def recompute():
+            return self._execute_call(idx, frozen.clone(), shards)
+
+        return recompute
+
+    def _after_write(self, idx: Index, call: Call, result: Any) -> Any:
+        self._note_write_call(idx, call)
+        return result
+
+    def _note_write_call(self, idx: Index, call: Call) -> None:
+        """Eager, precise invalidation after a write call: drop the cache
+        entries reading the written field. A column-attribute write has no
+        field and drops the index's entries (attributes live outside the
+        fragment version space)."""
+        name = call.name
+        if name == "SetColumnAttrs":
+            self.rescache.note_write(idx.name, None)
+            return
+        if name == "SetRowAttrs":
+            fname = call.args.get("_field")
+        else:
+            fname = call.field_arg()
+        if isinstance(fname, str):
+            self.rescache.note_write(idx.name, fname)
+            if idx.track_existence and name in ("Set", "Store"):
+                self.rescache.note_write(idx.name, "_exists")
+        else:
+            self.rescache.note_write(idx.name, None)
 
     def _count_stats(self, idx: Index, calls: list[Call]) -> None:
         """Per-call-type query counts of answered calls, however answered
@@ -553,21 +716,21 @@ class Executor:
         if name == "TopN":
             return self._execute_topn(idx, call, shards)
         if name == "Set":
-            return self._execute_set(idx, call)
+            return self._after_write(idx, call, self._execute_set(idx, call))
         if name == "Clear":
-            return self._execute_clear(idx, call)
+            return self._after_write(idx, call, self._execute_clear(idx, call))
         if name == "ClearRow":
-            return self._execute_clear_row(idx, call, shards)
+            return self._after_write(idx, call, self._execute_clear_row(idx, call, shards))
         if name == "Rows":
             return self._execute_rows(idx, call, shards)
         if name == "GroupBy":
             return self._execute_groupby(idx, call, shards)
         if name == "Store":
-            return self._execute_store(idx, call, shards)
+            return self._after_write(idx, call, self._execute_store(idx, call, shards))
         if name == "SetRowAttrs":
-            return self._execute_set_row_attrs(idx, call)
+            return self._after_write(idx, call, self._execute_set_row_attrs(idx, call))
         if name == "SetColumnAttrs":
-            return self._execute_set_column_attrs(idx, call)
+            return self._after_write(idx, call, self._execute_set_column_attrs(idx, call))
         if name == "Options":
             return self._execute_options(idx, call, shards)
         return self._execute_bitmap_call(idx, call, shards)
@@ -660,24 +823,40 @@ class Executor:
             caches = self._stacks.setdefault(field, {})
             entry = caches.get(key)
             if entry is not None:
+                # a stack the uploader made on its side stream: this
+                # stream waits for its copy before any read (ops/streams.py)
+                streams.use_here(entry["dev"], entry.get("ready"))
                 entry["lru"] = next(self._lru_clock)
                 entry["hits"] += 1
+                # the prefetcher's own builds (server/prefetch.py) book as
+                # prefetch traffic; a query's first hit on a stack a
+                # prefetch built counts that prefetch useful
+                prefetching = tracker.in_prefetch()
                 if entry["versions"] == versions:
                     budget.touch(entry["bkey"])
-                    tracker.note_stack_hit()
-                    tracker.note_hit()
-                    if not entry["pinned"] and tracker.maybe_pin_stack(
-                        budget, entry["bkey"], entry["hits"]
-                    ):
-                        entry["pinned"] = True
+                    if prefetching:
+                        tracker.note_prefetch_wasted()
+                    else:
+                        tracker.note_stack_hit()
+                        tracker.note_hit(entry["prefetched"])
+                        entry["prefetched"] = False
+                        if not entry["pinned"] and tracker.maybe_pin_stack(
+                            budget, entry["bkey"], entry["hits"]
+                        ):
+                            entry["pinned"] = True
                     return entry["slot_of"], entry["dev"]
                 updated = self._stack_incremental_update(
                     field, entry, frags, shards, versions
                 )
                 if updated is not None:
                     budget.touch(entry["bkey"])
-                    tracker.note_stack_hit()
-                    tracker.note_hit()
+                    if prefetching:
+                        entry["prefetched"] = True
+                        tracker.note_prefetch_upload(0)
+                    else:
+                        tracker.note_stack_hit()
+                        tracker.note_hit(entry["prefetched"])
+                        entry["prefetched"] = False
                     return updated
                 caches.pop(key, None)
                 budget.release(entry["bkey"])
@@ -706,7 +885,11 @@ class Executor:
             del bits
             self.stack_rebuilds += 1
             qprofile.incr("stack_rebuilds")
-            tracker.note_miss()
+            prefetched = tracker.in_prefetch()
+            if prefetched:
+                tracker.note_prefetch_upload(nbytes)
+            else:
+                tracker.note_miss()
             # a BSI depth change (a new row-axis length) retires the entries
             # of the same shards and view: they can never be hit again
             # the budget's evict callback pops entries without the lock
@@ -727,6 +910,9 @@ class Executor:
             entry = _StackEntry(
                 versions=versions, slot_of=slot_of, dev=dev,
                 lru=next(self._lru_clock), bkey=object(), hits=0, pinned=False,
+                prefetched=prefetched,
+                # the event after its copy when built on a side stream
+                ready=streams.ready_event(dev.device),
             )
             caches[key] = entry
             # an entry dropped without a release (the field or the executor
@@ -809,8 +995,11 @@ class Executor:
         for k in ("gram", "gram_misses", "rowcounts", "crossgram", "crossgram_misses",
                   "bsi_agg"):
             entry.pop(k, None)  # they described the old snapshot
-        entry["dev"] = dev  # dev before versions: a reader keyed on versions
-        entry["versions"] = versions  # must never see the old dev
+        # the new tensor's copy event before the tensor, and dev before
+        # versions: a reader keyed on versions must never see the old dev
+        entry["ready"] = streams.ready_event(dev.device)
+        entry["dev"] = dev
+        entry["versions"] = versions
         self.stack_incremental += 1
         qprofile.incr("stack_incremental")
         return slot_of, dev
@@ -832,6 +1021,33 @@ class Executor:
         key = self._stack_key(shard_list, view_name, n_fixed_rows)
         with self._stack_lock:
             return key in self._stacks.get(field, {})
+
+    def prefetch_stack(
+        self, field: Field, shard_list: list[int], view_name: str = VIEW_STANDARD,
+    ) -> None:
+        """Build (or refresh) a view's serving stack off the dispatch path:
+        the residency prefetcher's target (``server/prefetch.py``). It runs
+        on the ingest uploader's thread, inside the tracker's prefetch
+        context and on the uploader's side stream, so the stack's copy goes
+        through pinned slots and its entry carries the event readers wait
+        for; a stack the budget declines is not built. A standard view's
+        full pair-count gram is computed here too (one gram launch), so the
+        next flight's pair Counts on the field launch nothing."""
+        got = self._field_stack(field, shard_list, view_name)
+        if got is None or got is STACK_DECLINED or view_name != VIEW_STANDARD:
+            return
+        _, bits = got
+        R = bits.shape[1]
+        if R > self._GRAM_CACHE_MAX_ROWS:
+            return
+        entry = self._stack_entry_for(field, bits)
+        if entry is None or entry.get("gram") is not None:
+            return
+        g = kernels.pair_gram(bits, list(range(R)))
+        if g is not None:
+            with self._stack_lock:
+                if entry["dev"] is bits:
+                    entry["gram"] = g
 
     def _field_gram(self, field: Field, bits: torch.Tensor, uniq: list[int]):
         """(gram, pos) answering pair counts for the slot subset ``uniq``:
@@ -874,7 +1090,9 @@ class Executor:
         with self._stack_lock:
             n = self._pair_single_demand.get(field, 0) + 1
             self._pair_single_demand[field] = n
-        return n >= self._PAIR_SINGLE_WARM
+        # once the ledger prices both lanes, the measured comparison
+        # replaces the warm-up count (exec/planner.py)
+        return self.planner.choose_lane("pair_count", n >= self._PAIR_SINGLE_WARM)
 
     def _stack_row_counts(self, field: Field, bits: torch.Tensor) -> np.ndarray:
         """Per-slot row counts ``int64 [R]`` for a stack snapshot, cached on
@@ -1050,7 +1268,7 @@ class Executor:
 
     def _batch_general(
         self, idx: Index, calls: list[Call], shards: list[int] | None,
-        results: list[Any],
+        results: list[Any], weight: int = 1,
     ) -> None:
         """Answer the remaining batchable reads — trees of
         Row/Intersect/Union/Difference/Xor/Not, under Count or as a bitmap
@@ -1060,12 +1278,16 @@ class Executor:
         The caller cuts ``calls`` at the first write. A call engages only
         when every leaf's stack is live already or demanded by at least
         two batchable calls here (a stack build uploads a whole field, so
-        it must amortize); the others stay on the host tier."""
+        it must amortize; each call here stands for ``weight`` of them);
+        the others stay on the host tier. The flight planner's grafted
+        operands (exec/planner.py) are leaves of one stack made here."""
         # launch groups key on (sig, stack pairs): calls of one shape over
         # the same stacks share one launch
         count_groups: dict[tuple, list[tuple[int, list]]] = {}
         bitmap_items: list[tuple[int, tuple, tuple, list]] = []
         demand: dict[tuple[str, str], int] = {}
+        # the planner's grafted operands by identity: one stack for them all
+        shared: dict[int, Row] = {}
         for i, call in enumerate(calls):
             if results[i] is not _UNSET:
                 continue
@@ -1084,8 +1306,10 @@ class Executor:
                 bitmap_items.append((i, sig, tuple(pairs), leaves))
             else:
                 continue
+            if (astbatch.SHARED, "") in pairs:
+                planner_mod.shared_rows(call, shared)
             for pair in pairs:
-                demand[pair] = demand.get(pair, 0) + 1
+                demand[pair] = demand.get(pair, 0) + weight
         if not count_groups and not bitmap_items:
             return
         shard_list = self._shards_for(idx, shards)
@@ -1108,12 +1332,19 @@ class Executor:
                 fname, vname = pair
                 if pair not in stacks_by_view:
                     field = idx.field(fname)  # the existence field too
-                    if field is None:
+                    if fname == astbatch.SHARED:  # made for this flight
+                        got = self._shared_stack(shared, shard_list, idx.n_words)
+                    elif field is None:
                         got = None
                     elif field.view(vname) is None:
                         got = _ABSENT
-                    elif (self._stack_cached(field, shard_list, vname)
-                          or demand.get(pair, 0) >= 2):
+                    elif self._stack_cached(
+                        field, shard_list, vname
+                    ) or self.planner.choose_lane(
+                        # a live stack serves for free; a cold one waits for
+                        # two demands until the ledger prices both lanes
+                        "tree_count", demand.get(pair, 0) >= 2
+                    ):
                         got = self._field_stack(field, shard_list, vname)
                         if got is None:
                             got = _ABSENT
@@ -1170,6 +1401,22 @@ class Executor:
                 row.attrs = idx.field(fname).row_attrs.attrs(calls[i].args[fname])
             results[i] = row
 
+    def _shared_stack(self, shared: dict, shard_list: list[int], n_words: int):
+        """``(slot_of, int32[S, K, W])``: the flight's K grafted operands
+        (``shared``, row identity -> Row) as one stack on the holder's
+        device, uploaded once for the flight, so the trees that consume
+        them still run in the tree kernel. Shards a row lacks are zeros."""
+        bits = np.zeros((len(shard_list), len(shared), n_words), dtype=np.uint32)
+        for k, row in enumerate(shared.values()):
+            for si, s in enumerate(shard_list):
+                seg = row.segments.get(s)
+                if seg is not None:
+                    bits[si, k] = seg
+        self.shared_stack_uploads += 1
+        return {key: k for k, key in enumerate(shared)}, bitops.to_device(
+            bits, self.holder.device
+        )
+
     # --------------------------------------------------------- bitmap calls
 
     def _execute_bitmap_call(self, idx: Index, call: Call, shards: list[int] | None) -> Row:
@@ -1186,6 +1433,11 @@ class Executor:
 
     def _bitmap_call(self, idx: Index, call: Call, shards: list[int]) -> Row:
         name = call.name
+        if name == planner_mod.SHARED:
+            # a flight-shared operand (exec/planner.py), evaluated once for
+            # the flight: copied like a cache hit, so consumers attach keys
+            # and attributes apart
+            return rescache.copy_result(planner_mod.shared_row(call))
         if name in ("Row", "Range"):
             return self._execute_row(idx, call, shards)
         if name == "Difference":
@@ -1472,13 +1724,27 @@ class Executor:
         if m is not None:
             fname, op, ra, rb = m
             view = idx.field(fname).view(VIEW_STANDARD)
-            return self._host_pair_count(view, ra, rb, op, shard_list)
+            t0 = time.perf_counter()
+            total = self._host_pair_count(view, ra, rb, op, shard_list)
+            # the host lane's price, which the lane choice weighs against
+            # the gram's measured device ms (exec/planner.py)
+            self.planner.note_host_lane("pair_count", (time.perf_counter() - t0) * 1e3)
+            return total
         n = self._match_single_row_count(idx, child)
         if n is not None:
             field, row_id = n
             view = field.view(VIEW_STANDARD)
             # popcount(a) == popcount(a & a)
             return self._host_pair_count(view, row_id, row_id, "intersect", shard_list)
+        if child.name in (
+            "Intersect", "Union", "Difference", "Xor", "Not"
+        ) and not planner_mod.contains_shared(child):
+            # a whole tree on the host: the batch-vs-solo lane's host price
+            # (a grafted tree's combine is no solo evaluation)
+            t0 = time.perf_counter()
+            total = self._bitmap_call(idx, child, shard_list).count()
+            self.planner.note_host_lane("tree_count", (time.perf_counter() - t0) * 1e3)
+            return total
         return self._bitmap_call(idx, child, shard_list).count()
 
     @staticmethod

@@ -13,7 +13,19 @@ Device time comes from a CUDA event pair around each launch
 (:meth:`Site.record_cuda_launch`). Reading an event pair waits for the
 launch to finish, so the query path never reads one: pairs queue up and
 :meth:`Ledger.settle` folds them in when a snapshot is taken (and, without
-waiting, the pairs already finished whenever the queue grows long).
+waiting, the pairs already finished whenever the queue grows long, and
+whenever the flight planner or the QoS governor reads a price).
+
+Each launch carries a signature; its class (the first token) keeps a
+per-site EWMA of device ms a launch, read by the flight planner's lane
+choice through :func:`measured_ms` (``exec/planner.py``). The batcher
+splits a flight's launches across the principals that rode it
+(:func:`weighted_scope`), and the QoS governor debits each tenant by its
+measured device ms (:func:`tenant_totals`, ``server/qos.py``). A
+*launch window* (:meth:`Site.launch`) books host-side device work that is
+no kernel, such as an ingest upload or a prefetch, as launches with their
+wall time; transfers made inside one book under its site
+(:func:`active_window_site`).
 
 The compile columns stay at 0: the port builds its kernels with nvcc
 before the first launch (``ops/cuda_build.py``), so no launch compiles
@@ -53,6 +65,24 @@ _MAX_PENDING = 1 << 16
 _tenant: ContextVar[str] = ContextVar("devledger_tenant", default=DEFAULT_TENANT)
 # (index, op_class) bound by the api layer once both are known.
 _binding: ContextVar[tuple] = ContextVar("devledger_binding", default=("-", "-"))
+# Weighted principal list, set by the batcher around a shared flight so one
+# launch is split across every principal that rode it.
+_weights: ContextVar[tuple] = ContextVar("devledger_weights", default=())
+
+
+class _TLS(threading.local):
+    def __init__(self):
+        self.windows = []
+
+
+_tls = _TLS()
+
+
+def active_window_site():
+    """The site of this thread's innermost launch window, or None: a
+    transfer made inside an ingest-upload window books under that site."""
+    w = _tls.windows
+    return w[-1] if w else None
 
 
 def clean_tenant(raw) -> str:
@@ -70,15 +100,21 @@ def clean_tenant(raw) -> str:
     return t
 
 
+def current_tenant() -> str:
+    return _tenant.get()
+
+
 def current_principal() -> tuple:
     idx, cls = _binding.get()
     return (_tenant.get(), idx, cls)
 
 
 def ambient_weights() -> tuple:
-    """The weighted principal list launches book against: the ambient
-    principal at weight 1 (JAX's batcher splits a shared flight across
-    several; the port has no batcher yet)."""
+    """The weighted principal list launches book against: the batcher's
+    flight-level split when set, else the ambient principal at weight 1."""
+    w = _weights.get()
+    if w:
+        return w
     return ((current_principal(), 1.0),)
 
 
@@ -98,6 +134,18 @@ def principal_scope(index="-", op_class="-"):
         yield
     finally:
         _binding.reset(tok)
+
+
+@contextlib.contextmanager
+def weighted_scope(pairs):
+    """``pairs`` is an iterable of ((tenant, index, op_class), weight): the
+    batcher's split of one shared flight's launches across every principal
+    whose queries rode it."""
+    tok = _weights.set(tuple(pairs))
+    try:
+        yield
+    finally:
+        _weights.reset(tok)
 
 
 class _Accum:
@@ -141,19 +189,38 @@ class Site:
     """One registered launch site. Cheap to hold; all mutation funnels
     through the owning ledger's lock."""
 
-    __slots__ = ("name", "ledger", "acc")
+    __slots__ = ("name", "ledger", "acc", "sig_ms")
 
     def __init__(self, name, ledger):
         self.name = name
         self.ledger = ledger
         self.acc = _Accum()
+        # sig class (the first token of a launch's sig) -> [launches, EWMA
+        # device ms a launch]: the price list the flight planner's lane
+        # choice reads (exec/planner.py)
+        self.sig_ms: dict[str, list] = {}
 
-    def record_cuda_launch(self, start, end, wall_s=0.0, n=1):
+    def record_cuda_launch(self, start, end, wall_s=0.0, n=1, sig=None):
         """Book ``n`` launches bracketed by the recorded CUDA events
         ``start`` and ``end``: the count and wall time now, the device time
-        when :meth:`Ledger.settle` reads the pair."""
+        (and the price of ``sig``'s class) when :meth:`Ledger.settle` reads
+        the pair."""
         self.ledger._book_launch(self, n, wall_s * 1e3)
-        self.ledger._pend(self, start, end)
+        self.ledger._pend(self, start, end, n, sig)
+
+    @contextlib.contextmanager
+    def launch(self, sig=None, n=1):
+        """A launch window: ``n`` launches of host-driven device work that
+        is no kernel (an ingest upload, a prefetch), booked with their wall
+        time; transfers made inside book under this site. Its device time
+        is that of the kernels it launches, which book on their own sites."""
+        _tls.windows.append(self)
+        t0 = time.perf_counter()
+        try:
+            yield self
+        finally:
+            _tls.windows.pop()
+            self.ledger._book_launch(self, n, (time.perf_counter() - t0) * 1e3)
 
     def record_transfer(self, nbytes, direction="h2d"):
         self.ledger._book_transfer(self, int(nbytes), direction)
@@ -181,15 +248,54 @@ class Ledger:
         return s
 
     def reset_sites(self, names) -> None:
-        """Zero the named sites' tables; their unread event pairs are
-        dropped. The totals and the principal rows keep counting."""
+        """Zero the named sites' tables and prices; their unread event
+        pairs are dropped. The totals and the principal rows keep
+        counting."""
         names = set(names)
         with self._settle_lock, self._lock:
             for name in names:
                 site = self._sites.get(name)
                 if site is not None:
                     site.acc = _Accum()
+                    site.sig_ms = {}
             self._pending = deque(p for p in self._pending if p[0].name not in names)
+
+    # per-site sig-class price rows kept (first come; a site's sigs are a
+    # handful of classes) and the EWMA smoothing factor, as in JAX
+    _MAX_SIG_CLASSES = 32
+    _SIG_EWMA_ALPHA = 0.25
+
+    def measured_ms(self, site_name, sig_class):
+        """(launches, EWMA device ms a launch) of one site's sig class, or
+        None before any pair of that class was read. The finished pairs are
+        read first, without waiting on the card: the planner reads this once
+        a flight."""
+        self.settle(wait=False)
+        with self._lock:
+            s = self._sites.get(site_name)
+            row = None if s is None else s.sig_ms.get(str(sig_class))
+            return None if row is None else (row[0], row[1])
+
+    def tenant_totals(self) -> dict:
+        """Per-tenant sums over the principal table (device ms, launches,
+        transfer bytes): the QoS governor's debt source. The finished pairs
+        are read first, without waiting on the card."""
+        self.settle(wait=False)
+        with self._lock:
+            out: dict = {}
+            for (tenant, _idx, _cls), row in self._principals.items():
+                t = out.get(tenant)
+                if t is None:
+                    t = out[tenant] = {
+                        "deviceMs": 0.0, "compileMs": 0.0, "launches": 0,
+                        "transferBytes": 0,
+                    }
+                t["deviceMs"] += row.device_ms
+                t["launches"] += row.launches
+                t["transferBytes"] += row.h2d_bytes + row.d2h_bytes
+        for t in out.values():
+            t["deviceMs"] = round(t["deviceMs"], 3)
+        return out
 
     # -- principal table --------------------------------------------------
     def _principal_row(self, principal) -> _Accum:
@@ -218,12 +324,21 @@ class Ledger:
                 row.launches += max(1, round(n * w)) if n else 0
                 row.launch_ms += wall_ms * w
 
-    def _book_device_ms(self, site, weights, ms):
+    def _book_device_ms(self, site, weights, ms, n=1, sig=None):
         # caller holds self._lock
         site.acc.device_ms += ms
         self.totals.device_ms += ms
         for principal, w in weights:
             self._principal_row(principal).device_ms += ms * w
+        if sig is not None:
+            cls = str(sig).split(None, 1)[0]
+            per = ms / max(n, 1)
+            row = site.sig_ms.get(cls)
+            if row is not None:
+                row[0] += n
+                row[1] += self._SIG_EWMA_ALPHA * (per - row[1])
+            elif len(site.sig_ms) < self._MAX_SIG_CLASSES:
+                site.sig_ms[cls] = [n, per]
 
     def _book_transfer(self, site, nbytes, direction):
         weights = ambient_weights()
@@ -242,10 +357,10 @@ class Ledger:
                     row.h2d_bytes += int(nbytes * w)
 
     # -- CUDA event pairs -------------------------------------------------
-    def _pend(self, site, start, end) -> None:
+    def _pend(self, site, start, end, n=1, sig=None) -> None:
         weights = ambient_weights()
         with self._lock:
-            self._pending.append((site, weights, start, end))
+            self._pending.append((site, weights, start, end, n, sig))
             n = len(self._pending)
         if n >= _SETTLE_AT:
             self.settle(wait=False)
@@ -263,7 +378,7 @@ class Ledger:
                 with self._lock:
                     if not self._pending:
                         return
-                    site, weights, start, end = self._pending[0]
+                    site, weights, start, end, n, sig = self._pending[0]
                 if not wait and not end.query():
                     return
                 end.synchronize()
@@ -271,7 +386,7 @@ class Ledger:
                 with self._lock:
                     if self._pending and self._pending[0][3] is end:
                         self._pending.popleft()
-                        self._book_device_ms(site, weights, ms)
+                        self._book_device_ms(site, weights, ms, n, sig)
 
     # -- exposition -------------------------------------------------------
     def site_device_ms(self) -> dict:
@@ -287,10 +402,15 @@ class Ledger:
         self.settle()
         uptime = max(time.monotonic() - self.started, 1e-9)
         with self._lock:
-            sites = {
-                name: s.acc.to_dict(uptime)
-                for name, s in sorted(self._sites.items())
-            }
+            sites = {}
+            for name, s in sorted(self._sites.items()):
+                d = s.acc.to_dict(uptime)
+                if s.sig_ms:
+                    d["measuredMs"] = {
+                        cls: {"launches": row[0], "ewmaMs": round(row[1], 4)}
+                        for cls, row in sorted(s.sig_ms.items())
+                    }
+                sites[name] = d
             principals = []
             for (tenant, idx, cls), row in sorted(self._principals.items()):
                 p = row.to_dict(uptime)
@@ -391,6 +511,14 @@ def site(name) -> Site:
 
 def snapshot() -> dict:
     return _LEDGER.snapshot()
+
+
+def measured_ms(site_name, sig_class):
+    return _LEDGER.measured_ms(site_name, sig_class)
+
+
+def tenant_totals() -> dict:
+    return _LEDGER.tenant_totals()
 
 
 def prometheus_text() -> str:

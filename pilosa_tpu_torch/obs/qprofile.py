@@ -28,7 +28,7 @@ cycles, and every hook is a no-op costing one ContextVar read when no
 profile is active.
 
 Counterpart of ``pilosa_tpu/obs/qprofile.py``, without what only its
-cluster and serving planes call.
+cluster plane calls.
 """
 
 from __future__ import annotations
@@ -227,6 +227,17 @@ def incr(name: str, n: float = 1) -> None:
     node = _current_node.get() or prof.root
     with prof._lock:
         node.stats[name] = node.stats.get(name, 0) + n
+
+
+def add_subprofile(node_id: str, tree: dict | None) -> None:
+    """Graft a profile dict under the current node: the batcher's shared
+    flight profile under each profiled member (``server/batcher.py``)."""
+    prof = _active.get()
+    if prof is None or not tree:
+        return
+    node = _current_node.get() or prof.root
+    with prof._lock:
+        node.subprofiles.append({"node": node_id, "profile": tree})
 
 
 class activate:

@@ -531,6 +531,25 @@ class SLOTracker:
             "classes": out_classes,
         }
 
+    def pressure(self) -> dict:
+        """The QoS governor's control-loop tap (server/qos.py): the
+        objective-bearing classes burning (a rule firing) or violating
+        their latency objective now. Tenant-scoped classes (``op@tenant``)
+        appear like any other, so the ladder sees one victim's budget
+        burning."""
+        snap = self.snapshot()
+        alerts: list[tuple[str, str]] = []
+        latency: list[str] = []
+        for name, c in snap["classes"].items():
+            if c["objective"] is None:
+                continue
+            for rule, firing in c["alerts"].items():
+                if firing:
+                    alerts.append((name, rule))
+            if c["latencyOk"] is False:
+                latency.append(name)
+        return {"alerts": alerts, "latency": latency}
+
     def summary(self) -> dict:
         """Compact block for /debug/vars: totals and verdicts only."""
         snap = self.snapshot()

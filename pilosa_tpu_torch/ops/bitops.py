@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from pilosa_tpu_torch.obs import devledger, qprofile
+from pilosa_tpu_torch.ops import streams
 from pilosa_tpu_torch.shardwidth import SHARD_WORDS, WORD_BITS
 
 _DL_H2D = devledger.site("bitops.to_device")
@@ -148,15 +149,21 @@ def range_mask(start: int, stop: int, n_words: int = SHARD_WORDS) -> np.ndarray:
 
 def to_device(words: np.ndarray, device: torch.device) -> torch.Tensor:
     """``uint32`` host words -> ``int32`` tensor on ``device`` with the same
-    bits. The result never aliases ``words``."""
+    bits. The result never aliases ``words``. On a thread with a pinned
+    stager installed (the ingest uploader, ``ops/streams.py``) the copy
+    goes through its pinned slots on its side stream."""
     arr = np.ascontiguousarray(words, dtype=np.uint32).view(np.int32)
     t = torch.from_numpy(arr)
     if torch.device(device).type == "cpu":
         return t.clone()
     # the port's host-to-card funnel: the bytes go on the device ledger
-    # and the active query profile
-    _DL_H2D.record_transfer(arr.nbytes, "h2d")
+    # (under the enclosing launch window's site, an upload or a prefetch,
+    # where there is one) and the active query profile
+    (devledger.active_window_site() or _DL_H2D).record_transfer(arr.nbytes, "h2d")
     qprofile.incr("transfer_h2d_bytes", arr.nbytes)
+    stager = streams.current_stager()
+    if stager is not None and stager.device == streams.card(device):
+        return stager.upload(arr)
     return t.to(device)
 
 

@@ -152,7 +152,9 @@ def _launching(name: str, device: torch.device):
     wall = time.perf_counter() - t0
     with _LAUNCH_LOCK:
         LAUNCHES[name] += 1
-    _DL_SITES[name].record_cuda_launch(start, end, wall)
+    # the kernel's name is its launches' sig class: the flight planner
+    # prices the device lane of a pair Count by kernels.gram's "gram"
+    _DL_SITES[name].record_cuda_launch(start, end, wall, sig=name)
     qprofile.record_kernel(kernel=name, lane="cuda", wall_ms=round(wall * 1e3, 3))
 
 

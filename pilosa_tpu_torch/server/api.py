@@ -6,12 +6,20 @@ Every HTTP route lands here. Methods are state-gated like the reference
 work, during RESIZING only fragment transfer and abort. A single node sits
 in NORMAL.
 
-One node only: every query takes the direct path to the executor (the
-JAX package's path with its batcher off), imports apply on the bounded
-import pool with no ingest pipeline, and the cluster-only parts of the
-JAX API (the distributed executor, migrations, resize, peer messages,
-attribute and fragment blocks, the translate log, history, incidents and
-postmortems) are not here.
+One node, served as the JAX node serves by default: read-only queries
+ride the continuous-batching plane (``server/batcher.py``: flights of
+concurrent queries through ``Executor.execute_batch``, the result cache
+and the flight planner inside it) behind the QoS governor
+(``server/qos.py``) and the flight prefetcher (``server/prefetch.py``);
+writes take the direct path; imports go through the staged ingest
+pipeline (``ingest/``), whose applies invalidate the result cache. The
+knobs and their defaults are JAX's (``batch_window=0.002``,
+``batch_max_size=64``, ``rescache_entries=512``, ``planner_enabled=True``,
+``qos_enabled=True``); ``batch_window=0`` (or ``batch_max_size<=1``) sends
+every query the direct way. The cluster-only parts of the JAX API (the
+distributed executor, migrations, resize, peer messages, attribute and
+fragment blocks, the translate log, history, incidents and postmortems)
+are not here.
 """
 
 from __future__ import annotations
@@ -20,7 +28,6 @@ import io
 import os
 import threading
 import time
-import weakref
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -33,10 +40,14 @@ from pilosa_tpu_torch.core.holder import Holder
 from pilosa_tpu_torch.core.view import VIEW_STANDARD
 from pilosa_tpu_torch.exec.executor import ExecuteError, Executor
 from pilosa_tpu_torch.exec.result import result_to_json
+from pilosa_tpu_torch.ingest import IngestPipeline
 from pilosa_tpu_torch.obs import devledger, qprofile, slo
 from pilosa_tpu_torch.ops import bitops
 from pilosa_tpu_torch.server import qos as qos_mod
+from pilosa_tpu_torch.server.batcher import QueryBatcher
 from pilosa_tpu_torch.server.importpool import ImportPool
+from pilosa_tpu_torch.server.prefetch import FlightPrefetcher
+from pilosa_tpu_torch.server.qos import QosGovernor
 from pilosa_tpu_torch.shardwidth import SHARD_WIDTH_EXP
 from pilosa_tpu_torch.storage import roaring
 from pilosa_tpu_torch.storage.disk import HolderStore
@@ -83,6 +94,11 @@ class API:
         import_workers: int = 2,
         import_queue_depth: int = 16,
         max_writes_per_request: int | None = None,
+        batch_window: float = 0.002,
+        batch_max_size: int = 64,
+        rescache_entries: int = 512,
+        planner_enabled: bool = True,
+        qos_enabled: bool = True,
     ):
         self.holder = holder if holder is not None else Holder()
         self.store = store
@@ -90,6 +106,8 @@ class API:
             self.holder,
             translator=store.translator if store is not None else None,
             max_writes_per_request=max_writes_per_request,
+            rescache_entries=rescache_entries,
+            planner_enabled=planner_enabled,
         )
         self._lock = threading.RLock()
         self.state = STATE_NORMAL
@@ -103,9 +121,47 @@ class API:
             workers=import_workers, depth=import_queue_depth,
             jobs=self.holder.jobs, stats=self.holder.stats,
         )
-        # /debug/fragments: fragment -> ((epoch, version), its census),
-        # and the pool that computes them (made at first need)
-        self._census: weakref.WeakKeyDictionary = weakref.WeakKeyDictionary()
+        # the staged ingest pipeline over the pool (ingest/): decode into
+        # staging buffers, coalesced applies, uploads to the card on the
+        # uploader's own stream
+        self.ingest = IngestPipeline(self.import_pool, stats=self.holder.stats)
+        # an apply invalidates the result cache's entries of the field it
+        # wrote, in the same group commit (exec/rescache.py)
+        self.ingest.on_apply = lambda frag: self.executor.rescache.note_write(
+            frag.index, frag.field
+        )
+        # the serving plane: the QoS governor (weighted-fair admission
+        # debited by measured device ms, and the deprioritize/degrade/shed
+        # ladder), the flight prefetcher on the uploader's low-priority
+        # lane, and the batcher that coalesces reads into flights.
+        # batch_window <= 0 or batch_max_size <= 1 leaves it off.
+        self.batcher = None
+        self.prefetcher = None
+        self.qos = None
+        if batch_window > 0 and batch_max_size > 1:
+            self.qos = QosGovernor(
+                stats=self.holder.stats,
+                enabled=qos_enabled,
+                slo_fn=lambda: self.holder.slo,
+                ledger_fn=devledger.tenant_totals,
+                journal_fn=lambda: self.holder.events,
+                # the port has no flight recorder: what JAX passes without one
+                incident_fn=lambda trig: None,
+            )
+            if self.ingest.uploader is not None:
+                self.prefetcher = FlightPrefetcher(
+                    self.holder, self.ingest.uploader, self.executor
+                )
+            self.batcher = QueryBatcher(
+                self.executor,
+                stats=self.holder.stats,
+                window=batch_window,
+                max_batch=batch_max_size,
+                prefetcher=self.prefetcher,
+                qos=self.qos,
+            )
+        # the pool /debug/fragments computes its census on (made at first
+        # need)
         self._pool: ThreadPoolExecutor | None = None
 
     # -- state gating (reference api.go:100-124) ---------------------------
@@ -148,7 +204,8 @@ class API:
                 try:
                     results = self._execute_query(index, pql_text, shards)
                     resp = {"results": result_to_json(results)}
-                    # an answer from the degraded tier is marked
+                    # an answer from the degraded tier is marked (the
+                    # batcher notes it for this request)
                     if qos_mod.take_degraded():
                         resp["degraded"] = True
                 except (ExecuteError, pql.ParseError, ValueError, TypeError) as e:
@@ -173,8 +230,12 @@ class API:
         op_class = slo.classify_query(q)
         slo.note_class(op_class)
         # every launch this query causes books under (tenant, index,
-        # op_class) on the device ledger
+        # op_class) on the device ledger: inline, or in a flight (which
+        # snapshots the principal at submit)
         with devledger.principal_scope(index, op_class):
+            batcher = self.batcher
+            if batcher is not None and batcher.accepts(q):
+                return batcher.submit(index, q, shards=shards)
             return self.executor.execute(index, q, shards=shards)
 
     # -- schema CRUD (reference api.go:161-495) -----------------------------
@@ -258,9 +319,11 @@ class API:
     def import_bits(self, index: str, field: str, req: dict) -> None:
         """JSON bulk import: rowIDs/rowKeys + columnIDs/columnKeys
         (+ timestamps), or columnIDs/columnKeys + values for int fields;
-        ``clear`` clears instead. The apply runs on the bounded import
-        pool (reference api.go:313-348 backpressure) under one
-        import-drain record."""
+        ``clear`` clears instead. The per-shard applies ride the ingest
+        pipeline: submitted to the bounded import pool (reference
+        api.go:313-348 backpressure) before any is awaited, each applied
+        fragment handed to the uploader, all under one import-drain
+        record."""
         self._validate("Import")
         deadline.check(f"import into {index!r}/{field!r}")
         idx = self.holder.index(index)
@@ -279,9 +342,7 @@ class API:
             cols = self.executor.translator.translate_keys(index, "", keys)
         cols = np.asarray(cols, dtype=np.uint64)
         with self.import_pool.drain_scope():
-            self.import_pool.run(
-                lambda: self._apply_import(idx, f, index, field, req, cols)
-            )
+            self._apply_import(idx, f, index, field, req, cols)
 
     def _apply_import(self, idx, f, index: str, field: str, req: dict, cols) -> None:
         clear = req.get("clear", False)
@@ -295,7 +356,7 @@ class API:
                 int(values.min()) < f.options.min or int(values.max()) > f.options.max
             ):
                 raise ApiError("value out of field range")
-            f.import_values(cols, values, clear=clear)
+            f.import_values(cols, values, clear=clear, pipeline=self.ingest)
         else:
             rows = req.get("rowIDs")
             if rows is None:
@@ -311,39 +372,62 @@ class API:
             ts = None if timestamps is None else _timestamps(timestamps)
             f.import_bits(
                 np.asarray(rows, dtype=np.uint64), cols, timestamps=ts, clear=clear,
+                pipeline=self.ingest,
             )
         ef = idx.existence_field()
         if ef is not None and not clear:
-            ef.import_bits(np.zeros(len(cols), dtype=np.uint64), cols)
+            ef.import_bits(np.zeros(len(cols), dtype=np.uint64), cols, pipeline=self.ingest)
 
     def import_roaring(
         self, index: str, field: str, shard: int, data: bytes,
         clear: bool = False, view: str = VIEW_STANDARD,
     ) -> dict:
         """Binary roaring import, the highest-throughput ingest path
-        (reference api.go:367-427): decoded on the handler thread straight
-        into row words (no positions), merged on the import pool under
-        one import-drain record."""
+        (reference api.go:367-427), staged: decoded on the handler thread
+        into a staging buffer of the ingest pipeline as row words (no
+        positions), merged on the import pool (queued payloads of one
+        fragment group-commit into one apply, whose summed ``changed`` they
+        share), then uploaded to the card while the next payload merges;
+        one import-drain record spans it."""
         self._validate("ImportRoaring")
         f = self.holder.field(index, field)
         if f is None:
             raise NotFoundError("field not found")
         with self.import_pool.drain_scope():
             try:
-                row_ids, words, _ = roaring.decode_rows(data, f.n_words)
+                buf = self.ingest.decode_roaring(data, f.n_words)
             except roaring.RoaringError as e:
                 raise ApiError(f"bad roaring payload: {e}")
-            return self.import_pool.run(
-                lambda: self._apply_roaring_rows(index, f, shard, row_ids, words, clear, view)
+
+            def apply_group(payloads):
+                # one merge a payload under one pool job: the summed
+                # "changed" equals a concatenate-then-merge's, and the
+                # group pays one device sync
+                changed = 0
+                frag = None
+                for b in payloads:
+                    result, frag = self._apply_roaring_rows(
+                        index, f, shard, b.row_ids, b.rows, clear, view
+                    )
+                    changed += result["changed"]
+                return {"changed": changed}, frag
+
+            handle = self.ingest.submit_segment(
+                (index, f.name, view, int(shard), bool(clear)),
+                buf,
+                apply_group,
+                release=lambda b: b.release(),
             )
+            return handle.wait()
 
     def _apply_roaring_rows(
         self, index: str, f, shard: int, row_ids: np.ndarray, words: np.ndarray,
         clear: bool, view: str,
-    ) -> dict:
+    ) -> tuple[dict, object]:
         """Merge decoded roaring rows into the shard's fragment (JAX
-        ``_apply_roaring_positions``); ``changed`` counts the bits flipped,
-        as JAX's does."""
+        ``_apply_roaring_positions``); ``(result, fragment)``, so the
+        pipeline hands the applied fragment to the upload stage.
+        ``changed`` counts the bits flipped, as JAX's does."""
         frag = f.create_view_if_not_exists(view).create_fragment_if_not_exists(shard)
         changed = frag.import_row_words(row_ids, words, clear=clear)
         if view.startswith("bsig_") and f.is_bsi() and len(row_ids):
@@ -357,7 +441,7 @@ class API:
             ef.create_view_if_not_exists(VIEW_STANDARD).create_fragment_if_not_exists(
                 shard
             ).import_row_words(np.zeros(1, dtype=np.uint64), cols[None])
-        return {"changed": int(changed)}
+        return {"changed": int(changed)}, frag
 
     # -- export (reference api.go:499-573 ExportCSV) ------------------------
 
@@ -477,7 +561,8 @@ class API:
                         for shard in sorted(view.fragments)
                     )
         # the census reads every word of a fragment: on a pool, and cached
-        # per fragment version so repeat polls of an unchanged index are cheap
+        # per fragment version (Fragment.container_profile, which the flight
+        # planner reads too) so repeat polls of an unchanged index are cheap
         fragments = list(self._census_pool().map(
             lambda a: self._fragment_detail(*a, tracker, now), found
         ))
@@ -510,19 +595,8 @@ class API:
             return self._pool
 
     def _fragment_detail(self, iname, fname, vname, shard, frag, tracker, now) -> dict:
-        key = (frag.epoch, frag.version)
-        got = self._census.get(frag)
-        if got is None or got[0] != key:
-            with frag._lock:
-                key = (frag.epoch, frag.version)
-                row_ids, words = frag.snapshot_rows()
-            got = (key, {
-                "rows": len(row_ids),
-                "bits": int(np.bitwise_count(words).sum(dtype=np.int64)),
-                "containers": roaring.container_stats_words(row_ids, words),
-            })
-            self._census[frag] = got
-        return _fragment_detail_of(frag, got[1], tracker, now, (iname, fname, vname, shard))
+        census = frag.container_profile(containers=True)
+        return _fragment_detail_of(frag, census, tracker, now, (iname, fname, vname, shard))
 
     # -- observability planes -----------------------------------------------
 
@@ -533,6 +607,14 @@ class API:
     def jobs_snapshot(self, kind: str | None = None) -> dict:
         """Background-job records (active + bounded history)."""
         return self.holder.jobs.snapshot(kind)
+
+    def qos_snapshot(self) -> dict:
+        """Cost-governed admission state (/debug/qos): per-tenant
+        weighted-fair queue rows, ladder stages, shed and degraded counts
+        and recent transitions (server/qos.py)."""
+        if self.qos is None:
+            return {"enabled": False, "tenants": {}, "transitions": []}
+        return self.qos.snapshot()
 
     def slo_snapshot(self) -> dict:
         """Live per-op-class objective state (/debug/slo)."""
@@ -573,6 +655,9 @@ class API:
             self.store.sync()
 
     def close(self) -> None:
+        if self.batcher is not None:
+            self.batcher.close()  # drains the admission queue first
+        self.ingest.close()  # flushes pending device uploads
         self.import_pool.close()
         if self._pool is not None:
             self._pool.shutdown(wait=True)

@@ -4,9 +4,10 @@ reference: http/handler.go).
 Route surface (reference handler.go:276-314, the one-node part):
 
     GET  /  /version  /status  /info  /schema      POST /schema
-    GET  /metrics  /debug  /debug/vars  /debug/slo  /debug/slow-queries
-         /debug/threads  /debug/profile  /debug/memory  /debug/events
-         /debug/traces  /debug/devcosts  /debug/jobs  /debug/fragments
+    GET  /metrics  /debug  /debug/vars  /debug/slo  /debug/qos
+         /debug/slow-queries  /debug/threads  /debug/profile  /debug/memory
+         /debug/events  /debug/traces  /debug/devcosts  /debug/jobs
+         /debug/fragments
     POST /index/{index}                  create index (GET, DELETE)
     POST /index/{index}/query            PQL body -> {"results": [...]}
     POST /index/{index}/field/{field}    create field (GET, DELETE)
@@ -17,9 +18,10 @@ Route surface (reference handler.go:276-314, the one-node part):
     POST /internal/translate/keys  /internal/translate/ids  /recalculate-caches
 
 Every other path answers 404, as a JAX node does for a plane it lacks:
-the serving plane's (/debug/qos, /debug/history), the incident and
-postmortem planes', and the cluster's (/internal/cluster/message,
-/cluster/resize/*, /internal/migrate/*, block and attribute sync).
+the metrics history's (/debug/history), the incident and postmortem
+planes', and the cluster's (/internal/cluster/message, /cluster/resize/*,
+/internal/migrate/*, block and attribute sync). A query shed by the QoS
+governor answers 429 with Retry-After.
 
 JSON replaces the reference's protobuf codec as the wire format; the
 roaring import payload is binary-compatible with reference clients.
@@ -66,6 +68,8 @@ _DEBUG_ENDPOINTS: list[tuple[str, str]] = [
      "expvar-style dump: counters, histograms, kernels, device budget"),
     ("/debug/slo",
      "per-op-class latency quantiles, error budgets, burn-rate alerts"),
+    ("/debug/qos",
+     "cost-governed admission: per-tenant queues, shed/degrade ladder"),
     ("/debug/events", "typed event journal (?since= cursor)"),
     ("/debug/traces", "tail-sampled trace store (?id= spans)"),
     ("/debug/devcosts",
@@ -92,6 +96,7 @@ _ROUTES: list[tuple[str, re.Pattern, str]] = [
     ("GET", re.compile(r"^/debug$"), "debug_index"),
     ("GET", re.compile(r"^/debug/vars$"), "debug_vars"),
     ("GET", re.compile(r"^/debug/slo$"), "debug_slo"),
+    ("GET", re.compile(r"^/debug/qos$"), "debug_qos"),
     ("GET", re.compile(r"^/debug/slow-queries$"), "debug_slow_queries"),
     ("GET", re.compile(r"^/debug/threads$"), "debug_threads"),
     ("GET", re.compile(r"^/debug/profile$"), "debug_profile"),
@@ -358,6 +363,9 @@ class Handler(BaseHTTPRequestHandler):
             res = residency.default_tracker().snapshot()
             stats.gauge("device_hits", res["deviceHits"])
             stats.gauge("device_misses", res["deviceMisses"])
+            # the flight prefetcher's yield (server/prefetch.py)
+            stats.gauge("device_prefetch_issued", res["prefetchIssued"])
+            stats.gauge("device_prefetch_useful", res["prefetchUseful"])
             stats.gauge("device_pins", dev["pins"])
             stats.gauge("device_pinned_entries", dev["pinnedEntries"])
             stats.gauge("device_pinned_bytes", dev["pinnedBytes"])
@@ -400,6 +408,10 @@ class Handler(BaseHTTPRequestHandler):
             "stacks_declined": ex.stacks_declined,
             "bsi_fragment_launches": ex.bsi_fragment_launches,
         }
+        # the result cache (hits, misses, invalidations, maintained views)
+        # and the flight planner (CSE, reorders, lane prices)
+        snap["rescache"] = ex.rescache.snapshot()
+        snap["planner"] = ex.planner.snapshot()
         snap["kernels"] = kernels.telemetry_snapshot()
         snap["device"] = membudget.default_budget().snapshot()
         snap["residency"] = residency.default_tracker().snapshot()
@@ -407,9 +419,23 @@ class Handler(BaseHTTPRequestHandler):
         snap["events"] = self.api.holder.events.snapshot_summary()
         snap["slo"] = self.api.holder.slo.summary()
         snap["translate"] = translate.telemetry_snapshot()
+        if self.api.batcher is not None:
+            # the serving plane: queue depth, window knobs, flights
+            snap["batcher"] = self.api.batcher.snapshot()
+        if self.api.qos is not None:
+            # cost-governed admission: per-tenant WFQ and ladder stages
+            snap["qos"] = self.api.qos_snapshot()
+        # the ingest plane: pool, staging occupancy, upload overlap
+        snap["ingest"] = self.api.ingest.snapshot()
         # process identity: pid, version, uptime (/info is the host's)
         snap["process"] = sysinfo.SystemInfo().process_block(__version__)
         self._send_json(200, snap)
+
+    def r_debug_qos(self):
+        """Cost-governed admission state: per-tenant weighted-fair queues
+        (debt, cost estimate, effective weight), ladder stages, shed and
+        degraded counts and recent transitions (server/qos.py)."""
+        self._send_json(200, self.api.qos_snapshot())
 
     def r_debug_slo(self):
         """Live SLO state: per-op-class latency quantiles, windowed

@@ -4,9 +4,12 @@ server.go composition root).
 
 The node opens its data directory with :class:`HolderStore` on the
 holder's device (``cuda`` unless the caller passes ``device="cpu"``) and
-serves it over HTTP. It is one node: no cluster, membership, anti-entropy
-or resize, and none of the JAX node's flight recorder, metrics history or
-black box.
+serves it over HTTP, with the JAX node's serving defaults: the batcher
+(``batch_window=0.002``, ``batch_max_size=64``), the result cache
+(``rescache_entries=512``), the flight planner, the QoS governor and the
+ingest pipeline (``server/api.py``). It is one node: no cluster,
+membership, anti-entropy or resize, and none of the JAX node's flight
+recorder, metrics history or black box.
 """
 
 from __future__ import annotations
@@ -37,6 +40,11 @@ class NodeServer:
         import_workers: int = 2,
         import_queue_depth: int = 16,
         max_writes_per_request: int | None = None,
+        batch_window: float = 0.002,
+        batch_max_size: int = 64,
+        rescache_entries: int = 512,
+        planner_enabled: bool = True,
+        qos_enabled: bool = True,
     ):
         self.host = host
         self.tls = bool(tls_cert)
@@ -61,6 +69,11 @@ class NodeServer:
             import_workers=import_workers,
             import_queue_depth=import_queue_depth,
             max_writes_per_request=max_writes_per_request,
+            batch_window=batch_window,
+            batch_max_size=batch_max_size,
+            rescache_entries=rescache_entries,
+            planner_enabled=planner_enabled,
+            qos_enabled=qos_enabled,
         )
         self.server = Server(
             self.api,

@@ -166,19 +166,13 @@ def deserialize_into(data: bytes, out: np.ndarray) -> tuple[int, int] | None:
     return int(out_n.value), int(ops.value)
 
 
-def decode_words(data: bytes, n_words: int) -> tuple[np.ndarray, np.ndarray, int] | None:
-    """``(row_ids, words, op_count)`` of a file at ``n_words`` words a row:
-    ascending candidate row ids (uint64), their uint32 ``[n, n_words]``
-    words with the op log replayed (a row may be left empty), and the op
-    count; None on a parse failure. Two native passes, no positions."""
-    lib = load()
-    src = _src(data)
-    ptr = src.ctypes.data_as(_U8P)
+def _decode_row_ids(lib, ptr, size: int, n_words: int):
+    """(ascending candidate row ids, op count) of a file, or None."""
     rows = _U64P()
     n_rows = _SIZE()
     ops = ctypes.c_uint64()
     rc = lib.rt_decode_rows(
-        ptr, src.size, n_words * 32, ctypes.byref(rows), ctypes.byref(n_rows),
+        ptr, size, n_words * 32, ctypes.byref(rows), ctypes.byref(n_rows),
         ctypes.byref(ops),
     )
     if rc != 0:
@@ -187,7 +181,47 @@ def decode_words(data: bytes, n_words: int) -> tuple[np.ndarray, np.ndarray, int
         row_ids = np.ctypeslib.as_array(rows, shape=(n_rows.value,)).copy()
     finally:
         lib.rt_free(rows)
-    words = np.zeros((row_ids.size, n_words), dtype=np.uint32)
+    return row_ids, int(ops.value)
+
+
+def decode_words(data: bytes, n_words: int) -> tuple[np.ndarray, np.ndarray, int] | None:
+    """``(row_ids, words, op_count)`` of a file at ``n_words`` words a row:
+    ascending candidate row ids (uint64), their uint32 ``[n, n_words]``
+    words with the op log replayed (a row may be left empty), and the op
+    count; None on a parse failure. Two native passes, no positions."""
+    got = decode_words_into(data, n_words, None)
+    if got is None:
+        return None
+    row_ids, words, ops = got
+    return row_ids, words, ops
+
+
+def decode_words_into(
+    data: bytes, n_words: int, buf: np.ndarray | None
+) -> tuple[np.ndarray, np.ndarray, int] | None:
+    """:func:`decode_words` into the caller's C-contiguous uint32 buffer
+    ``buf`` (a fresh array when None): ``(row_ids, words, op_count)`` with
+    ``words`` a ``[n, n_words]`` view of ``buf``; None on a parse failure;
+    ValueError when ``buf`` is too small, the size needed last in the
+    message."""
+    lib = load()
+    src = _src(data)
+    ptr = src.ctypes.data_as(_U8P)
+    got = _decode_row_ids(lib, ptr, src.size, n_words)
+    if got is None:
+        return None
+    row_ids, _ = got
+    need = row_ids.size * n_words
+    if buf is None:
+        buf = np.zeros(need, dtype=np.uint32)
+    elif not (buf.dtype == np.uint32 and buf.flags["C_CONTIGUOUS"]):
+        raise ValueError("staging buffer must be C-contiguous uint32")
+    elif buf.size < need:
+        raise ValueError(f"staging buffer too small: need {need}")
+    else:
+        buf[:need] = 0  # the decode ORs containers in
+    words = buf[:need].reshape(row_ids.size, n_words)
+    ops = ctypes.c_uint64()
     rc = lib.rt_decode_words(
         ptr, src.size, row_ids.ctypes.data_as(_U64P), row_ids.size, n_words,
         words.ctypes.data_as(_U8P), ctypes.byref(ops),

@@ -111,7 +111,9 @@ def _build(seed: int):
             for shard, frag in view.fragments.items():
                 fragments[("i", fname, vname, shard)] = frag.rows_matrix_host()
     th = convert.holder_from_arrays(jh.schema(), fragments, device="cpu")
-    return je, TorchExecutor(th), rng
+    # the result cache off: these tests hold the kernel paths and their
+    # own caches, which a result-cache hit on a repeat query would skip
+    return je, TorchExecutor(th, rescache_entries=0), rng
 
 
 def _same(je, te, query, shards=None):
@@ -479,6 +481,22 @@ def test_one_tree_count_per_signature_and_stacks(monkeypatch):
     for k in range(50):
         a, b = (int(x) for x in rng.integers(0, N_ROWS + 1, size=2))
         queries.append((shapes[k % len(shapes)].format(a=a, b=b), None))
+    # the flight planner off: it would sort the fifth shape's children as
+    # the first's, one group for both (below)
+    te.planner.enabled = False
     got = _norm(te.execute_batch("i", queries))
     assert spy.calls == {"tree_count": len(shapes), "tree_words": 0}
     assert got == _norm(je.execute_batch("i", queries))
+    te.planner.enabled = True
+    spy.calls = {k: 0 for k in spy.calls}
+    uploads = te.shared_stack_uploads
+    assert _norm(te.execute_batch("i", queries)) == got
+    # the reorder merges the fifth shape's group into the first's; the
+    # Counts whose whole child the planner shared read the flight's shared
+    # stack, one group more; a shared subtree is a tree_words launch where
+    # the lane choice sends it to the card
+    shared = te.planner.snapshot()["cseShared"]
+    assert shared >= 1 and te.shared_stack_uploads == uploads + 1
+    assert spy.calls["tree_count"] == len(shapes) and spy.calls["tree_words"] <= shared, (
+        spy.calls, shared)
+    assert te.planner.reorders >= 1

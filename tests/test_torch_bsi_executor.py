@@ -105,7 +105,9 @@ def _build(seed: int):
     th = convert.holder_from_arrays(jh.schema(), fragments, device="cpu")
     for name in INT_FIELDS:
         assert th.field("i", name).bit_depth == idx.field(name).bit_depth
-    return je, TorchExecutor(th), rng
+    # the result cache off: these tests hold the kernel paths and their
+    # own caches, which a result-cache hit on a repeat query would skip
+    return je, TorchExecutor(th, rescache_entries=0), rng
 
 
 def _answer(ex, query, shards=None):

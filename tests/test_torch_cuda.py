@@ -1354,3 +1354,193 @@ def test_a_node_on_the_card_answers_over_http_as_on_the_cpu(cuda_device, tmp_pat
     finally:
         card.stop()
         cpu.stop()
+
+
+# -- the serving plane's side-stream uploads -----------------------------------
+
+
+def _upload_index(dev, n_shards=6, n_rows=24, seed=21):
+    from pilosa_tpu_torch.core.holder import Holder
+    from pilosa_tpu_torch.exec.executor import Executor
+    from pilosa_tpu_torch.shardwidth import SHARD_WIDTH
+
+    rng = np.random.default_rng(seed)
+    h = Holder(device=dev)
+    idx = h.create_index("i")
+    f = idx.create_field("f")
+    n = n_shards * 20000
+    f.import_bits(rng.integers(0, n_rows, n).astype(np.uint64),
+                  rng.integers(0, n_shards * SHARD_WIDTH, n).astype(np.uint64))
+    return h, f, Executor(h, rescache_entries=0)
+
+
+def _host_counts(frag):
+    _, counts = frag.row_counts()
+    return counts
+
+
+def test_side_stream_copies_read_at_once_on_another_stream_equal_the_mirror(
+        cuda_device, fresh_budget):
+    """A fragment copy and a prefetched stack the uploader made on its side
+    stream (through small pinned slots, so each copy is many chunks) are
+    read at once by a kernel on another thread's stream: the reader's
+    stream waits for the copy's event, and the counts equal the mirror's."""
+    import threading
+
+    from pilosa_tpu_torch.ingest import DeviceUploader
+    from pilosa_tpu_torch.server.prefetch import _StackTarget
+
+    fresh_budget.configure(None)
+    h, f, ex = _upload_index(cuda_device)
+    up = DeviceUploader(slots=2, slot_bytes=1 << 16)
+    try:
+        frags = [f.view("standard").fragment(s) for s in range(6)]
+        for frag in frags:
+            up.submit(frag)
+        got = {}
+
+        def reader(k, frag):
+            while frag._device is None:
+                pass  # the uploader's sync published it: read at once
+            bits = frag.device_bits()
+            side = torch.cuda.Stream(cuda_device)
+            with torch.cuda.stream(side):
+                bits = frag.device_bits()
+                counts = tk.row_counts_per_shard(bits[None, :frag.capacity].contiguous())
+            got[k] = counts[0].cpu().numpy()
+
+        ts = [threading.Thread(target=reader, args=(k, fr)) for k, fr in enumerate(frags)]
+        for t in ts:
+            t.start()
+        for t in ts:
+            t.join(60)
+        for k, frag in enumerate(frags):
+            want = np.bitwise_count(frag._host[: frag.capacity]).sum(axis=1)
+            assert np.array_equal(got[k], want), k
+        # a stack staged by the prefetch lane, read at once by the dispatcher
+        shards = list(range(6))
+        assert up.submit_prefetch(_StackTarget(ex, f, shards, "standard"))
+        while not ex._stack_cached(f, shards):
+            pass
+        slot_of, bits = ex._field_stack(f, shards)
+        counts = tk.row_counts_per_shard(bits).cpu().numpy().sum(axis=0)
+        want = np.zeros(bits.shape[1], dtype=np.int64)
+        for fr in frags:
+            ids, c = fr.row_counts()
+            for r, n in zip(ids, c):
+                want[slot_of[r]] += n
+        assert np.array_equal(counts, want)
+        assert up.flush(30)
+        snap = up.snapshot()
+        assert snap["uploadErrors"] == 0 and snap["pinnedSlots"][0]["chunks"] > 6
+    finally:
+        up.close()
+
+
+def test_pinned_slots_refilled_under_load_never_corrupt_a_copy(cuda_device, fresh_budget):
+    """Many fragments through two small pinned slots, refilled chunk after
+    chunk while earlier copies are in flight: every device copy equals its
+    host mirror, and writes between rounds reach the copies too."""
+    from pilosa_tpu_torch.ingest import DeviceUploader
+    from pilosa_tpu_torch.ops import bitops
+
+    fresh_budget.configure(None)
+    h, f, _ = _upload_index(cuda_device, n_shards=24, n_rows=16, seed=5)
+    up = DeviceUploader(slots=2, slot_bytes=12288)
+    rng = np.random.default_rng(9)
+    try:
+        frags = [f.view("standard").fragment(s) for s in range(24)]
+        for round_ in range(3):
+            for frag in frags:
+                up.submit(frag)
+            assert up.flush(60)
+            for frag in frags:
+                assert np.array_equal(
+                    bitops.to_host(frag.device_bits())[: frag.capacity],
+                    frag._host[: frag.capacity],
+                ), (round_, frag.shard)
+            for frag in frags:  # dirty rows: patched out of place on the side stream
+                frag.import_bits(rng.integers(0, 16, 50).astype(np.uint64),
+                                 rng.integers(0, frag.shard_width, 50))
+        snap = up.snapshot()
+        assert snap["uploadErrors"] == 0
+        assert snap["pinnedSlots"][0]["slotWaits"] >= 0 and snap["pinnedSlots"][0]["chunks"] > 48
+    finally:
+        up.close()
+
+
+def test_a_default_stream_patch_behind_a_long_kernel_reaches_the_side_streams_copy(
+        cuda_device, fresh_budget):
+    """The dispatcher patches a fragment's rows in place on the default
+    stream behind a long kernel, after the uploader's stream last waited for
+    the default stream; the uploader then syncs the same fragment, out of
+    place on its side stream. The side stream's read waits for the patch,
+    so the new copy holds both writes."""
+    import threading
+
+    from pilosa_tpu_torch.ops import bitops, streams
+
+    fresh_budget.configure(None)
+    _, f, _ = _upload_index(cuda_device, n_shards=1, n_rows=8, seed=3)
+    frag = f.view("standard").fragment(0)
+    frag.device_bits()
+    torch.cuda.synchronize()
+    stager = streams.PinnedStager(cuda_device)
+
+    def clear_col(row):
+        bits = np.unpackbits(frag._host[frag._slot_of[row]].view(np.uint8), bitorder="little")
+        return int(np.flatnonzero(bits == 0)[0])
+
+    for round_ in range(3):
+        entered, patched = threading.Event(), threading.Event()
+
+        def dispatcher():
+            entered.wait(30)
+            torch.cuda._sleep(200_000_000)  # about 0.1 s on the default stream
+            frag.set_bit(1, clear_col(1))
+            frag.device_bits()  # in place, queued behind the sleep
+            patched.set()
+
+        t = threading.Thread(target=dispatcher)
+        t.start()
+        with streams.staging(stager):
+            entered.set()
+            assert patched.wait(30)
+            frag.set_bit(2, clear_col(2))
+            frag.device_bits()  # out of place on the side stream
+        t.join(30)
+        torch.cuda.synchronize()
+        assert np.array_equal(
+            bitops.to_host(frag._device)[: frag.capacity], frag._host[: frag.capacity]
+        ), round_
+
+
+def test_a_flights_launches_book_under_the_weighted_principals(cuda_device, fresh_budget):
+    """One flight (execute_batch) under the batcher's weighted scope: every
+    launch's device time is split across the principals in proportion, and
+    the tenants' sums equal the kernels' device ms."""
+    from pilosa_tpu_torch.obs import devledger
+
+    fresh_budget.configure(None)
+    h, f, ex = _upload_index(cuda_device, seed=8)
+    led = devledger.ledger()
+    led.settle()
+    before = led.tenant_totals()
+    sites0 = {k: v for k, v in led.site_device_ms().items() if k.startswith("kernels.")}
+    flight = [(f"Count(Intersect(Row(f={a}), Row(f={a + 1})))", None) for a in range(8)]
+    flight += [("TopN(f, Row(f=2), n=3)", None)]
+    weights = [(("wa", "i", "read"), 0.75), (("wb", "i", "read"), 0.25)]
+    with devledger.weighted_scope(weights):
+        out = ex.execute_batch("i", flight)
+    assert not any(isinstance(o, Exception) for o in out)
+    led.settle()
+    after = led.tenant_totals()
+    sites = led.site_device_ms()
+    spent = sum(sites[k][1] - sites0.get(k, (0, 0.0))[1] for k in sites0)
+    da = after["wa"]["deviceMs"] - before.get("wa", {"deviceMs": 0.0})["deviceMs"]
+    db = after["wb"]["deviceMs"] - before.get("wb", {"deviceMs": 0.0})["deviceMs"]
+    assert spent > 0
+    assert da == pytest.approx(0.75 * spent, rel=1e-3, abs=2e-3)
+    assert db == pytest.approx(0.25 * spent, rel=1e-3, abs=2e-3)
+    n, ms = led.measured_ms("kernels.gram", "gram")
+    assert n >= 1 and ms > 0

@@ -100,7 +100,9 @@ def _build(seed: int):
             for shard, frag in view.fragments.items():
                 fragments[("i", fname, vname, shard)] = frag.rows_matrix_host()
     th = convert.holder_from_arrays(jh.schema(), fragments, device="cpu")
-    return je, TorchExecutor(th), rng
+    # the result cache off: these tests hold the kernel paths and their
+    # own caches, which a result-cache hit on a repeat query would skip
+    return je, TorchExecutor(th, rescache_entries=0), rng
 
 
 def _answer(ex, query, shards):

@@ -1,8 +1,11 @@
 """One HTTP node of the port against a JAX node, on the CPU.
 
 A JAX node (``pilosa_tpu.server.api.API`` + ``http.Server`` over a
-``HolderStore``, its batcher off, as the port's API always is) and a port
-node (the same over ``device="cpu"``) each get the same request script:
+``HolderStore``) and a port node (the same over ``device="cpu"``) each get
+the same request script, once with the serving plane cut down on both
+(``batch_window=0, rescache_entries=0, planner_enabled=False``) and once at
+both APIs' defaults (batcher, result cache, planner, QoS and the ingest
+pipeline on):
 schema CRUD with its 404 and 409 answers, JSON imports by id, by key, with
 timestamps, with values and with ``clear``, ``import-roaring`` (a bad
 payload too), every call kind the executor serves, parse errors, an
@@ -10,11 +13,10 @@ unknown index, a ``?timeout=`` too small to meet, ``/export``,
 ``/internal/shards/max``, key translation, ``/status`` and ``/schema``.
 Status codes must be equal, and JSON bodies equal once the volatile keys
 (versions, node ids, uptimes and times) are dropped. For ``?profile=true``
-the span names and the executor counters of the call tree must be equal
-(the JAX tree's result-cache and planner nodes aside: the port has
-neither plane yet). The debug planes must have JAX's top-level keys
-wherever both have the plane, and values that agree with the requests
-sent. A port node's data directory answers the same after a restart, and
+the span names and the executor counters of the call tree must be equal.
+The debug planes must have JAX's top-level keys wherever both have the
+plane (``/debug/qos`` too, at the defaults), and values that agree with
+the requests sent. A port node's data directory answers the same after a restart, and
 so does a directory the JAX node wrote. Threads of clients get the serial
 answers, and ``python -m pilosa_tpu_torch.cli server`` runs on the CPU
 when asked and refuses to start without CUDA otherwise.
@@ -58,11 +60,11 @@ TIMEOUT = 10  # seconds for every request
 
 # keys whose values differ between two nodes by nature
 VOLATILE = {"version", "localID", "startedAt", "duration_ms", "traceId", "node"}
-# profile-tree nodes of JAX planes the port does not have yet
-ABSENT_SPANS = ("rescache.", "planner.")
-# /debug/vars blocks of JAX planes the port does not have yet
-ABSENT_VARS = {"rescache", "planner", "ingest", "migrations", "batcher", "qos",
-               "dist", "blackbox"}
+# /debug/vars blocks of JAX planes the port does not have (the cluster's
+# and the black box)
+ABSENT_VARS = {"migrations", "dist", "blackbox"}
+# the serving plane cut down, as the JAX node can be
+CUT = {"batch_window": 0, "rescache_entries": 0, "planner_enabled": False}
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -84,41 +86,49 @@ def _collect_after_each_test():
     gc.collect()
 
 
-def _jax_node(path):
+def _jax_node(path, defaults=False):
     holder = JaxHolder()
     holder.set_stats(JaxMemStats())
     store = JaxStore(holder, str(path))
     store.open()
-    srv = JaxServer(
-        JaxAPI(holder, store, batch_window=0, rescache_entries=0, planner_enabled=False),
-        port=0,
-    )
+    srv = JaxServer(JaxAPI(holder, store, **({} if defaults else CUT)), port=0)
     srv.serve_background()
     return srv
 
 
-def _torch_node(path):
+def _torch_node(path, defaults=False):
     holder = TorchHolder(device="cpu")
     holder.set_stats(TorchMemStats())
     store = TorchStore(holder, str(path))
     store.open()
-    srv = TorchServer(TorchAPI(holder, store), port=0)
+    srv = TorchServer(TorchAPI(holder, store, **({} if defaults else CUT)), port=0)
     srv.serve_background()
     return srv
 
 
-@pytest.fixture()
-def pair(tmp_path):
-    """(JAX server, port server) on fresh data directories; both closed
-    at the end, whatever happened."""
+def _pair(tmp_path, defaults):
     servers = []
     try:
-        servers.append(_jax_node(tmp_path / "jax"))
-        servers.append(_torch_node(tmp_path / "torch"))
+        servers.append(_jax_node(tmp_path / "jax", defaults))
+        servers.append(_torch_node(tmp_path / "torch", defaults))
         yield servers[0], servers[1]
     finally:
         for srv in servers:
             srv.close()
+
+
+@pytest.fixture()
+def pair(tmp_path):
+    """(JAX server, port server) on fresh data directories, the serving
+    plane cut down on both; both closed at the end, whatever happened."""
+    yield from _pair(tmp_path, defaults=False)
+
+
+@pytest.fixture()
+def pair_defaults(tmp_path):
+    """The same at both APIs' defaults: batcher, result cache, planner, QoS
+    and the ingest pipeline on."""
+    yield from _pair(tmp_path, defaults=True)
 
 
 def call(port, method, path, body=None, content_type="application/json", raw=False):
@@ -157,12 +167,9 @@ def _status_view(body):
 
 def _tree(node):
     """(span name, executor counters, children) of a profile tree, the
-    JAX-only planes' nodes dropped and the transfer byte counts aside."""
+    transfer byte counts aside."""
     stats = {k: v for k, v in node.get("stats", {}).items() if not k.startswith("transfer_")}
-    kids = [
-        _tree(c) for c in node.get("children", [])
-        if not c["name"].startswith(ABSENT_SPANS)
-    ]
+    kids = [_tree(c) for c in node.get("children", [])]
     return (node["name"], stats, kids)
 
 
@@ -342,7 +349,22 @@ def _send(port, method, path, body, ctype):
 
 
 def test_request_script_answers_as_jax(pair):
-    jax_srv, torch_srv = pair
+    _run_script(*pair)
+
+
+def test_request_script_answers_as_jax_at_defaults(pair_defaults):
+    jax_srv, torch_srv = pair_defaults
+    _run_script(jax_srv, torch_srv)
+    # the serving plane counted alike on both nodes
+    j = call(jax_srv.port, "GET", "/debug/vars")[1]
+    t = call(torch_srv.port, "GET", "/debug/vars")[1]
+    for block, keys in (("rescache", ("hits", "misses", "invalidations", "stores")),
+                        ("planner", ("cseHits", "cseShared", "reorders"))):
+        assert {k: t[block][k] for k in keys} == {k: j[block][k] for k in keys}, block
+    assert t["rescache"]["hits"] > 0 and t["batcher"]["batches"] > 0
+
+
+def _run_script(jax_srv, torch_srv):
     script = _script(np.random.default_rng(7))
     for method, path, body, ctype, kind in script:
         jc, jb = _send(jax_srv.port, method, path, body, ctype)
@@ -363,7 +385,24 @@ def test_request_script_answers_as_jax(pair):
 
 
 def test_debug_planes_have_jax_keys_and_count_the_requests(pair):
-    jax_srv, torch_srv = pair
+    _debug_planes(*pair)
+
+
+def test_debug_planes_at_defaults_have_the_serving_blocks(pair_defaults):
+    j, t = _debug_planes(*pair_defaults)
+    for block in ("rescache", "planner", "batcher", "qos", "ingest"):
+        assert block in t["/debug/vars"] and block in j["/debug/vars"], block
+        assert set(t["/debug/vars"][block]) >= set(j["/debug/vars"][block]), block
+    assert set(t["/debug/qos"]) == set(j["/debug/qos"])
+    assert set(t["/debug/qos"]["tenants"]) == set(j["/debug/qos"]["tenants"])
+    for k in ("admitted", "shed", "degraded"):
+        assert [v[k] for v in t["/debug/qos"]["tenants"].values()] == [
+            v[k] for v in j["/debug/qos"]["tenants"].values()
+        ]
+    assert t["/debug/vars"]["ingest"]["uploader"]["uploadErrors"] == 0
+
+
+def _debug_planes(jax_srv, torch_srv):
     for port in (jax_srv.port, torch_srv.port):
         call(port, "POST", "/index/i", {})
         call(port, "POST", "/index/i/field/f", {})
@@ -377,7 +416,8 @@ def test_debug_planes_have_jax_keys_and_count_the_requests(pair):
         for path in ("/debug/vars", "/debug/slo", "/debug/traces", "/debug/events",
                      "/debug/jobs", "/debug/fragments?index=i&field=f",
                      "/debug/devcosts", "/debug/slow-queries", "/debug/memory",
-                     "/debug/threads", "/debug", "/debug/profile?seconds=0.05"):
+                     "/debug/threads", "/debug", "/debug/profile?seconds=0.05",
+                     "/debug/qos"):
             code, body = call(port, "GET", path)
             assert code == 200, (name, path, code)
             got[path] = body
@@ -425,6 +465,7 @@ def test_debug_planes_have_jax_keys_and_count_the_requests(pair):
     assert t["/debug/events"]["events"] == [] or set(t["/debug/events"]["events"][0]) == set(
         j["/debug/events"]["events"][0]
     )
+    return j, t
 
 
 def _answers(port, queries):

@@ -3,8 +3,11 @@ neither JAX nor any module of the JAX package (the device-memory budget,
 the residency tracker, the native host tier, storage, the translate store,
 time views, Store, the attrs calls and Options included, and one HTTP
 node booted on the CPU answering a query, with its API, routes,
-observability planes and CLI loaded), and the port's default device is
-``cuda`` with no fallback to the CPU."""
+observability planes and CLI loaded, and its serving plane at the
+defaults: the batcher, the result cache, the flight planner, the QoS
+governor, the prefetcher and the ingest pipeline with its side-stream
+uploads), and the port's default device is ``cuda`` with no fallback to
+the CPU."""
 
 import ast
 import os
@@ -121,7 +124,18 @@ post("/index/h/field/f", "{}")
 post("/index/h/field/f/import", '{"rowIDs": [1, 1], "columnIDs": [2, 70000]}')
 assert post("/index/h/query", "Count(Row(f=1))") == {"results": [2]}
 with urllib.request.urlopen(n.uri + "/debug/vars", timeout=10) as r:
-    assert "kernels" in json.loads(r.read())
+    dv = json.loads(r.read())
+    assert "kernels" in dv and {"rescache", "planner", "batcher", "qos", "ingest"} <= set(dv)
+# the serving plane's modules, loaded and on at the defaults
+from pilosa_tpu_torch.exec import planner, rescache
+from pilosa_tpu_torch.ingest import pipeline, staging
+from pilosa_tpu_torch.ops import streams
+from pilosa_tpu_torch.server import batcher, prefetch
+assert n.api.batcher is not None and n.api.qos is not None and n.api.prefetcher is not None
+assert post("/index/h/query", "Count(Row(f=1))") == {"results": [2]}
+assert n.api.executor.rescache.snapshot()["hits"] >= 1
+with urllib.request.urlopen(n.uri + "/debug/qos", timeout=10) as r:
+    assert "tenants" in json.loads(r.read())
 n.shutdown_graceful()
 assert n.wait(10)
 bad = sorted(

@@ -293,11 +293,26 @@ def test_import_errors_and_other_field_types():
     th = TorchHolder(device="cpu")
     idx = th.create_index("i")
     t = idx.create_field("t", TorchFieldOptions(field_type="time", time_quantum="YMD"))
-    with pytest.raises(ExecuteError, match="not yet ported"):
-        t.import_bits([1], [2], pipeline=object())
-    # mutex, no standard view, and a field without a quantum, as in JAX
     jh = JaxHolder()
     jidx = jh.create_index("i")
+    jt = jidx.create_field("t", JaxFieldOptions(field_type="time", time_quantum="YMD"))
+    # an import through each package's ingest pipeline lands alike
+    from pilosa_tpu.ingest import IngestPipeline as JaxPipeline
+    from pilosa_tpu.server.importpool import ImportPool as JaxPool
+    from pilosa_tpu_torch.ingest import IngestPipeline as TorchPipeline
+    from pilosa_tpu_torch.server.importpool import ImportPool as TorchPool
+
+    for field, Pool, Pipeline in ((t, TorchPool, TorchPipeline), (jt, JaxPool, JaxPipeline)):
+        pool = Pool(workers=2, depth=4)
+        pipe = Pipeline(pool)
+        try:
+            field.import_bits([1, 2, 1], [2, SHARD_WIDTH + 3, 9], pipeline=pipe,
+                              timestamps=[datetime(2024, 1, 1), None, datetime(2024, 3, 2)])
+            field.import_bits([1], [9], clear=True, pipeline=pipe)
+        finally:
+            pipe.close()
+            pool.close()
+    # mutex, no standard view, and a field without a quantum, as in JAX
     for h, FO, ix in ((jh, JaxFieldOptions, jidx), (th, TorchFieldOptions, idx)):
         m = ix.create_field("m", FO(field_type="mutex", time_quantum="YM"))
         m.import_bits([1, 2, 1, 3], [5, 5, 9, 70000 % SHARD_WIDTH],
