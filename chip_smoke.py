@@ -161,9 +161,33 @@ Phases (any failure raises, and the script exits non-zero):
    planner's CSE counters); flights that evict each other's stacks under
    a cap (the prefetcher's issued and useful counts); import-roaring of a
    64-row field on 8 shards through the pipeline from 4 clients (MB/s,
-   uploads, overlap, no failed upload, read back exactly); and two tenants
+   uploads, overlap, no failed upload, read back exactly), then again
+   beside the prefetch phase's steps (their p50/p99 and prefetches beside
+   the same steps alone); and two tenants
    by header, one sending 300-leaf Counts and GroupBys, one lone Counts
    (``/debug/qos``; each tenant's debt equals its device ms in the ledger).
+   The obs path, last: ``NodeServer`` on the same directory with every
+   observability plane on at JAX's defaults (the flight recorder, the
+   metrics history, the black box, the runtime monitor), and one SLO
+   objective for a probe tenant set through the node's knobs: the
+   25-query mix from 16 keep-alive clients with the result cache emptied,
+   one load while the planes' threads run and stop in turn (4 pairs of
+   1.25 s windows: each window's queries/s, p50/p99 and idle share, the
+   median of the pairs' differences, and the planes' own seconds per
+   second from their counters), the flight recorder's top collapsed
+   stacks of the on windows for the dispatcher and the handler threads, the
+   history's ``dev.device_ms_ps`` integral against the ledger's device ms
+   and its ``slo.*.rps`` sum against the requests served; a burst of
+   reads under a tiny deadline (one ``deadline-504-spike`` incident whose
+   segments show launches), the probe's errors (one burn-edge incident)
+   and two tenants (the QoS ladder's incident in the flight recorder);
+   then the same load on a node with the planes off. Beside the checks
+   after the windows, the incidents and that node's boot, ``python -m pilosa_tpu_torch.cli server`` over a
+   small new data directory,
+   SIGKILLed and started again (the postmortem line; one bundle with
+   ``crashLoop`` 1 holding the first life's launches), stopped by SIGTERM
+   and booted clean, then sent SIGSEGV (``last-words.txt`` holds every
+   thread's stack), each boot timed to its first answer.
 4. Summary: one ``{"end_to_end": {...}}`` line, one ``{"kernels": [...]}``
    line, the card line, and last ``{"ok": true, "device": {...}}``.
 """
@@ -175,6 +199,7 @@ import os
 import statistics
 import subprocess
 import sys
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -4351,6 +4376,8 @@ QOS_SECONDS = 4.0
 QOS_LEAVES = 300
 PLANNER_FLIGHT = 64
 INGEST_CLIENTS = 4
+# steps of the prefetch phase's reads alone, and at least as many beside an import
+IMPORT_READ_STEPS = 4
 # steps of the prefetch phase, alternating shard sets; odd, so the last is
 # over all shards
 PREFETCH_STEPS = 5
@@ -4404,7 +4431,10 @@ def serving_path(pool, device, hand, v_truth):
     6. ingest: import-roaring of a 64-row field on 8 shards through the
        pipeline from 4 clients: MB/s, bits/s, uploads, coalesced uploads,
        overlap, ``upload_errors == 0``, the fragments' device copies in
-       the budget, every row read back exactly;
+       the budget, every row read back exactly; then step 5's steps of
+       pair Counts, 4 alone and as many as fit beside the same import
+       again: p50/p99, prefetches issued, useful, wasted and claimed by a
+       dispatch, answers exact;
     7. QoS: tenants by header, one sending 300-leaf Counts and GroupBys,
        one lone Counts: /debug/qos, each tenant's debt equal to its device
        ms in the ledger, any degraded answer marked."""
@@ -4873,6 +4903,109 @@ def serving_path(pool, device, hand, v_truth):
             f"overlap {up1['overlapFrac']}, upload errors 0, {out['ingest']['fragments_on_card']}"
             f" fragments on the card (+{out['ingest']['budget_bytes_added']} budget bytes); "
             f"read back exactly")
+        cli.request("DELETE", "/index/i/field/r2")
+
+        # -- 6b. reads beside the import: step 5's traffic (steps of 4
+        # clients posting pair Counts over f and h at once, all over one
+        # shard set, alternating from step to step under its evicting cap,
+        # so each step's stack is cold and prefetched), alone and then while
+        # the same import runs again. The uploader serves ingest first, so
+        # the prefetches queue behind it; a dispatch claims one still queued
+        # and builds its stack itself
+        pairs = [divmod(int(x), H_ROWS) for x in rng.choice(64 * H_ROWS, 16, replace=False)]
+        use_sub = [x for x in sub if x < S_FULL]
+        truths = {}
+        for a_r, h_r in pairs:
+            per = np.bitwise_count(f_np[:, a_r] & h_np[:, h_r]).sum(axis=-1, dtype=np.int64)
+            truths[(a_r, h_r, False)] = int(per.sum())
+            truths[(a_r, h_r, True)] = int(per[use_sub].sum())
+        sconns = [HttpClient(node.server.port) for _ in range(4)]
+        srng = np.random.default_rng(SEED + 500)
+
+        def pair_step(shards, lats, rerrs):
+            def one(j, a_r, h_r):
+                q = f"Count(Intersect(Row(f={a_r}), Row(h={h_r})))"
+                body = {"query": q, "shards": shards} if shards else q
+                t = time.perf_counter()
+                code, resp = sconns[j].post("/index/i/query", body,
+                                            "application/json" if shards else "text/plain")
+                lats.append(time.perf_counter() - t)
+                got = json.loads(resp)["results"][0] if code == 200 else (code, resp[:200])
+                if got != truths[(a_r, h_r, bool(shards))]:
+                    rerrs.append(f"{q} over {'sub' if shards else 'all'}: {got}")
+
+            picks = [pairs[int(x)] for x in srng.integers(0, len(pairs), 4)]
+            ths = [threading.Thread(target=one, args=(j, *picks[j])) for j in range(4)]
+            for th in ths:
+                th.start()
+            for th in ths:
+                th.join(120)
+
+        def reads_beside(tag, job):
+            """Steps until ``job`` (run on a thread) has ended, and at least
+            :data:`IMPORT_READ_STEPS`."""
+            lats, rerrs, box = [], [], {}
+
+            def run_job():
+                try:
+                    job()
+                except BaseException as e:  # raised below
+                    box["err"] = e
+
+            r0, claims0 = residency.default_tracker().snapshot(), ex.prefetch_claims
+            jt = threading.Thread(target=run_job)
+            t = time.perf_counter()
+            jt.start()
+            k = 0
+            while k < IMPORT_READ_STEPS or jt.is_alive():
+                pair_step(None if k % 2 == 0 else sub, lats, rerrs)
+                k += 1
+            jt.join(300)
+            dt = time.perf_counter() - t
+            r1 = residency.default_tracker().snapshot()
+            if rerrs or "err" in box or len(lats) != 4 * k:
+                raise AssertionError(f"serving: reads {tag}: {rerrs[:2]} {box.get('err')!r}")
+            lat = np.array(lats) * 1e3
+            res = {"seconds": dt, "steps": k, "queries": int(lat.size),
+                   "p50_ms": float(np.percentile(lat, 50)),
+                   "p99_ms": float(np.percentile(lat, 99)), "max_ms": float(lat.max()),
+                   "prefetch": {x: r1[x] - r0[x] for x in (
+                       "prefetchIssued", "prefetchUseful", "prefetchWasted")},
+                   "claims": ex.prefetch_claims - claims0}
+            log(f"serving: step 5's pair Counts {tag}: {k} steps of 4 in {dt:.2f} s, p50 "
+                f"{res['p50_ms']:.1f} ms, p99 {res['p99_ms']:.1f} ms, max {res['max_ms']:.1f} ms;"
+                f" prefetch {json.dumps(res['prefetch'])}, claimed by a dispatch "
+                f"{res['claims']}; answers exact")
+            return res
+
+        def import_again():
+            code, body = cli.post("/index/i/field/r2", {})
+            if code != 200:
+                raise AssertionError(f"serving: create r2 again: {code} {body!r}")
+            changed[:] = [0] * R_IMPORT_SHARDS
+            ths = [threading.Thread(target=importer, args=(c,)) for c in range(INGEST_CLIENTS)]
+            for th in ths:
+                th.start()
+            for th in ths:
+                th.join(timeout=300)
+            api.ingest.uploader.flush(60)
+
+        entries0 = ex.rescache.max_entries
+        ex.rescache.max_entries = 0
+        ex.rescache.clear()
+        budget.set_cap(cap)
+        try:
+            alone = reads_beside("alone", lambda: None)
+            beside = reads_beside("beside the import", import_again)
+        finally:
+            budget.set_cap(cap0)
+            ex.rescache.max_entries = entries0
+            for c in sconns:
+                c.close()
+        if errs or sum(changed) != n_bits:
+            raise AssertionError(f"serving: import again {errs[:2]} changed {sum(changed)} "
+                                 f"of {n_bits}")
+        out["reads_beside_import"] = {"alone": alone, "import": beside}
         del payloads, r_words
         cli.request("DELETE", "/index/i/field/r2")
 
@@ -4941,6 +5074,9 @@ def serving_path(pool, device, hand, v_truth):
             f"{conserv}, degraded {len(degraded)}; /debug/qos "
             f"{json.dumps(out['qos']['tenants'])}")
         out["batcher"] = b.snapshot()
+        # the mix's answers as the serving path leaves the data (after its
+        # Set on f), for the obs path
+        hand["want_of"] = dict(want_of)
     finally:
         b._dispatch = dispatch
         cli.close()
@@ -4952,6 +5088,785 @@ def serving_path(pool, device, hand, v_truth):
         torch.cuda.empty_cache()
     out["path_s"] = time.perf_counter() - t_path
     log(f"serving path: {out['path_s']:.1f} s")
+    return out
+
+
+OBS_CLIENTS = 16
+# the planes-off node's load
+OBS_SECONDS = 2.5
+# the planes on against stopped on one node: pairs of windows, seconds each
+OBS_PAIRS, OBS_WINDOW = 4, 1.25
+# the 504 burst: one more than the flight recorder's spike threshold of 5
+OBS_SPIKE = 6
+# the probe tenant's deadline errors: under the spike threshold
+OBS_PROBE = 4
+# two tenants contend past the QoS ladder's 2 s stage hold
+OBS_QOS_SECONDS = 3.0
+OBS_TOP_STACKS = 5
+# the kernels the obs path's read mix launches
+OBS_KERNELS = ("row_scan", "masked_row_scan", "gram", "tree_count", "tree_words",
+               "bsi_range", "bsi_sum", "bsi_extreme")
+# the CLI's small data directory: shards and rows of its field f
+CLI_SHARDS, CLI_ROWS = 4, 8
+
+
+def wait_until(what, pred, timeout):
+    """Poll ``pred`` every 10 ms until it is true; fail after ``timeout`` s."""
+    t_end = time.perf_counter() + timeout
+    while not pred():
+        if time.perf_counter() > t_end:
+            raise AssertionError(f"obs: timed out waiting for {what}")
+        time.sleep(0.01)
+
+
+def set_planes(node, on):
+    """Stop (or start again) a node's sampler threads in place: the flight
+    recorder, the metrics history and the black box's writer."""
+    if on:
+        node.flightrec.start()
+        node.history.start()
+        node.blackbox.start()
+        return
+    node.flightrec.stop()
+    node.history.stop()
+    bb = node.blackbox
+    bb._stop.set()
+    if bb._thread is not None:
+        bb._thread.join(10)
+    bb._thread = None
+
+
+class CardBusy:
+    """``torch.profiler`` over a run on the card, giving the idle share of
+    any window of it: 1 - the union of the card's activity intervals over
+    the window's wall time. A marker kernel launched at a known host time
+    ties the profiler's clock to ``time.perf_counter``. Off the card every
+    share is "not measured"."""
+
+    def __init__(self, device):
+        import torch
+
+        self.device = device
+        self.on_card = torch.device(device).type == "cuda"
+        self.spans = None
+
+    def __enter__(self):
+        import torch
+
+        if self.on_card:
+            from torch.profiler import ProfilerActivity, profile
+
+            self.prof = profile(activities=[ProfilerActivity.CUDA])
+            self.prof.__enter__()
+            torch.cuda.synchronize()
+            self.t_mark = time.perf_counter()
+            torch.ones(1, device=self.device)  # the marker: the run's first kernel
+        return self
+
+    def __exit__(self, *exc):
+        import torch
+
+        if not self.on_card:
+            return
+        torch.cuda.synchronize()
+        self.prof.__exit__(None, None, None)
+        dev = sorted((e.time_range.start, e.time_range.end) for e in self.prof.events()
+                     if e.device_type == torch.autograd.DeviceType.CUDA)
+        if dev:
+            base = dev[0][0]
+            self.spans = [(self.t_mark + (a - base) / 1e6, self.t_mark + (b - base) / 1e6)
+                          for a, b in dev]
+
+    def idle_share(self, t0, t1):
+        if self.spans is None:
+            return "not measured"
+        busy = busy_union_us([(max(a, t0) * 1e6, min(b, t1) * 1e6)
+                              for a, b in self.spans if b > t0 and a < t1])
+        return 1.0 - busy / ((t1 - t0) * 1e6)
+
+
+def mix_clients(port, mix, serial, stop, seed):
+    """:data:`OBS_CLIENTS` keep-alive client threads (not started) posting
+    the read mix until ``stop`` is set, every answer checked against its
+    serial one: (threads, each client's (answered at, latency s) records,
+    errors)."""
+    import threading
+
+    import numpy as np
+
+    recs = [[] for _ in range(OBS_CLIENTS)]
+    errors = []
+
+    def client(c):
+        conn = HttpClient(port)
+        crng = np.random.default_rng(seed + c)
+        try:
+            while not stop.is_set():
+                n, q, index = mix[int(crng.integers(0, len(mix)))]
+                t = time.perf_counter()
+                got = conn.query(index, q)
+                t1 = time.perf_counter()
+                recs[c].append((t1, t1 - t))
+                if got != serial[n]:
+                    errors.append(f"{n}: {str(got)[:100]}")
+                    return
+        except Exception as e:  # reported by the caller, after every client stopped
+            errors.append(repr(e))
+        finally:
+            conn.close()
+
+    return [threading.Thread(target=client, args=(c,)) for c in range(OBS_CLIENTS)], recs, errors
+
+
+def window_stats(recs, t0, t1, busy):
+    """Queries/s, p50/p99 and the idle share of the answers in [t0, t1)."""
+    import numpy as np
+
+    lat = np.array([d for per in recs for at, d in per if t0 <= at < t1]) * 1e3
+    if not lat.size:
+        raise AssertionError(f"obs: no answer in a window of {t1 - t0:.2f} s")
+    return {"seconds": t1 - t0, "queries": int(lat.size), "qps": lat.size / (t1 - t0),
+            "p50_ms": float(np.percentile(lat, 50)), "p99_ms": float(np.percentile(lat, 99)),
+            "idle_share": busy.idle_share(t0, t1)}
+
+
+def obs_load(port, mix, serial, seconds, device, tag):
+    """16 keep-alive clients posting the read mix for ``seconds``: queries/s,
+    p50/p99 and, on the card, the idle share; every answer must equal its
+    serial one."""
+    import threading
+
+    stop = threading.Event()
+    with CardBusy(device) as busy:
+        threads, recs, errors = mix_clients(port, mix, serial, stop, SEED + 300)
+        t = time.perf_counter()
+        for th in threads:
+            th.start()
+        time.sleep(seconds)
+        stop.set()
+        for th in threads:
+            th.join(timeout=120)
+        t_end = time.perf_counter()
+    if any(th.is_alive() for th in threads) or errors:
+        raise AssertionError(f"obs: {tag}: clients: {errors[:3]}")
+    res = window_stats(recs, t, t_end, busy)
+    res["clients"] = OBS_CLIENTS
+    log(f"obs: {tag}: {res['queries']} queries in {res['seconds']:.1f} s, {res['qps']:.1f} "
+        f"queries/s, p50 {res['p50_ms']:.2f} ms, p99 {res['p99_ms']:.2f} ms, idle share "
+        f"{res['idle_share']}; every answer equal to its serial one")
+    return res
+
+
+def plane_costs(node):
+    """The planes' own seconds so far, from their counters: the flight
+    recorder's ticks and the seconds its thread spent sampling and closing
+    segments, the history's sampling seconds, the black box's checkpoint
+    seconds."""
+    return {"flightrec_ticks": node.flightrec.ticks,
+            "flightrec_s": node.flightrec.busy_seconds,
+            "history_s": node.history.stats()["sampleSeconds"],
+            "blackbox_s": node.blackbox.stats()["checkpointSeconds"]}
+
+
+def obs_ab(node, mix, serial, device):
+    """The planes' cost on one node under one continuous load: 16 clients
+    post the read mix while the planes run and stop in turn, in
+    :data:`OBS_PAIRS` pairs of :data:`OBS_WINDOW`-second windows (on, off,
+    on, off, ...; a window starts once the planes' threads have started or
+    joined). Each window's queries/s, p50/p99 and idle share; the median
+    of the pairs' differences; the flight recorder's own seconds per wall
+    second of the on windows, from its counters (the history's and the
+    black box's are read over the node's life: their first sample after a
+    restart waits a cadence)."""
+    import threading
+
+    import numpy as np
+
+    stop = threading.Event()
+    windows = []
+    cost = {}
+    with CardBusy(device) as busy:
+        threads, recs, errors = mix_clients(node.server.port, mix, serial, stop, SEED + 300)
+        for th in threads:
+            th.start()
+        t_w = time.perf_counter()
+        c_w = plane_costs(node)
+        try:
+            for k in range(2 * OBS_PAIRS):
+                on = k % 2 == 0
+                time.sleep(max(0.0, t_w + OBS_WINDOW - time.perf_counter()))
+                t_end = time.perf_counter()
+                windows.append((on, t_w, t_end))
+                if on:
+                    c_end = plane_costs(node)
+                    for key, v in c_end.items():
+                        cost[key] = cost.get(key, 0) + v - c_w[key]
+                set_planes(node, not on)
+                t_w = time.perf_counter()
+                c_w = plane_costs(node)
+        finally:
+            stop.set()
+            for th in threads:
+                th.join(timeout=120)
+    if any(th.is_alive() for th in threads) or errors:
+        raise AssertionError(f"obs: planes on/off: clients: {errors[:3]}")
+    res = {"on": [], "off": []}
+    for on, t0, t1 in windows:
+        res["on" if on else "off"].append(window_stats(recs, t0, t1, busy))
+    on_wall = sum(w["seconds"] for w in res["on"])
+    res["queries"] = sum(len(per) for per in recs)
+    res["t0"], res["t1"] = windows[0][1], windows[-1][2]
+    for key in ("qps", "p50_ms", "p99_ms"):
+        d = [a[key] - b[key] for a, b in zip(res["on"], res["off"])]
+        res[f"median_diff_{key}"] = float(np.median(d))
+    res["median_ratio_qps"] = float(np.median([a["qps"] / b["qps"]
+                                               for a, b in zip(res["on"], res["off"])]))
+    res["plane_seconds"] = cost
+    res["flightrec_s_per_s"] = cost["flightrec_s"] / on_wall
+    res["flightrec_tick_ms"] = (cost["flightrec_s"] / cost["flightrec_ticks"] * 1e3
+                                if cost["flightrec_ticks"] else None)
+    for i, (a, b) in enumerate(zip(res["on"], res["off"])):
+        log(f"obs: pair {i}: planes on {a['qps']:.1f} q/s p50 {a['p50_ms']:.2f} p99 "
+            f"{a['p99_ms']:.2f} ms idle {a['idle_share']} | stopped {b['qps']:.1f} q/s p50 "
+            f"{b['p50_ms']:.2f} p99 {b['p99_ms']:.2f} ms idle {b['idle_share']}")
+    log(f"obs: planes on against stopped, one node, {OBS_PAIRS} pairs of {OBS_WINDOW} s under "
+        f"one load of {OBS_CLIENTS} clients: median of the pairs' differences "
+        f"{res['median_diff_qps']:.2f} queries/s (median ratio {res['median_ratio_qps']:.4f}), "
+        f"p50 {res['median_diff_p50_ms']:.2f} ms, p99 {res['median_diff_p99_ms']:.2f} ms; the "
+        f"flight recorder's own seconds per second of the on windows "
+        f"{res['flightrec_s_per_s']:.5f} ({json.dumps(cost)}; a tick "
+        f"{res['flightrec_tick_ms']} ms); every answer equal to its serial one")
+    return res
+
+
+def top_stacks(segments, t0, t1):
+    """The flight recorder's collapsed stacks over the segments that ended
+    in [t0, t1], for the dispatcher thread (``query-batcher``) and the HTTP
+    handler threads: each class's samples, the top stacks with their share
+    of that class's samples (a segment keeps only its 20 hottest stacks
+    over every thread, so each class's kept share is printed too)."""
+    stacks, threads = {}, {}
+    for seg in segments:
+        if not (t0 <= seg["at"] <= t1 + 0.5):
+            continue
+        for k, v in seg["profile"]["stacks"].items():
+            stacks[k] = stacks.get(k, 0) + v
+        for k, v in seg["profile"]["threads"].items():
+            threads[k] = threads.get(k, 0) + v
+    out = {}
+    for cls, mark, is_thread in (
+        ("dispatcher", "batcher.py:_run", lambda n: n == "query-batcher"),
+        ("handlers", "socketserver.py:process_request_thread",
+         lambda n: "process_request_thread" in n),
+    ):
+        samples = sum(v for n, v in threads.items() if is_thread(n))
+        mine = sorted(((v, k) for k, v in stacks.items() if mark in k), reverse=True)
+        kept = sum(v for v, _ in mine)
+        out[cls] = {
+            "samples": samples,
+            "kept_share": kept / samples if samples else None,
+            "top": [{"share": v / samples if samples else None,
+                     "leaf": ";".join(k.split(";")[-6:])} for v, k in mine[:OBS_TOP_STACKS]],
+        }
+    return out
+
+
+class CliLives:
+    """``python -m pilosa_tpu_torch.cli server`` over a small new data
+    directory, in three lives: life 1 loads it, answers, checkpoints and is
+    SIGKILLed; life 2 prints the postmortem line, serves the bundle
+    (``crashLoop`` 1, the first life's launches) and stops on SIGTERM with
+    exit 0; life 3 boots clean and is sent SIGSEGV, leaving every thread's
+    stack in ``last-words.txt``. Lives 2 and 3 are timed from boot to their
+    first answer; life 1 boots in the background while the obs path's
+    in-process node opens (:meth:`start`)."""
+
+    def __init__(self, device, data, body):
+        import tempfile
+
+        import torch
+
+        self.device, self.data, self.body = device, data, body
+        self.on_card = torch.device(device).type == "cuda"
+        (HERE / "build").mkdir(exist_ok=True)
+        self.root = Path(tempfile.mkdtemp(prefix="obs-cli-", dir=HERE / "build"))
+        STORAGE_DIRS.append(str(self.root))
+        self.data_dir = str(self.root / "data")
+        self.cfg = self.root / "config.json"
+        # the black box checkpoints every 0.25 s, so a short life leaves a spool
+        self.cfg.write_text(json.dumps({"blackbox": {"interval": 0.25}}))
+        self.procs = []
+        self.out = {}
+        self.stopped = False
+        self._lock = threading.Lock()
+
+    def start(self, life):
+        """Start life ``life``; :meth:`up` waits for its first answer."""
+        import socket
+
+        with socket.socket() as so:
+            so.bind(("127.0.0.1", 0))
+            port = so.getsockname()[1]
+        log_path = self.root / f"life{life}.log"
+        with self._lock, open(log_path, "w") as logf:
+            if self.stopped:  # the path failed: no new life after stop()
+                raise AssertionError("obs: the CLI lives were stopped")
+            t0 = time.perf_counter()
+            proc = subprocess.Popen(
+                [sys.executable, "-m", "pilosa_tpu_torch.cli", "server", "-d", self.data_dir,
+                 "--bind", f"127.0.0.1:{port}", "--device", self.device, "-c", str(self.cfg)],
+                cwd=HERE, env=dict(os.environ, PYTHONPATH=str(HERE)), stdout=logf,
+                stderr=subprocess.STDOUT, text=True)
+            self.procs.append(proc)
+        self.life = (life, proc, port, t0, log_path)
+
+    def up(self):
+        """Wait until the current life answers /status: (proc, client, boot
+        time, log path)."""
+        life, proc, port, t0, log_path = self.life
+
+        def answering():
+            try:
+                probe = HttpClient(port, timeout=5)
+                try:
+                    probe.get("/status")
+                finally:
+                    probe.close()
+                return True
+            except OSError:
+                if proc.poll() is not None:
+                    raise AssertionError(f"obs: CLI life {life} exited: "
+                                         f"{log_path.read_text()[-2000:]}")
+                return False
+
+        wait_until(f"CLI life {life} to answer", answering, 120)
+        return proc, HttpClient(port), t0, log_path
+
+    def answer(self, sc, life):
+        if sc.query("i", self.body) != self.data["answers"]:
+            raise AssertionError(f"obs: CLI life {life} answered wrong")
+
+    def load(self):
+        """Life 1, once up: load the data and answer; its black box then
+        checkpoints every 0.25 s while the in-process loads run."""
+        proc, sc, _, _ = self.up()
+        try:
+            sc.post("/index/i", {})
+            sc.post("/index/i/field/f", {})
+            code, body = sc.post("/index/i/field/f/import", self.data["import"])
+            if code != 200:
+                raise AssertionError(f"obs: CLI import: {code} {body[:200]!r}")
+            self.answer(sc, 1)
+            kern = json.loads(sc.get("/debug/vars")[1])["kernels"]
+            self.launched = sum(v["launches"] for v in kern.values())
+            if self.on_card and self.launched < 1:
+                raise AssertionError(f"obs: CLI life 1 launched nothing: {kern}")
+            self.seen = json.loads(sc.get("/debug/vars")[1])["blackbox"]["checkpoints"]
+        finally:
+            sc.close()
+
+    def run(self):
+        """Life 1 (started by :meth:`start`, loaded by :meth:`load`) killed
+        after two more checkpoints, then lives 2 and 3."""
+        import signal
+
+        out = self.out
+        try:
+            proc, sc, _, _ = self.up()
+            launched = self.launched
+            wait_until("a checkpoint after the queries", lambda: json.loads(
+                sc.get("/debug/vars")[1])["blackbox"]["checkpoints"] >= self.seen + 2, 10)
+            sc.close()
+            proc.kill()
+            proc.wait(30)
+
+            self.start(2)
+            proc, sc, t0, log2 = self.up()
+            self.answer(sc, 2)
+            out["dirty_boot_to_answer_s"] = time.perf_counter() - t0
+            line = [x for x in log2.read_text().splitlines() if "died dirty" in x]
+            code, body = sc.get("/debug/postmortem")
+            pm = json.loads(body)
+            bundle = pm["postmortem"]
+            if (not line or code != 200 or len(pm["postmortems"]) != 1
+                    or bundle["crashLoop"] != 1):
+                raise AssertionError(f"obs: CLI postmortem: {line} {code} "
+                                     f"{json.dumps(pm['postmortems'])[:300]}")
+            dev = bundle["devledger"] or {}
+            kern_launches = sum(v for k, v in dev.items()
+                                if k.startswith("site.kernels.") and k.endswith(".launches"))
+            if self.on_card and kern_launches < launched:
+                raise AssertionError(f"obs: the bundle's ledger holds {kern_launches} kernel "
+                                     f"launches, the first life made {launched}")
+            out["postmortem"] = {"line": line[0], "crashLoop": bundle["crashLoop"],
+                                 "segments": bundle["segments"], "torn": bundle["torn"],
+                                 "events": len(bundle["events"]),
+                                 "kernel_launches": kern_launches,
+                                 "first_life_launches": launched}
+            sc.close()
+            t = time.perf_counter()
+            proc.send_signal(signal.SIGTERM)
+            if proc.wait(30) != 0:
+                raise AssertionError(f"obs: CLI life 2 exited {proc.returncode} on SIGTERM")
+            out["sigterm_stop_s"] = time.perf_counter() - t
+
+            self.start(3)
+            proc, sc, t0, log3 = self.up()
+            self.answer(sc, 3)
+            out["clean_boot_to_answer_s"] = time.perf_counter() - t0
+            pm = json.loads(sc.get("/debug/postmortem")[1])
+            if "died dirty" in log3.read_text() or len(pm["postmortems"]) != 1:
+                raise AssertionError("obs: the boot after SIGTERM was not clean")
+            # the connection stays open, so no handler thread is exiting
+            # while the fatal-signal handler walks every thread's stack
+            proc.send_signal(signal.SIGSEGV)
+            rc = proc.wait(30)
+            sc.close()
+            words = (Path(self.data_dir) / "_blackbox" / "last-words.txt").read_text()
+            n_threads = words.count("Thread 0x") + words.count("Current thread 0x")
+            if rc == 0 or "Fatal Python error" not in words or n_threads < 5:
+                raise AssertionError(f"obs: SIGSEGV: exit {rc}, {n_threads} thread stacks, "
+                                     f"last words {words[:300]!r}")
+            out["sigsegv"] = {"exit": rc, "threads_in_last_words": n_threads}
+        finally:
+            self.stop()
+        log(f"obs: CLI: postmortem after SIGKILL {json.dumps(out['postmortem'])}; boot to the "
+            f"first answer {out['dirty_boot_to_answer_s']:.2f} s dirty, "
+            f"{out['clean_boot_to_answer_s']:.2f} s clean; SIGTERM exit 0 in "
+            f"{out['sigterm_stop_s']:.2f} s; SIGSEGV exit {rc}, {n_threads} thread stacks in "
+            f"last-words.txt")
+        return out
+
+    def run_in_thread(self):
+        """:meth:`run` on a thread of its own; :meth:`join` takes its result."""
+        box = {}
+
+        def go():
+            try:
+                box["out"] = self.run()
+            except BaseException as e:  # raised again by join()
+                box["err"] = e
+
+        th = threading.Thread(target=go, name="cli-lives", daemon=True)
+        th.box = box
+        th.start()
+        return th
+
+    def join(self, th):
+        th.join(300)
+        if th.is_alive():
+            raise AssertionError("obs: the CLI lives did not end")
+        if "err" in th.box:
+            raise th.box["err"]
+        return th.box["out"]
+
+    def stop(self):
+        with self._lock:
+            self.stopped = True
+        for p in self.procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(30)
+
+
+def cli_data(rng):
+    """The CLI's small data: f's bits as an import body, and the answers of
+    :data:`cli_calls` from numpy."""
+    import numpy as np
+
+    from pilosa_tpu_torch.shardwidth import SHARD_WIDTH
+
+    n = 4000
+    rows = rng.integers(0, CLI_ROWS, n)
+    cols = rng.integers(0, CLI_SHARDS * SHARD_WIDTH, n)
+    sets = [set(cols[rows == r].tolist()) for r in range(CLI_ROWS)]
+    answers = [len(sets[a] & sets[b]) for a, b in CLI_PAIRS] + [len(sets[1])]
+    return {"import": {"rowIDs": rows.tolist(), "columnIDs": cols.tolist()},
+            "answers": answers}
+
+
+CLI_PAIRS = [(0, 1), (2, 3), (4, 5), (6, 7)]
+
+
+def obs_path(pool, device, hand, v_truth):
+    """Every observability plane of the node on, against the same load with
+    them off, and the crash-and-restart cycle of ``cli server``."""
+    import numpy as np
+
+    from pilosa_tpu_torch.ops import kernels as tk
+
+    t_path = time.perf_counter()
+    # the CLI's first life boots while the node opens
+    body = " ".join(f"Count(Intersect(Row(f={a}), Row(f={b})))" for a, b in CLI_PAIRS)
+    lives = CliLives(device, cli_data(np.random.default_rng(SEED + 41)),
+                     body + " Count(Row(f=1))")
+    lives.start(1)
+    try:
+        out = obs_nodes(device, hand, lives)
+    finally:
+        lives.stop()
+    out["launches"] = {k: v for k, v in tk.LAUNCHES.items() if v}
+    out["path_s"] = time.perf_counter() - t_path
+    log(f"obs path: {out['path_s']:.1f} s")
+    return out
+
+
+def obs_nodes(device, hand, lives):
+    """The obs path's in-process nodes: every plane on (the planes on and
+    stopped in turn under one load, stacks, history and incidents), then a
+    node with the planes off; the CLI's lives run beside the checks after
+    the windows, the incidents and that node's boot."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from pilosa_tpu_torch.obs import devledger
+    from pilosa_tpu_torch.server.node import NodeServer
+
+    on_card = torch.device(device).type == "cuda"
+    out = {}
+    reads, items, want_of = hand["reads"], hand["items"], hand["want_of"]
+    mix = read_mix(reads, items)
+    led = devledger.ledger()
+
+    def check(name, got):
+        norm = norm_json(got[0]) if not name.startswith("pair ") else got[0]
+        if norm != want_of[name]:
+            raise AssertionError(f"obs: {name}: {str(norm)[:200]} != {str(want_of[name])[:200]}")
+
+    def serial_of(cli):
+        serial = {}
+        for n, q, index in mix:
+            got = cli.query(index, q)
+            check(n, got)
+            serial[n] = got
+        return serial
+
+    # -- 1. every plane on, at JAX's defaults; the probe tenant's objective
+    # and no objective on read.other (the class a deadline 504 lands in),
+    # so only the probe's errors burn a budget
+    t0 = time.perf_counter()
+    node = NodeServer(data_dir=hand["data_dir"], device=device, port=0, slo_objectives={
+        "read.other": None, "tenants": {"probe": {"read.other": {"availability": 0.999}}}})
+    node.start()
+    boot_s = time.perf_counter() - t0
+    fr, hist, bb = node.flightrec, node.history, node.blackbox
+    if not (fr.sample_interval == 0.025 and fr.segment_seconds == 1.0
+            and fr.max_segments == 60 and fr.spike_504 == 5 and hist.cadence == 1.0
+            and bb.interval == 5.0 and node.runtime_monitor.interval == 10.0
+            and node.api.batcher is not None and node.api.qos is not None):
+        raise AssertionError("obs: the node's planes are not at JAX's defaults")
+    ex = node.api.executor
+    cli = HttpClient(node.server.port)
+    try:
+        ex.rescache.max_entries = 0
+        ex.rescache.clear()
+        serial = serial_of(cli)
+        log(f"obs: node with every plane on open in {boot_s:.2f} s; the {len(mix)}-query "
+            f"mix equals numpy")
+        lives.load()  # the CLI's first life is up and loaded: no boot beside the loads
+        # a fresh history sample just before the load and one after it
+        n0 = hist.stats()["samples"]
+        wait_until("a history sample", lambda: hist.stats()["samples"] > n0, 3)
+        seq0 = hist.query(limit=1)["nextSeq"] - 1
+        led.settle()
+        c0 = led.counters()
+        out["ab"] = ab = obs_ab(node, mix, serial, device)
+        # the CLI's lives go on beside the checks below, the incidents and
+        # the planes-off node's boot (so their boot times are taken beside
+        # those), and end before that node's load
+        lives_th = lives.run_in_thread()
+        # one sample after the load: its answers are back, so every launch
+        # it made has ended and that sample folds them all; a handler records
+        # its request's SLO just after the answer leaves, hence the pause.
+        # The history stopped in the off windows: the first sample after
+        # each restart holds the rates over the gap, so the integrals cover
+        # the whole load
+        time.sleep(0.05)
+        n1 = hist.stats()["samples"]
+        wait_until("a history sample after the load",
+                   lambda: hist.stats()["samples"] >= n1 + 1, 3)
+        led.settle()
+        c1 = led.counters()
+        code, body = cli.get(f"/debug/history?series=dev.*,slo.*&since={seq0}")
+        series = json.loads(body)["series"]
+        if code != 200 or "dev.device_ms_ps" not in series:
+            raise AssertionError(f"obs: /debug/history: {code} {list(series)[:10]}")
+
+        def integral(pts):
+            return sum(v * (pts[i][0] - pts[i - 1][0])
+                       for i, (_, v) in enumerate(pts) if i and v is not None)
+
+        dev_pts = series["dev.device_ms_ps"]
+        dev_int = integral(dev_pts)
+        dev_delta = c1["deviceMs"] - c0["deviceMs"]
+        tol = max((v for _, v in dev_pts if v is not None), default=0.0) * hist.cadence
+        rps = {k: integral(v) for k, v in series.items()
+               if k.endswith(".rps") and "@" not in k}
+        served = sum(rps.values())
+        out["history"] = {"device_ms_integral": dev_int, "ledger_device_ms": dev_delta,
+                          "tolerance_ms": tol, "rps_integral": served,
+                          "requests_served": ab["queries"], "samples": len(dev_pts)}
+        log(f"obs: history: dev.device_ms_ps integral {dev_int:.3f} ms against the ledger's "
+            f"{dev_delta:.3f} (tolerance {tol:.3f}, one cadence); slo rps integral "
+            f"{served:.2f} against {ab['queries']} requests served")
+        if abs(dev_int - dev_delta) > tol or (on_card and dev_delta <= 0):
+            raise AssertionError(f"obs: history {json.dumps(out['history'])}")
+        if abs(served - ab["queries"]) > 0.5:
+            raise AssertionError(f"obs: slo rps {json.dumps(rps)}")
+        # the recorder ran in the on windows only
+        wall = time.time() - time.perf_counter()
+        out["stacks"] = top_stacks(fr.segments_snapshot(60), ab["t0"] + wall, ab["t1"] + wall)
+        for cls, v in out["stacks"].items():
+            log(f"obs: {cls}: {v['samples']} samples, kept share {v['kept_share']}")
+            for e in v["top"]:
+                log(f"obs:   {e['share']:.3f} {e['leaf']}")
+
+
+        # -- 2. incidents: two tenants contend (the QoS ladder's incident)
+        # while a 504 burst and the probe's errors go in
+        def incidents(kind):
+            return [b for b in node.api.incidents_snapshot()["incidents"]
+                    if b["trigger"]["type"] == kind]
+
+        heavy = [(n, q, index) for n, q, index in mix if not n.startswith("pair")]
+
+        def tenant_load(name, n_clients, seconds):
+            import threading
+
+            errs = []
+
+            def run(c):
+                conn = HttpClient(node.server.port)
+                crng = np.random.default_rng(SEED + 400 + c)
+                t_end = time.perf_counter() + seconds
+                try:
+                    pool_ = heavy if name == "heavy" else mix
+                    while time.perf_counter() < t_end:
+                        n, q, index = pool_[int(crng.integers(0, len(pool_)))]
+                        code, body = conn.post(f"/index/{index}/query", q, "text/plain",
+                                               headers={devledger.TENANT_HEADER: name})
+                        if code == 200:
+                            j = json.loads(body)
+                            if not j.get("degraded") and j["results"] != serial[n]:
+                                errs.append(n)
+                        elif code != 429:
+                            errs.append(f"{n}: {code}")
+                finally:
+                    conn.close()
+
+            return [threading.Thread(target=run, args=(c,)) for c in range(n_clients)], errs
+
+        ths_h, err_h = tenant_load("heavy", 8, OBS_QOS_SECONDS)
+        ths_l, err_l = tenant_load("light", 2, OBS_QOS_SECONDS)
+        for th in ths_h + ths_l:
+            th.start()
+        # the burst just after a segment boundary, so one segment holds it
+        seg = fr.segments_snapshot(1)[-1]["seq"]
+        wait_until("a segment boundary",
+                   lambda: fr.segments_snapshot(1)[-1]["seq"] > seg, 3)
+        for _ in range(OBS_SPIKE):
+            code, _ = cli.post("/index/i/query?timeout=0.000001", "Count(Row(h=0))",
+                               "text/plain")
+            if code != 504:
+                raise AssertionError(f"obs: a read under a tiny deadline answered {code}")
+        wait_until("the 504 spike incident", lambda: incidents("deadline-504-spike"), 4)
+        [spike] = incidents("deadline-504-spike")
+        detail = json.loads(cli.get(f"/debug/incidents?id={spike['id']}")[1])
+        segs = detail["segments"]
+        dispatch = max(s.get("kernelDispatchDelta", 0) for s in segs)
+        dl_launches = max(s.get("devledgerDelta", {}).get("launches", 0) for s in segs)
+        if on_card and (dispatch <= 0 or dl_launches <= 0):
+            raise AssertionError(f"obs: the spike's segments show no launch: "
+                                 f"{dispatch}, {dl_launches}")
+        # the probe tenant's errors: one burn-rate edge
+        for _ in range(OBS_PROBE):
+            code, _ = cli.post("/index/i/query?timeout=0.000001", "Count(Row(h=0))",
+                               "text/plain", headers={devledger.TENANT_HEADER: "probe"})
+            if code != 504:
+                raise AssertionError(f"obs: the probe's read answered {code}")
+        wait_until("the burn-edge incident", lambda: incidents("slo-alert"), 4)
+        [burn] = incidents("slo-alert")
+        for th in ths_h + ths_l:
+            th.join(OBS_QOS_SECONDS + 120)
+        if err_h or err_l:
+            raise AssertionError(f"obs: QoS tenants: {err_h[:3]} {err_l[:3]}")
+        wait_until("the QoS incident", lambda: incidents("qos-pressure"), 3)
+        qos_inc = incidents("qos-pressure")
+        all_inc = node.api.incidents_snapshot()["incidents"]
+        kinds = {}
+        for b in all_inc:
+            kinds[b["trigger"]["type"]] = kinds.get(b["trigger"]["type"], 0) + 1
+        if kinds.get("deadline-504-spike") != 1 or kinds.get("slo-alert") != 1:
+            raise AssertionError(f"obs: incidents {kinds}")
+        bbs = bb.stats()
+        hs = hist.stats()
+        # each plane's own seconds per wall second at its cadence: the
+        # recorder's from the on windows, the others' a sample's or a
+        # checkpoint's mean cost over the node's life
+        out["plane_s_per_s"] = steady = {
+            "flightrec": ab["flightrec_s_per_s"],
+            "history": hs["sampleSeconds"] / max(1, hs["samples"]) / hist.cadence,
+            "blackbox": bbs["checkpointSeconds"] / max(1, bbs["checkpoints"]) / bb.interval}
+        log(f"obs: the planes' own seconds per wall second {sum(steady.values()):.5f} "
+            f"({json.dumps(steady)}; history {hs['samples']} samples in "
+            f"{hs['sampleSeconds']} s, black box {bbs['checkpoints']} checkpoints in "
+            f"{bbs['checkpointSeconds']} s)")
+        out["incidents"] = {
+            "kinds": kinds,
+            "spike": {"count": spike["trigger"]["count"], "segments": len(segs),
+                      "kernelDispatchDelta_max": dispatch,
+                      "devledgerDelta_launches_max": dl_launches},
+            "burn": burn["trigger"], "qos": qos_inc[0]["trigger"],
+            "blackbox": {k: bbs[k] for k in ("checkpoints", "checkpointSeconds",
+                                              "syncFlushes", "segments", "bytes")},
+            "history": hist.stats(),
+        }
+        log(f"obs: incidents {json.dumps(kinds)}; spike {json.dumps(out['incidents']['spike'])};"
+            f" burn {json.dumps(burn['trigger'])}; QoS {json.dumps(qos_inc[0]['trigger'])}; "
+            f"black box {json.dumps(out['incidents']['blackbox'])}; history "
+            f"{json.dumps(hist.stats())}")
+    finally:
+        cli.close()
+        node.stop()
+    del node, ex, fr, hist, bb
+    gc.collect()
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+
+    # -- 3. the same load on a node with the planes off
+    t0 = time.perf_counter()
+    node = NodeServer(data_dir=hand["data_dir"], device=device, port=0, flight_recorder=False,
+                      history_enabled=False, blackbox_enabled=False)
+    node.start()
+    boot_off = time.perf_counter() - t0
+    cli = HttpClient(node.server.port)
+    try:
+        node.api.executor.rescache.max_entries = 0
+        node.api.executor.rescache.clear()
+        serial = serial_of(cli)
+        log(f"obs: node with the planes off open in {boot_off:.2f} s; the mix equals numpy")
+        out["cli"] = lives.join(lives_th)
+        out["planes_off"] = obs_load(node.server.port, mix, serial, OBS_SECONDS, device,
+                                     "16 clients, planes off, cache emptied")
+    finally:
+        cli.close()
+        node.stop()
+    del node
+    gc.collect()
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+    on = ab["on"]
+    off = out["planes_off"]
+    log(f"obs: planes on (the on windows, one node) / off (a node without them): "
+        f"{sum(w['queries'] for w in on) / sum(w['seconds'] for w in on):.1f} / "
+        f"{off['qps']:.1f} queries/s; p99 of the on windows "
+        f"{[round(w['p99_ms'], 1) for w in on]} / {off['p99_ms']:.1f} ms; idle share "
+        f"{[w['idle_share'] for w in on]} / {off['idle_share']}")
+
     return out
 
 
@@ -5072,7 +5987,7 @@ SOURCES = {
 
 
 def serve(kern, sass, card, t_start) -> int:
-    """The main path's nine paths on the served index, then the summary
+    """The main path's ten paths on the served index, then the summary
     lines."""
     import gc
 
@@ -5117,13 +6032,17 @@ def serve(kern, sass, card, t_start) -> int:
         l_serving, e2e["serving"] = drive(
             "serving", tuple(sorted(SOURCES)),
             lambda: serving_path(pool, "cuda", hand, decoded["v"]))
+        l_obs, e2e["obs"] = drive(
+            "obs", OBS_KERNELS, lambda: obs_path(pool, "cuda", hand, decoded["v"]))
         del decoded, hand
     name, limit = [x.strip() for x in card.split(",", 1)]
     e2e["http"].update(card=name, power_limit=limit)
     e2e["serving"].update(card=name, power_limit=limit)
+    e2e["obs"].update(card=name, power_limit=limit)
     by_path = {k: {"pair_topn": l_pair[k], "groupby": l_group[k], "trees": l_trees[k],
                    "bsi": l_bsi[k], "budget": l_budget[k], "storage": l_storage[k],
-                   "time": l_time[k], "http": l_http[k], "serving": l_serving[k]}
+                   "time": l_time[k], "http": l_http[k], "serving": l_serving[k],
+                   "obs": l_obs[k]}
                for k in l_pair}
 
     entries = []

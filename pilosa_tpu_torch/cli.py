@@ -7,7 +7,13 @@ runs one node on the card (``--device cuda``, the default) or, when asked,
 on the CPU (``--device cpu``). There is no fallback: where CUDA is missing
 the server exits non-zero and says so. Config precedence follows the
 reference (cmd/root.go): flags > environment (``PILOSA_TPU_*``) > config
-file (JSON or TOML) > defaults. SIGTERM drains the node and exits 0.
+file (JSON or TOML) > defaults. The config keys of the observability
+planes are JAX's: ``blackbox.*`` (the crash spool under
+``<data-dir>/_blackbox/``), ``tracing.endpoint`` and
+``tracing.sampler-param`` (OTLP span export), ``metric.poll-interval``
+and ``metric.diagnostics-sink`` (a JSONL file of diagnostics reports).
+A boot after a life that died dirty prints the postmortem's id. SIGTERM
+drains the node and exits 0.
 """
 
 from __future__ import annotations
@@ -29,7 +35,18 @@ DEFAULT_CONFIG = {
     "import": {"workers": 2, "queue-depth": 16},
     # reference server/config.go:160 MaxWritesPerRequest (0 disables)
     "max-writes-per-request": 5000,
-    "metric": {"service": "none"},
+    "metric": {"service": "none", "poll-interval": 60, "diagnostics-sink": ""},
+    "tracing": {"enabled": False},
+    # crash-durable diagnostics spool under <data-dir>/_blackbox/
+    # (obs/blackbox.py); postmortems served at GET /debug/postmortem
+    "blackbox": {
+        "enabled": True,
+        "interval": 5.0,
+        "max-segments": 64,
+        "max-bytes": 16 << 20,
+        "keep-postmortems": 4,
+        "history-window": 60.0,
+    },
 }
 
 
@@ -122,21 +139,57 @@ def cmd_server(args) -> int:
     if hbm is not None:
         membudget.configure(hbm or None)
     tls_cfg = cfg.get("tls", {})
+    metric_cfg = cfg.get("metric", {})
+    bb_cfg = cfg.get("blackbox", {})
     node = NodeServer(
         data_dir=data_dir,
         host=host,
         port=int(port),
         device=device,
         long_query_time=float(cfg["long-query-time"]),
-        stats_client=_stats_client(cfg.get("metric", {})),
+        stats_client=_stats_client(metric_cfg),
+        metric_poll_interval=float(metric_cfg.get("poll-interval", 10) or 10),
         tls_cert=args.tls_cert or tls_cfg.get("certificate") or None,
         tls_key=args.tls_key or tls_cfg.get("key") or None,
         import_workers=int(cfg.get("import", {}).get("workers", 2)),
         import_queue_depth=int(cfg.get("import", {}).get("queue-depth", 16)),
         max_writes_per_request=int(cfg.get("max-writes-per-request", 5000)),
+        blackbox_enabled=bool(bb_cfg.get("enabled", True)),
+        blackbox_interval=float(bb_cfg.get("interval", 5.0)),
+        blackbox_max_segments=int(bb_cfg.get("max-segments", 64)),
+        blackbox_max_bytes=int(bb_cfg.get("max-bytes", 16 << 20)),
+        blackbox_keep_postmortems=int(bb_cfg.get("keep-postmortems", 4)),
+        blackbox_history_window=float(bb_cfg.get("history-window", 60.0)),
     )
-    # SIGTERM drains the node and exits 0: an orderly stop
+    if node.postmortem is not None:
+        pm = node.postmortem
+        print(
+            f"previous life died dirty: postmortem {pm['id']} "
+            f"(crash loop {pm['crashLoop']}) at /debug/postmortem",
+            flush=True,
+        )
+    # SIGTERM drains the node and exits 0: an orderly stop must never read
+    # as a crash on the next boot
     node.install_signal_handlers()
+    # span export and its head sampler (reference tracing config,
+    # server/config.go:139-145)
+    trace_cfg = cfg.get("tracing", {})
+    if trace_cfg.get("endpoint"):
+        from pilosa_tpu_torch.obs.export import OTLPSpanExporter
+        from pilosa_tpu_torch.obs.tracing import ExportingTracer, set_tracer
+
+        set_tracer(
+            ExportingTracer(
+                OTLPSpanExporter(trace_cfg["endpoint"]),
+                sample_rate=float(trace_cfg.get("sampler-param", 1.0)),
+            )
+        )
+    # periodic diagnostics reports go to a local JSONL sink (the reference
+    # phones home); without one /internal/diagnostics serves them on demand
+    diag_sink = metric_cfg.get("diagnostics-sink")
+    if diag_sink:
+        node.diagnostics.sink_path = os.path.expanduser(diag_sink)
+        node.diagnostics.start(float(metric_cfg.get("poll-interval", 60) or 60))
     node.start()
     print(
         f"pilosa-tpu-torch server listening on {node.uri}, data dir {data_dir}, "
@@ -149,6 +202,11 @@ def cmd_server(args) -> int:
         pass
     finally:
         node.stop()
+        from pilosa_tpu_torch.obs.tracing import get_tracer
+
+        close = getattr(get_tracer(), "close", None)
+        if close is not None:
+            close()  # the exporter posts its last batch
     return 0
 
 

@@ -143,6 +143,13 @@ class ResidencyTracker:
             self.prefetch_uploads += 1
             self.prefetch_h2d_bytes += int(h2d_bytes)
 
+    def note_prefetch_claimed(self) -> None:
+        """A query needed a stack whose prefetch was still queued and built
+        it on its own path (booked there as its miss): the prefetch named
+        the right stack, so it counts useful."""
+        with self._lock:
+            self.prefetch_useful += 1
+
     def note_prefetch_wasted(self) -> None:
         """The prefetch thread found the asset already resident (the
         query beat it there, or the submit was stale)."""

@@ -140,6 +140,17 @@ class _Declined:
 STACK_DECLINED = _Declined()
 
 
+class _PrefetchNote:
+    """A stack prefetch on the uploader's queue (``Executor.prefetch_issued``):
+    ``queued`` until the uploader starts it, then ``started``; ``claimed``
+    once a dispatch that needed the stack first built it itself."""
+
+    __slots__ = ("state",)
+
+    def __init__(self):
+        self.state = "queued"
+
+
 class _StackEntry(dict):
     """A stack cache entry: a dict that a weakref (the budget's evict
     callback, the entry's finalizer) can name."""
@@ -269,6 +280,14 @@ class Executor:
         )
         self._stack_lock = threading.RLock()
         self._lru_clock = itertools.count()
+        # (field id, stack key) -> the note of that stack's prefetch until
+        # it ends: a dispatch that needs the stack before the uploader has
+        # started the prefetch claims it and builds the stack itself
+        # (server/prefetch.py)
+        self._prefetching: dict[tuple, _PrefetchNote] = {}
+        self._prefetching_lock = threading.Lock()
+        # prefetches a dispatch claimed (each also counts useful)
+        self.prefetch_claims = 0
         # observable counters (tests and chip_smoke.py read them)
         self.stack_rebuilds = 0
         # stacks patched shard by shard after writes instead of rebuilt
@@ -845,6 +864,8 @@ class Executor:
                         ):
                             entry["pinned"] = True
                     return entry["slot_of"], entry["dev"]
+                if not prefetching:
+                    self._claim_prefetch(field, key)
                 updated = self._stack_incremental_update(
                     field, entry, frags, shards, versions
                 )
@@ -860,6 +881,8 @@ class Executor:
                     return updated
                 caches.pop(key, None)
                 budget.release(entry["bkey"])
+            if not tracker.in_prefetch():
+                self._claim_prefetch(field, key)
             if fixed_rows is not None:
                 row_ids = list(fixed_rows)
             else:
@@ -1022,8 +1045,48 @@ class Executor:
         with self._stack_lock:
             return key in self._stacks.get(field, {})
 
+    def prefetch_issued(self, field: Field, shard_list: list[int], view_name: str):
+        """Note a prefetch of a view's stack about to be queued, until
+        :meth:`prefetch_ended`: a dispatch that needs the stack before the
+        uploader starts the prefetch claims it (:meth:`_claim_prefetch`).
+        Returns the note, or None when one is already pending (that
+        prefetch covers this one)."""
+        k = (id(field), self._stack_key(shard_list, view_name, None))
+        with self._prefetching_lock:
+            if k in self._prefetching:
+                return None
+            note = self._prefetching[k] = _PrefetchNote()
+            return note
+
+    def prefetch_ended(self, field: Field, shard_list: list[int], view_name: str, note) -> None:
+        """The prefetch noted by :meth:`prefetch_issued` ended (built,
+        skipped, failed or never queued)."""
+        k = (id(field), self._stack_key(shard_list, view_name, None))
+        with self._prefetching_lock:
+            if self._prefetching.get(k) is note:
+                del self._prefetching[k]
+
+    def _claim_prefetch(self, field: Field, key: tuple) -> None:
+        """A dispatch is about to build (or patch) a stack: take over that
+        stack's prefetch if the uploader has not started it. The dispatch
+        never waits for the uploader, which may be busy with ingest; the
+        uploader skips the job, and the prefetch counts useful, since it
+        named a stack a query needed (``prefetch_claims`` counts these). A
+        prefetch already started races the dispatch for the stack lock, as
+        in JAX."""
+        if not self._prefetching:
+            return
+        with self._prefetching_lock:
+            note = self._prefetching.get((id(field), key))
+            if note is None or note.state != "queued":
+                return
+            note.state = "claimed"
+            self.prefetch_claims += 1
+        residency.default_tracker().note_prefetch_claimed()
+
     def prefetch_stack(
         self, field: Field, shard_list: list[int], view_name: str = VIEW_STANDARD,
+        note: _PrefetchNote | None = None,
     ) -> None:
         """Build (or refresh) a view's serving stack off the dispatch path:
         the residency prefetcher's target (``server/prefetch.py``). It runs
@@ -1032,7 +1095,14 @@ class Executor:
         through pinned slots and its entry carries the event readers wait
         for; a stack the budget declines is not built. A standard view's
         full pair-count gram is computed here too (one gram launch), so the
-        next flight's pair Counts on the field launch nothing."""
+        next flight's pair Counts on the field launch nothing. A prefetch
+        whose ``note`` a dispatch claimed is skipped: that dispatch built the
+        stack."""
+        if note is not None:
+            with self._prefetching_lock:
+                if note.state == "claimed":
+                    return
+                note.state = "started"
         got = self._field_stack(field, shard_list, view_name)
         if got is None or got is STACK_DECLINED or view_name != VIEW_STANDARD:
             return

@@ -202,9 +202,14 @@ class DeviceUploader:
         advisory; flush() was the owner's chance to wait them out)."""
         while True:
             try:
-                self._prefetch_q.get_nowait()
+                frag, _key, done = self._prefetch_q.get_nowait()
             except queue.Empty:
                 break
+            if done is not None:
+                try:
+                    done(frag, None)  # the owner's note of it ends here
+                except Exception:  # its accounting hook: shutdown goes on
+                    pass
             with self._idle:
                 self._pending -= 1
                 if self._pending == 0:

@@ -14,7 +14,11 @@ Device time comes from a CUDA event pair around each launch
 launch to finish, so the query path never reads one: pairs queue up and
 :meth:`Ledger.settle` folds them in when a snapshot is taken (and, without
 waiting, the pairs already finished whenever the queue grows long, and
-whenever the flight planner or the QoS governor reads a price).
+whenever the flight planner, the QoS governor or a sampler reads the
+ledger). No lock is held while a pair is waited for, and the non-waiting
+form skips when another thread is folding: a launching thread or a
+sampler never waits behind an exposition route that waits for a long
+kernel.
 
 Each launch carries a signature; its class (the first token) keeps a
 per-site EWMA of device ms a launch, read by the flight planner's lane
@@ -29,9 +33,11 @@ wall time; transfers made inside one book under its site
 
 The compile columns stay at 0: the port builds its kernels with nvcc
 before the first launch (``ops/cuda_build.py``), so no launch compiles
-anything, and JAX's ``jax.monitoring`` compile listener and recompile-storm
-detector have nothing to observe here. They keep their keys so the
-snapshot reads as JAX's does.
+anything, and JAX's ``jax.monitoring`` compile listener has nothing to
+observe here. The recompile-storm detector keeps its knobs and callbacks
+(:func:`configure_storm`, :func:`on_storm`, :func:`mark_warm`) so a node
+wires it as JAX's does, but with no compile event it never fires. The keys
+stay so the snapshot and :func:`counters` read as JAX's do.
 
 The ledger is process-global by design, as devices are.
 """
@@ -235,9 +241,24 @@ class Ledger:
         self._principals = {}
         self.totals = _Accum()
         self.started = time.monotonic()
-        # (site, principal weights, start event, end event) not yet read
+        # (seq, site, principal weights, start event, end event, n, sig)
+        # not yet read, in launch order; _folded is the seq of the newest
+        # pair read or dropped
         self._pending: deque = deque()
+        self._pend_seq = 0
+        self._folded = 0
         self.timings_dropped = 0
+        # pairs whose read raised (a sticky CUDA error): the non-waiting
+        # reads of the samplers count it and carry on
+        self.settle_errors = 0
+        # the recompile-storm detector's knobs and callbacks, as JAX's;
+        # with no compile event (module docstring) it never trips
+        self.storm_threshold = 8
+        self.storm_window_s = 60.0
+        self.warmup_s = 0.0
+        self._warm_mark = False
+        self.storms: deque = deque(maxlen=8)
+        self._storm_callbacks = []
 
     # -- registration -----------------------------------------------------
     def site(self, name) -> Site:
@@ -258,7 +279,50 @@ class Ledger:
                 if site is not None:
                     site.acc = _Accum()
                     site.sig_ms = {}
-            self._pending = deque(p for p in self._pending if p[0].name not in names)
+            self._pending = deque(p for p in self._pending if p[1].name not in names)
+
+    def reset(self) -> None:
+        """Zero every table and re-arm the storm detector (tests, benches).
+        Registered sites and storm callbacks survive; unread pairs are
+        dropped."""
+        with self._settle_lock, self._lock:
+            for s in self._sites.values():
+                s.acc = _Accum()
+                s.sig_ms = {}
+            self._principals.clear()
+            self.totals = _Accum()
+            self.started = time.monotonic()
+            self._pending.clear()
+            self._folded = self._pend_seq
+            self.timings_dropped = 0
+            self.settle_errors = 0
+            self._warm_mark = False
+            self.storms.clear()
+
+    # -- recompile-storm detector (module docstring: never trips) ---------
+    def on_storm(self, cb) -> None:
+        """Register ``cb(bundle)`` to run when a recompile storm trips."""
+        with self._lock:
+            if cb not in self._storm_callbacks:
+                self._storm_callbacks.append(cb)
+
+    def configure_storm(self, threshold=None, window_s=None, warmup_s=None) -> None:
+        with self._lock:
+            if threshold is not None:
+                self.storm_threshold = max(1, int(threshold))
+            if window_s is not None:
+                self.storm_window_s = float(window_s)
+            if warmup_s is not None:
+                self.warmup_s = float(warmup_s)
+
+    def mark_warm(self) -> None:
+        self._warm_mark = True
+
+    @property
+    def warm(self) -> bool:
+        if self._warm_mark:
+            return True
+        return (time.monotonic() - self.started) >= self.warmup_s > 0
 
     # per-site sig-class price rows kept (first come; a site's sigs are a
     # handful of classes) and the EWMA smoothing factor, as in JAX
@@ -360,35 +424,100 @@ class Ledger:
     def _pend(self, site, start, end, n=1, sig=None) -> None:
         weights = ambient_weights()
         with self._lock:
-            self._pending.append((site, weights, start, end, n, sig))
+            self._pend_seq += 1
+            self._pending.append((self._pend_seq, site, weights, start, end, n, sig))
             n = len(self._pending)
         if n >= _SETTLE_AT:
             self.settle(wait=False)
             with self._lock:
                 while len(self._pending) > _MAX_PENDING:
-                    self._pending.popleft()
+                    self._folded = self._pending.popleft()[0]
                     self.timings_dropped += 1
+
+    def _fold_finished(self, synced=None):
+        """Fold the finished pairs at the head of the queue, in launch
+        order; the caller holds ``_settle_lock``. Returns the end event of
+        the first pair still running, or None when none is queued. Reads
+        only ``Event.query()`` (``synced``, an end event already waited
+        for, counts as finished): it never waits for the card."""
+        while True:
+            with self._lock:
+                if not self._pending:
+                    return None
+                seq, site, weights, start, end, n, sig = self._pending[0]
+            if end is not synced and not end.query():
+                return end
+            ms = float(start.elapsed_time(end))
+            with self._lock:
+                if self._pending and self._pending[0][0] == seq:
+                    self._pending.popleft()
+                    self._folded = seq
+                    self._book_device_ms(site, weights, ms, n, sig)
 
     def settle(self, wait: bool = True) -> None:
         """Fold the device time of queued event pairs into the tables, in
-        launch order. ``wait=False`` stops at the first pair whose launch
-        has not finished (the query path's form: it never waits)."""
-        with self._settle_lock:
-            while True:
+        launch order.
+
+        ``wait=False`` (the query path's and the samplers' form) folds the
+        pairs already finished and returns at the first one still running;
+        when another thread is folding it returns at once. ``wait=True``
+        (the exposition routes') reads every pair queued when it was
+        called, waiting for the launches still running with no lock held,
+        so a launching thread never waits behind it."""
+        if not wait:
+            if not self._settle_lock.acquire(blocking=False):
+                return
+            try:
+                self._fold_finished()
+            finally:
+                self._settle_lock.release()
+            return
+        with self._lock:
+            target = self._pend_seq
+        synced = None
+        while True:
+            with self._settle_lock:
+                running = self._fold_finished(synced)
                 with self._lock:
-                    if not self._pending:
-                        return
-                    site, weights, start, end, n, sig = self._pending[0]
-                if not wait and not end.query():
-                    return
-                end.synchronize()
-                ms = float(start.elapsed_time(end))
-                with self._lock:
-                    if self._pending and self._pending[0][3] is end:
-                        self._pending.popleft()
-                        self._book_device_ms(site, weights, ms, n, sig)
+                    done = self._folded >= target
+            if done or running is None:
+                return
+            running.synchronize()  # no lock held: launches go on
+            synced = running
 
     # -- exposition -------------------------------------------------------
+    def counters(self) -> dict:
+        """Flat counter map for cheap before/after deltas (the flight
+        recorder's segments, the metrics history, the black box), with
+        JAX's keys. It reads only the pairs already finished and never
+        waits for the card; a pair whose read raises (a sticky CUDA error)
+        is counted in ``settleErrors`` and the host counts still come
+        back."""
+        try:
+            self.settle(wait=False)
+        except RuntimeError:
+            with self._lock:
+                self.settle_errors += 1
+        with self._lock:
+            out = {
+                "compiles": 0,
+                "compileMs": 0.0,
+                "launches": self.totals.launches,
+                "deviceMs": round(self.totals.device_ms, 3),
+                "h2dBytes": self.totals.h2d_bytes,
+                "d2hBytes": self.totals.d2h_bytes,
+                "storms": len(self.storms),
+                "pendingTimings": len(self._pending),
+                "settleErrors": self.settle_errors,
+            }
+            for name, s in self._sites.items():
+                out[f"site.{name}.compiles"] = 0
+                out[f"site.{name}.launches"] = s.acc.launches
+                out[f"site.{name}.transferBytes"] = (
+                    s.acc.h2d_bytes + s.acc.d2h_bytes
+                )
+        return out
+
     def site_device_ms(self) -> dict:
         """site name -> (launches, device ms), every pair read first."""
         self.settle()
@@ -519,6 +648,26 @@ def measured_ms(site_name, sig_class):
 
 def tenant_totals() -> dict:
     return _LEDGER.tenant_totals()
+
+
+def counters() -> dict:
+    return _LEDGER.counters()
+
+
+def reset() -> None:
+    _LEDGER.reset()
+
+
+def mark_warm() -> None:
+    _LEDGER.mark_warm()
+
+
+def configure_storm(threshold=None, window_s=None, warmup_s=None) -> None:
+    _LEDGER.configure_storm(threshold, window_s, warmup_s)
+
+
+def on_storm(cb) -> None:
+    _LEDGER.on_storm(cb)
 
 
 def prometheus_text() -> str:

@@ -35,8 +35,7 @@ clock.  ThreadingHTTPServer runs one thread per connection and each
 thread has its own context, so a class noted during dispatch is read
 back by the same request's ``finally``.
 
-Counterpart of ``pilosa_tpu/obs/slo.py``, without what only its
-cluster and serving planes call.
+Counterpart of ``pilosa_tpu/obs/slo.py``.
 """
 
 from __future__ import annotations
@@ -442,6 +441,42 @@ class SLOTracker:
         names = set(self.objectives) | set(self._classes)
         return sorted(names)
 
+    def series_sample(self) -> dict:
+        """Cheap per-tick sample for the metrics-history ring
+        (obs/history.py): active classes only, the latency window
+        only.
+
+        ``snapshot()`` walks every objective class across every burn
+        window — exposition-grade work, wrong for a ~1 s sampler
+        cadence.  This touches only classes that have observed traffic
+        and only short-window slots, so its cost tracks live
+        cardinality, not objective/burn-rule configuration."""
+        now = time.monotonic()
+        out: dict[str, dict] = {}
+        with self._lock:
+            for name, st in self._classes.items():
+                obj = self.objectives.get(name)
+                total, errors = st.ring.sum_window(
+                    now, self.latency_window
+                )
+                merged = st.ring.merged_buckets(now, self.latency_window)
+                p50 = _quantile(merged, 0.50)
+                p99 = _quantile(merged, 0.99)
+                ratio = errors / total if total else 0.0
+                d = {
+                    # lifetime counters: the sampler turns these into
+                    # per-second rates by differencing ticks
+                    "total": st.total,
+                    "errors": st.errors,
+                    "availability": 1.0 - ratio,
+                    "p50Ms": p50 * 1e3 if p50 is not None else None,
+                    "p99Ms": p99 * 1e3 if p99 is not None else None,
+                }
+                if obj is not None:
+                    d["burnRate"] = ratio / (1.0 - obj.availability)
+                out[name] = d
+        return out
+
     def snapshot(self) -> dict:
         """Full live objective state — the /debug/slo payload."""
         now = time.monotonic()
@@ -666,3 +701,42 @@ class SLOTracker:
             out.append(f'{base}_sum{{class="{name}"}} {total}')
         return "\n".join(out) + "\n"
 
+
+def objectives_from_dict(spec: dict) -> dict[str, Objective]:
+    """Build an objectives map from a plain-dict config (NodeServer /
+    InProcessCluster knob): ``{class: {"availability": 0.999,
+    "latencyP99Ms": 50}}``.  Starts from the defaults; a class mapped
+    to None drops its objective.
+
+    The PER-TENANT dimension rides a ``"tenants"`` sub-spec::
+
+        {"tenants": {"victim": {"read.count": {"availability": 0.99,
+                                               "latencyP99Ms": 500}}}}
+
+    which expands to tenant-scoped classes (``read.count@victim``) —
+    the tracker then budgets that tenant's traffic separately and the
+    QoS pressure ladder can defend it by name."""
+    spec = dict(spec or {})
+    tenants = spec.pop("tenants", None) or {}
+    out = dict(DEFAULT_OBJECTIVES)
+
+    def build(o):
+        lat_ms = o.get("latencyP99Ms")
+        return Objective(
+            o.get("availability", 0.999),
+            lat_ms / 1e3 if lat_ms is not None else None,
+        )
+
+    for name, o in spec.items():
+        if o is None:
+            out.pop(name, None)
+            continue
+        out[name] = build(o)
+    for tenant, classes in tenants.items():
+        for name, o in (classes or {}).items():
+            key = tenant_class(name, tenant)
+            if o is None:
+                out.pop(key, None)
+                continue
+            out[key] = build(o)
+    return out

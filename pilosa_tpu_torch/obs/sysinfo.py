@@ -4,7 +4,8 @@ platform, memory; server.go:793-835 monitorRuntime feeds it into stats).
 Counterpart of ``pilosa_tpu/obs/sysinfo.py``. Everything reads /proc
 directly (Linux-only, graceful zeros elsewhere) plus the CUDA device
 inventory from ``torch.cuda``: name, memory and count, with the torch and
-CUDA versions in the build and process blocks.
+CUDA versions in the build and process blocks. :class:`GCNotifier` and
+:class:`RuntimeMonitor` publish the runtime gauges under JAX's names.
 """
 
 from __future__ import annotations
@@ -186,3 +187,94 @@ class SystemInfo:
             "devices": self.devices(),
         }
 
+
+class GCNotifier:
+    """GC → stats bridge (reference gcnotify/ + server.go:826-833:
+    a channel that ticks after every garbage collection, counted into
+    the stats client). Uses CPython's gc callback hook.
+
+    The callback itself only bumps a bare int: CPython invokes
+    gc.callbacks synchronously on WHATEVER thread triggered collection,
+    possibly while that thread already holds the stats client's
+    non-reentrant lock (e.g. mid-snapshot) — calling into the client
+    here would self-deadlock. RuntimeMonitor publishes the counter as a
+    gauge instead.
+
+    gc.callbacks is process-global, so the registered hook holds only a
+    weakref: a notifier dropped without close() unregisters itself on the
+    next collection instead of pinning its owner for the process
+    lifetime."""
+
+    def __init__(self):
+        import gc
+        import weakref
+
+        self._gc = gc
+        self.collections = 0
+
+        ref = weakref.ref(self)
+
+        def _cb(phase: str, info: dict, _ref=ref, _gc=gc) -> None:
+            self_ = _ref()
+            if self_ is None:
+                try:
+                    _gc.callbacks.remove(_cb)
+                except ValueError:
+                    pass
+                return
+            if phase == "stop":
+                self_.collections += 1  # plain int bump: no locks, no allocation
+
+        self._cb = _cb
+        gc.callbacks.append(_cb)
+
+    def close(self) -> None:
+        try:
+            self._gc.callbacks.remove(self._cb)
+        except ValueError:
+            pass
+
+
+class RuntimeMonitor:
+    """Periodic runtime-metrics gauge loop (reference server.go:793-835
+    monitorRuntime: heap/goroutines/open-files into stats)."""
+
+    def __init__(self, stats_client, interval: float = 10.0, gc_notifier=None):
+        self.stats = stats_client
+        self.interval = interval
+        self.gc_notifier = gc_notifier
+        self.info = SystemInfo()
+        self._stop = threading.Event()
+        self._thread: threading.Thread | None = None
+
+    def poll_once(self) -> None:
+        self.stats.gauge("memory_rss_bytes", self.info.process_rss())
+        self.stats.gauge("threads", self.info.thread_count())
+        self.stats.gauge("host_mem_free_bytes", self.info.mem_free())
+        self.stats.gauge(
+            "process_uptime_seconds", round(self.info.process_uptime(), 3)
+        )
+        self.stats.gauge(
+            "process_start_time_seconds", self.info.process_start_time()
+        )
+        if self.gc_notifier is not None:
+            self.stats.gauge("garbage_collections", self.gc_notifier.collections)
+
+    def start(self) -> None:
+        def run():
+            while not self._stop.wait(self.interval):
+                try:
+                    self.poll_once()
+                except Exception:
+                    # keep polling; a failed sample is itself a metric
+                    self.stats.count("metric_poll_errors", 1)
+
+        self._thread = threading.Thread(target=run, name="runtime-monitor", daemon=True)
+        self._thread.start()
+
+    def stop(self) -> None:
+        self._stop.set()
+        t = self._thread
+        if t is not None:
+            t.join(timeout=5.0)
+        self._thread = None

@@ -26,7 +26,7 @@ trace makes the SAME keep/drop call — a baseline-kept trace is kept
 whole across the cluster (Dapper's coherent-sampling property).
 
 Counterpart of ``pilosa_tpu/obs/tracestore.py``, without what only its
-cluster and serving planes call.
+cluster plane calls.
 """
 
 from __future__ import annotations
@@ -255,3 +255,11 @@ class TraceStore:
                 "pending": len(self._pending),
                 "stats": dict(self._stats),
             }
+
+    def blackbox_snapshot(self, limit: int = 32) -> dict:
+        """Black-box checkpoint block: kept-trace summaries (no span
+        bodies — the spool is bounded) plus the store's counters."""
+        return {
+            "summaries": self.summaries(limit),
+            "snapshot": self.snapshot(),
+        }

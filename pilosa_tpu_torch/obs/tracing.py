@@ -11,10 +11,12 @@ the node boundary so a query fanned out over HTTP appears as one trace:
     coordinator: api.query span  ─ inject → X-Trace-Id/X-Span-Id headers
     remote node: extract → handler span (child, same trace id)
 
-The tracer is :class:`NopTracer` (zero-cost, like the reference's
-default no-op tracer); finished spans reach the per-node trace store
-through the span sink (obs/tracestore.py). Counterpart of
-``pilosa_tpu/obs/tracing.py`` without its exporting tracers.
+Backends: :class:`NopTracer` (zero-cost default, like the reference's
+default no-op tracer), :class:`RecordingTracer` (in-process ring buffer)
+and :class:`ExportingTracer` (head-sampled, forwarding finished spans to
+an exporter such as ``obs/export.py``'s OTLP one). Finished spans also
+reach the per-node trace store through the span sink
+(obs/tracestore.py). Counterpart of ``pilosa_tpu/obs/tracing.py``.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ import contextvars
 import random
 import threading
 import time
+from collections import deque
 
 from pilosa_tpu_torch.obs import qprofile
 
@@ -172,6 +175,60 @@ class Tracer:
 
 class NopTracer(Tracer):
     pass
+
+
+class RecordingTracer(Tracer):
+    """Ring-buffer recorder (Jaeger-exporter stand-in)."""
+
+    def __init__(self, capacity: int = 4096):
+        self._lock = threading.Lock()
+        self.spans: deque[Span] = deque(maxlen=capacity)
+
+    def _record(self, span: Span) -> None:
+        with self._lock:
+            self.spans.append(span)
+
+    def finished(self, name: str | None = None) -> list[Span]:
+        with self._lock:
+            return [s for s in self.spans if name is None or s.name == name]
+
+    def traces(self) -> dict[int, list[Span]]:
+        """Finished spans grouped by trace id, in finish order."""
+        with self._lock:
+            out: dict[int, list[Span]] = {}
+            for s in self.spans:
+                out.setdefault(s.context.trace_id, []).append(s)
+            return out
+
+
+class ExportingTracer(RecordingTracer):
+    """Samples spans at the root and forwards finished spans to an
+    exporter (reference tracing/opentracing/opentracing.go:31-76 Jaeger
+    adapter + sampler config server/config.go:139-145).
+
+    Sampling is head-based per trace: the root span's trace id decides,
+    so a trace is exported whole or not at all."""
+
+    def __init__(self, exporter, sample_rate: float = 1.0, capacity: int = 4096):
+        super().__init__(capacity)
+        self.exporter = exporter
+        self.sample_rate = max(0.0, min(1.0, sample_rate))
+
+    def _sampled(self, trace_id: int) -> bool:
+        if self.sample_rate >= 1.0:
+            return True
+        if self.sample_rate <= 0.0:
+            return False
+        # cheap deterministic hash of the trace id -> [0, 1)
+        return ((trace_id * 2654435761) & 0xFFFFFFFF) / 2**32 < self.sample_rate
+
+    def _record(self, span: Span) -> None:
+        super()._record(span)
+        if self._sampled(span.context.trace_id):
+            self.exporter.export(span)
+
+    def close(self) -> None:
+        self.exporter.close()
 
 
 def format_traceparent(ctx: SpanContext) -> str:

@@ -91,6 +91,14 @@ def reset_launches() -> None:
         devledger.ledger().reset_sites(site.name for site in _DL_SITES.values())
 
 
+def launch_total() -> int:
+    """All kernel launches counted in ``LAUNCHES`` so far, read under the
+    launch lock: the flight recorder's ``kernelDispatchDelta``. It reads no
+    event pair, so it never waits for the card."""
+    with _LAUNCH_LOCK:
+        return sum(LAUNCHES.values())
+
+
 def telemetry_snapshot() -> dict:
     """The ``kernels`` block of ``/debug/vars``: per kernel, its launches
     (``LAUNCHES``) and the device milliseconds the ledger read for them

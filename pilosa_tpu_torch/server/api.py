@@ -16,10 +16,14 @@ pipeline (``ingest/``), whose applies invalidate the result cache. The
 knobs and their defaults are JAX's (``batch_window=0.002``,
 ``batch_max_size=64``, ``rescache_entries=512``, ``planner_enabled=True``,
 ``qos_enabled=True``); ``batch_window=0`` (or ``batch_max_size<=1``) sends
-every query the direct way. The cluster-only parts of the JAX API (the
-distributed executor, migrations, resize, peer messages, attribute and
-fragment blocks, the translate log, history, incidents and postmortems)
-are not here.
+every query the direct way. The node installs the observability planes
+(``diagnostics``, ``flightrec``, ``history``, ``blackbox``); the API reads
+them for ``/debug/history``, ``/debug/incidents``, ``/debug/postmortem``
+and ``/internal/diagnostics``, and the QoS governor's incidents reach the
+flight recorder. The cluster-only parts of the JAX API (the distributed
+executor, migrations, resize, peer messages, attribute and fragment
+blocks, the translate log, and the cluster merges of history, events and
+postmortems) are not here.
 """
 
 from __future__ import annotations
@@ -114,6 +118,15 @@ class API:
         # Slow-query ring (reference long-query-time, upgraded to full
         # profiles at /debug/slow-queries); the server sets the threshold.
         self.slow_queries = qprofile.SlowQueryLog()
+        # the observability planes NodeServer installs: the diagnostics
+        # collector (None 404s /internal/diagnostics), the flight recorder
+        # and incident engine (None serves /debug/incidents empty), the
+        # metrics history (None 404s /debug/history) and the black box
+        # (None, without a data dir, 404s /debug/postmortem)
+        self.diagnostics = None
+        self.flightrec = None
+        self.history = None
+        self.blackbox = None
         # Bounded import worker pool: concurrency limit + backpressure
         # (reference api.go:66-96 importWorkerPoolSize default 2,
         # importWorker :313-348).
@@ -145,8 +158,12 @@ class API:
                 slo_fn=lambda: self.holder.slo,
                 ledger_fn=devledger.tenant_totals,
                 journal_fn=lambda: self.holder.events,
-                # the port has no flight recorder: what JAX passes without one
-                incident_fn=lambda trig: None,
+                # read live: the flight recorder is installed after the API
+                incident_fn=lambda trig: (
+                    self.flightrec.capture_incident(trig)
+                    if self.flightrec is not None
+                    else None
+                ),
             )
             if self.ingest.uploader is not None:
                 self.prefetcher = FlightPrefetcher(
@@ -616,6 +633,21 @@ class API:
             return {"enabled": False, "tenants": {}, "transitions": []}
         return self.qos.snapshot()
 
+    def history_query(
+        self,
+        series=None,
+        since: int | None = None,
+        step: float | None = None,
+        limit: int | None = None,
+    ) -> dict | None:
+        """This node's metrics-history window (obs/history.py); None when
+        the history plane is disabled."""
+        if self.history is None:
+            return None
+        return self.history.query(
+            series=series, since=since, step=step, limit=limit
+        )
+
     def slo_snapshot(self) -> dict:
         """Live per-op-class objective state (/debug/slo)."""
         return self.holder.slo.snapshot()
@@ -642,6 +674,31 @@ class API:
     def translate_ids(self, index: str, field: str | None, ids: list[int]) -> list[str]:
         self._validate("TranslateKeys")
         return self.executor.translator.translate_ids(index, field or "", ids)
+
+    # -- incident plane (flight recorder, /debug/incidents) -----------------
+
+    def incidents_snapshot(self) -> dict:
+        if self.flightrec is None:
+            return {"enabled": False, "incidents": []}
+        return self.flightrec.incidents_snapshot()
+
+    def incident_detail(self, incident_id: str) -> dict | None:
+        if self.flightrec is None:
+            return None
+        return self.flightrec.incident_detail(incident_id)
+
+    # -- postmortem plane (black box, /debug/postmortem) --------------------
+
+    def postmortem_snapshot(self, postmortem_id: str | None = None) -> dict | None:
+        """Sealed crash bundles from this node's black box: the retained
+        summaries and the newest bundle in full, or one bundle by id. None
+        when the black box is disabled (no data dir) or the id is
+        unknown."""
+        if self.blackbox is None:
+            return None
+        if postmortem_id is not None:
+            return self.blackbox.postmortem_detail(postmortem_id)
+        return self.blackbox.postmortems()
 
     # -- lifecycle ------------------------------------------------------------
 

@@ -4,10 +4,11 @@ reference: http/handler.go).
 Route surface (reference handler.go:276-314, the one-node part):
 
     GET  /  /version  /status  /info  /schema      POST /schema
-    GET  /metrics  /debug  /debug/vars  /debug/slo  /debug/qos
-         /debug/slow-queries  /debug/threads  /debug/profile  /debug/memory
-         /debug/events  /debug/traces  /debug/devcosts  /debug/jobs
-         /debug/fragments
+    GET  /metrics  /debug  /debug/vars  /debug/history  /debug/slo
+         /debug/qos  /debug/slow-queries  /debug/threads  /debug/profile
+         /debug/memory  /debug/events  /debug/traces  /debug/incidents
+         /debug/postmortem  /debug/devcosts  /debug/jobs  /debug/fragments
+         /internal/diagnostics
     POST /index/{index}                  create index (GET, DELETE)
     POST /index/{index}/query            PQL body -> {"results": [...]}
     POST /index/{index}/field/{field}    create field (GET, DELETE)
@@ -18,10 +19,10 @@ Route surface (reference handler.go:276-314, the one-node part):
     POST /internal/translate/keys  /internal/translate/ids  /recalculate-caches
 
 Every other path answers 404, as a JAX node does for a plane it lacks:
-the metrics history's (/debug/history), the incident and postmortem
-planes', and the cluster's (/internal/cluster/message, /cluster/resize/*,
-/internal/migrate/*, block and attribute sync). A query shed by the QoS
-governor answers 429 with Retry-After.
+the cluster's (/internal/cluster/message, /cluster/resize/*,
+/internal/migrate/*, block and attribute sync). One node has no peers,
+so ``?cluster=true`` on the debug routes serves this node's own answer.
+A query shed by the QoS governor answers 429 with Retry-After.
 
 JSON replaces the reference's protobuf codec as the wire format; the
 roaring import payload is binary-compatible with reference clients.
@@ -66,12 +67,17 @@ _SLO_ROUTE_CLASS = {
 _DEBUG_ENDPOINTS: list[tuple[str, str]] = [
     ("/debug/vars",
      "expvar-style dump: counters, histograms, kernels, device budget"),
+    ("/debug/history",
+     "ring-buffer metrics history (?series=glob&since=&step=&limit=)"),
     ("/debug/slo",
      "per-op-class latency quantiles, error budgets, burn-rate alerts"),
     ("/debug/qos",
      "cost-governed admission: per-tenant queues, shed/degrade ladder"),
     ("/debug/events", "typed event journal (?since= cursor)"),
     ("/debug/traces", "tail-sampled trace store (?id= spans)"),
+    ("/debug/incidents",
+     "flight-recorder bundles: alert edges, 504 spikes, trend incidents"),
+    ("/debug/postmortem", "sealed crash bundles from the black box (?id=)"),
     ("/debug/devcosts",
      "device cost ledger: launches, device ms, transfers per site+tenant"),
     ("/debug/slow-queries",
@@ -95,6 +101,7 @@ _ROUTES: list[tuple[str, re.Pattern, str]] = [
     ("GET", re.compile(r"^/metrics$"), "metrics"),
     ("GET", re.compile(r"^/debug$"), "debug_index"),
     ("GET", re.compile(r"^/debug/vars$"), "debug_vars"),
+    ("GET", re.compile(r"^/debug/history$"), "debug_history"),
     ("GET", re.compile(r"^/debug/slo$"), "debug_slo"),
     ("GET", re.compile(r"^/debug/qos$"), "debug_qos"),
     ("GET", re.compile(r"^/debug/slow-queries$"), "debug_slow_queries"),
@@ -103,9 +110,12 @@ _ROUTES: list[tuple[str, re.Pattern, str]] = [
     ("GET", re.compile(r"^/debug/memory$"), "debug_memory"),
     ("GET", re.compile(r"^/debug/events$"), "debug_events"),
     ("GET", re.compile(r"^/debug/traces$"), "debug_traces"),
+    ("GET", re.compile(r"^/debug/incidents$"), "debug_incidents"),
+    ("GET", re.compile(r"^/debug/postmortem$"), "debug_postmortem"),
     ("GET", re.compile(r"^/debug/devcosts$"), "debug_devcosts"),
     ("GET", re.compile(r"^/debug/jobs$"), "debug_jobs"),
     ("GET", re.compile(r"^/debug/fragments$"), "debug_fragments"),
+    ("GET", re.compile(r"^/internal/diagnostics$"), "diagnostics"),
     ("GET", re.compile(r"^/export$"), "export"),
     ("POST", re.compile(r"^/index/(?P<index>[^/]+)/query$"), "query"),
     ("POST", re.compile(r"^/index/(?P<index>[^/]+)/field/(?P<field>[^/]+)/import$"), "import_"),
@@ -429,6 +439,11 @@ class Handler(BaseHTTPRequestHandler):
         snap["ingest"] = self.api.ingest.snapshot()
         # process identity: pid, version, uptime (/info is the host's)
         snap["process"] = sysinfo.SystemInfo().process_block(__version__)
+        blackbox = self.api.blackbox
+        if blackbox is not None:
+            # the black-box writer's self-accounting: checkpoints and
+            # their cost, spool size, crash-loop state (obs/blackbox.py)
+            snap["blackbox"] = blackbox.stats()
         self._send_json(200, snap)
 
     def r_debug_qos(self):
@@ -450,6 +465,72 @@ class Handler(BaseHTTPRequestHandler):
                 {"path": p, "desc": d} for p, d in _DEBUG_ENDPOINTS
             ],
         })
+
+    def r_debug_history(self):
+        """Ring-buffer metrics history (obs/history.py): ?series= glob
+        filter, ?since= base-seq cursor (gap-honest `truncated` flag),
+        ?step= downsampling (tier selection + mean buckets), ?limit= the
+        newest samples."""
+        series = self.query_params.get("series", [None])[0]
+        try:
+            since_raw = self.query_params.get("since", [None])[0]
+            since = int(since_raw) if since_raw is not None else None
+            step_raw = self.query_params.get("step", [None])[0]
+            step = float(step_raw) if step_raw is not None else None
+            limit_raw = self.query_params.get("limit", [None])[0]
+            limit = int(limit_raw) if limit_raw is not None else None
+        except ValueError:
+            self._send_json(400, {"error": "bad since/step/limit"})
+            return
+        snap = self.api.history_query(
+            series=series, since=since, step=step, limit=limit
+        )
+        if snap is None:
+            self._send_json(404, {"error": "metrics history disabled"})
+            return
+        self._send_json(200, snap, gzip_ok=True)
+
+    def r_debug_incidents(self):
+        """Flight-recorder incident bundles (alert-edge, 504-spike, trend
+        and QoS captures): the list, or one full bundle with ?id=."""
+        incident_id = self.query_params.get("id", [None])[0]
+        if incident_id:
+            detail = self.api.incident_detail(incident_id)
+            if detail is None:
+                self._send_json(
+                    404, {"error": f"incident {incident_id} not found"}
+                )
+            else:
+                self._send_json(200, detail)
+            return
+        self._send_json(200, self.api.incidents_snapshot())
+
+    def r_debug_postmortem(self):
+        """Sealed crash bundles from the black box (obs/blackbox.py): a
+        bare GET returns the retained summaries and the newest bundle in
+        full; ?id= one bundle."""
+        pm_id = self.query_params.get("id", [None])[0]
+        snap = self.api.postmortem_snapshot(pm_id)
+        if snap is None:
+            if pm_id:
+                self._send_json(
+                    404, {"error": f"postmortem {pm_id} not found"}
+                )
+            else:
+                self._send_json(
+                    404, {"error": "black box disabled (no data dir)"}
+                )
+            return
+        self._send_json(200, snap, gzip_ok=True)
+
+    def r_diagnostics(self):
+        """Diagnostics snapshot (reference diagnostics.go payload; the
+        local endpoint replaces the reference's phone-home POST)."""
+        diag = self.api.diagnostics
+        if diag is None:
+            self._send_json(404, {"error": "diagnostics not enabled"})
+            return
+        self._send_json(200, diag.snapshot())
 
     def r_debug_events(self):
         """Event journal past ?since=<seq> (gap-free cursor resume)."""
@@ -752,6 +833,9 @@ class Server:
         self.httpd.serve_forever()
 
     def close(self) -> None:
-        self.httpd.shutdown()
+        if self._thread is not None:
+            # shutdown() waits for the serving loop, so only a started
+            # server is asked to
+            self.httpd.shutdown()
         self.httpd.server_close()
         self.api.close()

@@ -1,26 +1,49 @@
-"""One serving node: holder, data directory, stats client, API and HTTP
-server (counterpart of ``pilosa_tpu/server/node.py``; reference
-server.go composition root).
+"""One serving node: holder, data directory, stats client, API, HTTP
+server and the observability planes (counterpart of
+``pilosa_tpu/server/node.py``; reference server.go composition root).
 
 The node opens its data directory with :class:`HolderStore` on the
 holder's device (``cuda`` unless the caller passes ``device="cpu"``) and
-serves it over HTTP, with the JAX node's serving defaults: the batcher
-(``batch_window=0.002``, ``batch_max_size=64``), the result cache
-(``rescache_entries=512``), the flight planner, the QoS governor and the
-ingest pipeline (``server/api.py``). It is one node: no cluster,
-membership, anti-entropy or resize, and none of the JAX node's flight
-recorder, metrics history or black box.
+serves it over HTTP, with the JAX node's defaults: the serving plane (the
+batcher, ``batch_window=0.002``, ``batch_max_size=64``; the result cache,
+``rescache_entries=512``; the flight planner, the QoS governor and the
+ingest pipeline, ``server/api.py``) and every observability plane a
+one-node JAX node runs:
+
+* the diagnostics collector (``/internal/diagnostics``);
+* the flight recorder (``flight_recorder=True``: every thread's stack
+  each 25 ms, 1 s segments, 60 kept, a 504-spike threshold of 5), whose
+  incidents the QoS ladder and the device ledger's storm callback reach;
+* the metrics history (``history_enabled=True``: a 1 s sampler over every
+  plane, tiers ``300@1,240@15``, the three trend detectors), which feeds
+  the flight recorder's incident bundles;
+* the runtime monitor and GC notifier (the ``memory_rss_bytes``,
+  ``threads``, ``garbage_collections`` gauges, every 10 s);
+* with a data directory, the black box (``blackbox_enabled=True``: a 5 s
+  checkpoint of the planes under ``<data_dir>/_blackbox/``, the fatal
+  signal handler's last words, and the postmortem of a previous life
+  that died dirty, ``self.postmortem``), to which each incident is
+  flushed as it freezes.
+
+It is one node: no cluster, membership, anti-entropy or resize.
 """
 
 from __future__ import annotations
 
-import signal
 import threading
 import uuid
 
+from pilosa_tpu_torch import __version__
 from pilosa_tpu_torch.core.holder import Holder
+from pilosa_tpu_torch.obs import blackbox as bb
+from pilosa_tpu_torch.obs import devledger
 from pilosa_tpu_torch.obs import events as ev
+from pilosa_tpu_torch.obs import slo as slo_mod
+from pilosa_tpu_torch.obs.diagnostics import Diagnostics
+from pilosa_tpu_torch.obs.flightrec import FlightRecorder
+from pilosa_tpu_torch.obs.history import MetricsHistory
 from pilosa_tpu_torch.obs.stats import MemStatsClient
+from pilosa_tpu_torch.obs.sysinfo import GCNotifier, RuntimeMonitor
 from pilosa_tpu_torch.server.api import API
 from pilosa_tpu_torch.server.http import Server
 from pilosa_tpu_torch.storage.disk import HolderStore
@@ -35,16 +58,47 @@ class NodeServer:
         device: str = "cuda",
         long_query_time: float = 0.0,
         stats_client=None,
+        metric_poll_interval: float = 10.0,
         tls_cert: str | None = None,
         tls_key: str | None = None,
         import_workers: int = 2,
         import_queue_depth: int = 16,
         max_writes_per_request: int | None = None,
+        default_deadline: float = 0.0,
+        slow_query_time: float = 0.0,
         batch_window: float = 0.002,
         batch_max_size: int = 64,
         rescache_entries: int = 512,
         planner_enabled: bool = True,
+        slo_objectives: dict | None = None,
+        slo_burn_rules: list[dict] | None = None,
+        slo_slot_seconds: float | None = None,
+        slo_latency_window: float | None = None,
+        trace_store_capacity: int = 256,
+        trace_baseline_n: int = 128,
+        flight_recorder: bool = True,
+        flightrec_segment_seconds: float = 1.0,
+        flightrec_sample_interval: float = 0.025,
+        flightrec_segments: int = 60,
+        flightrec_spike_504: int = 5,
+        history_enabled: bool = True,
+        history_cadence: float = 1.0,
+        history_tiers: str = "300@1,240@15",
+        history_detectors: str = "latency,throughput,errors",
+        history_warmup: int = 10,
+        history_trips: int = 3,
+        history_latency_factor: float = 2.0,
+        history_latency_min_ms: float = 20.0,
+        devledger_storm_threshold: int = 8,
+        devledger_storm_window: float = 60.0,
+        devledger_warmup: float = 120.0,
         qos_enabled: bool = True,
+        blackbox_enabled: bool = True,
+        blackbox_interval: float = 5.0,
+        blackbox_max_segments: int = 64,
+        blackbox_max_bytes: int = 16 << 20,
+        blackbox_keep_postmortems: int = 4,
+        blackbox_history_window: float = 60.0,
     ):
         self.host = host
         self.tls = bool(tls_cert)
@@ -54,6 +108,38 @@ class NodeServer:
         self.holder.set_stats(
             stats_client if stats_client is not None else MemStatsClient()
         )
+        # SLO knobs: any of them replaces the holder's default tracker
+        # (tests and load runs shrink windows so burn shows in seconds)
+        if (
+            slo_objectives is not None
+            or slo_burn_rules is not None
+            or slo_slot_seconds is not None
+            or slo_latency_window is not None
+        ):
+            rules = None
+            if slo_burn_rules is not None:
+                rules = tuple(
+                    slo_mod.BurnRule(r["name"], r["long"], r["short"], r["factor"])
+                    for r in slo_burn_rules
+                )
+            self.holder.slo = slo_mod.SLOTracker(
+                objectives=(
+                    slo_mod.objectives_from_dict(slo_objectives)
+                    if slo_objectives is not None
+                    else None
+                ),
+                burn_rules=rules,
+                slot_seconds=slo_slot_seconds if slo_slot_seconds is not None else 5.0,
+                latency_window=(
+                    slo_latency_window if slo_latency_window is not None else 300.0
+                ),
+            )
+            # the trace store's slow-keep thresholds and exemplar sink
+            # live on the tracker
+            self.holder.traces.slo = self.holder.slo
+            self.holder.traces.on_keep = self.holder.slo.attach_exemplar
+        self.holder.traces.capacity = max(1, int(trace_store_capacity))
+        self.holder.traces.baseline_n = int(trace_baseline_n)
         self.store = None
         if data_dir is not None:
             self.store = HolderStore(self.holder, data_dir)
@@ -82,10 +168,89 @@ class NodeServer:
             long_query_time=long_query_time,
             tls_cert=tls_cert,
             tls_key=tls_key,
+            default_deadline=default_deadline,
+            slow_query_time=slow_query_time,
+        )
+        # diagnostics and runtime metrics (reference server.go:433-436
+        # monitorDiagnostics/monitorRuntime, gcnotify)
+        self.diagnostics = Diagnostics(self.holder, version=__version__)
+        self.api.diagnostics = self.diagnostics
+        # the flight recorder and incident engine (obs/flightrec.py):
+        # the segment ring, SLO-alert and 504-spike captures
+        self.flightrec = None
+        if flight_recorder:
+            self.flightrec = FlightRecorder(
+                self.holder,
+                api=self.api,
+                segment_seconds=flightrec_segment_seconds,
+                sample_interval=flightrec_sample_interval,
+                segments=flightrec_segments,
+                spike_504=flightrec_spike_504,
+            )
+            self.api.flightrec = self.flightrec
+        # the metrics history (obs/history.py): ring-buffer series sampled
+        # each cadence, and trend detectors whose incidents carry their
+        # own series windows
+        self.history = None
+        if history_enabled:
+            self.history = MetricsHistory(
+                self.holder,
+                api=self.api,
+                node_id=self.node_id,
+                cadence=history_cadence,
+                tiers=history_tiers,
+                detectors=history_detectors,
+                warmup=history_warmup,
+                trips=history_trips,
+                latency_factor=history_latency_factor,
+                latency_min_ms=history_latency_min_ms,
+            )
+            self.api.history = self.history
+            if self.flightrec is not None:
+                self.history.flightrec = self.flightrec
+                self.flightrec.series_provider = self.history.incident_series
+        # the device ledger's storm detector, wired as JAX's (it never
+        # trips here: no launch compiles, obs/devledger.py). The ledger is
+        # process-global: the last node configured wins.
+        devledger.configure_storm(
+            threshold=devledger_storm_threshold,
+            window_s=devledger_storm_window,
+            warmup_s=devledger_warmup,
+        )
+        if self.flightrec is not None:
+            devledger.on_storm(self.flightrec.capture_incident)
+        # the black box (obs/blackbox.py): only with a data dir, since a
+        # diskless node has nowhere to survive a crash. Opening it seals a
+        # dirty previous life's spool into the postmortem.
+        self.blackbox = None
+        self.postmortem = None
+        if blackbox_enabled and data_dir is not None:
+            self.blackbox = bb.BlackBox(
+                self.holder,
+                data_dir,
+                api=self.api,
+                flightrec=self.flightrec,
+                history=self.history,
+                node_id=self.node_id,
+                interval=blackbox_interval,
+                max_segments=blackbox_max_segments,
+                max_bytes=blackbox_max_bytes,
+                keep_postmortems=blackbox_keep_postmortems,
+                history_window=blackbox_history_window,
+            )
+            self.api.blackbox = self.blackbox
+            self.postmortem = self.blackbox.open()
+            if self.flightrec is not None:
+                # an incident reaches disk the moment it freezes
+                self.flightrec.on_incident = self.blackbox.flush_incident
+        self.gc_notifier = GCNotifier()
+        self.runtime_monitor = RuntimeMonitor(
+            self.holder.stats,
+            interval=metric_poll_interval,
+            gc_notifier=self.gc_notifier,
         )
         self._stopped = False
         self._done = threading.Event()
-        self._prev_sigterm = None
 
     @property
     def uri(self) -> str:
@@ -96,13 +261,22 @@ class NodeServer:
 
     def start(self) -> None:
         self.server.serve_background()
+        self.runtime_monitor.start()
+        if self.flightrec is not None:
+            self.flightrec.start()
+        if self.history is not None:
+            self.history.start()
+        if self.blackbox is not None:
+            self.blackbox.start()
         self.holder.events.record(
             ev.EVENT_NODE_START, uri=self.uri, state=self.api.state
         )
 
     def shutdown_graceful(self) -> None:
-        """The orderly SIGTERM path: journal ``node-stop``, then the full
-        stop. Callers (the signal handler, the CLI) exit 0 afterwards."""
+        """The orderly SIGTERM path: journal ``node-stop`` (so the black
+        box's final checkpoint carries it), then the full stop: drain the
+        batcher and QoS queues, stop the samplers, write the clean-shutdown
+        marker. Callers (the signal handler, the CLI) exit 0 afterwards."""
         if self._stopped:
             return
         self.holder.events.record(ev.EVENT_NODE_STOP, uri=self.uri)
@@ -111,29 +285,26 @@ class NodeServer:
     def install_signal_handlers(self) -> bool:
         """Route SIGTERM through :meth:`shutdown_graceful`. Returns False
         off the main thread, where Python cannot install handlers."""
-        if threading.current_thread() is not threading.main_thread():
-            return False
-
-        def on_term(signum, frame):
-            # the handler runs on the main thread: stop from a helper so a
-            # main thread parked in the server's own loop is not the one
-            # waiting for that loop to end
-            threading.Thread(target=self.shutdown_graceful, name="node-stop").start()
-
-        self._prev_sigterm = signal.signal(signal.SIGTERM, on_term)
-        return True
+        return bb.install_signal_handlers(self)
 
     def stop(self) -> None:
         if self._stopped:
             return  # the SIGTERM handler and the CLI's finally both land here
         self._stopped = True
-        if (
-            self._prev_sigterm is not None
-            and threading.current_thread() is threading.main_thread()
-        ):
-            signal.signal(signal.SIGTERM, self._prev_sigterm)
+        bb.uninstall_signal_handlers(self)
         try:
+            if self.history is not None:
+                self.history.stop()
+            if self.flightrec is not None:
+                self.flightrec.stop()
+            self.runtime_monitor.stop()
+            self.diagnostics.stop()
+            self.gc_notifier.close()
             self.server.close()
+            if self.blackbox is not None:
+                # last: the final checkpoint captures the drained planes,
+                # then the clean marker seals this life as orderly
+                self.blackbox.close(clean=True)
         finally:
             self._done.set()
 

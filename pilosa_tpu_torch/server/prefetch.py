@@ -24,11 +24,15 @@ Everything here is advisory and bounded:
   (``core/membudget.py``), so on the card the prefetcher is on;
 * a busy uploader drops prefetches rather than queueing unboundedly —
   the dispatch then pays its own build, exactly the pre-prefetch
-  behavior.
+  behavior;
+* a dispatch that needs a stack whose prefetch is still queued claims it
+  (``Executor.prefetch_issued``) and builds the stack itself, never
+  waiting for the uploader; the uploader then skips the job. A prefetch
+  already started races the dispatch for the stack lock, as in JAX.
 
 Accounting flows through core/residency.py: issued at submit, useful on
-the first query hit against a prefetch-built stack (the bar is
-useful/issued >= 0.5).
+the first query hit against a prefetch-built stack or when a dispatch
+claims the prefetch (the bar is useful/issued >= 0.5).
 """
 
 from __future__ import annotations
@@ -86,7 +90,7 @@ class _StackTarget:
     (``device_bits`` = build the stack; ``device`` = the card it goes to;
     ``prefetch_key`` = stable dedup identity across flights)."""
 
-    __slots__ = ("executor", "field", "shards", "view", "prefetch_key", "device")
+    __slots__ = ("executor", "field", "shards", "view", "prefetch_key", "device", "note")
 
     def __init__(self, executor, field, shards, view):
         self.executor = executor
@@ -95,9 +99,11 @@ class _StackTarget:
         self.view = view
         self.prefetch_key = (id(field), tuple(shards), view)
         self.device = executor.holder.device
+        # the executor's note of this prefetch (Executor.prefetch_issued)
+        self.note = None
 
     def device_bits(self):
-        self.executor.prefetch_stack(self.field, self.shards, self.view)
+        self.executor.prefetch_stack(self.field, self.shards, self.view, self.note)
 
 
 def stack_pairs_of_query(idx, query) -> list[tuple[str, str]]:
@@ -190,6 +196,13 @@ class FlightPrefetcher:
                     if issued >= self.max_per_flight:
                         tracker.note_prefetch_dropped()
                         continue
+                    # noted before it is queued, so its end cannot come first
+                    target.note = self.executor.prefetch_issued(
+                        target.field, target.shards, target.view)
+                    if target.note is None:
+                        # a prefetch of this stack is already staging
+                        tracker.note_prefetch_dropped()
+                        continue
                     if self.uploader.submit_prefetch(target, self._done):
                         issued += 1
                         tracker.note_prefetch_issued()
@@ -201,6 +214,7 @@ class FlightPrefetcher:
                                 if now - t < REISSUE_TTL
                             }
                     else:
+                        self._done(target, None)
                         tracker.note_prefetch_dropped()
         except Exception:
             tracker.note_prefetch_error()
@@ -220,6 +234,7 @@ class FlightPrefetcher:
         return self.prefetch_flight([(index, query, shards)])
 
     def _done(self, target, err) -> None:
+        self.executor.prefetch_ended(target.field, target.shards, target.view, target.note)
         if err is not None:
             residency.default_tracker().note_prefetch_error()
 

@@ -50,9 +50,8 @@ not abusive, and the ladder stays out of the way.
 
 Every transition is journaled (obs/events.py) and surfaces in
 ``/debug/qos``; the FIRST escalation of a pressure episode hands one
-incident to ``incident_fn`` (the JAX node's flight recorder; the port has
-no flight recorder yet, so its API passes a no-op, as the JAX API does
-when its recorder is absent).
+incident to ``incident_fn`` (the node's flight recorder, through the
+API; a no-op where the recorder is off).
 
 In the port the debt is the device time of the kernels each tenant's
 queries launched, read from the launches' CUDA event pairs

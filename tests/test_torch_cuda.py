@@ -1496,7 +1496,7 @@ def test_a_default_stream_patch_behind_a_long_kernel_reaches_the_side_streams_co
 
         def dispatcher():
             entered.wait(30)
-            torch.cuda._sleep(200_000_000)  # about 0.1 s on the default stream
+            torch.cuda._sleep(600_000_000)  # about 0.3 s on the default stream
             frag.set_bit(1, clear_col(1))
             frag.device_bits()  # in place, queued behind the sleep
             patched.set()
@@ -1544,3 +1544,88 @@ def test_a_flights_launches_book_under_the_weighted_principals(cuda_device, fres
     assert db == pytest.approx(0.25 * spent, rel=1e-3, abs=2e-3)
     n, ms = led.measured_ms("kernels.gram", "gram")
     assert n >= 1 and ms > 0
+
+
+def test_samplers_and_launches_never_wait_for_a_launch_in_flight(
+        cuda_device, fresh_budget, tmp_path, monkeypatch):
+    """A row scan queued behind about 0.1 s of work on the default stream
+    is in flight while an exposition route's ledger snapshot waits for it.
+    Meanwhile the metrics history's sample, a flight-recorder segment, the
+    black box's read of every plane and the ledger's counters each return
+    in under 10 ms, and a launch from a second thread (folding the finished
+    pairs at each launch) returns as fast; the snapshot then reads every
+    pair. A whole checkpoint, which also writes its segment file (an fsync
+    and a rename take the disk's time, not the card's; PERF.md gives it),
+    ends while the launch is still in flight."""
+    import threading
+    import time
+
+    from pilosa_tpu_torch.obs import devledger, profile
+    from pilosa_tpu_torch.server.node import NodeServer
+
+    fresh_budget.configure(None)
+    node = NodeServer(data_dir=str(tmp_path / "d"), device="cuda", port=0,
+                      history_cadence=3600.0, flightrec_segment_seconds=3600.0,
+                      blackbox_interval=3600.0, metric_poll_interval=3600.0)
+    led = devledger.ledger()
+    rng = np.random.default_rng(5)
+    bits = _words(rng, 4, 8, 1024).to(cuda_device)
+    plain = tk.row_counts_per_shard_plain(bits)
+    tk.row_counts_per_shard(bits)
+    torch.cuda.synchronize()
+    led.snapshot()
+    monkeypatch.setattr(devledger, "_SETTLE_AT", 1)  # every launch folds
+    snaps = []
+    try:
+        node.flightrec._segment(profile.Sampler(), 0.1)  # the launch counts' baseline
+        torch.cuda._sleep(600_000_000)  # about 0.3 s on the default stream
+        slow = tk.row_counts_per_shard(bits)  # queued behind it
+        waiter = threading.Thread(target=lambda: snaps.append(led.snapshot()))
+        waiter.start()
+        took, segs = {}, []
+        for name, fn in (
+            ("counters", led.counters),
+            ("history.sample_once", node.history.sample_once),
+            ("flightrec segment",
+             lambda: segs.append(node.flightrec._segment(profile.Sampler(), 0.1))),
+            ("blackbox checkpoint's read", lambda: node.blackbox._collect("test")),
+            ("measured_ms", lambda: led.measured_ms("kernels.row_scan", "row_scan")),
+            ("tenant_totals", led.tenant_totals),
+        ):
+            t0 = time.perf_counter()
+            fn()
+            took[name] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        node.blackbox.checkpoint("durable")
+        checkpoint_s = time.perf_counter() - t0
+        n_segments = len(node.blackbox._seg_files())
+        launched = []
+
+        def second():
+            t0 = time.perf_counter()
+            out = tk.row_counts_per_shard(bits)
+            launched.append((time.perf_counter() - t0, out))
+
+        th = threading.Thread(target=second)
+        th.start()
+        th.join(30)
+        in_flight = not torch.cuda.current_stream(cuda_device).query()
+        waiter.join(30)
+        torch.cuda.synchronize()
+        assert in_flight, "the long launch ended before the reads: nothing was measured"
+        for name, s in took.items():
+            assert s < 0.010, (name, took)
+        assert n_segments == 1, n_segments  # the whole checkpoint wrote its file
+        print(f"reads {took}, whole checkpoint {checkpoint_s:.4f} s")
+        assert launched and launched[0][0] < 0.010, launched
+        assert torch.equal(slow, plain) and torch.equal(launched[0][1], plain)
+        # the snapshot waited for the queued launch and read its pair
+        assert snaps and snaps[0]["sites"]["kernels.row_scan"]["launches"] >= 2
+        # the segment in flight counted the queued launch, the next one the
+        # second thread's
+        seg = node.flightrec._segment(profile.Sampler(), 0.1)
+        for s_ in (segs[0], seg):
+            assert s_["kernelDispatchDelta"] == 1 and s_["devledgerDelta"]["launches"] == 1
+    finally:
+        torch.cuda.synchronize()
+        node.stop()

@@ -16,7 +16,12 @@ Status codes must be equal, and JSON bodies equal once the volatile keys
 the span names and the executor counters of the call tree must be equal.
 The debug planes must have JAX's top-level keys wherever both have the
 plane (``/debug/qos`` too, at the defaults), and values that agree with
-the requests sent. A port node's data directory answers the same after a restart, and
+the requests sent. A JAX ``NodeServer`` and a port ``NodeServer``, their
+observability planes on and then off, answer ``/debug/history`` (with
+``series``, ``since``, ``step`` and ``limit``, and a bad cursor),
+``/debug/incidents`` (the list and one bundle), ``/debug/postmortem``,
+``/internal/diagnostics`` and the ``blackbox`` block of ``/debug/vars``
+with the same codes and JSON keys. A port node's data directory answers the same after a restart, and
 so does a directory the JAX node wrote. Threads of clients get the serial
 answers, and ``python -m pilosa_tpu_torch.cli server`` runs on the CPU
 when asked and refuses to start without CUDA otherwise.
@@ -60,9 +65,8 @@ TIMEOUT = 10  # seconds for every request
 
 # keys whose values differ between two nodes by nature
 VOLATILE = {"version", "localID", "startedAt", "duration_ms", "traceId", "node"}
-# /debug/vars blocks of JAX planes the port does not have (the cluster's
-# and the black box)
-ABSENT_VARS = {"migrations", "dist", "blackbox"}
+# /debug/vars blocks of JAX planes the port does not have (the cluster's)
+ABSENT_VARS = {"migrations", "dist"}
 # the serving plane cut down, as the JAX node can be
 CUT = {"batch_window": 0, "rescache_entries": 0, "planner_enabled": False}
 
@@ -599,6 +603,96 @@ def test_node_server_serves_from_a_data_dir(tmp_path):
     finally:
         node.shutdown_graceful()
     assert node.wait(timeout=10)
+
+
+def _planes_node(pkg, path, planes):
+    """A ``NodeServer`` of ``pkg`` on ``path``, its observability planes on
+    (their samplers' periods long: the test takes the samples) or off."""
+    if pkg == "jax":
+        from pilosa_tpu.server.node import NodeServer as Node
+
+        kw = {"resize_watchdog_deadline": 0}
+    else:
+        Node, kw = NodeServer, {"device": "cpu"}
+    if planes:
+        kw.update(history_cadence=3600.0, flightrec_segment_seconds=3600.0,
+                  blackbox_interval=3600.0)
+    else:
+        kw.update(flight_recorder=False, history_enabled=False, blackbox_enabled=False)
+    node = Node(data_dir=str(path), port=0, metric_poll_interval=3600.0, **kw)
+    node.start()
+    return node
+
+
+def _keys(obj, depth=2):
+    """The key structure of a JSON body, ``depth`` levels down."""
+    if isinstance(obj, dict) and depth:
+        return {k: _keys(v, depth - 1) for k, v in obj.items()}
+    return type(obj).__name__
+
+
+OBS_ROUTES = ["/debug/history", "/debug/history?series=slo.*&limit=2",
+              "/debug/history?series=dev.*,batcher.*&since=1", "/debug/history?step=2",
+              "/debug/history?since=abc", "/debug/incidents", "/debug/incidents?id=nope",
+              "/debug/postmortem", "/debug/postmortem?id=nope", "/internal/diagnostics"]
+
+
+@pytest.mark.parametrize("planes", [True, False], ids=["planes-on", "planes-off"])
+def test_observability_routes_answer_as_a_jax_node(tmp_path, planes):
+    views = {}
+    for pkg in ("jax", "torch"):
+        node = _planes_node(pkg, tmp_path / pkg, planes)
+        try:
+            port = node.server.port
+            call(port, "POST", "/index/i", {})
+            call(port, "POST", "/index/i/field/f", {})
+            call(port, "POST", "/index/i/field/f/import", {"rowIDs": [1, 1], "columnIDs": [2, 3]})
+            got = {}
+            if planes:
+                node.history.sample_once()
+            for q in ("Count(Row(f=1))", "TopN(f)", "Row(f="):
+                call(port, "POST", "/index/i/query", q, "text/plain")
+            if planes:
+                # a handler records its request just after the answer
+                # leaves: the sample waits for all six
+                t_end = time.monotonic() + 10
+                while sum(c["total"] for c in node.holder.slo.series_sample().values()) < 6:
+                    assert time.monotonic() < t_end
+                    time.sleep(0.005)
+                node.history.sample_once()
+                node.flightrec._record_segment({"seq": 1, "at": 0.0, "seconds": 1.0})
+                node.flightrec.capture_incident({"type": "test", "note": "x"})
+                [inc] = call(port, "GET", "/debug/incidents")[1]["incidents"]
+                got["incident"] = call(port, "GET", f"/debug/incidents?id={inc['id']}")
+            for path in OBS_ROUTES:
+                got[path] = call(port, "GET", path)
+            vars_ = call(port, "GET", "/debug/vars")[1]
+            got["blackbox"] = vars_.get("blackbox")
+            got["index"] = {e["path"] for e in call(port, "GET", "/debug")[1]["endpoints"]}
+            views[pkg] = got
+        finally:
+            node.stop()
+    j, t = views["jax"], views["torch"]
+    for path in OBS_ROUTES:
+        assert j[path][0] == t[path][0], path
+        assert _keys(j[path][1]) == _keys(t[path][1]), path
+    assert _keys(j["blackbox"]) == _keys(t["blackbox"])
+    assert {"/debug/history", "/debug/incidents", "/debug/postmortem"} <= t["index"] <= j["index"]
+    diag = t["/internal/diagnostics"]
+    assert diag[0] == 200 and diag[1]["pallasFallbacks"] == 0 and diag[1]["numIndexes"] == 1
+    if planes:
+        assert _keys(j["incident"]) == _keys(t["incident"])
+        for path in ("/debug/history", "/debug/history?series=slo.*&limit=2"):
+            assert set(j[path][1]["series"]) == set(t[path][1]["series"]), path
+        hist = t["/debug/history"][1]
+        assert hist["seq"] == 2 and hist["returned"] == 2 and hist["truncated"] is False
+        assert {s.split(".")[0] for s in hist["series"]} >= {"slo", "dev", "batcher", "ingest"}
+        assert t["/debug/history?since=abc"][0] == 400
+        assert t["/debug/postmortem"][1]["postmortems"] == []
+    else:
+        assert t["/debug/history"][0] == 404 and t["/debug/postmortem"][0] == 404
+        assert t["/debug/incidents"][1] == {"enabled": False, "incidents": []}
+        assert t["blackbox"] is None
 
 
 def _free_port() -> int:

@@ -150,6 +150,45 @@ def test_issued_and_useful_under_an_evicting_cap(fresh_budgets, monkeypatch):
         up.close()
 
 
+def test_a_dispatch_claims_the_queued_prefetch_of_its_stack(fresh_budgets, monkeypatch):
+    """A flight's dispatch that needs a stack whose prefetch the uploader
+    has not started builds the stack itself, without waiting for the
+    uploader: it claims the prefetch, which counts useful and not wasted,
+    and the uploader skips the job, so the stack is built once."""
+    import threading
+
+    h, ex, up, pf = _serving()
+    tmb.default_budget().set_cap(1 << 40)
+    tracker = tres.default_tracker()
+    parsed = [(torch_parse(q), s) for q, s in FLIGHT_F]
+    want = [ex.execute("i", q) for q, _ in FLIGHT_F]
+    ex._stacks.clear()
+    release = threading.Event()
+    prefetch_stack = ex.prefetch_stack
+
+    def held(*a, **kw):
+        # the uploader holds the job until the dispatch is done
+        assert release.wait(30)
+        return prefetch_stack(*a, **kw)
+
+    monkeypatch.setattr(ex, "prefetch_stack", held)
+    rebuilds0, claims0, snap0 = ex.stack_rebuilds, ex.prefetch_claims, tracker.snapshot()
+    try:
+        assert pf.prefetch_flight([("i", q, s) for q, s in parsed]) == 1
+        [note] = ex._prefetching.values()
+        assert ex.execute_batch("i", parsed) == want  # returns with the job held
+        assert note.state == "claimed" and ex.prefetch_claims - claims0 == 1
+        release.set()
+        assert up.flush(10)
+        snap = tracker.snapshot()
+        assert ex.stack_rebuilds - rebuilds0 == 1 and not ex._prefetching
+        assert snap["prefetchUseful"] - snap0["prefetchUseful"] == 1
+        assert snap["prefetchWasted"] == snap0["prefetchWasted"]
+    finally:
+        release.set()
+        up.close()
+
+
 def test_an_uncapped_budget_issues_nothing(fresh_budgets):
     h, ex, up, pf = _serving(4)
     try:

@@ -6,8 +6,10 @@ node booted on the CPU answering a query, with its API, routes,
 observability planes and CLI loaded, and its serving plane at the
 defaults: the batcher, the result cache, the flight planner, the QoS
 governor, the prefetcher and the ingest pipeline with its side-stream
-uploads), and the port's default device is ``cuda`` with no fallback to
-the CPU."""
+uploads, and its observability planes at the defaults: the flight
+recorder, the metrics history, the black box, diagnostics, the runtime
+monitor and span export), and the port's default device is ``cuda`` with
+no fallback to the CPU."""
 
 import ast
 import os
@@ -136,6 +138,16 @@ assert post("/index/h/query", "Count(Row(f=1))") == {"results": [2]}
 assert n.api.executor.rescache.snapshot()["hits"] >= 1
 with urllib.request.urlopen(n.uri + "/debug/qos", timeout=10) as r:
     assert "tenants" in json.loads(r.read())
+# the observability planes, loaded and on at the defaults
+from pilosa_tpu_torch.obs import blackbox, diagnostics, export, flightrec, history
+from pilosa_tpu_torch.obs.sysinfo import GCNotifier, RuntimeMonitor
+from pilosa_tpu_torch.obs.tracing import ExportingTracer, RecordingTracer
+assert n.flightrec is not None and n.history is not None and n.blackbox is not None
+n.history.sample_once()
+n.blackbox.checkpoint("probe")
+for path in ("/debug/history", "/debug/incidents", "/debug/postmortem", "/internal/diagnostics"):
+    with urllib.request.urlopen(n.uri + path, timeout=10) as r:
+        assert r.status == 200, path
 n.shutdown_graceful()
 assert n.wait(10)
 bad = sorted(
