@@ -187,7 +187,27 @@ Phases (any failure raises, and the script exits non-zero):
    SIGKILLed and started again (the postmortem line; one bundle with
    ``crashLoop`` 1 holding the first life's launches), stopped by SIGTERM
    and booted clean, then sent SIGSEGV (``last-words.txt`` holds every
-   thread's stack), each boot timed to its first answer.
+   thread's stack), each boot timed to its first answer. The cluster
+   path, last: three nodes of the port in one process on the card
+   (``replica_n=2``, every plane at JAX's defaults, each on a data
+   directory of its own under ``build/``), joined by ``join_static``; the
+   storage path's schema created through node 0 and broadcast; each of
+   the 160 shards of f, h and v loaded on its two owners through their
+   roaring imports, as the storage directory holds them (g and w of the
+   served index left out, and the cut printed); a JSON import through node
+   0 routed to the owners and read back word for word on both replicas;
+   the read mix (less its keyed read, plus GroupBy f x h and f x f) from
+   16 keep-alive clients with every result cache emptied, on the mesh
+   route (one launch over a holder facade; again with the three nodes'
+   samplers stopped) and on the HTTP fan-out: queries/s, p50/p99, idle share, launches per query
+   by kernel, mesh dispatches, HTTP sub-requests per query,
+   ``mesh_fallbacks`` (0) and the three nodes' planes' own seconds per
+   second; a Set through node 1 read through node 0 on both routes and on
+   both replicas; keys written through a node that is not the primary and
+   read through a third; TopN exactness; node 2 stopped, every read exact
+   through the replicas (p99), its breaker open in /debug/vars and in a
+   flight-recorder segment, and ``?cluster=true`` events of all three
+   nodes before the stop.
 4. Summary: one ``{"end_to_end": {...}}`` line, one ``{"kernels": [...]}``
    line, the card line, and last ``{"ok": true, "device": {...}}``.
 """
@@ -5273,44 +5293,67 @@ def obs_ab(node, mix, serial, device):
     post the read mix while the planes run and stop in turn, in
     :data:`OBS_PAIRS` pairs of :data:`OBS_WINDOW`-second windows (on, off,
     on, off, ...; a window starts once the planes' threads have started or
-    joined). Each window's queries/s, p50/p99 and idle share; the median
-    of the pairs' differences; the flight recorder's own seconds per wall
-    second of the on windows, from its counters (the history's and the
-    black box's are read over the node's life: their first sample after a
-    restart waits a cadence)."""
+    joined). See :func:`planes_ab`."""
+    return planes_ab([node], mix, serial, device, "obs", OBS_PAIRS, OBS_WINDOW,
+                     alternate=False)
+
+
+def planes_ab(nodes, mix, serial, device, tag, pairs, window, alternate):
+    """The planes' cost on ``nodes`` under one continuous load of 16 clients
+    against the first node: the planes of every node run and stop in turn,
+    in ``pairs`` pairs of ``window``-second windows, each pair running then
+    stopped, or with ``alternate`` stopped then running every other pair
+    (so what a window leaves to the next one lifts either side alike). Each
+    window's queries/s, p50/p99 and idle share; the median of the pairs'
+    differences (running less stopped); the flight recorders' own seconds
+    per second of the running windows, summed over the nodes, from their
+    counters (the history's and the black box's are read over the node's
+    life: their first sample after a restart waits a cadence)."""
     import threading
 
     import numpy as np
 
+    def costs():
+        return [plane_costs(nd) for nd in nodes]
+
+    order = [k % 2 == (1 if alternate and (k // 2) % 2 else 0) for k in range(2 * pairs)]
     stop = threading.Event()
     windows = []
     cost = {}
     with CardBusy(device) as busy:
-        threads, recs, errors = mix_clients(node.server.port, mix, serial, stop, SEED + 300)
+        threads, recs, errors = mix_clients(nodes[0].server.port, mix, serial, stop,
+                                            SEED + 300)
+        if not order[0]:  # the planes run on entry
+            for nd in nodes:
+                set_planes(nd, False)
         for th in threads:
             th.start()
         t_w = time.perf_counter()
-        c_w = plane_costs(node)
+        c_w = costs()
         try:
-            for k in range(2 * OBS_PAIRS):
-                on = k % 2 == 0
-                time.sleep(max(0.0, t_w + OBS_WINDOW - time.perf_counter()))
+            for k, on in enumerate(order):
+                time.sleep(max(0.0, t_w + window - time.perf_counter()))
                 t_end = time.perf_counter()
                 windows.append((on, t_w, t_end))
                 if on:
-                    c_end = plane_costs(node)
-                    for key, v in c_end.items():
-                        cost[key] = cost.get(key, 0) + v - c_w[key]
-                set_planes(node, not on)
+                    for a, b in zip(c_w, costs()):
+                        for key, v in b.items():
+                            cost[key] = cost.get(key, 0) + v - a[key]
+                if k + 1 < len(order) and order[k + 1] != on:
+                    for nd in nodes:
+                        set_planes(nd, not on)
                 t_w = time.perf_counter()
-                c_w = plane_costs(node)
+                c_w = costs()
         finally:
             stop.set()
             for th in threads:
                 th.join(timeout=120)
+            for nd in nodes:
+                if not order[-1]:
+                    set_planes(nd, True)
     if any(th.is_alive() for th in threads) or errors:
-        raise AssertionError(f"obs: planes on/off: clients: {errors[:3]}")
-    res = {"on": [], "off": []}
+        raise AssertionError(f"{tag}: planes on/off: clients: {errors[:3]}")
+    res = {"on": [], "off": [], "first_on": order[::2]}
     for on, t0, t1 in windows:
         res["on" if on else "off"].append(window_stats(recs, t0, t1, busy))
     on_wall = sum(w["seconds"] for w in res["on"])
@@ -5323,19 +5366,23 @@ def obs_ab(node, mix, serial, device):
                                                for a, b in zip(res["on"], res["off"])]))
     res["plane_seconds"] = cost
     res["flightrec_s_per_s"] = cost["flightrec_s"] / on_wall
+    res["planes_s_per_s"] = sum(cost[k] for k in ("flightrec_s", "history_s",
+                                                  "blackbox_s")) / on_wall
     res["flightrec_tick_ms"] = (cost["flightrec_s"] / cost["flightrec_ticks"] * 1e3
                                 if cost["flightrec_ticks"] else None)
     for i, (a, b) in enumerate(zip(res["on"], res["off"])):
-        log(f"obs: pair {i}: planes on {a['qps']:.1f} q/s p50 {a['p50_ms']:.2f} p99 "
-            f"{a['p99_ms']:.2f} ms idle {a['idle_share']} | stopped {b['qps']:.1f} q/s p50 "
-            f"{b['p50_ms']:.2f} p99 {b['p99_ms']:.2f} ms idle {b['idle_share']}")
-    log(f"obs: planes on against stopped, one node, {OBS_PAIRS} pairs of {OBS_WINDOW} s under "
-        f"one load of {OBS_CLIENTS} clients: median of the pairs' differences "
+        log(f"{tag}: pair {i} ({'running first' if res['first_on'][i] else 'stopped first'}): "
+            f"planes on {a['qps']:.1f} q/s p50 {a['p50_ms']:.2f} p99 {a['p99_ms']:.2f} ms idle "
+            f"{a['idle_share']} | stopped {b['qps']:.1f} q/s p50 {b['p50_ms']:.2f} p99 "
+            f"{b['p99_ms']:.2f} ms idle {b['idle_share']}")
+    log(f"{tag}: planes on against stopped, {len(nodes)} node(s), {pairs} pairs of {window} s "
+        f"under one load of {OBS_CLIENTS} clients: median of the pairs' differences "
         f"{res['median_diff_qps']:.2f} queries/s (median ratio {res['median_ratio_qps']:.4f}), "
         f"p50 {res['median_diff_p50_ms']:.2f} ms, p99 {res['median_diff_p99_ms']:.2f} ms; the "
-        f"flight recorder's own seconds per second of the on windows "
-        f"{res['flightrec_s_per_s']:.5f} ({json.dumps(cost)}; a tick "
-        f"{res['flightrec_tick_ms']} ms); every answer equal to its serial one")
+        f"flight recorders' own seconds per second of the on windows "
+        f"{res['flightrec_s_per_s']:.5f}, every plane's {res['planes_s_per_s']:.5f} "
+        f"({json.dumps(cost)}; a tick {res['flightrec_tick_ms']} ms); every answer equal to "
+        f"its serial one")
     return res
 
 
@@ -5870,6 +5917,657 @@ def obs_nodes(device, hand, lives):
     return out
 
 
+# ---------------------------------------------------------------------------
+# The cluster path: three nodes of the port in one process on the card
+# ---------------------------------------------------------------------------
+
+CLUSTER_NODES, CLUSTER_REPLICAS = 3, 2
+# seconds of each route's 16-client load, and of the failover reads' load
+CLUSTER_SECONDS, CLUSTER_FAILOVER_SECONDS = 6.0, 3.0
+# the routing check's small field: rows and shards
+CLUSTER_R_ROWS, CLUSTER_R_SHARDS = 8, 8
+# host bytes kept free beside the cluster's mirrors
+CLUSTER_HOST_MARGIN = 6 << 30
+# rows of f in the same-field GroupBy (the gram on the HTTP route's per-call
+# legs, where pair Counts take the tree kernel or the host tier)
+CLUSTER_FF_ROWS = 8
+# the planes' cost on the mesh route: pairs of windows of this many seconds,
+# running and stopped, the order turned every other pair
+CLUSTER_AB_PAIRS, CLUSTER_AB_WINDOW = 4, 1.5
+
+
+def cluster_nodes(device, n, root):
+    """``n`` port nodes at JAX's defaults (``replica_n=2``), each on a data
+    directory of its own under ``root``, started and joined by
+    ``join_static`` with node 0 the coordinator, as ``InProcessCluster``
+    joins them."""
+    import tempfile
+
+    from pilosa_tpu_torch.server.node import NodeServer
+
+    nodes = []
+    for k in range(n):
+        d = tempfile.mkdtemp(prefix=f"cluster{k}-", dir=root)
+        STORAGE_DIRS.append(d)
+        node = NodeServer(data_dir=d, device=device, port=0, replica_n=CLUSTER_REPLICAS)
+        node.start()
+        nodes.append(node)
+    members = sorted((nd.node_id, nd.uri) for nd in nodes)
+    for nd in nodes:
+        nd.join_static(members, nodes[0].node_id)
+    return nodes
+
+
+def cluster_sources(hand, pool, keep_g):
+    """The cluster's data, ``{(field, view): [S] of (row ids, words)}``: f, h
+    and v as the storage path's directory holds them after the earlier
+    paths (opened on the CPU and read from its mirrors), and g (unless host
+    memory forced it out) and w drawn anew from the seed with the served
+    index's generators; with the numpy truths of g's row 5 and of w's
+    Sum."""
+    import numpy as np
+
+    from pilosa_tpu_torch.core.holder import Holder
+    from pilosa_tpu_torch.storage.disk import HolderStore
+
+    store = HolderStore(Holder(device="cpu"), hand["data_dir"])
+    store.open()
+    try:
+        src = {}
+        for field, view in (("f", "standard"), ("h", "standard"), ("v", "bsig_v")):
+            frags = store.holder.field("i", field).view(view).fragments
+            src[(field, view)] = [frags[s].rows_matrix_host() for s in range(S_FULL)]
+    finally:
+        store.close()
+    rng = np.random.default_rng(SEED + 51)
+    truth = {}
+    if keep_g:
+        g = random_words(rng, (S_FULL, R_FULL, W_FULL), dense=True)
+        src[("g", "standard")] = [(list(range(R_FULL)), g[s]) for s in range(S_FULL)]
+        truth["Count(Row(g=5))"] = int(np.bitwise_count(g[:, 5]).sum(dtype=np.int64))
+    w = bsi_field_words(rng, *BSI_FIELDS["w"], pool)
+    src[("w", "bsig_w")] = [(list(range(2 + BSI_DEPTH)), w[s]) for s in range(S_FULL)]
+
+    def w_sum(s):
+        neg = w[s, 1]
+        tot = 0
+        for k in range(BSI_DEPTH):
+            plane = w[s, 2 + k]
+            tot += (int(np.bitwise_count(plane & ~neg).sum(dtype=np.int64))
+                    - int(np.bitwise_count(plane & neg).sum(dtype=np.int64))) << k
+        return tot, int(np.bitwise_count(w[s, 0]).sum(dtype=np.int64))
+
+    parts = by_shard(pool, w_sum)
+    truth["Sum(field=w)"] = ("vc", sum(p[0] for p in parts), sum(p[1] for p in parts))
+    return src, truth
+
+
+class StageClock:
+    """Seconds spent in named methods, summed over the threads that call
+    them, while the clock is installed: each ``(name, class, method)`` is
+    wrapped in place on entry and restored on exit."""
+
+    def __init__(self, stages):
+        self.stages = stages
+        self.seconds = {name: 0.0 for name, _, _ in stages}
+        self.calls = {name: 0 for name, _, _ in stages}
+        self._lock = threading.Lock()
+        self._saved = []
+
+    def __enter__(self):
+        for name, cls, attr in self.stages:
+            orig = cls.__dict__[attr]
+
+            def timed(*a, _orig=orig, _name=name, **k):
+                t = time.perf_counter()
+                try:
+                    return _orig(*a, **k)
+                finally:
+                    dt = time.perf_counter() - t
+                    with self._lock:
+                        self.seconds[_name] += dt
+                        self.calls[_name] += 1
+
+            setattr(cls, attr, timed)
+            self._saved.append((cls, attr, orig))
+        return self
+
+    def __exit__(self, *exc):
+        for cls, attr, orig in self._saved:
+            setattr(cls, attr, orig)
+
+
+def cluster_load(pool, nodes, src):
+    """Each shard of each field to its owners by the port's own placement,
+    through each owner's roaring import (``remote=true``: applied there, as
+    a peer's forwarded slice is), so each owner's first fragment of a shard
+    broadcasts the shard to its peers; the payloads are encoded on ``pool``
+    and every owner's import runs at once, so each node's import pool (2
+    workers, JAX's default) stays busy. Returns (seconds, payload bytes,
+    the load's stages: thread-seconds summed over the threads of each of
+    encoding the payloads, the nodes' decode into staging, the fragments'
+    apply, of it the op-log writes, the snapshots, and the uploads to the
+    card)."""
+    import numpy as np
+
+    from pilosa_tpu_torch.core.fragment import Fragment
+    from pilosa_tpu_torch.storage import roaring
+    from pilosa_tpu_torch.storage.fragmentfile import FragmentFile
+
+    placement = nodes[0].cluster
+    by_id = {nd.node_id: nd for nd in nodes}
+    enc = [0.0]
+    lock = threading.Lock()
+    t0 = time.perf_counter()
+
+    def encode(job):
+        key, s, (ids, words) = job
+        t = time.perf_counter()
+        blob = roaring.serialize_rows(np.asarray(ids, dtype=np.uint64), words)
+        with lock:
+            enc[0] += time.perf_counter() - t
+        return key, s, blob
+
+    def put(item):
+        (field, view), s, blob, owner = item
+        by_id[owner].api.import_roaring("i", field, s, blob, view=view, remote=True)
+        return len(blob)
+
+    def node_seconds():
+        return (sum(nd.api.ingest.decode_seconds for nd in nodes),
+                sum(nd.api.ingest.uploader.upload_seconds for nd in nodes))
+
+    dec0, up0 = node_seconds()
+    jobs = [(key, s, rows) for key, per in src.items() for s, rows in enumerate(per)]
+    clock = StageClock((("apply", Fragment, "import_row_words"),
+                        ("op_log", FragmentFile, "end_batch"),
+                        ("snapshot", FragmentFile, "snapshot")))
+    with clock, ThreadPoolExecutor(max_workers=4 * len(nodes)) as importers:
+        puts = [importers.submit(put, (key, s, blob, o.id))
+                for key, s, blob in pool.map(encode, jobs)
+                for o in placement.shard_nodes("i", s)]
+        sent = sum(f.result() for f in puts)
+        for nd in nodes:
+            if not nd.api.ingest.uploader.flush(120):
+                raise AssertionError("cluster: an uploader did not drain")
+    dec1, up1 = node_seconds()
+    stages = {"encode_s": enc[0], "decode_s": dec1 - dec0, "upload_s": up1 - up0}
+    stages.update({f"{k}_s": v for k, v in clock.seconds.items()})
+    stages.update({f"{k}_calls": v for k, v in clock.calls.items()})
+    return time.perf_counter() - t0, sent, stages
+
+
+def cluster_counters(nodes):
+    """Per node: the query-route requests it served, its mesh dispatches and
+    fallbacks."""
+    out = []
+    for nd in nodes:
+        c = nd.holder.stats.snapshot()["counters"]
+        d = nd.api.dist
+        out.append((c.get("http_requests{route:query}", 0), d.mesh_dispatches, d.mesh_fallbacks))
+    return out
+
+
+def cluster_load_window(nodes, mix, serial, seconds, device, tag):
+    """16 keep-alive clients against node 0 for ``seconds``: queries/s,
+    p50/p99, the idle share, launches a query by kernel, mesh dispatches,
+    HTTP sub-requests a query (the peers' query-route requests), mesh
+    fallbacks, and the planes' own seconds a second over the three nodes;
+    every answer equal to its serial one."""
+    from pilosa_tpu_torch.ops import kernels as tk
+
+    stop = threading.Event()
+    c0, l0 = cluster_counters(nodes), dict(tk.LAUNCHES)
+    p0 = [plane_costs(nd) for nd in nodes if nd.flightrec is not None]
+    with CardBusy(device) as busy:
+        threads, recs, errors = mix_clients(nodes[0].server.port, mix, serial, stop,
+                                            SEED + 500)
+        t = time.perf_counter()
+        for th in threads:
+            th.start()
+        time.sleep(seconds)
+        stop.set()
+        for th in threads:
+            th.join(timeout=120)
+        t_end = time.perf_counter()
+    if any(th.is_alive() for th in threads) or errors:
+        raise AssertionError(f"cluster: {tag}: clients: {errors[:3]}")
+    res = window_stats(recs, t, t_end, busy)
+    nq = res["queries"]
+    c1 = cluster_counters(nodes)
+    made = {k: tk.LAUNCHES[k] - l0[k] for k in tk.LAUNCHES}
+    p1 = [plane_costs(nd) for nd in nodes if nd.flightrec is not None]
+    spent = sum(b[k] - a[k] for a, b in zip(p0, p1)
+                for k in ("flightrec_s", "history_s", "blackbox_s"))
+    ticks = sum(b["flightrec_ticks"] - a["flightrec_ticks"] for a, b in zip(p0, p1))
+    rec_s = sum(b["flightrec_s"] - a["flightrec_s"] for a, b in zip(p0, p1))
+    res.update(
+        clients=OBS_CLIENTS,
+        launches_per_query={k: v / nq for k, v in made.items() if v},
+        launched=sorted(k for k, v in made.items() if v),
+        mesh_dispatches=sum(b[1] - a[1] for a, b in zip(c0, c1)),
+        http_subrequests_per_query=sum(b[0] - a[0] for a, b in zip(c0[1:], c1[1:])) / nq,
+        mesh_fallbacks=sum(b[2] for b in c1),
+        planes_s_per_s=spent / (t_end - t),
+        flightrec_ticks_per_s=ticks / (t_end - t),
+        flightrec_ms_per_tick=rec_s * 1e3 / ticks if ticks else None,
+    )
+    log(f"cluster: {tag}: {nq} queries in {res['seconds']:.1f} s, {res['qps']:.1f} "
+        f"queries/s, p50 {res['p50_ms']:.2f} ms, p99 {res['p99_ms']:.2f} ms, idle share "
+        f"{res['idle_share']}; launches a query {json.dumps(res['launches_per_query'])}; "
+        f"mesh dispatches {res['mesh_dispatches']}, HTTP sub-requests a query "
+        f"{res['http_subrequests_per_query']:.3f}, mesh_fallbacks {res['mesh_fallbacks']}; "
+        f"the planes {res['planes_s_per_s']:.4f} s a second over the three nodes "
+        f"({res['flightrec_ticks_per_s']:.1f} flight-recorder ticks a second, "
+        f"{res['flightrec_ms_per_tick']} ms a tick); every answer equal to its serial one")
+    if res["mesh_fallbacks"]:
+        raise AssertionError(f"cluster: {tag}: mesh_fallbacks {res['mesh_fallbacks']}")
+    return res
+
+
+def set_mesh(nodes, on):
+    """The mesh route on or off on every node (a node's distributed
+    executor as ``mesh_dispatch`` leaves it)."""
+    for nd in nodes:
+        if nd.api.dist is not None and not nd._stopped:
+            nd.api.dist.mesh_enabled = on
+
+
+def cluster_path(pool, device, hand):
+    """Three nodes of the port in one process on the card
+    (``cluster/``, ``parallel/meshplace.py``, ``server/node.py`` with
+    ``replica_n=2``, every plane at JAX's defaults, each on a data
+    directory of its own):
+
+    1. boot and ``join_static``; the served index's schema (f and g of 64
+       rows, h, v and w of depth 20, the existence field) created through
+       node 0 and broadcast; each of the 160 shards (2^20 columns) loaded
+       on its two owners by the port's placement through their imports (f,
+       h and v as the storage path's directory holds them after the earlier
+       paths, g and w drawn anew from the seed; g left out, and the cut
+       listed, only where host memory is short), every node then knowing
+       all 160 shards of every field; the load's stages timed;
+    2. routing: one JSON import of a small field on 8 shards through node
+       0 over HTTP, routed in binary to the owners, read back word for
+       word from both replicas of every shard;
+    3. the 26-query read mix (the serving path's, less its keyed read, plus
+       GroupBy f x h and a GroupBy of f's first 8 rows with themselves, the
+       gram's read on the HTTP route's per-call legs) from 16 keep-alive
+       clients against node 0 with every result cache emptied, on the mesh
+       route (one launch over a holder facade) and on the HTTP fan-out
+       (``mesh_dispatch`` off on every node), with g's and w's reads: every
+       answer against numpy; on the mesh route, the three nodes' planes
+       running and stopped in alternating pairs of windows under one load;
+    4. writes: a Set through node 1 read through node 0 on both routes and
+       found on both replicas (then cleared through node 2); a keyed field
+       written through a node that is not the translation primary and read
+       through a third; TopN exactness where the true top row is second on
+       every node's shard (the mesh route) and where it is second on one
+       node only (both routes);
+    5. failover: node 2 stopped; every read of the mix exact through its
+       replicas under 16 clients (p99), node 2's breaker open in node 0's
+       /debug/vars and in a flight-recorder segment, ``?cluster=true`` on
+       /debug/events listing the three nodes' events before the stop and
+       node 2 unreachable after."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from pilosa_tpu_torch.ops import kernels as tk
+    from pilosa_tpu_torch.shardwidth import SHARD_WIDTH
+
+    on_card = torch.device(device).type == "cuda"
+    t_path = time.perf_counter()
+    out = {}
+    reads, items, want_of = hand["reads"], hand["items"], dict(hand["want_of"])
+    mix = [m for m in read_mix(reads, items) if m[2] == "i"]
+    mix += [("GroupBy f x h", "GroupBy(Rows(f), Rows(h))", "i"),
+            (f"GroupBy f x f ({CLUSTER_FF_ROWS} rows)",
+             f"GroupBy(Rows(f, limit={CLUSTER_FF_ROWS}), Rows(f, limit={CLUSTER_FF_ROWS}))",
+             "i")]
+    f_np, h_np = hand["f"], hand["h"]
+
+    # -- host memory: replica 2 keeps two host mirrors of every field, beside
+    # the sources; where that is short, g goes first
+    bsi_bytes = S_FULL * (2 + BSI_DEPTH) * W_FULL * 4
+    need = (CLUSTER_REPLICAS + 1) * (2 * f_np.nbytes + h_np.nbytes + 2 * bsi_bytes)
+    need += CLUSTER_HOST_MARGIN
+    avail = mem_available()
+    keep_g = avail >= need
+    if not keep_g:
+        need -= (CLUSTER_REPLICAS + 1) * f_np.nbytes
+        if avail < need:
+            raise AssertionError("cluster: too little host memory for two mirrors of f, h, "
+                                 "v and w")
+    out["reduced"] = [] if keep_g else ["g left out: host memory"]
+    out["host_bytes_needed"], out["host_bytes_available"] = need, avail
+    log(f"cluster: {avail / 1e9:.1f} GB of host memory available, {need / 1e9:.1f} GB "
+        f"reckoned for {CLUSTER_REPLICAS} mirrors of the served index's fields and their "
+        f"sources; {'every field kept' if keep_g else 'g left out'}")
+
+    def grams_of(s):
+        under = np.stack([np.bitwise_count(f_np[s] & h_np[s, q]).sum(axis=1, dtype=np.int64)
+                          for q in range(H_ROWS)])
+        ff = np.stack([np.bitwise_count(f_np[s, :CLUSTER_FF_ROWS] & f_np[s, r]).sum(
+            axis=1, dtype=np.int64) for r in range(CLUSTER_FF_ROWS)])
+        return under, ff
+
+    t0 = time.perf_counter()
+    src_job = pool.submit(cluster_sources, hand, pool, keep_g)
+    parts = by_shard(pool, grams_of)
+    under, ff = sum(p[0] for p in parts), sum(p[1] for p in parts)
+    want_of["GroupBy f x h"] = [("group", (r, q), int(under[q, r]))
+                                for r in range(f_np.shape[1]) for q in range(H_ROWS)
+                                if under[q, r]]
+    want_of[mix[-1][0]] = [("group", (a, b), int(ff[a, b]))
+                           for a in range(CLUSTER_FF_ROWS) for b in range(CLUSTER_FF_ROWS)
+                           if ff[a, b]]
+    src, extra_truth = src_job.result()
+    out["sources_s"] = time.perf_counter() - t0
+
+    root = HERE / "build"
+    root.mkdir(exist_ok=True)
+    t0 = time.perf_counter()
+    nodes = cluster_nodes(device, CLUSTER_NODES, root)
+    out["boot_s"] = time.perf_counter() - t0
+    try:
+        n0, n1, n2 = nodes
+        for nd in nodes:
+            d, c, fr = nd.api.dist, nd.client, nd.flightrec
+            if not (nd.cluster.replica_n == 2 and d is not None and d.mesh_enabled
+                    and c.timeout == 30.0 and c.retry_budget == 2
+                    and c.breaker_threshold == 5 and c.breaker_cooldown == 2.0
+                    and fr is not None and fr.sample_interval == 0.025
+                    and nd.history is not None and nd.blackbox is not None
+                    and nd.api.batcher is not None and nd.api.qos is not None
+                    and type(nd.api.executor.translator).__name__ == "PrimaryTranslateStore"):
+                raise AssertionError("cluster: a node is not at JAX's defaults")
+        clis = [HttpClient(nd.server.port) for nd in nodes]
+
+        # -- 1. schema through node 0, broadcast; the load
+        # every result cache emptied before the first query, so the mesh
+        # route's facade executors are made with none (they take the local
+        # executor's setting)
+        for nd in nodes:
+            nd.api.executor.rescache.max_entries = 0
+            nd.api.executor.rescache.clear()
+        api0 = n0.api
+        api0.create_index("i")
+        for name in ("f", "g", "h") if keep_g else ("f", "h"):
+            api0.create_field("i", name)
+        for name, (lo, hi) in BSI_FIELDS.items():
+            api0.create_field("i", name, {"type": "int", "min": lo, "max": hi})
+        if len({json.dumps(nd.api.schema(), sort_keys=True) for nd in nodes}) != 1:
+            raise AssertionError("cluster: the schema broadcast left the nodes apart")
+        load_s, load_bytes, stages = cluster_load(pool, nodes, src)
+        del src
+        gc.collect()
+        amap = [nd.api.available_shards_map()["i"] for nd in nodes]
+        for m in amap:
+            for field in m:
+                if m[field] != list(range(S_FULL)):
+                    raise AssertionError(f"cluster: a node knows {len(m[field])} shards of "
+                                         f"{field}")
+        held = [sum(len(v.fragments) for v in nd.holder.field("i", "f").views.values())
+                for nd in nodes]
+        out["load"] = {"seconds": load_s, "bytes": load_bytes, "f_fragments_per_node": held,
+                       "mb_per_s": load_bytes / load_s / 1e6, "stages": stages}
+        log(f"cluster: {CLUSTER_NODES} nodes booted in {out['boot_s']:.2f} s; sources "
+            f"{out['sources_s']:.1f} s; {load_bytes / 1e9:.2f} GB of roaring payloads to "
+            f"the owners in {load_s:.1f} s ({out['load']['mb_per_s']:.1f} MB/s); f's "
+            f"fragments a node {held}; every node knows all {S_FULL} shards of every field; "
+            f"the load's stages in thread-seconds (summed over the threads that ran them; "
+            f"apply holds the op log): {json.dumps(stages)}")
+
+        # -- 2. routing: one JSON import through node 0, routed to the owners
+        rrng = np.random.default_rng(SEED + 61)
+        api0.create_field("i", "r")
+        n_bits = 40_000
+        r_rows = rrng.integers(0, CLUSTER_R_ROWS, n_bits).astype(np.uint64)
+        r_cols = (rrng.integers(0, CLUSTER_R_SHARDS, n_bits) * SHARD_WIDTH
+                  + rrng.integers(0, SHARD_WIDTH, n_bits)).astype(np.uint64)
+        code, body = clis[0].post("/index/i/field/r/import", {
+            "rowIDs": r_rows.tolist(), "columnIDs": r_cols.tolist()})
+        if code != 200:
+            raise AssertionError(f"cluster: the routed import: {code} {body[:200]!r}")
+        for s in range(CLUSTER_R_SHARDS):
+            m = (r_cols // SHARD_WIDTH) == s
+            want = np.zeros((CLUSTER_R_ROWS, W_FULL), dtype=np.uint32)
+            offs = (r_cols[m] % SHARD_WIDTH).astype(np.int64)
+            np.bitwise_or.at(want, (r_rows[m].astype(np.int64), offs // 32),
+                             (np.uint32(1) << (offs % 32).astype(np.uint32)))
+            owners = {o.id for o in n0.cluster.shard_nodes("i", s)}
+            for nd in nodes:
+                frag = nd.holder.fragment("i", "r", "standard", s)
+                if nd.node_id in owners:
+                    got = np.stack([frag.row_words_host(r) for r in range(CLUSTER_R_ROWS)])
+                    if not np.array_equal(got, want):
+                        raise AssertionError(f"cluster: shard {s} of r differs on an owner")
+                elif frag is not None and frag.row_ids():
+                    raise AssertionError(f"cluster: shard {s} of r on a node that does not "
+                                         f"own it")
+        r_truth = int(np.bitwise_count(np.unique(r_cols[r_rows == 3])).size)
+        if clis[0].query("i", "Count(Row(r=3))") != [r_truth]:
+            raise AssertionError("cluster: Count(Row(r=3)) after the routed import")
+        api0.delete_field("i", "r")
+        log(f"cluster: a JSON import of {n_bits} bits on {CLUSTER_R_SHARDS} shards through "
+            f"node 0, routed to the owners, equals numpy word for word on both replicas of "
+            f"every shard")
+
+        def check(name, got):
+            norm = norm_json(got[0]) if not name.startswith("pair ") else got[0]
+            if norm != want_of[name]:
+                raise AssertionError(f"cluster: {name}: {str(norm)[:200]} != "
+                                     f"{str(want_of[name])[:200]}")
+
+        def serial_of(cli):
+            serial = {}
+            for n, q, index in mix:
+                got = cli.query(index, q)
+                check(n, got)
+                serial[n] = got
+            return serial
+
+        def check_extra(tag):
+            """g's and w's reads (the fields the mix does not touch)."""
+            for q, want in extra_truth.items():
+                got = clis[0].query("i", q)[0]
+                if norm_json(got) != want:
+                    raise AssertionError(f"cluster: {tag}: {q}: {got} != {want}")
+
+        # -- 3. the mesh route, then the HTTP fan-out
+        routes = {}
+        for route in ("mesh", "http"):
+            set_mesh(nodes, route == "mesh")
+            for d in (nd.api.dist for nd in nodes):
+                for fex in list(d._mesh_cache.values()):
+                    fex.rescache.clear()
+            l0 = dict(tk.LAUNCHES)
+            serial = serial_of(clis[0])
+            check_extra(f"{route} route")
+            routes[route] = cluster_load_window(nodes, mix, serial, CLUSTER_SECONDS, device,
+                                                f"{route} route")
+            routes[route]["serial"] = serial
+            # the route's launches over its serial pass and its load: the
+            # stacks' gram, row-count and aggregate caches answer repeats
+            routes[route]["launched_in_route"] = sorted(
+                k for k in tk.LAUNCHES if tk.LAUNCHES[k] > l0[k])
+            if route == "mesh":
+                # what the planes (three flight recorders, histories and
+                # black boxes) take from the route: running and stopped in
+                # alternating pairs of windows under one load
+                routes["mesh_planes_ab"] = planes_ab(
+                    nodes, mix, serial, device, "cluster: mesh route", CLUSTER_AB_PAIRS,
+                    CLUSTER_AB_WINDOW, alternate=True)
+        if routes["mesh"]["mesh_dispatches"] <= 0 or routes["mesh"][
+                "http_subrequests_per_query"] != 0:
+            raise AssertionError("cluster: the mesh route took HTTP legs")
+        if routes["http"]["mesh_dispatches"] != 0:
+            raise AssertionError("cluster: the HTTP route dispatched on the mesh")
+        if on_card:
+            for k in OBS_KERNELS + ("cross_gram",):
+                if k not in routes["mesh"]["launched_in_route"]:
+                    raise AssertionError(f"cluster: the mesh route launched no {k}")
+            if not routes["mesh"]["launches_per_query"]:
+                raise AssertionError("cluster: the mesh route's load launched no kernel")
+            for k in ("masked_row_scan", "gram", "tree_count"):
+                if k not in routes["http"]["launched_in_route"]:
+                    raise AssertionError(f"cluster: the HTTP route launched no {k}")
+        log(f"cluster: kernels launched on the mesh route "
+            f"{routes['mesh']['launched_in_route']}, on the HTTP route's per-call legs "
+            f"{routes['http']['launched_in_route']}")
+        out["mesh"] = {k: v for k, v in routes["mesh"].items() if k != "serial"}
+        out["http"] = {k: v for k, v in routes["http"].items() if k != "serial"}
+        ab = routes["mesh_planes_ab"]
+        out["mesh_planes_ab"] = {k: v for k, v in ab.items() if k not in ("t0", "t1")}
+        # a sub-request's cost: the capacity the HTTP route loses a query
+        # against the mesh route, over its sub-requests a query
+        out["http_ms_per_subrequest"] = (
+            (1 / out["http"]["qps"] - 1 / out["mesh"]["qps"]) * 1e3
+            / out["http"]["http_subrequests_per_query"])
+        log(f"cluster: the HTTP route's cost: {out['http_ms_per_subrequest']:.2f} ms of the "
+            f"node's serving time a sub-request")
+        serial = routes["mesh"]["serial"]
+
+        # -- 4. writes: a Set through node 1, read through node 0 on both routes
+        f_rows = f_np.shape[1]
+        row = f_rows - 1
+        s_w = 7
+        col = int(np.flatnonzero(~np.unpackbits(f_np[s_w, row].view(np.uint8),
+                                                bitorder="little").astype(bool))[0])
+        before = clis[0].query("i", f"Count(Row(f={row}))")[0]
+        if clis[1].query("i", f"Set({s_w * SHARD_WIDTH + col}, f={row})") != [True]:
+            raise AssertionError("cluster: the Set through node 1")
+        owners = {o.id for o in n0.cluster.shard_nodes("i", s_w)}
+        for nd in nodes:
+            frag = nd.holder.fragment("i", "f", "standard", s_w)
+            if (nd.node_id in owners) != bool(frag is not None and frag.get_bit(row, col)):
+                raise AssertionError("cluster: the Set is not on exactly the two replicas")
+        for route in ("mesh", "http"):
+            set_mesh(nodes, route == "mesh")
+            if clis[0].query("i", f"Count(Row(f={row}))") != [before + 1]:
+                raise AssertionError(f"cluster: the Set read through node 0 on the {route} "
+                                     f"route")
+        if clis[2].query("i", f"Clear({s_w * SHARD_WIDTH + col}, f={row})") != [True]:
+            raise AssertionError("cluster: the Clear through node 2")
+        set_mesh(nodes, True)
+        if clis[0].query("i", f"Count(Row(f={row}))") != [before]:
+            raise AssertionError("cluster: the Clear read through node 0")
+        log(f"cluster: a Set through node 1 read through node 0 on both routes and found on "
+            f"both replicas; cleared through node 2")
+
+        # a keyed field written through a node that is not the primary
+        primary = n0.cluster.translate_primary().id
+        writer = next(k for k, nd in enumerate(nodes) if nd.node_id != primary)
+        reader = next(k for k, nd in enumerate(nodes)
+                      if nd.node_id != primary and k != writer)
+        api0.create_index("kk", {"keys": True})
+        api0.create_field("kk", "kf", {"keys": True})
+        keyed_writes = [(f"user{k}", ("red", "blue", "green")[k % 3]) for k in range(30)]
+        body = " ".join(f'Set("{c}", kf="{r}")' for c, r in keyed_writes)
+        clis[writer].query("kk", body)
+        for color in ("red", "blue", "green"):
+            want = sorted(c for c, r in keyed_writes if r == color)
+            got = clis[reader].query("kk", f'Row(kf="{color}")')[0]
+            if sorted(got["keys"]) != want:
+                raise AssertionError(f"cluster: keyed Row({color}) through a third node")
+        ids = {json.dumps(nd.api.translate_keys("kk", "kf", ["red", "blue", "green"]))
+               for nd in nodes}
+        if len(ids) != 1:
+            raise AssertionError("cluster: the nodes map the keys to other ids")
+        log(f"cluster: keys written through node {writer} (not the primary) read through "
+            f"node {reader}; every node maps them alike")
+
+        # TopN exactness: the true top row second on every node's shard (one
+        # launch over the facade), and second on one node only (both routes)
+        api0.create_field("i", "tn")
+        by_primary = {}
+        for s in range(S_FULL):
+            by_primary.setdefault(n0.cluster.primary_shard_node("i", s).id, s)
+        trio = sorted(by_primary.values())[:3]
+        bits = []
+        for k, s in enumerate(trio):
+            base = s * SHARD_WIDTH
+            bits += [(1 + k, base + c) for c in range(4)]
+            bits += [(9, base + 100 + c) for c in range(3)]
+        n0.api.import_bits("i", "tn", {"rowIDs": [r for r, _ in bits],
+                                       "columnIDs": [c for _, c in bits]})
+        set_mesh(nodes, True)
+        got = clis[0].query("i", "TopN(tn, n=1)")[0]
+        if got != [{"id": 9, "count": 9}]:
+            raise AssertionError(f"cluster: TopN(tn, n=1) on the mesh route: {got}")
+        api0.create_field("i", "tm")
+        a, b = trio[0], trio[1]
+        bits = [(1, a * SHARD_WIDTH + c) for c in range(4)]
+        bits += [(9, a * SHARD_WIDTH + 100 + c) for c in range(3)]
+        bits += [(9, b * SHARD_WIDTH + c) for c in range(3)] + [(2, b * SHARD_WIDTH + 100)]
+        n0.api.import_bits("i", "tm", {"rowIDs": [r for r, _ in bits],
+                                       "columnIDs": [c for _, c in bits]})
+        for route in ("mesh", "http"):
+            set_mesh(nodes, route == "mesh")
+            got = clis[0].query("i", "TopN(tm, n=1) TopN(tm, n=2)")
+            if got != [[{"id": 9, "count": 6}], [{"id": 9, "count": 6}, {"id": 1, "count": 4}]]:
+                raise AssertionError(f"cluster: TopN(tm) on the {route} route: {got}")
+        set_mesh(nodes, True)
+        for name in ("tn", "tm"):
+            api0.delete_field("i", name)
+        log("cluster: TopN exact where the top row is second on every node's shard (mesh "
+            "route) and where it is second on one node (both routes)")
+
+        # -- 5. failover: the merged events first, then node 2 stopped
+        merged = json.loads(clis[0].get("/debug/events?cluster=true")[1])
+        seen = {e["node"] for e in merged["events"]}
+        if seen != {nd.node_id for nd in nodes} or merged["nodes"] != CLUSTER_NODES:
+            raise AssertionError(f"cluster: ?cluster=true lists events of {len(seen)} nodes")
+        n2_netloc = n2.uri.split("//", 1)[1]
+        n2.stop()
+        t0 = time.perf_counter()
+        serial_of(clis[0])  # every read exact through the replicas
+        fail = cluster_load_window(nodes, mix, serial, CLUSTER_FAILOVER_SECONDS, device,
+                                   "failover (node 2 stopped)")
+        fail["first_pass_s"] = time.perf_counter() - t0
+        dv = json.loads(clis[0].get("/debug/vars")[1])
+        if dv["dist"]["breakers"].get(n2_netloc) not in ("open", "half-open"):
+            raise AssertionError(f"cluster: node 2's breaker in /debug/vars: "
+                                 f"{dv['dist']['breakers']}")
+        # a segment that closed after the breaker opened carries its state
+        t_seg = time.perf_counter()
+        segs = []
+        while time.perf_counter() - t_seg < 5.0:
+            segs = [s for s in n0.flightrec.segments_snapshot()
+                    if s.get("breakers", {}).get(n2_netloc) == "open"]
+            if segs:
+                break
+            time.sleep(0.1)
+        if not segs:
+            raise AssertionError("cluster: no flight-recorder segment shows node 2's "
+                                 "breaker open")
+        merged = json.loads(clis[0].get("/debug/events?cluster=true")[1])
+        if [u["node"] for u in merged["unreachable"]] != [n2.node_id]:
+            raise AssertionError(f"cluster: unreachable after the stop: "
+                                 f"{merged['unreachable']}")
+        fail["breaker"] = dv["dist"]["breakers"][n2_netloc]
+        out["failover"] = fail
+        log(f"cluster: node 2 stopped: every read exact through its replicas; its breaker "
+            f"{fail['breaker']} in node 0's /debug/vars and open in {len(segs)} "
+            f"flight-recorder segments; ?cluster=true lists it unreachable")
+        for cli in clis:
+            cli.close()
+    finally:
+        for nd in nodes:
+            nd.stop()
+    del nodes
+    gc.collect()
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+    out["launches"] = {k: v for k, v in tk.LAUNCHES.items() if v}
+    out["path_s"] = time.perf_counter() - t_path
+    log(f"cluster path: {out['path_s']:.1f} s")
+    return out
+
+
 def kernel_executor(holder, **kw):
     """An executor for the in-process paths: the result cache and the
     flight planner off, so each read reaches the kernel paths and their own
@@ -5987,7 +6685,7 @@ SOURCES = {
 
 
 def serve(kern, sass, card, t_start) -> int:
-    """The main path's ten paths on the served index, then the summary
+    """The main path's eleven paths on the served index, then the summary
     lines."""
     import gc
 
@@ -6034,15 +6732,19 @@ def serve(kern, sass, card, t_start) -> int:
             lambda: serving_path(pool, "cuda", hand, decoded["v"]))
         l_obs, e2e["obs"] = drive(
             "obs", OBS_KERNELS, lambda: obs_path(pool, "cuda", hand, decoded["v"]))
+        l_cluster, e2e["cluster"] = drive(
+            "cluster", OBS_KERNELS + ("cross_gram",),
+            lambda: cluster_path(pool, "cuda", hand))
         del decoded, hand
     name, limit = [x.strip() for x in card.split(",", 1)]
     e2e["http"].update(card=name, power_limit=limit)
     e2e["serving"].update(card=name, power_limit=limit)
     e2e["obs"].update(card=name, power_limit=limit)
+    e2e["cluster"].update(card=name, power_limit=limit)
     by_path = {k: {"pair_topn": l_pair[k], "groupby": l_group[k], "trees": l_trees[k],
                    "bsi": l_bsi[k], "budget": l_budget[k], "storage": l_storage[k],
                    "time": l_time[k], "http": l_http[k], "serving": l_serving[k],
-                   "obs": l_obs[k]}
+                   "obs": l_obs[k], "cluster": l_cluster[k]}
                for k in l_pair}
 
     entries = []

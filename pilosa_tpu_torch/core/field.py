@@ -144,6 +144,9 @@ class Field:
         self.device = device_mod.resolve(device)
         self._lock = threading.RLock()
         self.views: dict[str, View] = {}
+        # shards other nodes hold, learned from create-shard broadcasts and
+        # status exchanges (reference field.go remoteAvailableShards)
+        self.remote_available_shards: set[int] = set()
         # row attributes (reference field.go rowAttrStore)
         self.row_attrs = AttrStore()
         # creation hooks (reference field.go:795-815): called with (field,
@@ -211,10 +214,19 @@ class Field:
         return view_name_bsi(self.name)
 
     def available_shards(self) -> set[int]:
-        shards: set[int] = set()
+        """Union of the local views' shards and the shards known to exist
+        on other nodes (reference field.go remoteAvailableShards + local)."""
+        shards: set[int] = set(self.remote_available_shards)
         for v in self.views.values():
             shards |= v.available_shards()
         return shards
+
+    def add_remote_available_shards(self, shards) -> None:
+        """Merge shards learned from a create-shard broadcast or a node
+        status exchange (reference field.go:331-345
+        AddRemoteAvailableShards)."""
+        with self._lock:
+            self.remote_available_shards |= {int(s) for s in shards}
 
     # -- set/time/mutex/bool writes (reference field.go:886-968) -----------
 

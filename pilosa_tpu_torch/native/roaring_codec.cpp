@@ -767,6 +767,66 @@ uint32_t rt_fnv32a(const uint8_t* data, size_t len, uint32_t h) {
   return fnv32a(h, data, len);
 }
 
+size_t rt_encode_batch_ops(uint8_t op_type, const uint64_t* pos, size_t n, size_t chunk,
+                           uint8_t* out) {
+  // The op records of `pos` in chunks of `chunk` positions, back to back in
+  // `out` (13 bytes of head and checksum a record plus 8 a position); the
+  // bytes encode_op writes chunk by chunk. FNV-1a is serial within a
+  // record, so the checksums of 8 equal-length records run interleaved:
+  // one multiply's latency hides the others'.
+  if (chunk == 0) return 0;
+  const size_t n_rec = (n + chunk - 1) / chunk;
+  const size_t stride = 13 + 8 * chunk;
+  for (size_t r = 0; r < n_rec; r++) {
+    uint8_t* rec = out + r * stride;
+    const size_t len = std::min(chunk, n - r * chunk);
+    rec[0] = op_type;
+    for (int b = 0; b < 8; b++) rec[1 + b] = uint8_t(uint64_t(len) >> (8 * b));
+    const uint64_t* src = pos + r * chunk;
+    uint8_t* dst = rec + 13;
+    for (size_t i = 0; i < len; i++)
+      for (int b = 0; b < 8; b++) dst[8 * i + b] = uint8_t(src[i] >> (8 * b));
+  }
+  auto put = [&](size_t r, uint32_t h) {
+    for (int b = 0; b < 4; b++) out[r * stride + 9 + b] = uint8_t(h >> (8 * b));
+  };
+  const size_t full = n / chunk;  // records of exactly `chunk` positions
+  const size_t bytes = 8 * chunk;
+  size_t r = 0;
+  for (; r + 8 <= full; r += 8) {
+    const uint8_t* __restrict p0 = out + (r + 0) * stride;
+    const uint8_t* __restrict p1 = out + (r + 1) * stride;
+    const uint8_t* __restrict p2 = out + (r + 2) * stride;
+    const uint8_t* __restrict p3 = out + (r + 3) * stride;
+    const uint8_t* __restrict p4 = out + (r + 4) * stride;
+    const uint8_t* __restrict p5 = out + (r + 5) * stride;
+    const uint8_t* __restrict p6 = out + (r + 6) * stride;
+    const uint8_t* __restrict p7 = out + (r + 7) * stride;
+    uint32_t h0 = fnv32a(kFnvOffset, p0, 9), h1 = fnv32a(kFnvOffset, p1, 9);
+    uint32_t h2 = fnv32a(kFnvOffset, p2, 9), h3 = fnv32a(kFnvOffset, p3, 9);
+    uint32_t h4 = fnv32a(kFnvOffset, p4, 9), h5 = fnv32a(kFnvOffset, p5, 9);
+    uint32_t h6 = fnv32a(kFnvOffset, p6, 9), h7 = fnv32a(kFnvOffset, p7, 9);
+    for (size_t i = 13; i < 13 + bytes; i++) {
+      h0 = (h0 ^ p0[i]) * 0x01000193u;
+      h1 = (h1 ^ p1[i]) * 0x01000193u;
+      h2 = (h2 ^ p2[i]) * 0x01000193u;
+      h3 = (h3 ^ p3[i]) * 0x01000193u;
+      h4 = (h4 ^ p4[i]) * 0x01000193u;
+      h5 = (h5 ^ p5[i]) * 0x01000193u;
+      h6 = (h6 ^ p6[i]) * 0x01000193u;
+      h7 = (h7 ^ p7[i]) * 0x01000193u;
+    }
+    put(r + 0, h0); put(r + 1, h1); put(r + 2, h2); put(r + 3, h3);
+    put(r + 4, h4); put(r + 5, h5); put(r + 6, h6); put(r + 7, h7);
+  }
+  for (; r < n_rec; r++) {
+    const uint8_t* rec = out + r * stride;
+    const size_t len = std::min(chunk, n - r * chunk);
+    put(r, fnv32a(fnv32a(kFnvOffset, rec, 9), rec + 13, 8 * len));
+  }
+  return n_rec * 13 + 8 * n;
+}
+
 uint64_t rt_popcount(const uint8_t* data, size_t len) {
   uint64_t total = 0;
   size_t i = 0;

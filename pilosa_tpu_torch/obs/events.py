@@ -138,3 +138,11 @@ class EventJournal:
                 "dropped": self.dropped,
             }
 
+
+def merge_timelines(per_node: list[list[dict]]) -> list[dict]:
+    """Merge several nodes' event lists into one timeline ordered by
+    wall-clock time (ties broken by node id then per-node seq, so the
+    merge is deterministic under clock skew)."""
+    merged = [e for events in per_node for e in events]
+    merged.sort(key=lambda e: (e.get("ts", 0.0), e.get("node", ""), e.get("seq", 0)))
+    return merged

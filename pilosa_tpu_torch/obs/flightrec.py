@@ -5,11 +5,11 @@ Google-Wide-Profiling shape: a background thread continuously samples
 every thread's stack at a low rate and rolls the collapse into ~1 s
 *segments*, each also carrying the serving plane's congestion signals
 (batcher depth peak, kernel launch deltas, device-ledger deltas, ingest
-occupancy, deadline-504 delta). One node has no peers, so the JAX
-segment's per-peer circuit-breaker states have no counterpart here.
-The segment ring is small and bounded — the point is not history, it is
-that when something goes wrong the *preceding* seconds are already
-captured. No read of a segment waits for the card: the launch count is
+occupancy, deadline-504 delta, and the internal client's per-peer
+circuit-breaker states, so a breaker's flap lines up with the latency
+of its segment). The segment ring is small and bounded — the point is
+not history, it is that when something goes wrong the *preceding*
+seconds are already captured. No read of a segment waits for the card: the launch count is
 the funnel's counter and the ledger's delta its non-waiting
 :func:`devledger.counters`.
 
@@ -47,6 +47,7 @@ class FlightRecorder:
         self,
         holder,
         api=None,
+        client=None,
         segment_seconds: float = 1.0,
         sample_interval: float = 0.025,
         segments: int = 60,
@@ -57,6 +58,9 @@ class FlightRecorder:
     ):
         self.holder = holder
         self.api = api
+        # the internal client (cluster/client.py), whose breaker states
+        # each segment carries
+        self.client = client
         self.segment_seconds = max(0.05, float(segment_seconds))
         self.sample_interval = max(0.001, float(sample_interval))
         self.max_segments = max(1, int(segments))
@@ -181,6 +185,11 @@ class FlightRecorder:
             self._last_devcosts = cur
         except Exception:  # ledger deltas are advisory segment context
             pass
+        client = self.client
+        if client is not None and hasattr(client, "breaker_states"):
+            breakers = client.breaker_states()
+            if breakers:
+                seg["breakers"] = breakers
         stats = self.holder.stats
         if hasattr(stats, "get_counter"):
             total_504 = stats.get_counter("http_deadline_exceeded")

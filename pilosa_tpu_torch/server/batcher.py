@@ -47,7 +47,11 @@ grafted as a sub-profile (kernel records of the batched launches, and the
 planner's per-flight ``planner.flight`` note).
 
 Write-bearing queries never enter the plane (strict in-order semantics
-stay on the per-request path).
+stay on the per-request path). On a node with peers the plane fronts the
+distributed executor (``cluster/dist.py``): queries whose shard owners all
+live in this process (``mesh_complete``) are admitted, and a flight of
+them runs as one facade call through ``DistributedExecutor.execute_batch``;
+fan-outs with an owner outside the process keep the direct path.
 
 Admission is COST-GOVERNED, not FIFO (server/qos.py): each tenant has
 a virtual-time weighted-fair queue whose debt is debited by the
@@ -162,6 +166,15 @@ class QueryBatcher:
         )
         self._thread.start()
 
+    @property
+    def prefetching(self) -> bool:
+        """The prefetcher warms the local executor's stacks. A node with
+        peers runs its flights on the mesh route's facade executor, and
+        over an index whose shards include the peers' the local executor
+        would stack shards the node does not hold, so it does not prefetch
+        while the executor it fronts has peers."""
+        return self.prefetcher is not None and getattr(self.executor, "single", True)
+
     # -- admission (handler threads) ----------------------------------------
 
     def accepts(self, query) -> bool:
@@ -238,7 +251,7 @@ class QueryBatcher:
                 if self.stats is not None:
                     self.stats.count("batcher_rescache_demux", 1, 1.0)
                 return cached
-        if self.prefetcher is not None:
+        if self.prefetching:
             try:
                 # stage this query's cold fragments NOW (handler thread,
                 # profile context live -> residency.prefetch span): the
@@ -291,7 +304,7 @@ class QueryBatcher:
                 break
             batch, reason = self._collect(first)
             stopping = reason == "drain"
-            if self.prefetcher is not None:
+            if self.prefetching:
                 try:
                     # window close: the flight's full shard set is known;
                     # re-stage anything whose submit-time prefetch was
@@ -430,7 +443,11 @@ class QueryBatcher:
             # cache probe, before the batched passes); snapshotting the
             # planner's monotonic counters around the dispatch turns
             # them into per-flight deltas on the shared profile
-            pl = getattr(self.executor, "planner", None)
+            # the planner lives on the local Executor either way (a node
+            # with peers hands the batcher its distributed executor)
+            pl = getattr(self.executor, "planner", None) or getattr(
+                getattr(self.executor, "local", None), "planner", None
+            )
             before = (
                 (pl.cse_hits, pl.cse_shared, pl.reorders, pl.lane_overrides)
                 if pl is not None

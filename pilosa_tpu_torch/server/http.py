@@ -1,7 +1,7 @@
 """HTTP transport of one node (counterpart of ``pilosa_tpu/server/http.py``;
 reference: http/handler.go).
 
-Route surface (reference handler.go:276-314, the one-node part):
+Route surface (reference handler.go:276-314):
 
     GET  /  /version  /status  /info  /schema      POST /schema
     GET  /metrics  /debug  /debug/vars  /debug/history  /debug/slo
@@ -10,19 +10,28 @@ Route surface (reference handler.go:276-314, the one-node part):
          /debug/postmortem  /debug/devcosts  /debug/jobs  /debug/fragments
          /internal/diagnostics
     POST /index/{index}                  create index (GET, DELETE)
-    POST /index/{index}/query            PQL body -> {"results": [...]}
+    POST /index/{index}/query            PQL body -> {"results": [...]};
+         a JSON envelope {"query", "shards", "remote", "profile"}, and
+         with "remote" (a peer's fan-out leg) -> {"wireResults": [...]}
     POST /index/{index}/field/{field}    create field (GET, DELETE)
-    POST /index/{index}/field/{field}/import                  JSON batch
+    POST /index/{index}/field/{field}/import    JSON batch, or the binary
+         PTI1 body a peer forwards (cluster/wire.py)
     POST /index/{index}/field/{field}/import-roaring/{shard}  binary roaring
+         (?remote=true: apply here, do not route to the replicas)
     GET  /export?index=&field=[&shard=]  CSV
-    GET  /internal/shards/max  /internal/fragment/data
-    POST /internal/translate/keys  /internal/translate/ids  /recalculate-caches
+    GET  /internal/shards/max  /internal/fragment/data  /internal/nodes
+         /internal/translate/log
+    POST /internal/translate/keys  /internal/translate/ids
+         /internal/translate/restore  /internal/cluster/message
+         /recalculate-caches
 
-Every other path answers 404, as a JAX node does for a plane it lacks:
-the cluster's (/internal/cluster/message, /cluster/resize/*,
-/internal/migrate/*, block and attribute sync). One node has no peers,
-so ``?cluster=true`` on the debug routes serves this node's own answer.
-A query shed by the QoS governor answers 429 with Retry-After.
+``?cluster=true`` on /debug/events, /debug/traces, /debug/history and
+/debug/postmortem merges every peer's answer. Every other path answers
+404, as a JAX node does for a plane it lacks: the planes of a later
+slice (/cluster/resize/*, /internal/migrate/*, /internal/resize/fetch,
+/internal/fragment/blocks and /block/data, /internal/fragments,
+/internal/attr/*). A query shed by the QoS governor answers 429 with
+Retry-After.
 
 JSON replaces the reference's protobuf codec as the wire format; the
 roaring import payload is binary-compatible with reference clients.
@@ -41,6 +50,7 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from urllib.parse import parse_qs, urlparse
 
 from pilosa_tpu_torch import __version__, deadline
+from pilosa_tpu_torch.cluster import wire
 from pilosa_tpu_torch.core import membudget, residency, translate
 from pilosa_tpu_torch.deadline import DeadlineExceeded
 from pilosa_tpu_torch.obs import devledger, slo, sysinfo, tracestore, tracing
@@ -68,16 +78,19 @@ _DEBUG_ENDPOINTS: list[tuple[str, str]] = [
     ("/debug/vars",
      "expvar-style dump: counters, histograms, kernels, device budget"),
     ("/debug/history",
-     "ring-buffer metrics history (?series=glob&since=&step=&limit=)"),
+     "ring-buffer metrics history (?series=glob&since=&step=&cluster=true)"),
     ("/debug/slo",
      "per-op-class latency quantiles, error budgets, burn-rate alerts"),
     ("/debug/qos",
      "cost-governed admission: per-tenant queues, shed/degrade ladder"),
-    ("/debug/events", "typed event journal (?since= cursor)"),
-    ("/debug/traces", "tail-sampled trace store (?id= spans)"),
+    ("/debug/events",
+     "typed cluster event journal (?since= cursor, ?cluster=true merge)"),
+    ("/debug/traces",
+     "tail-sampled trace store (?id= spans, ?cluster=true assembly)"),
     ("/debug/incidents",
      "flight-recorder bundles: alert edges, 504 spikes, trend incidents"),
-    ("/debug/postmortem", "sealed crash bundles from the black box (?id=)"),
+    ("/debug/postmortem",
+     "sealed crash bundles from the black box (?id=, ?cluster=true merge)"),
     ("/debug/devcosts",
      "device cost ledger: launches, device ms, transfers per site+tenant"),
     ("/debug/slow-queries",
@@ -129,6 +142,10 @@ _ROUTES: list[tuple[str, re.Pattern, str]] = [
     ("GET", re.compile(r"^/internal/shards/max$"), "shards_max"),
     ("POST", re.compile(r"^/internal/translate/keys$"), "translate_keys"),
     ("POST", re.compile(r"^/internal/translate/ids$"), "translate_ids"),
+    ("GET", re.compile(r"^/internal/translate/log$"), "translate_log"),
+    ("POST", re.compile(r"^/internal/translate/restore$"), "translate_restore"),
+    ("POST", re.compile(r"^/internal/cluster/message$"), "cluster_message"),
+    ("GET", re.compile(r"^/internal/nodes$"), "nodes"),
     ("POST", re.compile(r"^/recalculate-caches$"), "recalculate_caches"),
     ("GET", re.compile(r"^/internal/fragment/data$"), "fragment_data"),
 ]
@@ -201,6 +218,11 @@ class Handler(BaseHTTPRequestHandler):
             return json.loads(raw)
         except json.JSONDecodeError as e:
             raise ApiError(f"invalid json: {e}")
+
+    def _cluster_flag(self) -> bool:
+        return self.query_params.get("cluster", ["false"])[0].lower() in (
+            "1", "true", "yes",
+        )
 
     def _request_budget(self) -> float | None:
         """Deadline budget for this request, by precedence: explicit
@@ -437,6 +459,14 @@ class Handler(BaseHTTPRequestHandler):
             snap["qos"] = self.api.qos_snapshot()
         # the ingest plane: pool, staging occupancy, upload overlap
         snap["ingest"] = self.api.ingest.snapshot()
+        dist = self.api.dist
+        if dist is not None:
+            # cluster-on-mesh routing: the placement map, the mesh route's
+            # dispatches and fallbacks, recent per-call partition decisions
+            # (mesh, HTTP, local), and the peers' breaker states
+            snap["dist"] = dist.snapshot()
+            states = getattr(self.api.client, "breaker_states", None)
+            snap["dist"]["breakers"] = states() if states is not None else {}
         # process identity: pid, version, uptime (/info is the host's)
         snap["process"] = sysinfo.SystemInfo().process_block(__version__)
         blackbox = self.api.blackbox
@@ -482,6 +512,12 @@ class Handler(BaseHTTPRequestHandler):
         except ValueError:
             self._send_json(400, {"error": "bad since/step/limit"})
             return
+        if self._cluster_flag():
+            self._send_json(
+                200, self.api.cluster_history(series=series, step=step),
+                gzip_ok=True,
+            )
+            return
         snap = self.api.history_query(
             series=series, since=since, step=step, limit=limit
         )
@@ -508,7 +544,11 @@ class Handler(BaseHTTPRequestHandler):
     def r_debug_postmortem(self):
         """Sealed crash bundles from the black box (obs/blackbox.py): a
         bare GET returns the retained summaries and the newest bundle in
-        full; ?id= one bundle."""
+        full; ?id= one bundle; ?cluster=true merges every peer's
+        summaries."""
+        if self._cluster_flag():
+            self._send_json(200, self.api.cluster_postmortems(), gzip_ok=True)
+            return
         pm_id = self.query_params.get("id", [None])[0]
         snap = self.api.postmortem_snapshot(pm_id)
         if snap is None:
@@ -533,7 +573,8 @@ class Handler(BaseHTTPRequestHandler):
         self._send_json(200, diag.snapshot())
 
     def r_debug_events(self):
-        """Event journal past ?since=<seq> (gap-free cursor resume)."""
+        """Event journal past ?since=<seq> (gap-free cursor resume);
+        ?cluster=true merges every peer's journal into one timeline."""
         try:
             since = int(self.query_params.get("since", ["0"])[0])
             limit_raw = self.query_params.get("limit", [None])[0]
@@ -541,16 +582,27 @@ class Handler(BaseHTTPRequestHandler):
         except ValueError:
             self._send_json(400, {"error": "bad since/limit"})
             return
+        if self._cluster_flag():
+            self._send_json(200, self.api.cluster_events(since))
+            return
         self._send_json(200, self.api.events_since(since, limit))
 
     def r_debug_traces(self):
         """Tail-sampled trace store: kept-trace list, ?id=<32hex> span
-        detail (with &spans=true: the raw local spans, kept or recent)."""
+        detail (with &spans=true: the raw local spans, kept or recent),
+        ?cluster=true the peers' too (with an id: one trace's spans from
+        every node; without: the kept summaries merged)."""
         trace_id = self.query_params.get("id", [None])[0]
         try:
             limit = int(self.query_params.get("limit", ["100"])[0])
         except ValueError:
             self._send_json(400, {"error": "bad limit"})
+            return
+        if self._cluster_flag():
+            if trace_id:
+                self._send_json(200, self.api.cluster_trace(trace_id), gzip_ok=True)
+            else:
+                self._send_json(200, self.api.cluster_traces(limit), gzip_ok=True)
             return
         if trace_id:
             if self.query_params.get("spans", ["false"])[0].lower() in (
@@ -660,9 +712,11 @@ class Handler(BaseHTTPRequestHandler):
 
     def r_query(self, index: str):
         """Accepts either a raw PQL body or a JSON envelope
-        ``{"query": ..., "shards": [...], "profile": bool}`` (reference
+        ``{"query": ..., "shards": [...], "remote": bool, "profile":
+        bool}``, the latter the node-to-node fan-out form (reference
         QueryRequest, internal/public.proto)."""
         body = self._body()
+        remote = False
         profile = False
         shards = None
         pql = body.decode()
@@ -674,6 +728,7 @@ class Handler(BaseHTTPRequestHandler):
             if isinstance(obj, dict):
                 pql = obj.get("query", "")
                 shards = obj.get("shards")
+                remote = bool(obj.get("remote"))
                 profile = bool(obj.get("profile"))
         if "shards" in self.query_params:
             shards = [
@@ -686,7 +741,9 @@ class Handler(BaseHTTPRequestHandler):
             profile = True
         self._send_json(
             200,
-            self.api.query(index, pql, shards=shards, profile=profile),
+            self.api.query(
+                index, pql, shards=shards, remote=remote, profile=profile
+            ),
         )
 
     def r_create_index(self, index: str):
@@ -712,16 +769,26 @@ class Handler(BaseHTTPRequestHandler):
         self._send_json(200, {})
 
     def r_import_(self, index: str, field: str):
-        # JSON only: the binary node-to-node import encoding belongs to
-        # the cluster plane
-        self.api.import_bits(index, field, self._json_body())
+        if self.headers.get("Content-Type", "").startswith("application/octet-stream"):
+            body = self._body()
+            try:
+                req = wire.decode_import(body)
+            except Exception as e:
+                # malformed client input, not a server fault (the JSON
+                # path answers 400 the same way)
+                raise ApiError(f"bad binary import payload: {e}")
+        else:
+            req = self._json_body()
+        self.api.import_bits(index, field, req)
         self._send_json(200, {})
 
     def r_import_roaring(self, index: str, field: str, shard: str):
         clear = self.query_params.get("clear", ["false"])[0] == "true"
+        remote = self.query_params.get("remote", ["false"])[0] == "true"
         view = self.query_params.get("view", ["standard"])[0]
         result = self.api.import_roaring(
             index, field, int(shard), self._body(), clear=clear, view=view,
+            remote=remote,
         )
         self._send_json(200, result)
 
@@ -757,6 +824,23 @@ class Handler(BaseHTTPRequestHandler):
             body.get("index", ""), body.get("field", ""), body.get("ids", [])
         )
         self._send_json(200, {"keys": keys})
+
+    def r_translate_log(self):
+        try:
+            offset = int(self.query_params.get("offset", ["0"])[0])
+        except ValueError:
+            raise ApiError("bad offset")
+        self._send_json(200, self.api.translate_log(offset))
+
+    def r_translate_restore(self):
+        body = self._json_body()
+        self._send_json(200, self.api.translate_restore(body.get("entries", [])))
+
+    def r_cluster_message(self):
+        self._send_json(200, self.api.receive_message(self._json_body()))
+
+    def r_nodes(self):
+        self._send_json(200, self.api.hosts())
 
     def r_recalculate_caches(self):
         # reference POST /recalculate-caches; counts here are exact and
@@ -833,6 +917,11 @@ class Server:
         self.httpd.serve_forever()
 
     def close(self) -> None:
+        # a closed server answers nothing, as a stopped process: a request
+        # arriving on a kept-alive connection (a peer's pooled client) has
+        # its connection dropped, not served by a handler thread that
+        # outlives the listener
+        self.pause()
         if self._thread is not None:
             # shutdown() waits for the serving loop, so only a started
             # server is asked to

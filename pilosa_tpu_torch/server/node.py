@@ -1,6 +1,7 @@
-"""One serving node: holder, data directory, stats client, API, HTTP
-server and the observability planes (counterpart of
-``pilosa_tpu/server/node.py``; reference server.go composition root).
+"""One serving node and cluster member: holder, data directory, stats
+client, the cluster plane, API, HTTP server and the observability planes
+(counterpart of ``pilosa_tpu/server/node.py``; reference server.go
+composition root).
 
 The node opens its data directory with :class:`HolderStore` on the
 holder's device (``cuda`` unless the caller passes ``device="cpu"``) and
@@ -25,15 +26,36 @@ one-node JAX node runs:
   that died dirty, ``self.postmortem``), to which each incident is
   flushed as it freezes.
 
-It is one node: no cluster, membership, anti-entropy or resize.
+Every node builds its cluster plane as JAX's does, even standing alone:
+a ``Cluster`` (static, ``replica_n=1`` by default, disabled until a
+join), an ``InternalClient`` (a 30 s timeout, two retries with seeded
+jitter, a breaker per peer that opens after 5 transport failures and
+probes after 2 s), an ``HTTPBroadcaster`` for schema and shard news, a
+``PrimaryTranslateStore`` that sends new keys to the translation primary,
+and the API's ``DistributedExecutor``. ``join_static`` fixes the
+membership and pulls the coordinator's schema and shard map. With
+``mesh_dispatch=True`` (the default) ``start`` registers the holder in
+the process's placement map (``parallel/meshplace.py``), so in-process
+peers answer this node's shards on the mesh route, one launch on the
+card over a holder facade, instead of over HTTP; ``stop`` withdraws it
+first. Membership probes, anti-entropy and resize belong to a later
+slice.
 """
 
 from __future__ import annotations
 
+import logging
 import threading
 import uuid
+import zlib
 
 from pilosa_tpu_torch import __version__
+from pilosa_tpu_torch.cluster import broadcast as bc
+from pilosa_tpu_torch.cluster.broadcast import HTTPBroadcaster
+from pilosa_tpu_torch.cluster.client import InternalClient
+from pilosa_tpu_torch.cluster.cluster import Cluster
+from pilosa_tpu_torch.cluster.topology import Node
+from pilosa_tpu_torch.cluster.translate_proxy import PrimaryTranslateStore
 from pilosa_tpu_torch.core.holder import Holder
 from pilosa_tpu_torch.obs import blackbox as bb
 from pilosa_tpu_torch.obs import devledger
@@ -44,9 +66,13 @@ from pilosa_tpu_torch.obs.flightrec import FlightRecorder
 from pilosa_tpu_torch.obs.history import MetricsHistory
 from pilosa_tpu_torch.obs.stats import MemStatsClient
 from pilosa_tpu_torch.obs.sysinfo import GCNotifier, RuntimeMonitor
+from pilosa_tpu_torch.parallel import meshplace
 from pilosa_tpu_torch.server.api import API
 from pilosa_tpu_torch.server.http import Server
+from pilosa_tpu_torch.shardwidth import SHARD_WORDS
 from pilosa_tpu_torch.storage.disk import HolderStore
+
+logger = logging.getLogger(__name__)
 
 
 class NodeServer:
@@ -56,15 +82,23 @@ class NodeServer:
         host: str = "127.0.0.1",
         port: int = 0,
         device: str = "cuda",
+        replica_n: int = 1,
+        n_words: int = SHARD_WORDS,
         long_query_time: float = 0.0,
         stats_client=None,
         metric_poll_interval: float = 10.0,
         tls_cert: str | None = None,
         tls_key: str | None = None,
+        tls_skip_verify: bool = False,
+        tls_ca_cert: str | None = None,
         import_workers: int = 2,
         import_queue_depth: int = 16,
         max_writes_per_request: int | None = None,
         default_deadline: float = 0.0,
+        client_timeout: float = 30.0,
+        client_retry_budget: int = 2,
+        breaker_threshold: int = 5,
+        breaker_cooldown: float = 2.0,
         slow_query_time: float = 0.0,
         batch_window: float = 0.002,
         batch_max_size: int = 64,
@@ -89,6 +123,7 @@ class NodeServer:
         history_trips: int = 3,
         history_latency_factor: float = 2.0,
         history_latency_min_ms: float = 20.0,
+        mesh_dispatch: bool = True,
         devledger_storm_threshold: int = 8,
         devledger_storm_window: float = 60.0,
         devledger_warmup: float = 120.0,
@@ -102,7 +137,11 @@ class NodeServer:
     ):
         self.host = host
         self.tls = bool(tls_cert)
-        self.holder = Holder(device=device)
+        # the mesh route (parallel/meshplace.py): False keeps the node off
+        # it both ways: it never registers, and its own fan-outs stay on
+        # the HTTP relay
+        self.mesh_dispatch = mesh_dispatch
+        self.holder = Holder(n_words, device=device)
         # metrics backend; MemStatsClient serves /metrics and /debug/vars
         # (reference server.go:397-411 metric.service selection)
         self.holder.set_stats(
@@ -144,14 +183,36 @@ class NodeServer:
         if data_dir is not None:
             self.store = HolderStore(self.holder, data_dir)
             self.store.open()
-        self.node_id = self.store.node_id() if self.store else uuid.uuid4().hex
+        node_id = self.store.node_id() if self.store else uuid.uuid4().hex
         # the journal, job tracker and trace store stamp this node's id
-        self.holder.events.node_id = self.node_id
-        self.holder.jobs.node_id = self.node_id
-        self.holder.traces.node_id = self.node_id
+        self.holder.events.node_id = node_id
+        self.holder.jobs.node_id = node_id
+        self.holder.traces.node_id = node_id
+        self.cluster = Cluster(node_id, replica_n=replica_n, disabled=True)
+        # every cluster-state transition, local or from a peer's
+        # broadcast, lands on the timeline
+        self.cluster.on_state_change = lambda state: self.holder.events.record(
+            ev.EVENT_CLUSTER_STATE, state=state
+        )
+        self.client = InternalClient(
+            timeout=client_timeout,
+            skip_verify=tls_skip_verify,
+            ca_cert=tls_ca_cert,
+            stats=self.holder.stats,
+            retry_budget=client_retry_budget,
+            breaker_threshold=breaker_threshold,
+            breaker_cooldown=breaker_cooldown,
+            # the jitter is seeded per node, so a fault run replays
+            rng_seed=zlib.crc32(node_id.encode()),
+            journal=self.holder.events,
+        )
+        self.broadcaster = HTTPBroadcaster(self.cluster, self.client, node_id)
         self.api = API(
             self.holder,
             self.store,
+            cluster=self.cluster,
+            client=self.client,
+            broadcaster=self.broadcaster,
             import_workers=import_workers,
             import_queue_depth=import_queue_depth,
             max_writes_per_request=max_writes_per_request,
@@ -161,6 +222,13 @@ class NodeServer:
             planner_enabled=planner_enabled,
             qos_enabled=qos_enabled,
         )
+        self._wire_shard_broadcasts()
+        # new keys go to the translation primary (reference
+        # translate.go:91-97); standing alone the proxy is the local store
+        proxy = PrimaryTranslateStore(
+            self.api.executor.translator, self.cluster, self.client
+        )
+        self.api.executor.translator = proxy
         self.server = Server(
             self.api,
             host=host,
@@ -173,7 +241,7 @@ class NodeServer:
         )
         # diagnostics and runtime metrics (reference server.go:433-436
         # monitorDiagnostics/monitorRuntime, gcnotify)
-        self.diagnostics = Diagnostics(self.holder, version=__version__)
+        self.diagnostics = Diagnostics(self.holder, self.cluster, version=__version__)
         self.api.diagnostics = self.diagnostics
         # the flight recorder and incident engine (obs/flightrec.py):
         # the segment ring, SLO-alert and 504-spike captures
@@ -182,6 +250,7 @@ class NodeServer:
             self.flightrec = FlightRecorder(
                 self.holder,
                 api=self.api,
+                client=self.client,
                 segment_seconds=flightrec_segment_seconds,
                 sample_interval=flightrec_sample_interval,
                 segments=flightrec_segments,
@@ -257,10 +326,119 @@ class NodeServer:
         scheme = "https" if self.tls else "http"
         return f"{scheme}://{self.host}:{self.server.port}"
 
+    @property
+    def node_id(self) -> str:
+        return self.cluster.node_id
+
+    # -- shard availability broadcasts (reference view.go:239-261
+    #    CreateShardMessage) ------------------------------------------------
+
+    def _wire_shard_broadcasts(self) -> None:
+        """Chain a create-shard broadcast after any existing (storage)
+        fragment-creation hook, so peers learn the shards this node
+        holds."""
+
+        def wire_field(idx, field):
+            prev = field.on_create_fragment
+
+            def on_fragment(view, shard, _prev=prev, _index=idx.name, _field=field.name):
+                if _prev is not None:
+                    _prev(view, shard)
+                self._broadcast_shard(_index, _field, shard)
+
+            field.on_create_fragment = on_fragment
+            for view in field.views.values():
+                view.on_create_fragment = on_fragment
+
+        def wire_index(idx):
+            prev = idx.on_create_field
+
+            def on_field(idx2, field, _prev=prev):
+                if _prev is not None:
+                    _prev(idx2, field)
+                wire_field(idx2, field)
+
+            idx.on_create_field = on_field
+            for f in list(idx.fields.values()):
+                wire_field(idx, f)
+
+        prev_idx = self.holder.on_create_index
+
+        def on_index(idx, _prev=prev_idx):
+            if _prev is not None:
+                _prev(idx)
+            wire_index(idx)
+
+        self.holder.on_create_index = on_index
+        for idx in list(self.holder.indexes.values()):
+            wire_index(idx)
+
+    def _broadcast_shard(self, index: str, field: str, shard: int) -> None:
+        if len(self.cluster.nodes) <= 1:
+            return
+        try:
+            self.broadcaster.send_sync(
+                {
+                    "type": bc.MSG_CREATE_SHARD,
+                    "index": index,
+                    "field": field,
+                    "shard": shard,
+                }
+            )
+        except Exception:
+            # an advisory broadcast must not fail the write path: shard
+            # availability converges again through the status exchange
+            self.holder.stats.count("broadcast_errors", 1)
+
+    def join_static(self, members: list[tuple[str, str]], coordinator_id: str) -> None:
+        """Fix the cluster's membership (reference cluster.go:2000
+        setStatic); ``members`` is ``[(node_id, uri), ...]``, this node
+        included, of either package.
+
+        Joining also makes the state handshake: the coordinator's status
+        (schema and available-shard map) is pulled and applied at once, so
+        a (re)started node answers schema-dependent queries before any
+        later repair (the reference exchanges the full NodeStatus on every
+        memberlist push/pull, gossip.go:321-357). Best effort: at a
+        cluster's first formation the coordinator may not be up yet."""
+        self.cluster.coordinator_id = coordinator_id
+        self.cluster.disabled = False
+        self.cluster.set_static([Node(id=i, uri=u) for i, u in members])
+        self.holder.events.record(
+            ev.EVENT_MEMBERSHIP_SET,
+            members=[i for i, _ in members],
+            coordinator=coordinator_id,
+        )
+        if coordinator_id == self.cluster.node_id:
+            return
+        coord = self.cluster.node(coordinator_id)
+        if coord is None or not coord.uri:
+            return
+        try:
+            status = self.client.status(coord.uri)
+        except Exception as e:
+            logger.warning(
+                "join handshake with coordinator %s failed: %s", coordinator_id, e
+            )
+            return
+        schema = status.get("schema")
+        if schema:
+            try:
+                self.holder.apply_schema(schema)
+            except Exception as e:
+                logger.warning("join handshake schema apply failed: %s", e)
+        if status.get("availableShards"):
+            self.api.merge_available_shards(status["availableShards"])
+
     # -- lifecycle ----------------------------------------------------------
 
     def start(self) -> None:
         self.server.serve_background()
+        self.cluster.local_node.uri = self.uri
+        if self.mesh_dispatch and meshplace.enabled():
+            meshplace.default_placement().register(self.node_id, self.holder)
+        else:
+            self.api.dist.mesh_enabled = False
         self.runtime_monitor.start()
         if self.flightrec is not None:
             self.flightrec.start()
@@ -292,6 +470,9 @@ class NodeServer:
             return  # the SIGTERM handler and the CLI's finally both land here
         self._stopped = True
         bb.uninstall_signal_handlers(self)
+        # withdraw from the placement map first: peers must stop reading
+        # this holder's fragments before it tears down
+        meshplace.default_placement().unregister(self.node_id)
         try:
             if self.history is not None:
                 self.history.stop()

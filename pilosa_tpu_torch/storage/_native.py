@@ -58,6 +58,8 @@ def _bind(lib: ctypes.CDLL) -> None:
     ]
     lib.rt_fnv32a.restype = ctypes.c_uint32
     lib.rt_fnv32a.argtypes = [ctypes.c_char_p, _SIZE, ctypes.c_uint32]
+    lib.rt_encode_batch_ops.restype = _SIZE
+    lib.rt_encode_batch_ops.argtypes = [ctypes.c_uint8, _U64P, _SIZE, _SIZE, _U8P]
     lib.rt_popcount.restype = ctypes.c_uint64
     lib.rt_popcount.argtypes = [_U8P, _SIZE]
     lib.rt_free.restype = None
@@ -237,6 +239,21 @@ def popcount(data: bytes | np.ndarray) -> int:
         _src(data) if isinstance(data, bytes) else data.view(np.uint8)
     )
     return int(lib.rt_popcount(arr.ctypes.data_as(_U8P), arr.size))
+
+
+def encode_batch_ops(op_type: int, positions: np.ndarray, chunk: int) -> np.ndarray:
+    """The batch op records of ``positions`` in chunks of ``chunk``, back to
+    back, as uint8: the bytes of ``roaring.encode_op`` on each chunk,
+    joined."""
+    lib = load()
+    positions = np.ascontiguousarray(positions, dtype=np.uint64)
+    n = positions.size
+    out = np.empty(-(-n // chunk) * 13 + 8 * n, dtype=np.uint8)
+    if out.size:
+        lib.rt_encode_batch_ops(
+            op_type, positions.ctypes.data_as(_U64P), n, chunk, out.ctypes.data_as(_U8P)
+        )
+    return out
 
 
 def fnv32a(h: int, chunk: bytes) -> int:

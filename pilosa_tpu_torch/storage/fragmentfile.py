@@ -24,6 +24,10 @@ import numpy as np
 from pilosa_tpu_torch.core.fragment import Fragment
 from pilosa_tpu_torch.ops import _hostops
 from pilosa_tpu_torch.storage import roaring
+# the fault registry's hook point (testing/faults.py): with a registry
+# installed, a matching rule raises OSError before an op-log or snapshot
+# write, as a full disk would
+from pilosa_tpu_torch.testing.faults import disk_write_fault
 
 logger = logging.getLogger(__name__)
 
@@ -40,16 +44,6 @@ _BATCH_CHUNK = 65536
 # The journal record of a snapshot (the JAX package's obs/events.py type).
 EVENT_SNAPSHOT = "snapshot"
 
-# Fault hook (the JAX package's testing/faults.py hook point): when set, it
-# is called with the file's path before every op-log or snapshot write and
-# may raise OSError, as a full disk would.
-disk_write_fault = None
-
-
-def _disk_write_fault(path: str) -> None:
-    hook = disk_write_fault
-    if hook is not None:
-        hook(path)
 
 
 class FragmentFile:
@@ -138,7 +132,7 @@ class FragmentFile:
             return
         # fault hook: an OSError here surfaces through the write path the
         # way a real ENOSPC would
-        _disk_write_fault(self.path)
+        disk_write_fault(self.path)
         with self._lock:
             if self._fh is None:
                 self._fh = open(self.path, "ab")
@@ -210,10 +204,9 @@ class FragmentFile:
             self._append_many(records, count)
 
     def _batch_records(self, op_type: int, positions: np.ndarray) -> list[bytes]:
-        return [
-            roaring.encode_op(op_type, positions[i : i + _BATCH_CHUNK])
-            for i in range(0, len(positions), _BATCH_CHUNK)
-        ]
+        # the chunks' records in one buffer (each keeps its own checksum)
+        blob = roaring.encode_batch_ops(op_type, positions, _BATCH_CHUNK)
+        return [blob] if blob.size else []
 
     def _emit_batch(self, op_type: int, positions: np.ndarray) -> None:
         self._append_many(
@@ -324,7 +317,7 @@ class FragmentFile:
 
     def _write_snapshot_file(self, data: bytes) -> None:
         """Swap in an encoded snapshot (both locks held)."""
-        _disk_write_fault(self.path)
+        disk_write_fault(self.path)
         tmp = self.path + ".snapshotting"
         with open(tmp, "wb") as f:
             f.write(data)

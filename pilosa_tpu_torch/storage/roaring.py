@@ -464,6 +464,24 @@ def encode_op(op_type: int, values=None, roaring: bytes | None = None, op_n: int
     raise RoaringError(f"unknown op type {op_type}")
 
 
+def encode_batch_ops(op_type: int, positions: np.ndarray, chunk: int) -> np.ndarray:
+    """The ``OP_ADD_BATCH``/``OP_REMOVE_BATCH`` records of ``positions`` in
+    chunks of at most ``chunk``, back to back, as a uint8 array: the bytes
+    of :func:`encode_op` on each chunk, joined (the plain version is
+    :func:`_encode_batch_ops_plain`), in one native pass whose checksums
+    run interleaved."""
+    if op_type not in (OP_ADD_BATCH, OP_REMOVE_BATCH):
+        raise RoaringError(f"not a batch op type: {op_type}")
+    return _native.encode_batch_ops(op_type, positions, chunk)
+
+
+def _encode_batch_ops_plain(op_type: int, positions: np.ndarray, chunk: int) -> bytes:
+    """Plain version of :func:`encode_batch_ops`."""
+    return b"".join(
+        encode_op(op_type, positions[i : i + chunk]) for i in range(0, len(positions), chunk)
+    )
+
+
 def decode_ops(data: bytes, start: int, fnv=_fnv32a):
     """Yield (op_type, values_or_bytes, op_n) from the op-log section;
     stops at EOF or a corrupt record (reference truncates the same way).

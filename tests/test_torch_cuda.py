@@ -1629,3 +1629,153 @@ def test_samplers_and_launches_never_wait_for_a_launch_in_flight(
     finally:
         torch.cuda.synchronize()
         node.stop()
+
+
+# -- the cluster on the card: the mesh route and the HTTP fan-out ----------------
+
+
+def _cluster_on(device, n=3, **kw):
+    from pilosa_tpu_torch.shardwidth import SHARD_WIDTH
+    from pilosa_tpu_torch.testing.cluster import InProcessCluster
+
+    cl = InProcessCluster(n, replica_n=2, device=device, **kw)
+    for node in cl.nodes:
+        node.client.timeout = 60.0
+    rng = np.random.default_rng(31)
+    cl.create_index("i")
+    for f in ("f", "g"):
+        cl.create_field("i", f)
+        cl.nodes[0].api.import_bits("i", f, {
+            "rowIDs": rng.integers(0, 12, 20000).astype(np.uint64),
+            "columnIDs": rng.integers(0, 6 * SHARD_WIDTH, 20000).astype(np.uint64)})
+    return cl
+
+
+_CLUSTER_READS = [
+    "Count(Union(Intersect(Row(f=1), Row(g=2)), Difference(Row(f=3), Row(g=4))))",
+    "TopN(f, Row(g=1), n=3)",
+    "GroupBy(Rows(f), Rows(g))",
+    "GroupBy(Rows(f, limit=4), Rows(f, limit=4))",
+]
+
+
+@pytest.mark.parametrize("route", ["mesh", "http"])
+def test_a_cluster_on_the_card_launches_kernels_on_both_routes(cuda_device, fresh_budget,
+                                                                route):
+    """Three nodes on ``cuda`` answer as three nodes on the CPU, on the mesh
+    route (one facade call) and on the HTTP fan-out (a peer's per-call
+    route), and their reads launch the masked scan, the cross gram and the
+    gram (a lone cold tree Count takes the host tier on either route); no
+    mesh read falls back."""
+    fresh_budget.configure(None)
+    cpu = _cluster_on("cpu")
+    card = _cluster_on("cuda")
+    try:
+        if route == "http":
+            for node in card.nodes:
+                node.api.dist.mesh_enabled = False
+        before = dict(tk.LAUNCHES)
+        for q in _CLUSTER_READS:
+            assert card.query(0, "i", q) == cpu.query(0, "i", q), q
+        made = {k for k in tk.LAUNCHES if tk.LAUNCHES[k] > before[k]}
+        assert {"masked_row_scan", "cross_gram", "gram"} <= made, made
+        snap = card.nodes[0].api.dist.snapshot()
+        assert snap["meshFallbacks"] == 0
+        assert (snap["meshDispatches"] > 0) == (route == "mesh")
+    finally:
+        card.close()
+        cpu.close()
+
+
+def test_a_peers_side_stream_upload_is_seen_by_the_next_mesh_read(cuda_device,
+                                                                    fresh_budget):
+    """A cap that admits each fragment copy but declines every stack sends
+    the mesh route's filtered TopN through the owners' fragment copies
+    (``rows_device``), which each owner's ingest uploader makes on its side
+    stream; a read through the other node at once after each import waits
+    for the copy's event and counts what the host mirrors hold."""
+    from pilosa_tpu_torch.shardwidth import SHARD_WIDTH
+
+    fresh_budget.configure(8 << 20)  # a fragment copy fits; no stack does
+    cl = _cluster_on("cuda", n=2)
+    rng = np.random.default_rng(8)
+    try:
+        for round_ in range(4):
+            cols = rng.integers(0, 6 * SHARD_WIDTH, 3000).astype(np.uint64)
+            cl.nodes[1].api.import_bits("i", "f", {
+                "rowIDs": np.full(len(cols), 20 + round_, dtype=np.uint64), "columnIDs": cols})
+            got = cl.query(0, "i", "TopN(f, Row(g=3), n=4)")["results"][0]
+            counts = {}
+            node = cl.nodes[0]  # replica_n=2 on two nodes: it holds every shard
+            for s in range(6):
+                a = node.holder.fragment("i", "f", "standard", s)
+                b = node.holder.fragment("i", "g", "standard", s)
+                if a is None or b is None:
+                    continue
+                g3 = b.row_words_host(3)
+                for r in a.row_ids():
+                    c = int(np.bitwise_count(a.row_words_host(r) & g3).sum())
+                    counts[r] = counts.get(r, 0) + c
+            want = sorted(((-c, r) for r, c in counts.items() if c), )[:4]
+            assert got == [{"id": r, "count": -c} for c, r in want], round_
+        snap = cl.nodes[0].api.dist.snapshot()
+        assert snap["meshFallbacks"] == 0 and snap["meshDispatches"] > 0
+        ex = next(iter(cl.nodes[0].api.dist._mesh_cache.values()))
+        assert ex.stacks_declined > 0
+    finally:
+        cl.close()
+
+
+def test_the_facades_stacks_are_admitted_to_the_budget(cuda_device, fresh_budget):
+    """The mesh route's facade executor admits its stacks to the process's
+    device budget under keys of its own, beside the owners' entries."""
+    fresh_budget.configure(None)
+    budget = fresh_budget.default_budget(cuda_device)
+    cl = _cluster_on("cuda")
+    try:
+        before = budget.snapshot()
+        cl.query(0, "i", "Count(Intersect(Row(f=1), Row(g=2))) TopN(f, Row(g=2), n=2)")
+        after = budget.snapshot()
+        dist = cl.nodes[0].api.dist
+        facades = list(dist._mesh_cache.values())
+        assert facades
+        keys = [e["bkey"] for ex in facades for caches in list(ex._stacks.values())
+                for e in caches.values()]
+        assert keys and all(k in budget._entries for k in keys)
+        stack_bytes = sum(e["dev"].numel() * 4 for ex in facades
+                          for caches in list(ex._stacks.values()) for e in caches.values())
+        assert after["usedBytes"] - before["usedBytes"] >= stack_bytes > 0
+        assert after["entries"] > before["entries"]
+    finally:
+        cl.close()
+
+
+def test_a_kernel_error_on_the_mesh_route_raises(cuda_device, fresh_budget, monkeypatch):
+    """A launch the wrapper refuses, and a CUDA error from a launch, raise
+    through the mesh route: neither is demoted to the HTTP fan-out."""
+    from pilosa_tpu_torch.server.api import ApiError
+
+    fresh_budget.configure(None)
+    cl = _cluster_on("cuda")
+    real = tk.masked_row_counts
+    try:
+        def refused(bits, filt):
+            return real(bits.to(torch.int64), filt)  # the wrapper refuses int64
+
+        monkeypatch.setattr(tk, "masked_row_counts", refused)
+        with pytest.raises(TypeError, match="int32"):
+            cl.nodes[0].api.dist.execute("i", "TopN(f, Row(g=1), n=2)")
+        # over the API a refusal is the client's 400, as JAX maps it
+        with pytest.raises(ApiError, match="int32"):
+            cl.query(0, "i", "TopN(f, Row(g=3), n=2)")
+
+        def cuda_error(bits, filt):
+            raise RuntimeError("CUDA error: an illegal memory access was encountered")
+
+        monkeypatch.setattr(tk, "masked_row_counts", cuda_error)
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            cl.query(0, "i", "TopN(f, Row(g=2), n=2)")
+        assert cl.nodes[0].api.dist.snapshot()["meshFallbacks"] == 0
+    finally:
+        monkeypatch.undo()
+        cl.close()

@@ -8,8 +8,11 @@ defaults: the batcher, the result cache, the flight planner, the QoS
 governor, the prefetcher and the ingest pipeline with its side-stream
 uploads, and its observability planes at the defaults: the flight
 recorder, the metrics history, the black box, diagnostics, the runtime
-monitor and span export), and the port's default device is ``cuda`` with
-no fallback to the CPU."""
+monitor and span export, and the cluster: placement, the wire, the
+internal client, broadcasts, key translation through the primary, the
+distributed executor with its mesh route and a two-node in-process
+cluster on the CPU), and the port's default device is ``cuda`` with no
+fallback to the CPU."""
 
 import ast
 import os
@@ -150,6 +153,24 @@ for path in ("/debug/history", "/debug/incidents", "/debug/postmortem", "/intern
         assert r.status == 200, path
 n.shutdown_graceful()
 assert n.wait(10)
+# the cluster: every module of the slice loaded, and a two-node cluster of
+# the port booted on the CPU, answering over both routes
+from pilosa_tpu_torch.cluster import (broadcast, client, cluster, dist, hash, meshexec,
+                                      topology, translate_proxy, wire)
+from pilosa_tpu_torch.parallel import meshplace
+from pilosa_tpu_torch.testing import faults
+from pilosa_tpu_torch.testing.cluster import InProcessCluster
+with InProcessCluster(2, replica_n=2, device="cpu") as cl:
+    cl.create_index("c")
+    cl.create_field("c", "f")
+    cl.import_bits("c", "f", [(1, 5), (1, 70000), (2, 5)])
+    for i in range(2):
+        assert cl.query(i, "c", "Count(Row(f=1)) TopN(f)")["results"] == [
+            2, [{"id": 1, "count": 2}, {"id": 2, "count": 1}]]
+    assert cl[0].api.dist.snapshot()["meshDispatches"] > 0
+    for nd in cl.nodes:
+        nd.api.dist.mesh_enabled = False
+    assert cl.query(1, "c", "Count(Row(f=1))")["results"] == [2]
 bad = sorted(
     m for m in sys.modules
     if m == "jax" or m.startswith("jax.") or m.startswith("jaxlib")

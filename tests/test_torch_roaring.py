@@ -262,6 +262,32 @@ def test_fnv32a_native_and_plain(n):
     assert tn.popcount(chunk) == int(np.unpackbits(np.frombuffer(chunk, np.uint8)).sum())
 
 
+@pytest.mark.parametrize("n, chunk", [
+    (0, 4), (1, 4), (4, 4), (5, 4), (31, 4), (32, 4), (33, 4), (36, 4), (100, 7),
+    (70000, 65536), (9 * 65536 + 5, 65536),
+])
+@pytest.mark.parametrize("op", [tr.OP_ADD_BATCH, tr.OP_REMOVE_BATCH])
+def test_batch_op_records_match_jax(n, chunk, op):
+    """One pass over every chunk's record (checksums 8 at a time, then the
+    rest one by one) writes the bytes JAX's encode_op writes chunk by chunk,
+    and so does the plain version; the records replay to the positions."""
+    rng = np.random.default_rng(n)
+    pos = np.sort(rng.choice(1 << 22, n, replace=False)).astype(np.uint64)
+    pos[-1:] += np.uint64(1 << 40)  # a position past 32 bits
+    want = b"".join(jr.encode_op(op, pos[i : i + chunk]) for i in range(0, n, chunk))
+    got = tr.encode_batch_ops(op, pos, chunk)
+    assert got.dtype == np.uint8 and got.tobytes() == want
+    assert tr._encode_batch_ops_plain(op, pos, chunk) == want
+    if op == tr.OP_ADD_BATCH:
+        assert _same_decode(tr.serialize(np.empty(0, dtype=np.uint64)) + want).tolist() == (
+            pos.tolist())
+
+
+def test_batch_op_records_refuse_other_op_types():
+    with pytest.raises(tr.RoaringError, match="not a batch op type"):
+        tr.encode_batch_ops(tr.OP_ADD, np.arange(3, dtype=np.uint64), 4)
+
+
 def test_deserialize_into_a_staging_buffer():
     positions = _positions("mixed")
     data = tr.serialize(positions)
