@@ -4390,7 +4390,9 @@ def read_mix(reads, items):
 
 
 SERVE_CLIENTS = 16
-SERVE_SECONDS = 10.0
+# each of the serving path's two 16-client windows (10 s before the
+# cluster path's elastic steps needed the time)
+SERVE_SECONDS = 5.0
 SERVE_DEFAULT_SECONDS = 4.0
 QOS_SECONDS = 4.0
 QOS_LEAVES = 300
@@ -4487,7 +4489,7 @@ def serving_path(pool, device, hand, v_truth):
         norm = norm_json(got[0]) if not name.startswith("pair ") else got[0]
         if norm != want_of[name]:
             raise AssertionError(f"serving: {name}: {str(norm)[:200]} != "
-                                 f"{str(want_of[name])[:200]}")
+                                 f"{str(want_of[name])[:2000]}")
 
     # -- 1. boot at the defaults
     t0 = time.perf_counter()
@@ -5228,7 +5230,7 @@ def mix_clients(port, mix, serial, stop, seed):
                 t1 = time.perf_counter()
                 recs[c].append((t1, t1 - t))
                 if got != serial[n]:
-                    errors.append(f"{n}: {str(got)[:100]}")
+                    errors.append(f"{n}: {str(got)[:300]} != {str(serial[n])[:300]}")
                     return
         except Exception as e:  # reported by the caller, after every client stopped
             errors.append(repr(e))
@@ -5922,8 +5924,9 @@ def obs_nodes(device, hand, lives):
 # ---------------------------------------------------------------------------
 
 CLUSTER_NODES, CLUSTER_REPLICAS = 3, 2
-# seconds of each route's 16-client load, and of the failover reads' load
-CLUSTER_SECONDS, CLUSTER_FAILOVER_SECONDS = 6.0, 3.0
+# seconds of each route's 16-client load (6 before the elastic steps' reads
+# needed the time), and of the failover reads' load
+CLUSTER_SECONDS, CLUSTER_FAILOVER_SECONDS = 4.0, 3.0
 # the routing check's small field: rows and shards
 CLUSTER_R_ROWS, CLUSTER_R_SHARDS = 8, 8
 # host bytes kept free beside the cluster's mirrors
@@ -5933,7 +5936,7 @@ CLUSTER_HOST_MARGIN = 6 << 30
 CLUSTER_FF_ROWS = 8
 # the planes' cost on the mesh route: pairs of windows of this many seconds,
 # running and stopped, the order turned every other pair
-CLUSTER_AB_PAIRS, CLUSTER_AB_WINDOW = 4, 1.5
+CLUSTER_AB_PAIRS, CLUSTER_AB_WINDOW = 2, 1.5
 
 
 def cluster_nodes(device, n, root):
@@ -6173,6 +6176,464 @@ def set_mesh(nodes, on):
             nd.api.dist.mesh_enabled = on
 
 
+# the elastic steps (6-9): the membership monitors' probe cadence is JAX's
+# default; the anti-entropy step's diverged fragments and bits a fragment;
+# the bits a cleared or set row gets; the rows the resize's writer cycles
+ELASTIC_AE_FRAGMENTS, ELASTIC_AE_BITS = 4, 1500
+ELASTIC_WR_ROWS = 4
+# the writer's pause between writes (at most about 200 a second)
+ELASTIC_WR_PAUSE = 0.005
+# seconds the membership steps wait at most for a DOWN or READY mark
+ELASTIC_MARK_TIMEOUT = 60.0
+
+
+def elastic_stages(which):
+    """The methods a resize or an anti-entropy round spends its time in,
+    for a :class:`StageClock` (thread-seconds summed over the threads that
+    ran them, the 16 clients' stack builds among them)."""
+    from pilosa_tpu_torch.cluster.antientropy import HolderSyncer
+    from pilosa_tpu_torch.cluster.client import InternalClient
+    from pilosa_tpu_torch.cluster.resize import ResizeCoordinator
+    from pilosa_tpu_torch.core.fragment import Fragment
+    from pilosa_tpu_torch.exec.executor import Executor
+    from pilosa_tpu_torch.server.api import API
+
+    if which == "antientropy":
+        return (("fragment", HolderSyncer, "sync_fragment"),
+                ("blocks", Fragment, "blocks"),
+                ("remote_blocks", InternalClient, "fragment_blocks"),
+                ("block_data", InternalClient, "block_data"),
+                ("merge", HolderSyncer, "_merge_block"),
+                ("apply", HolderSyncer, "_apply_local"),
+                ("push", HolderSyncer, "_push_remote"))
+    return (("inventory", ResizeCoordinator, "_gather_inventory"),
+            ("fetch", API, "migrate_fetch"),
+            ("pull", API, "_migrate_pull_from"),
+            ("apply", API, "_apply_roaring"),
+            ("delta_apply", API, "_apply_delta_ops"),
+            ("flip", ResizeCoordinator, "_broadcast_flip"),
+            ("finalize", API, "migrate_finalize"),
+            ("late", ResizeCoordinator, "_migrate_late"),
+            ("commit", ResizeCoordinator, "_commit_membership"),
+            ("clean", API, "_clean_unowned_fragments"),
+            ("stack_builds", Executor, "_field_stack"))
+
+
+def clock_report(clock):
+    return {name: {"s": round(clock.seconds[name], 3), "calls": clock.calls[name]}
+            for name in clock.seconds}
+
+
+def wait_for(what, pred, timeout):
+    """Seconds until ``pred()`` holds, polled every 5 ms; raises after
+    ``timeout``."""
+    t = time.perf_counter()
+    while not pred():
+        if time.perf_counter() - t > timeout:
+            raise AssertionError(f"cluster: {what} not within {timeout:.0f} s")
+        time.sleep(0.005)
+    return time.perf_counter() - t
+
+
+def fragment_keys(node):
+    """{(field, view, shard): fragment} a node holds."""
+    out = {}
+    idx = node.holder.index("i")
+    for fname in idx.field_names(include_internal=True):
+        field = idx.field(fname)
+        for vname in field.view_names():
+            for s, frag in field.view(vname).fragments.items():
+                out[(fname, vname, int(s))] = frag
+    return out
+
+
+def check_holdings(nodes, fields, tag, pool, f_np):
+    """Each node holds exactly the fragments the port's placement gives it,
+    for every shard of the served fields, and the replicas of each hold
+    equal words in every row with a bit (compared on ``pool``; f's against
+    ``f_np`` too where they differ); (fragments checked, fragments a
+    node)."""
+    import numpy as np
+
+    placement = nodes[0].cluster
+    held = [fragment_keys(nd) for nd in nodes]
+    jobs = []
+    for (field, view) in fields:
+        for s in range(S_FULL):
+            owners = {o.id for o in placement.shard_nodes("i", s)}
+            have = {nd.node_id for nd, h in zip(nodes, held) if (field, view, s) in h}
+            if have != owners:
+                raise AssertionError(f"cluster: {tag}: shard {s} of {field} held by "
+                                     f"{sorted(have)}, owned by {sorted(owners)}")
+            jobs.append((field, view, s, [(k, h[(field, view, s)]) for k, (nd, h)
+                                          in enumerate(zip(nodes, held))
+                                          if nd.node_id in owners]))
+
+    def nonzero_rows(frag):
+        # a row cleared to zero stays in its fragment's slot map, but a
+        # roaring copy (a migration's snapshot) carries no empty row
+        ids, words = frag.snapshot_rows()
+        keep = words.any(axis=1)
+        return ids[keep], words[keep]
+
+    def differs(job):
+        field, view, s, reps = job
+        mats = [(k, nonzero_rows(frag)) for k, frag in reps]
+        (k0, (ids0, w0)), rest = mats[0], mats[1:]
+        for k, (ids, w) in rest:
+            if not (np.array_equal(ids, ids0) and np.array_equal(w, w0)):
+                detail = []
+                for kk, (i, ww) in mats:
+                    d = {"node": kk, "rows": len(i), "bits": int(np.bitwise_count(ww).sum())}
+                    if field == "f":
+                        d["bits_off_truth"] = int(sum(
+                            np.bitwise_count(ww[j] ^ f_np[s, int(r)]).sum()
+                            for j, r in enumerate(i) if int(r) < f_np.shape[1]))
+                    detail.append(d)
+                return f"shard {s} of {field}: {detail}"
+        return None
+
+    bad = [d for d in pool.map(differs, jobs) if d is not None]
+    if bad:
+        raise AssertionError(f"cluster: {tag}: replicas differ: {bad[:4]}")
+    return len(jobs), [len(h) for h in held]
+
+
+def device_holdings(nodes):
+    """{(node id, field, view, shard): (fragment, device bytes)} of every
+    fragment with a device copy."""
+    out = {}
+    for nd in nodes:
+        for key, frag in fragment_keys(nd).items():
+            if frag._device is not None:
+                out[(nd.node_id,) + key] = (frag, frag._device_nbytes())
+    return out
+
+
+def card_bytes(device):
+    import gc
+
+    import torch
+
+    from pilosa_tpu_torch.core import membudget
+
+    gc.collect()
+    on_card = torch.device(device).type == "cuda"
+    if on_card:
+        torch.cuda.synchronize()
+    budget = membudget.default_budget(torch.device(device))
+    return budget.used(), torch.cuda.memory_allocated() if on_card else None, budget.snapshot()
+
+
+def resize_under_load(ctx, tag, run, writer_node, rows):
+    """``run()`` (one resize) while 16 clients post the read mix to node 0
+    and a writer sets bits of ``wr``'s ``rows`` through ``writer_node``,
+    one shard after another: (the resize's seconds, the window's stats, the
+    acknowledged writes)."""
+    import threading
+
+    nodes = ctx["nodes"]
+    stop = threading.Event()
+    acked, werr = [], []
+
+    def writer():
+        from pilosa_tpu_torch.shardwidth import SHARD_WIDTH
+
+        cli = HttpClient(writer_node.server.port)
+        k = 0
+        try:
+            while not stop.is_set():
+                row = rows[k % len(rows)]
+                col = (k % S_FULL) * SHARD_WIDTH + (k // S_FULL) % SHARD_WIDTH
+                if cli.query("i", f"Set({col}, wr={row})") != [True]:
+                    werr.append(f"Set({col}, wr={row}) answered False")
+                    return
+                acked.append((row, col))
+                k += 1
+                time.sleep(ELASTIC_WR_PAUSE)
+        except Exception as e:  # reported by the caller, after the resize
+            werr.append(repr(e))
+        finally:
+            cli.close()
+
+    with CardBusy(ctx["device"]) as busy:
+        threads, recs, errors = mix_clients(nodes[0].server.port, ctx["mix"], ctx["serial"],
+                                            stop, SEED + 700)
+        wt = threading.Thread(target=writer)
+        for th in threads + [wt]:
+            th.start()
+        t0 = time.perf_counter()
+        try:
+            run()
+        finally:
+            t1 = time.perf_counter()
+            stop.set()
+            for th in threads + [wt]:
+                th.join(timeout=120)
+    if any(th.is_alive() for th in threads + [wt]) or errors or werr:
+        raise AssertionError(f"cluster: {tag}: clients: {(errors + werr)[:3]}")
+    res = window_stats(recs, t0, t1, busy)
+    res["writes_acked"] = len(acked)
+    return t1 - t0, res, acked
+
+
+def check_acked(nodes, acked, tag):
+    """Every acknowledged write of the resize's writer on every replica of
+    its shard: the writes missing from a replica."""
+    from pilosa_tpu_torch.shardwidth import SHARD_WIDTH
+
+    placement = nodes[0].cluster
+    by_id = {nd.node_id: nd for nd in nodes}
+    missing = 0
+    for row, col in acked:
+        s = col // SHARD_WIDTH
+        for o in placement.shard_nodes("i", s):
+            frag = by_id[o.id].holder.fragment("i", "wr", "standard", s)
+            if frag is None or not frag.get_bit(row, col % SHARD_WIDTH):
+                missing += 1
+    return missing
+
+
+def moved_bytes(nodes):
+    """Snapshot bytes the nodes pulled as migration targets so far."""
+    return sum(nd.holder.stats.snapshot()["counters"].get("migrate_snapshot_bytes", 0)
+               for nd in nodes)
+
+
+def cluster_elastic(ctx):
+    """Steps 7-9 of the cluster path on the loaded cluster (step 6 runs
+    inside step 5): anti-entropy, then a node added and one removed
+    online."""
+    import numpy as np
+
+    from pilosa_tpu_torch.ops import kernels as tk
+    from pilosa_tpu_torch.shardwidth import SHARD_WIDTH
+
+    nodes, clis, device, card = ctx["nodes"], ctx["clis"], ctx["device"], ctx["card"]
+    on_card, serial_of, check_extra = ctx["on_card"], ctx["serial_of"], ctx["check_extra"]
+    out = {}
+    n0 = nodes[0]
+    set_field = "g" if ctx["keep_g"] else "ae"
+    served = [("f", "standard"), ("h", "standard"), ("v", "bsig_v"), ("w", "bsig_w")]
+    if ctx["keep_g"]:
+        served.append(("g", "standard"))
+
+    def mesh_and_http(tag, required):
+        """Every read of the mix and the extra reads on both routes, each
+        against numpy: first on the facades, stacks and result caches the
+        step left behind (one kept past a flip would answer from the old
+        owners), then cold, followed by 16 clients on the mesh route for a
+        window, as step 3 ran the route: (the kernels the mesh route's cold
+        pass and window launched, the window's stats). ``required`` must be
+        among them."""
+        for route in ("mesh", "http"):
+            set_mesh(nodes, route == "mesh")
+            serial_of(clis[0])
+            check_extra(f"{tag}, {route} route, as the step left it")
+        # cold, as step 3 ran it: no facade, stack or cache of the earlier
+        # steps (which kernels a pass launches follows the caches' warmth)
+        for nd in nodes:
+            nd.api.dist.forget_placement()
+            nd.api.executor.release_stacks()
+        for route in ("http", "mesh"):
+            set_mesh(nodes, route == "mesh")
+            for d in (nd.api.dist for nd in nodes):
+                for fex in list(d._mesh_cache.values()):
+                    fex.rescache.clear()
+            l0 = dict(tk.LAUNCHES)
+            serial_of(clis[0])
+            check_extra(f"{tag}, {route} route")
+        window = cluster_load_window(nodes, ctx["mix"], ctx["serial"], CLUSTER_SECONDS, device,
+                                     f"mesh route {tag}")
+        launched = sorted(k for k in tk.LAUNCHES if tk.LAUNCHES[k] > l0[k])
+        fallbacks = sum(nd.api.dist.mesh_fallbacks for nd in nodes)
+        if fallbacks:
+            raise AssertionError(f"cluster: {tag}: mesh_fallbacks {fallbacks}")
+        missing = [k for k in required if k not in launched]
+        if on_card and missing:
+            raise AssertionError(f"cluster: {tag}: the mesh route launched no {missing} "
+                                 f"(launched {launched})")
+        return launched, {k: window[k] for k in ("qps", "p50_ms", "p99_ms", "idle_share",
+                                                 "queries")}
+
+    # -- 7. anti-entropy: one replica of 4 fragments diverged directly
+    rng = np.random.default_rng(SEED + 71)
+    if set_field == "ae":
+        n0.api.create_field("i", "ae")
+    shards = [int(s) for s in rng.choice(S_FULL, ELASTIC_AE_FRAGMENTS, replace=False)]
+    plan = [("f", shards[0], "clear"), ("f", shards[1], "clear"), ("h", shards[2], "clear"),
+            (set_field, shards[3], "set")]
+    by_id = {nd.node_id: nd for nd in nodes}
+    before_set = clis[0].query("i", f"Count(Row({set_field}=6))")[0]
+    diverged = []
+    n_set = 0
+    for field, s, how in plan:
+        replica = by_id[n0.cluster.shard_nodes("i", s)[0].id]
+        frag = replica.holder.field("i", field).create_view_if_not_exists(
+            "standard").create_fragment_if_not_exists(s)
+        row = 6 if how == "set" else int(rng.choice(frag.row_ids()))
+        words = frag.row_words_host(row)
+        bits = np.unpackbits(words.view(np.uint8), bitorder="little").astype(bool)
+        pool_cols = np.flatnonzero(~bits if how == "set" else bits)
+        cols = rng.choice(pool_cols, min(ELASTIC_AE_BITS, len(pool_cols)), replace=False)
+        frag.import_bits(np.full(len(cols), row, dtype=np.uint64), cols.astype(np.int64),
+                         clear=how == "clear")
+        if how == "set":
+            n_set = len(cols)
+        diverged.append((field, s, how, len(cols)))
+    syncers = [nd.syncer() for nd in nodes]
+    t0 = time.perf_counter()
+    with StageClock(elastic_stages("antientropy")) as ae_clock:
+        rounds = [sy.sync_holder() for sy in syncers]
+    ae_s = time.perf_counter() - t0
+    log(f"cluster: step 7: the round took {ae_s:.2f} s; its stages in thread-seconds "
+        f"{json.dumps(clock_report(ae_clock))}")
+    tot = {k: sum(r[k] for r in rounds) for k in rounds[0]}
+    for field, s, _how, _n in diverged:
+        owners = [by_id[o.id] for o in n0.cluster.shard_nodes("i", s)]
+        mats = [o.holder.fragment("i", field, "standard", s).snapshot_rows() for o in owners]
+        if not all(np.array_equal(m[0], mats[0][0]) and np.array_equal(m[1], mats[0][1])
+                   for m in mats[1:]):
+            raise AssertionError(f"cluster: anti-entropy: the replicas of shard {s} of "
+                                 f"{field} differ after the round")
+    got_set = clis[0].query("i", f"Count(Row({set_field}=6))")[0]
+    if got_set != before_set + n_set:
+        raise AssertionError(f"cluster: anti-entropy: Count(Row({set_field}=6)) {got_set} != "
+                             f"{before_set} + {n_set}")
+    launched, _ = mesh_and_http("after anti-entropy", ())
+    if on_card and not launched:
+        raise AssertionError("cluster: after anti-entropy: the mesh route launched nothing")
+    out["antientropy"] = {
+        "round_s": ae_s, "diverged": diverged,
+        "blocks_compared": sum(sy.blocks_compared for sy in syncers),
+        "blocks_repaired": tot["blocks_diff"], "bits_set": tot["bits_set"],
+        "bits_cleared": tot["bits_cleared"], "fragments_visited": tot["fragments"],
+        "block_pairs": sum(sy.block_pairs for sy in syncers),
+        "block_bytes": sum(sy.block_bytes for sy in syncers),
+        "mesh_launched": launched, "stages": clock_report(ae_clock),
+    }
+    log(f"cluster: step 7, anti-entropy on {card}: one replica of {len(diverged)} "
+        f"fragments diverged ({diverged}); a sync_holder round on the {len(nodes)} nodes in "
+        f"{ae_s:.2f} s: {out['antientropy']['blocks_compared']} blocks compared, "
+        f"{tot['blocks_diff']} repaired, {tot['bits_set']} bits set and "
+        f"{tot['bits_cleared']} cleared, {out['antientropy']['block_pairs']} (row, col) pairs "
+        f"in {out['antientropy']['block_bytes']} bytes of block data; the replicas equal "
+        f"word for word; every read exact on both routes, the mesh route launching "
+        f"{launched}")
+
+    # -- 8. a node added online, then 9. a node removed, each under load
+    n0.api.create_field("i", "wr")
+    for step, tag in ((8, "add"), (9, "remove")):
+        before = cluster_load_window(nodes, ctx["mix"], ctx["serial"], CLUSTER_SECONDS,
+                                     device, f"before the {tag}")
+        dev0 = device_holdings(nodes)
+        b0, m0, _ = card_bytes(device)
+        moved0 = moved_bytes(nodes)
+        if tag == "add":
+            import tempfile
+
+            from pilosa_tpu_torch.server.node import NodeServer
+
+            d = tempfile.mkdtemp(prefix="cluster3-", dir=ctx["root"])
+            STORAGE_DIRS.append(d)
+            joiner = NodeServer(data_dir=d, device=device, port=0, replica_n=CLUSTER_REPLICAS)
+            joiner.start()
+            joiner.api.executor.rescache.max_entries = 0
+            ctx["all_nodes"].append(joiner)
+            joiner.start_membership()
+
+            def run(j=joiner):
+                n0.resize_coordinator().add_node(j.node_id, j.uri)
+        else:
+            leaving = nodes[1]
+
+            def run(x=leaving):
+                n0.resize_coordinator().remove_node(x.node_id)
+        # the writer goes through node 1 while a node joins, and through the
+        # joiner while node 1 leaves
+        with StageClock(elastic_stages("resize")) as rz_clock:
+            resize_s, during, acked = resize_under_load(
+                ctx, tag, run, nodes[1] if tag == "add" else nodes[-1],
+                range(ELASTIC_WR_ROWS) if tag == "add"
+                else range(ELASTIC_WR_ROWS, 2 * ELASTIC_WR_ROWS))
+        log(f"cluster: step {step}: the resize took {resize_s:.2f} s; {len(acked)} writes "
+            f"acknowledged; reads p50 {during['p50_ms']:.2f} ms, p99 {during['p99_ms']:.2f} ms; "
+            f"its stages in thread-seconds {json.dumps(clock_report(rz_clock))}")
+        moved = moved_bytes(nodes + ([joiner] if tag == "add" else [])) - moved0
+        if tag == "add":
+            nodes.append(joiner)
+            clis.append(HttpClient(joiner.server.port))
+        else:
+            nodes.remove(leaving)
+            clis.pop(1).close()
+            leaving.stop()
+        for nd in nodes:
+            if len(nd.cluster.nodes) != len(nodes) or nd.cluster.state != "NORMAL" \
+                    or nd.cluster.resize_pending:
+                raise AssertionError(f"cluster: {tag}: a node's membership did not commit")
+        # before any anti-entropy: the migration's catch-up and finalize
+        # alone must have carried every acknowledged write
+        missing = check_acked(nodes, acked, tag)
+        if missing:
+            raise AssertionError(f"cluster: {tag}: {missing} of {len(acked)} acknowledged "
+                                 f"writes missing from a replica after the resize")
+        checked, per_node = check_holdings(nodes, served, tag, ctx["pool"], ctx["f_np"])
+        launched, after = mesh_and_http(f"after the {tag}", ctx["step3_required"])
+        held1 = {(nd.node_id,) + key for nd in nodes for key in fragment_keys(nd)}
+        dropped = {k: v for k, v in dev0.items() if k not in held1 and k[0] in
+                   {nd.node_id for nd in nodes}}
+        released = sum(b for _, b in dropped.values())
+        from pilosa_tpu_torch.core import membudget
+
+        bud = membudget.default_budget(nodes[0].holder.device)
+        for (nid, *key), (frag, _b) in dropped.items():
+            if frag._device is not None or frag._budget_key in bud._entries:
+                raise AssertionError(f"cluster: {tag}: the dropped fragment {key} of "
+                                     f"{nid[:8]} kept its device copy")
+        del dev0, dropped
+        b1, m1, snap = card_bytes(device)
+        if on_card and (m1 - m0) - (b1 - b0) > (256 << 20):
+            raise AssertionError(f"cluster: {tag}: the card's memory grew "
+                                 f"{(m1 - m0) / 1e6:.1f} MB against the budget's "
+                                 f"{(b1 - b0) / 1e6:.1f} MB")
+        if tag == "remove":
+            events = n0.holder.events.since(0)["events"]
+            if any(e["type"] == "resize-data-loss" for e in events) or any(
+                    k.startswith("resize_data_loss_fragments")
+                    for k in n0.holder.stats.snapshot()["counters"]):
+                raise AssertionError("cluster: remove: the data-loss journal is not empty")
+        res = {
+            "resize_s": resize_s, "bytes_moved": moved, "mb_per_s": moved / resize_s / 1e6,
+            "before": {k: before[k] for k in ("qps", "p50_ms", "p99_ms", "idle_share",
+                                              "queries")},
+            "during": {k: during[k] for k in ("qps", "p50_ms", "p99_ms", "idle_share",
+                                              "queries", "writes_acked")},
+            "acked_missing": missing,
+            "fragments_checked": checked, "fragments_per_node": per_node,
+            "device_bytes_released": released, "budget_used": [b0, b1],
+            "memory_allocated": [m0, m1], "budget": snap, "mesh_launched": launched,
+            "after": after, "step3_launched": ctx["step3_launched"],
+            "stages": clock_report(rz_clock),
+            "members": len(nodes),
+        }
+        out[f"resize_{tag}"] = res
+        log(f"cluster: step {step}, a node {'added' if tag == 'add' else 'removed'} on "
+            f"{card}: the resize took {resize_s:.2f} s and moved {moved / 1e9:.3f} GB "
+            f"({res['mb_per_s']:.1f} MB/s) under 16 clients and a writer; reads p50 "
+            f"{during['p50_ms']:.2f} ms, p99 {during['p99_ms']:.2f} ms, {during['qps']:.1f} "
+            f"queries/s during it against p50 {before['p50_ms']:.2f} ms, p99 "
+            f"{before['p99_ms']:.2f} ms, {before['qps']:.1f} queries/s before; "
+            f"{len(acked)} writes acknowledged, {missing} missing from a replica; {after['qps']:.1f} queries/s, p99 {after['p99_ms']:.2f} ms after it; "
+            f"{checked} shards of the served fields held exactly by their owners, "
+            f"replicas equal; {released / 1e9:.3f} GB of dropped fragments' device copies "
+            f"released (budget {b0 / 1e9:.3f} -> {b1 / 1e9:.3f} GB, memory_allocated "
+            f"{m0 if m0 is None else round(m0 / 1e9, 3)} -> "
+            f"{m1 if m1 is None else round(m1 / 1e9, 3)} GB); every read exact on both "
+            f"routes, the mesh route launching {launched} ({ctx['step3_launched']} in "
+            f"step 3)")
+    return out
+
+
 def cluster_path(pool, device, hand):
     """Three nodes of the port in one process on the card
     (``cluster/``, ``parallel/meshplace.py``, ``server/node.py`` with
@@ -6208,7 +6669,28 @@ def cluster_path(pool, device, hand):
        replicas under 16 clients (p99), node 2's breaker open in node 0's
        /debug/vars and in a flight-recorder segment, ``?cluster=true`` on
        /debug/events listing the three nodes' events before the stop and
-       node 2 unreachable after."""
+       node 2 unreachable after;
+    6. membership (``start_membership`` on the three nodes before step 5's
+       stop, JAX's probe cadence): the time until nodes 0 and 1 mark node 2
+       DOWN; the HTTP route's reads then skip it by its state; node 2
+       restarted on its data directory, the time until both mark it READY,
+       its first answer exact;
+    7. anti-entropy: one replica of 4 fragments diverged directly (bits of
+       f and h cleared, bits of a row no read of the mix touches set), one
+       ``sync_holder`` round on every node; the replicas equal word for
+       word, every read exact on both routes, the mesh route launching
+       kernels;
+    8. a fourth node joins online through node 0's resize coordinator while
+       16 clients post the read mix and a writer sets bits through node 1:
+       the resize's seconds, bytes and MB/s, the reads' p50/p99 during it
+       against a window before; then every acknowledged write on both of
+       its replicas, each node holding exactly what the placement gives it,
+       the replicas equal, the dropped fragments' device copies released
+       (the budget and ``memory_allocated``), every read exact on both
+       routes, and the mesh route's pass and 16-client window launching
+       every kernel step 3 requires of it, with no mesh fallback;
+    9. node 1, alive, removed the same way (the writer through the
+       joiner), with the same checks and an empty data-loss journal."""
     import gc
 
     import numpy as np
@@ -6271,6 +6753,9 @@ def cluster_path(pool, device, hand):
     t0 = time.perf_counter()
     nodes = cluster_nodes(device, CLUSTER_NODES, root)
     out["boot_s"] = time.perf_counter() - t0
+    # every node this path starts, stopped at its end
+    all_nodes = list(nodes)
+    card = card_line() if on_card else "cpu, no power limit"
     try:
         n0, n1, n2 = nodes
         for nd in nodes:
@@ -6358,8 +6843,8 @@ def cluster_path(pool, device, hand):
         def check(name, got):
             norm = norm_json(got[0]) if not name.startswith("pair ") else got[0]
             if norm != want_of[name]:
-                raise AssertionError(f"cluster: {name}: {str(norm)[:200]} != "
-                                     f"{str(want_of[name])[:200]}")
+                raise AssertionError(f"cluster: {name}: {str(norm)[:2000]} != "
+                                     f"{str(want_of[name])[:2000]}")
 
         def serial_of(cli):
             serial = {}
@@ -6521,7 +7006,22 @@ def cluster_path(pool, device, hand):
         if seen != {nd.node_id for nd in nodes} or merged["nodes"] != CLUSTER_NODES:
             raise AssertionError(f"cluster: ?cluster=true lists events of {len(seen)} nodes")
         n2_netloc = n2.uri.split("//", 1)[1]
+        # 6 (starts here): every node probes its peers at JAX's cadence
+        for nd in nodes:
+            nd.start_membership()
+        n2_id, n2_dir, n2_port = n2.node_id, n2.store.path, n2.server.port
+        marks = {}
+
+        def watch(state, since):
+            def both():
+                return all(nd.cluster.node(n2_id).state == state for nd in (n0, n1))
+            marks[state] = since + wait_for(f"node 2 {state} on nodes 0 and 1", both,
+                                            ELASTIC_MARK_TIMEOUT)
+
         n2.stop()
+        t_stop = time.perf_counter()
+        watcher = threading.Thread(target=watch, args=("DOWN", 0.0))
+        watcher.start()
         t0 = time.perf_counter()
         serial_of(clis[0])  # every read exact through the replicas
         fail = cluster_load_window(nodes, mix, serial, CLUSTER_FAILOVER_SECONDS, device,
@@ -6552,12 +7052,68 @@ def cluster_path(pool, device, hand):
         log(f"cluster: node 2 stopped: every read exact through its replicas; its breaker "
             f"{fail['breaker']} in node 0's /debug/vars and open in {len(segs)} "
             f"flight-recorder segments; ?cluster=true lists it unreachable")
+
+        # -- 6. membership: node 2 DOWN, then restarted and READY
+        watcher.join(timeout=ELASTIC_MARK_TIMEOUT + 5)
+        if "DOWN" not in marks:
+            raise AssertionError("cluster: membership: node 2 was not marked DOWN")
+        down_s = marks["DOWN"]
+        if n0.cluster.state != "DEGRADED" or n1.cluster.state != "DEGRADED":
+            raise AssertionError("cluster: membership: the cluster is not DEGRADED")
+        set_mesh(nodes, False)
+        n0.api.dist._partition_log.clear()
+        serial_of(clis[0])
+        parts = list(n0.api.dist._partition_log)
+        set_mesh(nodes, True)
+        if not parts or any(p["httpNodes"] > 1 for p in parts):
+            raise AssertionError("cluster: membership: the HTTP route still asked node 2")
+        from pilosa_tpu_torch.server.node import NodeServer
+
+        t_restart = time.perf_counter()
+        n2 = NodeServer(data_dir=n2_dir, device=device, port=n2_port,
+                        replica_n=CLUSTER_REPLICAS)
+        n2.start()
+        all_nodes.append(n2)
+        if n2.node_id != n2_id:
+            raise AssertionError("cluster: membership: node 2 came back under another id")
+        n2.api.executor.rescache.max_entries = 0
+        n2.join_static(sorted((nd.node_id, nd.uri) for nd in (n0, n1, n2)), n0.node_id)
+        n2.start_membership()
+        nodes[2] = n2
+        boot_s = time.perf_counter() - t_restart
+        watch("READY", boot_s)
+        clis[2].close()
+        clis[2] = HttpClient(n2.server.port)
+        first = mix[0]
+        t_first = time.perf_counter()
+        check(first[0], clis[2].query(first[2], first[1]))
+        first_s = time.perf_counter() - t_first
+        if n0.cluster.state != "NORMAL" or n1.cluster.state != "NORMAL":
+            raise AssertionError("cluster: membership: the cluster is not NORMAL again")
+        out["membership"] = {"down_s": down_s, "restart_boot_s": boot_s,
+                             "ready_s": marks["READY"], "first_answer_s": first_s,
+                             "first_answer": first[0], "http_partitions_checked": len(parts)}
+        log(f"cluster: step 6, membership on {card}: nodes 0 and 1 marked the stopped node 2 "
+            f"DOWN {down_s:.2f} s after its stop; the HTTP route's {len(parts)} reads then "
+            f"asked only the live replicas; node 2 restarted on its data directory booted in "
+            f"{boot_s:.2f} s and was READY on nodes 0 and 1 {marks['READY']:.2f} s after the "
+            f"restart began; its first answer ({first[0]}) exact in {first_s * 1e3:.1f} ms")
+
+        # -- 7-9. anti-entropy, then a node added and one removed online
+        out.update(cluster_elastic({
+            "nodes": nodes, "all_nodes": all_nodes, "clis": clis, "device": device,
+            "card": card, "on_card": on_card, "serial_of": serial_of,
+            "check_extra": check_extra, "mix": mix, "serial": serial,
+            "keep_g": keep_g, "root": root, "pool": pool, "f_np": f_np,
+            "step3_launched": routes["mesh"]["launched_in_route"],
+            "step3_required": OBS_KERNELS + ("cross_gram",),
+        }))
         for cli in clis:
             cli.close()
     finally:
-        for nd in nodes:
+        for nd in all_nodes:
             nd.stop()
-    del nodes
+    del nodes, all_nodes
     gc.collect()
     if on_card:
         torch.cuda.synchronize()

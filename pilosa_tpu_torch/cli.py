@@ -12,7 +12,8 @@ planes are JAX's: ``blackbox.*`` (the crash spool under
 ``<data-dir>/_blackbox/``), ``tracing.endpoint`` and
 ``tracing.sampler-param`` (OTLP span export), ``metric.poll-interval``
 and ``metric.diagnostics-sink`` (a JSONL file of diagnostics reports).
-A boot after a life that died dirty prints the postmortem's id. SIGTERM
+``anti-entropy.interval`` (600 s, 0 turns it off) paces the replica
+repair loop the server starts, as JAX's does. A boot after a life that died dirty prints the postmortem's id. SIGTERM
 drains the node and exits 0.
 """
 
@@ -33,6 +34,7 @@ DEFAULT_CONFIG = {
     "hbm-budget-bytes": None,
     # reference api.go:66-96 importWorkerPoolSize (default 2)
     "import": {"workers": 2, "queue-depth": 16},
+    "anti-entropy": {"interval": 600},
     # reference server/config.go:160 MaxWritesPerRequest (0 disables)
     "max-writes-per-request": 5000,
     "metric": {"service": "none", "poll-interval": 60, "diagnostics-sink": ""},
@@ -191,6 +193,11 @@ def cmd_server(args) -> int:
         node.diagnostics.sink_path = os.path.expanduser(diag_sink)
         node.diagnostics.start(float(metric_cfg.get("poll-interval", 60) or 60))
     node.start()
+    # periodic replica repair and translate-log replication (reference
+    # server.go:494-546 monitorAntiEntropy; 0 turns it off)
+    node.start_anti_entropy(
+        float(cfg.get("anti-entropy", {}).get("interval", 600) or 0)
+    )
     print(
         f"pilosa-tpu-torch server listening on {node.uri}, data dir {data_dir}, "
         f"device {node.holder.device}",

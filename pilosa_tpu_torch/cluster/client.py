@@ -566,12 +566,17 @@ class InternalClient:
             from pilosa_tpu_torch.storage import roaring
 
             positions = roaring.deserialize(out)
-            w = int(width)
+            w = np.uint64(width)
+            # numpy arrays: a diverged block at the serving density holds
+            # millions of pairs (the JSON answer gives lists)
             return {
-                "rows": (positions // w).tolist(),
-                "cols": (positions % w).tolist(),
+                "rows": positions // w,
+                "cols": (positions % w).astype(np.int64),
+                "bytes": len(out),
             }
-        return json.loads(out)
+        data = json.loads(out)
+        data["bytes"] = len(out)
+        return data
 
     def attr_blocks(self, uri: str, index: str, field: str | None) -> list[dict]:
         """Attr block checksums (reference http/client.go attr diff calls,

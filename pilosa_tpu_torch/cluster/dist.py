@@ -121,6 +121,9 @@ class DistributedExecutor:
     # (assignments only change on membership/breaker events, so steady
     # state uses exactly one entry).
     _MESH_CACHE_ENTRIES = 8
+    # a read overtaken by membership commits this many times in a row runs
+    # once more without the check
+    _MEMBERSHIP_RETRIES = 3
     # Cached mesh plans (one per distinct (index, shard-set)); bigger
     # than the facade cache because plans are tiny and every served
     # index's steady-state shard set deserves a slot.
@@ -175,6 +178,10 @@ class DistributedExecutor:
         self._partition_log: collections.deque = collections.deque(maxlen=32)
         self.mesh_dispatches = 0
         self.mesh_fallbacks = 0
+        # membership commits seen, and the reads run again because one
+        # overtook them (_read_retries)
+        self.membership_changes = 0
+        self.membership_retries = 0
 
     def _fanout_pool(self) -> concurrent.futures.ThreadPoolExecutor:
         with self._pool_lock:
@@ -232,21 +239,26 @@ class DistributedExecutor:
         # coordinator-side span (reference executor.go:117); remote fan-out
         # joins it via injected headers in InternalClient._do
         with tracing.start_span("executor.Execute").set_tag("index", index_name):
-            results = []
-            for call in q.calls:
-                tcall = call.clone()
-                self.local._translate_call(idx, tcall)
-                # per-call span, matching the single-node executor's loop
-                # (executor.go:298 executeCall) — profiles and traces of
-                # clustered queries then show the same per-call shape
-                with tracing.start_span(f"executor.execute{tcall.name}"):
-                    results.append(
-                        self._execute_call(index_name, idx, tcall, shards)
-                    )
-            return [
-                self.local._translate_result(idx, c, r)
-                for c, r in zip(q.calls, results)
-            ]
+            return self._read_retries(
+                lambda: self._execute_calls(index_name, idx, q, shards), q
+            )
+
+    def _execute_calls(self, index_name: str, idx, q: pql.Query, shards) -> list[Any]:
+        results = []
+        for call in q.calls:
+            tcall = call.clone()
+            self.local._translate_call(idx, tcall)
+            # per-call span, matching the single-node executor's loop
+            # (executor.go:298 executeCall) — profiles and traces of
+            # clustered queries then show the same per-call shape
+            with tracing.start_span(f"executor.execute{tcall.name}"):
+                results.append(
+                    self._execute_call(index_name, idx, tcall, shards)
+                )
+        return [
+            self.local._translate_result(idx, c, r)
+            for c, r in zip(q.calls, results)
+        ]
 
     def rescache_probe(
         self,
@@ -291,6 +303,10 @@ class DistributedExecutor:
         q = pql.parse(query) if isinstance(query, str) else query
         out = []
         for c in q.calls:
+            if c.name == "Options" and shards is not None:
+                # the leg keeps to the shards it was sent: a list of the
+                # Options' own would count every replica's copy again
+                c = _without_shards(c)
             with tracing.start_span(f"executor.execute{c.name}"):
                 out.append(self.local._execute_call(idx, c, shards))
         return out
@@ -307,6 +323,8 @@ class DistributedExecutor:
         all_shards = self.local._shards_for(idx, shards)
         if call.name in _SHARD_WRITES:
             return self._execute_shard_write(index_name, idx, call, all_shards)
+        if call.name == "Options":
+            call, all_shards = _options_shards(call, idx, all_shards)
         inner = (
             call.children[0]
             if call.name == "Options" and call.children
@@ -404,19 +422,20 @@ class DistributedExecutor:
 
     def _execute_point_write(self, index_name: str, idx, call: Call) -> Any:
         """Apply on every replica of the shard (reference
-        executor.go:2140-2207 executeSetBitField)."""
+        executor.go:2140-2207 executeSetBitField), and on every owner the
+        shard gained while the write ran (:func:`owners_written`)."""
         shard = self._shard_of_write(call)
-        remote: dict[str, list[int] | None] = {}
-        local = False
-        for node in self.cluster.shard_nodes(index_name, shard):
-            if node.id == self.cluster.node_id:
-                local = True
-            else:
-                remote[node.id] = [shard]
-        futures = self._submit_writes(index_name, call, remote)
-        result = self.local._execute_call(idx, call, [shard]) if local else None
-        for r in self._collect_writes(futures):
-            result = r if result is None else (result or r)
+        result = None
+        for owners in owners_written(lambda: self.cluster.shard_nodes(index_name, shard)):
+            remote: dict[str, list[int] | None] = {
+                n.id: [shard] for n in owners if n.id != self.cluster.node_id
+            }
+            futures = self._submit_writes(index_name, call, remote)
+            if len(remote) < len(owners):
+                r = self.local._execute_call(idx, call, [shard])
+                result = r if result is None else (result or r)
+            for r in self._collect_writes(futures):
+                result = r if result is None else (result or r)
         return result
 
     def _execute_broadcast_write(self, index_name: str, idx, call: Call) -> Any:
@@ -434,16 +453,18 @@ class DistributedExecutor:
         """ClearRow/Store on every replica of every shard so replicas
         never diverge (the reference reaches the same end state via
         mapReduce + anti-entropy repair)."""
-        by_replica: dict[str, list[int]] = {}
-        for s in shards:
-            for node in self.cluster.shard_nodes(index_name, s):
-                by_replica.setdefault(node.id, []).append(s)
-        local_shards = by_replica.pop(self.cluster.node_id, None)
-        futures = self._submit_writes(index_name, call, by_replica)
         changed = False
-        if local_shards is not None:
-            changed |= bool(self.local._execute_call(idx, call, local_shards))
-        changed |= any(bool(r) for r in self._collect_writes(futures))
+        for pairs in owners_written(lambda: [
+            (node.id, s) for s in shards for node in self.cluster.shard_nodes(index_name, s)
+        ]):
+            by_replica: dict[str, list[int]] = {}
+            for node_id, s in pairs:
+                by_replica.setdefault(node_id, []).append(s)
+            local_shards = by_replica.pop(self.cluster.node_id, None)
+            futures = self._submit_writes(index_name, call, by_replica)
+            if local_shards is not None:
+                changed |= bool(self.local._execute_call(idx, call, local_shards))
+            changed |= any(bool(r) for r in self._collect_writes(futures))
         return changed
 
     # -- map-reduce (reference executor.go:2454-2611) -----------------------
@@ -640,9 +661,31 @@ class DistributedExecutor:
                 rescache_demote_deltas=self.local.rescache.demote_deltas,
             )
             self._mesh_cache[key] = ex
+            stale = [
+                k for k in self._mesh_cache
+                if k != key and not self._generations_live(k)
+            ]
+            dropped = [self._mesh_cache.pop(k) for k in stale]
             while len(self._mesh_cache) > self._MESH_CACHE_ENTRIES:
-                self._mesh_cache.popitem(last=False)
-            return ex
+                dropped.append(self._mesh_cache.popitem(last=False)[1])
+        # a facade over a holder that left the placement map (a stopped or
+        # restarted node) is never asked again: its stacks leave the card
+        for old in dropped:
+            old.release_stacks()
+        return ex
+
+    def _generations_live(self, key: tuple) -> bool:
+        """Whether every owner of a facade's assignment is still registered
+        under the generation the facade was built on (the local holder,
+        generation 0, always is)."""
+        placement = meshplace.default_placement()
+        for nid, gen, _shards in key:
+            if gen == 0:
+                continue
+            h = placement.handle(nid)
+            if h is None or h.generation != gen:
+                return False
+        return True
 
     def _mesh_execute(
         self, index_name: str, call: Call, mesh_groups: dict,
@@ -802,6 +845,7 @@ class DistributedExecutor:
         span = tracing.start_span("executor.ExecuteBatch")
         span.set_tag("index", index_name).set_tag("queries", len(queries))
         with span:
+            seen = self.membership_changes
             for slot, (query, qshards) in enumerate(queries):
                 try:
                     q = pql.parse(query) if isinstance(query, str) else query
@@ -860,6 +904,17 @@ class DistributedExecutor:
                     fallback.extend(
                         (slot, q, list(sh)) for slot, q, sh in items
                     )
+            if self.membership_changes != seen:
+                # a membership commit overtook the flights: their reads go
+                # again on the new ring
+                self.membership_retries += 1
+                self.holder.stats.count("dist_membership_retries_total", 1)
+                again = {slot for slot, _, _ in fallback}
+                fallback.extend(
+                    (slot, q, list(sh))
+                    for items in flights.values() for slot, q, sh in items
+                    if slot not in again
+                )
             for slot, q, qshards in fallback:
                 try:
                     out[slot] = self.execute(index_name, q, shards=qshards)
@@ -876,11 +931,50 @@ class DistributedExecutor:
             "placement": meshplace.default_placement().snapshot(),
             "meshDispatches": self.mesh_dispatches,
             "meshFallbacks": self.mesh_fallbacks,
+            "membershipRetries": self.membership_retries,
             "recentPartitions": list(self._partition_log),
             # facade executors' partial caches, aggregated: mesh-leg
             # repeats served without launching again
             "meshRescache": self._mesh_rescache_totals(),
         }
+
+    def note_membership(self) -> None:
+        """A membership commit landed: a read that began before it may have
+        been planned on owners that are about to drop its fragments."""
+        with self._mesh_cache_lock:
+            self.membership_changes += 1
+
+    def _read_retries(self, run, q: pql.Query):
+        """``run()`` for a read, again while a membership commit overtakes
+        it (at most :attr:`_MEMBERSHIP_RETRIES` times): an old owner drops
+        its fragments only after every member has the new ring, so a read
+        that saw no commit from start to end read every fragment it
+        planned on."""
+        if q.write_calls():
+            return run()
+        for _ in range(self._MEMBERSHIP_RETRIES):
+            seen = self.membership_changes
+            out = run()
+            if self.membership_changes == seen:
+                return out
+            self.membership_retries += 1
+            self.holder.stats.count("dist_membership_retries_total", 1)
+        return run()
+
+    def forget_placement(self) -> None:
+        """Drop the facade executors and the cached plans: the shard ->
+        owner map moved (an epoch flip, a commit or a cancel). A facade
+        executor is keyed on its owners' assignment, so a stale one is
+        never asked again, but its stacks would stay on the card until it
+        went: they are released here, and the next read builds its stacks
+        over the new owners."""
+        with self._mesh_cache_lock:
+            executors = list(self._mesh_cache.values())
+            self._mesh_cache.clear()
+        with self._plan_cache_lock:
+            self._plan_cache.clear()
+        for ex in executors:
+            ex.release_stacks()
 
     def _mesh_rescache_totals(self) -> dict:
         totals = {"hits": 0, "misses": 0, "invalidations": 0, "entries": 0}
@@ -963,6 +1057,50 @@ class DistributedExecutor:
 
 
 # -- reduce functions (reference executor.go per-call reduceFns) ------------
+
+
+def owners_written(owners_now):
+    """Yield the owners a write still has to reach, until it has reached
+    every owner ``owners_now()`` names: first all of them, then, each time
+    the caller has written the batch yielded, those the shard -> owner map
+    gained meanwhile (an item is a node, or anything the map lists).
+
+    An online resize moves a shard's writes to its new owners at the
+    shard's flip (``cluster/resize.py``). A write planned on the old
+    owners reaches a new one through the migration's delta tap, but only
+    while the tap's session is open, and the target closes it after every
+    node took the flip. So a write whose old owners applied it after that
+    is in no delta: by then the planning node took the flip too, and the
+    new owners come out of its next look at the map."""
+    done: set = set()
+    while True:
+        todo = [o for o in owners_now() if _owner_key(o) not in done]
+        if not todo:
+            return
+        yield todo
+        done.update(_owner_key(o) for o in todo)
+
+
+def _owner_key(owner):
+    return getattr(owner, "id", owner)
+
+
+def _without_shards(call: Call) -> Call:
+    """An Options call without its ``shards`` argument."""
+    out = call.clone()
+    out.args.pop("shards", None)
+    return out
+
+
+def _options_shards(call: Call, idx, shards: list[int]) -> tuple[Call, list[int]]:
+    """The coordinator's view of ``Options(..., shards=[...])``: the listed
+    shards, of those the index has, replace the request's, as they do on
+    one holder; the call then goes out without the list, so that each leg
+    answers only the shards of the partition it is sent."""
+    listed, has = call.uint_slice_arg("shards")
+    if not has:
+        return call, shards
+    return _without_shards(call), sorted(set(listed) & set(idx.available_shards()))
 
 
 def _reduce(call: Call, partials: list[Any]) -> Any:

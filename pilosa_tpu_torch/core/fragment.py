@@ -61,6 +61,9 @@ BSI_EXISTS_BIT = 0
 BSI_SIGN_BIT = 1
 BSI_OFFSET_BIT = 2
 
+# Rows per anti-entropy checksum block (reference fragment.go:81).
+HASH_BLOCK_SIZE = 100
+
 _MIN_CAPACITY = 8
 
 
@@ -109,15 +112,16 @@ class Fragment:
         self._slot_of: dict[int, int] = {}  # row id -> slot
         self._rowids: list[int] = []  # slot -> row id
         self._set_host(np.zeros((0, n_words), dtype=np.uint32))
-        self._device: torch.Tensor | None = None
+        self._device: torch.Tensor | None = None  # graftlint: disable=residency-discipline -- the residency manager's own field: a new fragment starts with no device tier
         # the event after the device copy's side-stream upload (None when
         # it was made on the default stream): readers wait for it
         self._device_ready = None
         # bytes shipped host -> device by the latest device_bits() sync (0
         # when the copy was current); the ingest uploader counts them
         self.last_sync_h2d_bytes = 0
-        # ((epoch, version), stats) of container_profile
+        # ((epoch, version), stats) of container_profile, and of blocks()
         self._container_profile = None
+        self._blocks_cache = None
         self._dirty: set[int] = set()
         self._counts: np.ndarray | None = None  # per-slot cached popcounts
         # Monotonic mutation counter; with the process-unique epoch it
@@ -209,12 +213,18 @@ class Fragment:
     def _drop_device(self) -> None:
         """Drop the device copy and its budget accounting (caller holds the
         lock); the host mirror stays authoritative."""
-        self._device = None
+        self._device = None  # graftlint: disable=residency-discipline -- _drop_device is the manager's demote transition: the budget entry is released and the tracker told just below
         self._device_ready = None
         self._dirty.clear()
         if self._budget_key is not None:
             membudget.default_budget(self.device).release(self._budget_key)
         residency.default_tracker().note_dropped(self)
+
+    def release_device(self) -> None:
+        """Drop the device copy and release its budget bytes (the fragment
+        is leaving this node); the host mirror stays."""
+        with self._lock:
+            self._drop_device()
 
     # -- mutation -----------------------------------------------------------
 
@@ -576,7 +586,7 @@ class Fragment:
             if not was_resident:
                 padded = np.zeros((self.capacity + 1, self.n_words), dtype=np.uint32)
                 padded[: self.capacity] = self._host
-                self._device = bitops.to_device(padded, self.device)
+                self._device = bitops.to_device(padded, self.device)  # graftlint: disable=residency-discipline -- device_bits is the manager's promote transition: the upload is admitted to the budget by _account_device below
                 self._device_ready = streams.ready_event(self.device)
                 rebuilt = True
                 h2d = padded.nbytes
@@ -590,7 +600,7 @@ class Fragment:
                 else:
                     # a reader on another stream may hold the old tensor:
                     # a side stream never writes into it
-                    self._device = self._device.index_copy(0, where, rows)
+                    self._device = self._device.index_copy(0, where, rows)  # graftlint: disable=residency-discipline -- device_bits' side-stream patch: the copy's size is unchanged and _account_device touches its budget entry below
                     self._device_ready = streams.ready_event(self.device)
                 h2d = slots.nbytes + rows.numel() * 4
             self._dirty.clear()
@@ -873,6 +883,71 @@ class Fragment:
             self._drop_device()
             self._counts = None
             self.version += 1
+
+    # -- anti-entropy blocks (reference fragment.go:1760-1991) --------------
+
+    def blocks(self) -> list[dict]:
+        """Checksums of HASH_BLOCK_SIZE-row blocks; blocks with no bits are
+        omitted (reference fragment.go Blocks/blockChecksum). The bytes
+        hashed are the JAX package's, so the two packages' checksums of
+        the same rows are equal."""
+        from pilosa_tpu_torch.core import blockhash
+
+        with self._lock:
+            # a round asks each replica's blocks once for itself and once
+            # for each peer: the checksums of one version are kept
+            cached = self._blocks_cache
+            if cached is not None and cached[0] == (self.epoch, self.version):
+                return [dict(b) for b in cached[1]]
+            by_block: dict[int, list[int]] = {}
+            for row in sorted(self._slot_of):
+                if self._host[self._slot_of[row]].any():
+                    by_block.setdefault(row // HASH_BLOCK_SIZE, []).append(row)
+            out = []
+            for block in sorted(by_block):
+                h = blockhash.new_hash()
+                for row in by_block[block]:
+                    blockhash.add_row(h, row, self._host[self._slot_of[row]])
+                out.append({"id": block, "checksum": h.hexdigest()})
+            self._blocks_cache = ((self.epoch, self.version), [dict(b) for b in out])
+            return out
+
+    def block_data(self, block: int) -> tuple[np.ndarray, np.ndarray]:
+        """(rows uint64, cols int64) of every set bit in a block, local
+        coordinates, row-major (reference fragment.go blockData; the JAX
+        package returns the same pairs as lists)."""
+        with self._lock:
+            rows_out: list[np.ndarray] = []
+            cols_out: list[np.ndarray] = []
+            lo = block * HASH_BLOCK_SIZE
+            for row in range(lo, lo + HASH_BLOCK_SIZE):
+                slot = self._slot_of.get(row)
+                if slot is None:
+                    continue
+                cols = bitops.unpack_columns(self._host[slot])
+                if len(cols):
+                    rows_out.append(np.full(len(cols), row, dtype=np.uint64))
+                    cols_out.append(cols.astype(np.int64))
+            if not rows_out:
+                return np.empty(0, np.uint64), np.empty(0, np.int64)
+            return np.concatenate(rows_out), np.concatenate(cols_out)
+
+    def load_if_empty(self, row_ids: np.ndarray, words: np.ndarray) -> bool:
+        """:meth:`load_rows_matrix` when the fragment holds no bit and no
+        migration streams it, under one hold of the lock, so that no write
+        can land between the test and the load; False, and nothing
+        changed, otherwise. The load writes no op-log record, so a
+        migration's delta tap (``cluster/migration.py``) would never see
+        it: a tapped fragment takes its rows through the mutators. A
+        session pins its tap and cuts its snapshot under this lock, so a
+        load that found no tap lies inside the cut."""
+        with self._lock:
+            if self.store is not None and self.store.tapped():
+                return False
+            if self._host[: len(self._rowids)].any():
+                return False
+            self.load_rows_matrix([int(r) for r in row_ids], words)
+            return True
 
     def check_invariants(self, device: bool = False) -> None:
         """Verify slot-map <-> host-mirror <-> device-copy coherence;

@@ -62,6 +62,18 @@ class View:
                     self.on_create_fragment(self, shard)
             return frag
 
+    def drop_fragment(self, shard: int) -> bool:
+        """Remove a fragment (reference holder.go:898-926 holderCleaner).
+        Its device copy leaves through the residency manager, so the
+        budget's byte count follows. Disk-backed callers also detach the
+        backing file (``HolderStore.delete_fragment``)."""
+        with self._lock:
+            frag = self.fragments.pop(shard, None)
+        if frag is None:
+            return False
+        frag.release_device()
+        return True
+
     def available_shards(self) -> set[int]:
         return set(self.fragments)
 

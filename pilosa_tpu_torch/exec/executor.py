@@ -944,6 +944,24 @@ class Executor:
             budget.admit(entry["bkey"], nbytes, self._stack_evict_cb(field, key, entry))
             return slot_of, dev
 
+    def release_stacks(self) -> int:
+        """Drop every cached stack and release its bytes from the budget;
+        the number dropped. After a topology change the stacks were built
+        over shard sets this executor no longer answers, and would hold
+        their bytes on the card until the cache's LRU reached them."""
+        budget = membudget.default_budget(self.holder.device)
+        dropped = 0
+        with self._stack_lock:
+            for field in list(self._stacks.keys()):
+                caches = self._stacks.get(field)
+                if not caches:
+                    continue
+                for key, entry in _dict_items(caches):
+                    if caches.pop(key, None) is not None:
+                        budget.release(entry["bkey"])
+                        dropped += 1
+        return dropped
+
     def _stack_evict_cb(self, field: Field, key, entry: dict):
         """The budget's evict callback for one stack entry: drop the entry
         from the cache (a lock-free pop, as the evicting thread may hold
@@ -2255,12 +2273,28 @@ class Executor:
         def compute(p, e, s, fw):
             return bsi.sum_host(p, e, s, fw, depth=depth)
 
+        filtered = []
         for i, _ in sum_items:
             try:
                 filt = self._sum_filter(idx, calls[i], shard_list)
             except Exception:  # the per-call path raises per query
                 self.bsi_batch_item_errors += 1
                 continue
+            if filt is None:
+                tc = self._bsi_agg_serve(field, (bits, None, shard_list), "sum", compute)
+                results[i] = self._sum_valcount(field, tc)
+            else:
+                filtered.append((i, filt))
+        if len(filtered) < 2:
+            self._sum_filtered(field, bits, filtered, shard_list, results, compute)
+            return
+        # a flight of filtered Sums: the span JAX opens around its fused
+        # launch of the same flight
+        with tracing.start_span("executor.bsiSumBatch").set_tag("n", len(filtered)):
+            self._sum_filtered(field, bits, filtered, shard_list, results, compute)
+
+    def _sum_filtered(self, field, bits, filtered, shard_list, results, compute) -> None:
+        for i, filt in filtered:
             tc = self._bsi_agg_serve(field, (bits, filt, shard_list), "sum", compute)
             results[i] = self._sum_valcount(field, tc)
 

@@ -1,6 +1,6 @@
 """Staged ingest pipeline: decode -> coalesced apply -> H2D upload
-(counterpart of ``pilosa_tpu/ingest/pipeline.py``, without the migration
-code's ``ChunkPrefetcher``).
+(counterpart of ``pilosa_tpu/ingest/pipeline.py``), and the migration's
+read-ahead, ``ChunkPrefetcher``.
 
 The lock-step import path serialized everything: decode a batch, merge
 it into the fragment's host mirror, (eventually) re-upload the fragment
@@ -208,7 +208,7 @@ class DeviceUploader:
             if done is not None:
                 try:
                     done(frag, None)  # the owner's note of it ends here
-                except Exception:  # its accounting hook: shutdown goes on
+                except Exception:  # graftlint: disable=exception-hygiene -- an owner's accounting hook at shutdown; the drain goes on
                     pass
             with self._idle:
                 self._pending -= 1
@@ -365,6 +365,70 @@ class DeviceUploader:
         self._closed = True
         self._q.put(None)
         self._notify()
+        self._thread.join(timeout=5)
+
+
+class ChunkPrefetcher:
+    """Double-buffered read-ahead for sequential chunked transfers —
+    the DeviceUploader's bounded-slot pattern pointed the other way.
+
+    Fragment migration (cluster/resize.py) pulls a snapshot in chunks
+    over HTTP; fetching chunk N+1 while chunk N is being applied hides
+    the network RTT behind the apply, exactly like the uploader hides
+    H2D transfers behind merges.  A worker thread fetches sequential
+    chunks into a slot-bounded queue; the consumer iterates
+    ``(offset, blob)`` pairs.  A fetch error surfaces on the consumer
+    at the failed chunk's position, with ``next_offset`` telling a
+    retry where to resume — everything before it was already consumed.
+    """
+
+    def __init__(self, fetch, size: int, chunk_bytes: int, slots: int = 2,
+                 start: int = 0):
+        self._fetch = fetch  # fn(offset) -> bytes
+        self.size = max(0, int(size))
+        self.chunk_bytes = max(1, int(chunk_bytes))
+        self.next_offset = max(0, int(start))  # first unconsumed offset
+        self.chunks = 0
+        self._q: "queue.Queue" = queue.Queue(maxsize=max(1, slots))
+        self._stop = threading.Event()
+        self._thread = threading.Thread(
+            target=self._run, name="migrate-prefetch", daemon=True
+        )
+        self._thread.start()
+
+    def _run(self) -> None:
+        offset = self.next_offset
+        try:
+            while offset < self.size and not self._stop.is_set():
+                blob = self._fetch(offset)
+                if not blob:
+                    raise IOError(f"empty chunk at offset {offset}")
+                self._q.put((offset, blob))
+                offset += len(blob)
+            self._q.put(None)  # clean end of stream
+        except Exception as e:  # delivered to the consumer, not lost
+            self._q.put(e)
+
+    def __iter__(self):
+        while True:
+            item = self._q.get()
+            if item is None:
+                return
+            if isinstance(item, Exception):
+                raise item
+            offset, blob = item
+            yield offset, blob
+            self.next_offset = offset + len(blob)
+            self.chunks += 1
+
+    def close(self) -> None:
+        self._stop.set()
+        # unblock a producer waiting on a full slot queue
+        try:
+            while True:
+                self._q.get_nowait()
+        except queue.Empty:
+            pass
         self._thread.join(timeout=5)
 
 

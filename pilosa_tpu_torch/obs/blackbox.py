@@ -192,7 +192,7 @@ class BlackBox:
         self._thread = None
         try:
             self.checkpoint("shutdown")
-        except Exception:  # a failing final checkpoint must not block shutdown
+        except Exception:  # graftlint: disable=exception-hygiene -- a failing final checkpoint must not block shutdown
             pass
         if clean:
             try:
@@ -210,7 +210,7 @@ class BlackBox:
                 pass
         try:
             atexit.unregister(self._atexit)
-        except Exception:  # interpreter teardown may have dropped the registry
+        except Exception:  # graftlint: disable=exception-hygiene -- interpreter teardown may have dropped the registry
             pass
         self._disarm_faulthandler()
 
@@ -224,7 +224,7 @@ class BlackBox:
         while not self._stop.wait(self.interval):
             try:
                 self.checkpoint("interval")
-            except Exception:  # the black box must outlive any one bad checkpoint
+            except Exception:  # graftlint: disable=exception-hygiene -- the black box must outlive any one bad checkpoint
                 pass
 
     # -- faulthandler (last words) -------------------------------------------
@@ -258,7 +258,7 @@ class BlackBox:
                     # hand fatal-signal dumps back to stderr, where they
                     # went before this box took them
                     faulthandler.enable(file=sys.__stderr__, all_threads=True)
-            except Exception:  # already disabled, or stderr is gone
+            except Exception:  # graftlint: disable=exception-hygiene -- already disabled, or stderr is gone
                 pass
             if self._lw_file is not None:
                 try:
@@ -279,7 +279,7 @@ class BlackBox:
             with self._lock:
                 self._stats["syncFlushes"] += 1
             self.checkpoint("incident")
-        except Exception:  # a failed flush must not reach the incident engine
+        except Exception:  # graftlint: disable=exception-hygiene -- a failed flush must not reach the incident engine
             pass
 
     def checkpoint(self, reason: str = "interval") -> None:
@@ -315,19 +315,19 @@ class BlackBox:
                     "segments": fr.segments_snapshot(limit=10),
                     "incidents": fr.incidents_full(),
                 }
-            except Exception:  # one plane failing must not starve the others
+            except Exception:  # graftlint: disable=exception-hygiene -- one plane failing must not starve the others
                 pass
         hist = self.history
         if hist is not None:
             try:
                 seg["history"] = hist.blackbox_snapshot(self.history_window)
-            except Exception:  # one plane failing must not starve the others
+            except Exception:  # graftlint: disable=exception-hygiene -- one plane failing must not starve the others
                 pass
         traces = getattr(self.holder, "traces", None)
         if traces is not None:
             try:
                 seg["traces"] = traces.blackbox_snapshot()
-            except Exception:  # one plane failing must not starve the others
+            except Exception:  # graftlint: disable=exception-hygiene -- one plane failing must not starve the others
                 pass
         journal = getattr(self.holder, "events", None)
         if journal is not None:
@@ -336,7 +336,7 @@ class BlackBox:
                     max(0, journal.last_seq - _EVENT_TAIL)
                 )
                 seg["events"] = tail["events"]
-            except Exception:  # one plane failing must not starve the others
+            except Exception:  # graftlint: disable=exception-hygiene -- one plane failing must not starve the others
                 pass
         slo = getattr(self.holder, "slo", None)
         if slo is not None:
@@ -345,18 +345,18 @@ class BlackBox:
                     "snapshot": slo.snapshot(),
                     "pressure": slo.pressure(),
                 }
-            except Exception:  # one plane failing must not starve the others
+            except Exception:  # graftlint: disable=exception-hygiene -- one plane failing must not starve the others
                 pass
         api = self.api
         qos = getattr(api, "qos", None) if api is not None else None
         if qos is not None:
             try:
                 seg["qos"] = qos.snapshot()
-            except Exception:  # one plane failing must not starve the others
+            except Exception:  # graftlint: disable=exception-hygiene -- one plane failing must not starve the others
                 pass
         try:
             seg["devledger"] = devledger.counters()
-        except Exception:  # ledger snapshots are advisory
+        except Exception:  # graftlint: disable=exception-hygiene -- ledger snapshots are advisory
             pass
         return seg
 
@@ -490,7 +490,7 @@ class BlackBox:
                 lastWords=bool(postmortem.get("lastWords")),
                 incidents=len(postmortem.get("incidents") or ()),
             )
-        except Exception:  # journaling is best-effort
+        except Exception:  # graftlint: disable=exception-hygiene -- journaling is best-effort
             pass
 
     def _discard_segments(self) -> None:
@@ -622,7 +622,7 @@ def _drain_nodes() -> None:
     for node in list(_SIG_NODES):
         try:
             node.shutdown_graceful()
-        except Exception:  # one node's failed drain must not stop the others'
+        except Exception:  # graftlint: disable=exception-hygiene -- one node's failed drain must not stop the others'
             pass
 
 

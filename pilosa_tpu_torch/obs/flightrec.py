@@ -183,7 +183,7 @@ class FlightRecorder:
                 k: cur[k] - last[k] for k in cur
             }
             self._last_devcosts = cur
-        except Exception:  # ledger deltas are advisory segment context
+        except Exception:  # graftlint: disable=exception-hygiene -- ledger deltas are advisory segment context
             pass
         client = self.client
         if client is not None and hasattr(client, "breaker_states"):
@@ -265,7 +265,7 @@ class FlightRecorder:
                 series = prov(trigger)
                 if series:
                     bundle["series"] = series
-            except Exception:  # history attachment is best-effort
+            except Exception:  # graftlint: disable=exception-hygiene -- history attachment is best-effort
                 pass
         if slo_snap is not None:
             bundle["slo"] = {
@@ -291,13 +291,13 @@ class FlightRecorder:
                 trigger=trigger["type"],
                 **{k: v for k, v in trigger.items() if k != "type"},
             )
-        except Exception:  # journaling is best-effort
+        except Exception:  # graftlint: disable=exception-hygiene -- journaling is best-effort
             pass
         hook = self.on_incident
         if hook is not None:
             try:
                 hook(bundle)
-            except Exception:  # durable-flush wiring must not fail the capture
+            except Exception:  # graftlint: disable=exception-hygiene -- durable-flush wiring must not fail the capture
                 pass
 
     def capture_incident(self, trigger: dict) -> None:
@@ -311,7 +311,7 @@ class FlightRecorder:
             return
         try:
             self._capture(dict(trigger))
-        except Exception:  # external triggers are best-effort
+        except Exception:  # graftlint: disable=exception-hygiene -- external triggers are best-effort
             pass
 
     # -- exposition ----------------------------------------------------------

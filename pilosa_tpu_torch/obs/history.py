@@ -248,7 +248,7 @@ class MetricsHistory:
         while not self._stop_evt.wait(self.cadence):
             try:
                 self.sample_once()
-            except Exception:  # the sampler must survive any plane's failure
+            except Exception:  # graftlint: disable=exception-hygiene -- the sampler must survive any plane's failure
                 pass
 
     # -- collection ----------------------------------------------------------
@@ -291,7 +291,7 @@ class MetricsHistory:
                     s[f"{base}.eps"] = self._rate(
                         f"{base}.errors", c["errors"], now
                     )
-            except Exception:  # one plane failing must not starve the others
+            except Exception:  # graftlint: disable=exception-hygiene -- one plane failing must not starve the others
                 pass
         api = self.api
         batcher = getattr(api, "batcher", None) if api is not None else None
@@ -305,7 +305,7 @@ class MetricsHistory:
                 s["batcher.coalesced_ps"] = self._rate(
                     "batcher.coalesced", b["coalesced"], now
                 )
-            except Exception:  # one plane failing must not starve the others
+            except Exception:  # graftlint: disable=exception-hygiene -- one plane failing must not starve the others
                 pass
         qos = getattr(api, "qos", None) if api is not None else None
         if qos is not None:
@@ -320,7 +320,7 @@ class MetricsHistory:
                         f"{tb}.shed", t["shed"], now
                     )
                     s[f"{tb}.debt_ms"] = t["debtMs"]
-            except Exception:  # one plane failing must not starve the others
+            except Exception:  # graftlint: disable=exception-hygiene -- one plane failing must not starve the others
                 pass
         try:
             c = devledger.counters()
@@ -333,7 +333,7 @@ class MetricsHistory:
             s["dev.transfer_bytes_ps"] = self._rate(
                 "dev.transferBytes", c["h2dBytes"] + c["d2hBytes"], now
             )
-        except Exception:  # one plane failing must not starve the others
+        except Exception:  # graftlint: disable=exception-hygiene -- one plane failing must not starve the others
             pass
         try:
             r = residency.default_tracker().snapshot()
@@ -348,7 +348,7 @@ class MetricsHistory:
             s["res.prefetch_ps"] = self._rate(
                 "res.prefetch", r["prefetchIssued"], now
             )
-        except Exception:  # one plane failing must not starve the others
+        except Exception:  # graftlint: disable=exception-hygiene -- one plane failing must not starve the others
             pass
         ingest = getattr(api, "ingest", None) if api is not None else None
         if ingest is not None:
@@ -367,7 +367,7 @@ class MetricsHistory:
                     s["ingest.h2d_bytes_ps"] = self._rate(
                         "ingest.h2dBytes", up["h2dBytes"], now
                     )
-            except Exception:  # one plane failing must not starve the others
+            except Exception:  # graftlint: disable=exception-hygiene -- one plane failing must not starve the others
                 pass
         return s
 

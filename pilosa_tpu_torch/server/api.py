@@ -30,9 +30,13 @@ in wire form; schema changes broadcast to the peers; imports route each
 shard's slice to its replicas; peer messages (``receive_message``) apply
 schema, shard, state and node news; key translation reaches the primary;
 and ``?cluster=true`` merges events, history, traces and postmortems from
-every peer. The planes of a later slice (migrations, resize, anti-entropy,
-membership probes) are not here: a message only they send answers an
-error that names the missing plane.
+every peer. The elastic planes are JAX's: block checksums and block data
+for anti-entropy, the source and target halves of an online migration
+(``migrate_*``, ``cluster/migration.py``), the resize protocol's messages
+(prepare, epoch flip, cancel, the membership commit, after which the node
+drops what it no longer owns, its device copies through the residency
+manager) and the operator's resize calls (abort, remove-node, resume,
+set-coordinator).
 """
 
 from __future__ import annotations
@@ -40,15 +44,21 @@ from __future__ import annotations
 import io
 import logging
 import os
+import random
 import threading
 import time
+import zlib
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
 from pilosa_tpu_torch import __version__, deadline, pql
 from pilosa_tpu_torch.cluster import broadcast as bc
-from pilosa_tpu_torch.cluster.dist import DistributedExecutor
+from pilosa_tpu_torch.cluster import migration, wire
+from pilosa_tpu_torch.cluster.client import ClientError
+from pilosa_tpu_torch.cluster.dist import DistributedExecutor, owners_written
+from pilosa_tpu_torch.cluster.migration import MigrationRegistry
+from pilosa_tpu_torch.cluster.topology import Node as ClusterNode
 from pilosa_tpu_torch.cluster.wire import encode_results
 from pilosa_tpu_torch.core import membudget, residency, timequantum
 from pilosa_tpu_torch.core.field import FieldOptions
@@ -58,6 +68,7 @@ from pilosa_tpu_torch.core.view import VIEW_STANDARD
 from pilosa_tpu_torch.exec.executor import ExecuteError, Executor
 from pilosa_tpu_torch.exec.result import result_to_json
 from pilosa_tpu_torch.ingest import IngestPipeline
+from pilosa_tpu_torch.ingest.pipeline import ChunkPrefetcher
 from pilosa_tpu_torch.obs import devledger, qprofile, slo
 from pilosa_tpu_torch.obs import events as ev
 from pilosa_tpu_torch.ops import bitops
@@ -69,6 +80,7 @@ from pilosa_tpu_torch.server.qos import QosGovernor
 from pilosa_tpu_torch.shardwidth import SHARD_WIDTH_EXP
 from pilosa_tpu_torch.storage import roaring
 from pilosa_tpu_torch.storage.disk import HolderStore
+from pilosa_tpu_torch.testing import faults
 
 logger = logging.getLogger(__name__)
 
@@ -146,6 +158,14 @@ class API:
             )
         self._lock = threading.RLock()
         self._state = STATE_NORMAL
+        # source-side migration sessions (cluster/migration.py), and the
+        # target's held pulls awaiting the post-flip finalize drain
+        self.migrations = MigrationRegistry(self._node_id())
+        self._migrate_pulls: dict[tuple, dict] = {}
+        self._migrate_lock = threading.Lock()
+        # the in-process mirror of the resize journal (cluster/resize.py;
+        # a node with a data dir also keeps it on disk)
+        self._resize_journal: dict | None = None
         # Slow-query ring (reference long-query-time, upgraded to full
         # profiles at /debug/slow-queries); the server sets the threshold.
         self.slow_queries = qprofile.SlowQueryLog()
@@ -232,8 +252,7 @@ class API:
 
     def _broadcast(self, msg: dict) -> None:
         """Best-effort control-plane fan-out: a peer that misses a schema
-        message re-converges through the join handshake and, in a later
-        slice, anti-entropy. Raising here would leave the committed local
+        message re-converges through the join handshake and anti-entropy. Raising here would leave the committed local
         change un-broadcast for ever, since a client's retry meets the
         ConflictError before it could broadcast again."""
         if self.broadcaster is None:
@@ -561,46 +580,57 @@ class API:
         timestamps = req.get("timestamps")
         width = f.n_words * 32
         shards = cols // np.uint64(width)
-        node_masks: dict[str, np.ndarray] = {}
         node_uri: dict[str, str] = {}
-        for s in np.unique(shards):
-            m = shards == s
-            for node in self.cluster.shard_nodes(index, int(s)):
-                node_uri[node.id] = node.uri
-                node_masks[node.id] = (
-                    m if node.id not in node_masks else (node_masks[node.id] | m)
+
+        def owners_now():
+            out = []
+            for s in np.unique(shards):
+                for node in self.cluster.shard_nodes(index, int(s)):
+                    node_uri[node.id] = node.uri
+                    out.append((node.id, int(s)))
+            return out
+
+        # every owner the batch's shards gained while it was sent gets its
+        # slice too (dist.owners_written)
+        for pairs in owners_written(owners_now):
+            node_masks: dict[str, np.ndarray] = {}
+            for node_id, s in pairs:
+                m = shards == np.uint64(s)
+                node_masks[node_id] = (
+                    m if node_id not in node_masks else (node_masks[node_id] | m)
                 )
-        # every node's slice goes out before errors are reported, so one
-        # dead replica cannot leave a later node's slice undelivered
-        errors: list[str] = []
-        for node_id, mask in node_masks.items():
-            # numpy slices ride through: the local apply takes them as they
-            # are and the client encodes them in binary ("_width" lets it
-            # build roaring positions; the JSON fallback makes lists)
-            sub: dict = {
-                "columnIDs": cols[mask],
-                "remote": True,
-                "_width": width,
-            }
-            if values is not None:
-                sub["values"] = values[mask]
-            else:
-                sub["rowIDs"] = rows[mask]
-            if timestamps is not None:
-                sub["timestamps"] = [timestamps[i] for i in np.nonzero(mask)[0]]
-            if req.get("clear"):
-                sub["clear"] = True
-            try:
-                if node_id == self.cluster.node_id:
-                    self.import_bits(index, f.name, sub)
+            # every node's slice goes out before errors are reported, so one
+            # dead replica cannot leave a later node's slice undelivered
+            errors: list[str] = []
+            for node_id, mask in node_masks.items():
+                # numpy slices ride through: the local apply takes them as
+                # they are and the client encodes them in binary ("_width"
+                # lets it build roaring positions; the JSON fallback makes
+                # lists)
+                sub: dict = {
+                    "columnIDs": cols[mask],
+                    "remote": True,
+                    "_width": width,
+                }
+                if values is not None:
+                    sub["values"] = values[mask]
                 else:
-                    self.client.import_bits(node_uri[node_id], index, f.name, sub)
-            except Exception as e:
-                errors.append(f"{node_id}: {e}")
-        if errors:
-            raise ApiError(
-                "import partially failed on node(s): " + "; ".join(errors), 500
-            )
+                    sub["rowIDs"] = rows[mask]
+                if timestamps is not None:
+                    sub["timestamps"] = [timestamps[i] for i in np.nonzero(mask)[0]]
+                if req.get("clear"):
+                    sub["clear"] = True
+                try:
+                    if node_id == self.cluster.node_id:
+                        self.import_bits(index, f.name, sub)
+                    else:
+                        self.client.import_bits(node_uri[node_id], index, f.name, sub)
+                except Exception as e:
+                    errors.append(f"{node_id}: {e}")
+            if errors:
+                raise ApiError(
+                    "import partially failed on node(s): " + "; ".join(errors), 500
+                )
         return True
 
     def import_roaring(
@@ -628,24 +658,30 @@ class API:
             # shard (reference api.go:400-404)
             changed = 0
             errors: list[str] = []
-            for node in self.cluster.shard_nodes(index, shard):
-                try:
-                    if node.id == self.cluster.node_id:
-                        changed = self.import_roaring(
-                            index, field, shard, data, clear=clear, view=view,
-                            remote=True,
-                        )["changed"]
-                    else:
-                        resp = self.client.import_roaring(
-                            node.uri, index, field, shard, data, clear=clear,
-                            view=view,
-                        )
+            # and every owner the shard gained while it was sent
+            # (dist.owners_written), whose changed count is not the payload's
+            first = True
+            for batch in owners_written(lambda: self.cluster.shard_nodes(index, shard)):
+                for node in batch:
+                    try:
+                        if node.id == self.cluster.node_id:
+                            got = self.import_roaring(
+                                index, field, shard, data, clear=clear, view=view,
+                                remote=True,
+                            )["changed"]
+                        else:
+                            resp = self.client.import_roaring(
+                                node.uri, index, field, shard, data, clear=clear,
+                                view=view,
+                            )
+                            got = resp.get("changed") if isinstance(resp, dict) else None
                         # every replica applies the same payload: any
                         # replica's changed count is the changed count
-                        if isinstance(resp, dict) and "changed" in resp:
-                            changed = resp["changed"]
-                except Exception as e:
-                    errors.append(f"{node.id}: {e}")
+                        if first and got is not None:
+                            changed = got
+                    except Exception as e:
+                        errors.append(f"{node.id}: {e}")
+                first = False
             if errors:
                 raise ApiError(
                     "import-roaring failed on replica(s): " + "; ".join(errors),
@@ -688,7 +724,25 @@ class API:
         pipeline hands the applied fragment to the upload stage.
         ``changed`` counts the bits flipped, as JAX's does."""
         frag = f.create_view_if_not_exists(view).create_fragment_if_not_exists(shard)
-        changed = frag.import_row_words(row_ids, words, clear=clear)
+        if not clear and len(row_ids) and frag.load_if_empty(row_ids, words):
+            # a fragment with no bit yet (a bulk load's, a migration
+            # target's) takes the rows whole and writes them as its
+            # snapshot, where a merge would log every position (8 bytes
+            # each) and snapshot later
+            if frag.store is not None:
+                frag.store.snapshot()
+            changed = int(np.bitwise_count(words).sum(dtype=np.int64))
+        else:
+            changed = frag.import_row_words(row_ids, words, clear=clear)
+        self._rows_applied(index, f, shard, row_ids, words, clear, view)
+        return {"changed": int(changed)}, frag
+
+    def _rows_applied(
+        self, index: str, f, shard: int, row_ids: np.ndarray, words: np.ndarray,
+        clear: bool, view: str,
+    ) -> None:
+        """What rows merged into a fragment imply beside it: an int field's
+        bit depth, and the existence of their columns."""
         if view.startswith("bsig_") and f.is_bsi() and len(row_ids):
             # the schema carries only the options: the bit depth grows to
             # the planes the payload holds (reference field.go:1050-1067)
@@ -700,7 +754,6 @@ class API:
             ef.create_view_if_not_exists(VIEW_STANDARD).create_fragment_if_not_exists(
                 shard
             ).import_row_words(np.zeros(1, dtype=np.uint64), cols[None])
-        return {"changed": int(changed)}, frag
 
     # -- export (reference api.go:499-573 ExportCSV) ------------------------
 
@@ -750,7 +803,7 @@ class API:
             "availableShards": self.available_shards_map(),
         }
         if self.cluster is not None:
-            # resize visibility, read by a later slice's watchdog
+            # resize visibility, read by the peers' resize watchdogs
             out["coordinator"] = self.cluster.coordinator_id
             out["epoch"] = self.cluster.epoch
             out["resizePending"] = self.cluster.resize_pending
@@ -1050,15 +1103,487 @@ class API:
             out["summary"] = {k: v for k, v in detail.items() if k != "spans"}
         return out
 
+    # -- fragment internals (reference api.go:590-660 fragment block
+    #    endpoints; used by anti-entropy sync and resize) -------------------
+
+    def _fragment(self, index: str, field: str, view: str, shard: int):
+        frag = self.holder.fragment(index, field, view, shard)
+        if frag is None:
+            raise NotFoundError(
+                f"fragment not found: {index}/{field}/{view}/{shard}"
+            )
+        return frag
+
+    def fragment_blocks(self, index: str, field: str, view: str, shard: int) -> dict:
+        self._validate("FragmentBlocks")
+        return {"blocks": self._fragment(index, field, view, shard).blocks()}
+
+    def _block_pairs(self, req: dict):
+        frag = self._fragment(
+            req["index"], req["field"], req.get("view", VIEW_STANDARD),
+            int(req["shard"]),
+        )
+        rows, cols = frag.block_data(int(req["block"]))
+        return frag, rows, cols
+
+    def fragment_block_data(self, req: dict) -> dict:
+        self._validate("FragmentBlockData")
+        _frag, rows, cols = self._block_pairs(req)
+        return {"rows": rows.tolist(), "cols": cols.tolist()}
+
+    def fragment_block_data_binary(self, req: dict) -> bytes | None:
+        """Packed-binary block payload: the block's set bits as a roaring
+        blob of row*width+col positions (JAX's wire format). None when a
+        row id exceeds the position encoding (the caller answers JSON)."""
+        self._validate("FragmentBlockData")
+        frag, rows, cols = self._block_pairs(req)
+        width = frag.shard_width
+        max_row = (2**64 - 1 - (width - 1)) // width
+        if len(rows) and int(rows.max()) > max_row:
+            return None
+        # block_data is row-major, so the positions are already sorted
+        positions = rows * np.uint64(width) + cols.astype(np.uint64)
+        return roaring.serialize(positions)
+
+    def _attr_store(self, index: str, field: str | None):
+        idx = self.holder.index(index)
+        if idx is None:
+            raise ApiError(f"index not found: {index}", 404)
+        if not field:
+            return idx.column_attrs
+        f = idx.field(field)
+        if f is None:
+            raise ApiError(f"field not found: {field}", 404)
+        return f.row_attrs
+
+    def attr_blocks(self, index: str, field: str | None) -> dict:
+        """Attr block checksums for anti-entropy diff (reference
+        api.go:590-660; attr.go:81-120)."""
+        self._validate("FragmentBlocks")
+        store = self._attr_store(index, field)
+        return {
+            "blocks": [
+                {"id": bid, "checksum": chk.hex()}
+                for bid, chk in store.blocks()
+            ]
+        }
+
+    def attr_block_data(self, req: dict) -> dict:
+        self._validate("FragmentBlockData")
+        store = self._attr_store(req["index"], req.get("field"))
+        return {
+            "attrs": {
+                str(k): v
+                for k, v in store.block_data(int(req["block"])).items()
+            }
+        }
+
+    def fragment_inventory(self) -> list[dict]:
+        """Every fragment this node holds, for resize planning (reference
+        fragsByHost cluster.go:687)."""
+        self._validate("FragmentData")
+        out = []
+        for iname in self.holder.index_names():
+            idx = self.holder.index(iname)
+            if idx is None:
+                continue
+            for fname in idx.field_names(include_internal=True):
+                field = idx.field(fname)
+                if field is None:
+                    continue
+                for vname in field.view_names():
+                    for shard in sorted(field.view(vname).fragments):
+                        out.append(
+                            {"index": iname, "field": fname, "view": vname, "shard": shard}
+                        )
+        return out
+
+    def _apply_roaring(self, index: str, f, shard: int, data: bytes, clear: bool, view: str) -> dict:
+        """Local roaring apply on the calling thread, free of the state
+        gate: the landing path of a migrated snapshot. The blob decodes
+        straight into row words, merged through the fragment's mutators
+        (versions, stack patches and the result cache follow)."""
+        try:
+            row_ids, words, _op_n = roaring.decode_rows(data, f.n_words)
+        except roaring.RoaringError as e:
+            raise ApiError(f"bad roaring payload: {e}")
+        result, _frag = self._apply_roaring_rows(
+            index, f, shard, row_ids, words, clear, view
+        )
+        self.executor.rescache.note_write(index, f.name)
+        return result
+
+    def _apply_positions(
+        self, index: str, f, shard: int, positions: np.ndarray, clear: bool, view: str
+    ) -> int:
+        """Merge shard-local positions row*width+col (JAX
+        ``_apply_roaring_positions``); the bits it flipped."""
+        width = np.uint64(f.n_words * 32)
+        rows = positions // width
+        cols = (positions % width).astype(np.int64)
+        frag = f.create_view_if_not_exists(view).create_fragment_if_not_exists(shard)
+        changed = frag.import_bits(rows, cols, clear=clear)
+        if view.startswith("bsig_") and f.is_bsi() and len(rows):
+            f.grow_bit_depth(int(rows.max()) - BSI_OFFSET_BIT + 1)
+        idx = self.holder.index(index)
+        ef = idx.existence_field() if idx is not None else None
+        if ef is not None and not clear and len(cols):
+            ef.import_bits(
+                np.zeros(len(cols), dtype=np.uint64),
+                cols.astype(np.uint64) + np.uint64(shard) * width,
+            )
+        self.executor.rescache.note_write(index, f.name)
+        return int(changed)
+
+    def resize_fetch(self, req: dict) -> dict:
+        """Fetch and install the listed fragments from their source nodes
+        (reference followResizeInstruction cluster.go:1272-1381)."""
+        self._validate("FragmentData")
+        if self.client is None:
+            raise ApiError("no internal client configured", 500)
+        if req.get("schema"):
+            # a joining node installs the schema before any fragment lands
+            # (reference cluster.go:1304-1323)
+            self.holder.apply_schema(req["schema"])
+            self._sync()
+        instructions = req.get("instructions", [])
+        job = self.holder.jobs.start("resize-fetch")
+        job.set_phase("fetch")
+        job.set_progress(fragments_total=len(instructions))
+        fetched = 0
+        try:
+            for ins in instructions:
+                index, fname = ins["index"], ins["field"]
+                f = self.holder.field(index, fname)
+                if f is None:
+                    raise ApiError(
+                        f"resize target missing schema for {index}/{fname}", 500
+                    )
+                data = self.client.retrieve_fragment(
+                    ins["sourceURI"], index, fname, ins["view"], int(ins["shard"])
+                )
+                self._apply_roaring(index, f, int(ins["shard"]), data, False, ins["view"])
+                fetched += 1
+                job.advance(fragments_done=1, bytes_moved=len(data))
+        except Exception as e:
+            job.finish("aborted", error=f"{type(e).__name__}: {e}")
+            raise
+        job.finish("done")
+        return {"fetched": fetched}
+
+    # -- online migration (snapshot stream + op-log catch-up) ---------------
+    #
+    # Per-fragment migration for the online resize (cluster/resize.py):
+    # the target pulls a pinned snapshot cut in resumable chunks
+    # (ChunkPrefetcher overlaps the fetch with the apply), then replays
+    # op-log deltas in bounded catch-up rounds while writes keep landing
+    # on the source. Sessions stay open on the source until the post-flip
+    # finalize drain. ``faults.stage_fault`` hooks mark every phase
+    # boundary, so chaos tests can kill any participant at any point.
+
+    _CATCHUP_ROUNDS = 5
+    _SOURCE_ATTEMPTS = 3
+    # pulls (and finalize drains) of one instruction list run at once
+    _PULL_WORKERS = 8
+
+    def _migration(self, token: str):
+        try:
+            return self.migrations.get(token)
+        except KeyError as e:
+            raise NotFoundError(str(e))
+
+    def migrate_begin(self, req: dict) -> dict:
+        """Source side: open a migration session: pin a snapshot cut and
+        install the op-log delta tap (cluster/migration.py)."""
+        self._validate("FragmentData")
+        faults.stage_fault("source:begin")
+        index, field = req["index"], req["field"]
+        view = req.get("view", VIEW_STANDARD)
+        shard = int(req["shard"])
+        frag = self._fragment(index, field, view, shard)
+        session = self.migrations.begin(frag, (index, field, view, shard))
+        session.chunk_bytes = int(req.get("chunkBytes") or 0) or None
+        store = frag.store
+        return {
+            "token": session.token,
+            "size": session.size,
+            "opN": int(getattr(store, "op_n", 0)),
+        }
+
+    def migrate_chunk(self, token: str, offset: int) -> bytes:
+        """Source side: one snapshot chunk. Offset-addressed reads are
+        idempotent, so a retried or restarted target resumes mid-stream."""
+        self._validate("FragmentData")
+        faults.stage_fault("source:chunk")
+        session = self._migration(token)
+        return session.chunk(int(offset), session.chunk_bytes or migration.CHUNK_BYTES)
+
+    def migrate_delta(self, token: str) -> bytes:
+        """Source side: drain one op-log catch-up round as a binary migrate
+        frame (its header carries the ops in the blob and those pending)."""
+        self._validate("FragmentData")
+        faults.stage_fault("source:delta")
+        session = self._migration(token)
+        blob, count, pending = session.delta()
+        return wire.encode_migrate_frame({"ops": count, "pending": pending}, blob)
+
+    def migrate_end(self, token: str) -> dict:
+        """Source side: close a session (uninstalls the delta tap)."""
+        self._validate("FragmentData")
+        self.migrations.end(token)
+        return {}
+
+    def migrate_fetch(self, req: dict) -> dict:
+        """Target side: pull every listed fragment (snapshot stream and
+        catch-up rounds) and HOLD the source sessions open; the
+        coordinator flips ownership, then ``migrate_finalize`` drains the
+        tail. A crash here aborts only this target's instructions; its held
+        source sessions expire through the registry's TTL."""
+        self._validate("FragmentData")
+        if self.client is None:
+            raise ApiError("no internal client configured", 500)
+        if req.get("schema"):
+            self.holder.apply_schema(req["schema"])
+            self._sync()
+        instructions = req.get("instructions", [])
+        job = self.holder.jobs.start("migrate-fetch", fragments=len(instructions))
+        job.set_phase("snapshot")
+        job.set_progress(fragments_total=len(instructions))
+
+        def pull(ins):
+            p = self._migrate_pull(ins, job)
+            job.advance(fragments_done=1)
+            return p
+
+        # a shard's fragments are pulled at once (JAX pulls them in turn):
+        # each pull waits mostly on its source's answers
+        pulls, failure = [], None
+        with ThreadPoolExecutor(
+            max_workers=max(1, min(self._PULL_WORKERS, len(instructions)))
+        ) as workers:
+            for fut in [workers.submit(pull, ins) for ins in instructions]:
+                try:
+                    pulls.append(fut.result())
+                except Exception as e:  # the first failure is raised below
+                    failure = failure or e
+        if failure is not None:
+            for p in pulls:
+                try:
+                    self.client.migrate_end(p["uri"], p["token"])
+                except Exception:  # graftlint: disable=exception-hygiene -- best-effort cleanup of held source sessions; the TTL sweep covers the rest
+                    pass
+            job.finish("aborted", error=f"{type(failure).__name__}: {failure}")
+            raise failure
+        with self._migrate_lock:
+            for p in pulls:
+                self._migrate_pulls[p["key"]] = p
+        job.finish("done")
+        return {"fetched": len(pulls)}
+
+    def _migrate_pull(self, ins: dict, job) -> dict:
+        """Pull one fragment, trying each listed source holder in turn (a
+        dead source retries with seeded backoff, then the next replica
+        takes over)."""
+        index, fname = ins["index"], ins["field"]
+        view = ins.get("view", VIEW_STANDARD)
+        shard = int(ins["shard"])
+        f = self.holder.field(index, fname)
+        if f is None:
+            raise ApiError(f"migrate target missing schema for {index}/{fname}", 500)
+        sources = list(ins.get("sourceURIs") or [])
+        if ins.get("sourceURI") and ins["sourceURI"] not in sources:
+            sources.append(ins["sourceURI"])
+        if not sources:
+            raise ApiError(f"no source for {index}/{fname}/{shard}", 500)
+        chunk_bytes = int(ins.get("chunkBytes") or migration.CHUNK_BYTES)
+        # seeded by the fragment key: a chaos run's retry cadence replays
+        # identically (testing/faults.py contract)
+        rng = random.Random(zlib.crc32(f"{index}/{fname}/{view}/{shard}".encode()))
+        last_err: Exception | None = None
+        for uri in sources:
+            for attempt in range(self._SOURCE_ATTEMPTS):
+                try:
+                    return self._migrate_pull_from(
+                        uri, index, f, view, shard, chunk_bytes, job
+                    )
+                except (ClientError, OSError) as e:
+                    last_err = e
+                    if attempt < self._SOURCE_ATTEMPTS - 1:
+                        time.sleep(0.05 * (2 ** attempt) * (0.5 + rng.random()))
+            logger.warning(
+                "migrate pull of %s/%s/%s/%s from %s failed: %s",
+                index, fname, view, shard, uri, last_err,
+            )
+        raise ApiError(
+            f"migrate pull failed from every source for "
+            f"{index}/{fname}/{view}/{shard}: {last_err}", 500
+        )
+
+    def _migrate_pull_from(
+        self, uri: str, index: str, f, view: str, shard: int, chunk_bytes: int, job,
+    ) -> dict:
+        begin = self.client.migrate_begin(
+            uri, index, f.name, view, shard, chunk_bytes=chunk_bytes
+        )
+        token, size = begin["token"], int(begin["size"])
+        try:
+            buf = bytearray()
+            pf = ChunkPrefetcher(
+                lambda off: self.client.migrate_chunk(uri, token, off),
+                size=size, chunk_bytes=chunk_bytes,
+            )
+            try:
+                for _off, blob in pf:
+                    buf += blob
+                    job.advance(bytes_moved=len(blob))
+            finally:
+                pf.close()
+            faults.stage_fault("target:apply")
+            self.holder.stats.count("migrate_snapshot_bytes", len(buf))
+            if buf:
+                self._apply_roaring(index, f, shard, bytes(buf), False, view)
+            # bounded catch-up: writes kept landing on the source during the
+            # snapshot stream; replay the accrued op-log delta until the lag
+            # reaches zero (or the rounds run out: the post-flip finalize
+            # drain is the backstop either way)
+            job.set_phase("catch-up")
+            lag = 0
+            for _round in range(self._CATCHUP_ROUNDS):
+                faults.stage_fault("target:catchup")
+                header, blob = self.client.migrate_delta(uri, token)
+                if blob:
+                    self._apply_delta_ops(index, f, shard, view, blob)
+                lag = int(header.get("pending", 0))
+                job.annotate(catchup_lag=lag, catchup_ops=int(header.get("ops", 0)))
+                if lag == 0:
+                    break
+            return {
+                "key": (index, f.name, view, shard),
+                "uri": uri,
+                "token": token,
+                "lag": lag,
+            }
+        except Exception:
+            try:
+                self.client.migrate_end(uri, token)
+            except Exception:  # graftlint: disable=exception-hygiene -- cleanup of a failed pull; the session TTL covers an unreachable source
+                pass
+            raise
+
+    def _apply_delta_ops(self, index: str, f, shard: int, view: str, blob: bytes) -> int:
+        """Replay raw op-log records IN ORDER onto the local fragment, the
+        catch-up half of migration. In-order replay makes an overlap with
+        the snapshot cut harmless: the same ops apply in the order the
+        source applied them, and set and clear are idempotent."""
+        applied = 0
+        for op_type, payload, _opn in roaring.decode_ops(blob, 0):
+            if op_type in (roaring.OP_ADD, roaring.OP_REMOVE):
+                positions = np.array([payload], dtype=np.uint64)
+            elif op_type in (roaring.OP_ADD_BATCH, roaring.OP_REMOVE_BATCH):
+                positions = np.asarray(payload, dtype=np.uint64)
+            else:
+                positions = roaring.deserialize(payload)
+            if not len(positions):
+                continue
+            clear = op_type in (
+                roaring.OP_REMOVE, roaring.OP_REMOVE_BATCH, roaring.OP_REMOVE_ROARING,
+            )
+            self._apply_positions(index, f, shard, positions, clear, view)
+            applied += 1
+        return applied
+
+    def migrate_finalize(self, req: dict) -> dict:
+        """Target side, after the flip: drain the final op-log delta from
+        each held source session and close it. An unreachable source is
+        not fatal: anti-entropy heals whatever tail it buffered."""
+        self._validate("FragmentData")
+        instructions = req.get("instructions")
+        with self._migrate_lock:
+            if instructions is None:
+                pulls = list(self._migrate_pulls.values())
+                self._migrate_pulls.clear()
+            else:
+                pulls = []
+                for ins in instructions:
+                    key = (
+                        ins["index"], ins["field"],
+                        ins.get("view", VIEW_STANDARD), int(ins["shard"]),
+                    )
+                    p = self._migrate_pulls.pop(key, None)
+                    if p is not None:
+                        pulls.append(p)
+        def drain(p) -> int:
+            faults.stage_fault("target:finalize")
+            index, fname, view, shard = p["key"]
+            f = self.holder.field(index, fname)
+            try:
+                _header, blob = self.client.migrate_delta(p["uri"], p["token"])
+                n = 0
+                if blob and f is not None:
+                    n = self._apply_delta_ops(index, f, int(shard), view, blob)
+                self.client.migrate_end(p["uri"], p["token"])
+                return n
+            except (ClientError, OSError) as e:
+                logger.warning(
+                    "finalize drain of %s from %s failed (anti-entropy"
+                    " heals the tail): %s", p["key"], p["uri"], e,
+                )
+                return 0
+
+        with ThreadPoolExecutor(max_workers=max(1, min(self._PULL_WORKERS, len(pulls)))) as w:
+            drained = sum(w.map(drain, pulls))
+        return {"finalized": len(pulls), "ops": drained}
+
+    def _clean_unowned_fragments(self) -> int:
+        """Drop the fragments this node no longer owns after a membership
+        change (reference holderCleaner holder.go:898-926). Each device
+        copy leaves through the residency manager and the budget
+        (``View.drop_fragment``); the stacks and partials built over the
+        old shard sets go with them."""
+        if self.cluster is None:
+            return 0
+        dropped = 0
+        for iname in self.holder.index_names():
+            idx = self.holder.index(iname)
+            if idx is None:
+                continue
+            for fname in idx.field_names(include_internal=True):
+                field = idx.field(fname)
+                if field is None:
+                    continue
+                for vname in field.view_names():
+                    view = field.view(vname)
+                    for shard in sorted(view.fragments):
+                        if not self.cluster.owns_shard(self.cluster.node_id, iname, shard):
+                            view.drop_fragment(shard)
+                            if self.store is not None:
+                                self.store.delete_fragment(iname, fname, vname, shard)
+                            dropped += 1
+        if dropped:
+            self._forget_topology()
+        return dropped
+
+    def _forget_topology(self) -> None:
+        """Release what was built for the old placement: the local
+        executor's stacks and partials, and the distributed executor's
+        facade executors and plans (a facade keyed on the old owners would
+        hold its stacks on the card until the cache's LRU reached it)."""
+        self.executor.release_stacks()
+        self.executor.rescache.clear()
+        if self.dist is not None:
+            self.dist.forget_placement()
+
+
     # -- peer messages (reference server.go:549-643 receiveMessage) --------
 
     def receive_message(self, msg: dict) -> dict:
         """Apply a typed control-plane message from a peer. The handlers
         call the ``_``-prefixed internals: a cluster message must apply
         even where this node's own state gates the public method (a peer
-        in STARTING taking the coordinator's schema). A message that only
-        the resize or membership planes send answers 501 naming the plane,
-        which this node does not run; an unknown type answers 400."""
+        in STARTING taking the coordinator's schema). The resize
+        protocol's messages (prepare, epoch flip, cancel, and the
+        membership commit: a cluster status with ``nodes``) move this
+        node's placement as JAX's do; an unknown type answers 400."""
         self._validate("ClusterMessage")
         t = msg.get("type")
         if t == bc.MSG_CREATE_INDEX:
@@ -1098,32 +1623,184 @@ class API:
             if f is not None:
                 f.add_remote_available_shards([int(msg["shard"])])
         elif t == bc.MSG_CLUSTER_STATUS:
-            if msg.get("nodes"):
-                # a membership commit comes from the resize coordinator
-                raise ApiError(_missing_plane(t, "resize"), 501)
+            self._apply_cluster_status(msg)
+        elif t == bc.MSG_RESIZE_PREPARE:
+            # per-fragment migration begins: remember the PENDING
+            # membership and epoch, so flips route flipped shards onto the
+            # new ring while the rest stays put; the cluster state stays
+            # NORMAL, so reads and writes keep flowing
             if self.cluster is not None:
-                self.cluster.set_state(msg["state"])
-            if msg.get("availableShards"):
-                self.merge_available_shards(msg["availableShards"])
-        elif t == bc.MSG_NODE_STATE:
+                pending = [
+                    ClusterNode(id=n["id"], uri=n.get("uri", ""))
+                    for n in msg.get("nodes", [])
+                ]
+                epoch = self.cluster.begin_resize(pending, msg.get("epoch"))
+                self.holder.events.record(
+                    ev.EVENT_RESIZE_PHASE, phase="prepare", epoch=epoch
+                )
+        elif t == bc.MSG_EPOCH_FLIP:
+            # one shard's ownership flips to the pending ring
+            if self.cluster is not None and self.cluster.flip_shard(
+                msg["index"], int(msg["shard"]), msg.get("epoch")
+            ):
+                self.holder.events.record(
+                    ev.EVENT_EPOCH_FLIP, index=msg["index"],
+                    shard=int(msg["shard"]), epoch=msg.get("epoch"),
+                )
+                self._forget_placement()
+        elif t == bc.MSG_RESIZE_CANCEL:
             if self.cluster is not None:
+                self.cluster.abort_resize()
+                self.holder.events.record(
+                    ev.EVENT_RESIZE_ABORT, reason=msg.get("reason", "")
+                )
+                self._forget_placement()
+        elif t in (bc.MSG_NODE_STATE, bc.MSG_NODE_EVENT):
+            # a node event carries a node and its state as the membership
+            # monitor's broadcast does; one without them changes nothing
+            if self.cluster is not None and msg.get("node") and msg.get("state"):
                 self.cluster.mark_node_state(msg["node"], msg["state"])
-        elif t == bc.MSG_SET_COORDINATOR:
+        elif t in (bc.MSG_SET_COORDINATOR, bc.MSG_UPDATE_COORDINATOR):
             # the coordinator, and with it the translation primary, moved
             # (reference SetCoordinatorMessage, server.go:549-643)
             if self.cluster is not None and msg.get("coordinator"):
                 self.cluster.coordinator_id = msg["coordinator"]
                 for n in self.cluster.nodes:
                     n.is_coordinator = n.id == msg["coordinator"]
+        elif t in (bc.MSG_RESIZE_INSTRUCTION, bc.MSG_RESIZE_COMPLETE):
+            # the reference's resize job messages: the online resize sends
+            # its instructions as migrate calls instead, and JAX's node
+            # accepts these without effect, as this one does
+            pass
         elif t == bc.MSG_RECALCULATE_CACHES:
             pass  # row counts are exact and maintained: nothing to rebuild
-        elif t in _RESIZE_MESSAGES:
-            raise ApiError(_missing_plane(t, "resize"), 501)
-        elif t in _MEMBERSHIP_MESSAGES:
-            raise ApiError(_missing_plane(t, "membership"), 501)
         else:
             raise ApiError(f"unknown cluster message type: {t!r}")
         return {}
+
+    def _apply_cluster_status(self, msg: dict) -> None:
+        """A cluster status; with ``nodes`` it is the resize coordinator's
+        membership commit (reference mergeClusterStatus
+        cluster.go:1918-1978), after which each member drops what it no
+        longer owns."""
+        if self.cluster is None:
+            if msg.get("availableShards"):
+                self.merge_available_shards(msg["availableShards"])
+            return
+        nodes = msg.get("nodes")
+        if nodes:
+            if msg.get("coordinator"):
+                self.cluster.coordinator_id = msg["coordinator"]
+            self.cluster.disabled = False
+            old_ids = {n.id for n in self.cluster.nodes}
+            new_ids = {n["id"] for n in nodes}
+            for nid in sorted(new_ids - old_ids):
+                self.holder.events.record(ev.EVENT_NODE_JOIN, peer=nid)
+            for nid in sorted(old_ids - new_ids):
+                self.holder.events.record(ev.EVENT_NODE_LEAVE, peer=nid)
+            self.cluster.set_static(
+                [ClusterNode(id=n["id"], uri=n.get("uri", "")) for n in nodes]
+            )
+            self._forget_placement()
+            if self.dist is not None:
+                self.dist.note_membership()
+        self.cluster.set_state(msg["state"])
+        if msg.get("availableShards"):
+            self.merge_available_shards(msg["availableShards"])
+        still_member = not nodes or any(n["id"] == self.cluster.node_id for n in nodes)
+        if (
+            nodes and msg["state"] == STATE_NORMAL and still_member
+            and not msg.get("deferCleanup")
+        ):
+            # a removed node keeps its data (the reference expects it to
+            # shut down; its fragments were re-sourced). A port coordinator
+            # sends the commit twice and the drop waits for the second,
+            # when every member routes on the new ring (cluster/resize.py)
+            self._clean_unowned_fragments()
+
+    def _forget_placement(self) -> None:
+        """The shard -> owner map moved: the distributed executor's facade
+        executors and plans were built for the old owners."""
+        if self.dist is not None:
+            self.dist.forget_placement()
+
+    # -- resize (reference api.go:1192-1256) --------------------------------
+
+    def resize_abort(self) -> dict:
+        """Abort or clear a resize: re-commit the CURRENT membership with
+        state NORMAL on every reachable node (reference api.go:1249
+        ResizeAbort); the operator's recovery from a coordinator that died
+        mid-resize. Valid only on the coordinator."""
+        self._validate("ResizeAbort")
+        if self.cluster is None:
+            raise ApiError("cluster not configured", 400)
+        if not self.cluster.is_coordinator:
+            raise ApiError("resize-abort must run on the coordinator", 400)
+        from pilosa_tpu_torch.cluster.resize import ResizeCoordinator
+
+        rc = ResizeCoordinator(self.cluster, self.client, self)
+        nodes = list(self.cluster.nodes)
+        rc._commit_membership(nodes, nodes)
+        # the operator abandoned the interrupted plan: drop the journal, so
+        # a later resume() cannot replay a dead resize
+        rc._delete_journal()
+        return {"aborted": True}
+
+    def resize_remove_node(self, node_id: str) -> dict:
+        """Remove a node through the resize protocol (reference
+        api.go:1214 RemoveNode). Valid only on the coordinator."""
+        self._validate("RemoveNode")
+        if self.cluster is None:
+            raise ApiError("cluster not configured", 400)
+        if not self.cluster.is_coordinator:
+            raise ApiError("remove-node must run on the coordinator", 400)
+        if self.cluster.node(node_id) is None:
+            raise ApiError(f"unknown node: {node_id}", 400)
+        from pilosa_tpu_torch.cluster.resize import ResizeCoordinator, ResizeError
+
+        try:
+            ResizeCoordinator(self.cluster, self.client, self).remove_node(node_id)
+        except ResizeError as e:
+            raise ApiError(str(e), 400)
+        return {"removed": node_id}
+
+    def resize_resume(self) -> dict:
+        """Resume an interrupted resize from the persisted journal.
+        Valid only on the coordinator."""
+        if self.cluster is None:
+            raise ApiError("cluster not configured", 400)
+        if not self.cluster.is_coordinator:
+            raise ApiError("resize-resume must run on the coordinator", 400)
+        from pilosa_tpu_torch.cluster.resize import ResizeCoordinator, ResizeError
+
+        try:
+            return ResizeCoordinator(self.cluster, self.client, self).resume()
+        except ResizeError as e:
+            raise ApiError(str(e), 400)
+
+    def set_coordinator(self, node_id: str) -> dict:
+        """Move the coordinator (and with it the translation primary) to
+        ``node_id`` and broadcast it (reference api.go:1192-1256). Used for
+        a takeover after a dead coordinator: any surviving node accepts
+        this call."""
+        if self.cluster is None:
+            raise ApiError("cluster not configured", 400)
+        if self.cluster.node(node_id) is None:
+            raise ApiError(f"unknown node: {node_id}", 400)
+        self.cluster.coordinator_id = node_id
+        for n in self.cluster.nodes:
+            n.is_coordinator = n.id == node_id
+        if self.broadcaster is not None:
+            try:
+                self.broadcaster.send_sync(
+                    {"type": bc.MSG_SET_COORDINATOR, "coordinator": node_id}
+                )
+            except Exception:
+                # best effort: a takeover runs BECAUSE a node is dead; the
+                # survivors converged, and the dead node relearns the
+                # coordinator from a cluster status when it rejoins
+                logger.warning("set-coordinator broadcast incomplete", exc_info=True)
+        return {"coordinator": node_id}
 
     # -- key translation ----------------------------------------------------
 
@@ -1237,6 +1914,7 @@ class API:
             self.store.sync()
 
     def close(self) -> None:
+        self.migrations.close()  # detaches any live delta taps
         if self.dist is not None:
             self.dist.close()
         if self.batcher is not None:
@@ -1247,21 +1925,6 @@ class API:
             self._pool.shutdown(wait=True)
         if self.store is not None:
             self.store.close()
-
-
-# Peer messages that only the planes of a later slice send.
-_RESIZE_MESSAGES = {
-    bc.MSG_RESIZE_INSTRUCTION, bc.MSG_RESIZE_COMPLETE, bc.MSG_RESIZE_PREPARE,
-    bc.MSG_EPOCH_FLIP, bc.MSG_RESIZE_CANCEL,
-}
-_MEMBERSHIP_MESSAGES = {bc.MSG_NODE_EVENT, bc.MSG_UPDATE_COORDINATOR}
-
-
-def _missing_plane(msg_type: str, plane: str) -> str:
-    return (
-        f"cluster message {msg_type!r} belongs to the {plane} plane, "
-        f"which this node does not run"
-    )
 
 
 def _timestamps(timestamps: list) -> np.ndarray:

@@ -158,10 +158,7 @@ class QueryBatcher:
         self.dispatched = 0  # flights dispatched (observability)
         self.coalesced = 0  # requests that shared a flight with >=1 other
         self.rescache_demux = 0  # members served from the semantic cache
-        # the dispatcher is context-free by design: each _Flight snapshots
-        # deadline_at/profiling/principal at submit and _dispatch rebuilds
-        # the scopes per flight
-        self._thread = threading.Thread(
+        self._thread = threading.Thread(  # graftlint: disable=thread-boundary -- dispatcher is context-free by design: each _Flight snapshots deadline_at/profiling/principal at submit and _dispatch rebuilds the scopes per flight
             target=self._run, name="query-batcher", daemon=True
         )
         self._thread.start()

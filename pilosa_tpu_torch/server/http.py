@@ -20,18 +20,19 @@ Route surface (reference handler.go:276-314):
          (?remote=true: apply here, do not route to the replicas)
     GET  /export?index=&field=[&shard=]  CSV
     GET  /internal/shards/max  /internal/fragment/data  /internal/nodes
-         /internal/translate/log
+         /internal/translate/log  /internal/fragments
+         /internal/fragment/blocks  /internal/attr/blocks
+         /internal/migrate/chunk
     POST /internal/translate/keys  /internal/translate/ids
          /internal/translate/restore  /internal/cluster/message
-         /recalculate-caches
+         /recalculate-caches  /internal/fragment/block/data
+         /internal/attr/block/data  /internal/resize/fetch
+         /internal/migrate/{begin,delta,end,fetch,finalize}
+    POST /cluster/resize/{set-coordinator,abort,remove-node,resume}
 
 ``?cluster=true`` on /debug/events, /debug/traces, /debug/history and
 /debug/postmortem merges every peer's answer. Every other path answers
-404, as a JAX node does for a plane it lacks: the planes of a later
-slice (/cluster/resize/*, /internal/migrate/*, /internal/resize/fetch,
-/internal/fragment/blocks and /block/data, /internal/fragments,
-/internal/attr/*). A query shed by the QoS governor answers 429 with
-Retry-After.
+404. A query shed by the QoS governor answers 429 with Retry-After.
 
 JSON replaces the reference's protobuf codec as the wire format; the
 roaring import payload is binary-compatible with reference clients.
@@ -128,7 +129,7 @@ _ROUTES: list[tuple[str, re.Pattern, str]] = [
     ("GET", re.compile(r"^/debug/devcosts$"), "debug_devcosts"),
     ("GET", re.compile(r"^/debug/jobs$"), "debug_jobs"),
     ("GET", re.compile(r"^/debug/fragments$"), "debug_fragments"),
-    ("GET", re.compile(r"^/internal/diagnostics$"), "diagnostics"),
+    ("GET", re.compile(r"^/internal/diagnostics$"), "diagnostics"),  # graftlint: disable=dispatch-parity -- operator debug endpoint (curl/monitoring), never called node-to-node
     ("GET", re.compile(r"^/export$"), "export"),
     ("POST", re.compile(r"^/index/(?P<index>[^/]+)/query$"), "query"),
     ("POST", re.compile(r"^/index/(?P<index>[^/]+)/field/(?P<field>[^/]+)/import$"), "import_"),
@@ -148,6 +149,22 @@ _ROUTES: list[tuple[str, re.Pattern, str]] = [
     ("GET", re.compile(r"^/internal/nodes$"), "nodes"),
     ("POST", re.compile(r"^/recalculate-caches$"), "recalculate_caches"),
     ("GET", re.compile(r"^/internal/fragment/data$"), "fragment_data"),
+    ("POST", re.compile(r"^/cluster/resize/set-coordinator$"), "set_coordinator"),
+    ("POST", re.compile(r"^/cluster/resize/abort$"), "resize_abort"),
+    ("POST", re.compile(r"^/cluster/resize/remove-node$"), "remove_node"),
+    ("POST", re.compile(r"^/cluster/resize/resume$"), "resize_resume"),
+    ("GET", re.compile(r"^/internal/attr/blocks$"), "attr_blocks"),
+    ("POST", re.compile(r"^/internal/attr/block/data$"), "attr_block_data"),
+    ("GET", re.compile(r"^/internal/fragment/blocks$"), "fragment_blocks"),
+    ("POST", re.compile(r"^/internal/fragment/block/data$"), "fragment_block_data"),
+    ("GET", re.compile(r"^/internal/fragments$"), "fragments"),
+    ("POST", re.compile(r"^/internal/resize/fetch$"), "resize_fetch"),
+    ("POST", re.compile(r"^/internal/migrate/begin$"), "migrate_begin"),
+    ("GET", re.compile(r"^/internal/migrate/chunk$"), "migrate_chunk"),
+    ("POST", re.compile(r"^/internal/migrate/delta$"), "migrate_delta"),
+    ("POST", re.compile(r"^/internal/migrate/end$"), "migrate_end"),
+    ("POST", re.compile(r"^/internal/migrate/fetch$"), "migrate_fetch"),
+    ("POST", re.compile(r"^/internal/migrate/finalize$"), "migrate_finalize"),
 ]
 
 
@@ -459,6 +476,9 @@ class Handler(BaseHTTPRequestHandler):
             snap["qos"] = self.api.qos_snapshot()
         # the ingest plane: pool, staging occupancy, upload overlap
         snap["ingest"] = self.api.ingest.snapshot()
+        # source-side migration sessions: each fragment's pending delta ops
+        # are the live catch-up lag of an online resize
+        snap["migrations"] = self.api.migrations.snapshot_summary()
         dist = self.api.dist
         if dist is not None:
             # cluster-on-mesh routing: the placement map, the mesh route's
@@ -846,6 +866,78 @@ class Handler(BaseHTTPRequestHandler):
         # reference POST /recalculate-caches; counts here are exact and
         # maintained, so there is nothing to rebuild
         self._send_json(200, {})
+
+    # -- the elastic planes: blocks, migration and resize ------------------
+
+    def r_fragments(self):
+        self._send_json(200, {"fragments": self.api.fragment_inventory()})
+
+    def r_resize_fetch(self):
+        self._send_json(200, self.api.resize_fetch(self._json_body()))
+
+    def r_migrate_begin(self):
+        self._send_json(200, self.api.migrate_begin(self._json_body()))
+
+    def r_migrate_chunk(self):
+        p = {k: v[0] for k, v in self.query_params.items()}
+        data = self.api.migrate_chunk(p["token"], int(p.get("offset", 0)))
+        self._send(200, data, content_type="application/octet-stream")
+
+    def r_migrate_delta(self):
+        body = self._json_body()
+        frame = self.api.migrate_delta(body.get("token", ""))
+        self._send(200, frame, content_type="application/octet-stream")
+
+    def r_migrate_end(self):
+        body = self._json_body()
+        self._send_json(200, self.api.migrate_end(body.get("token", "")))
+
+    def r_migrate_fetch(self):
+        self._send_json(200, self.api.migrate_fetch(self._json_body()))
+
+    def r_migrate_finalize(self):
+        self._send_json(200, self.api.migrate_finalize(self._json_body()))
+
+    def r_resize_resume(self):
+        self._send_json(200, self.api.resize_resume())
+
+    def r_attr_blocks(self):
+        p = {k: v[0] for k, v in self.query_params.items()}
+        self._send_json(200, self.api.attr_blocks(p["index"], p.get("field") or None))
+
+    def r_attr_block_data(self):
+        self._send_json(200, self.api.attr_block_data(self._json_body()))
+
+    def r_fragment_blocks(self):
+        p = {k: v[0] for k, v in self.query_params.items()}
+        self._send_json(
+            200,
+            self.api.fragment_blocks(
+                p["index"], p["field"], p.get("view", "standard"), int(p["shard"])
+            ),
+        )
+
+    def r_fragment_block_data(self):
+        body = self._json_body()
+        # binary when the peer accepts it (packed roaring positions); JSON
+        # for unencodable row ids or a peer that does not
+        if "application/octet-stream" in (self.headers.get("Accept") or ""):
+            data = self.api.fragment_block_data_binary(body)
+            if data is not None:
+                self._send(200, data, content_type="application/octet-stream")
+                return
+        self._send_json(200, self.api.fragment_block_data(body))
+
+    def r_set_coordinator(self):
+        body = self._json_body()
+        self._send_json(200, self.api.set_coordinator(body.get("id", "")))
+
+    def r_resize_abort(self):
+        self._send_json(200, self.api.resize_abort())
+
+    def r_remove_node(self):
+        body = self._json_body()
+        self._send_json(200, self.api.resize_remove_node(body.get("id", "")))
 
 
 class Server:

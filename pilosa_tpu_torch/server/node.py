@@ -38,14 +38,24 @@ membership and pulls the coordinator's schema and shard map. With
 the process's placement map (``parallel/meshplace.py``), so in-process
 peers answer this node's shards on the mesh route, one launch on the
 card over a holder facade, instead of over HTTP; ``stop`` withdraws it
-first. Membership probes, anti-entropy and resize belong to a later
-slice.
+first.
+
+The elastic planes run as JAX's do: the resize watchdog
+(``resize_watchdog_deadline=15.0``, on by default) re-pulls the cluster
+status from the coordinator when a resize outlives its deadline;
+``resize_coordinator()`` adds and removes nodes online
+(``cluster/resize.py``, the migration sessions of ``cluster/migration.py``);
+``start_anti_entropy(interval)`` runs ``syncer().sync_holder()`` each
+interval (``cluster/antientropy.py``; ``cli server`` starts it); and
+``start_membership()`` probes the peers and marks them DOWN and READY
+(``cluster/membership.py``). ``stop`` ends every one of them.
 """
 
 from __future__ import annotations
 
 import logging
 import threading
+import time
 import uuid
 import zlib
 
@@ -53,7 +63,10 @@ from pilosa_tpu_torch import __version__
 from pilosa_tpu_torch.cluster import broadcast as bc
 from pilosa_tpu_torch.cluster.broadcast import HTTPBroadcaster
 from pilosa_tpu_torch.cluster.client import InternalClient
-from pilosa_tpu_torch.cluster.cluster import Cluster
+from pilosa_tpu_torch.cluster.antientropy import AntiEntropyLoop, HolderSyncer
+from pilosa_tpu_torch.cluster.cluster import STATE_RESIZING, Cluster
+from pilosa_tpu_torch.cluster.membership import MembershipMonitor
+from pilosa_tpu_torch.cluster.resize import ResizeCoordinator, ResizeError
 from pilosa_tpu_torch.cluster.topology import Node
 from pilosa_tpu_torch.cluster.translate_proxy import PrimaryTranslateStore
 from pilosa_tpu_torch.core.holder import Holder
@@ -73,6 +86,116 @@ from pilosa_tpu_torch.shardwidth import SHARD_WORDS
 from pilosa_tpu_torch.storage.disk import HolderStore
 
 logger = logging.getLogger(__name__)
+
+
+class ResizeWatchdog:
+    """Follower-side backstop for a coordinator that dies mid-resize.
+
+    A node that received MSG_RESIZE_PREPARE but never hears the commit
+    or cancel would hold its pending membership forever (the legacy
+    equivalent: a node gated in RESIZING with nobody left to lift the
+    gate).  This loop watches for resize state that outlives
+    ``deadline`` and then re-requests the cluster status straight from
+    the coordinator:
+
+    * coordinator reachable and still resizing -> not stuck; re-arm.
+    * coordinator reachable, no resize in flight -> this node missed
+      the commit/cancel broadcast; apply the authoritative status
+      (membership + state) as if the broadcast had arrived.
+    * coordinator unreachable -> keep the pending state (the data is
+      still placed on the current ring) and retry next deadline; the
+      operator path is set_coordinator + resize resume/abort.
+
+    Every action lands on the event journal as ``resize-watchdog``.
+    """
+
+    def __init__(self, node: "NodeServer", deadline: float = 15.0,
+                 interval: float = 2.0):
+        self.node = node
+        self.deadline = float(deadline)
+        self.interval = min(float(interval), max(0.05, self.deadline / 3))
+        self._since: float | None = None
+        self._stop = None
+        self._thread = None
+
+    def start(self) -> None:
+        if self._thread is not None:
+            return
+        self._stop = threading.Event()
+        self._thread = threading.Thread(
+            target=self._run, name="resize-watchdog", daemon=True
+        )
+        self._thread.start()
+
+    def stop(self) -> None:
+        if self._thread is None:
+            return
+        self._stop.set()
+        self._thread.join(timeout=5.0)
+        self._thread = None
+
+    def _run(self) -> None:
+        while not self._stop.wait(self.interval):
+            try:
+                self._tick()
+            except Exception:  # graftlint: disable=exception-hygiene -- watchdog must outlive any single bad tick
+                logger.exception("resize watchdog tick failed")
+
+    def _tick(self) -> None:
+        cluster = self.node.cluster
+        stuck = cluster.resize_pending or cluster.state == STATE_RESIZING
+        if not stuck or cluster.is_coordinator:
+            # The coordinator's own pending state is the resize journal's
+            # concern (resume/abort), not the watchdog's.
+            self._since = None
+            return
+        now = time.monotonic()
+        if self._since is None:
+            self._since = now
+            return
+        if now - self._since < self.deadline:
+            return
+        self._since = now  # one probe per deadline window
+        coord = cluster.node(cluster.coordinator_id)
+        journal = self.node.holder.events
+        if coord is None or not coord.uri:
+            journal.record(
+                ev.EVENT_RESIZE_WATCHDOG, action="no-coordinator",
+                coordinator=cluster.coordinator_id,
+            )
+            return
+        try:
+            status = self.node.client.status(coord.uri)
+        except Exception as e:
+            journal.record(
+                ev.EVENT_RESIZE_WATCHDOG, action="coordinator-unreachable",
+                coordinator=coord.id, error=f"{type(e).__name__}: {e}",
+            )
+            return
+        if status.get("resizePending"):
+            # Coordinator alive and mid-migration: a long resize is not a
+            # stuck resize.
+            journal.record(
+                ev.EVENT_RESIZE_WATCHDOG, action="still-resizing",
+                coordinator=coord.id,
+            )
+            return
+        # The coordinator has no resize in flight — this node missed the
+        # commit or cancel.  Apply its authoritative status as if the
+        # broadcast had arrived.
+        self.node.api.receive_message(
+            {
+                "type": bc.MSG_CLUSTER_STATUS,
+                "state": status.get("state", cluster.state),
+                "coordinator": status.get("coordinator", coord.id),
+                "nodes": status.get("nodes") or [],
+                "availableShards": status.get("availableShards"),
+            }
+        )
+        journal.record(
+            ev.EVENT_RESIZE_WATCHDOG, action="recovered",
+            coordinator=coord.id, state=status.get("state"),
+        )
 
 
 class NodeServer:
@@ -123,6 +246,7 @@ class NodeServer:
         history_trips: int = 3,
         history_latency_factor: float = 2.0,
         history_latency_min_ms: float = 20.0,
+        resize_watchdog_deadline: float = 15.0,
         mesh_dispatch: bool = True,
         devledger_storm_threshold: int = 8,
         devledger_storm_window: float = 60.0,
@@ -318,6 +442,14 @@ class NodeServer:
             interval=metric_poll_interval,
             gc_notifier=self.gc_notifier,
         )
+        self.membership = None  # started on demand (start_membership)
+        self._ae_loop = None  # the anti-entropy loop (start_anti_entropy)
+        # the stuck-resize backstop, on by default as JAX's (0 turns it off)
+        self.resize_watchdog = None
+        if resize_watchdog_deadline > 0:
+            self.resize_watchdog = ResizeWatchdog(
+                self, deadline=resize_watchdog_deadline
+            )
         self._stopped = False
         self._done = threading.Event()
 
@@ -444,11 +576,65 @@ class NodeServer:
             self.flightrec.start()
         if self.history is not None:
             self.history.start()
+        if self.resize_watchdog is not None:
+            self.resize_watchdog.start()
         if self.blackbox is not None:
             self.blackbox.start()
         self.holder.events.record(
             ev.EVENT_NODE_START, uri=self.uri, state=self.api.state
         )
+
+    # -- the elastic planes -------------------------------------------------
+
+    def start_anti_entropy(self, interval: float) -> None:
+        """The anti-entropy loop (reference server.go:494-546
+        monitorAntiEntropy): one ``sync_holder`` pass per interval, block
+        checksum repair between replicas and the translate-log pull. It
+        keeps running in DEGRADED (repair between survivors matters most
+        then); only RESIZING and STARTING skip. Idempotent; ``stop`` ends
+        it."""
+        if interval <= 0:
+            return
+        old = self._ae_loop
+        if old is not None:
+            if old._thread is not None and old._thread.is_alive():
+                return  # running, or a stopped pass still draining
+            self._ae_loop = None
+        self._ae_loop = AntiEntropyLoop(
+            self.syncer(), interval, state_fn=lambda: self.api.state
+        )
+        self._ae_loop.start()
+
+    def resize_coordinator(self) -> ResizeCoordinator:
+        """The resize entry point; valid only on the coordinator
+        (reference cluster.go:1171 unprotectedGenerateResizeJob)."""
+        if not self.cluster.is_coordinator:
+            raise ResizeError("resize must run on the coordinator")
+        return ResizeCoordinator(self.cluster, self.client, self.api)
+
+    def syncer(self) -> HolderSyncer:
+        """The anti-entropy syncer of this node (reference holderSyncer)."""
+        return HolderSyncer(self.holder, self.cluster, self.client, self.api)
+
+    def start_membership(
+        self, probe_interval: float = 1.0, confirm_retries: int = 10,
+        confirm_interval: float = 0.1,
+    ) -> MembershipMonitor:
+        """Heartbeat failure detection over the current membership
+        (reference gossip probes and confirmNodeDown,
+        cluster.go:1699-1768)."""
+        if self.membership is None:
+            self.membership = MembershipMonitor(
+                self.cluster,
+                self.client,
+                broadcaster=self.broadcaster,
+                probe_interval=probe_interval,
+                confirm_retries=confirm_retries,
+                confirm_interval=confirm_interval,
+                journal=self.holder.events,
+            )
+            self.membership.start()
+        return self.membership
 
     def shutdown_graceful(self) -> None:
         """The orderly SIGTERM path: journal ``node-stop`` (so the black
@@ -474,6 +660,14 @@ class NodeServer:
         # this holder's fragments before it tears down
         meshplace.default_placement().unregister(self.node_id)
         try:
+            if self._ae_loop is not None:
+                # the reference is kept even when a slow pass outlives the
+                # join, so a restart cannot run a second loop beside it
+                self._ae_loop.stop()
+            if self.membership is not None:
+                self.membership.stop()
+            if self.resize_watchdog is not None:
+                self.resize_watchdog.stop()
             if self.history is not None:
                 self.history.stop()
             if self.flightrec is not None:

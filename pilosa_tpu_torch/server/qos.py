@@ -581,7 +581,7 @@ class QosGovernor:
         if episode_started and incident is not None and self._incident_fn:
             try:
                 self._incident_fn(incident)
-            except Exception:  # best effort: shedding goes on without it
+            except Exception:  # graftlint: disable=exception-hygiene -- incident capture is best-effort; shedding continues without it
                 pass
 
     # -- introspection --------------------------------------------------------

@@ -77,8 +77,8 @@ class FragmentFile:
         self._batch_depth = 0
         self._batch_add: list[np.ndarray] = []
         self._batch_remove: list[np.ndarray] = []
-        # Migration delta taps (the JAX package's cluster/migration.py,
-        # not yet ported): while a shard streams to a new owner, a tap
+        # Migration delta taps (cluster/migration.py): while a shard
+        # streams to a new owner, a tap
         # pinned here mirrors every appended record so the target can
         # replay writes that landed after its snapshot cut.  Fed under the
         # store lock — tap order matches file order exactly.
@@ -160,6 +160,11 @@ class FragmentFile:
                 self._taps.remove(tap)
             except ValueError:
                 pass
+
+    def tapped(self) -> bool:
+        """Whether a migration tap is pinned here."""
+        with self._lock:
+            return bool(self._taps)
 
     def check_row(self, row: int) -> None:
         """Raise BEFORE any mutation if a row id cannot be persisted

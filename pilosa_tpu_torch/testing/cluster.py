@@ -11,8 +11,9 @@ passes through to ``NodeServer``, whose defaults are JAX's; the nodes run
 on ``cuda`` unless the caller passes ``device="cpu"``. With ``mesh_dispatch=True`` (the default) every
 node registers its holder in the process's placement map, so the nodes
 answer each other's shards on the mesh route, one launch on the card,
-instead of over HTTP. Adding and removing nodes (the resize protocol)
-belongs to a later slice.
+instead of over HTTP. ``add_node`` and ``remove_node`` resize the cluster
+online through the coordinator (``cluster/resize.py``), and ``sync_all``
+runs one anti-entropy pass on every node.
 """
 
 from __future__ import annotations
@@ -42,16 +43,15 @@ class InProcessCluster:
         engages on ``with_disk`` clusters (a diskless node has nowhere to
         survive a crash)."""
         self._tmp = tempfile.TemporaryDirectory() if with_disk else None
+        # every node, a joining one too, is built with the same knobs
+        self._node_kw = dict(
+            device=device, replica_n=replica_n, n_words=n_words, **node_kw
+        )
+        self._next_node_num = n
         self.nodes: list[NodeServer] = []
         for i in range(n):
             data_dir = f"{self._tmp.name}/node{i}" if self._tmp else None
-            node = NodeServer(
-                data_dir=data_dir,
-                device=device,
-                replica_n=replica_n,
-                n_words=n_words,
-                **node_kw,
-            )
+            node = NodeServer(data_dir=data_dir, **self._node_kw)
             node.start()
             self.nodes.append(node)
         members = [(s.node_id, s.uri) for s in self.nodes]
@@ -120,6 +120,36 @@ class InProcessCluster:
             if s.node_id == node_id:
                 return s
         raise RuntimeError("owner not found")
+
+    def add_node(self) -> NodeServer:
+        """Boot a fresh node and resize it into the cluster through the
+        coordinator (reference server/cluster_test.go node-join tests)."""
+        data_dir = f"{self._tmp.name}/node{self._next_node_num}" if self._tmp else None
+        self._next_node_num += 1
+        node = NodeServer(data_dir=data_dir, **self._node_kw)
+        node.start()
+        try:
+            self.coordinator.resize_coordinator().add_node(node.node_id, node.uri)
+        except Exception:
+            node.stop()
+            raise
+        self.nodes.append(node)
+        return node
+
+    def remove_node(self, i: int) -> None:
+        """Resize node ``i`` out through the coordinator, then stop it."""
+        node = self.nodes[i]
+        self.coordinator.resize_coordinator().remove_node(node.node_id)
+        node.stop()
+        self.nodes.pop(i)
+
+    def sync_all(self) -> dict:
+        """Run one anti-entropy pass on every node; returns summed stats."""
+        total: dict[str, int] = {}
+        for n in self.nodes:
+            for k, v in n.syncer().sync_holder().items():
+                total[k] = total.get(k, 0) + v
+        return total
 
     # -- deterministic fault injection (testing/faults.py) -------------------
 

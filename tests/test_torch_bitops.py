@@ -5,6 +5,14 @@ int32 views of the same words, including words with the high bit set.
 Every comparison is exact.
 """
 
+# the port's lock witness, installed before the port is imported so that its
+# module-level locks are wrapped too (pilosa_tpu_torch/testing/lockwitness.py)
+from pilosa_tpu_torch.testing import lockwitness as port_lockwitness
+
+port_lockwitness.install()
+# the module fixture that asserts no new inversion among the port's locks
+from pilosa_tpu_torch.testing.lockwitness import no_new_inversion  # noqa: F401
+
 import numpy as np
 import pytest
 import torch

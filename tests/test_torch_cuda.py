@@ -7,6 +7,14 @@ file imports no JAX, so it runs on a machine with a card and no JAX:
 Counts are integers: every comparison is exact.
 """
 
+# the port's lock witness, installed before the port is imported so that its
+# module-level locks are wrapped too (pilosa_tpu_torch/testing/lockwitness.py)
+from pilosa_tpu_torch.testing import lockwitness as port_lockwitness
+
+port_lockwitness.install()
+# the module fixture that asserts no new inversion among the port's locks
+from pilosa_tpu_torch.testing.lockwitness import no_new_inversion  # noqa: F401
+
 import numpy as np
 import pytest
 import torch
@@ -1775,6 +1783,128 @@ def test_a_kernel_error_on_the_mesh_route_raises(cuda_device, fresh_budget, monk
         monkeypatch.setattr(tk, "masked_row_counts", cuda_error)
         with pytest.raises(RuntimeError, match="CUDA error"):
             cl.query(0, "i", "TopN(f, Row(g=2), n=2)")
+        assert cl.nodes[0].api.dist.snapshot()["meshFallbacks"] == 0
+    finally:
+        monkeypatch.undo()
+        cl.close()
+
+
+# -- the elastic planes on the card ------------------------------------------
+
+
+def test_a_migrated_fragments_device_copy_equals_its_host_mirror(cuda_device, fresh_budget):
+    """A node joins a card cluster online: every fragment it pulled makes a
+    device copy equal to its host mirror, and the cluster answers as the
+    same steps on the CPU do."""
+    from pilosa_tpu_torch.ops import bitops
+
+    fresh_budget.configure(None)
+    cpu = _cluster_on("cpu", n=2)
+    card = _cluster_on("cuda", n=2)
+    try:
+        cpu.add_node()
+        joiner = card.add_node()
+        pulled = 0
+        for fname in ("f", "g"):
+            view = joiner.holder.field("i", fname).view("standard")
+            for frag in view.fragments.values():
+                dev = frag.device_bits()
+                assert dev.device.type == "cuda"
+                frag.check_invariants(device=True)
+                ids, words = frag.rows_matrix_host()
+                assert np.array_equal(bitops.to_host(dev)[: len(ids)], words)
+                pulled += 1
+        assert pulled
+        for q in _CLUSTER_READS:
+            for i in range(3):
+                assert card.query(i, "i", q) == cpu.query(0, "i", q), (i, q)
+    finally:
+        card.close()
+        cpu.close()
+
+
+def test_clean_unowned_fragments_returns_the_cards_bytes(cuda_device, fresh_budget):
+    """A fragment that arrived on a node that does not own its shard, once
+    on the card, leaves through the residency manager when the node drops
+    what it does not own: the budget's bytes and ``memory_allocated`` go
+    back to their level before it arrived."""
+    fresh_budget.configure(None)
+    budget = fresh_budget.default_budget(cuda_device)
+    cl = _cluster_on("cuda", n=3)
+    try:
+        node = cl.nodes[0]
+        shard = next(s for s in range(64) if not node.cluster.owns_shard(node.node_id, "i", s))
+        # the uploads of the load settle, and what the node already held
+        # outside its shards goes first: the level is the node's own
+        for n in cl.nodes:
+            assert n.api.ingest.uploader.flush(60)
+        node.api._clean_unowned_fragments()
+        torch.cuda.synchronize()
+        b0, m0 = budget.used(), torch.cuda.memory_allocated()
+        frag = node.holder.field("i", "f").create_view_if_not_exists(
+            "standard").create_fragment_if_not_exists(shard)
+        frag.import_bits(np.arange(8, dtype=np.uint64), np.arange(8, dtype=np.int64) * 977)
+        assert int(frag.device_bits().sum()) != 0
+        nbytes = frag._device_nbytes()
+        torch.cuda.synchronize()
+        m_peak = torch.cuda.memory_allocated()
+        assert budget.used() == b0 + nbytes and m_peak >= m0 + nbytes
+        assert node.api._clean_unowned_fragments() >= 1
+        assert node.holder.fragment("i", "f", "standard", shard) is None
+        assert frag._device is None
+        torch.cuda.synchronize()
+        assert budget.used() == b0
+        assert torch.cuda.memory_allocated() == m0
+    finally:
+        cl.close()
+
+
+def test_after_an_epoch_flip_the_facade_answers_from_the_new_owners(cuda_device, fresh_budget,
+                                                                    monkeypatch):
+    """Mid-resize, right after a shard flips, node 0's mesh route reads it
+    from its new owner: a bit set on the new owner's copy alone shows in
+    the count, which a facade kept from before the flip would not see."""
+    from pilosa_tpu_torch.cluster import resize as rz
+    from pilosa_tpu_torch.shardwidth import SHARD_WIDTH
+
+    fresh_budget.configure(None)
+    cl = _cluster_on("cuda", n=2)
+    for node in cl.nodes:
+        node.api.executor.rescache.max_entries = 0
+    seen = []
+    real_flip = rz.ResizeCoordinator._broadcast_flip
+
+    def flip(self, nodes, index, shard, epoch):
+        real_flip(self, nodes, index, shard, epoch)
+        if seen:
+            return
+        # the owner node 0's route reads the shard from: only a shard it
+        # now reads from the joiner tells a new owner from an old one
+        (picked,) = cl.nodes[0].api.dist._group_by_live_owner(index, [shard], set())
+        if picked in old_ids:
+            return
+        holder = next(n for n in cl.nodes if n.node_id == picked).holder
+        frag = holder.fragment(index, "f", "standard", shard)
+        col = next(c for c in range(SHARD_WIDTH) if not frag.get_bit(11, c))
+        q = f"Count(Row(f=11))"
+        before = cl.nodes[0].api.query(index, q)["results"][0]
+        frag.set_bit(11, col)  # the new owner's copy only
+        after = cl.nodes[0].api.query(index, q)["results"][0]
+        frag.clear_bit(11, col)
+        seen.append((shard, before, after))
+
+    monkeypatch.setattr(rz.ResizeCoordinator, "_broadcast_flip", flip)
+    old_ids = {n.node_id for n in cl.nodes}
+    try:
+        from pilosa_tpu_torch.server.node import NodeServer
+
+        joiner = NodeServer(device="cuda", port=0, replica_n=2)
+        joiner.start()
+        cl.nodes.append(joiner)
+        cl.coordinator.resize_coordinator().add_node(joiner.node_id, joiner.uri)
+        assert seen
+        _shard, before, after = seen[0]
+        assert after == before + 1
         assert cl.nodes[0].api.dist.snapshot()["meshFallbacks"] == 0
     finally:
         monkeypatch.undo()

@@ -24,6 +24,14 @@ time. The module freezes what came before it and collects after each
 test, as the other parity files do.
 """
 
+# the port's lock witness, installed before the port is imported so that its
+# module-level locks are wrapped too (pilosa_tpu_torch/testing/lockwitness.py)
+from pilosa_tpu_torch.testing import lockwitness as port_lockwitness
+
+port_lockwitness.install()
+# the module fixture that asserts no new inversion among the port's locks
+from pilosa_tpu_torch.testing.lockwitness import no_new_inversion  # noqa: F401
+
 import gc
 
 import numpy as np
@@ -176,6 +184,54 @@ def test_reads_equal_jax_through_every_node(pair, q):
             continue
         want = j.query(node, "i", pql)
         assert got == want, (route, node, pql)
+
+
+# Reads of ``Options(..., shards=[...])`` whose JAX answer is wrong on the
+# HTTP route: JAX's coordinator maps the call over every available shard and
+# each remote leg re-applies the Options' list, so every replica counts each
+# listed shard it holds (244 for 122 at replica_n=2). The port's coordinator
+# partitions the listed shards and each leg keeps to its partition, so these
+# reads are held, on both routes, to one port holder with the same data.
+JAX_OPTIONS_SHARDS_FAULT = [
+    "Options(Count(Row(f=3)), shards=[1, 2, 3, 4])",
+    "Options(Count(Row(f=3)), shards=[1])",
+    "Options(Sum(field=v), shards=[1, 2])",
+    "Options(Sum(Row(f=1), field=v), shards=[0, 5, 7])",
+    "Options(TopN(f, n=2), shards=[1, 2])",
+    "Options(TopN(f, Row(g=1), n=3), shards=[2, 3, 6])",
+    "Options(Count(Row(f=3)), shards=[1, 99])",
+]
+
+
+@pytest.fixture(scope="module")
+def one_holder():
+    """One port API over one holder, fed the same data as the clusters."""
+    from pilosa_tpu_torch.core.holder import Holder
+    from pilosa_tpu_torch.server.api import API
+
+    api = API(Holder(device="cpu"), batch_window=0)
+    cols, rows, gcols, grows, vcols, vals = _data()
+    api.create_index("i", {})
+    api.create_field("i", "f", {})
+    api.create_field("i", "g", {})
+    api.create_field("i", "v", {"type": "int", "min": -100, "max": 1000})
+    api.import_bits("i", "f", {"rowIDs": rows, "columnIDs": cols})
+    api.import_bits("i", "g", {"rowIDs": grows, "columnIDs": gcols})
+    api.import_bits("i", "v", {"columnIDs": vcols, "values": vals})
+    try:
+        yield api
+    finally:
+        api.close()
+
+
+@pytest.mark.parametrize("q", range(len(JAX_OPTIONS_SHARDS_FAULT)))
+def test_options_shards_equal_one_holder(pair, one_holder, q):
+    route, _j, t = pair
+    pql = JAX_OPTIONS_SHARDS_FAULT[q]
+    want = one_holder.query("i", pql)
+    assert want["results"][0] not in (0, [], None), pql
+    for node in range(3):
+        assert t.query(node, "i", pql) == want, (route, node, pql)
 
 
 def test_min_ties_sum_across_partials():
@@ -507,17 +563,23 @@ def test_the_prefetcher_idles_on_a_node_with_peers(lone):
 
 
 def test_peer_messages_of_later_planes_name_them(lone):
+    """The resize and membership planes' messages now apply, as on a JAX
+    node: none answers 501, and an unknown type still answers 400."""
     from pilosa_tpu_torch.server.api import ApiError
 
     api = lone.nodes[1].api
-    for msg, plane in (({"type": "resize-prepare", "nodes": []}, "resize"),
-                       ({"type": "epoch-flip", "index": "i", "shard": 0}, "resize"),
-                       ({"type": "cluster-status", "state": "NORMAL",
-                         "nodes": [{"id": "x"}]}, "resize"),
-                       ({"type": "node-event"}, "membership")):
-        with pytest.raises(ApiError, match=plane) as e:
-            api.receive_message(msg)
-        assert e.value.code == 501
+    members = [{"id": n.node_id, "uri": n.uri} for n in lone.nodes]
+    epoch = api.cluster.epoch
+    api.receive_message({"type": "resize-prepare", "nodes": members, "epoch": epoch + 1})
+    assert api.cluster.resize_pending
+    api.receive_message({"type": "epoch-flip", "index": "i", "shard": 0, "epoch": epoch + 1})
+    api.receive_message({"type": "resize-cancel", "reason": "test"})
+    assert not api.cluster.resize_pending
+    for msg in ({"type": "node-event"}, {"type": "resize-instruction"},
+                {"type": "resize-instruction-complete"},
+                {"type": "update-coordinator", "coordinator": lone.nodes[0].node_id}):
+        assert api.receive_message(msg) == {}
+    assert api.cluster.coordinator_id == lone.nodes[0].node_id
     with pytest.raises(ApiError) as e:
         api.receive_message({"type": "no-such-message"})
     assert e.value.code == 400
@@ -525,6 +587,7 @@ def test_peer_messages_of_later_planes_name_them(lone):
     assert api.state == "DEGRADED"
     api.receive_message({"type": "node-state", "node": lone.nodes[2].node_id, "state": "READY"})
     assert api.state == "NORMAL"
+    _check_truth(lone, 1)
 
 
 # last: it stops a node of the module's cluster

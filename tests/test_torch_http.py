@@ -27,6 +27,14 @@ answers, and ``python -m pilosa_tpu_torch.cli server`` runs on the CPU
 when asked and refuses to start without CUDA otherwise.
 """
 
+# the port's lock witness, installed before the port is imported so that its
+# module-level locks are wrapped too (pilosa_tpu_torch/testing/lockwitness.py)
+from pilosa_tpu_torch.testing import lockwitness as port_lockwitness
+
+port_lockwitness.install()
+# the module fixture that asserts no new inversion among the port's locks
+from pilosa_tpu_torch.testing.lockwitness import no_new_inversion  # noqa: F401
+
 import gc
 import json
 import os
@@ -65,8 +73,9 @@ TIMEOUT = 10  # seconds for every request
 
 # keys whose values differ between two nodes by nature
 VOLATILE = {"version", "localID", "startedAt", "duration_ms", "traceId", "node"}
-# /debug/vars blocks of JAX planes the port does not have (the cluster's)
-ABSENT_VARS = {"migrations", "dist"}
+# the /debug/vars block a JAX API has without a cluster, and the port's
+# API has only with one (its distributed executor)
+ABSENT_VARS = {"dist"}
 # the serving plane cut down, as the JAX node can be
 CUT = {"batch_window": 0, "rescache_entries": 0, "planner_enabled": False}
 

@@ -8,7 +8,20 @@ two nodes is HTTP: JSON queries with wire results, the binary ``PTI1``
 import, roaring imports to every replica, schema and shard broadcasts,
 and key translation through the primary. Queries through either node
 must answer as a two-node JAX cluster fed the same requests does.
+
+The elastic planes cross the packages too: a port node joins a JAX
+cluster through JAX's resize coordinator and a JAX node joins a port
+cluster through the port's, and anti-entropy repairs a replica diverged
+on either package's node.
 """
+
+# the port's lock witness, installed before the port is imported so that its
+# module-level locks are wrapped too (pilosa_tpu_torch/testing/lockwitness.py)
+from pilosa_tpu_torch.testing import lockwitness as port_lockwitness
+
+port_lockwitness.install()
+# the module fixture that asserts no new inversion among the port's locks
+from pilosa_tpu_torch.testing.lockwitness import no_new_inversion  # noqa: F401
 
 import gc
 
@@ -179,3 +192,117 @@ def test_cluster_events_merge_both_packages(clusters):
         merged = n.api.cluster_events(0)
         assert merged["nodes"] == 2 and merged["unreachable"] == []
         assert {e["node"] for e in merged["events"]} == {m.node_id for m in mixed.nodes}
+
+
+# -- the elastic planes across the two packages -----------------------------
+
+ELASTIC_READS = [q for i, q in QUERIES if i == "i" and "Set(" not in q]
+
+
+def _elastic_feed(api, seed: int) -> None:
+    rng = np.random.default_rng(seed)
+    api.create_index("i", {})
+    api.create_field("i", "f", {})
+    api.create_field("i", "g", {})
+    api.create_field("i", "v", {"type": "int", "min": -10, "max": 500})
+    cols = rng.integers(0, N_SHARDS * SHARD_WIDTH, 3000).astype(np.uint64)
+    api.import_bits("i", "f", {"rowIDs": rng.integers(0, 6, 3000).astype(np.uint64),
+                               "columnIDs": cols})
+    gcols = rng.integers(0, N_SHARDS * SHARD_WIDTH, 800).astype(np.uint64)
+    api.import_bits("i", "g", {"rowIDs": (gcols % 3).astype(np.uint64), "columnIDs": gcols})
+    vcols = np.unique(rng.integers(0, N_SHARDS * SHARD_WIDTH, 300)).astype(np.uint64)
+    api.import_bits("i", "v", {"columnIDs": vcols, "values": rng.integers(-10, 500, len(vcols))})
+
+
+def _rows(frag) -> dict:
+    return {r: w.tolist() for r, w in frag.to_host_rows().items()}
+
+
+@pytest.fixture(scope="module")
+def jax_ref():
+    ref = JaxCluster(2, replica_n=2, **QUIET)
+    for n in ref.nodes:
+        n.client.timeout = CLIENT_TIMEOUT
+    try:
+        _elastic_feed(ref.nodes[0].api, SEED + 1)
+        yield ref
+    finally:
+        ref.close()
+
+
+@pytest.mark.parametrize("coordinator", ["jax", "torch"])
+def test_a_node_of_the_other_package_joins_through_the_coordinator(jax_ref, coordinator):
+    """A port node joins a JAX cluster through JAX's coordinator, and a JAX
+    node joins a port cluster through the port's: the joiner pulls its
+    shards over the migration routes of the other package, every node
+    answers as a JAX-only cluster with the same data, and each node holds
+    exactly what its placement gives it, word for word as the other
+    replicas."""
+    if coordinator == "jax":
+        cl = JaxCluster(2, replica_n=2, **QUIET)
+        joiner = TorchNode(replica_n=2, port=0, device="cpu", **QUIET)
+    else:
+        from pilosa_tpu_torch.testing.cluster import InProcessCluster as TorchCluster
+
+        cl = TorchCluster(2, replica_n=2, device="cpu", **QUIET)
+        joiner = JaxNode(replica_n=2, port=0, **QUIET)
+    joiner.start()
+    nodes = list(cl.nodes) + [joiner]
+    try:
+        for n in nodes:
+            n.client.timeout = CLIENT_TIMEOUT
+        _elastic_feed(cl.nodes[0].api, SEED + 1)
+        cl.coordinator.resize_coordinator().add_node(joiner.node_id, joiner.uri)
+        for n in nodes:
+            assert len(n.cluster.nodes) == 3 and n.cluster.state == "NORMAL", n.node_id
+        for pql in ELASTIC_READS:
+            want = jax_ref.nodes[0].api.query("i", pql)
+            for n in nodes:
+                assert n.api.query("i", pql) == want, (type(n).__module__, pql)
+        held: dict = {}
+        for n in nodes:
+            f = n.holder.field("i", "f")
+            shards = set(f.view("standard").fragments) if f.view("standard") else set()
+            owned = {s for s in range(N_SHARDS) if n.cluster.owns_shard(n.node_id, "i", s)}
+            assert shards == owned, n.node_id
+            for s in shards:
+                rows = _rows(n.holder.fragment("i", "f", "standard", s))
+                assert held.setdefault(s, rows) == rows, s
+        assert joiner.holder.field("i", "f").view("standard").fragments
+    finally:
+        joiner.stop()
+        cl.close()
+
+
+def test_anti_entropy_repairs_a_replica_across_the_packages(jax_ref):
+    """A replica diverged on each package's node is repaired by either
+    package's syncer: block checksums, block data and the pushes cross
+    the packages, and the result answers as a JAX-only cluster."""
+    mixed = _mixed("torch")
+    try:
+        _elastic_feed(mixed.nodes[0].api, SEED + 1)
+        t, j = mixed.nodes
+        tf = t.holder.fragment("i", "f", "standard", 1)
+        jf = j.holder.fragment("i", "f", "standard", 2)
+        tf.set_bit(5, 77)  # on the port's replica only
+        jf.set_bit(5, 99)  # on the JAX replica only
+        tcleared = next(c for c in range(SHARD_WIDTH) if tf.get_bit(1, c))
+        tf.clear_bit(1, tcleared)
+        for s in (1, 2):
+            assert _rows(t.holder.fragment("i", "f", "standard", s)) != _rows(
+                j.holder.fragment("i", "f", "standard", s))
+        stats = t.syncer().sync_holder()
+        assert stats["blocks_diff"] >= 2
+        j.syncer().sync_holder()
+        for s in range(N_SHARDS):
+            assert _rows(t.holder.fragment("i", "f", "standard", s)) == _rows(
+                j.holder.fragment("i", "f", "standard", s)), s
+        # a tie keeps the bit: both replicas now hold the divergent sets
+        assert t.holder.fragment("i", "f", "standard", 2).get_bit(5, 99)
+        assert j.holder.fragment("i", "f", "standard", 1).get_bit(5, 77)
+        assert j.holder.fragment("i", "f", "standard", 1).get_bit(1, tcleared)
+        want = jax_ref.nodes[0].api.query("i", "Count(Row(f=1))")
+        for n in mixed.nodes:
+            assert n.api.query("i", "Count(Row(f=1))") == want
+    finally:
+        mixed.close()

@@ -7,6 +7,14 @@ decision, ``qprofile``'s call tree, the event journal and the job
 tracker. Then the port's device ledger: a launch's device time is read
 from its event pair at snapshot time, never on the query path."""
 
+# the port's lock witness, installed before the port is imported so that its
+# module-level locks are wrapped too (pilosa_tpu_torch/testing/lockwitness.py)
+from pilosa_tpu_torch.testing import lockwitness as port_lockwitness
+
+port_lockwitness.install()
+# the module fixture that asserts no new inversion among the port's locks
+from pilosa_tpu_torch.testing.lockwitness import no_new_inversion  # noqa: F401
+
 import importlib
 
 import numpy as np

@@ -21,6 +21,14 @@ is waited for: the tests call ``sample_once``, ``_segment`` and
 ``faulthandler`` and the SIGTERM handler as they found them.
 """
 
+# the port's lock witness, installed before the port is imported so that its
+# module-level locks are wrapped too (pilosa_tpu_torch/testing/lockwitness.py)
+from pilosa_tpu_torch.testing import lockwitness as port_lockwitness
+
+port_lockwitness.install()
+# the module fixture that asserts no new inversion among the port's locks
+from pilosa_tpu_torch.testing.lockwitness import no_new_inversion  # noqa: F401
+
 import faulthandler
 import gc
 import importlib

@@ -11,8 +11,19 @@ recorder, the metrics history, the black box, diagnostics, the runtime
 monitor and span export, and the cluster: placement, the wire, the
 internal client, broadcasts, key translation through the primary, the
 distributed executor with its mesh route and a two-node in-process
-cluster on the CPU), and the port's default device is ``cuda`` with no
+cluster on the CPU, and the elastic planes: migration, resize with its
+watchdog, anti-entropy, membership, block checksums, the chunk prefetcher
+and the lock witness, with a node added and one removed), and the port's
+default device is ``cuda`` with no
 fallback to the CPU."""
+
+# the port's lock witness, installed before the port is imported so that its
+# module-level locks are wrapped too (pilosa_tpu_torch/testing/lockwitness.py)
+from pilosa_tpu_torch.testing import lockwitness as port_lockwitness
+
+port_lockwitness.install()
+# the module fixture that asserts no new inversion among the port's locks
+from pilosa_tpu_torch.testing.lockwitness import no_new_inversion  # noqa: F401
 
 import ast
 import os
@@ -170,6 +181,18 @@ with InProcessCluster(2, replica_n=2, device="cpu") as cl:
     assert cl[0].api.dist.snapshot()["meshDispatches"] > 0
     for nd in cl.nodes:
         nd.api.dist.mesh_enabled = False
+    assert cl.query(1, "c", "Count(Row(f=1))")["results"] == [2]
+    # the elastic planes: a node joins and one leaves through the resize
+    # protocol, and anti-entropy finds nothing to repair
+    from pilosa_tpu_torch.cluster import antientropy, membership, migration, resize
+    from pilosa_tpu_torch.core import blockhash
+    from pilosa_tpu_torch.ingest.pipeline import ChunkPrefetcher
+    from pilosa_tpu_torch.testing import lockwitness
+    assert cl[0].resize_watchdog is not None
+    cl.add_node()
+    assert cl.query(2, "c", "Count(Row(f=1))")["results"] == [2]
+    assert cl.sync_all()["bits_set"] == 0
+    cl.remove_node(1)
     assert cl.query(1, "c", "Count(Row(f=1))")["results"] == [2]
 bad = sorted(
     m for m in sys.modules

@@ -10,6 +10,14 @@ a build into ``build/native/``, two processes building at once, and a
 missing compiler raising ``NativeBuildError``.
 """
 
+# the port's lock witness, installed before the port is imported so that its
+# module-level locks are wrapped too (pilosa_tpu_torch/testing/lockwitness.py)
+from pilosa_tpu_torch.testing import lockwitness as port_lockwitness
+
+port_lockwitness.install()
+# the module fixture that asserts no new inversion among the port's locks
+from pilosa_tpu_torch.testing.lockwitness import no_new_inversion  # noqa: F401
+
 import struct
 import subprocess
 import sys
