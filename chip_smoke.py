@@ -136,7 +136,7 @@ Phases (any failure raises, and the script exits non-zero):
    every answer equal to numpy over the written data; 16 client threads
    on keep-alive connections for 5 s (queries/s, p50/p99, every answer
    equal to its serial one); import-roaring of a new 64-row field on 8
-   shards (MB/s, bits/s), a JSON import of 2^20 timestamped pairs into a
+   shards (MB/s, bits/s), a JSON import of 2^19 timestamped pairs into a
    YMDH field read back through windowed Counts (pairs/s), values into an
    int field, /export of one shard of h; /debug/vars' kernels block
    against ``LAUNCHES``, /metrics parsed, /debug/fragments over f's 160
@@ -193,8 +193,9 @@ Phases (any failure raises, and the script exits non-zero):
    directory of its own under ``build/``), joined by ``join_static``; the
    storage path's schema created through node 0 and broadcast; each of
    the 160 shards of f, h and v loaded on its two owners through their
-   roaring imports, as the storage directory holds them (g and w of the
-   served index left out, and the cut printed); a JSON import through node
+   roaring imports, as the storage directory holds them (g of the served
+   index left out, and the cut printed; w drawn from the seed); a JSON
+   import through node
    0 routed to the owners and read back word for word on both replicas;
    the read mix (less its keyed read, plus GroupBy f x h and f x f) from
    16 keep-alive clients with every result cache emptied, on the mesh
@@ -207,7 +208,19 @@ Phases (any failure raises, and the script exits non-zero):
    read through a third; TopN exactness; node 2 stopped, every read exact
    through the replicas (p99), its breaker open in /debug/vars and in a
    flight-recorder segment, and ``?cluster=true`` events of all three
-   nodes before the stop.
+   nodes before the stop; then membership, anti-entropy, a node added and
+   one removed (steps 6-9; steps 7-9 over f, h and v, w deleted first,
+   and every node's id fixed from the seed, so each resize moves
+   the same shards from run to run). The loadgen path, last (the earlier
+   paths' directories removed first): the load harness's workload index
+   at the serving size (seg 160 shards x 64 rows, val, the YMD field ev)
+   written to a new directory, one ``NodeServer`` on it, and
+   ``LoadHarness`` driving its eight-stage plan with 16 workers over HTTP
+   (the report validated, its fingerprint the generator's, no client
+   error, every stage but overload at the availability floor, overload
+   failing only with 429s); the answers after the run against numpy over
+   the node's mirrors; then ``python -m pilosa_tpu_torch.cli`` backup,
+   restore into a second node, check, inspect and config, each timed.
 4. Summary: one ``{"end_to_end": {...}}`` line, one ``{"kernels": [...]}``
    line, the card line, and last ``{"ok": true, "device": {...}}``.
 """
@@ -364,39 +377,91 @@ def mma_rates(dev):
     return rates
 
 
-def device_ms(fn, reps: int = 5):
-    """Mean device milliseconds of the port's kernels in one call of ``fn``
-    (``torch.profiler``; the CUDA-event times around the wrapper also hold
-    its host work). None when the trace holds no kernel of the port.
+def per_call_device_us(events, launched: int, reps: int):
+    """Device microseconds of one call, from the trace's kernel events of
+    ``reps`` calls: ``(name, start_us, duration_us)`` each. None when no
+    event is left.
 
-    The trace may keep fewer kernel events than the wrappers launched (on
-    the H100 it has dropped two of five), so the time is the mean over
-    the events it kept, times the launches the wrappers counted per call.
-    The L2 cache is written over before each call (:func:`scrub_l2`; its
-    fill is not a kernel of the port)."""
+    An event seen twice (same kernel, same start) counts once, and one of
+    no duration (no kernel of the port takes none) not at all. When the
+    trace kept one event per launch, the events split into the ``reps``
+    calls in start order and the time is the median call's sum. Otherwise
+    (the trace has dropped two of five on the H100) it is the mean over
+    the events kept, times the launches the wrappers counted per call.
+    Returns ``(us, note)``; ``note`` says what was set aside, or is
+    empty."""
+    seen, kept, dup, empty = set(), [], 0, 0
+    for name, start, dur in events:
+        if (name, start) in seen:
+            dup += 1
+        elif dur <= 0:
+            empty += 1
+        else:
+            seen.add((name, start))
+            kept.append((start, dur))
+    note = []
+    if dup or empty:
+        note.append(f"the trace held {len(events)} kernel events of the port for "
+                    f"{launched} launches: {dup} seen twice and {empty} of no "
+                    f"duration set aside")
+    if not kept:
+        return None, "; ".join(note)
+    kept.sort()
+    per_call = len(kept) // reps
+    if len(kept) == launched and per_call * reps == launched:
+        sums = [sum(d for _, d in kept[i * per_call:(i + 1) * per_call])
+                for i in range(reps)]
+        return statistics.median(sums), "; ".join(note)
+    note.append(f"the trace kept {len(kept)} of {launched} kernel events; device "
+                f"ms is their mean times the launches per call")
+    return sum(d for _, d in kept) / len(kept) * launched / reps, "; ".join(note)
+
+
+def device_ms(fn, reps: int = 5, traces: int = 3):
+    """Device milliseconds of the port's kernels in one call of ``fn``
+    (``torch.profiler``; the CUDA-event times around the wrapper also hold
+    its host work): the median of ``traces`` traces of ``reps`` calls each,
+    each read by :func:`per_call_device_us` from its kernel events. None
+    when no trace holds a kernel of the port. The L2 cache is written over
+    before each call (:func:`scrub_l2`; its fill is not a kernel of the
+    port).
+
+    Now and then (about one trace in a hundred) the H100's trace reads a
+    kernel at about half its time, faster than its bytes can leave memory (the unfiltered ``bsi_extreme``
+    at 0.104-0.110 ms where every other trace, and CUDA events around the
+    same calls queued behind a sleep kernel, read 0.217-0.229 ms), so no
+    single trace is taken alone."""
     import torch
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from pilosa_tpu_torch.ops import kernels as tk
 
     fn()
     torch.cuda.synchronize()
-    launched0 = sum(tk.LAUNCHES.values())
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            scrub_l2()
-            fn()
-        torch.cuda.synchronize()
-    launched = sum(tk.LAUNCHES.values()) - launched0
-    ours = [e for e in prof.key_averages() if "pilosa_" in e.key]
-    total = sum(e.device_time_total for e in ours)  # microseconds
-    kept = sum(e.count for e in ours)
-    if not total or not kept:
+    readings = []
+    for _ in range(traces):
+        launched0 = sum(tk.LAUNCHES.values())
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                scrub_l2()
+                fn()
+            torch.cuda.synchronize()
+        launched = sum(tk.LAUNCHES.values()) - launched0
+        events = [(e.name, e.time_range.start, e.time_range.elapsed_us())
+                  for e in prof.events()
+                  if "pilosa_" in e.name and e.device_type != DeviceType.CPU]
+        us, note = per_call_device_us(events, launched, reps)
+        if note:
+            log(note)
+        if us is not None:
+            readings.append(us / 1e3)
+    if not readings:
         return None
-    if kept != launched:
-        log(f"profiler kept {kept} of {launched} kernel events; device ms is "
-            f"their mean times the launches per call")
-    return total / kept * launched / reps / 1e3
+    ms = statistics.median(readings)
+    if max(readings) > 1.1 * min(readings):
+        log(f"device ms of {len(readings)} traces {readings}: the median {ms} is kept")
+    return ms
 
 
 def gram_sass_counts(counts):
@@ -2195,16 +2260,16 @@ def trees_path(pool, ex, holder, device):
 # ---------------------------------------------------------------------------
 
 
-def bsi_field_words(rng, lo, hi, pool):
-    """uint32 ``[S_FULL, 2 + BSI_DEPTH, W_FULL]`` rows of an int field's BSI
-    view (exists, sign, planes), about three quarters of the columns
-    holding a value drawn uniformly from [lo, hi] (base 0), packed with
-    numpy shard by shard from per-shard seeds."""
+def bsi_field_words(rng, lo, hi, pool, share=0.75, depth=BSI_DEPTH):
+    """uint32 ``[S_FULL, 2 + depth, W_FULL]`` rows of an int field's BSI
+    view (exists, sign, planes), about ``share`` of the columns (three
+    quarters by default) holding a value drawn uniformly from [lo, hi]
+    (base 0), packed with numpy shard by shard from per-shard seeds."""
     import numpy as np
 
     width = W_FULL * 32
     seeds = rng.integers(0, 2**63, size=S_FULL)
-    out = np.zeros((S_FULL, 2 + BSI_DEPTH, W_FULL), dtype=np.uint32)
+    out = np.zeros((S_FULL, 2 + depth, W_FULL), dtype=np.uint32)
 
     def pack(bits):
         return np.packbits(bits, axis=-1, bitorder="little").view(np.uint32)
@@ -2212,21 +2277,21 @@ def bsi_field_words(rng, lo, hi, pool):
     def one(s):
         r = np.random.default_rng(int(seeds[s]))
         vals = r.integers(lo, hi + 1, size=width)
-        exists = r.random(width) < 0.75
+        exists = r.random(width) < share
         mag = np.where(exists, np.abs(vals), 0).astype("<u4")
         out[s, 0] = pack(exists)
         out[s, 1] = pack(exists & (vals < 0))
         # bit k of every magnitude: its little-endian bytes unpacked, one
         # transpose to [32, width]
         bits = np.unpackbits(mag.view(np.uint8).reshape(width, 4), axis=1, bitorder="little")
-        out[s, 2:] = pack(np.ascontiguousarray(bits.T[:BSI_DEPTH]))
+        out[s, 2:] = pack(np.ascontiguousarray(bits.T[:depth]))
 
     list(pool.map(one, range(S_FULL)))
     return out
 
 
-def decode_bsi(holder, name, pool, into=None, shards=range(S_FULL)):
-    """Every column's value of int field ``name``, decoded from the host
+def decode_bsi(holder, name, pool, into=None, shards=range(S_FULL), index="i"):
+    """Every column's value of int field ``name`` (of ``index``), decoded from the host
     mirrors' rows with ``np.unpackbits`` one shard at a time: ``(values
     int64 [S, 2^20], exists bool [S, 2^20])``; with ``into``, those arrays
     again with only ``shards`` decoded anew. It reads the rows by id
@@ -2234,7 +2299,7 @@ def decode_bsi(holder, name, pool, into=None, shards=range(S_FULL)):
     code."""
     import numpy as np
 
-    f = holder.field("i", name)
+    f = holder.field(index, name)
     view = f.view("bsig_" + name)
     depth = f.bit_depth
     width = f.n_words * 32
@@ -3876,12 +3941,15 @@ def time_path(pool, ex, holder, device):
 # ---------------------------------------------------------------------------
 
 HTTP_CLIENTS = 16
-HTTP_SECONDS = 5.0
+# the http path's 16-client window (5 s before the loadgen path needed the
+# time; a depth cut, see DEPTH_CUTS)
+HTTP_SECONDS = 4.0
 HTTP_WARM_REPS = 3
 # the 64-row field the http path imports through import-roaring, its shards
 R_IMPORT_ROWS, R_IMPORT_SHARDS = 64, 8
-# (row, column, timestamp) pairs of the JSON import into a YMDH field
-TT_PAIRS = 1 << 20
+# (row, column, timestamp) pairs of the JSON import into a YMDH field (2^20
+# before the loadgen path needed the time; a depth cut, see DEPTH_CUTS)
+TT_PAIRS = 1 << 19
 TT_ROWS, TT_HOURS = 4, 6
 # values of the JSON import into an int field
 U_VALUES = 1 << 18
@@ -4391,10 +4459,11 @@ def read_mix(reads, items):
 
 SERVE_CLIENTS = 16
 # each of the serving path's two 16-client windows (10 s before the
-# cluster path's elastic steps needed the time)
-SERVE_SECONDS = 5.0
-SERVE_DEFAULT_SECONDS = 4.0
-QOS_SECONDS = 4.0
+# cluster path's elastic steps needed the time, 5 s before the loadgen
+# path did), the defaults' window and the QoS tenants' (4 s each before)
+SERVE_SECONDS = 4.0
+SERVE_DEFAULT_SECONDS = 3.0
+QOS_SECONDS = 3.0
 QOS_LEAVES = 300
 PLANNER_FLIGHT = 64
 INGEST_CLIENTS = 4
@@ -5925,8 +5994,9 @@ def obs_nodes(device, hand, lives):
 
 CLUSTER_NODES, CLUSTER_REPLICAS = 3, 2
 # seconds of each route's 16-client load (6 before the elastic steps' reads
-# needed the time), and of the failover reads' load
-CLUSTER_SECONDS, CLUSTER_FAILOVER_SECONDS = 4.0, 3.0
+# needed the time, 4 before the loadgen path did), and of the failover
+# reads' load (3 before)
+CLUSTER_SECONDS, CLUSTER_FAILOVER_SECONDS = 3.0, 2.0
 # the routing check's small field: rows and shards
 CLUSTER_R_ROWS, CLUSTER_R_SHARDS = 8, 8
 # host bytes kept free beside the cluster's mirrors
@@ -5935,23 +6005,36 @@ CLUSTER_HOST_MARGIN = 6 << 30
 # legs, where pair Counts take the tree kernel or the host tier)
 CLUSTER_FF_ROWS = 8
 # the planes' cost on the mesh route: pairs of windows of this many seconds,
-# running and stopped, the order turned every other pair
-CLUSTER_AB_PAIRS, CLUSTER_AB_WINDOW = 2, 1.5
+# running and stopped, the order turned every other pair (2 pairs before the
+# loadgen path needed the time)
+CLUSTER_AB_PAIRS, CLUSTER_AB_WINDOW = 1, 1.5
+
+
+def cluster_node_dir(k, root):
+    """A new data directory under ``root`` for the cluster path's node ``k``,
+    its ``.id`` file holding an id fixed from :data:`SEED` (derived, not
+    searched for): the shards each resize moves follow the ids, so with
+    random ids a step moved 2.1-4.0 GB from run to run."""
+    import hashlib
+    import tempfile
+
+    d = tempfile.mkdtemp(prefix=f"cluster{k}-", dir=root)
+    STORAGE_DIRS.append(d)
+    with open(os.path.join(d, ".id"), "w") as fh:
+        fh.write(hashlib.sha256(f"chip_smoke cluster node {SEED} {k}".encode()).hexdigest()[:32])
+    return d
 
 
 def cluster_nodes(device, n, root):
     """``n`` port nodes at JAX's defaults (``replica_n=2``), each on a data
-    directory of its own under ``root``, started and joined by
-    ``join_static`` with node 0 the coordinator, as ``InProcessCluster``
-    joins them."""
-    import tempfile
-
+    directory of its own under ``root`` (:func:`cluster_node_dir`), started
+    and joined by ``join_static`` with node 0 the coordinator, as
+    ``InProcessCluster`` joins them."""
     from pilosa_tpu_torch.server.node import NodeServer
 
     nodes = []
     for k in range(n):
-        d = tempfile.mkdtemp(prefix=f"cluster{k}-", dir=root)
-        STORAGE_DIRS.append(d)
+        d = cluster_node_dir(k, root)
         node = NodeServer(data_dir=d, device=device, port=0, replica_n=CLUSTER_REPLICAS)
         node.start()
         nodes.append(node)
@@ -5961,13 +6044,12 @@ def cluster_nodes(device, n, root):
     return nodes
 
 
-def cluster_sources(hand, pool, keep_g):
+def cluster_sources(hand, pool):
     """The cluster's data, ``{(field, view): [S] of (row ids, words)}``: f, h
     and v as the storage path's directory holds them after the earlier
-    paths (opened on the CPU and read from its mirrors), and g (unless host
-    memory forced it out) and w drawn anew from the seed with the served
-    index's generators; with the numpy truths of g's row 5 and of w's
-    Sum."""
+    paths (opened on the CPU and read from its mirrors), and w drawn anew
+    from the seed with the served index's generator; with the numpy truth
+    of w's Sum."""
     import numpy as np
 
     from pilosa_tpu_torch.core.holder import Holder
@@ -5984,10 +6066,6 @@ def cluster_sources(hand, pool, keep_g):
         store.close()
     rng = np.random.default_rng(SEED + 51)
     truth = {}
-    if keep_g:
-        g = random_words(rng, (S_FULL, R_FULL, W_FULL), dense=True)
-        src[("g", "standard")] = [(list(range(R_FULL)), g[s]) for s in range(S_FULL)]
-        truth["Count(Row(g=5))"] = int(np.bitwise_count(g[:, 5]).sum(dtype=np.int64))
     w = bsi_field_words(rng, *BSI_FIELDS["w"], pool)
     src[("w", "bsig_w")] = [(list(range(2 + BSI_DEPTH)), w[s]) for s in range(S_FULL)]
 
@@ -6413,10 +6491,9 @@ def cluster_elastic(ctx):
     on_card, serial_of, check_extra = ctx["on_card"], ctx["serial_of"], ctx["check_extra"]
     out = {}
     n0 = nodes[0]
-    set_field = "g" if ctx["keep_g"] else "ae"
-    served = [("f", "standard"), ("h", "standard"), ("v", "bsig_v"), ("w", "bsig_w")]
-    if ctx["keep_g"]:
-        served.append(("g", "standard"))
+    # the diverged set row goes into a field no read of the mix touches
+    set_field = "ae"
+    served = ctx["fields"]
 
     def mesh_and_http(tag, required):
         """Every read of the mix and the extra reads on both routes, each
@@ -6461,7 +6538,9 @@ def cluster_elastic(ctx):
     if set_field == "ae":
         n0.api.create_field("i", "ae")
     shards = [int(s) for s in rng.choice(S_FULL, ELASTIC_AE_FRAGMENTS, replace=False)]
-    plan = [("f", shards[0], "clear"), ("f", shards[1], "clear"), ("h", shards[2], "clear"),
+    # one f fragment (two before the loadgen path needed the time: the
+    # round merges a diverged block's 64 dense rows, 16.8 M pairs, slowly)
+    plan = [("f", shards[0], "clear"), ("h", shards[1], "clear"), ("h", shards[2], "clear"),
             (set_field, shards[3], "set")]
     by_id = {nd.node_id: nd for nd in nodes}
     before_set = clis[0].query("i", f"Count(Row({set_field}=6))")[0]
@@ -6530,12 +6609,9 @@ def cluster_elastic(ctx):
         b0, m0, _ = card_bytes(device)
         moved0 = moved_bytes(nodes)
         if tag == "add":
-            import tempfile
-
             from pilosa_tpu_torch.server.node import NodeServer
 
-            d = tempfile.mkdtemp(prefix="cluster3-", dir=ctx["root"])
-            STORAGE_DIRS.append(d)
+            d = cluster_node_dir(len(nodes), ctx["root"])
             joiner = NodeServer(data_dir=d, device=device, port=0, replica_n=CLUSTER_REPLICAS)
             joiner.start()
             joiner.api.executor.rescache.max_entries = 0
@@ -6640,14 +6716,14 @@ def cluster_path(pool, device, hand):
     ``replica_n=2``, every plane at JAX's defaults, each on a data
     directory of its own):
 
-    1. boot and ``join_static``; the served index's schema (f and g of 64
-       rows, h, v and w of depth 20, the existence field) created through
-       node 0 and broadcast; each of the 160 shards (2^20 columns) loaded
-       on its two owners by the port's placement through their imports (f,
-       h and v as the storage path's directory holds them after the earlier
-       paths, g and w drawn anew from the seed; g left out, and the cut
-       listed, only where host memory is short), every node then knowing
-       all 160 shards of every field; the load's stages timed;
+    1. boot and ``join_static``; the served index's schema (f of 64 rows,
+       h, v and w of depth 20, the existence field; not g, which no read of
+       the mix touches: a ``reduced:`` line) created through node 0 and
+       broadcast; each of the 160 shards (2^20 columns) loaded on its two
+       owners by the port's placement through their imports (f, h and v as
+       the storage path's directory holds them after the earlier paths, w
+       drawn anew from the seed), every node then knowing all 160 shards of
+       every field; the load's stages timed;
     2. routing: one JSON import of a small field on 8 shards through node
        0 over HTTP, routed in binary to the owners, read back word for
        word from both replicas of every shard;
@@ -6656,7 +6732,7 @@ def cluster_path(pool, device, hand):
        gram's read on the HTTP route's per-call legs) from 16 keep-alive
        clients against node 0 with every result cache emptied, on the mesh
        route (one launch over a holder facade) and on the HTTP fan-out
-       (``mesh_dispatch`` off on every node), with g's and w's reads: every
+       (``mesh_dispatch`` off on every node), with w's Sum: every
        answer against numpy; on the mesh route, the three nodes' planes
        running and stopped in alternating pairs of windows under one load;
     4. writes: a Set through node 1 read through node 0 on both routes and
@@ -6675,8 +6751,13 @@ def cluster_path(pool, device, hand):
        DOWN; the HTTP route's reads then skip it by its state; node 2
        restarted on its data directory, the time until both mark it READY,
        its first answer exact;
+    Every node's id is fixed from :data:`SEED` (:func:`cluster_node_dir`).
+    Steps 7-9 run over f, h and v: w, which no read of the mix touches, is
+    deleted after step 6 (a ``reduced:`` line says so).
+
     7. anti-entropy: one replica of 4 fragments diverged directly (bits of
-       f and h cleared, bits of a row no read of the mix touches set), one
+       one f and two h fragments cleared, bits of a row no read of the mix
+       touches set), one
        ``sync_holder`` round on every node; the replicas equal word for
        word, every read exact on both routes, the mesh route launching
        kernels;
@@ -6711,22 +6792,24 @@ def cluster_path(pool, device, hand):
     f_np, h_np = hand["f"], hand["h"]
 
     # -- host memory: replica 2 keeps two host mirrors of every field, beside
-    # the sources; where that is short, g goes first
+    # the sources
     bsi_bytes = S_FULL * (2 + BSI_DEPTH) * W_FULL * 4
-    need = (CLUSTER_REPLICAS + 1) * (2 * f_np.nbytes + h_np.nbytes + 2 * bsi_bytes)
+    need = (CLUSTER_REPLICAS + 1) * (f_np.nbytes + h_np.nbytes + 2 * bsi_bytes)
     need += CLUSTER_HOST_MARGIN
     avail = mem_available()
-    keep_g = avail >= need
-    if not keep_g:
-        need -= (CLUSTER_REPLICAS + 1) * f_np.nbytes
-        if avail < need:
-            raise AssertionError("cluster: too little host memory for two mirrors of f, h, "
-                                 "v and w")
-    out["reduced"] = [] if keep_g else ["g left out: host memory"]
+    if avail < need:
+        raise AssertionError("cluster: too little host memory for two mirrors of f, h, "
+                             "v and w")
+    # g, the served index's second 64-row field, is not loaded: no read of the
+    # mix touches it, and its 2.7 GB on the owners cost the load about a third
+    msg = ("cluster path: g not loaded (was loaded on its owners and read once a step "
+           "through step 6), for the loadgen path's time")
+    out["reduced"] = [msg]
+    log("reduced: " + msg)
     out["host_bytes_needed"], out["host_bytes_available"] = need, avail
     log(f"cluster: {avail / 1e9:.1f} GB of host memory available, {need / 1e9:.1f} GB "
         f"reckoned for {CLUSTER_REPLICAS} mirrors of the served index's fields and their "
-        f"sources; {'every field kept' if keep_g else 'g left out'}")
+        f"sources")
 
     def grams_of(s):
         under = np.stack([np.bitwise_count(f_np[s] & h_np[s, q]).sum(axis=1, dtype=np.int64)
@@ -6736,7 +6819,7 @@ def cluster_path(pool, device, hand):
         return under, ff
 
     t0 = time.perf_counter()
-    src_job = pool.submit(cluster_sources, hand, pool, keep_g)
+    src_job = pool.submit(cluster_sources, hand, pool)
     parts = by_shard(pool, grams_of)
     under, ff = sum(p[0] for p in parts), sum(p[1] for p in parts)
     want_of["GroupBy f x h"] = [("group", (r, q), int(under[q, r]))
@@ -6779,7 +6862,7 @@ def cluster_path(pool, device, hand):
             nd.api.executor.rescache.clear()
         api0 = n0.api
         api0.create_index("i")
-        for name in ("f", "g", "h") if keep_g else ("f", "h"):
+        for name in ("f", "h"):
             api0.create_field("i", name)
         for name, (lo, hi) in BSI_FIELDS.items():
             api0.create_field("i", name, {"type": "int", "min": lo, "max": hi})
@@ -6855,7 +6938,7 @@ def cluster_path(pool, device, hand):
             return serial
 
         def check_extra(tag):
-            """g's and w's reads (the fields the mix does not touch)."""
+            """w's read (a field the mix does not touch)."""
             for q, want in extra_truth.items():
                 got = clis[0].query("i", q)[0]
                 if norm_json(got) != want:
@@ -7099,12 +7182,29 @@ def cluster_path(pool, device, hand):
             f"{boot_s:.2f} s and was READY on nodes 0 and 1 {marks['READY']:.2f} s after the "
             f"restart began; its first answer ({first[0]}) exact in {first_s * 1e3:.1f} ms")
 
+        # -- 7-9 run over f, h and v: w (no read of the mix touches it) goes
+        # first
+        log("reduced: cluster step 7 diverges one fragment of f and two of h, was two of f "
+            "and one of h (for the loadgen path's time)")
+        out["reduced"].append("cluster step 7: one f fragment diverged, was two")
+        cut_bytes = S_FULL * W_FULL * 4 * (2 + BSI_DEPTH)
+        kept_bytes = S_FULL * W_FULL * 4 * (f_np.shape[1] + H_ROWS + 2 + BSI_DEPTH)
+        api0.delete_field("i", "w")
+        extra_truth.clear()
+        msg = (f"cluster steps 7-9 run over f, h and v ({kept_bytes / 1e9:.2f} GB a replica), "
+               f"was f, h, v and w ({(kept_bytes + cut_bytes) / 1e9:.2f} GB a replica): w "
+               f"deleted after step 6, its reads checked through step 6")
+        out["reduced"].append(msg)
+        log("reduced: " + msg)
+        log(f"cluster: node ids fixed from SEED: {[nd.node_id[:8] for nd in nodes]}")
+
         # -- 7-9. anti-entropy, then a node added and one removed online
         out.update(cluster_elastic({
             "nodes": nodes, "all_nodes": all_nodes, "clis": clis, "device": device,
             "card": card, "on_card": on_card, "serial_of": serial_of,
             "check_extra": check_extra, "mix": mix, "serial": serial,
-            "keep_g": keep_g, "root": root, "pool": pool, "f_np": f_np,
+            "fields": [("f", "standard"), ("h", "standard"), ("v", "bsig_v")],
+            "root": root, "pool": pool, "f_np": f_np,
             "step3_launched": routes["mesh"]["launched_in_route"],
             "step3_required": OBS_KERNELS + ("cross_gram",),
         }))
@@ -7121,6 +7221,481 @@ def cluster_path(pool, device, hand):
     out["launches"] = {k: v for k, v in tk.LAUNCHES.items() if v}
     out["path_s"] = time.perf_counter() - t_path
     log(f"cluster path: {out['path_s']:.1f} s")
+    return out
+
+
+# -- the loadgen path ----------------------------------------------------------
+
+# the load harness's plan: eight stages of 5 s from 16 workers, at the base
+# open-loop rate (ops/s) of the command line's plan, warm at half of it and
+# overload at twice it
+LOADGEN_SECONDS = 40.0
+LOADGEN_WORKERS = 16
+LOADGEN_PLAN_RATE = 100.0
+# the base rate this path offers: at the serving size a Row answer carries
+# about 42 M columns (some 400 MB of JSON) and a Range(val < b) answer up to half
+# that, so one node sustains about 10 ops/s of the plan's mix on an H100
+# (at a base rate of 50 the stages ran 224 s for their nominal 40, at 10
+# they ran 92 s, at 5 they ran 51 s)
+LOADGEN_RATE = 4.0
+# shards of the Row whose JSON encoding is timed both ways (a slice of a
+# seg row: the list path takes seconds at the full 160)
+LOADGEN_ROW_COST_SHARDS = 20
+# rows of the time field ev loaded before the run, and its shards: the low
+# shards, where most of the workload's zipfian columns (and so its set_tq
+# writes) fall
+LOADGEN_EV_ROWS, LOADGEN_EV_SHARDS = 8, 16
+# one bit in this many columns a row of ev, each on one day of 2026-01
+LOADGEN_EV_EVERY = 64
+# the share of the columns holding a value of val
+LOADGEN_VAL_SHARE = 0.25
+# the reads held to numpy after the run: Range(val < b) bounds and
+# (row, first day, last day exclusive) windows of ev
+LOADGEN_VAL_BOUNDS = (-4000, -1, 0, 2048)
+LOADGEN_EV_WINDOWS = ((0, 1, 2), (1, 3, 10), (5, 1, 29), (40, 7, 9))
+# the kernels the loadgen path must launch (a CPU rehearsal of the path
+# calls these wrappers)
+LOADGEN_KERNELS = ("row_scan", "gram", "bsi_range", "tree_count")
+
+
+class NodeTarget:
+    """One ``NodeServer`` as the schema and preload target of
+    ``loadgen.prepare_schema``/``preload`` (the calls ``InProcessCluster``
+    offers, on node 0's API)."""
+
+    def __init__(self, node):
+        self.nodes = [node]
+
+    def create_index(self, name, options=None):
+        self.nodes[0].api.create_index(name, options or {})
+
+    def create_field(self, index, field, options=None):
+        self.nodes[0].api.create_field(index, field, options or {})
+
+    def import_bits(self, index, field, bits):
+        self.nodes[0].api.import_bits(index, field, {
+            "rowIDs": [r for r, _ in bits], "columnIDs": [c for _, c in bits]})
+
+    def import_values(self, index, field, cols, values):
+        self.nodes[0].api.import_bits(index, field, {"columnIDs": list(cols),
+                                                     "values": list(values)})
+
+
+def loadgen_data(pool, cfg):
+    """The workload's unkeyed index at the serving size, as ``(schema,
+    {(index, field, view, shard): (row ids, words)}, ev's (rows, columns,
+    days))``: seg 160 shards x 64 rows about 25 % dense, val's BSI rows
+    with a value in [-4096, 4096] in a quarter of the columns, and the
+    existence field over both; ev's bits are timestamped, so the holder's
+    time import makes its views."""
+    import numpy as np
+
+    from pilosa_tpu_torch.loadgen import workload
+
+    lo, hi = workload.BSI_VAL_MIN, workload.BSI_VAL_MAX
+    depth = max(abs(lo), abs(hi)).bit_length()
+    rng = np.random.default_rng(SEED + 171)
+    seg_seeds = rng.integers(0, 2**63, size=S_FULL)
+
+    def seg_shard(s):
+        r = np.random.default_rng(int(seg_seeds[s]))
+        return random_words(r, (cfg.n_rows, W_FULL), dense=True)
+
+    seg = by_shard(pool, seg_shard)
+    val = bsi_field_words(rng, lo, hi, pool, share=LOADGEN_VAL_SHARE, depth=depth)
+    n_ev = LOADGEN_EV_SHARDS * W_FULL * 32 // LOADGEN_EV_EVERY
+    ev_rows = rng.integers(0, LOADGEN_EV_ROWS, n_ev).astype(np.uint64)
+    ev_cols = rng.integers(0, LOADGEN_EV_SHARDS * W_FULL * 32, n_ev).astype(np.uint64)
+    ev_days = rng.integers(1, workload.N_TQ_DAYS + 1, n_ev)
+    ev_std = np.zeros((LOADGEN_EV_SHARDS, W_FULL), dtype=np.uint32)
+    np.bitwise_or.at(ev_std, ((ev_cols // (W_FULL * 32)).astype(np.int64),
+                              ((ev_cols % (W_FULL * 32)) // 32).astype(np.int64)),
+                     np.uint32(1) << (ev_cols % 32).astype(np.uint32))
+    frags = {}
+    for s in range(S_FULL):
+        frags[(cfg.index, "seg", "standard", s)] = (list(range(cfg.n_rows)), seg[s])
+        frags[(cfg.index, "val", "bsig_val", s)] = (list(range(2 + depth)), val[s])
+        exists = np.bitwise_or.reduce(seg[s], axis=0) | val[s, 0]
+        if s < LOADGEN_EV_SHARDS:
+            exists |= ev_std[s]
+        frags[(cfg.index, "_exists", "standard", s)] = ([0], exists[None])
+    schema = [{
+        "name": cfg.index,
+        "options": {"keys": False, "trackExistence": True},
+        "fields": [
+            {"name": "seg", "options": {}},
+            {"name": "ev", "options": {"type": "time", "timeQuantum": "YMD"}},
+            {"name": "val", "options": {"type": "int", "min": lo, "max": hi}},
+        ],
+    }]
+    return schema, frags, (ev_rows, ev_cols, ev_days)
+
+
+def loadgen_truths(pool, holder, cfg):
+    """numpy over the node's host mirrors: each seg row's count, the values
+    of val (decoded from its rows) and the columns of each ev row a day."""
+    import numpy as np
+
+    from pilosa_tpu_torch.loadgen import workload
+
+    seg_view = holder.field(cfg.index, "seg").view("standard")
+
+    def seg_counts(s):
+        ids, words = seg_view.fragment(s).rows_matrix_host()
+        out = np.zeros(cfg.n_rows + 1, dtype=np.int64)
+        np.add.at(out, np.minimum(np.asarray(ids, dtype=np.int64), cfg.n_rows),
+                  np.bitwise_count(words).sum(axis=1, dtype=np.int64))
+        return out
+
+    counts = sum(by_shard(pool, seg_counts))[:cfg.n_rows]
+    vals, exists = decode_bsi(holder, "val", pool, index=cfg.index)
+    ev = holder.field(cfg.index, "ev")
+
+    def ev_row_days(row, d1, d2):
+        """Set columns of ``row`` over the day views of [d1, d2)."""
+        total = 0
+        for s in range(S_FULL):
+            acc = None
+            for d in range(d1, d2):
+                view = ev.view(f"standard_{workload.TIME_BASE_YEAR}"
+                               f"{workload.TIME_BASE_MONTH:02d}{d:02d}")
+                frag = None if view is None else view.fragment(s)
+                if frag is None:
+                    continue
+                w = frag.row_words_host(row)
+                acc = w.copy() if acc is None else acc | w
+            if acc is not None:
+                total += int(np.bitwise_count(acc).sum(dtype=np.int64))
+        return total
+
+    return counts, vals, exists, ev_row_days
+
+
+def loadgen_path(pool, device):
+    """The load harness (``pilosa_tpu_torch/loadgen``) driving one node of
+    the port at the serving size, then the command line's client
+    subcommands against it:
+
+    1. data: the workload's index ``slo_bench`` written to a new directory
+       under ``build/`` through a ``HolderStore`` from seeded words: seg
+       (160 shards x 64 rows, about 25 % dense, a 1.34 GB stack), val (a
+       value in the workload's [-4096, 4096] in a quarter of the columns),
+       ev (a YMD time field: 8 rows over the first 16 shards, one bit in 64
+       columns a row, each on a day of 2026-01) and the existence field;
+    2. one ``NodeServer`` in this process at JAX's defaults on that
+       directory (the process's, since the oversubscribed stage sets the
+       process's device budget), with the harness command line's SLO
+       windows and QoS time scale; ``prepare_schema`` makes the keyed index
+       and ``preload`` adds its zipfian bits and values;
+    3. ``LoadHarness([node.uri], WorkloadConfig(seed=SEED, n_rows=64,
+       n_cols=160 x 2^20), default_stages(40, 100, 16))``: eight stages of
+       5 s, 16 workers, the report validated, its fingerprint the one the
+       port's generator gives for the same seed and stages, no client
+       error, every stage but overload at the 0.99 availability floor and
+       overload failing only with the governor's 429;
+    4. the answers, once the writes settled, against numpy over the node's
+       host mirrors: every seg row's Count, TopN, GroupBy, Counts of
+       ``Range(val < b)`` and of ``Range(ev=r, t1, t2)``;
+    5. ``python -m pilosa_tpu_torch.cli``: ``backup -i slo_keys``,
+       ``restore`` of the tar into a second node on the card booted on an
+       empty directory (its keyed TopN and Counts equal the first node's),
+       ``check`` and ``inspect`` of three of seg's fragment files, and
+       ``config`` with the node's settings."""
+    import gc
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from pilosa_tpu_torch import convert
+    from pilosa_tpu_torch.core.holder import Holder
+    from pilosa_tpu_torch.loadgen import __main__ as lg_main
+    from pilosa_tpu_torch.loadgen import harness, report, workload
+    from pilosa_tpu_torch.server.node import NodeServer
+    from pilosa_tpu_torch.shardwidth import SHARD_WIDTH
+    from pilosa_tpu_torch.storage.disk import HolderStore
+
+    on_card = torch.device(device).type == "cuda"
+    card = card_line() if on_card else "cpu, no power limit"
+    t_path = time.perf_counter()
+    out = {"card": card}
+    cfg = workload.WorkloadConfig(seed=SEED, n_rows=R_FULL, n_cols=S_FULL * SHARD_WIDTH)
+    stages = lg_main.default_stages(LOADGEN_SECONDS, LOADGEN_RATE, LOADGEN_WORKERS,
+                                    n_cols=cfg.n_cols, n_rows=cfg.n_rows)
+    if LOADGEN_RATE < LOADGEN_PLAN_RATE:
+        msg = (f"loadgen base rate {LOADGEN_RATE:g} ops/s, was {LOADGEN_PLAN_RATE:g}: the "
+               f"node sustains less at the serving size, where each Row answer carries a "
+               f"seg row's columns (a quarter of {cfg.n_cols}) as JSON; the data is not cut")
+        out["reduced"] = [msg]
+        log("reduced: " + msg)
+
+    # -- the sequence, fixed before the first byte goes out
+    t0 = time.perf_counter()
+    zipf = workload.Zipf(cfg.n_cols, cfg.zipf_theta)
+    out["zipf_s"] = time.perf_counter() - t0
+    ev_share = float(zipf._cdf[LOADGEN_EV_SHARDS * SHARD_WIDTH - 1])
+    del zipf
+    t0 = time.perf_counter()
+    per_stage = harness.LoadHarness(["http://unused"], cfg, stages).generate()
+    want_fp = workload.fingerprint([op for ops in per_stage for op in ops])
+    out["generate_s"] = time.perf_counter() - t0
+    out["ops_planned"] = sum(len(ops) for ops in per_stage)
+    del per_stage
+    log(f"loadgen: the column sampler's CDF ({cfg.n_cols} float64 entries, "
+        f"{cfg.n_cols * 8 / 1e9:.2f} GB) built in {out['zipf_s']:.2f} s; the plan's "
+        f"{out['ops_planned']} ops generated (three samplers) in {out['generate_s']:.2f} s, "
+        f"fingerprint {want_fp[:16]}; {ev_share:.3f} of the zipfian columns fall in ev's "
+        f"{LOADGEN_EV_SHARDS} shards")
+
+    # -- 1. the data, through a HolderStore
+    root = HERE / "build"
+    root.mkdir(exist_ok=True)
+    t0 = time.perf_counter()
+    schema, frags, (ev_rows, ev_cols, ev_days) = loadgen_data(pool, cfg)
+    out["data_s"] = time.perf_counter() - t0
+    data_bytes = sum(w.nbytes for _, w in frags.values())
+    free = shutil.disk_usage(root).free
+    if free < 2 * data_bytes + (1 << 30):
+        raise AssertionError(f"loadgen: {free} bytes free under {root}, "
+                             f"{2 * data_bytes + (1 << 30)} needed")
+    data_dir = tempfile.mkdtemp(prefix="loadgen-", dir=root)
+    STORAGE_DIRS.append(data_dir)
+    t0 = time.perf_counter()
+    h = Holder(device="cpu")
+    st = HolderStore(h, data_dir)
+    st.open()
+    convert.load_arrays(h, schema, frags)
+    del frags
+    out["load_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ts = (np.datetime64(f"{workload.TIME_BASE_YEAR}-{workload.TIME_BASE_MONTH:02d}-01")
+          + (ev_days - 1).astype("timedelta64[D]")).astype("datetime64[s]")
+    h.field(cfg.index, "ev").import_bits(ev_rows, ev_cols, timestamps=ts)
+    out["ev_import_s"] = time.perf_counter() - t0
+    out["ev_bits"] = int(len(ev_rows))
+    t0 = time.perf_counter()
+    written = fragments_of(h)
+    list(pool.map(lambda fr: fr.store.snapshot(), written))
+    st.sync()
+    st.close()
+    out["write_s"] = time.perf_counter() - t0
+    out["files"] = len(written)
+    out["file_bytes"] = sum(os.path.getsize(fr.store.path) for fr in written)
+    out["mirror_bytes"] = data_bytes
+    del h, st, written, ev_rows, ev_cols, ev_days
+    gc.collect()
+    log(f"loadgen: data {data_bytes / 1e9:.3f} GB of words drawn in {out['data_s']:.2f} s, "
+        f"loaded in {out['load_s']:.2f} s, ev's {out['ev_bits']} timestamped bits imported "
+        f"in {out['ev_import_s']:.2f} s; {out['files']} fragment files, "
+        f"{out['file_bytes'] / 1e9:.3f} GB, written in {out['write_s']:.2f} s")
+
+    # -- 2. one node on the directory, the keyed index and the preload
+    knobs = {"slo_burn_rules": lg_main.SHORT_BURN_RULES, "slo_slot_seconds": 1.0,
+             "slo_latency_window": 60.0, "slo_objectives": lg_main.OVERLOAD_OBJECTIVES}
+    nodes = []
+    try:
+        t0 = time.perf_counter()
+        node = NodeServer(data_dir=data_dir, device=device, port=0, **knobs)
+        node.start()
+        nodes.append(node)
+        target = NodeTarget(node)
+        lg_main.tune_qos(target)
+        out["boot_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        harness.prepare_schema(target, cfg)
+        harness.preload(target, cfg)
+        out["preload_s"] = time.perf_counter() - t0
+        log(f"loadgen: the node booted on the directory in {out['boot_s']:.2f} s; schema and "
+            f"preload (4096 zipfian bits, their values) in {out['preload_s']:.2f} s")
+
+        # -- 3. the harness
+        t0 = time.perf_counter()
+        rep = harness.LoadHarness([node.uri], cfg, stages).run()
+        out["run_s"] = time.perf_counter() - t0
+        report.validate_report(rep)
+        keep = ("throughputOpsPerSec", "totalOps", "clientErrors", "sequenceFingerprint",
+                "wallSeconds", "opsByTenant")
+        out["report"] = {k: rep[k] for k in keep}
+        out["report"]["ops"] = {c: {k: v[k] for k in ("count", "errors", "p50Ms", "p99Ms",
+                                                      "p999Ms", "serviceP50Ms")}
+                                for c, v in rep["ops"].items()}
+        out["report"]["stages"] = [
+            {k: stg[k] for k in ("name", "ops", "okOps", "clientErrors", "availability",
+                                 "availabilityOk", "deviceBudget", "residency", "rescache",
+                                 "planner", "devcosts", "qos")} for stg in rep["stages"]]
+        log(f"loadgen: on {card}: {rep['totalOps']} ops in {rep['wallSeconds']:.2f} s, "
+            f"{rep['throughputOpsPerSec']:.1f} ops/s, {rep['clientErrors']} client errors, "
+            f"fingerprint {rep['sequenceFingerprint'][:16]} (the generator's "
+            f"{want_fp[:16]}); base rate {LOADGEN_RATE} ops/s")
+        for c, v in rep["ops"].items():
+            log(f"loadgen:   {c:<14} n={v['count']:<5} err={v['errors']:<4} "
+                f"p50 {v['p50Ms']:.2f} ms, p99 {v['p99Ms']:.2f} ms, p999 {v['p999Ms']:.2f} ms, "
+                f"service p50 {v['serviceP50Ms']:.2f} ms ({card})")
+        for stg in rep["stages"]:
+            log(f"loadgen:   stage {stg['name']:<14} availability {stg['availability']:.4f} "
+                f"({stg['okOps']}/{stg['ops']}, {stg['clientErrors']} client errors), budget "
+                f"{stg['deviceBudget']}; residency {json.dumps(stg['residency'])}; rescache "
+                f"{json.dumps(stg['rescache'])}; planner {json.dumps(stg['planner'])}; devcosts "
+                f"{json.dumps(stg['devcosts'])}; qos {json.dumps(stg['qos'])} ({card})")
+        for t, row in rep["opsByTenant"].items():
+            log(f"loadgen:   tenant {t:<10} n={row['count']} shed={row['shed']} "
+                f"errors={row['errors']} p99 {row['p99Ms']} ms ({card})")
+        nominal = sum(stg.duration for stg in stages)
+        if out["run_s"] > 1.5 * nominal:
+            log(f"loadgen: the stages ran {out['run_s']:.1f} s against {nominal:.0f} s "
+                f"nominal: the node sustains less than the offered rate")
+        if rep["sequenceFingerprint"] != want_fp:
+            raise AssertionError(f"loadgen: fingerprint {rep['sequenceFingerprint']} != "
+                                 f"the generator's {want_fp}")
+        if rep["clientErrors"]:
+            raise AssertionError(f"loadgen: {rep['clientErrors']} client errors")
+        for stg in rep["stages"]:
+            if stg["name"] != "overload" and not stg["availabilityOk"]:
+                raise AssertionError(f"loadgen: stage {stg['name']} availability "
+                                     f"{stg['availability']} under the floor")
+        for t in lg_main.OVERLOAD_TENANTS:
+            row = rep["opsByTenant"].get(t)
+            if row is None or row["errors"] != row["shed"]:
+                raise AssertionError(f"loadgen: overload: tenant {t} failed otherwise than "
+                                     f"with the governor's 429: {row}")
+        [ov] = [stg for stg in rep["stages"] if stg["name"] == "overload"]
+        shed = sum(rep["opsByTenant"][t]["shed"] for t in lg_main.OVERLOAD_TENANTS)
+        if ov["okOps"] + shed != ov["ops"]:
+            raise AssertionError(f"loadgen: overload: {ov['ops']} ops, {ov['okOps']} ok, "
+                                 f"{shed} shed")
+
+        # -- 4. the answers against numpy over the node's mirrors
+        t0 = time.perf_counter()
+        node.api.executor.rescache.clear()
+        cli = HttpClient(node.server.port)
+        counts, vals, exists, ev_row_days = loadgen_truths(pool, node.holder, cfg)
+        got = [cli.query(cfg.index, f"Count(Row(seg={r}))")[0] for r in range(cfg.n_rows)]
+        if got != counts.tolist():
+            bad = [r for r in range(cfg.n_rows) if got[r] != counts[r]]
+            raise AssertionError(f"loadgen: Count(Row(seg=r)) differs from numpy at rows {bad}")
+        top = cli.query(cfg.index, "TopN(seg, n=5)")[0]
+        want_top = sorted(counts.tolist(), reverse=True)[:5]
+        if [p["count"] for p in top] != want_top or any(
+                counts[p["id"]] != p["count"] for p in top):
+            raise AssertionError(f"loadgen: TopN(seg, n=5) {top} against counts {want_top}")
+        gb = norm_json(cli.query(cfg.index, "GroupBy(Rows(seg), limit=8)")[0])
+        want_gb = [("group", (r,), int(counts[r])) for r in range(cfg.n_rows) if counts[r]][:8]
+        if gb != want_gb:
+            raise AssertionError(f"loadgen: GroupBy(Rows(seg), limit=8) {gb} != {want_gb}")
+        for b in LOADGEN_VAL_BOUNDS:
+            want = int(np.count_nonzero(exists & (vals < b)))
+            got = cli.query(cfg.index, f"Count(Range(val < {b}))")[0]
+            if got != want:
+                raise AssertionError(f"loadgen: Count(Range(val < {b})) {got} != {want}")
+        for r, d1, d2 in LOADGEN_EV_WINDOWS:
+            t1 = f"{workload.TIME_BASE_YEAR}-{workload.TIME_BASE_MONTH:02d}-{d1:02d}T00:00"
+            t2 = f"{workload.TIME_BASE_YEAR}-{workload.TIME_BASE_MONTH:02d}-{d2:02d}T00:00"
+            want = ev_row_days(r, d1, d2)
+            got = cli.query(cfg.index, f"Count(Range(ev={r}, {t1}, {t2}))")[0]
+            if got != want:
+                raise AssertionError(f"loadgen: Count(Range(ev={r}, {t1}, {t2})) {got} != "
+                                     f"{want}")
+        del vals, exists
+        out["truths_s"] = time.perf_counter() - t0
+        log(f"loadgen: every seg row's Count, TopN, GroupBy, {len(LOADGEN_VAL_BOUNDS)} "
+            f"Range(val < b) and {len(LOADGEN_EV_WINDOWS)} Range(ev=...) Counts equal numpy "
+            f"over the node's mirrors after the run ({out['truths_s']:.2f} s)")
+
+        # -- 5. the command line against the node
+        env = dict(os.environ, PYTHONPATH=str(HERE))
+        host = f"127.0.0.1:{node.server.port}"
+        cli_s = {}
+
+        def run_cli(name, *argv):
+            t = time.perf_counter()
+            r = subprocess.run([sys.executable, "-m", "pilosa_tpu_torch.cli", *argv],
+                               cwd=HERE, env=env, capture_output=True, text=True, timeout=300)
+            cli_s[name] = time.perf_counter() - t
+            if r.returncode != 0:
+                raise AssertionError(f"loadgen: cli {name} exited {r.returncode}: "
+                                     f"{r.stdout[-800:]} {r.stderr[-800:]}")
+            return r.stdout, r.stderr
+
+        tar = os.path.join(data_dir + "-cli", "slo_keys.tar")
+        os.makedirs(os.path.dirname(tar))
+        STORAGE_DIRS.append(os.path.dirname(tar))
+        run_cli("backup", "backup", "--host", host, "-i", cfg.keys_index, "-o", tar)
+        empty = tempfile.mkdtemp(prefix="loadgen-restore-", dir=root)
+        STORAGE_DIRS.append(empty)
+        node2 = NodeServer(data_dir=empty, device=device, port=0)
+        node2.start()
+        nodes.append(node2)
+        run_cli("restore", "restore", "--host", f"127.0.0.1:{node2.server.port}", tar)
+        cli2 = HttpClient(node2.server.port)
+        keyed = cli.query(cfg.keys_index, "TopN(tag, n=1000)")[0]
+        if not keyed or cli2.query(cfg.keys_index, "TopN(tag, n=1000)")[0] != keyed:
+            raise AssertionError("loadgen: the restored node's keyed TopN differs")
+        body = " ".join(f'Count(Row(tag="{p["key"]}"))' for p in keyed)
+        if cli2.query(cfg.keys_index, body) != cli.query(cfg.keys_index, body):
+            raise AssertionError("loadgen: the restored node's keyed Counts differ")
+        cli2.close()
+        seg_view = node.holder.field(cfg.index, "seg").view("standard")
+        files = [seg_view.fragment(s).store.path for s in (0, S_FULL // 2, S_FULL - 1)]
+        conf = os.path.join(os.path.dirname(tar), "node.json")
+        settings = {"data-dir": data_dir, "bind": host, "device": device,
+                    "cluster": {"replicas": 1}}
+        with open(conf, "w") as fh:
+            json.dump(settings, fh)
+        # the three offline subcommands at once, each its own process
+        with ThreadPoolExecutor(max_workers=3) as clis:
+            jobs = [clis.submit(run_cli, "check", "check", *files),
+                    clis.submit(run_cli, "inspect", "inspect", *files),
+                    clis.submit(run_cli, "config", "config", "-c", conf)]
+            (checked, _), (inspected, _), (shown, _) = [j.result() for j in jobs]
+        if checked.count(": OK (") != len(files):
+            raise AssertionError(f"loadgen: cli check: {checked}")
+        if inspected.count("containers: ") != len(files):
+            raise AssertionError(f"loadgen: cli inspect: {inspected}")
+        shown = json.loads(shown)
+        if any(shown[k] != v for k, v in settings.items() if k != "cluster") or \
+                shown["cluster"]["replicas"] != 1:
+            raise AssertionError(f"loadgen: cli config: {shown}")
+        cli.close()
+
+        # -- what a Row answer's JSON costs: a slice of seg's row 0 encoded
+        # by the query route (the columns as text, natively) and through
+        # result_to_json and json.dumps, byte for byte equal
+        from pilosa_tpu_torch.exec import result as res_mod
+
+        sl = res_mod.Row({s: seg_view.fragment(s).row_words_host(0)
+                          for s in range(LOADGEN_ROW_COST_SHARDS)}, W_FULL)
+        t = time.perf_counter()
+        fast = res_mod.response_json({"results": [sl]})
+        t1 = time.perf_counter()
+        slow = (json.dumps({"results": res_mod.result_to_json([sl])}) + "\n").encode()
+        t2 = time.perf_counter()
+        if fast != slow:
+            raise AssertionError("loadgen: the query route's Row JSON differs from json.dumps")
+        out["row_json"] = {"shards": LOADGEN_ROW_COST_SHARDS, "bytes": len(fast),
+                           "response_json_s": t1 - t, "json_dumps_s": t2 - t1}
+        del sl, fast, slow
+        log(f"loadgen: a Row answer over {LOADGEN_ROW_COST_SHARDS} shards "
+            f"({out['row_json']['bytes']} bytes of JSON): {t1 - t:.3f} s through the query "
+            f"route's encoder, {t2 - t1:.3f} s through result_to_json and json.dumps, "
+            f"byte for byte equal")
+        out["cli_s"] = cli_s
+        out["keyed_rows"] = len(keyed)
+        log(f"loadgen: cli on {card}: backup -i {cfg.keys_index} {cli_s['backup']:.2f} s, "
+            f"restore into a second node {cli_s['restore']:.2f} s ({len(keyed)} keyed rows, "
+            f"TopN and Counts equal), at once: check {cli_s['check']:.2f} s and inspect "
+            f"{cli_s['inspect']:.2f} s of three seg fragment files, config "
+            f"{cli_s['config']:.2f} s")
+    finally:
+        for nd in nodes:
+            nd.stop()
+    del nodes
+    gc.collect()
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+    out["path_s"] = time.perf_counter() - t_path
+    log(f"loadgen path: {out['path_s']:.1f} s")
     return out
 
 
@@ -7240,12 +7815,31 @@ SOURCES = {
 }
 
 
+# depths cut to pay for the loadgen path's seconds: (what, was, is); the
+# cluster path logs its own three cuts (g not loaded, w out of steps 7-9, one f
+# fragment diverged in step 7) where it makes them
+DEPTH_CUTS = (
+    ("http path: the 16-client window, s", 5.0, HTTP_SECONDS),
+    ("serving path: each 16-client window, s", 5.0, SERVE_SECONDS),
+    ("serving path: the defaults' window, s", 4.0, SERVE_DEFAULT_SECONDS),
+    ("serving path: the QoS tenants' window, s", 4.0, QOS_SECONDS),
+    ("cluster path: each 16-client window, s", 4.0, CLUSTER_SECONDS),
+    ("cluster path: the failover window, s", 3.0, CLUSTER_FAILOVER_SECONDS),
+    ("cluster path: pairs of windows, planes on and off", 2, CLUSTER_AB_PAIRS),
+    ("http path: timestamped pairs of the JSON import", 1 << 20, TT_PAIRS),
+)
+
+
 def serve(kern, sass, card, t_start) -> int:
-    """The main path's eleven paths on the served index, then the summary
+    """The main path's twelve paths on the served index, then the summary
     lines."""
     import gc
 
     import torch
+
+    for what, was, now in DEPTH_CUTS:
+        if now != was:
+            log(f"reduced: {what} {now}, was {was} (for the loadgen path's time)")
 
     holder, setup_s = build_index("cuda")
     ex = kernel_executor(holder)
@@ -7292,15 +7886,24 @@ def serve(kern, sass, card, t_start) -> int:
             "cluster", OBS_KERNELS + ("cross_gram",),
             lambda: cluster_path(pool, "cuda", hand))
         del decoded, hand
+        # the earlier paths' directories go before the loadgen path writes its own
+        import shutil
+
+        for d in STORAGE_DIRS:
+            shutil.rmtree(d, ignore_errors=True)
+        STORAGE_DIRS.clear()
+        l_loadgen, e2e["loadgen"] = drive(
+            "loadgen", LOADGEN_KERNELS, lambda: loadgen_path(pool, "cuda"))
     name, limit = [x.strip() for x in card.split(",", 1)]
     e2e["http"].update(card=name, power_limit=limit)
     e2e["serving"].update(card=name, power_limit=limit)
     e2e["obs"].update(card=name, power_limit=limit)
     e2e["cluster"].update(card=name, power_limit=limit)
+    e2e["loadgen"].update(card=name, power_limit=limit)
     by_path = {k: {"pair_topn": l_pair[k], "groupby": l_group[k], "trees": l_trees[k],
                    "bsi": l_bsi[k], "budget": l_budget[k], "storage": l_storage[k],
                    "time": l_time[k], "http": l_http[k], "serving": l_serving[k],
-                   "obs": l_obs[k], "cluster": l_cluster[k]}
+                   "obs": l_obs[k], "cluster": l_cluster[k], "loadgen": l_loadgen[k]}
                for k in l_pair}
 
     entries = []

@@ -91,7 +91,7 @@ class Row:
         if self.keys is not None:
             d["keys"] = self.keys
         else:
-            d["columns"] = [int(c) for c in self.columns()]
+            d["columns"] = self.columns().tolist()
         return d
 
 
@@ -160,6 +160,53 @@ class GroupCount:
 
     def to_dict(self) -> dict:
         return {"group": [g.to_dict() for g in self.group], "count": self.count}
+
+
+def response_json(resp: dict, columns_text=None) -> bytes:
+    """``json.dumps(resp) + "\n"`` encoded, byte for byte, for a query
+    response whose ``"results"`` holds the executor's result objects
+    (:meth:`API.query` with ``encode=False``): each result goes through
+    :func:`result_to_json`, except an unkeyed :class:`Row`, whose columns
+    are written as text by the native host tier (``columns_text``: words
+    and a base -> ``b"3, 70"``), so a bitmap of tens of millions of columns
+    costs no Python int a column. ``columns_text`` is for tests (the plain
+    version is :func:`columns_text_plain`)."""
+    import json
+
+    if columns_text is None:
+        from pilosa_tpu_torch.ops import _hostops
+
+        columns_text = _hostops.columns_text
+    chunks = [b'{"results": [']
+    for i, r in enumerate(resp["results"]):
+        if i:
+            chunks.append(b", ")
+        if isinstance(r, Row) and r.keys is None:
+            chunks.append(b'{"attrs": ' + json.dumps(r.attrs).encode() + b', "columns": [')
+            first = True
+            for shard in r.shards():
+                words = np.ascontiguousarray(r.segments[shard], dtype=np.uint32)
+                text = columns_text(words, shard * len(words) * 32)
+                if text:
+                    if not first:
+                        chunks.append(b", ")
+                    chunks.append(text)
+                    first = False
+            chunks.append(b"]}")
+        else:
+            chunks.append(json.dumps(result_to_json(r)).encode())
+    chunks.append(b"]")
+    for key, value in resp.items():
+        if key != "results":
+            chunks.append(b", " + json.dumps(key).encode() + b": " + json.dumps(value).encode())
+    chunks.append(b"}\n")
+    return b"".join(chunks)
+
+
+def columns_text_plain(words: np.ndarray, base: int = 0) -> bytes:
+    """Plain version of ``ops._hostops.columns_text``."""
+    cols = bitops.unpack_columns(words) + np.uint64(base)
+    return ", ".join(map(str, cols.tolist())).encode()
 
 
 def result_to_json(result: Any) -> Any:

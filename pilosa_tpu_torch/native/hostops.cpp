@@ -172,6 +172,47 @@ size_t ph_extract(const uint8_t* words, size_t n_words, uint64_t base,
     return k;
 }
 
+// The set bits of a word vector as JSON list text: each offset + base in
+// decimal followed by ", " (the caller drops the last separator; it sized
+// ``out`` from ph_popcount and the widest number).  The body of a bitmap
+// answer's "columns" list, as json.dumps writes it.  Returns bytes written.
+static inline char* put_u64(char* o, uint64_t v) {
+    char tmp[20];
+    int n = 0;
+    do {
+        tmp[n++] = static_cast<char>('0' + v % 10);
+        v /= 10;
+    } while (v);
+    while (n) *o++ = tmp[--n];
+    *o++ = ',';
+    *o++ = ' ';
+    return o;
+}
+
+size_t ph_columns_text(const uint8_t* words, size_t n_words, uint64_t base,
+                       char* out) {
+    char* o = out;
+    size_t n8 = n_words / 2;
+    for (size_t i = 0; i < n8; i++) {
+        uint64_t x = load64(words + 8 * i);
+        while (x) {
+            o = put_u64(o, base + i * 64 +
+                               static_cast<uint64_t>(__builtin_ctzll(x)));
+            x &= x - 1;
+        }
+    }
+    if (n_words & 1) {
+        uint32_t x;
+        std::memcpy(&x, words + 8 * n8, 4);
+        while (x) {
+            o = put_u64(o, base + n8 * 64 +
+                               static_cast<uint64_t>(__builtin_ctz(x)));
+            x &= x - 1;
+        }
+    }
+    return static_cast<size_t>(o - out);
+}
+
 // One-pass bulk-import merge over SORTED compact keys (row_index *
 // width + col, duplicates allowed) — the whole middle of
 // Fragment.import_bits (reference fragment.go:2052 importPositions ->

@@ -34,6 +34,8 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.ph_popcount.argtypes = [_U8P, ctypes.c_size_t]
     lib.ph_extract.restype = ctypes.c_size_t
     lib.ph_extract.argtypes = [_U8P, ctypes.c_size_t, ctypes.c_uint64, _U64P]
+    lib.ph_columns_text.restype = ctypes.c_size_t
+    lib.ph_columns_text.argtypes = [_U8P, ctypes.c_size_t, ctypes.c_uint64, _U8P]
     lib.ph_import_merge.restype = ctypes.c_int64
     lib.ph_import_merge.argtypes = [
         _I64P, ctypes.c_size_t, ctypes.c_int64, ctypes.c_int64,
@@ -117,6 +119,22 @@ def extract_positions(words: np.ndarray, base: int = 0) -> np.ndarray:
         _u8(words), words.size, ctypes.c_uint64(base), out.ctypes.data_as(_U64P)
     )
     return out[:k]
+
+
+def columns_text(words: np.ndarray, base: int = 0) -> bytes:
+    """The set-bit offsets (+ ``base``) of a uint32 word vector as the text
+    of a JSON list's items, ``b"3, 70, 71"`` (json.dumps's separators; no
+    brackets; ``b""`` for no bit): a bitmap answer's columns without a
+    Python int each."""
+    lib = load()
+    words = np.ascontiguousarray(words, dtype=np.uint32)
+    n = int(lib.ph_popcount(_u8(words), words.size))
+    if n == 0:
+        return b""
+    widest = len(str(base + words.size * 32 - 1))
+    out = np.empty(n * (widest + 2), dtype=np.uint8)
+    k = lib.ph_columns_text(_u8(words), words.size, ctypes.c_uint64(base), _u8(out))
+    return out[: k - 2].tobytes()
 
 
 def import_merge(

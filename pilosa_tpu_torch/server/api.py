@@ -284,8 +284,11 @@ class API:
         shards: list[int] | None = None,
         remote: bool = False,
         profile: bool = False,
+        encode: bool = True,
     ) -> dict:
-        """reference api.go:134 Query. ``remote=True`` marks a mapped
+        """reference api.go:134 Query. ``encode=False`` leaves the results as
+        the executor's objects, for ``exec/result.response_json`` (the HTTP
+        route's encoder). ``remote=True`` marks a mapped
         sub-query from another node's coordinator (reference Remote:true
         QueryRequest): keys arrive translated, and the results return in
         wire form for the caller's reduce. ``profile=True`` returns the
@@ -315,7 +318,7 @@ class API:
                         resp = {"wireResults": encode_results(results)}
                     else:
                         results = self._execute_query(index, pql_text, shards)
-                        resp = {"results": result_to_json(results)}
+                        resp = {"results": result_to_json(results) if encode else results}
                         # an answer from the degraded tier is marked (the
                         # batcher notes it for this request)
                         if qos_mod.take_degraded():

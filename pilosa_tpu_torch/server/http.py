@@ -54,6 +54,7 @@ from pilosa_tpu_torch import __version__, deadline
 from pilosa_tpu_torch.cluster import wire
 from pilosa_tpu_torch.core import membudget, residency, translate
 from pilosa_tpu_torch.deadline import DeadlineExceeded
+from pilosa_tpu_torch.exec.result import response_json
 from pilosa_tpu_torch.obs import devledger, slo, sysinfo, tracestore, tracing
 from pilosa_tpu_torch.obs.stats import prometheus_text
 from pilosa_tpu_torch.ops import kernels
@@ -759,12 +760,13 @@ class Handler(BaseHTTPRequestHandler):
             ]
         if self.query_params.get("profile", [""])[0].lower() in ("1", "true"):
             profile = True
-        self._send_json(
-            200,
-            self.api.query(
-                index, pql, shards=shards, remote=remote, profile=profile
-            ),
+        resp = self.api.query(
+            index, pql, shards=shards, remote=remote, profile=profile, encode=False
         )
+        if "results" in resp:
+            self._send(200, response_json(resp))
+        else:  # a remote leg's wire results
+            self._send_json(200, resp)
 
     def r_create_index(self, index: str):
         body = self._json_body()

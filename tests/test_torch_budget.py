@@ -38,12 +38,14 @@ from pilosa_tpu.core.field import FieldOptions as JaxFieldOptions
 from pilosa_tpu.core.fragment import Fragment as JaxFragment
 from pilosa_tpu.core.holder import Holder as JaxHolder
 from pilosa_tpu.exec.executor import Executor as JaxExecutor
+from pilosa_tpu.obs import devledger as jdl
 from pilosa_tpu.parallel import mesh as jmesh
 from pilosa_tpu_torch import convert
 from pilosa_tpu_torch.core import membudget as tmb
 from pilosa_tpu_torch.core import residency as tres
 from pilosa_tpu_torch.core.fragment import Fragment as TorchFragment
 from pilosa_tpu_torch.exec import executor as tex
+from pilosa_tpu_torch.obs import devledger as tdl
 from pilosa_tpu_torch.ops import kernels as tk
 from pilosa_tpu_torch.shardwidth import SHARD_WIDTH, SHARD_WORDS
 
@@ -542,7 +544,14 @@ def _state(budget):
 @pytest.fixture()
 def one_device_mesh(fresh_budgets):
     """JAX stacks unpadded (the tests' 8 virtual devices would pad the
-    shard axis to a multiple of 8)."""
+    shard axis to a multiple of 8), and both packages' device cost ledgers
+    emptied: each is process-wide, and once a ledger holds
+    ``LaneChooser.MIN_SAMPLES`` device prices of the gram or the tree
+    count (left by earlier test modules in the same worker), that
+    package's planner overrides its warm-up lane heuristic, so the two
+    executors would build different stacks."""
+    jdl.reset()
+    tdl.reset()
     jmesh.configure_serving(1)
     yield
     jmesh.configure_serving(None)

@@ -1909,3 +1909,29 @@ def test_after_an_epoch_flip_the_facade_answers_from_the_new_owners(cuda_device,
     finally:
         monkeypatch.undo()
         cl.close()
+
+
+def test_a_short_harness_run_on_the_card_validates_and_launches(cuda_device, fresh_budget):
+    """``run_harness`` on ``cuda`` (its default): a one-node cluster on the
+    card serves a short open-loop plan with the oversubscribed stage's cap;
+    the report validates, no request fails, and the node launched kernels."""
+    from pilosa_tpu_torch.loadgen import __main__ as lg_main
+    from pilosa_tpu_torch.loadgen import harness, report, workload
+
+    fresh_budget.configure(None)
+    cfg = workload.WorkloadConfig(seed=11, n_rows=16, n_cols=40_000)
+    stages = [
+        harness.StageSpec("reads", 1.0, 40.0, 4, lg_main.OVERSUB_MIX),
+        harness.StageSpec("oversubscribed", 1.0, 40.0, 4, lg_main.OVERSUB_MIX,
+                          device_budget=lg_main.oversub_budget(cfg.n_cols, cfg.n_rows)),
+        harness.StageSpec("mix", 1.0, 40.0, 4, None),
+    ]
+    before = tk.launch_total()
+    rep = harness.run_harness(cfg, stages, preload_bits=512, cluster_setup=lg_main.tune_qos)
+    torch.cuda.synchronize()
+    report.validate_report(rep)
+    assert rep["clientErrors"] == 0
+    assert all(st["availability"] == 1.0 for st in rep["stages"]), rep["stages"]
+    assert tk.launch_total() > before
+    assert rep["devcosts"]["totals"]["launches"] > 0
+    assert fresh_budget.default_budget().cap is None  # the stage's cap restored

@@ -762,3 +762,43 @@ def test_cli_server_refuses_to_start_without_cuda(tmp_path):
             proc.communicate(timeout=10)
     assert proc.returncode != 0
     assert "CUDA" in err
+
+
+@pytest.mark.parametrize("native", [True, False])
+def test_a_query_response_encodes_as_json_dumps(native):
+    """The query route writes a bitmap's columns as text from the words
+    (``exec/result.response_json``): byte for byte what ``json.dumps`` of
+    the ``result_to_json`` form gives, native and plain, for bitmaps empty,
+    sparse and dense, over shards with no bit, keyed, with attributes, and
+    beside every other result type and the response's other keys."""
+    from pilosa_tpu_torch.exec import result as tres
+    from pilosa_tpu_torch.ops import _hostops
+
+    rng = np.random.default_rng(41)
+    W = 64
+
+    def row(shards, dense):
+        segs = {}
+        for s in shards:
+            w = rng.integers(0, 2**32, W, dtype=np.uint64).astype(np.uint32)
+            segs[s] = w if dense else np.where(rng.random(W) < 0.1, w, 0).astype(np.uint32)
+        return tres.Row(segs, W)
+
+    empty_shard = row([0, 3], False)
+    empty_shard.segments[2] = np.zeros(W, dtype=np.uint32)
+    keyed = row([1], False)
+    keyed.keys = ["a", "b"]
+    with_attrs = row([5, 1 << 20], True)
+    with_attrs.attrs = {"name": "xé", "n": 3}
+    int32_row = tres.Row({7: rng.integers(-2**31, 2**31, W, dtype=np.int64).astype(np.int32)}, W)
+    results = [
+        tres.Row({}, W), row([0], True), empty_shard, keyed, with_attrs, int32_row,
+        tres.Row({4: np.zeros(W, dtype=np.uint32)}, W),
+        7, True, None, tres.ValCount(-5, 2), [tres.Pair(id=3, count=9), tres.Pair(key="k", count=2)],
+        [tres.GroupCount([tres.FieldRow("f", 1), tres.FieldRow("g", row_key="r")], 4)],
+    ]
+    text = _hostops.columns_text if native else tres.columns_text_plain
+    for extra in ({}, {"degraded": True}, {"profile": {"a": [1, 2.5, "☃"]}}):
+        resp = {"results": results, **extra}
+        want = (json.dumps({"results": tres.result_to_json(results), **extra}) + "\n").encode()
+        assert tres.response_json(resp, columns_text=text) == want

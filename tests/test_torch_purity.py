@@ -13,9 +13,11 @@ internal client, broadcasts, key translation through the primary, the
 distributed executor with its mesh route and a two-node in-process
 cluster on the CPU, and the elastic planes: migration, resize with its
 watchdog, anti-entropy, membership, block checksums, the chunk prefetcher
-and the lock witness, with a node added and one removed), and the port's
-default device is ``cuda`` with no
-fallback to the CPU."""
+and the lock witness, with a node added and one removed), the command
+line's client subcommands (import, export, backup, restore, check,
+inspect, generate-config and config) and the load harness with its
+command line's stage plan and a short run; nor any module of ``tools/``;
+and the port's default device is ``cuda`` with no fallback to the CPU."""
 
 # the port's lock witness, installed before the port is imported so that its
 # module-level locks are wrapped too (pilosa_tpu_torch/testing/lockwitness.py)
@@ -162,6 +164,21 @@ n.blackbox.checkpoint("probe")
 for path in ("/debug/history", "/debug/incidents", "/debug/postmortem", "/internal/diagnostics"):
     with urllib.request.urlopen(n.uri + path, timeout=10) as r:
         assert r.status == 200, path
+# every client subcommand of the CLI against the node and its files
+import contextlib, glob, io, os
+csv = os.path.join(tempfile.mkdtemp(), "bits.csv")
+with open(csv, "w") as fh:
+    fh.write("3,9\n3,70001\n")
+host = n.uri.removeprefix("http://")
+tar = csv + ".tar"
+with contextlib.redirect_stdout(io.StringIO()) as out, contextlib.redirect_stderr(io.StringIO()):
+    assert cli.main(["import", "--host", host, "-i", "h", "-f", "f", csv]) == 0
+    assert cli.main(["export", "--host", host, "-i", "h", "-f", "f"]) == 0
+    assert cli.main(["backup", "--host", host, "-o", tar]) == 0
+    files = glob.glob(os.path.join(n.store.path, "h", "f", "views", "standard", "fragments", "*"))
+    assert files and cli.main(["check"] + files) == 0 and cli.main(["inspect"] + files) == 0
+    assert cli.main(["generate-config"]) == 0 and cli.main(["config"]) == 0
+assert "3,70001" in out.getvalue() and "OK (" in out.getvalue(), out.getvalue()
 n.shutdown_graceful()
 assert n.wait(10)
 # the cluster: every module of the slice loaded, and a two-node cluster of
@@ -194,10 +211,24 @@ with InProcessCluster(2, replica_n=2, device="cpu") as cl:
     assert cl.sync_all()["bits_set"] == 0
     cl.remove_node(1)
     assert cl.query(1, "c", "Count(Row(f=1))")["results"] == [2]
+    # the backup restored into the cluster through the CLI
+    with contextlib.redirect_stderr(io.StringIO()):
+        assert cli.main(["restore", "--host", cl[1].uri.removeprefix("http://"), tar]) == 0
+    assert cl.query(0, "h", "Count(Row(f=3))")["results"] == [2]
+# the load harness: its modules, its command line's plan and a short run
+from pilosa_tpu_torch import loadgen
+from pilosa_tpu_torch.loadgen import __main__ as loadgen_main, harness, report, workload
+rep = loadgen.run_harness(
+    loadgen.WorkloadConfig(seed=3, n_cols=5000),
+    [loadgen.StageSpec("s", 0.5, 20.0, 2), loadgen_main.default_stages(8.0, 4.0, 1)[3]],
+    preload_bits=64, device="cpu", cluster_setup=loadgen_main.tune_qos)
+loadgen.validate_report(rep)
+assert rep["clientErrors"] == 0 and rep["stages"][1]["deviceBudget"], rep["stages"]
 bad = sorted(
     m for m in sys.modules
     if m == "jax" or m.startswith("jax.") or m.startswith("jaxlib")
     or m == "pilosa_tpu" or m.startswith("pilosa_tpu.")
+    or m == "tools" or m.startswith("tools.")
 )
 print("BAD", bad)
 """
@@ -226,7 +257,7 @@ def _imported_modules(path: Path) -> list[str]:
 
 def _is_forbidden(mod: str) -> bool:
     top = mod.split(".")[0]
-    return top in ("jax", "jaxlib", "pilosa_tpu")
+    return top in ("jax", "jaxlib", "pilosa_tpu", "tools")
 
 
 @pytest.mark.parametrize(
