@@ -51,7 +51,7 @@ Phases (any failure raises, and the script exits non-zero):
    160 shards x 64 rows at shard width 2^20, about 25 % dense; a second
    64-row field g, a 4-row field h and the existence field) on
    ``Holder(device="cuda")``, served through ``Executor.execute`` and
-   ``execute_batch`` in seven paths and over HTTP in an eighth, each with
+   ``execute_batch`` in eight paths and over HTTP in a ninth, each with
    every launch count set to 0
    just before it and read
    just after. The pair/TopN path: tanimoto TopN, a 1024-call batch of
@@ -80,7 +80,26 @@ Phases (any failure raises, and the script exits non-zero):
    64 filtered Sums (one launch each); Min/Max unfiltered and filtered;
    MinRow/MaxRow; a GroupBy filtered by a condition; then writes to v and
    w, seen by the next Range, Sum and Min/Max. Every answer equals numpy
-   on the values decoded from the host mirrors. The budget path, last:
+   on the values decoded from the host mirrors. The mesh path, after it
+   (``mesh_path``): (a) ``configure_serving(devices=[cuda:0] * 4)`` and a
+   new executor over the served holder, its stacks four slices of 40
+   shards, beside a new single-device executor: a filtered, a tanimoto and
+   a plain TopN, 64 pair Counts, GroupBy f x g, a three-level GroupBy
+   filtered by a row of h, two three-way Intersect Counts, a Union bitmap,
+   two range Counts, Sum, Min and Max of v on both, each answer equal
+   between them and to the host mirrors' truth and each kernel launched
+   four times as often on the mesh; the stack build and a warm batch
+   timed on both; 64 writes to f, g and h and 4 to v, and the reads again;
+   then ``configure_serving(None)`` and no serving mesh; (b) two processes
+   on the card over gloo (``pilosa_tpu_torch/testing/multihost.py``, each
+   rank the 80 shards it owns at 64 rows x 32768 words): the executor's
+   reads reduced across the ranks, and the spanning reads of one stack
+   over both ranks' slices (``pair_gram``, ``row_counts``,
+   ``cross_pair_gram``, ``pair_count_batched``, ``pair_count_two_batched``,
+   ``masked_row_counts``, ``run_count_batch``, the chunked grams), each
+   against the seed's truth; (c) ``init_multihost`` with its default
+   backend in a job of one rank: NCCL on the card, not spanning. NCCL
+   across cards needs two of them and is not run. The budget path, last:
    the reads below on the paths' executor with no cap (the reference
    answers); then on a fresh executor the process device-memory budget's
    cap below f's, g's and v's stacks together: pair batches on f and g, a
@@ -2650,6 +2669,348 @@ def bsi_path(pool, ex, holder, device, keep=None):
         f"{lat['served_s']:.1f} s of the path, the truth decoded in "
         f"{lat['truth_decode_s']:.1f} s")
     return lat
+
+
+# ---------------------------------------------------------------------------
+# The mesh path: the multi-device layer on the one card
+# ---------------------------------------------------------------------------
+
+# slices of the local mesh on the one card, and the writes between rounds
+MESH_SLICES = 4
+MESH_WRITES = 64
+# the two gloo ranks' job: shards, rows and words (each rank owns half),
+# and the seconds each rank may take
+MESH_RANK_SHARDS = S_FULL
+MESH_RANK_TIMEOUT = 300
+# the NCCL probe's seconds
+MESH_NCCL_TIMEOUT = 120
+
+
+def mesh_answer(r):
+    """A result of either executor as comparable data; a Row as its words
+    by shard."""
+    if isinstance(r, list):
+        return [mesh_answer(x) for x in r]
+    if hasattr(r, "segments"):
+        return ("row", {s: bytes(memoryview(w)) for s, w in sorted(r.segments.items())})
+    if hasattr(r, "group"):
+        return ("group", tuple(fr.row_id for fr in r.group), int(r.count))
+    if hasattr(r, "id") and hasattr(r, "count"):
+        return ("pair", int(r.id), int(r.count))
+    if hasattr(r, "value"):
+        return ("valcount", int(r.value), int(r.count))
+    return int(r)
+
+
+def mesh_truths(pool, holder, device, decoded, reads, args):
+    """Each read's answer from the host mirrors, in :func:`mesh_answer`'s
+    form: the set fields' rows copied to the card and counted there with
+    torch AND and popcount (:func:`popcount_rows`, :func:`truth_groupby`),
+    the Union's words and the BSI answers in numpy on the host (v decoded
+    from the mirrors); no code of the port runs."""
+    import numpy as np
+    import torch
+
+    from pilosa_tpu_torch.ops import bitops
+
+    mirrors = {"f": mirror_stack(holder, "f", R_FULL + 1, S_FULL),
+               "g": mirror_stack(holder, "g", R_FULL, S_FULL),
+               "h": mirror_stack(holder, "h", H_ROWS, S_FULL)}
+    f, g, h = (bitops.to_device(mirrors[n], torch.device(device)) for n in "fgh")
+    vals, exv = decoded["v"]
+
+    def popc(x):  # set bits of each row of x [S, ..., W], summed over shards
+        return popcount_rows(x.clone(memory_format=torch.contiguous_format)).sum(dim=0)
+
+    def rows_under(filt):  # each row of f's count under filt [S, W] (None: all)
+        return popc(f if filt is None else f & filt[:, None]).tolist()
+
+    def top(counts, n):
+        keep = sorted(((r, c) for r, c in enumerate(counts) if c), key=lambda p: (-p[1], p[0]))
+        return [("pair", r, c) for r, c in keep[:n]]
+
+    def tanimoto(g_row, threshold, n):
+        inter, tot = rows_under(g[:, g_row]), rows_under(None)
+        src = int(popc(g[:, g_row]))
+        keep = [(r, c) for r, c in enumerate(inter)
+                if c >= 1 and tot[r] + src - c > 0 and c * 100 >= threshold * (tot[r] + src - c)]
+        keep.sort(key=lambda p: (-p[1], p[0]))
+        return [("pair", r, c) for r, c in keep[:n]]
+
+    a, b, c, hr = args["rows"]
+    ops = {"Intersect": torch.bitwise_and, "Union": torch.bitwise_or,
+           "Xor": torch.bitwise_xor, "Difference": lambda x, y: x & ~y}
+    out = {
+        "topn_filtered": [top(rows_under(g[:, 1]), 5)],
+        "topn_tanimoto": [tanimoto(2, 10, 5)],
+        "topn": [top(rows_under(None), 5)],
+        "pairs": [int(popc(ops[op](f[:, x], f[:, y]))) for op, x, y in args["pairs"]],
+        "intersect3": [int(popc(f[:, a] & g[:, b] & h[:, hr])),
+                       int(popc(f[:, b] & g[:, c] & h[:, (hr + 1) % H_ROWS]))],
+        "union_bitmap": [("row", {s: bytes(memoryview(mirrors["f"][s, a] | mirrors["g"][s, c]))
+                                  for s in range(S_FULL)})],
+        "bsi_range": [truth_count(pool, lambda s: exv[s] & (vals[s] < 500000)),
+                      truth_count(pool, lambda s: exv[s] & (vals[s] > 250000))],
+        "bsi_sum": [("valcount", *truth_sum(pool, vals, lambda s: exv[s]))],
+        "bsi_minmax": [("valcount", *truth_extreme(pool, vals, lambda s: exv[s], False)),
+                       ("valcount", *truth_extreme(pool, vals, lambda s: exv[s], True))],
+        "groupby": [[("group", combo, n) for combo, n in truth_groupby([f, g])]],
+        "groupby3_filtered": [[("group", combo, n) for combo, n in
+                               truth_groupby([h, g, f], h[:, 1])]],
+    }
+    del f, g, h
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+    assert set(out) == set(reads), sorted(set(reads) ^ set(out))
+    return out
+
+
+def mesh_local(pool, holder, device, decoded, on_timed=None):
+    """(a) A mesh of MESH_SLICES slices on the one card
+    (``configure_serving(devices=[cuda:0] * 4)``) and a new executor over
+    the served holder, beside a new single-device executor on it: the main
+    path's reads on both, in turns, each answer equal between them and to
+    the host mirrors' truth, each kernel launched MESH_SLICES times as
+    often on the mesh; then MESH_WRITES writes to f, g and h and 4 to v,
+    and the same reads again. Every stack of the mesh's executor is
+    MESH_SLICES slices of S_FULL / MESH_SLICES shards. The stack build and
+    a warm batch on the host clock, against the single-device executor's;
+    ``on_timed()`` runs once they are timed."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from pilosa_tpu_torch.ops import kernels as tk
+    from pilosa_tpu_torch.parallel import mesh as mesh_mod
+    from pilosa_tpu_torch.parallel import sharded
+    from pilosa_tpu_torch.shardwidth import SHARD_WIDTH
+
+    dev = torch.device(device)
+    on_card = dev.type == "cuda"
+    if on_card and dev.index is None:
+        dev = torch.device("cuda", 0)
+    slices = [dev] * MESH_SLICES
+    qrng = np.random.default_rng(SEED + 18)
+    one, four = kernel_executor(holder), kernel_executor(holder)
+
+    def mesh(ex):
+        """Serve ``ex`` on its layout: the mesh for ``four``, none for
+        ``one`` (both resolve the serving mesh at each stack build)."""
+        mesh_mod.configure_serving(None, devices=slices if ex is four else None)
+
+    rows = [int(x) for x in qrng.integers(0, R_FULL, 3)] + [int(qrng.integers(0, H_ROWS))]
+    a, b, c, hr = rows
+    pairs = [(OPS[int(qrng.integers(0, 4))], int(qrng.integers(0, R_FULL)),
+              int(qrng.integers(0, R_FULL))) for _ in range(64)]
+    # the order makes the tanimoto TopN's row totals a row scan (the pair
+    # batch after it caches f's full gram, whose diagonal would serve them)
+    reads = {
+        "topn_filtered": "TopN(f, Row(g=1), n=5)",
+        "topn_tanimoto": "TopN(f, Row(g=2), tanimotoThreshold=10, n=5)",
+        "topn": "TopN(f, n=5)",
+        "pairs": " ".join(f"Count({op}(Row(f={x}), Row(f={y})))" for op, x, y in pairs),
+        "groupby": "GroupBy(Rows(f), Rows(g))",
+        "groupby3_filtered": "GroupBy(Rows(h), Rows(g), Rows(f), filter=Row(h=1))",
+        "intersect3": (f"Count(Intersect(Row(f={a}), Row(g={b}), Row(h={hr}))) "
+                       f"Count(Intersect(Row(f={b}), Row(g={c}), Row(h={(hr + 1) % H_ROWS})))"),
+        "union_bitmap": f"Union(Row(f={a}), Row(g={c}))",
+        "bsi_range": "Count(Row(v < 500000)) Count(Row(v > 250000))",
+        "bsi_sum": "Sum(field=v)",
+        "bsi_minmax": "Min(field=v) Max(field=v)",
+    }
+    args = {"rows": rows, "pairs": pairs}
+    lat = {}
+    shards = list(range(S_FULL))
+
+    def timed_build(ex, name):
+        mesh(ex)
+        if on_card:
+            torch.cuda.synchronize()
+        t = time.perf_counter()
+        got = ex._field_stack(holder.field("i", name), shards)
+        if on_card:
+            torch.cuda.synchronize()
+        return (time.perf_counter() - t) * 1e3, got[1]
+
+    lat["stack_build_one_ms"], _ = timed_build(one, "g")
+    lat["stack_build_mesh_ms"], g4 = timed_build(four, "g")
+    if not (sharded.is_sharded(g4) and len(g4.slices) == MESH_SLICES):
+        raise AssertionError(f"mesh: g's stack is {g4!r}")
+
+    def round_(tag):
+        truths = mesh_truths(pool, holder, device, decoded, reads, args)
+        launched = {}
+        for name, q in reads.items():
+            got = {}
+            for ex in (one, four):
+                mesh(ex)
+                before = dict(tk.LAUNCHES)
+                t = time.perf_counter()
+                got[ex is four] = mesh_answer(ex.execute("i", q))
+                lat[f"{tag}_{name}_{'mesh' if ex is four else 'one'}_ms"] = (
+                    time.perf_counter() - t) * 1e3
+                launched[ex is four] = {k: tk.LAUNCHES[k] - before[k] for k in tk.LAUNCHES}
+            if got[True] != got[False]:
+                raise AssertionError(f"mesh {tag}: {name}: the mesh's answer differs from "
+                                     "the single-device executor's")
+            if got[True] != truths[name]:
+                raise AssertionError(f"mesh {tag}: {name}: the answer differs from the "
+                                     "mirrors' truth")
+            want = {k: MESH_SLICES * n for k, n in launched[False].items()}
+            if on_card and launched[True] != want:
+                raise AssertionError(f"mesh {tag}: {name} launched {launched[True]} on the "
+                                     f"mesh, not {want} ({MESH_SLICES} x one device's)")
+            log(f"mesh {tag}: {name}: equal on both and to the truth; launches "
+                f"{ {k: n for k, n in launched[True].items() if n} } on the mesh")
+        mesh(four)
+        stacks = [e["dev"] for caches in four._stacks.values() for e in caches.values()]
+        per = S_FULL // MESH_SLICES
+        bad = [s for s in stacks if not sharded.is_sharded(s) or len(s.slices) != MESH_SLICES
+               or any(t.shape[0] != per for t in s.slices)]
+        if not stacks or bad:
+            raise AssertionError(f"mesh {tag}: stacks not {MESH_SLICES} slices of {per} "
+                                 f"shards: {bad[:2]}")
+        lat[f"{tag}_stacks"] = len(stacks)
+
+    try:
+        round_("before_writes")
+        # warm batches: every read again in one execute_batch, three times
+        for ex in (one, four):
+            mesh(ex)
+            times = []
+            for _ in range(3):
+                t = time.perf_counter()
+                res = ex.execute_batch("i", [(q, None) for q in reads.values()])
+                times.append((time.perf_counter() - t) * 1e3)
+                if any(isinstance(r, Exception) for r in res):
+                    raise AssertionError(f"mesh: a warm batch failed: {res}")
+            lat[f"warm_batch_{'mesh' if ex is four else 'one'}_ms"] = statistics.median(times)
+        if on_timed is not None:
+            on_timed()
+        mesh(four)
+        lat["writes_ms"] = apply_writes(four, holder, qrng, ("f", "g", "h"), MESH_WRITES)
+        vcols = [int(x) for x in qrng.choice(S_FULL * SHARD_WIDTH, 4, replace=False)]
+        four.execute("i", " ".join(f"Set({col}, v={int(qrng.integers(0, 1_000_000))})"
+                                   for col in vcols))
+        decode_bsi(holder, "v", pool, into=decoded["v"],
+                   shards=sorted({col // SHARD_WIDTH for col in vcols}))
+        round_("after_writes")
+        lat["stack_incremental"] = four.stack_incremental
+    finally:
+        mesh_mod.configure_serving(None)
+        # the two executors' stacks leave the card and the budget before
+        # the budget path counts them
+        for ex in (one, four):
+            ex.release_stacks()
+        del one, four
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+    if mesh_mod.serving_mesh() is not None:
+        raise AssertionError("mesh: configure_serving(None) left a serving mesh on one card")
+    log(f"mesh (a): {MESH_SLICES} slices on {dev}: every read equal to one device's and "
+        f"to the truth, {MESH_SLICES} x the launches; g's stack built in "
+        f"{lat['stack_build_mesh_ms']:.1f} ms on the mesh, {lat['stack_build_one_ms']:.1f} ms "
+        f"on one device; a warm batch of the reads {lat['warm_batch_mesh_ms']:.1f} ms on the "
+        f"mesh, {lat['warm_batch_one_ms']:.1f} ms on one device; patches "
+        f"{lat['stack_incremental']}")
+    return lat
+
+
+def mesh_gloo(device):
+    """(b) Two processes on the one card over gloo, each rank the worker of
+    ``pilosa_tpu_torch.testing.multihost`` with CUDA tensors and the hand
+    kernels: it owns the shards with ``shard % 2 == rank`` of
+    MESH_RANK_SHARDS (R_FULL rows, W_FULL words), answers the executor's
+    reads on them and reduces them across the ranks, then runs the
+    spanning checks; each against the seed's truth. Fails on a non-zero
+    exit or a timeout."""
+    import tempfile
+
+    build = HERE / "build"
+    build.mkdir(exist_ok=True)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=build, prefix="mesh-pg-") as tmp:
+        env = dict(os.environ, PYTHONPATH=str(HERE))
+        procs = [subprocess.Popen(
+            [sys.executable, "-m", "pilosa_tpu_torch.testing.multihost", "--rank", str(rank),
+             "--init", f"file://{tmp}/store", "--device", device, "--backend", "gloo",
+             "--shards", str(MESH_RANK_SHARDS), "--rows", str(R_FULL),
+             "--words", str(W_FULL), "--seed", str(SEED)],
+            cwd=HERE, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        ) for rank in (0, 1)]
+        outs = ["", ""]
+        try:
+            for k, p in enumerate(procs):
+                outs[k], _ = p.communicate(timeout=MESH_RANK_TIMEOUT)
+        except subprocess.TimeoutExpired:
+            for p in procs:
+                p.kill()
+                p.communicate()
+            raise AssertionError(f"mesh (b): a rank took over {MESH_RANK_TIMEOUT} s")
+    for k, (p, out) in enumerate(zip(procs, outs)):
+        for line in out.splitlines()[-12:]:
+            log(f"  rank {k}: {line}")
+        if p.returncode != 0 or f"proc{k} OK" not in out:
+            raise AssertionError(f"mesh (b): rank {k} exited {p.returncode}")
+    secs = time.perf_counter() - t0
+    log(f"mesh (b): two ranks over gloo on one card passed the spanning checks in {secs:.1f} s")
+    return {"seconds": secs}
+
+
+def mesh_nccl(device):
+    """(c) ``init_multihost()`` with the default backend in a job of one
+    rank: NCCL forms its group on the card, one ``all_reduce`` sums, and
+    the mesh reads as not spanning. NCCL across cards needs two of them."""
+    import socket
+
+    with socket.socket() as so:
+        so.bind(("127.0.0.1", 0))
+        port = so.getsockname()[1]
+    probe = (
+        "import torch\n"
+        "from pilosa_tpu_torch.parallel import mesh as m\n"
+        f"g = m.init_multihost('tcp://127.0.0.1:{port}', 1, 0)\n"
+        "d = torch.distributed\n"
+        "assert d.get_backend() == 'nccl', d.get_backend()\n"
+        "assert not m.mesh_spans_processes(g) and g.size == torch.cuda.device_count(), g\n"
+        "t = torch.arange(4, device='cuda', dtype=torch.int64)\n"
+        "d.all_reduce(t)\n"
+        "assert t.tolist() == [0, 1, 2, 3], t\n"
+        "d.destroy_process_group()\n"
+        "print('nccl OK', g.devices)\n"
+    )
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-c", probe], cwd=HERE, capture_output=True, text=True,
+                       env=dict(os.environ, PYTHONPATH=str(HERE)), timeout=MESH_NCCL_TIMEOUT)
+    if r.returncode != 0 or "nccl OK" not in r.stdout:
+        raise AssertionError(f"mesh (c): the one-rank NCCL group failed: {r.stdout}{r.stderr}")
+    secs = time.perf_counter() - t0
+    log(f"mesh (c): {r.stdout.strip()}, one rank, default backend, in {secs:.1f} s")
+    return {"seconds": secs}
+
+
+def mesh_path(pool, holder, device, decoded):
+    """The mesh path: (a) :func:`mesh_local`; (b) :func:`mesh_gloo` and (c)
+    :func:`mesh_nccl` (on the card only) in their own processes, started
+    once (a) has timed its stack build and warm batch, beside the rest of
+    it."""
+    import torch
+
+    out = {}
+    with ThreadPoolExecutor(max_workers=2) as bg:
+        started = {}
+
+        def start():
+            if torch.device(device).type == "cuda":
+                started["gloo"] = bg.submit(mesh_gloo, device)
+                started["nccl"] = bg.submit(mesh_nccl, device)
+
+        out["local"] = mesh_local(pool, holder, device, decoded, on_timed=start)
+        for k, fut in started.items():
+            out[k] = fut.result()
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -5276,16 +5637,16 @@ class CardBusy:
         return 1.0 - busy / ((t1 - t0) * 1e6)
 
 
-def mix_clients(port, mix, serial, stop, seed):
-    """:data:`OBS_CLIENTS` keep-alive client threads (not started) posting
-    the read mix until ``stop`` is set, every answer checked against its
+def mix_clients(port, mix, serial, stop, seed, clients=OBS_CLIENTS):
+    """``clients`` keep-alive client threads (not started) posting the
+    read mix until ``stop`` is set, every answer checked against its
     serial one: (threads, each client's (answered at, latency s) records,
     errors)."""
     import threading
 
     import numpy as np
 
-    recs = [[] for _ in range(OBS_CLIENTS)]
+    recs = [[] for _ in range(clients)]
     errors = []
 
     def client(c):
@@ -5306,7 +5667,7 @@ def mix_clients(port, mix, serial, stop, seed):
         finally:
             conn.close()
 
-    return [threading.Thread(target=client, args=(c,)) for c in range(OBS_CLIENTS)], recs, errors
+    return [threading.Thread(target=client, args=(c,)) for c in range(clients)], recs, errors
 
 
 def window_stats(recs, t0, t1, busy):
@@ -5996,7 +6357,7 @@ CLUSTER_NODES, CLUSTER_REPLICAS = 3, 2
 # seconds of each route's 16-client load (6 before the elastic steps' reads
 # needed the time, 4 before the loadgen path did), and of the failover
 # reads' load (3 before)
-CLUSTER_SECONDS, CLUSTER_FAILOVER_SECONDS = 3.0, 2.0
+CLUSTER_SECONDS, CLUSTER_FAILOVER_SECONDS = 2.0, 2.0
 # the routing check's small field: rows and shards
 CLUSTER_R_ROWS, CLUSTER_R_SHARDS = 8, 8
 # host bytes kept free beside the cluster's mirrors
@@ -6259,6 +6620,9 @@ def set_mesh(nodes, on):
 # the bits a cleared or set row gets; the rows the resize's writer cycles
 ELASTIC_AE_FRAGMENTS, ELASTIC_AE_BITS = 4, 1500
 ELASTIC_WR_ROWS = 4
+# clients posting the read mix during each resize (16 before the mesh path
+# needed the time: each flip's stack rebuilds queued behind their reads)
+ELASTIC_CLIENTS = 4
 # the writer's pause between writes (at most about 200 a second)
 ELASTIC_WR_PAUSE = 0.005
 # seconds the membership steps wait at most for a DOWN or READY mark
@@ -6404,7 +6768,8 @@ def card_bytes(device):
 
 
 def resize_under_load(ctx, tag, run, writer_node, rows):
-    """``run()`` (one resize) while 16 clients post the read mix to node 0
+    """``run()`` (one resize) while ELASTIC_CLIENTS clients post the read
+    mix to node 0
     and a writer sets bits of ``wr``'s ``rows`` through ``writer_node``,
     one shard after another: (the resize's seconds, the window's stats, the
     acknowledged writes)."""
@@ -6436,7 +6801,7 @@ def resize_under_load(ctx, tag, run, writer_node, rows):
 
     with CardBusy(ctx["device"]) as busy:
         threads, recs, errors = mix_clients(nodes[0].server.port, ctx["mix"], ctx["serial"],
-                                            stop, SEED + 700)
+                                            stop, SEED + 700, ELASTIC_CLIENTS)
         wt = threading.Thread(target=writer)
         for th in threads + [wt]:
             th.start()
@@ -6695,7 +7060,8 @@ def cluster_elastic(ctx):
         out[f"resize_{tag}"] = res
         log(f"cluster: step {step}, a node {'added' if tag == 'add' else 'removed'} on "
             f"{card}: the resize took {resize_s:.2f} s and moved {moved / 1e9:.3f} GB "
-            f"({res['mb_per_s']:.1f} MB/s) under 16 clients and a writer; reads p50 "
+            f"({res['mb_per_s']:.1f} MB/s) under {ELASTIC_CLIENTS} clients and a writer; "
+            f"reads p50 "
             f"{during['p50_ms']:.2f} ms, p99 {during['p99_ms']:.2f} ms, {during['qps']:.1f} "
             f"queries/s during it against p50 {before['p50_ms']:.2f} ms, p99 "
             f"{before['p99_ms']:.2f} ms, {before['qps']:.1f} queries/s before; "
@@ -7229,7 +7595,7 @@ def cluster_path(pool, device, hand):
 # the load harness's plan: eight stages of 5 s from 16 workers, at the base
 # open-loop rate (ops/s) of the command line's plan, warm at half of it and
 # overload at twice it
-LOADGEN_SECONDS = 40.0
+LOADGEN_SECONDS = 28.0
 LOADGEN_WORKERS = 16
 LOADGEN_PLAN_RATE = 100.0
 # the base rate this path offers: at the serving size a Row answer carries
@@ -7815,31 +8181,39 @@ SOURCES = {
 }
 
 
-# depths cut to pay for the loadgen path's seconds: (what, was, is); the
-# cluster path logs its own three cuts (g not loaded, w out of steps 7-9, one f
-# fragment diverged in step 7) where it makes them
+# depths cut to pay for the loadgen and mesh paths' seconds: (what, was, is,
+# for which path); the cluster path logs its own three cuts (g not loaded, w
+# out of steps 7-9, one f fragment diverged in step 7) where it makes them
 DEPTH_CUTS = (
-    ("http path: the 16-client window, s", 5.0, HTTP_SECONDS),
-    ("serving path: each 16-client window, s", 5.0, SERVE_SECONDS),
-    ("serving path: the defaults' window, s", 4.0, SERVE_DEFAULT_SECONDS),
-    ("serving path: the QoS tenants' window, s", 4.0, QOS_SECONDS),
-    ("cluster path: each 16-client window, s", 4.0, CLUSTER_SECONDS),
-    ("cluster path: the failover window, s", 3.0, CLUSTER_FAILOVER_SECONDS),
-    ("cluster path: pairs of windows, planes on and off", 2, CLUSTER_AB_PAIRS),
-    ("http path: timestamped pairs of the JSON import", 1 << 20, TT_PAIRS),
+    ("http path: the 16-client window, s", 5.0, HTTP_SECONDS, "the loadgen path's"),
+    ("serving path: each 16-client window, s", 5.0, SERVE_SECONDS, "the loadgen path's"),
+    ("serving path: the defaults' window, s", 4.0, SERVE_DEFAULT_SECONDS,
+     "the loadgen path's"),
+    ("serving path: the QoS tenants' window, s", 4.0, QOS_SECONDS, "the loadgen path's"),
+    ("cluster path: each 16-client window, s", 4.0, CLUSTER_SECONDS,
+     "the loadgen and mesh paths'"),
+    ("cluster path: the failover window, s", 3.0, CLUSTER_FAILOVER_SECONDS,
+     "the loadgen path's"),
+    ("cluster path: pairs of windows, planes on and off", 2, CLUSTER_AB_PAIRS,
+     "the loadgen path's"),
+    ("http path: timestamped pairs of the JSON import", 1 << 20, TT_PAIRS,
+     "the loadgen path's"),
+    ("cluster steps 8-9: clients reading during each resize", 16, ELASTIC_CLIENTS,
+     "the mesh path's"),
+    ("loadgen path: the plan's nominal seconds", 40.0, LOADGEN_SECONDS, "the mesh path's"),
 )
 
 
 def serve(kern, sass, card, t_start) -> int:
-    """The main path's twelve paths on the served index, then the summary
-    lines."""
+    """The main path's thirteen paths on the served index, then the
+    summary lines."""
     import gc
 
     import torch
 
-    for what, was, now in DEPTH_CUTS:
+    for what, was, now, why in DEPTH_CUTS:
         if now != was:
-            log(f"reduced: {what} {now}, was {was} (for the loadgen path's time)")
+            log(f"reduced: {what} {now}, was {was} (for {why} time)")
 
     holder, setup_s = build_index("cuda")
     ex = kernel_executor(holder)
@@ -7853,6 +8227,8 @@ def serve(kern, sass, card, t_start) -> int:
         decoded = {}
         l_bsi, e2e["bsi"] = drive("bsi", ("bsi_range", "bsi_sum", "bsi_extreme"),
                                   lambda: bsi_path(pool, ex, holder, "cuda", decoded))
+        l_mesh, e2e["mesh"] = drive("mesh", tuple(sorted(SOURCES)),
+                                    lambda: mesh_path(pool, holder, "cuda", decoded))
         e2e["setup_s"] = setup_s
         e2e["stack_rebuilds"] = ex.stack_rebuilds
         e2e["stack_incremental"] = ex.stack_incremental
@@ -7900,8 +8276,9 @@ def serve(kern, sass, card, t_start) -> int:
     e2e["obs"].update(card=name, power_limit=limit)
     e2e["cluster"].update(card=name, power_limit=limit)
     e2e["loadgen"].update(card=name, power_limit=limit)
+    e2e["mesh"].update(card=name, power_limit=limit)
     by_path = {k: {"pair_topn": l_pair[k], "groupby": l_group[k], "trees": l_trees[k],
-                   "bsi": l_bsi[k], "budget": l_budget[k], "storage": l_storage[k],
+                   "bsi": l_bsi[k], "mesh": l_mesh[k], "budget": l_budget[k], "storage": l_storage[k],
                    "time": l_time[k], "http": l_http[k], "serving": l_serving[k],
                    "obs": l_obs[k], "cluster": l_cluster[k], "loadgen": l_loadgen[k]}
                for k in l_pair}

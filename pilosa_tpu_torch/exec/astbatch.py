@@ -32,8 +32,10 @@ The BSI signing half (:func:`match_bsi`) signs the calls the executor's
 batched BSI lane answers: range conditions, their Counts, Sum, Min, Max
 and GroupBy filtered by a condition, each with its op class.
 
-Not ported here yet: the program over a process-spanning mesh (with the
-cluster).
+Over stacks laid on a serving mesh (``parallel/sharded.py``) both run
+once a slice; on a mesh that spans processes a count batch is reduced to
+its int64 totals across the processes (JAX's ``_compiled_spanning``), and
+a bitmap tree is declined, as in JAX.
 """
 
 from __future__ import annotations
@@ -42,11 +44,13 @@ from functools import lru_cache
 from typing import NamedTuple
 
 import numpy as np
+import torch
 
 from pilosa_tpu_torch.core import timequantum
 from pilosa_tpu_torch.core.field import FIELD_TYPE_INT
 from pilosa_tpu_torch.core.view import VIEW_STANDARD
 from pilosa_tpu_torch.ops import kernels
+from pilosa_tpu_torch.parallel import sharded
 from pilosa_tpu_torch.pql.ast import Call, Condition
 
 _OPS = {
@@ -262,8 +266,18 @@ def program(sig) -> Program:
 def run_count_batch(sig, stacks: tuple, slots_np: np.ndarray) -> np.ndarray:
     """One launch: int64 totals for a batch of same-shape Counts.
     ``slots_np`` is int32 ``[B, L]``; per-shard int32 partials are summed
-    in int64 on the host."""
+    in int64 on the host. Over sharded stacks, one launch a slice; on a
+    process-spanning mesh each slice's partials are summed in int64 and
+    the totals summed across the processes."""
     p = program(sig)
+    if kernels.stack_spans_processes(stacks[0]):
+        st = tuple(stacks)
+        return sharded.total(st[0], sharded.per_slice(
+            st[0],
+            lambda *parts: kernels.tree_count(parts, p.code, p.leaf_stack, slots_np)
+            .sum(dim=1, dtype=torch.int64),
+            *st[1:],
+        )).cpu().numpy()
     partials = kernels.tree_count(stacks, p.code, p.leaf_stack, slots_np)
     return partials.cpu().numpy().astype(np.int64).sum(axis=1)
 

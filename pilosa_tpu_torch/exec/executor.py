@@ -34,6 +34,14 @@ serve these queries, each through the kernels of ``ops/kernels.py``:
   class (:meth:`_batch_bsi`): Q conditions or range counts one range scan,
   Q filtered Sums one sum launch while their filter words fit a budget.
 
+With a serving mesh (``parallel/mesh.py``: a host's CUDA devices, or the
+devices ``configure_serving(devices=...)`` names) every stack is laid over
+it as a ``ShardedStack`` (``parallel/sharded.py``): its shard axis padded
+to a multiple of the mesh's size and cut into one contiguous slice per
+device, as JAX lays its stacks with ``NamedSharding(mesh, P("shards"))``.
+The kernel wrappers take such a stack as they take a tensor, launching
+once a slice; a patch copies only the slices whose shards changed.
+
 Every stack is admitted to the process device-memory budget
 (``core/membudget.py``), which evicts cold stacks (the next read rebuilds
 them) and declines a stack larger than its whole cap. A declined stack
@@ -115,6 +123,8 @@ from pilosa_tpu_torch.exec.result import (
     ValCount,
 )
 from pilosa_tpu_torch.ops import _hostops, bitops, bsi, kernels, streams
+from pilosa_tpu_torch.parallel import mesh as mesh_mod
+from pilosa_tpu_torch.parallel import sharded
 from pilosa_tpu_torch.pql.ast import Call, Condition
 
 # reference executor.go:66 defaultMinThreshold.
@@ -131,6 +141,11 @@ class _Declined:
 
     def __repr__(self) -> str:
         return "STACK_DECLINED"
+
+
+def _is_stack(x) -> bool:
+    """A device stack: a tensor, or one laid over a serving mesh."""
+    return isinstance(x, (torch.Tensor, sharded.ShardedStack))
 
 
 # What Executor._field_stack returns when the device-memory budget declines
@@ -789,9 +804,45 @@ class Executor:
             return None
         return fname, op, rows[0], rows[1]
 
+    _UNRESOLVED = object()  # serving_mesh() may itself be None
+
+    def _stack_key(self, shards: list[int], view_name: str, n_fixed_rows: int | None,
+                   mesh=_UNRESOLVED):
+        """Stack-cache key ``(shards, view, fixed rows, mesh)``. The mesh is
+        part of it, as in JAX (executor.py:1172-1190): a stack laid over
+        one mesh never answers for another. A caller that lays a stack out
+        passes the mesh it resolved once, so key and layout agree."""
+        if mesh is Executor._UNRESOLVED:
+            mesh = self._serving_mesh()
+        return tuple(shards), view_name, n_fixed_rows, mesh
+
+    def _serving_mesh(self):
+        """The mesh this executor lays its stacks over
+        (``parallel/mesh.serving_mesh``), when its devices are of the
+        holder's device type; None for the plain single-device stacks. The
+        implicit mesh of a host's CUDA devices does not apply to a CPU
+        holder; a mesh set outright (``configure_serving(devices=...)``)
+        of another device type raises, so no work moves to another device
+        type unasked."""
+        mesh = mesh_mod.serving_mesh()
+        if mesh is None:
+            return None
+        want = streams.card(self.holder.device).type
+        if mesh.device_type == want:
+            return mesh
+        if mesh_mod.serving_configured():
+            raise ValueError(
+                f"serving mesh on {mesh.device_type} devices, holder on {want}"
+            )
+        return None
+
     @staticmethod
-    def _stack_key(shards: list[int], view_name: str, n_fixed_rows: int | None):
-        return tuple(shards), view_name, n_fixed_rows
+    def _stack_on(bits: np.ndarray, mesh, device):
+        """Host words as a device stack: cut over ``mesh`` (its shard axis
+        padded to the mesh's size), or whole on ``device``."""
+        if mesh is None:
+            return bitops.to_device(bits, device)
+        return sharded.shard(bits, mesh)
 
     def _field_stack(
         self, field: Field, shards: list[int], view_name: str = VIEW_STANDARD,
@@ -829,8 +880,11 @@ class Executor:
         frags = {s: v.fragments[s] for s in shards if s in v.fragments}
         if not frags:
             return None
+        # key and layout use the one resolved mesh (a concurrent
+        # configure_serving must not file an old-mesh stack under a new key)
+        mesh = self._serving_mesh()
         key = self._stack_key(
-            shards, view_name, None if fixed_rows is None else len(fixed_rows)
+            shards, view_name, None if fixed_rows is None else len(fixed_rows), mesh
         )
         versions = tuple(
             (frags[s].epoch, frags[s].version) if s in frags else (-1, -1)
@@ -890,7 +944,9 @@ class Executor:
             if not row_ids:
                 return None
             S, R, W = len(shards), len(row_ids), field.n_words
-            nbytes = S * R * W * 4
+            # a mesh pads the shard axis to a multiple of its size
+            S_dev = S if mesh is None else -(-S // mesh.size) * mesh.size
+            nbytes = S_dev * R * W * 4
             if budget.would_decline(nbytes):
                 self.stacks_declined += 1
                 return STACK_DECLINED
@@ -904,7 +960,7 @@ class Executor:
                 src = [k for k, r in enumerate(ids) if r in slot_of]
                 if src:
                     bits[si, [slot_of[ids[k]] for k in src]] = matrix[src]
-            dev = bitops.to_device(bits, self.holder.device)
+            dev = self._stack_on(bits, mesh, self.holder.device)
             del bits
             self.stack_rebuilds += 1
             qprofile.incr("stack_rebuilds")
@@ -919,7 +975,7 @@ class Executor:
             # (_stack_evict_cb), so these scans read a snapshot and pop
             # with a default: an entry may vanish under them
             for stale in [k for k, _ in _dict_items(caches)
-                          if k[:2] == key[:2] and k[2] != key[2]]:
+                          if k[:2] == key[:2] and k[3] == key[3] and k[2] != key[2]]:
                 old = caches.pop(stale, None)
                 if old is not None:
                     budget.release(old["bkey"])
@@ -1027,10 +1083,19 @@ class Executor:
         # admission looks for victims
         budget.touch(entry["bkey"])
         copy_key = object()
-        budget.admit(copy_key, old.numel() * old.element_size(), lambda: None)
+        if sharded.is_sharded(old):  # only the slices holding a changed shard
+            touched = [k for k, (a, b) in enumerate(old.bounds)
+                       if any(a <= si < b for si in changed)]
+            copy_bytes = sum(old.slices[k].numel() * old.element_size() for k in touched)
+        else:
+            copy_bytes = old.numel() * old.element_size()
+        budget.admit(copy_key, copy_bytes, lambda: None)
         try:
-            where = torch.tensor(changed, dtype=torch.int64, device=old.device)
-            dev = old.index_copy(0, where, bitops.to_device(blocks, old.device))
+            if sharded.is_sharded(old):
+                dev = self._patch_slices(old, changed, blocks, touched)
+            else:
+                where = torch.tensor(changed, dtype=torch.int64, device=old.device)
+                dev = old.index_copy(0, where, bitops.to_device(blocks, old.device))
         finally:
             budget.release(copy_key)
         for k in ("gram", "gram_misses", "rowcounts", "crossgram", "crossgram_misses",
@@ -1044,6 +1109,20 @@ class Executor:
         self.stack_incremental += 1
         qprofile.incr("stack_incremental")
         return slot_of, dev
+
+    @staticmethod
+    def _patch_slices(old, changed: list[int], blocks: np.ndarray, touched: list[int]):
+        """A sharded stack with the changed shards' ``blocks`` copied into
+        new tensors of the slices that hold them (``touched``); the other
+        slices are shared with ``old``."""
+        parts = list(old.slices)
+        for k in touched:
+            a, b = old.bounds[k]
+            sel = [j for j, si in enumerate(changed) if a <= si < b]
+            t = parts[k]
+            where = torch.tensor([changed[j] - a for j in sel], dtype=torch.int64, device=t.device)
+            parts[k] = t.index_copy(0, where, bitops.to_device(blocks[sel], t.device))
+        return sharded.ShardedStack(parts, old.bounds, old.shape, old.mesh)
 
     def _stack_entry_for(self, field: Field, bits: torch.Tensor):
         """The cache entry whose device snapshot IS ``bits``, or None."""
@@ -1409,11 +1488,13 @@ class Executor:
         _ABSENT = object()
         stacks_by_view: dict[tuple[str, str], Any] = {}
 
-        def _stacks_for(pairs):
+        def _stacks_for(pairs, allow_spanning=False):
             """(stacks tuple, slot_of per pair), or None when a leaf's stack
             is not taken or declined, or every leaf's view is absent: the
             call then stays on the host tier. Each (field, view) pair reads
-            its own view's stack."""
+            its own view's stack. A bitmap tree declines a stack over a
+            mesh that spans processes (``allow_spanning`` False), whose
+            per-shard words are not all here, as in JAX."""
             out: list[torch.Tensor | None] = []
             slot_maps = {}
             for pair in pairs:
@@ -1453,6 +1534,8 @@ class Executor:
             real = next((t for t in out if t is not None), None)
             if real is None:
                 return None
+            if not allow_spanning and kernels.stack_spans_processes(real):
+                return None
             return tuple(real if t is None else t for t in out), slot_maps
 
         def _slots_of(leaves, slot_maps) -> np.ndarray:
@@ -1462,7 +1545,7 @@ class Executor:
             )
 
         for (sig, pairs), items in count_groups.items():
-            st = _stacks_for(pairs)
+            st = _stacks_for(pairs, allow_spanning=True)
             if st is None:
                 continue
             stacks, slot_maps = st
@@ -1501,8 +1584,9 @@ class Executor:
                 if seg is not None:
                     bits[si, k] = seg
         self.shared_stack_uploads += 1
-        return {key: k for k, key in enumerate(shared)}, bitops.to_device(
-            bits, self.holder.device
+        # laid out as the field stacks it is read beside
+        return {key: k for k, key in enumerate(shared)}, self._stack_on(
+            bits, self._serving_mesh(), self.holder.device
         )
 
     # --------------------------------------------------------- bitmap calls
@@ -1799,7 +1883,7 @@ class Executor:
             # the host below; repeat demand builds the stack
             ready = self._BSI_SINGLE_WARM <= 0 or self._bsi_stack_live(field, shard_list)
             bits = self._bsi_stack(field, shard_list) if ready else None
-            if isinstance(bits, torch.Tensor):
+            if _is_stack(bits):
                 cached, put = self._bsi_agg_cache(field, bits, key)
                 if cached is not None:
                     return cached
@@ -1963,7 +2047,7 @@ class Executor:
         field = self._bsi_field(idx, call)
         filt = self._sum_filter(idx, call, shards)
         bits = self._bsi_stack(field, shards)
-        stacked = (bits, filt, shards) if isinstance(bits, torch.Tensor) else None
+        stacked = (bits, filt, shards) if _is_stack(bits) else None
 
         def per_fragment():
             view = field.view(field.bsi_view_name())
@@ -2173,6 +2257,10 @@ class Executor:
             bits = self._bsi_stack(field, shard_list)
             if bits is None or bits is STACK_DECLINED:
                 continue  # the per-call path answers, per fragment
+            if kernels.stack_spans_processes(bits):
+                # per-shard words and partials are not all here across
+                # processes (JAX declines alike); the per-call paths answer
+                continue
             groups: dict[str, list[tuple[int, Any]]] = {}
             for i, op_class, cond in items:
                 groups.setdefault(op_class, []).append((i, cond))
@@ -2828,6 +2916,10 @@ class Executor:
         if any(not rows for _, _, rows in levels):
             return []
         slot0, bits0 = stacks[0]
+        if kernels.stack_spans_processes(bits0):
+            # the combo counts are per-shard partials, not all here across
+            # processes: the recursive path serves, as in JAX
+            return None
         S, _, W = bits0.shape
         budget = self._groupby_prefix_budget(bits0.device)
         cmax = max(1, min(kernels.GRAM_MAX_ROWS, budget // (S * W * 4 * len(levels))))
@@ -2876,7 +2968,7 @@ class Executor:
                 prefix = kernels.gather_prefix(bits0, [slot0[r] for r in part])
                 if filt is not None:
                     # in place: the prefix is this call's own copy
-                    prefix &= filt[None]
+                    kernels.mask_prefix(prefix, filt)
                 expand(1, prefix, [(r,) for r in part])
                 del prefix
         return out

@@ -53,6 +53,7 @@ import torch
 import torch.nn.functional as F
 
 from pilosa_tpu_torch.ops import bitops, kernels
+from pilosa_tpu_torch.parallel import sharded as _sh
 
 # ---------------------------------------------------------------------------
 # Query bounds (the batched encoding of the JAX package, unchanged)
@@ -245,7 +246,16 @@ def _check_rows(name: str, t, ndim: int) -> None:
 def _operands(name: str, planes, exists, sign, depth: int | None = None):
     """``(planes[S, depth, W], exists[S, W], sign[S, W], one_shard)``:
     one shard's ``[depth, W]``/``[W]`` operands gain a shard axis of 1,
-    and ``planes`` is cut to its first ``depth`` planes."""
+    and ``planes`` is cut to its first ``depth`` planes. Sharded operands
+    pass as they are (the kernel wrappers check each slice), ``planes``
+    cut alike."""
+    if _sh.is_sharded(planes):
+        _sh.same_layout(name, planes, exists, sign)
+        if depth is not None:
+            if not 0 <= depth <= planes.shape[1]:
+                raise ValueError(f"{name}: depth {depth} of {planes.shape[1]} planes")
+            planes = planes[:, :depth]
+        return planes, exists, sign, False
     one = isinstance(planes, torch.Tensor) and planes.dim() == 2
     _check_rows(name, planes, 2 if one else 3)
     _check_rows(name, exists, 1 if one else 2)
@@ -577,7 +587,13 @@ def bsi_range(planes, exists, sign, table: np.ndarray, *, count: bool) -> torch.
     ``int32[Q, S]`` when ``count`` (exact: a shard holds at most 2^31 - 1
     columns), else the result words ``int32[Q, S, W]`` (one shard's
     operands: ``[Q]`` and ``[Q, W]``). On the card, one launch per plan
-    launch (:func:`range_plan`), each query written to its own row."""
+    launch (:func:`range_plan`), each query written to its own row.
+    Sharded operands: the plan's launches once a slice, the outputs
+    joined in shard order."""
+    if _sh.is_sharded(planes):
+        _sh.same_layout("bsi_range", planes, exists, sign)
+        return _sh.cat(planes, _sh.per_slice(
+            planes, lambda p, e, s: bsi_range(p, e, s, table, count=count), exists, sign), 1)
     planes, exists, sign, one = _operands("bsi_range", planes, exists, sign)
     table = np.ascontiguousarray(table, dtype=np.int32)
     if table.ndim != 3 or table.shape[1] not in (1, 2) or table.shape[2] != 3:
@@ -687,7 +703,11 @@ def bsi_sum(planes, exists, sign, filters=None) -> torch.Tensor:
     depth), within ``exists & filters[s, q]``, non-negative (c = 0) or
     negative (c = 1). ``filters`` is ``[S, Q, W]``, one filter ``[S, W]``,
     or None to count under the exists row alone (one shard: ``[Q, W]``,
-    ``[W]``; the result keeps its shard axis of 1)."""
+    ``[W]``; the result keeps its shard axis of 1). Sharded operands: one
+    launch a slice, joined in shard order."""
+    if _sh.is_sharded(planes):
+        _sh.same_layout("bsi_sum", planes, exists, sign)
+        return _sh.cat(planes, _sh.per_slice(planes, bsi_sum, exists, sign, filters), 0)
     planes, exists, sign, one = _operands("bsi_sum", planes, exists, sign)
     S, depth, W = planes.shape
     if filters is not None:
@@ -723,8 +743,9 @@ def sum_count(planes, exists, sign, filter_words, *, depth: int):
     per-shard popcounts over ``exists & filter_words`` (one shard:
     ``[depth]``, ``[depth]``, scalar), as JAX's sum_count returns them."""
     planes, exists, sign, one = _operands("sum_count", planes, exists, sign, depth)
-    out = bsi_sum(planes, exists, sign, _filters("sum_count", filter_words,
-                                                 planes.shape[0], planes.shape[2], one))
+    if not _sh.is_sharded(planes):  # a sharded stack's wrapper cuts the filter
+        filter_words = _filters("sum_count", filter_words, planes.shape[0], planes.shape[2], one)
+    out = bsi_sum(planes, exists, sign, filter_words)
     pos = out[:, 0, :depth, 0].T
     neg = out[:, 0, :depth, 1].T
     count = out[:, 0, depth].sum(dim=1, dtype=torch.int32)
@@ -739,7 +760,8 @@ def sum_host(planes, exists, sign, filter_words, *, depth: int) -> tuple[int, in
     """Exact ``(sum of stored values, count)`` over ``exists &
     filter_words``, one bsi_sum launch and one copy to the host."""
     planes, exists, sign, one = _operands("sum_host", planes, exists, sign, depth)
-    filt = _filters("sum_host", filter_words, planes.shape[0], planes.shape[2], one)
+    filt = filter_words if _sh.is_sharded(planes) else _filters(
+        "sum_host", filter_words, planes.shape[0], planes.shape[2], one)
     acc = bsi_sum(planes, exists, sign, filt)[:, 0].to(torch.int64).sum(dim=0).cpu().numpy()
     return _place_value(acc[:depth, 0], acc[:depth, 1]), int(acc[depth].sum())
 
@@ -818,7 +840,14 @@ def bsi_extreme(planes, exists, sign, filt=None, *, maximal: bool) -> torch.Tens
     Branch a is the non-negative columns for Max and the negative ones for
     Min, narrowed to its largest magnitude; branch b the other class,
     narrowed to its smallest. ``cnt`` counts the slice's columns at that
-    magnitude; a slice without candidates has magnitude and count 0."""
+    magnitude; a slice without candidates has magnitude and count 0.
+    Sharded operands: one launch a slice, joined in shard order, so that
+    :func:`extreme_combine` narrows every slice's candidates at once."""
+    if _sh.is_sharded(planes):
+        _sh.same_layout("bsi_extreme", planes, exists, sign)
+        return _sh.cat(planes, _sh.per_slice(
+            planes, lambda p, e, s, f: bsi_extreme(p, e, s, f, maximal=maximal),
+            exists, sign, filt), 0)
     planes, exists, sign, one = _operands("bsi_extreme", planes, exists, sign)
     S, depth, W = planes.shape
     if filt is not None:

@@ -43,7 +43,14 @@ ledger site with a CUDA event pair for its device time, and adds a record
 to the active query profile.
 
 Stacks are ``int32[S, R, W]``: bit-identical views of the host's
-``uint32`` words.
+``uint32`` words. Every wrapper that reads a stack also takes a
+``parallel/sharded.py`` ``ShardedStack`` (the stack cut over a serving
+mesh, the counterpart of JAX's ``shard_map`` path): it launches the same
+kernel once per slice and reduces the slices' outputs, counts summed in
+int64, per-shard rows or words joined in shard order; on a mesh that
+spans processes the int64 totals are then summed across them
+(``torch.distributed.all_reduce``), where JAX carries uint32 (hi, lo)
+pairs through an int32 psum.
 """
 
 from __future__ import annotations
@@ -60,6 +67,7 @@ import torch
 
 from pilosa_tpu_torch.obs import devledger, qprofile
 from pilosa_tpu_torch.ops import bitops, cuda_build
+from pilosa_tpu_torch.parallel import sharded as _sh
 
 _TORCH_OPS = {
     "intersect": lambda a, b: a & b,
@@ -221,6 +229,8 @@ def row_counts_per_shard_plain(bits: torch.Tensor) -> torch.Tensor:
 def row_counts_per_shard(bits: torch.Tensor) -> torch.Tensor:
     """``int32[S, R]`` per-shard row popcounts (exact per shard: a row of
     one shard holds at most 2^31 - 1 bits at every supported width)."""
+    if _sh.is_sharded(bits):
+        return _sh.cat(bits, _sh.per_slice(bits, row_counts_per_shard), 0)
     _check_words("row_counts_per_shard", bits, 3)
     if _is_cpu("row_counts_per_shard", bits):
         return row_counts_per_shard_plain(bits)
@@ -246,10 +256,40 @@ def _int32_safe(bits: torch.Tensor) -> bool:
 
 def row_counts(bits: torch.Tensor) -> torch.Tensor:
     """Per-row popcounts over all shards, on the stack's device:
-    ``int32[R]`` when totals fit int32, else ``int64[R]``."""
+    ``int32[R]`` when totals fit int32, else ``int64[R]``; ``int64[R]``
+    for a sharded stack (on its first slice's device; on a spanning mesh
+    summed over the processes)."""
+    if _sh.is_sharded(bits):
+        return _sh.total(bits, _sh.per_slice(
+            bits, lambda t: row_counts_per_shard(t).sum(dim=0, dtype=torch.int64)))
     per_shard = row_counts_per_shard(bits)
     dtype = torch.int32 if _int32_safe(bits) else torch.int64
     return per_shard.sum(dim=0, dtype=dtype)
+
+
+def row_counts_supported(bits) -> bool:
+    """Whether :func:`row_counts` can serve this stack: always. JAX's
+    declines a spanning stack whose totals pass int32 even per one-shard
+    psum slice; the port sums int64 across processes, so none passes."""
+    return True
+
+
+def stack_spans_processes(x) -> bool:
+    """Whether ``x`` is a sharded stack whose mesh includes other
+    processes' devices: the guard of the paths whose kernels return
+    per-shard outputs (the bitmap trees and the k-level GroupBy's combos),
+    which decline such a stack as in JAX."""
+    return _sh.is_sharded(x) and x.spans
+
+
+def topn_counts(bits, n: int):
+    """``(counts, slots)`` int64 numpy: the ``n`` largest row totals of
+    the stack (:func:`row_counts`), ties to the lower slot, as JAX's
+    ``lax.top_k`` orders them."""
+    counts = row_counts(bits).to(torch.int64).cpu().numpy()
+    n = min(n, counts.shape[0])
+    slots = np.argsort(-counts, kind="stable")[:n]
+    return counts[slots], slots
 
 
 # ---------------------------------------------------------------------------
@@ -269,6 +309,8 @@ def masked_row_counts_per_shard(
 ) -> torch.Tensor:
     """``int32[S, R]`` per-shard popcounts of every row ANDed with the
     shard's filter row ``filt[s]`` (``int32[S, W]``)."""
+    if _sh.is_sharded(bits):
+        return _sh.cat(bits, _sh.per_slice(bits, masked_row_counts_per_shard, filt), 0)
     _check_words("masked_row_counts_per_shard", bits, 3)
     _check_words("masked_row_counts_per_shard", filt, 2)
     S, R, W = bits.shape
@@ -294,7 +336,12 @@ def masked_row_counts_per_shard(
 
 def masked_row_counts(bits: torch.Tensor, filt: torch.Tensor) -> np.ndarray:
     """``int64[R]`` numpy: per-row popcount of (row & filter) summed over
-    shards in int64."""
+    shards in int64 (and over the processes of a spanning mesh)."""
+    if _sh.is_sharded(bits):
+        return _sh.total(bits, _sh.per_slice(
+            bits, lambda t, f: masked_row_counts_per_shard(t, f).sum(dim=0, dtype=torch.int64),
+            filt,
+        )).cpu().numpy()
     per_shard = masked_row_counts_per_shard(bits, filt)
     return per_shard.sum(dim=0, dtype=torch.int64).cpu().numpy()
 
@@ -415,14 +462,18 @@ def gram_gather_plain(bits: torch.Tensor, idx) -> torch.Tensor:
 def gram_gather(bits: torch.Tensor, idx) -> torch.Tensor:
     """``int32[U, U]`` gram over the stack rows named by ``idx`` (host
     ints in ``[0, R)``), read in place: no gathered copy is made. The
-    caller keeps each pair's total within int32 (:func:`pair_gram`)."""
-    _check_words("gram_gather", bits, 3)
+    caller keeps each pair's total within int32 (:func:`pair_gram`).
+    A sharded stack's slices are summed on its first slice's device."""
+    if not _sh.is_sharded(bits):
+        _check_words("gram_gather", bits, 3)
     S, R, W = bits.shape
     if not _gram_int32_safe(S, W):
         raise ValueError(
             f"gram_gather: S*W*32 = {S * W * 32} exceeds the int32 "
             "accumulator; chunk the shard axis (pair_gram does)"
         )
+    if _sh.is_sharded(bits):
+        return _sh.total(bits, _sh.per_slice(bits, lambda t: gram_gather(t, idx))).to(torch.int32)
     if _is_cpu("gram_gather", bits):
         return gram_gather_plain(bits, idx)
     host_idx = _idx_array(idx, R)
@@ -452,6 +503,9 @@ def pair_gram(bits: torch.Tensor, row_idx) -> np.ndarray | None:
     if U == 0 or U > GRAM_MAX_ROWS:
         return None
     idx = np.asarray(row_idx, dtype=np.int32)
+    if _sh.is_sharded(bits):  # the chunking within each slice
+        return _sh.total_host(bits, _sh.per_slice(
+            bits, lambda t: _shard_chunked(t.shape, lambda s: gram_gather(t[s], idx))))
     return _shard_chunked(bits.shape, lambda s: gram_gather(bits[s], idx))
 
 
@@ -501,7 +555,8 @@ def pair_count_batched(
 ) -> torch.Tensor:
     """``int32[B, S]`` per-shard partials of ``popc(op(row ras[i], row
     rbs[i]))`` — the answer when a batch names more than GRAM_MAX_ROWS
-    distinct rows. Callers sum over shards in int64."""
+    distinct rows. Callers sum over shards in int64. On a spanning mesh
+    the answer is the ``int64[B]`` totals, summed over the processes."""
     return pair_count_two_batched(bits, bits, ras, rbs, op=op)
 
 
@@ -511,7 +566,18 @@ def pair_count_two_batched(
 ) -> torch.Tensor:
     """``int32[B, S]`` per-shard partials of ``popc(op(bits_a row ras[i],
     bits_b row rbs[i]))`` over two stacks of one shard axis — the
-    two-field GroupBy's answer when the cross gram declines."""
+    two-field GroupBy's answer when the cross gram declines. Sharded
+    stacks give the slices' partials joined in shard order, or ``int64[B]``
+    totals on a spanning mesh, as :func:`pair_count_batched`."""
+    _sh.same_layout("pair_count_two_batched", bits_a, bits_b)
+    if _sh.is_sharded(bits_a):
+        def one(a, b):
+            return pair_count_two_batched(a, b, ras, rbs, op=op)
+
+        if bits_a.spans:
+            return _sh.total(bits_a, _sh.per_slice(
+                bits_a, lambda a, b: one(a, b).sum(dim=1, dtype=torch.int64), bits_b))
+        return _sh.cat(bits_a, _sh.per_slice(bits_a, one, bits_b), 1)
     _check_words("pair_count_two_batched", bits_a, 3)
     _check_words("pair_count_two_batched", bits_b, 3)
     _is_cpu("pair_count_two_batched", bits_a, bits_b)  # raises on mixed devices
@@ -587,7 +653,18 @@ def cross_gram_gather(
     and the rows ``ib`` of ``bits_b`` (host ints), over one shard axis
     and one word width. Both operands are read in place through their
     strides (see :func:`_check_operand`): no gathered or transposed copy
-    is made. The caller keeps each total within int32."""
+    is made. The caller keeps each total within int32. Sharded operands
+    (of one layout) are summed over their slices on the first slice's
+    device."""
+    _sh.same_layout("cross_gram_gather", bits_a, bits_b)
+    if _sh.is_sharded(bits_a):
+        S, _, W = bits_a.shape
+        if not _gram_int32_safe(S, W):
+            raise ValueError(
+                f"cross_gram_gather: S*W*32 = {S * W * 32} exceeds the int32 accumulator"
+            )
+        return _sh.total(bits_a, _sh.per_slice(
+            bits_a, lambda a, b: cross_gram_gather(a, b, ia, ib), bits_b)).to(torch.int32)
     _check_operand("cross_gram_gather", bits_a)
     _check_operand("cross_gram_gather", bits_b)
     S, Ra, W = bits_a.shape
@@ -640,6 +717,13 @@ def cross_pair_gram(
         return None
     ia = np.asarray(idx_a, dtype=np.int32)
     ib = np.asarray(idx_b, dtype=np.int32)
+    _sh.same_layout("cross_pair_gram", bits_a, bits_b)
+    if _sh.is_sharded(bits_a):
+        return _sh.total_host(bits_a, _sh.per_slice(
+            bits_a,
+            lambda a, b: _shard_chunked(a.shape, lambda s: cross_gram_gather(a[s], b[s], ia, ib)),
+            bits_b,
+        ))
     return _shard_chunked(
         bits_a.shape, lambda s: cross_gram_gather(bits_a[s], bits_b[s], ia, ib)
     )
@@ -652,8 +736,29 @@ def cross_pair_gram(
 # ---------------------------------------------------------------------------
 
 
+def _prefix_sharded(prefix, bits) -> bool:
+    """Whether a GroupBy level runs over sharded operands (the prefix
+    masks a ``[C, S, W]`` sharded stack, shard axis 1), which a spanning
+    mesh declines: the combos are per-shard outputs."""
+    if not _sh.is_sharded(bits):
+        if _sh.is_sharded(prefix):
+            raise ValueError("GroupBy prefix: sharded masks over a whole stack")
+        return False
+    if stack_spans_processes(bits):
+        raise ValueError("GroupBy combos over a process-spanning stack are declined")
+    if prefix is not None and (not _sh.is_sharded(prefix) or prefix.bounds != bits.bounds):
+        raise ValueError("GroupBy prefix: masks and stack of different layouts")
+    return True
+
+
 def gather_prefix(bits: torch.Tensor, idx) -> torch.Tensor:
-    """Level-0 prefix masks: the stack rows ``idx`` as ``int32[C, S, W]``."""
+    """Level-0 prefix masks: the stack rows ``idx`` as ``int32[C, S, W]``
+    (a sharded stack's as sharded masks, shard axis 1)."""
+    if _prefix_sharded(None, bits):
+        return _sh.ShardedStack(
+            _sh.per_slice(bits, lambda t: gather_prefix(t, idx)), bits.bounds,
+            (len(idx), bits.shape[0], bits.shape[2]), bits.mesh, axis=1,
+        )
     sel = torch.as_tensor(np.asarray(idx, np.int64)).to(bits.device)
     return bits.index_select(1, sel).transpose(0, 1).contiguous()
 
@@ -663,6 +768,10 @@ def refine_prefix(prefix: torch.Tensor, bits: torch.Tensor, cis, ris) -> torch.T
     ``prefix[cis[i]] & bits[:, ris[i]]`` as ``int32[C', S, W]``, built in
     steps of _PAIR_BATCH_BYTES so the gathered operands never exceed one
     step beside the output."""
+    if _prefix_sharded(prefix, bits):
+        parts = _sh.per_slice(bits, lambda t, p: refine_prefix(p, t, cis, ris), prefix)
+        return _sh.ShardedStack(parts, bits.bounds, (len(cis),) + tuple(prefix.shape[1:]),
+                                bits.mesh, axis=1)
     ci = torch.as_tensor(np.asarray(cis, np.int64)).to(prefix.device)
     ri = torch.as_tensor(np.asarray(ris, np.int64)).to(prefix.device)
     _, S, W = prefix.shape
@@ -679,10 +788,22 @@ def refine_prefix(prefix: torch.Tensor, bits: torch.Tensor, cis, ris) -> torch.T
     return out
 
 
+def mask_prefix(prefix, filt) -> None:
+    """``prefix &= filt`` in place over every combo (``filt`` ``[S, W]``,
+    cut at a sharded prefix's bounds)."""
+    if _sh.is_sharded(prefix):
+        for p, f in zip(prefix.slices, _sh.split(prefix, filt)):
+            p &= f[None]
+    else:
+        prefix &= filt[None]
+
+
 def combo_counts(prefix: torch.Tensor, bits: torch.Tensor, idx) -> torch.Tensor:
     """``int32[C, Rl, S]`` per-shard counts of every (prefix combo, row)
     intersection ``popc(prefix[c] & bits[:, idx[r]])``, one row of the
     level at a time, so peak memory is one ``[C, S, W]`` intermediate."""
+    if _prefix_sharded(prefix, bits):
+        return _sh.cat(bits, _sh.per_slice(bits, lambda t, p: combo_counts(p, t, idx), prefix), 2)
     sel = np.asarray(idx, np.int64).reshape(-1)
     C, S, _ = prefix.shape
     out = torch.empty((C, sel.size, S), dtype=torch.int32, device=prefix.device)
@@ -704,6 +825,9 @@ def combo_counts_gram(prefix: torch.Tensor, bits: torch.Tensor, idx) -> np.ndarr
         return None
     if max(C, n) > GRAM_MAX_ROWS:
         return None
+    if _prefix_sharded(prefix, bits):
+        return _sh.total_host(bits, _sh.per_slice(bits, lambda t, p: cross_gram_gather(
+            p.transpose(0, 1), t, np.arange(C), idx).cpu().numpy(), prefix))
     out = cross_gram_gather(prefix.transpose(0, 1), bits, np.arange(C), idx)
     return out.cpu().numpy().astype(np.int64)
 
@@ -1456,12 +1580,24 @@ def tree_count_launch(stacks, code, leaf_stack, slots) -> TreeLaunch:
     return _tree_launch(stacks, leaf_stack, slots, prog)
 
 
+def _tree_per_slice(stacks, fn, code, leaf_stack, slots) -> list:
+    """``fn`` over each slice of sharded ``stacks``: the k-th slices of
+    every stack, in order."""
+    stacks = tuple(stacks)
+    _sh.same_layout("tree", *stacks)
+    return _sh.per_slice(stacks[0], lambda *parts: fn(parts, code, leaf_stack, slots),
+                         *stacks[1:])
+
+
 def tree_count(stacks, code, leaf_stack, slots) -> torch.Tensor:
     """``int32[B, S]`` per-shard popcounts of the postfix tree ``code`` for
     each slot row of ``slots`` (host int32 ``[B, L]``; leaf ``l`` of item
     ``b`` is row ``slots[b, l]`` of ``stacks[leaf_stack[l]]``, absent when
     negative), in one launch on the route :func:`tree_plan` picks. Callers
-    sum over shards in int64."""
+    sum over shards in int64. Sharded stacks (of one layout): one launch a
+    slice, the partials joined in shard order."""
+    if _sh.is_sharded(stacks[0]):
+        return _sh.cat(stacks[0], _tree_per_slice(stacks, tree_count, code, leaf_stack, slots), 1)
     stacks, code, leaf_stack, slots, prog = _check_tree(
         "tree_count", stacks, code, leaf_stack, slots, 2
     )
@@ -1505,7 +1641,10 @@ def tree_count(stacks, code, leaf_stack, slots) -> torch.Tensor:
 
 def tree_words(stacks, code, leaf_stack, slots) -> torch.Tensor:
     """``int32[S, W]`` words of the postfix tree ``code`` for one slot row
-    (host int32 ``[L]``), in one launch."""
+    (host int32 ``[L]``), in one launch (one a slice of sharded stacks,
+    joined in shard order)."""
+    if _sh.is_sharded(stacks[0]):
+        return _sh.cat(stacks[0], _tree_per_slice(stacks, tree_words, code, leaf_stack, slots), 0)
     stacks, code, leaf_stack, slots, prog = _check_tree(
         "tree_words", stacks, code, leaf_stack, slots, 1
     )

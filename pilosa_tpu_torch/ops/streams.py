@@ -106,7 +106,13 @@ def use_here(t: torch.Tensor, ev=None) -> None:
     have made ``t`` or written it in place since this stream last waited
     (a dispatcher's patch of a fragment's rows), and the caller holds the
     lock that orders that write before this read. A tensor made on the
-    default stream and read there needs none of it."""
+    default stream and read there needs none of it. A stack laid over a
+    serving mesh (``parallel/sharded.py``) is made safe slice by slice."""
+    slices = getattr(t, "slices", None)
+    if slices is not None:
+        for part in slices:
+            use_here(part, ev)
+        return
     if t.device.type != "cuda":
         return
     cur = torch.cuda.current_stream(t.device)

@@ -21,6 +21,7 @@ import torch
 
 from pilosa_tpu_torch.ops import bsi as tb
 from pilosa_tpu_torch.ops import kernels as tk
+from pilosa_tpu_torch.testing import meshcases
 
 pytestmark = pytest.mark.cuda
 
@@ -1935,3 +1936,80 @@ def test_a_short_harness_run_on_the_card_validates_and_launches(cuda_device, fre
     assert tk.launch_total() > before
     assert rep["devcosts"]["totals"]["launches"] > 0
     assert fresh_budget.default_budget().cap is None  # the stage's cap restored
+
+
+# ---------------------------------------------------------------------------
+# Sharded stacks: a mesh of slices on cuda:0 against the whole stack
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("n", [2, 3])
+@pytest.mark.parametrize("case", sorted(meshcases.CASES))
+def test_wrapper_over_a_mesh_on_the_card_matches_one_device(cuda_device, case, n):
+    """Each kernel wrapper over a stack laid over n slices of cuda:0 (one
+    launch a slice) answers as over the whole stack (one launch)."""
+    ops = meshcases.Operands(torch.device("cuda", 0), S=9, R=70, R2=20, W=132)
+    whole, got = meshcases.run_case(case, ops, n)
+    assert whole.shape == got.shape and np.array_equal(whole, got), case
+
+
+def test_an_executor_over_a_two_slice_mesh_launches_twice_and_matches(cuda_device,
+                                                                      fresh_budget):
+    """The executor over ``configure_serving(devices=[cuda:0] * 2)``: each
+    stack two slices, every answer the single-device executor's, each
+    kernel launched twice as often."""
+    from pilosa_tpu_torch.core.field import FieldOptions
+    from pilosa_tpu_torch.core.holder import Holder
+    from pilosa_tpu_torch.exec.executor import Executor
+    from pilosa_tpu_torch.parallel import mesh as mesh_mod
+    from pilosa_tpu_torch.parallel import sharded
+
+    rng = np.random.default_rng(4)
+    holder = Holder(device="cuda")
+    idx = holder.create_index("i")
+    idx.create_field("f")
+    idx.create_field("g")
+    idx.create_field("v", FieldOptions(field_type="int", min_=-20, max_=5000))
+    width = holder.n_words * 32
+    n_cols = 6 * width
+    idx.field("f").import_bits(rng.integers(0, 8, 6000).astype(np.uint64),
+                               rng.integers(0, n_cols, 6000).astype(np.uint64))
+    idx.field("g").import_bits(rng.integers(0, 4, 3000).astype(np.uint64),
+                               rng.integers(0, n_cols, 3000).astype(np.uint64))
+    idx.field("v").import_values(rng.choice(n_cols, 900, replace=False),
+                                 rng.integers(-20, 5000, 900))
+    queries = [
+        " ".join(f"Count(Intersect(Row(f={a}), Row(f={b})))" for a, b in
+                 [(0, 1), (2, 3), (4, 5), (6, 7)]),
+        "TopN(f, Row(g=1), n=4)", "TopN(f, Row(g=2), tanimotoThreshold=3)",
+        "GroupBy(Rows(f), Rows(g))", "GroupBy(Rows(f), Rows(g), Rows(f), filter=Row(g=0))",
+        "Count(Intersect(Row(f=0), Row(f=1), Row(g=2))) Count(Union(Row(f=3), Row(g=0), Row(g=1)))",
+        "Union(Row(f=0), Row(g=1)) Union(Row(f=2), Row(g=3))",
+        "Count(Row(v > 100)) Count(Row(v < 3000)) Sum(field=v) Min(field=v) Max(Row(f=1), field=v)",
+    ]
+
+    import json
+
+    from pilosa_tpu_torch.exec.result import result_to_json
+
+    def run(ex):
+        out, launches = [], []
+        for q in queries:
+            tk.reset_launches()
+            out.append(json.dumps(result_to_json(ex.execute("i", q)), sort_keys=True))
+            launches.append(dict(tk.LAUNCHES))
+        return out, launches
+
+    one, l_one = run(Executor(holder, rescache_entries=0, planner_enabled=False))
+    mesh_mod.configure_serving(None, devices=[torch.device("cuda", 0)] * 2)
+    try:
+        ex = Executor(holder, rescache_entries=0, planner_enabled=False)
+        two, l_two = run(ex)
+        stacks = [e["dev"] for c in ex._stacks.values() for e in c.values()]
+    finally:
+        mesh_mod.configure_serving(None)
+    assert two == one
+    assert stacks and all(sharded.is_sharded(s) and len(s.slices) == 2 for s in stacks)
+    for q, a, b in zip(queries, l_one, l_two):
+        assert {k: 2 * n for k, n in a.items()} == b, (q, a, b)
+    assert sum(sum(x.values()) for x in l_one) > 0

@@ -276,7 +276,7 @@ def test_local_executors_stack_only_the_shards_their_node_holds(pair):
         ex = n.api.executor
         keys = [k for caches in list(ex._stacks.values()) for k in list(caches)]
         assert route == "mesh" or keys
-        for shards, _view, _rows in keys:
+        for shards, _view, _rows, _mesh in keys:
             assert set(shards) <= held, (n.node_id, shards, held)
 
 

@@ -16,7 +16,9 @@ watchdog, anti-entropy, membership, block checksums, the chunk prefetcher
 and the lock witness, with a node added and one removed), the command
 line's client subcommands (import, export, backup, restore, check,
 inspect, generate-config and config) and the load harness with its
-command line's stage plan and a short run; nor any module of ``tools/``;
+command line's stage plan and a short run, and the multi-device layer
+(the serving mesh, sharded stacks and fields, the two-rank worker); nor
+any module of ``tools/``;
 and the port's default device is ``cuda`` with no fallback to the CPU."""
 
 # the port's lock witness, installed before the port is imported so that its
@@ -224,6 +226,21 @@ rep = loadgen.run_harness(
     preload_bits=64, device="cpu", cluster_setup=loadgen_main.tune_qos)
 loadgen.validate_report(rep)
 assert rep["clientErrors"] == 0 and rep["stages"][1]["deviceBudget"], rep["stages"]
+# the multi-device layer: an executor over a mesh of eight CPU slices,
+# a sharded field, and the two-rank worker's module loaded
+from pilosa_tpu_torch.parallel import ShardedField, mesh as mesh_mod, sharded
+from pilosa_tpu_torch.testing import meshcases, multihost
+mesh_mod.configure_serving(None, devices=["cpu"] * 8)
+h8 = Holder(device="cpu")
+h8.create_index("i").create_field("f")
+e8 = Executor(h8, rescache_entries=0)
+e8.execute("i", "Set(1, f=1) Set(2, f=1) Set(2, f=2) Set(70000, f=2)")
+res = e8.execute("i", "Count(Intersect(Row(f=1), Row(f=2))) Count(Union(Row(f=1), Row(f=2)))")
+assert res == [1, 3], res
+assert all(sharded.is_sharded(en["dev"]) for c in e8._stacks.values() for en in c.values())
+sf = ShardedField.from_field(h8.field("i", "f"), mesh_mod.serving_mesh())
+assert sf.count_pair(1, 2, op="union") == 3 and sf.topn(1) == [(1, 2)]
+mesh_mod.configure_serving(None)
 bad = sorted(
     m for m in sys.modules
     if m == "jax" or m.startswith("jax.") or m.startswith("jaxlib")
