@@ -4,6 +4,10 @@ Run from the root of a checkout, with no arguments:
 
     python3 chip_smoke.py
 
+``--resize`` adds the cluster path's steps 8-9 (a node added and one
+removed online under load), which take 2-5 minutes more than the run's
+time limit leaves room for.
+
 Phases (any failure raises, and the script exits non-zero):
 
 1. Device: requires CUDA, prints the card's name and power limit, and
@@ -227,10 +231,10 @@ Phases (any failure raises, and the script exits non-zero):
    read through a third; TopN exactness; node 2 stopped, every read exact
    through the replicas (p99), its breaker open in /debug/vars and in a
    flight-recorder segment, and ``?cluster=true`` events of all three
-   nodes before the stop; then membership, anti-entropy, a node added and
-   one removed (steps 6-9; steps 7-9 over f, h and v, w deleted first,
-   and every node's id fixed from the seed, so each resize moves
-   the same shards from run to run). The loadgen path, last (the earlier
+   nodes before the stop; then membership and anti-entropy (steps 6-7,
+   step 7 over f, h and v, w deleted first), and with ``--resize`` a node
+   added and one removed (steps 8-9; every node's id is fixed from the
+   seed, so each resize moves the same shards from run to run). The loadgen path, last (the earlier
    paths' directories removed first): the load harness's workload index
    at the serving size (seg 160 shards x 64 rows, val, the YMD field ev)
    written to a new directory, one ``NodeServer`` on it, and
@@ -1366,6 +1370,20 @@ def bsi_sum_bound(S, depth, W, Q, filtered):
     return bound, bsi_popc_floor(n_popc)
 
 
+def bsi_sum_batch_bound(S, depth, W, Q, rate):
+    """((ms, by), MMA floor ms) of one bsi_sum_batch launch: the stack and
+    Q filter rows read once, the totals written once; its 2 (depth + 1) Q
+    S W popcounts priced as bsi_sum prices them (int8 tensor cores); and
+    the floor of the same work as single-bit multiply-adds (32 a popcount)
+    at the rate ``mma_rates`` measured in this run (None without one)."""
+    nbytes = S * (2 + depth) * W * 4 + Q * S * W * 4 + (depth + 1) * 2 * Q * 4
+    n_popc = 2 * (depth + 1) * Q * S * W
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = 2 * 32 * n_popc / PEAK_INT8_OPS_PER_S * 1e3
+    bound = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    return bound, (32 * n_popc / rate * 1e3 if rate else None)
+
+
 def bsi_extreme_bound(S, depth, W, filtered):
     """(ms, by) of one bsi_extreme launch: the stack (and the filter) read
     once, against two LOP3 per plane, branch and word."""
@@ -1376,21 +1394,26 @@ def bsi_extreme_bound(S, depth, W, filtered):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def check_bsi_kernels(dev):
-    """The three BSI kernels against their plain versions, exactly: at the
+def check_bsi_kernels(dev, rates=None):
+    """The four BSI kernels against their plain versions, exactly: at the
     serving shape (160 shards x 22 rows x 32768 words: depth 20, three
     quarters of the columns holding a signed value), in both modes of the
     range scan at Q = 1, 3, 12 (one words launch of the main path) and 128
     (the bench's count flight), the sum unfiltered and under 1, 12 and 64
-    filters, the extreme both ways, filtered and not; and at ragged shapes
-    (one shard, W off each kernel's chunk, depths 0, 1 and 63, Q = 1-128,
-    an empty exists row). Then each is timed at the main path's shapes
-    with CUDA events around the wrapper and torch.profiler's device time
-    beside its bound; at its head shape (128 counts, one filter, an
-    unfiltered Max) also its plain version and, for the sum, torch._int_mm
-    on pre-unpacked int8 operands. The range scan logs its launch plan at
-    each timed shape and its device time at each instance and block shape
-    the plan could take, each exact."""
+    filters, the batched sum under 2, 8 and 64 filters, each as an
+    ``[S, Q, W]`` tensor and as rows of a 64-row stack through an index in
+    random order with repeats and a -1, the extreme both ways, filtered and
+    not; and at ragged shapes (one shard, W off each kernel's chunk, depths
+    0, 1 and 63, Q = 1-128, an empty exists row, a sign row of all ones).
+    Then each is timed at the main path's shapes with CUDA events around
+    the wrapper and torch.profiler's device time beside its bound; at its
+    head shape (128 counts, one filter, 64 filters, an unfiltered Max) also
+    its plain version and, for the sums, torch._int_mm on pre-unpacked int8
+    operands; the batched sum at 8 and 64 filters beside its single-bit MMA
+    floor (``rates``: :func:`mma_rates`) and bsi_sum at the same Q. The
+    range scan logs its launch plan at each timed shape and its device
+    time at each instance and block shape the plan could take, each
+    exact."""
     import numpy as np
     import torch
 
@@ -1414,7 +1437,7 @@ def check_bsi_kernels(dev):
 
     stack = bitops.to_device(bsi_stack_np(rng, S, depth, W), dev)
     P, E, G = views(stack)
-    errs = {"bsi_range": 0, "bsi_sum": 0, "bsi_extreme": 0}
+    errs = {"bsi_range": 0, "bsi_sum": 0, "bsi_extreme": 0, "bsi_sum_batch": 0}
     # the main path's flights: a lone condition, a mixed flight, one words
     # launch at the executor's cap, and the bench's 128 spread thresholds
     # (the timed shapes; their plain results kept for the sweep)
@@ -1440,6 +1463,18 @@ def check_bsi_kernels(dev):
         errs["bsi_sum"] = max(errs["bsi_sum"], exact(
             f"bsi_sum {name}", tb.bsi_sum(P, E, G, f),
             tb.bsi_sum_plain(P, E, G, None if f is None else tb._filters("", f, S, W, False))))
+    # the batched sum: the first Q filters as [S, Q, W], and Q rows of the
+    # 64 filters as a stack, through an index in random order with a
+    # repeat and a -1
+    for q in (2, 8, BSI_SUMS):
+        ix = rng.permutation(BSI_SUMS)[:q]
+        ix[q // 2] = ix[0]
+        ix[-1] = -1
+        for form, operand, i in (("[S, Q, W]", filters[:, :q], np.arange(q)),
+                                 ("rows", filters, ix)):
+            errs["bsi_sum_batch"] = max(errs["bsi_sum_batch"], exact(
+                f"bsi_sum_batch Q={q} {form}", tb.bsi_sum_batch(P, E, G, operand, i),
+                tb.bsi_sum_batch_plain(P, E, G, operand, i)))
     for maximal in (True, False):
         for f in (None, filters[:, 1]):
             errs["bsi_extreme"] = max(errs["bsi_extreme"], exact(
@@ -1448,13 +1483,16 @@ def check_bsi_kernels(dev):
                 tb.bsi_extreme_plain(P, E, G, f, maximal)))
     log(f"bsi kernels exact at the serving shape {tuple(stack.shape)}: range "
         f"scans Q = 1, 3, {cap} (words) and 1, 3, {BSI_Q} (counts), sums under 0, 1, "
-        f"{cap} and {BSI_SUMS} filters, extremes both ways")
+        f"{cap} and {BSI_SUMS} filters, batched sums under 2, 8 and {BSI_SUMS} filters "
+        f"(as [S, Q, W] and as rows through an index), extremes both ways")
 
     # -- ragged shapes
-    for (s, d, w, q, empty) in [(1, 1, 130, 1, False), (3, 63, 130, 9, False),
-                                (2, 20, 1000, 17, False), (1, 63, 2100, 3, True),
-                                (5, 0, 257, 5, False), (4, 20, 3000, 128, False)]:
+    for (s, d, w, q, empty, ones) in [(1, 1, 130, 1, False, False), (3, 63, 130, 9, False, False),
+                                      (2, 20, 1000, 17, False, True), (1, 63, 2100, 3, True, False),
+                                      (5, 0, 257, 5, False, False), (4, 20, 3000, 128, False, False)]:
         st = bitops.to_device(bsi_stack_np(rng, s, d, w, empty), dev)
+        if ones:  # every value negative
+            st[:, 1] = -1
         p, e, g = views(st)
         t = table_of(bsi_flight(rng, q, d), d)
         for count in (False, True):
@@ -1463,12 +1501,15 @@ def check_bsi_kernels(dev):
         fl = bitops.to_device(random_words(rng, (s, q, w), dense=False), dev)
         exact(f"bsi_sum {s, d, w} Q={q}", tb.bsi_sum(p, e, g, fl), tb.bsi_sum_plain(p, e, g, fl))
         exact(f"bsi_sum {s, d, w} unfiltered", tb.bsi_sum(p, e, g), tb.bsi_sum_plain(p, e, g, None))
+        for i in (np.arange(q), rng.integers(-1, q, q)):
+            exact(f"bsi_sum_batch {s, d, w} Q={q}", tb.bsi_sum_batch(p, e, g, fl, i),
+                  tb.bsi_sum_batch_plain(p, e, g, fl, i))
         for maximal in (True, False):
             exact(f"bsi_extreme {s, d, w} maximal={maximal}",
                   tb.bsi_extreme(p, e, g, fl[:, 0], maximal=maximal),
                   tb.bsi_extreme_plain(p, e, g, fl[:, 0], maximal))
     log("bsi kernels exact at ragged shapes (S = 1-5, W = 130-3000, depths 0, 1, 20 "
-        "and 63, Q = 1-128, an empty exists row)")
+        "and 63, Q = 1-128, an empty exists row, a sign row of all ones)")
 
     # -- timings at the main path's shapes; the plain version at the head
     #    shape of each kernel only
@@ -1522,19 +1563,29 @@ def check_bsi_kernels(dev):
             out[:, s * W * 32:(s + 1) * W * 32] = tk.unpack_bits(rows[s], torch.int8)
         return out
 
-    # the filter's two sign columns, padded with zero rows to the 8 that
-    # torch._int_mm's N must be a multiple of
-    f_ex = f1[:, None, :] & E[:, None, :]
-    pad = torch.zeros((S, 6, W), dtype=f_ex.dtype, device=dev)
+    def int_mm_ms(fq):
+        """torch._int_mm over the work of the Sums under the filters ``fq``
+        (``[S, Q, W]``): the planes and exists rows against each filter's
+        two sign columns, padded with zero rows to the multiple of 8 that
+        its N must be; held to bsi_sum_batch's totals, then timed once."""
+        q = fq.shape[1]
+        f_ex = fq & E[:, None, :]
+        pad = torch.zeros((S, -(-2 * q // 8) * 8 - 2 * q, W), dtype=f_ex.dtype, device=dev)
+        filt8 = unpacked(torch.cat([f_ex & ~G[:, None, :], f_ex & G[:, None, :], pad], dim=1))
+        del f_ex, pad
+        mm = torch._int_mm(rows8, filt8.T)  # [depth + 1, 2Q padded]
+        exact(f"torch._int_mm sum yardstick Q={q}", mm[:, :2 * q].reshape(depth + 1, 2, q),
+              tb.bsi_sum_batch(P, E, G, fq, np.arange(q)))
+        del mm
+        ms = cuda_ms(lambda: torch._int_mm(rows8, filt8.T), reps=1, warmup=0)
+        del filt8
+        torch.cuda.empty_cache()
+        return ms
+
     rows8 = unpacked(torch.cat([P, E[:, None, :]], dim=1))
-    filt8 = unpacked(torch.cat([f_ex & ~G[:, None, :], f_ex & G[:, None, :], pad], dim=1))
-    del f_ex, pad
-    mm = torch._int_mm(rows8, filt8.T)  # [depth + 1, 8]
-    want = tb.bsi_sum(P, E, G, f1).to(torch.int64).sum(dim=0)  # [1, depth + 1, 2]
-    exact("torch._int_mm sum yardstick", mm[:, :2].T.reshape(2, 1, depth + 1).permute(1, 2, 0),
-          want)
-    t_lib = cuda_ms(lambda: torch._int_mm(rows8, filt8.T), reps=1, warmup=0)
-    del rows8, filt8, mm
+    t_lib = int_mm_ms(f1[:, None, :])
+    lib_batch = {q: int_mm_ms(filters[:, :q]) for q in (8, BSI_SUMS)}
+    del rows8
     torch.cuda.empty_cache()
     extra, floors = {}, {"one_filter": floor}
     for shape, f, q in (("unfiltered", None, 1), (f"q{BSI_SUMS}", filters, BSI_SUMS)):
@@ -1544,6 +1595,33 @@ def check_bsi_kernels(dev):
     report["bsi_sum"] = dict(
         max_abs_err=errs["bsi_sum"], ms=t, device_ms=d, plain_ms=pl, bound=b,
         library_ms=t_lib, extra=extra, popc_floors=floors)
+
+    # the batched sum at the main path's flights (64 filtered Sums, and 8),
+    # the filters as rows of the 64-row stack; bsi_sum, the route it
+    # replaces, at the same Q in this run
+    rate = (rates or {}).get("mma.sync.m16n8k256.b1.and.popc")
+    ix = np.arange(BSI_SUMS)
+    t, d = timed(lambda: tb.bsi_sum_batch(P, E, G, filters, ix))
+    # (the plain version ran at this shape in the exact checks: no warm-up)
+    pl = cuda_ms(lambda: tb.bsi_sum_batch_plain(P, E, G, filters, ix), reps=1, warmup=0)
+    b, mma = bsi_sum_batch_bound(S, depth, W, BSI_SUMS, rate)
+    old = {f"q{BSI_SUMS}": extra[f"q{BSI_SUMS}"][:2]}
+    t8, d8 = timed(lambda: tb.bsi_sum_batch(P, E, G, filters, ix[:8]))
+    b8, mma8 = bsi_sum_batch_bound(S, depth, W, 8, rate)
+    old["q8"] = timed(lambda: tb.bsi_sum(P, E, G, filters[:, :8]), reps=5)
+    report["bsi_sum_batch"] = dict(
+        max_abs_err=errs["bsi_sum_batch"], ms=t, device_ms=d, plain_ms=pl, bound=b,
+        library_ms=lib_batch[BSI_SUMS], extra={"q8": (t8, d8, b8)},
+        mma_floors={f"q{BSI_SUMS}": mma, "q8": mma8},
+        library_ms_by_q={f"q{q}": v for q, v in lib_batch.items()},
+        bsi_sum_ms_by_q={k: {"ms": v[0], "device_ms": v[1]} for k, v in old.items()},
+        popc_floors={f"q{BSI_SUMS}": bsi_sum_bound(S, depth, W, BSI_SUMS, True)[1]})
+    popc = report["bsi_sum_batch"]["popc_floors"][f"q{BSI_SUMS}"]
+    met = d is not None and d < 2 * b[0] and (popc is None or d < popc)
+    log(f"bsi_sum_batch at Q = {BSI_SUMS}: device {d} ms against its bound {b[0]:.4f} ms "
+        f"({b[1]}), the POPC pipe's floor {popc} ms and its MMA floor {mma} ms: the design "
+        f"target (under the POPC floor, within 2x of the bound) "
+        f"{'met' if met else 'missed'}")
 
     t, d, pl = timed(lambda: tb.bsi_extreme(P, E, G, maximal=True),
                      lambda: tb.bsi_extreme_plain(P, E, G, None, True))
@@ -1562,12 +1640,18 @@ def check_bsi_kernels(dev):
         if v.get("popc_floors"):
             log(f"{k}: POPC pipe floors (16 a clock an SM at the clock nvidia-smi reads), "
                 f"ms by shape {v['popc_floors']}")
+        for key, what in (("mma_floors", "single-bit MMA floors at the rate measured in "
+                           "this run"), ("library_ms_by_q", "torch._int_mm"),
+                          ("bsi_sum_ms_by_q", "bsi_sum (the route it replaces)")):
+            if v.get(key):
+                log(f"{k}: {what}, ms by shape {v[key]}")
         for tt, dd, bb in [(v["ms"], v["device_ms"], v["bound"]), *v["extra"].values()]:
             if min(tt, dd or tt) < bb[0]:
                 raise AssertionError(f"{k}: {tt} ms (device {dd}) is below its bound "
                                      f"{bb[0]} ms: the bound is wrong")
     log("bsi_range and bsi_extreme: no single PyTorch call computes them, so their "
         "library_ms is null")
+    log(f"bsi kernels' card: {card_line()}")
     del stack, P, E, G, filters
     torch.cuda.empty_cache()
     return report
@@ -2451,8 +2535,11 @@ def bsi_path(pool, ex, holder, device, keep=None):
     (the host tier, no launch) until the warm-up builds the stack, then on
     the card and from the aggregate cache; a `><` bitmap; one execute_batch
     of 128 range Counts (one count launch); Sum unfiltered (then cached),
-    filtered, and a batch of 64 filtered Sums (one launch each); Min/Max of
-    v and w, unfiltered and filtered;
+    filtered, a batch of 64 filtered Sums (one bsi_sum_batch launch, f's
+    rows read in place from its resident stack), the same 64 as lone
+    queries (one bsi_sum launch each), and a batch of 8 Sums filtered by
+    trees made on the host (one launch); Min/Max of v and w, unfiltered and
+    filtered;
     MinRow/MaxRow of f; a GroupBy of f and g filtered by Row(v > 250000)
     (one words launch, then the GroupBy kernels); then Set/Clear writes to
     v and w, each seen by the next Range, Sum and Min/Max. Every answer
@@ -2490,7 +2577,8 @@ def bsi_path(pool, ex, holder, device, keep=None):
             res = [r[0] for r in res]
         ms = (time.perf_counter() - t) * 1e3
         lat["served_s"] += ms / 1e3
-        made = {k: tk.LAUNCHES[k] - before[k] for k in ("bsi_range", "bsi_sum", "bsi_extreme")}
+        made = {k: tk.LAUNCHES[k] - before[k]
+                for k in ("bsi_range", "bsi_sum", "bsi_extreme", "bsi_sum_batch")}
         want = None if launches is None else {k: launches.get(k, 0) for k in made}
         if on_card and want is not None and made != want:
             raise AssertionError(f"{q or batch[0]}: BSI launches {made}, not {want}")
@@ -2575,13 +2663,36 @@ def bsi_path(pool, ex, holder, device, keep=None):
     f3 = set_row_bits(holder, "f", 3, pool)
     (s,), lat["sum_filtered_ms"] = serve("Sum(Row(f=3), field=v)", {"bsi_sum": 1})
     check("filtered sum", valcount(s), truth_sum(pool, vals, lambda s: exv[s] & f3[s]))
-    # a flight of filtered Sums: one launch each
-    sums, lat["batch_sums_ms"] = serve(
-        None, {"bsi_sum": BSI_SUMS}, batch=[f"Sum(Row(f={r}), field=v)" for r in range(BSI_SUMS)])
+    # a flight of filtered Sums: one bsi_sum_batch launch reading f's rows
+    # in place from its resident stack
+    shards = list(range(S_FULL))
+    if not ex._stack_cached(holder.field("i", "f"), shards):
+        serve("Count(Intersect(Row(f=0), Row(f=1))) Count(Union(Row(f=2), Row(f=3)))", None)
+        log("bsi: f's stack was not resident; a pair batch built it")
+    if not ex._stack_cached(holder.field("i", "f"), shards):
+        raise AssertionError("bsi: f's stack is not resident for the flight")
+    flight = [f"Sum(Row(f={r}), field=v)" for r in range(BSI_SUMS)]
+    sums, lat["batch_sums_ms"] = serve(None, {"bsi_sum_batch": 1}, batch=flight)
     f_mirror = mirror_stack(holder, "f", R_FULL + 1, S_FULL)
-    check(f"{BSI_SUMS} filtered sums", [valcount(x) for x in sums],
-          truth_filtered_sums(f_mirror, vals, exv, list(range(BSI_SUMS)), torch.device(device),
-                              pool, qrng))
+    want_sums = truth_filtered_sums(f_mirror, vals, exv, list(range(BSI_SUMS)),
+                                    torch.device(device), pool, qrng)
+    check(f"{BSI_SUMS} filtered sums", [valcount(x) for x in sums], want_sums)
+    # the route the flight had before: the same Sums one at a time, each
+    # filter made on the host and one bsi_sum launch
+    t = time.perf_counter()
+    lone = [valcount(serve(q, {"bsi_sum": 1})[0][0]) for q in flight]
+    lat["lone_sums_ms"] = (time.perf_counter() - t) * 1e3
+    check(f"{BSI_SUMS} lone filtered sums", lone, want_sums)
+    # 8 Sums whose filters are trees, made on the host: one launch
+    # (twice: the first flight also pins its host buffer)
+    g_mirror = mirror_stack(holder, "g", R_FULL, S_FULL)
+    tree_flight = [f"Sum(Intersect(Row(f={r}), Row(g={r + 1})), field=v)" for r in range(8)]
+    trees, lat["batch_tree_sums_ms"] = serve(None, {"bsi_sum_batch": 1}, batch=tree_flight)
+    again, lat["batch_tree_sums_again_ms"] = serve(None, {"bsi_sum_batch": 1}, batch=tree_flight)
+    want_trees = truth_filtered_sums(f_mirror[:, :8] & g_mirror[:, 1:9], vals, exv,
+                                     list(range(8)), torch.device(device), pool, qrng, k=2)
+    check("8 tree-filtered sums", [valcount(x) for x in trees], want_trees)
+    check("8 tree-filtered sums again", [valcount(x) for x in again], want_trees)
 
     # -- Min/Max, unfiltered and filtered; MinRow/MaxRow of f
     g5 = set_row_bits(holder, "g", 5, pool)
@@ -2609,7 +2720,6 @@ def bsi_path(pool, ex, holder, device, keep=None):
     (groups,), lat["groupby_filtered_ms"] = serve(
         "GroupBy(Rows(f), Rows(g), filter=Row(v > 250000))", {"bsi_range": 1})
     answer = [(tuple(fr.row_id for fr in gc.group), gc.count) for gc in groups]
-    g_mirror = mirror_stack(holder, "g", R_FULL, S_FULL)
     dev = torch.device(device)
     want_groups = truth_groupby([bitops.to_device(f_mirror, dev), bitops.to_device(g_mirror, dev)],
                                 bitops.to_device(filt_np, dev))
@@ -2662,7 +2772,11 @@ def bsi_path(pool, ex, holder, device, keep=None):
         f"{lat['count_cached_ms']:.2f} ms; {BSI_Q} range counts in one launch "
         f"{lat['batch_counts_ms']:.1f} ms; Sum {lat['sum_ms']:.1f} ms (cached "
         f"{lat['sum_cached_ms']:.2f}), filtered {lat['sum_filtered_ms']:.1f} ms, "
-        f"{BSI_SUMS} filtered Sums in a batch {lat['batch_sums_ms']:.1f} ms; Max(v) "
+        f"{BSI_SUMS} filtered Sums in a batch {lat['batch_sums_ms']:.1f} ms (one "
+        f"bsi_sum_batch launch, f's rows in place; as {BSI_SUMS} lone queries "
+        f"{lat['lone_sums_ms']:.1f} ms), 8 Sums filtered by trees made on the host in a "
+        f"batch {lat['batch_tree_sums_ms']:.1f} ms (one launch; again "
+        f"{lat['batch_tree_sums_again_ms']:.1f} ms); Max(v) "
         f"{lat['max_v_ms']:.1f} ms; GroupBy filtered by v {lat['groupby_filtered_ms']:.0f} ms "
         f"({checked} combinations sampled against numpy); writes seen by the next Range, "
         f"Sum and Min/Max (stacks patched); every answer equals numpy; queries "
@@ -2754,6 +2868,9 @@ def mesh_truths(pool, holder, device, decoded, reads, args):
         "bsi_sum": [("valcount", *truth_sum(pool, vals, lambda s: exv[s]))],
         "bsi_minmax": [("valcount", *truth_extreme(pool, vals, lambda s: exv[s], False)),
                        ("valcount", *truth_extreme(pool, vals, lambda s: exv[s], True))],
+        "bsi_sum_flight": [("valcount", *vc) for vc in truth_filtered_sums(
+            mirrors["f"], vals, exv, list(range(BSI_SUMS)), torch.device(device), pool,
+            np.random.default_rng(SEED + 19), k=2)],
         "groupby": [[("group", combo, n) for combo, n in truth_groupby([f, g])]],
         "groupby3_filtered": [[("group", combo, n) for combo, n in
                                truth_groupby([h, g, f], h[:, 1])]],
@@ -2818,6 +2935,8 @@ def mesh_local(pool, holder, device, decoded, on_timed=None):
         "bsi_range": "Count(Row(v < 500000)) Count(Row(v > 250000))",
         "bsi_sum": "Sum(field=v)",
         "bsi_minmax": "Min(field=v) Max(field=v)",
+        # the bsi path's flight: f's rows in place from its resident stack
+        "bsi_sum_flight": " ".join(f"Sum(Row(f={r}), field=v)" for r in range(BSI_SUMS)),
     }
     args = {"rows": rows, "pairs": pairs}
     lat = {}
@@ -4309,8 +4428,9 @@ HTTP_WARM_REPS = 3
 # the 64-row field the http path imports through import-roaring, its shards
 R_IMPORT_ROWS, R_IMPORT_SHARDS = 64, 8
 # (row, column, timestamp) pairs of the JSON import into a YMDH field (2^20
-# before the loadgen path needed the time; a depth cut, see DEPTH_CUTS)
-TT_PAIRS = 1 << 19
+# before the loadgen path and the batched sum needed the time; a depth cut,
+# see DEPTH_CUTS)
+TT_PAIRS = 1 << 18
 TT_ROWS, TT_HOURS = 4, 6
 # values of the JSON import into an int field
 U_VALUES = 1 << 18
@@ -6621,12 +6741,16 @@ def set_mesh(nodes, on):
 ELASTIC_AE_FRAGMENTS, ELASTIC_AE_BITS = 4, 1500
 ELASTIC_WR_ROWS = 4
 # clients posting the read mix during each resize (16 before the mesh path
-# needed the time: each flip's stack rebuilds queued behind their reads)
-ELASTIC_CLIENTS = 4
+# and 4 before the batched sum needed the time: each flip's stack rebuilds
+# queued behind their reads)
+ELASTIC_CLIENTS = 2
 # the writer's pause between writes (at most about 200 a second)
 ELASTIC_WR_PAUSE = 0.005
 # seconds the membership steps wait at most for a DOWN or READY mark
 ELASTIC_MARK_TIMEOUT = 60.0
+# steps 8-9 (a node added and one removed online, 2-5 minutes): run with
+# ``--resize`` only, since the script outgrew the run's time limit with them
+CLUSTER_RESIZE = False
 
 
 def elastic_stages(which):
@@ -6845,8 +6969,8 @@ def moved_bytes(nodes):
 
 def cluster_elastic(ctx):
     """Steps 7-9 of the cluster path on the loaded cluster (step 6 runs
-    inside step 5): anti-entropy, then a node added and one removed
-    online."""
+    inside step 5): anti-entropy, then, with :data:`CLUSTER_RESIZE`, a
+    node added and one removed online."""
     import numpy as np
 
     from pilosa_tpu_torch.ops import kernels as tk
@@ -6903,9 +7027,10 @@ def cluster_elastic(ctx):
     if set_field == "ae":
         n0.api.create_field("i", "ae")
     shards = [int(s) for s in rng.choice(S_FULL, ELASTIC_AE_FRAGMENTS, replace=False)]
-    # one f fragment (two before the loadgen path needed the time: the
-    # round merges a diverged block's 64 dense rows, 16.8 M pairs, slowly)
-    plan = [("f", shards[0], "clear"), ("h", shards[1], "clear"), ("h", shards[2], "clear"),
+    # h fragments only (one f fragment before the script's time limit
+    # needed the time, two before the loadgen path did: the round merges a
+    # diverged block's 64 dense rows of f, 16.8 M pairs, in 20-55 s)
+    plan = [("h", shards[0], "clear"), ("h", shards[1], "clear"), ("h", shards[2], "clear"),
             (set_field, shards[3], "set")]
     by_id = {nd.node_id: nd for nd in nodes}
     before_set = clis[0].query("i", f"Count(Row({set_field}=6))")[0]
@@ -6966,6 +7091,8 @@ def cluster_elastic(ctx):
         f"{launched}")
 
     # -- 8. a node added online, then 9. a node removed, each under load
+    if not CLUSTER_RESIZE:
+        return out
     n0.api.create_field("i", "wr")
     for step, tag in ((8, "add"), (9, "remove")):
         before = cluster_load_window(nodes, ctx["mix"], ctx["serial"], CLUSTER_SECONDS,
@@ -7122,12 +7249,13 @@ def cluster_path(pool, device, hand):
     deleted after step 6 (a ``reduced:`` line says so).
 
     7. anti-entropy: one replica of 4 fragments diverged directly (bits of
-       one f and two h fragments cleared, bits of a row no read of the mix
-       touches set), one
+       three h fragments cleared, bits of a row no read of the mix touches
+       set), one
        ``sync_holder`` round on every node; the replicas equal word for
        word, every read exact on both routes, the mesh route launching
        kernels;
-    8. a fourth node joins online through node 0's resize coordinator while
+    8. (with ``--resize``, :data:`CLUSTER_RESIZE`) a fourth node joins
+       online through node 0's resize coordinator while
        16 clients post the read mix and a writer sets bits through node 1:
        the resize's seconds, bytes and MB/s, the reads' p50/p99 during it
        against a window before; then every acknowledged write on both of
@@ -7550,9 +7678,14 @@ def cluster_path(pool, device, hand):
 
         # -- 7-9 run over f, h and v: w (no read of the mix touches it) goes
         # first
-        log("reduced: cluster step 7 diverges one fragment of f and two of h, was two of f "
-            "and one of h (for the loadgen path's time)")
-        out["reduced"].append("cluster step 7: one f fragment diverged, was two")
+        log("reduced: cluster step 7 diverges three fragments of h, was two of f and one of h "
+            "(for the loadgen path's and a slower machine's time)")
+        out["reduced"].append("cluster step 7: no f fragment diverged, was two")
+        if not CLUSTER_RESIZE:
+            msg = ("cluster steps 8-9 (a node added and one removed online under load) not "
+                   "run, were run by default; --resize runs them (for a slower machine's time)")
+            out["reduced"].append(msg)
+            log("reduced: " + msg)
         cut_bytes = S_FULL * W_FULL * 4 * (2 + BSI_DEPTH)
         kept_bytes = S_FULL * W_FULL * 4 * (f_np.shape[1] + H_ROWS + 2 + BSI_DEPTH)
         api0.delete_field("i", "w")
@@ -7595,7 +7728,7 @@ def cluster_path(pool, device, hand):
 # the load harness's plan: eight stages of 5 s from 16 workers, at the base
 # open-loop rate (ops/s) of the command line's plan, warm at half of it and
 # overload at twice it
-LOADGEN_SECONDS = 28.0
+LOADGEN_SECONDS = 22.0
 LOADGEN_WORKERS = 16
 LOADGEN_PLAN_RATE = 100.0
 # the base rate this path offers: at the serving size a Row answer carries
@@ -8092,6 +8225,14 @@ def drive(path, required, fn):
 
 
 def main() -> int:
+    global CLUSTER_RESIZE
+    import argparse
+
+    ap = argparse.ArgumentParser(description="Smoke run of pilosa_tpu_torch on one CUDA card")
+    ap.add_argument("--resize", action="store_true",
+                    help="also run the cluster path's steps 8-9: a node added and one "
+                         "removed online under load (2-5 minutes more)")
+    CLUSTER_RESIZE = ap.parse_args().resize
     if not (HERE / "pilosa_tpu_torch" / "__init__.py").is_file():
         print("chip_smoke.py must run from a checkout holding pilosa_tpu_torch/",
               file=sys.stderr)
@@ -8136,6 +8277,12 @@ def main() -> int:
     sass["tree_count"] = tree_sass_counts(counts)
     log(f"tree_count: tensor-core MMA instructions in the staged kernel's SASS "
         f"{sass['tree_count']}")
+    sass["bsi_sum_batch"] = {fn: n for fn, n in counts.items() if "pilosa_bsi_sum_batch" in fn}
+    if not sass["bsi_sum_batch"] or min(sass["bsi_sum_batch"].values()) == 0:
+        raise AssertionError(f"bsi_sum_batch: no tensor-core MMA in its SASS "
+                             f"{sass['bsi_sum_batch']}")
+    log(f"bsi_sum_batch: tensor-core MMA instructions in SASS by instance "
+        f"{sass['bsi_sum_batch']}")
     t = time.perf_counter()
     kern = check_kernels(stack, stack2, filt, torch.device("cuda"))
     log(f"scan and gram kernels checked and timed in {time.perf_counter() - t:.1f} s")
@@ -8144,7 +8291,7 @@ def main() -> int:
     log(f"tree kernels checked and timed in {time.perf_counter() - t:.1f} s")
     del stack, stack2, filt
     t = time.perf_counter()
-    kern.update(check_bsi_kernels(torch.device("cuda")))
+    kern.update(check_bsi_kernels(torch.device("cuda"), kern["mma_macs_per_s"]))
     log(f"bsi kernels checked and timed in {time.perf_counter() - t:.1f} s")
 
     try:
@@ -8174,16 +8321,18 @@ SOURCES = {
                   "pilosa_tpu/ops/bsi.py:525 _range_count_batch_kernel and :475 "
                   "_range_batch_kernel (XLA, no pallas_call)"),
     "bsi_sum": ("pilosa_tpu_torch/ops/csrc/bsi.cu",
-                "pilosa_tpu/ops/bsi.py:629 _sum_batch_kernel and :145 sum_count "
-                "(XLA, no pallas_call)"),
+                "pilosa_tpu/ops/bsi.py:145 sum_count (XLA, no pallas_call)"),
+    "bsi_sum_batch": ("pilosa_tpu_torch/ops/csrc/bsi_sum_batch.cu",
+                      "pilosa_tpu/ops/bsi.py:628 _sum_batch_kernel (XLA, no pallas_call)"),
     "bsi_extreme": ("pilosa_tpu_torch/ops/csrc/bsi.cu",
                     "pilosa_tpu/ops/bsi.py:211 _min_max_fused (XLA, no pallas_call)"),
 }
 
 
-# depths cut to pay for the loadgen and mesh paths' seconds: (what, was, is,
-# for which path); the cluster path logs its own three cuts (g not loaded, w
-# out of steps 7-9, one f fragment diverged in step 7) where it makes them
+# depths cut to pay for the loadgen and mesh paths' and the batched sum's
+# seconds: (what, was, is, for which path); the cluster path logs its own four cuts (g not
+# loaded, w out of steps 7-9, no f fragment diverged in step 7, steps 8-9 only with
+# --resize) where it makes them
 DEPTH_CUTS = (
     ("http path: the 16-client window, s", 5.0, HTTP_SECONDS, "the loadgen path's"),
     ("serving path: each 16-client window, s", 5.0, SERVE_SECONDS, "the loadgen path's"),
@@ -8197,10 +8346,11 @@ DEPTH_CUTS = (
     ("cluster path: pairs of windows, planes on and off", 2, CLUSTER_AB_PAIRS,
      "the loadgen path's"),
     ("http path: timestamped pairs of the JSON import", 1 << 20, TT_PAIRS,
-     "the loadgen path's"),
+     "the loadgen path's and the batched sum's"),
     ("cluster steps 8-9: clients reading during each resize", 16, ELASTIC_CLIENTS,
-     "the mesh path's"),
-    ("loadgen path: the plan's nominal seconds", 40.0, LOADGEN_SECONDS, "the mesh path's"),
+     "the mesh path's and the batched sum's"),
+    ("loadgen path: the plan's nominal seconds", 40.0, LOADGEN_SECONDS,
+     "the mesh path's and the batched sum's"),
 )
 
 
@@ -8225,7 +8375,7 @@ def serve(kern, sass, card, t_start) -> int:
         l_trees, e2e["trees"] = drive("trees", ("tree_count", "tree_words"),
                                       lambda: trees_path(pool, ex, holder, "cuda"))
         decoded = {}
-        l_bsi, e2e["bsi"] = drive("bsi", ("bsi_range", "bsi_sum", "bsi_extreme"),
+        l_bsi, e2e["bsi"] = drive("bsi", ("bsi_range", "bsi_sum", "bsi_extreme", "bsi_sum_batch"),
                                   lambda: bsi_path(pool, ex, holder, "cuda", decoded))
         l_mesh, e2e["mesh"] = drive("mesh", tuple(sorted(SOURCES)),
                                     lambda: mesh_path(pool, holder, "cuda", decoded))
@@ -8250,11 +8400,14 @@ def serve(kern, sass, card, t_start) -> int:
         del ex, holder
         gc.collect()
         torch.cuda.empty_cache()
+        # (no flight of filtered Sums in the http reads either)
         l_http, e2e["http"] = drive(
-            "http", tuple(sorted(l_pair)),
+            "http", tuple(k for k in sorted(l_pair) if k != "bsi_sum_batch"),
             lambda: http_path(pool, "cuda", hand, decoded["v"]))
+        # (the serving mix holds no flight of filtered Sums: bsi_sum_batch is
+        # the bsi and mesh paths')
         l_serving, e2e["serving"] = drive(
-            "serving", tuple(sorted(SOURCES)),
+            "serving", tuple(k for k in sorted(SOURCES) if k != "bsi_sum_batch"),
             lambda: serving_path(pool, "cuda", hand, decoded["v"]))
         l_obs, e2e["obs"] = drive(
             "obs", OBS_KERNELS, lambda: obs_path(pool, "cuda", hand, decoded["v"]))
@@ -8313,6 +8466,9 @@ def serve(kern, sass, card, t_start) -> int:
                 bound_ops_rate="single-bit MMA, measured in this run",
                 mma_macs_per_s=kern["mma_macs_per_s"],
             )
+        for key in ("mma_floors", "library_ms_by_q", "bsi_sum_ms_by_q"):  # the batched sum
+            if key in v:
+                entries[-1][key] = v[key]
         if "tree_route" in v:  # the tree count: the plan's route at each shape
             entries[-1].update(sass_mma_by_instance=sass[k], tree_route=v["tree_route"],
                                **{f"{sh}_tree_route": r for sh, r in v["extra_routes"].items()})

@@ -32,7 +32,9 @@ serve these queries, each through the kernels of ``ops/kernels.py``:
   aggregates and repeat range counts are cached per stack snapshot
   (:meth:`_bsi_agg_cache`). A batch shares one launch per field and op
   class (:meth:`_batch_bsi`): Q conditions or range counts one range scan,
-  Q filtered Sums one sum launch while their filter words fit a budget.
+  Q filtered Sums one ``bsi_sum_batch`` launch on the tensor cores, each
+  ``Row(f=r)`` filter read in place from f's resident stack, every other
+  filter made on the host (in chunks of a filter budget).
 
 With a serving mesh (``parallel/mesh.py``: a host's CUDA devices, or the
 devices ``configure_serving(devices=...)`` names) every stack is laid over
@@ -257,6 +259,10 @@ class Executor:
     # scalar aggregates kept per BSI stack snapshot (Sum, Min/Max and
     # repeat range counts, a few ints each)
     _BSI_AGG_SLOTS = 128
+    # host-made filter words ([S, Q, W]) one fused Sum launch takes (JAX's
+    # _BSI_SUM_FILTER_BUDGET_BYTES, executor.py:1640); a longer flight's
+    # go in chunks of this size
+    _BSI_SUM_FILTER_BUDGET_BYTES = 256 << 20
 
     def __init__(
         self,
@@ -2352,39 +2358,129 @@ class Executor:
         self, idx: Index, field: Field, bits: torch.Tensor, sum_items, shard_list,
         calls: list[Call], results: list[Any],
     ) -> None:
-        """Unfiltered Sums share the cached stacked aggregate; each filtered
-        one takes one bsi_sum launch over its own filter. (One launch for a
-        flight's ``[S, Q, W]`` filter words, made and uploaded from the
-        host, cost more per filter than these launches.)"""
+        """Unfiltered Sums share the cached stacked aggregate; a lone
+        filtered Sum takes one bsi_sum launch over its filter. Two or more
+        filtered Sums are one flight (JAX's fused flight,
+        executor.py:1844-1912): one bsi_sum_batch launch per filter source
+        and chunk (:meth:`_sum_flight`)."""
         depth = field.bit_depth
 
         def compute(p, e, s, fw):
             return bsi.sum_host(p, e, s, fw, depth=depth)
 
-        filtered = []
+        in_place: list[tuple[int, tuple[Field, int]]] = []
+        made: list[tuple[int, Row]] = []
         for i, _ in sum_items:
-            try:
-                filt = self._sum_filter(idx, calls[i], shard_list)
-            except Exception:  # the per-call path raises per query
-                self.bsi_batch_item_errors += 1
-                continue
-            if filt is None:
+            if not calls[i].children:
                 tc = self._bsi_agg_serve(field, (bits, None, shard_list), "sum", compute)
                 results[i] = self._sum_valcount(field, tc)
+                continue
+            row = self._sum_row_in_place(idx, calls[i])
+            if row is not None:
+                in_place.append((i, row))
             else:
-                filtered.append((i, filt))
-        if len(filtered) < 2:
-            self._sum_filtered(field, bits, filtered, shard_list, results, compute)
+                self._made_filter(idx, calls[i], shard_list, i, made)
+        if len(in_place) + len(made) < 2:
+            for i, _ in in_place:
+                self._made_filter(idx, calls[i], shard_list, i, made)
+            for i, filt in made:
+                tc = self._bsi_agg_serve(field, (bits, filt, shard_list), "sum", compute)
+                results[i] = self._sum_valcount(field, tc)
             return
-        # a flight of filtered Sums: the span JAX opens around its fused
-        # launch of the same flight
-        with tracing.start_span("executor.bsiSumBatch").set_tag("n", len(filtered)):
-            self._sum_filtered(field, bits, filtered, shard_list, results, compute)
+        with tracing.start_span("executor.bsiSumBatch").set_tag(
+            "n", len(in_place) + len(made)
+        ):
+            self._sum_flight(idx, field, bits, in_place, made, shard_list, calls, results)
 
-    def _sum_filtered(self, field, bits, filtered, shard_list, results, compute) -> None:
-        for i, filt in filtered:
-            tc = self._bsi_agg_serve(field, (bits, filt, shard_list), "sum", compute)
-            results[i] = self._sum_valcount(field, tc)
+    def _made_filter(self, idx: Index, call: Call, shard_list, i: int, made: list) -> None:
+        """Evaluate a Sum's filter on the host into ``made``; a filter that
+        fails leaves its item to the per-call path, which raises it."""
+        try:
+            made.append((i, self._sum_filter(idx, call, shard_list)))
+        except Exception:
+            self.bsi_batch_item_errors += 1
+
+    @staticmethod
+    def _sum_row_in_place(idx: Index, call: Call) -> tuple[Field, int] | None:
+        """``(field, row id)`` when a Sum's one filter is a plain ``Row(f=r)``
+        of a set-like field's standard view, which a resident stack of the
+        field holds; None otherwise."""
+        if len(call.children) != 1:
+            return None
+        rc = call.children[0]
+        if rc.name != "Row" or rc.children:
+            return None
+        fname = rc.field_arg()
+        if fname is None or set(rc.args) != {fname}:
+            return None
+        v = rc.args.get(fname)
+        if not isinstance(v, int) or isinstance(v, bool) or v < 0:
+            return None
+        f = idx.field(fname)
+        if f is None or f.is_bsi() or f.view(VIEW_STANDARD) is None:
+            return None
+        return f, v
+
+    def _resident_stack(self, field: Field, shard_list: list[int], bits):
+        """``(slot_of, stack)`` of the field's standard view over
+        ``shard_list`` when it is cached already (patched first after
+        writes), not declined and laid out as ``bits``; None otherwise. It
+        never builds a stack that is not there."""
+        if not self._stack_cached(field, shard_list):
+            return None
+        stack = self._field_stack(field, shard_list)
+        if stack is None or stack is STACK_DECLINED:
+            return None
+        fbits = stack[1]
+        if sharded.is_sharded(fbits) != sharded.is_sharded(bits):
+            return None
+        if sharded.is_sharded(bits) and (fbits.bounds, fbits.mesh) != (bits.bounds, bits.mesh):
+            return None
+        return stack
+
+    def _sum_flight(
+        self, idx: Index, field: Field, bits, in_place, made, shard_list,
+        calls: list[Call], results: list[Any],
+    ) -> None:
+        """A flight of filtered Sums on one field. A ``Row(f=r)`` filter
+        whose field has a resident stack is read there in place (its slot;
+        -1 for an absent row), one launch per such field; every other
+        filter is made on the host into ``[S, Q, W]`` words, uploaded from
+        pinned memory in chunks of _BSI_SUM_FILTER_BUDGET_BYTES, one launch
+        a chunk. A fault in a launch raises within the flight."""
+        depth = field.bit_depth
+        exists, sign, planes = self._bsi_split(bits)
+
+        def launch(operand, slots, items):
+            self.bsi_stack_launches += 1
+            pairs = bsi.sum_batch_host(planes, exists, sign, operand, depth=depth, idx=slots)
+            for i, tc in zip(items, pairs):
+                results[i] = self._sum_valcount(field, tc)
+
+        by_field: dict[Field, list[tuple[int, int]]] = {}
+        for i, (f, row) in in_place:
+            by_field.setdefault(f, []).append((i, row))
+        for f, items in by_field.items():
+            stack = self._resident_stack(f, shard_list, bits)
+            if stack is None:
+                for i, _ in items:
+                    self._made_filter(idx, calls[i], shard_list, i, made)
+                continue
+            slot_of, fbits = stack
+            launch(fbits, [slot_of.get(r, -1) for _, r in items], [i for i, _ in items])
+        S, W = len(shard_list), self.holder.n_words
+        per = max(1, self._BSI_SUM_FILTER_BUDGET_BYTES // (bits.shape[0] * W * 4))
+        for q0 in range(0, len(made), per):
+            chunk = made[q0 : q0 + per]
+            host_t, host = bitops.pinned_words((S, len(chunk), W), bits.device)
+            for q, (_, row) in enumerate(chunk):
+                for si, s in enumerate(shard_list):
+                    seg = row.segments.get(s)
+                    if seg is not None:
+                        host[si, q] = seg
+            # a mesh's wrapper cuts the host words at the stack's bounds
+            words = host_t if sharded.is_sharded(bits) else bitops.upload(host_t, bits.device)
+            launch(words, list(range(len(chunk))), [i for i, _ in chunk])
 
     # ---------------------------------------------------------------- writes
 

@@ -156,15 +156,37 @@ def to_device(words: np.ndarray, device: torch.device) -> torch.Tensor:
     t = torch.from_numpy(arr)
     if torch.device(device).type == "cpu":
         return t.clone()
-    # the port's host-to-card funnel: the bytes go on the device ledger
-    # (under the enclosing launch window's site, an upload or a prefetch,
-    # where there is one) and the active query profile
-    (devledger.active_window_site() or _DL_H2D).record_transfer(arr.nbytes, "h2d")
-    qprofile.incr("transfer_h2d_bytes", arr.nbytes)
+    _book_h2d(arr.nbytes)
     stager = streams.current_stager()
     if stager is not None and stager.device == streams.card(device):
         return stager.upload(arr)
     return t.to(device)
+
+
+def _book_h2d(nbytes: int) -> None:
+    """The port's host-to-card funnel: the bytes go on the device ledger
+    (under the enclosing launch window's site, an upload or a prefetch,
+    where there is one) and the active query profile."""
+    (devledger.active_window_site() or _DL_H2D).record_transfer(nbytes, "h2d")
+    qprofile.incr("transfer_h2d_bytes", nbytes)
+
+
+def pinned_words(shape, device) -> tuple[torch.Tensor, np.ndarray]:
+    """A zeroed ``int32`` host tensor of ``shape`` and its ``uint32`` numpy
+    view, in pinned memory when ``device`` is a card: words filled there
+    reach the card in one copy (:func:`upload`) with no staging."""
+    t = torch.zeros(shape, dtype=torch.int32, pin_memory=torch.device(device).type == "cuda")
+    return t, t.numpy().view(np.uint32)
+
+
+def upload(t: torch.Tensor, device: torch.device) -> torch.Tensor:
+    """A host ``int32`` tensor (:func:`pinned_words`) on ``device``, booked
+    as :func:`to_device` books its bytes; from pinned memory the copy is
+    queued on the current stream without waiting for it."""
+    if torch.device(device).type == "cpu":
+        return t
+    _book_h2d(t.numel() * t.element_size())
+    return t.to(device, non_blocking=t.is_pinned())
 
 
 def to_host(t: torch.Tensor) -> np.ndarray:

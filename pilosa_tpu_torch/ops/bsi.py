@@ -6,8 +6,9 @@ an exists row, a sign row and ``depth`` magnitude planes, LSB first.
 Values are offset from the field's base, sign/magnitude: stored = value -
 base, the sign row holds stored < 0 and the planes hold abs(stored).
 
-Three hand-written CUDA kernels (``ops/csrc/bsi.cu``) replace the XLA
-programs of the JAX package, none of which is a Pallas kernel:
+Four hand-written CUDA kernels (``ops/csrc/bsi.cu`` and
+``ops/csrc/bsi_sum_batch.cu``) replace the XLA programs of the JAX
+package, none of which is a Pallas kernel:
 
 * **bsi_range** (:func:`bsi_range`) evaluates ``Q`` encoded range
   predicates (:func:`encode_query_bounds`) in one pass over the planes,
@@ -20,9 +21,15 @@ programs of the JAX package, none of which is a Pallas kernel:
   block, each with the output row it writes in the caller's order.
 * **bsi_sum** (:func:`bsi_sum`) writes per shard the popcounts
   ``int32[S, Q, depth+1, 2]`` of every plane ANDed with ``exists & filter_q``
-  and split by sign, plus the exists counts; :func:`sum_count`,
-  :func:`sum_host` and :func:`sum_batch_host` combine them on the host in
-  Python ints, so totals past 2^63 stay exact.
+  and split by sign, plus the exists counts; :func:`sum_count` and
+  :func:`sum_host` combine them on the host in Python ints, so totals past
+  2^63 stay exact.
+* **bsi_sum_batch** (:func:`bsi_sum_batch`) answers a flight of filtered
+  Sums at once on the tensor cores (single-bit MMA): the totals
+  ``[depth+1, 2, Q]`` over the shards, each filter a row of any
+  ``[S, R, W]`` operand read in place through an index array, so a
+  ``Row`` of a resident stack needs no copy; :func:`sum_batch_host`
+  combines them as :func:`sum_host` does.
 * **bsi_extreme** (:func:`bsi_extreme`) narrows both sign branches of
   Min/Max from the top plane down, per shard and slice of
   BSI_EXTREME_SLICE words, writing ``(has_a, has_b, mag_a, cnt_a, mag_b,
@@ -766,28 +773,138 @@ def sum_host(planes, exists, sign, filter_words, *, depth: int) -> tuple[int, in
     return _place_value(acc[:depth, 0], acc[:depth, 1]), int(acc[depth].sum())
 
 
-# int32 ceiling of JAX's fused Sum accumulator (per-plane popcounts summed
-# across shards on the device); the port's counts stay per shard, so no
-# caller of the port gates on it
+# ---------------------------------------------------------------------------
+# bsi_sum_batch: a flight's filtered Sums in one launch, on the tensor cores
+# ---------------------------------------------------------------------------
+
+# int32 ceiling of one bsi_sum_batch launch's totals (JAX's fused Sum
+# accumulator, the per-plane popcounts summed across shards on the device):
+# past it, the wrapper launches shard chunks and sums them in int64
 _SUM_BATCH_ACC_LIMIT = 2**31 - 1
+# the deepest field bsi_sum_batch takes (bsi_sum's limit)
+BSI_SUM_BATCH_MAX_DEPTH = 64
 
 
 def sum_batch_supported(S: int, W: int) -> bool:
-    """Whether the batched Sum may take the whole stack at once (JAX's
+    """Whether one bsi_sum_batch launch may take the whole stack (JAX's
     decline gate: its accumulator holds S * W * 32 columns in int32)."""
     return S * W * 32 <= _SUM_BATCH_ACC_LIMIT
 
 
-def sum_batch_host(planes, exists, sign, filters, *, depth: int) -> list[tuple[int, int]]:
-    """Batched Sum: ``[(sum, count), ...]`` per filter of ``filters``
-    (``[S, Q, W]``; pass exists rows for unfiltered queries), one bsi_sum
-    launch; the place-value combine in Python ints."""
+def _filter_rows(name: str, filt_bits, filt_idx, S: int, W: int, one: bool):
+    """``(int32[S, R, W] operand, int32 numpy index)``: the operand's
+    shard and row strides are free, its words contiguous; each index is a
+    row of it or -1 (a zero row)."""
+    if isinstance(filt_bits, torch.Tensor) and one and filt_bits.dim() == 2:
+        filt_bits = filt_bits[None]
+    _check_rows(name, filt_bits, 3)
+    if filt_bits.shape[0] != S or filt_bits.shape[2] != W:
+        raise ValueError(f"{name}: filter shape {tuple(filt_bits.shape)} against {(S, W)}")
+    idx = np.asarray(filt_idx, dtype=np.int64).reshape(-1)
+    R = filt_bits.shape[1]
+    if idx.size and (idx.min() < -1 or idx.max() >= R):
+        raise ValueError(f"{name}: filter index out of range [-1, {R})")
+    return filt_bits, idx.astype(np.int32)
+
+
+def bsi_sum_batch_plain(planes, exists, sign, filt_bits, filt_idx) -> torch.Tensor:
+    """Plain version of bsi_sum_batch over stacked operands: ``int64[depth
+    + 1, 2, Q]``, the sign-split rows ANDed with every live filter and
+    counted, a few filters at a time."""
+    S, depth, W = planes.shape
+    idx = np.asarray(filt_idx, dtype=np.int64).reshape(-1)
+    dev = planes.device
+    out = torch.zeros((depth + 1, 2, idx.size), dtype=torch.int64, device=dev)
+    live = np.flatnonzero(idx >= 0)
+    if not (live.size and S and W):
+        return out
+    classes = (exists & ~sign, exists & sign)
+    for c0 in range(0, live.size, 8):
+        sel = live[c0:c0 + 8]
+        f = filt_bits.index_select(1, torch.from_numpy(idx[sel]).to(dev))  # [S, L, W]
+        cols = torch.from_numpy(sel).to(dev)
+        for k in range(depth + 1):
+            for c, m in enumerate(classes):
+                a = m if k == depth else planes[:, k] & m
+                n = bitops.popcount(a[:, None, :] & f).sum(dim=(0, 2), dtype=torch.int64)
+                out[k, c].index_copy_(0, cols, n)
+    return out
+
+
+def _sum_batch_launch(planes, exists, sign, filt_bits, idx: np.ndarray) -> torch.Tensor:
+    """One bsi_sum_batch launch (the plain version on the CPU): int64
+    totals of a shard chunk whose totals fit int32."""
+    if _cpu("bsi_sum_batch", planes, exists, sign, filt_bits):
+        return bsi_sum_batch_plain(planes, exists, sign, filt_bits, idx)
+    S, depth, W = planes.shape
+    dev = planes.device
+    out = torch.zeros((depth + 1, 2, idx.size), dtype=torch.int32, device=dev)
+    if not (idx.size and S and W):
+        return out.to(torch.int64)
+    reads = [exists, sign, filt_bits] + ([planes] if depth else [])
+    # 16-byte copies: every row aligned at every shard
+    vec16 = (W % 4 == 0 and filt_bits.stride(1) % 4 == 0
+             and all(t.data_ptr() % 16 == 0 and t.stride(0) % 4 == 0 for t in reads))
+    dev_idx = kernels._upload(idx.tobytes(), dev)  # from pinned memory, no wait
+    with kernels._launching("bsi_sum_batch", dev):
+        kernels._launch(
+            "pilosa_bsi_sum_batch", planes.data_ptr(), planes.stride(0), W,
+            exists.data_ptr(), exists.stride(0), sign.data_ptr(), sign.stride(0),
+            filt_bits.data_ptr(), filt_bits.stride(0), filt_bits.stride(1),
+            dev_idx.data_ptr(), idx.size, depth, S, W, int(vec16), out.data_ptr(),
+            dev.index, kernels._stream(dev),
+        )
+    return out.to(torch.int64)
+
+
+def bsi_sum_batch(planes, exists, sign, filt_bits, filt_idx) -> torch.Tensor:
+    """Every filtered Sum of a flight at once: ``int64[depth + 1, 2, Q]``
+    totals over the shards, entry ``[k, c, q]`` counting the columns of
+    plane k (k < depth), or every column (k = depth), within ``exists &
+    filter_q``, non-negative (c = 0) or negative (c = 1). Filter q is row
+    ``filt_idx[q]`` of ``filt_bits`` (``int32[S, R, W]``, read in place
+    through its shard and row strides, so the rows of a resident stack or
+    an ``[S, Q, W]`` tensor alike), a zero row where the index is -1. One
+    launch while ``S * W * 32`` fits int32, else one per shard chunk,
+    summed in int64. Sharded operands: one launch a slice (the filter
+    operand sharded alike, or a tensor over the logical shard axis, cut at
+    the stack's bounds), the totals summed in int64."""
+    if _sh.is_sharded(planes):
+        _sh.same_layout("bsi_sum_batch", planes, exists, sign)
+        return _sh.total(planes, _sh.per_slice(
+            planes, lambda p, e, s, f: bsi_sum_batch(p, e, s, f, filt_idx),
+            exists, sign, filt_bits))
+    planes, exists, sign, one = _operands("bsi_sum_batch", planes, exists, sign)
+    S, depth, W = planes.shape
+    if depth > BSI_SUM_BATCH_MAX_DEPTH:
+        raise ValueError(f"bsi_sum_batch: depth {depth} over {BSI_SUM_BATCH_MAX_DEPTH}")
+    filt_bits, idx = _filter_rows("bsi_sum_batch", filt_bits, filt_idx, S, W, one)
+    chunk = max(S, 1) if sum_batch_supported(S, W) else max(1, _SUM_BATCH_ACC_LIMIT // (W * 32))
+    total = None
+    for s0 in range(0, max(S, 1), chunk):
+        s1 = s0 + chunk
+        part = _sum_batch_launch(planes[s0:s1], exists[s0:s1], sign[s0:s1],
+                                 filt_bits[s0:s1], idx)
+        total = part if total is None else total + part
+    return total
+
+
+def sum_batch_host(planes, exists, sign, filters, *, depth: int, idx=None
+                   ) -> list[tuple[int, int]]:
+    """Batched Sum: ``[(sum, count), ...]`` per filter, one bsi_sum_batch
+    launch (one per shard chunk past the int32 totals). ``filters`` is
+    ``[S, Q, W]`` (pass exists rows for unfiltered queries), or with
+    ``idx`` the operand whose rows ``idx`` (-1: none) are the filters; the
+    place-value combine in Python ints, so totals past 2^63 stay exact."""
     planes, exists, sign, one = _operands("sum_batch_host", planes, exists, sign, depth)
-    if one:
+    if one and filters.dim() == 2:
         filters = filters[None]
-    acc = bsi_sum(planes, exists, sign, filters).to(torch.int64).sum(dim=0).cpu().numpy()
+    if idx is None:
+        idx = np.arange(filters.shape[1])
+    acc = bsi_sum_batch(planes, exists, sign, filters, idx).cpu().numpy()
     return [
-        (_place_value(a[:depth, 0], a[:depth, 1]), int(a[depth].sum())) for a in acc
+        (_place_value(acc[:depth, 0, q], acc[:depth, 1, q]), int(acc[depth, :, q].sum()))
+        for q in range(acc.shape[2])
     ]
 
 

@@ -7,7 +7,9 @@
 //                them the single conditions (_range_eq_kernel :52,
 //                _range_lt_kernel :95, _range_gt_kernel :119, range_between
 //                :137);
-//   bsi_sum      sum_count (:145) and _sum_batch_kernel (:629);
+//   bsi_sum      sum_count (:145): the lone Sum, filtered or not (a
+//                flight's filtered Sums are bsi_sum_batch.cu's, on the
+//                tensor cores);
 //   bsi_extreme  _min_max_fused (:211), both extreme_mag (:194) branches.
 //
 // Operands (ops/bsi.py): planes[S, depth, W] words, a shard's planes W
@@ -41,13 +43,14 @@
 // uniform-register operands (nvcc loads them from the parameter with
 // vector shifts, slower than the shared-memory broadcast).
 //
-// bsi_sum. Bound: the POPC pipe (16 per clock per SM) for many filters,
-// bytes for one. Design: a block holds 1024 words of one shard for a tile
-// of BSI_SUM_QT filters in registers as the filtered non-negative and
-// negative columns, then reads each plane's words once and popcounts them
-// against every filter of the tile; warp reductions into shared counters,
-// one global atomic per counter and block. Left for later: the tensor
-// cores (the gram tile loop, as JAX's int8 matmul does it).
+// bsi_sum. Bound: bytes for the one filter it takes on the main path (the
+// POPC pipe, 16 per clock per SM, for many: a flight of filtered Sums goes
+// to bsi_sum_batch.cu's single-bit MMA instead). Design: a block holds
+// 1024 words of one shard for a tile of BSI_SUM_QT filters in registers as
+// the filtered non-negative and negative columns, then reads each plane's
+// words once and popcounts them against every filter of the tile; warp
+// reductions into shared counters, one global atomic per counter and
+// block.
 //
 // bsi_extreme. Bound: bytes (the stack read once). Design: a block takes a
 // slice of 2048 words of one shard, 8 per thread in registers for each

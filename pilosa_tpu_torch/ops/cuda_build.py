@@ -26,7 +26,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = (
     "row_scan.cu", "masked_row_scan.cu", "gram.cu", "cross_gram.cu", "mma_rate.cu",
-    "tree_eval.cu", "bsi.cu",
+    "tree_eval.cu", "bsi.cu", "bsi_sum_batch.cu",
 )
 HEADERS = ("scan_common.cuh", "gram_tile.cuh")
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -77,6 +77,13 @@ _SIGNATURES = {
     "pilosa_bsi_sum": (
         _VOIDP, _LL, _VOIDP, _LL, _VOIDP, _LL, _VOIDP, _LL, _LL, *(_INT,) * 4, _VOIDP,
         _INT, _VOIDP,
+    ),
+    # (planes (shard and plane strides), exists, sign, filter rows (shard
+    # and row strides), their index array, Q, depth, S, W, vec16, out,
+    # device, stream)
+    "pilosa_bsi_sum_batch": (
+        _VOIDP, _LL, _LL, _VOIDP, _LL, _VOIDP, _LL, _VOIDP, _LL, _LL, _VOIDP,
+        *(_INT,) * 5, _VOIDP, _INT, _VOIDP,
     ),
     # (planes, exists, sign, filter, depth, S, W, maximal, out, device, stream)
     "pilosa_bsi_extreme": (

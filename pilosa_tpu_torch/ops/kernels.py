@@ -81,7 +81,7 @@ LAUNCHES = {
     "row_scan": 0, "masked_row_scan": 0, "gram": 0, "cross_gram": 0,
     "tree_count": 0, "tree_words": 0,
     # ops/bsi.py's kernels
-    "bsi_range": 0, "bsi_sum": 0, "bsi_extreme": 0,
+    "bsi_range": 0, "bsi_sum": 0, "bsi_extreme": 0, "bsi_sum_batch": 0,
 }
 
 

@@ -131,6 +131,10 @@ CASES = {
     "bsi_extreme_max": (0, lambda o, lay: bsi.bsi_extreme(
         *_bsi_ops(o, lay), o.filt, maximal=True)),
     "bsi_extreme_min": (0, lambda o, lay: bsi.bsi_extreme(*_bsi_ops(o, lay), maximal=False)),
+    "bsi_sum_batch": (None, lambda o, lay: bsi.bsi_sum_batch(
+        *_bsi_ops(o, lay), lay(o.bits), [3, -1, 11, 3, 0])),
+    "sum_batch_host": (None, lambda o, lay: np.array(bsi.sum_batch_host(
+        *_bsi_ops(o, lay), o.filters, depth=DEPTH), dtype=object)),
     "sum_host": (None, lambda o, lay: np.array(bsi.sum_host(
         *_bsi_ops(o, lay), o.filt, depth=DEPTH), dtype=object)),
     "min_max_host": (None, lambda o, lay: np.array(

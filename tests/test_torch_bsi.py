@@ -524,6 +524,151 @@ def test_sum_batch_supported_matches_jax(S, W):
     assert tb.sum_batch_supported(S, W) == jb.sum_batch_supported(S, W)
 
 
+# -- the batched Sum: bsi_sum_batch -------------------------------------------
+
+
+def _jax_sum_batch(planes, exists, sign, filters) -> np.ndarray:
+    """JAX's _sum_batch_kernel (``[depth+1, 2Q]``, positive columns first)
+    as ``int64[depth + 1, 2, Q]``."""
+    acc = np.asarray(jb._sum_batch_kernel(planes, exists, sign, filters)).astype(np.int64)
+    return acc.reshape(acc.shape[0], 2, -1)
+
+
+@pytest.mark.parametrize("depth", [0, 1, 20, 63])
+@pytest.mark.parametrize("Q", [1, 4, 9, 17])
+def test_sum_batch_matches_jax(depth, Q):
+    """The plain version, the wrapper and sum_batch_host against JAX's
+    fused kernel and sum_batch_host, with an unfiltered query (the exists
+    row) and an empty filter among the filters; equal, no tolerance."""
+    rng = np.random.default_rng(900 + 31 * depth + Q)
+    planes, exists, sign = _stack(rng, 3, depth, 40)
+    filters = _words(rng, 3, Q, 40) & _words(rng, 3, Q, 40)
+    filters[:, Q // 2] = exists
+    filters[:, Q - 1] = 0 if Q > 1 else filters[:, Q - 1]
+    P, E, G, F = _t(planes), _t(exists), _t(sign), _t(filters)
+    want = _jax_sum_batch(planes, exists, sign, filters)
+    np.testing.assert_array_equal(tb.bsi_sum_batch_plain(P, E, G, F, np.arange(Q)).numpy(), want)
+    np.testing.assert_array_equal(tb.bsi_sum_batch(P, E, G, F, range(Q)).numpy(), want)
+    assert tb.sum_batch_host(P, E, G, F, depth=depth) == jb.sum_batch_host(
+        planes, exists, sign, filters, depth=depth)
+
+
+@pytest.mark.parametrize("depth", [0, 1, 20, 63])
+def test_sum_batch_reads_rows_through_an_index_in_place(depth):
+    """Filters as rows of a stack read through an index in random order,
+    with repeats and -1 (a zero row), from a strided view of a wider
+    tensor (shard and row strides other than the stack's) and as one
+    shard: each equals JAX on the gathered ``[S, Q, W]`` filters."""
+    rng = np.random.default_rng(950 + depth)
+    S, R, W = 4, 12, 36
+    planes, exists, sign = _stack(rng, S, depth, W)
+    wide = _words(rng, S, 2 * R + 3, W)
+    rows = wide[:, 3::2]
+    idx = np.array([5, -1, 0, 11, 5, 3, 3, -1, 7, 10, 1])
+    gathered = np.where((idx >= 0)[None, :, None], rows[:, idx], 0).astype(np.uint32)
+    P, E, G = _t(planes), _t(exists), _t(sign)
+    view = _t(wide)[:, 3::2]
+    assert view.stride(1) == 2 * W and view.stride(0) == (2 * R + 3) * W
+    want = _jax_sum_batch(planes, exists, sign, gathered)
+    np.testing.assert_array_equal(tb.bsi_sum_batch(P, E, G, view, idx).numpy(), want)
+    assert tb.sum_batch_host(P, E, G, view, depth=depth, idx=idx) == jb.sum_batch_host(
+        planes, exists, sign, gathered, depth=depth)
+    got = tb.sum_batch_host(P[0], E[0], G[0], view[0], depth=depth, idx=idx)
+    assert got == jb.sum_batch_host(planes[:1], exists[:1], sign[:1], gathered[:1], depth=depth)
+
+
+def test_sum_batch_chunks_shards_past_the_int32_totals(monkeypatch):
+    """With the module's int32 limit lowered to two shards' columns, the
+    wrapper launches shard chunks (2, 2, 1 of 5) and sums them in int64:
+    the answers stay JAX's."""
+    rng = np.random.default_rng(990)
+    S, depth, W, Q = 5, 20, 24, 6
+    planes, exists, sign = _stack(rng, S, depth, W)
+    filters = _words(rng, S, Q, W)
+    monkeypatch.setattr(tb, "_SUM_BATCH_ACC_LIMIT", 2 * W * 32)
+    launches = []
+    real = tb._sum_batch_launch
+
+    def spy(p, *a):
+        launches.append(p.shape[0])
+        return real(p, *a)
+
+    monkeypatch.setattr(tb, "_sum_batch_launch", spy)
+    assert not tb.sum_batch_supported(S, W)
+    got = tb.sum_batch_host(_t(planes), _t(exists), _t(sign), _t(filters), depth=depth)
+    assert got == jb.sum_batch_host(planes, exists, sign, filters, depth=depth)
+    assert launches == [2, 2, 1]
+
+
+def test_sum_batch_past_int64_stays_exact():
+    """Depth 63 with every plane full: each total exceeds 2^63 and is held
+    to Python ints, as JAX holds it."""
+    S, W = 2, 8
+    planes = np.full((S, 63, W), 0xFFFFFFFF, np.uint32)
+    exists = np.full((S, W), 0xFFFFFFFF, np.uint32)
+    sign = np.zeros((S, W), np.uint32)
+    filters = np.stack([exists, exists], axis=1)
+    n = S * W * 32
+    got = tb.sum_batch_host(_t(planes), _t(exists), _t(sign), _t(filters), depth=63)
+    assert got == [(((1 << 63) - 1) * n, n)] * 2 == jb.sum_batch_host(
+        planes, exists, sign, filters, depth=63)
+
+
+@pytest.mark.parametrize("in_place", [False, True])
+def test_sum_batch_over_a_four_slice_cpu_mesh_matches_one_device(monkeypatch, in_place):
+    """``configure_serving(devices=[cpu] * 4)``: the stack (and the filter
+    rows, sharded alike or a tensor cut at the stack's bounds) over four
+    slices, one launch a slice, the totals the one-device answer."""
+    from pilosa_tpu_torch.parallel import mesh as mesh_mod
+    from pilosa_tpu_torch.parallel import sharded
+
+    rng = np.random.default_rng(995)
+    S, depth, W = 7, 20, 32
+    planes, exists, sign = _stack(rng, S, depth, W)
+    bits = _t(np.concatenate([exists[:, None], sign[:, None], planes], axis=1))
+    rows = _t(_words(rng, S, 10, W))
+    idx = np.array([3, -1, 9, 3, 0])
+    want = tb.bsi_sum_batch(bits[:, 2:], bits[:, 0], bits[:, 1], rows, idx)
+    launches = []
+    real = tb._sum_batch_launch
+
+    def spy(p, *a):
+        launches.append(p.shape[0])
+        return real(p, *a)
+
+    monkeypatch.setattr(tb, "_sum_batch_launch", spy)
+    mesh_mod.configure_serving(None, devices=["cpu"] * 4)
+    try:
+        m = mesh_mod.serving_mesh()
+        sb = sharded.shard(bits, m)
+        filt = sharded.shard(rows, m) if in_place else rows
+        got = tb.bsi_sum_batch(sb[:, 2:], sb[:, 0], sb[:, 1], filt, idx)
+    finally:
+        mesh_mod.configure_serving(None)
+    assert torch.equal(got, want)
+    assert launches == [2, 2, 2, 2]
+
+
+def test_sum_batch_refuses_bad_operands():
+    rng = np.random.default_rng(2)
+    planes, exists, sign = (_t(a) for a in _stack(rng, 2, 4, 16))
+    rows = _t(_words(rng, 2, 3, 16))
+    for bad in (
+        lambda: tb.bsi_sum_batch(planes, exists, sign, rows, [0, 3]),  # index past R
+        lambda: tb.bsi_sum_batch(planes, exists, sign, rows, [-2]),
+        lambda: tb.bsi_sum_batch(planes, exists, sign, rows[:, :, :8], [0]),  # W differs
+        lambda: tb.bsi_sum_batch(planes, exists, sign, rows[:1], [0]),  # S differs
+        lambda: tb.bsi_sum_batch(planes, exists, sign, _t(_words(rng, 2, 3, 32))[:, :, ::2],
+                                 [0]),  # words not contiguous
+        lambda: tb.bsi_sum_batch(torch.zeros(2, 65, 16, dtype=torch.int32), exists, sign,
+                                 rows, [0]),  # deeper than 64
+    ):
+        with pytest.raises(ValueError):
+            bad()
+    with pytest.raises(TypeError):
+        tb.bsi_sum_batch(planes, exists, sign, rows.to(torch.int64), [0])
+
+
 # -- Min / Max ----------------------------------------------------------------
 
 

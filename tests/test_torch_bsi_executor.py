@@ -186,9 +186,23 @@ def test_groupby_filtered_by_a_condition_matches_jax(built):
 
 class _Spy:
     """Counts the calls of the three kernel wrappers of ops/bsi.py and
-    records each call's query count."""
+    records each call's query count; ``batch`` records each bsi_sum_batch
+    call's filter count, and ``made`` the filters evaluated on the host."""
 
     def __init__(self, monkeypatch):
+        self.batch, self.made = [], []
+        real_batch, real_filter = tb.bsi_sum_batch, TorchExecutor._made_filter
+
+        def batch(*a, **k):
+            self.batch.append(len(a[4]))
+            return real_batch(*a, **k)
+
+        def made(ex, idx, call, *a):
+            self.made.append(str(call.children[0]) if len(call.children) == 1 else None)
+            return real_filter(ex, idx, call, *a)
+
+        monkeypatch.setattr(tb, "bsi_sum_batch", batch)
+        monkeypatch.setattr(TorchExecutor, "_made_filter", made)
         self.calls = {"bsi_range": [], "bsi_sum": [], "bsi_extreme": []}
         for name in self.calls:
             real = getattr(tb, name)
@@ -208,6 +222,8 @@ class _Spy:
     def clear(self):
         for v in self.calls.values():
             v.clear()
+        self.batch.clear()
+        self.made.clear()
 
 
 def test_batch_mixes_match_jax_and_share_launches(monkeypatch):
@@ -228,27 +244,32 @@ def test_batch_mixes_match_jax_and_share_launches(monkeypatch):
     assert [g[0] for g in got[-2:]] == ["error", "error"]
     assert all(isinstance(g, list) for g in got[:-2])  # flight-mates answered
     # one words launch for v's conditions and GroupBy filters, one count
-    # launch for the counts, one sum launch for each of the three filtered
-    # Sums and one for the unfiltered Sum, and one extreme launch each for
-    # Min and Max
+    # launch for the counts, one sum launch for the unfiltered Sum, the
+    # three filtered Sums one flight (f's and g's rows in place from the
+    # stacks the GroupBys built, one launch each; only the malformed Sum's
+    # filter goes to the host, where it fails), and one extreme launch each
+    # for Min and Max
     assert sorted(spy.calls["bsi_range"]) == [len(ranges) + len(groupbys), len(counts)]
-    assert spy.calls["bsi_sum"] == [1, 1, 1, 1]
+    assert spy.calls["bsi_sum"] == [1]
+    assert spy.batch == [2, 1] and spy.made == [None]
     assert len(spy.calls["bsi_extreme"]) == 2
     assert te.bsi_batch_item_errors >= 1
     # again: the unfiltered aggregates and the counts come from the cache
     spy.clear()
     hits = te.bsi_agg_cache_hits
     assert _norm(te.execute_batch("i", batch)) == got
-    assert spy.calls["bsi_extreme"] == [1] and spy.calls["bsi_sum"] == [1, 1, 1]
+    assert spy.calls["bsi_extreme"] == [1] and spy.calls["bsi_sum"] == []
+    assert sorted(spy.batch) == [1, 2]
     assert spy.calls["bsi_range"] == [len(ranges) + len(groupbys)]
     assert te.bsi_agg_cache_hits >= hits + len(counts) + 2
 
 
 @pytest.mark.parametrize("n_filters", [3, 4])
 def test_filtered_sums_batch_one_launch_each(monkeypatch, n_filters):
-    """The batched lane evaluates each filtered Sum's filter once and gives
-    it one single-filter launch; the unfiltered Sum shares the cached
-    aggregate with its repeat."""
+    """The batched lane evaluates each filtered Sum's filter once and
+    answers the flight with one bsi_sum_batch launch (no stack of f or g
+    is resident, so every filter is made on the host); the unfiltered Sum
+    takes bsi_sum and shares the cached aggregate with its repeat."""
     je, te, _ = _build(29)
     spy = _Spy(monkeypatch)
     batch = [(f"Sum(Row(f={r}), field=w)", None) for r in range(n_filters - 1)] + [
@@ -256,9 +277,108 @@ def test_filtered_sums_batch_one_launch_each(monkeypatch, n_filters):
     hits = te.bsi_agg_cache_hits
     filters = te.bsi_stack_launches
     assert _norm(te.execute_batch("i", batch)) == _norm(je.execute_batch("i", batch))
-    assert spy.calls["bsi_sum"] == [1] * (n_filters + 1)
+    assert spy.batch == [n_filters] and len(spy.made) == n_filters
+    assert spy.calls["bsi_sum"] == [1]
     assert te.bsi_agg_cache_hits == hits + 1
-    assert te.bsi_stack_launches == filters + n_filters + 1
+    assert te.bsi_stack_launches == filters + 2
+
+
+def _warm(te, name):
+    """Build ``name``'s stack over every shard with a pair batch, so that
+    a flight reads its rows in place."""
+    te.execute("i", f"Count(Intersect(Row({name}=0), Row({name}=1))) "
+                    f"Count(Union(Row({name}=2), Row({name}=3)))")
+    shards = te._shards_for(te.holder.index("i"), None)
+    assert te._stack_cached(te.holder.field("i", name), shards)
+
+
+@pytest.fixture(scope="module")
+def flights():
+    return _build(41)
+
+
+@pytest.mark.parametrize("rows", [[0, 1, 2, 3, 4, 5], [4, 9, 0, 0, 2]])
+@pytest.mark.parametrize("name", ["v", "w", "z"])
+def test_flight_reads_row_filters_in_place(monkeypatch, flights, rows, name):
+    """Row filters of a field whose stack is resident: one bsi_sum_batch
+    launch reads them in place (no filter made on the host), a repeated
+    row twice and an absent row (f=9) as a zero row, every answer JAX's."""
+    je, te, _ = flights
+    _warm(te, "f")
+    spy = _Spy(monkeypatch)
+    batch = [(f"Sum(Row(f={r}), field={name})", None) for r in rows]
+    got = _norm(te.execute_batch("i", batch))
+    assert got == _norm(je.execute_batch("i", batch))
+    assert spy.batch == [len(rows)] and spy.made == [] and spy.calls["bsi_sum"] == []
+    if 9 in rows:
+        assert got[rows.index(9)] == [("valcount", 0, 0)]
+
+
+def test_flight_makes_tree_filters_on_the_host(monkeypatch, flights):
+    """Filters that are trees are made on the host into one ``[S, Q, W]``
+    operand: one launch for the flight, every answer JAX's."""
+    je, te, _ = flights
+    spy = _Spy(monkeypatch)
+    trees = ["Intersect(Row(f=1), Row(g=2))", "Union(Row(f=0), Row(g=3))",
+             "Difference(Row(f=4), Row(g=0))", "Xor(Row(f=2), Row(f=5))", "Row(v > 300)"]
+    batch = [(f"Sum({t}, field=w)", None) for t in trees]
+    assert _norm(te.execute_batch("i", batch)) == _norm(je.execute_batch("i", batch))
+    assert spy.batch == [len(trees)] and len(spy.made) == len(trees)
+    assert spy.calls["bsi_sum"] == []
+
+
+def test_a_mixed_flight_launches_once_a_source(monkeypatch, flights):
+    """Row filters of resident f, Row filters of g (not resident), trees,
+    an unfiltered Sum and a malformed Sum in one flight: one launch reads
+    f's rows in place, one takes the host-made filters, the unfiltered Sum
+    its own; the malformed one fails alone, every answer JAX's."""
+    je, te, _ = flights
+    te.release_stacks()
+    _warm(te, "f")
+    spy = _Spy(monkeypatch)
+    batch = [(q, None) for q in (
+        "Sum(Row(f=1), field=z)", "Sum(Row(g=2), field=z)", "Sum(field=z)",
+        "Sum(Intersect(Row(f=1), Row(g=2)), field=z)", "Sum(Row(f=5), field=z)",
+        "Sum(Row(f=1), Row(f=2), field=z)", "Sum(Row(f=7), field=z)")]
+    got = _norm(te.execute_batch("i", batch))
+    assert got == _norm(je.execute_batch("i", batch))
+    assert got[5][0] == "error"
+    assert spy.batch == [3, 2]
+    assert spy.made == ["Intersect(Row(f=1), Row(g=2))", None, "Row(g=2)"]
+    assert spy.calls["bsi_sum"] == [1]
+
+
+def test_a_flight_over_the_filter_budget_goes_in_chunks(monkeypatch, flights):
+    """Host-made filters past the budget: one launch a chunk of
+    ``budget // (S * W * 4)`` filters, every answer JAX's."""
+    je, te, _ = flights
+    spy = _Spy(monkeypatch)
+    S, W = N_SHARDS, te.holder.n_words
+    monkeypatch.setattr(te, "_BSI_SUM_FILTER_BUDGET_BYTES", 2 * S * W * 4)
+    batch = [(f"Sum(Union(Row(f={r}), Row(g={r % 4})), field=v)", None) for r in range(5)]
+    assert _norm(te.execute_batch("i", batch)) == _norm(je.execute_batch("i", batch))
+    assert spy.batch == [2, 2, 1] and len(spy.made) == 5
+
+
+def test_a_flight_after_writes_reads_the_patched_stack(monkeypatch):
+    """Writes to the filter field (one shard at a time) between flights:
+    the next flight reads f's stack patched in place (no rebuild), and its
+    answers are JAX's after the same writes."""
+    je, te, rng = _build(43)
+    _warm(te, "f")
+    batch = [(f"Sum(Row(f={r}), field=w)", None) for r in range(6)]
+    assert _norm(te.execute_batch("i", batch)) == _norm(je.execute_batch("i", batch))
+    spy = _Spy(monkeypatch)
+    for k in range(3):
+        cols = (k % N_SHARDS) * SHARD_WIDTH + rng.integers(0, SHARD_WIDTH, 12)
+        writes = " ".join(f"Set({int(c)}, f={int(rng.integers(0, 6))})" for c in cols[:8]) + \
+            " " + " ".join(f"Clear({int(c)}, f={r})" for r, c in enumerate(cols[8:]))
+        assert _answer(te, writes) == _answer(je, writes)
+        spy.clear()
+        rebuilds, patched = te.stack_rebuilds, te.stack_incremental
+        assert _norm(te.execute_batch("i", batch)) == _norm(je.execute_batch("i", batch)), k
+        assert spy.batch == [6] and spy.made == []
+        assert te.stack_incremental > patched and te.stack_rebuilds == rebuilds
 
 
 def test_writes_are_seen_by_the_next_read(monkeypatch):

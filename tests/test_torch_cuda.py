@@ -190,14 +190,16 @@ def test_executor_on_cuda_matches_cpu(cuda_device):
 
     # an int field: the aggregates build its stack (the sum and the
     # extreme), then a range count and a bitmap condition read it (the
-    # range scan), and a GroupBy filtered by a condition
+    # range scan), a GroupBy filtered by a condition, and three filtered
+    # Sums, one flight (the batched sum)
     values = " ".join(
         f"Set({int(c)}, v={int(x)})"
         for c, x in zip(rng.integers(0, n_cols, 2000), rng.integers(-500, 1000, 2000))
     )
     bsi = (
         "Sum(field=v) Sum(Row(f=3), field=v) Min(field=v) Max(Row(g=1), field=v) "
-        "Count(Row(v < 40)) Row(-20 <= v < 300) GroupBy(Rows(f), filter=Row(v > 100))"
+        "Count(Row(v < 40)) Row(-20 <= v < 300) GroupBy(Rows(f), filter=Row(v > 100)) "
+        "Sum(Row(f=1), field=v) Sum(Intersect(Row(f=2), Row(g=1)), field=v)"
     )
 
     def plain(r):
@@ -966,6 +968,71 @@ def test_bsi_sum_matches_plain(cuda_device, S, W, depth, Q, empty):
     cpu = [t.cpu() for t in (planes, exists, sign, filters)]
     assert tb.sum_batch_host(planes, exists, sign, filters, depth=depth) == (
         tb.sum_batch_host(*cpu, depth=depth))
+
+
+@pytest.mark.parametrize(
+    "S,W,depth,Q,empty",
+    [(1, 130, 1, 1, False), (3, 1100, 20, 3, False), (2, 2049, 63, 9, False),
+     (5, 1024, 20, 2, True), (1, 100, 0, 5, False), (7, 3000, 20, 64, False),
+     (2, 96, 64, 128, False), (3, 513, 7, 17, False)],
+)
+def test_bsi_sum_batch_matches_plain(cuda_device, S, W, depth, Q, empty):
+    """The tensor-core batched Sum against its plain version on both
+    operand forms (``[S, Q, W]`` filters, and the rows of a 40-row stack
+    through an index in random order with repeats and -1), with a sign row
+    of all ones at odd depths; one launch each."""
+    rng = np.random.default_rng(7 * S + W + depth + Q)
+    stack, planes, exists, sign = _bsi_operands(rng, S, depth, W, cuda_device, empty)
+    if depth % 2:
+        stack[:, 1] = -1
+    filters = _words(rng, S, Q, W).to(cuda_device)
+    rows = _words(rng, S, 40, W).to(cuda_device)
+    idx = rng.integers(-1, 40, Q)
+    idx[0] = -1
+    before = tk.LAUNCHES["bsi_sum_batch"]
+    got = tb.bsi_sum_batch(planes, exists, sign, filters, range(Q))
+    got_rows = tb.bsi_sum_batch(planes, exists, sign, rows, idx)
+    torch.cuda.synchronize()
+    assert tk.LAUNCHES["bsi_sum_batch"] == before + 2
+    assert torch.equal(got, tb.bsi_sum_batch_plain(planes, exists, sign, filters, range(Q)))
+    assert torch.equal(got_rows, tb.bsi_sum_batch_plain(planes, exists, sign, rows, idx))
+    cpu = [t.cpu() for t in (planes, exists, sign, rows)]
+    assert tb.sum_batch_host(planes, exists, sign, rows, depth=depth, idx=idx) == (
+        tb.sum_batch_host(*cpu, depth=depth, idx=idx))
+
+
+def test_bsi_sum_batch_refuses_on_the_card(cuda_device):
+    """A CUDA operand of another dtype, words not one apart, or on another
+    device raises in the wrapper; the C entry refuses a depth over 64 and
+    totals past int32."""
+    from pilosa_tpu_torch.ops import cuda_build
+
+    rng = np.random.default_rng(3)
+    _, planes, exists, sign = _bsi_operands(rng, 2, 4, 64, cuda_device)
+    rows = _words(rng, 2, 3, 64).to(cuda_device)
+    with pytest.raises(TypeError):
+        tb.bsi_sum_batch(planes, exists, sign, rows.to(torch.int64), [0])
+    with pytest.raises(ValueError):
+        tb.bsi_sum_batch(planes, exists, sign, _words(rng, 2, 3, 128).to(cuda_device)[:, :, ::2],
+                         [0])
+    with pytest.raises(ValueError):
+        tb.bsi_sum_batch(planes, exists, sign, rows.cpu(), [0])
+    lib = cuda_build.load()
+    out = torch.zeros((5, 2, 1), dtype=torch.int32, device=cuda_device)
+    idx = torch.zeros(1, dtype=torch.int32, device=cuda_device)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def call(depth=4, S=2, W=64):
+        return lib.pilosa_bsi_sum_batch(
+            planes.data_ptr(), planes.stride(0), 64, exists.data_ptr(), exists.stride(0),
+            sign.data_ptr(), sign.stride(0), rows.data_ptr(), rows.stride(0), rows.stride(1),
+            idx.data_ptr(), 1, depth, S, W, 1, out.data_ptr(), cuda_device.index or 0, stream)
+
+    assert call(depth=65) == 1 and call(S=1 << 16, W=1 << 11) == 1  # cudaErrorInvalidValue
+    assert call() == 0
+    torch.cuda.synchronize()
+    assert torch.equal(out.to(torch.int64), tb.bsi_sum_batch_plain(
+        planes, exists, sign, rows, [0]))
 
 
 @pytest.mark.parametrize(

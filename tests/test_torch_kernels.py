@@ -173,9 +173,11 @@ def test_cpu_wrappers_do_not_count_launches():
     bsi.range_batch(planes, exists, sign, [[(">", 0)]], depth=1)
     bsi.sum_host(planes, exists, sign, exists, depth=1)
     bsi.min_max_host(planes, exists, sign, exists, depth=1, maximal=True)
+    bsi.sum_batch_host(planes, exists, sign, bits[:, :2], depth=1)
     assert tk.LAUNCHES == {
         "row_scan": 0, "masked_row_scan": 0, "gram": 0, "cross_gram": 0,
         "tree_count": 0, "tree_words": 0, "bsi_range": 0, "bsi_sum": 0, "bsi_extreme": 0,
+        "bsi_sum_batch": 0,
     }
 
 
